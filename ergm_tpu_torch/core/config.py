@@ -1,0 +1,106 @@
+"""Model configuration for the PyTorch port.
+
+``ModelConfig`` has the field names and defaults of
+``ergm_tpu.core.config.ModelConfig`` (a test holds the two equal), so a
+configuration means the same thing in both packages. The port carries
+its own copy because every ``ergm_tpu`` module loads JAX on import.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+# GPT-2 family hyperparameters, keyed by the reference model_type strings.
+GPT2_SIZES = {
+    "distilgpt2": dict(n_layer=6, n_head=12, n_embd=768),
+    "gpt2": dict(n_layer=12, n_head=12, n_embd=768),
+    "gpt2-medium": dict(n_layer=24, n_head=16, n_embd=1024),
+    "gpt2-large": dict(n_layer=36, n_head=20, n_embd=1280),
+    "gpt2-xl": dict(n_layer=48, n_head=25, n_embd=1600),
+}
+
+GPT2_VOCAB_SIZE = 50257
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture and serving config of the ERGM GPT-2 backbone.
+
+    The port runs deterministic inference: the dropout rates are
+    carried for config equality and change nothing here. Fields that
+    steer TPU-only machinery are inert as well: ``remat``,
+    ``remat_policy``, ``loss_chunk``, ``lm_loss_impl`` (training, not
+    ported yet), ``decode_scan_unroll`` (there is no layer scan) and
+    ``decode_fused_mlp`` (its kernel is not ported yet).
+    """
+
+    vocab_size: int = GPT2_VOCAB_SIZE
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    n_inner: Optional[int] = None  # defaults to 4*n_embd
+    activation: str = "gelu_new"
+    layer_norm_epsilon: float = 1e-5
+    initializer_range: float = 0.02
+    embd_pdrop: float = 0.1
+    attn_pdrop: float = 0.1
+    resid_pdrop: float = 0.1
+    scale_attn_weights: bool = True
+    scale_attn_by_inverse_layer_idx: bool = False
+    # always behaves as True: the softmax runs in f32
+    reorder_and_upcast_attn: bool = False
+    num_emotions: int = 7
+    use_cross_attention: bool = True
+    modality_dim: int = 768
+    # "bfloat16" activations with f32 softmax, or "float32" (parity mode)
+    dtype: str = "float32"
+    remat: bool = False
+    remat_policy: str = "mlp"
+    loss_chunk: int = 128
+    lm_loss_impl: str = "auto"
+    # "auto" routes batched short prefill to the prefill-attention kernel;
+    # "xla" keeps the plain attention math everywhere
+    attention_impl: str = "auto"
+    decode_scan_unroll: int = 1
+    decode_fused_mlp: bool = False
+    # self-attention cache storage: "auto" (compute dtype) or "int8" with
+    # per-(token, head) bf16 scales
+    kv_cache_dtype: str = "auto"
+    # caption (cross) cache storage: "auto" or "int8" with per-(token, head)
+    # f32 scales factored out of the decode reductions
+    cross_kv_dtype: str = "auto"
+    # serving weights: "auto", "int8" (every dense kernel and wte) or
+    # "int8_lm_head" (wte only)
+    weight_dtype: str = "auto"
+    head_dim_override: Optional[int] = None
+
+    @property
+    def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        if self.n_embd % self.n_head:
+            raise ValueError(f"n_embd {self.n_embd} is not a multiple of n_head {self.n_head}")
+        return self.n_embd // self.n_head
+
+    @property
+    def inner_dim(self) -> int:
+        return self.n_inner if self.n_inner is not None else 4 * self.n_embd
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @classmethod
+    def from_model_type(cls, model_type: str, **overrides) -> "ModelConfig":
+        """Build a config from a reference model_type string (e.g. 'gpt2-medium')."""
+        if model_type not in GPT2_SIZES:
+            raise ValueError(
+                f"Unknown model_type {model_type!r}; expected one of {sorted(GPT2_SIZES)}")
+        return cls(**{**GPT2_SIZES[model_type], **overrides})
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,657 @@
+"""ERGM GPT-2 backbone in PyTorch (counterpart of ``ergm_tpu/models/gpt2.py``).
+
+The parameters live in ``nn.Module``s named like the JAX parameter tree
+(``wte``, ``wpe``, ``blocks[i].attn.c_attn`` ...), one ``Block`` per
+layer in an ``nn.ModuleList`` where JAX stacks them on a leading layer
+axis. Dense kernels keep GPT-2's Conv1D orientation ``[in, out]``, so a
+JAX or HF checkpoint converts by copying (``models/convert.py``).
+
+The math mirrors the JAX functions one by one and keeps their rounding
+points: f32 LayerNorm statistics, f32 matmul accumulation, f32 softmax,
+bf16-rounded int8 KV scales. Layers and decode steps are Python loops.
+This slice runs inference only, deterministically: no dropout and no
+loss. Batched short prompt prefill routes its self- and cross-attention
+through kernel K1 (``ops/prefill_attention.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.ops import prefill_attention
+from ergm_tpu_torch.ops.attention import matmul_f32, multihead_attention
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _param(*shape, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device=device))
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = _param(d, device=device)
+        self.bias = _param(d, device=device)
+
+
+class Dense(nn.Module):
+    """GPT-2 Conv1D: ``kernel`` [in, out] and ``bias`` [out]. Weight-only
+    int8 serving replaces ``kernel`` with ``kernel_q`` int8 [in, out] and
+    per-out-channel ``kernel_scale`` [1, out] (``quantize_params_int8``)."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool = True, device=None):
+        super().__init__()
+        self.kernel = _param(n_in, n_out, device=device)
+        self.bias = _param(n_out, device=device) if bias else None
+        self.register_buffer("kernel_q", None)
+        self.register_buffer("kernel_scale", None)
+
+
+class Embedding(nn.Module):
+    """A [rows, D] table; the tied vocab table may be int8 with per-row
+    ``embedding_scale`` [V, 1] instead."""
+
+    def __init__(self, rows: int, d: int, device=None):
+        super().__init__()
+        self.embedding = _param(rows, d, device=device)
+        self.register_buffer("embedding_q", None)
+        self.register_buffer("embedding_scale", None)
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.c_attn = Dense(d, 3 * d, device=device)
+        self.c_proj = Dense(d, d, device=device)
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.q_attn = Dense(d, d, device=device)
+        self.c_attn = Dense(d, 2 * d, device=device)
+        self.c_proj = Dense(d, d, device=device)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, inner: int, device=None):
+        super().__init__()
+        self.c_fc = Dense(d, inner, device=device)
+        self.c_proj = Dense(inner, d, device=device)
+
+
+class Block(nn.Module):
+    def __init__(self, config: ModelConfig, device=None):
+        super().__init__()
+        d = config.n_embd
+        self.ln_1 = LayerNorm(d, device)
+        self.attn = Attention(d, device)
+        if config.use_cross_attention:
+            self.ln_cross = LayerNorm(d, device)
+            self.cross_attn = CrossAttention(d, device)
+        self.ln_2 = LayerNorm(d, device)
+        self.mlp = MLP(d, config.inner_dim, device)
+
+
+class GPT2(nn.Module):
+    """Parameter container; ``GPT2(config)(input_ids, ...)`` runs ``forward``."""
+
+    def __init__(self, config: ModelConfig, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        self.wte = Embedding(c.vocab_size, c.n_embd, device)
+        self.wpe = Embedding(c.n_positions, c.n_embd, device)
+        self.blocks = nn.ModuleList(Block(c, device) for _ in range(c.n_layer))
+        self.ln_f = LayerNorm(c.n_embd, device)
+        self.emotion_head = Dense(c.n_embd, c.num_emotions, bias=False, device=device)
+        if c.modality_dim != c.n_embd:
+            self.img_proj = Dense(c.modality_dim, c.n_embd, device=device)
+            self.aud_proj = Dense(c.modality_dim, c.n_embd, device=device)
+
+    def forward(self, input_ids, **kwargs) -> "ModelOutput":
+        return forward(self, self.config, input_ids, **kwargs)
+
+
+@torch.no_grad()
+def init_params(generator: torch.Generator, config: ModelConfig, device=None) -> GPT2:
+    """Random init as JAX's: N(0, initializer_range) kernels and
+    embeddings, N(0, initializer_range / sqrt(2 n_layer)) for every
+    ``c_proj``, zero biases, unit LayerNorm scales. The draws come from
+    ``generator`` (made on its device, then moved to ``device``)."""
+    c = config
+    device = device if device is not None else generator.device
+    model = GPT2(c, device=device)
+    std = c.initializer_range
+    proj_std = std / (2 * c.n_layer) ** 0.5
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias":
+            p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+        else:
+            s = proj_std if ".c_proj." in name else std
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * s)
+    return model
+
+
+def _quantize_kernel(kernel: torch.Tensor):
+    """Per-output-channel symmetric int8 over the input dim: [in, out] ->
+    (int8 [in, out], f32 scale [1, out])."""
+    kf = kernel.float()
+    scale = torch.clamp_min(kf.abs().amax(dim=-2, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(kf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+@torch.no_grad()
+def quantize_params_int8(params: GPT2, config: ModelConfig) -> GPT2:
+    """Weight-only int8 for serving, IN PLACE (returns ``params``).
+
+    ``wte`` becomes ``embedding_q`` int8 + per-row ``embedding_scale``
+    (the tied lm_head applies the scale on the logit axis). With
+    ``weight_dtype="int8"`` every dense kernel but the emotion head's
+    also becomes ``kernel_q`` + per-out-channel ``kernel_scale``;
+    ``"int8_lm_head"`` quantizes ``wte`` only. Scales are stored in the
+    compute dtype. Quantize from the full-precision weights."""
+    dt = config.compute_dtype
+    wte = params.wte
+    if wte.embedding_q is None:
+        emb = wte.embedding.float()
+        s = torch.clamp_min(emb.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+        wte.embedding_q = torch.clamp(torch.round(emb / s), -127, 127).to(torch.int8)
+        wte.embedding_scale = s.to(dt)
+        wte.embedding = None
+    if config.weight_dtype == "int8":
+        for name, mod in params.named_modules():
+            if isinstance(mod, Dense) and name != "emotion_head" and mod.kernel is not None:
+                q, s = _quantize_kernel(mod.kernel)
+                mod.kernel_q, mod.kernel_scale = q, s.to(dt)
+                mod.kernel = None
+    return params
+
+
+def params_for_inference(params: GPT2, config: ModelConfig) -> GPT2:
+    """Quantize as ``weight_dtype`` asks, cast the floating-point weights
+    to the compute dtype and freeze them, IN PLACE (returns ``params``)."""
+    if config.weight_dtype in ("int8", "int8_lm_head"):
+        quantize_params_int8(params, config)
+    elif config.weight_dtype != "auto":
+        raise ValueError(f"unsupported weight_dtype {config.weight_dtype!r}")
+    return params.to(config.compute_dtype).requires_grad_(False)
+
+
+def embed_rows(wte: Embedding, ids: torch.Tensor, dtype) -> torch.Tensor:
+    """Row gather from the (possibly int8) tied vocab table."""
+    if wte.embedding_q is not None:
+        return wte.embedding_q[ids].to(dtype) * wte.embedding_scale[ids].to(dtype)
+    return wte.embedding[ids].to(dtype)
+
+
+def wte_dense(wte: Embedding, dtype) -> torch.Tensor:
+    """The dense [V, D] vocab table (dequantized if int8)."""
+    if wte.embedding_q is not None:
+        return wte.embedding_q.to(dtype) * wte.embedding_scale.to(dtype)
+    return wte.embedding.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+
+
+def layer_norm(x: torch.Tensor, p: LayerNorm, eps: float) -> torch.Tensor:
+    xf = x.float()  # f32 statistics for bf16 stability
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p.scale + p.bias).to(x.dtype)
+
+
+def dense(x: torch.Tensor, p: Dense) -> torch.Tensor:
+    """y = x @ kernel + bias, kernel [in, out], in x's dtype. The product
+    accumulates in f32 and the bias joins before the single rounding
+    (cuBLAS's addmm epilogue on the GPU). int8 kernels dequantize first."""
+    if p.kernel_q is not None:
+        w = p.kernel_q.to(x.dtype) * p.kernel_scale.to(x.dtype)
+    else:
+        w = p.kernel.to(x.dtype)
+    y = torch.addmm(p.bias.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
+    return y.view(*x.shape[:-1], w.shape[1])
+
+
+def _activation(name: str):
+    if name == "gelu_new":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "gelu":
+        return F.gelu
+    if name == "relu":
+        return F.relu
+    raise ValueError(f"unsupported activation {name!r}")
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, l, d = x.shape
+    return x.view(b, l, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Fixed-size decode cache, updated IN PLACE by ``forward``.
+
+    ``k``/``v``: [L, B, H, T, Dh]; ``index``: filled positions, shared by
+    all rows (the scalar cursor of ``generate``). With
+    ``kv_cache_dtype="int8"`` they hold int8 codes with per-(token, head)
+    bf16 scales ``k_scale``/``v_scale`` [L, B, H, T, 1]. The caption's
+    cross K/V are computed once at prefill into ``ck``/``cv``, merged-head
+    [L, B, Lc, H*Dh]; with ``cross_kv_dtype="int8"`` they are int8 with
+    per-(token, head) f32 scales ``ck_scale``/``cv_scale`` [L, B, Lc, H]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int = 0
+    ck: Optional[torch.Tensor] = None
+    cv: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    ck_scale: Optional[torch.Tensor] = None
+    cv_scale: Optional[torch.Tensor] = None
+
+
+def init_kv_cache(config: ModelConfig, batch: int, max_len: int,
+                  caption_len: int = 0, device=None) -> KVCache:
+    c = config
+    if c.kv_cache_dtype not in ("auto", "int8"):
+        raise NotImplementedError(f"kv_cache_dtype {c.kv_cache_dtype!r} is not ported yet")
+    quant = c.kv_cache_dtype == "int8"
+    shape = (c.n_layer, batch, c.n_head, max_len, c.head_dim)
+    dt = torch.int8 if quant else c.compute_dtype
+    cache = KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                    v=torch.zeros(shape, dtype=dt, device=device))
+    if quant:
+        sshape = (c.n_layer, batch, c.n_head, max_len, 1)
+        cache.k_scale = torch.zeros(sshape, dtype=torch.bfloat16, device=device)
+        cache.v_scale = torch.zeros(sshape, dtype=torch.bfloat16, device=device)
+    if c.use_cross_attention and caption_len > 0:
+        cquant = c.cross_kv_dtype == "int8"
+        cshape = (c.n_layer, batch, caption_len, c.n_head * c.head_dim)
+        cdt = torch.int8 if cquant else c.compute_dtype
+        cache.ck = torch.zeros(cshape, dtype=cdt, device=device)
+        cache.cv = torch.zeros(cshape, dtype=cdt, device=device)
+        if cquant:
+            csshape = (c.n_layer, batch, caption_len, c.n_head)
+            cache.ck_scale = torch.zeros(csshape, dtype=torch.float32, device=device)
+            cache.cv_scale = torch.zeros(csshape, dtype=torch.float32, device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor):
+    """[..., D] -> (int8 codes, bf16 scale [..., 1]). The scale is rounded
+    to bf16 BEFORE the divide, so the stored codes invert exactly through
+    the stored scale; ``torch.round`` is half-to-even like ``jnp.round``."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).to(torch.bfloat16)
+    safe = torch.where(scale == 0, 1.0, scale.float())
+    q = torch.clamp(torch.round(xf / safe), -127, 127).to(torch.int8)
+    return q, scale
+
+
+# ---------------------------------------------------------------------------
+# Transformer forward
+# ---------------------------------------------------------------------------
+
+
+def lm_logits(params: GPT2, hidden: torch.Tensor) -> torch.Tensor:
+    """lm_head tied to wte: [B, L, D] -> [B, L, V] f32 logits; an int8
+    table applies its per-row scale on the logit axis."""
+    wte = params.wte
+    B, L, D = hidden.shape
+    h2 = hidden.reshape(-1, D)
+    if wte.embedding_q is not None:
+        logits = (matmul_f32(h2, wte.embedding_q.to(hidden.dtype).t())
+                  * wte.embedding_scale[:, 0].float())
+    else:
+        logits = matmul_f32(h2, wte.embedding.to(hidden.dtype).t())
+    return logits.view(B, L, -1)
+
+
+class ModelOutput(NamedTuple):
+    logits: Optional[torch.Tensor]  # [B, L, V] f32; None when compute_logits=False
+    emotion_logits: torch.Tensor    # [B, num_emotions] f32
+    hidden: torch.Tensor            # [B, L, D] final hidden states
+    cache: Optional[KVCache] = None
+
+
+Scale = Union[float, torch.Tensor]
+
+
+def _attn_scale(config: ModelConfig, li: int) -> Scale:
+    scale = (1.0 / config.head_dim ** 0.5) if config.scale_attn_weights else 1.0
+    if config.scale_attn_by_inverse_layer_idx:
+        # JAX divides by a traced f32 layer index here; the f32 tensor
+        # keeps that arithmetic (and the kernel folds it into q, as JAX does)
+        return torch.tensor(scale, dtype=torch.float32) / (li + 1.0)
+    return scale
+
+
+def _attn_project(out: torch.Tensor, p: Attention) -> torch.Tensor:
+    return dense(_merge_heads(out), p.c_proj)
+
+
+def _self_attention(h, p: Attention, li, *, config, attn_mask):
+    """No-cache self-attention sublayer."""
+    c = config
+    L = h.shape[1]
+    q, k, v = (_split_heads(x, c.n_head) for x in dense(h, p.c_attn).chunk(3, dim=-1))
+    kv_mask = None if attn_mask is None else attn_mask[:, :L]
+    out = multihead_attention(q, k, v, causal=True, kv_mask=kv_mask,
+                              scale=_attn_scale(c, li), impl=c.attention_impl)
+    return _attn_project(out, p)
+
+
+def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
+                           attn_mask, prefix_prefill: bool = False):
+    """Self-attention over the cache (scalar cursor ``cache.index``).
+
+    Writes the new tokens' K/V at ``cache.index`` (quantized for an int8
+    cache). The initial prompt prefill attends over the FRESH k/v; the
+    batched short form goes through kernel K1. Other calls attend over
+    the cache's layer slice: dequantized first below T=512, with the
+    int8 scales factored out of both products from T=512 on."""
+    c = config
+    B, L, _ = h.shape
+    H, Dh = c.n_head, c.head_dim
+    qm, km, vm = dense(h, p.c_attn).chunk(3, dim=-1)  # merged views [B, L, D]
+    idx = cache.index
+    T = cache.k.shape[-2]
+    if idx + L > T:
+        raise ValueError(f"cache overflow: {idx} + {L} new positions > capacity {T}")
+    k4, v4 = km.view(B, L, H, Dh), vm.view(B, L, H, Dh)
+    quant = cache.k_scale is not None
+    if quant:
+        kq, ksc = _quantize_kv(k4)
+        vq, vsc = _quantize_kv(v4)
+        cache.k[li, :, :, idx:idx + L] = kq.transpose(1, 2)
+        cache.v[li, :, :, idx:idx + L] = vq.transpose(1, 2)
+        cache.k_scale[li, :, :, idx:idx + L] = ksc.transpose(1, 2)
+        cache.v_scale[li, :, :, idx:idx + L] = vsc.transpose(1, 2)
+    else:
+        cache.k[li, :, :, idx:idx + L] = k4.transpose(1, 2)
+        cache.v[li, :, :, idx:idx + L] = v4.transpose(1, 2)
+    scale = _attn_scale(c, li)
+
+    if prefix_prefill and L > 1:
+        # the caller guarantees cache.index == 0
+        m = None if attn_mask is None else attn_mask[:, :L]
+        if (c.attention_impl == "auto" and L <= 128 and B >= 64
+                and prefill_attention.supported(B, L, c, True)):
+            out_m = prefill_attention.prefill_mha(qm, km, vm, m, n_head=H, scale=scale)
+            return dense(out_m, p.c_proj)
+        impl = "xla" if c.attention_impl == "auto" else c.attention_impl
+        out = multihead_attention(_split_heads(qm, H), _split_heads(km, H),
+                                  _split_heads(vm, H), causal=True, kv_mask=m,
+                                  scale=scale, impl=impl)
+        return _attn_project(out, p)
+
+    dt = c.compute_dtype
+    q = _split_heads(qm, H)
+    tail = (torch.arange(T, device=h.device) < idx + L).float()[None, :]
+    kv_mask = tail if attn_mask is None else attn_mask[:, :T] * tail
+    if quant and L == 1 and T >= 512:
+        # scale-factored int8: the products read the raw codes
+        s = matmul_f32(q.to(dt), cache.k[li].to(dt).transpose(-1, -2)) * scale
+        s = s * cache.k_scale[li][..., 0].float()[:, :, None, :]
+        s = s + (1.0 - kv_mask).float()[:, None, None, :] * -1e9
+        probs = torch.softmax(s, dim=-1)
+        pv = (probs * cache.v_scale[li][..., 0].float()[:, :, None, :]).to(dt)
+        return _attn_project(torch.matmul(pv, cache.v[li].to(dt)), p)
+    if quant:
+        k_all = cache.k[li].to(dt) * cache.k_scale[li].to(dt)
+        v_all = cache.v[li].to(dt) * cache.v_scale[li].to(dt)
+    else:
+        k_all, v_all = cache.k[li], cache.v[li]
+    out = multihead_attention(q, k_all, v_all, causal=True, kv_mask=kv_mask, scale=scale,
+                              causal_offset=idx, impl=c.attention_impl)
+    return _attn_project(out, p)
+
+
+def _capless_row_gate(out: torch.Tensor, enc_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero the cross-attention residual of rows whose caption mask is all
+    zero: with every key at -1e9 the softmax would spread uniformly over
+    pad embeddings instead of being a no-op."""
+    if enc_mask is None:
+        return out
+    has = enc_mask.float().sum(dim=-1) > 0
+    return out * has[:, None, None].to(out.dtype)
+
+
+CachedKV = Tuple[torch.Tensor, ...]
+
+
+def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
+                     cached_kv: Optional[CachedKV], prefill_kernel_ok: bool = False):
+    """Cross-attention: Q from h, K/V from the caption states ``enc``
+    through the shared ``c_attn``; non-causal; caption-less rows get a zero
+    residual. ``cached_kv`` (decode) is ``(ck, cv[, ck_scale, cv_scale])``
+    in the cache's merged layout [B, Lc, H*Dh]. Returns (out, fresh merged
+    (k, v) or None)."""
+    c = config
+    H, Dh = c.n_head, c.head_dim
+    scale = _attn_scale(c, li)
+    if cached_kv is not None and h.shape[1] == 1:
+        # single-token decode: reduce within the merged minor dim; int8
+        # scales factor out of both reductions
+        B = h.shape[0]
+        qf = dense(h, p.q_attn)[:, 0, :]
+        ck, cv = cached_kv[0], cached_kv[1]
+        Lc = ck.shape[1]
+        s = (ck.float() * qf.float()[:, None, :]).view(B, Lc, H, Dh).sum(-1) * scale
+        if len(cached_kv) == 4:
+            s = s * cached_kv[2].float()
+        if enc_mask is not None:
+            s = s + (1.0 - enc_mask.float())[:, :, None] * -1e9
+        pr = torch.softmax(s, dim=1)  # over Lc
+        if len(cached_kv) == 4:
+            pr = pr * cached_kv[3].float()
+        w = pr[..., None].expand(B, Lc, H, Dh).reshape(B, Lc, H * Dh)
+        out = (cv.float() * w).sum(dim=1).to(h.dtype)[:, None, :]
+        return _capless_row_gate(dense(out, p.c_proj), enc_mask), None
+    qm = dense(h, p.q_attn)
+    if cached_kv is not None:
+        # multi-token step over the cached caption K/V
+        B = qm.shape[0]
+        k_r = cached_kv[0].view(B, -1, H, Dh)
+        v_r = cached_kv[1].view(B, -1, H, Dh)
+        if len(cached_kv) == 4:
+            dt = h.dtype
+            k_r = k_r.to(dt) * cached_kv[2].to(dt)[..., None]
+            v_r = v_r.to(dt) * cached_kv[3].to(dt)[..., None]
+        logits = matmul_f32(_split_heads(qm, H), k_r.permute(0, 2, 3, 1)) * scale
+        if enc_mask is not None:
+            logits = logits + (1.0 - enc_mask.float())[:, None, None, :] * -1e9
+        probs = torch.softmax(logits, dim=-1)
+        out = _merge_heads(torch.matmul(probs.to(v_r.dtype), v_r.transpose(1, 2)))
+        return _capless_row_gate(dense(out, p.c_proj), enc_mask), None
+    km, vm = dense(enc, p.c_attn).chunk(2, dim=-1)  # merged [B, Lc, D]
+    B, Lq, Lc = h.shape[0], h.shape[1], km.shape[1]
+    if (prefill_kernel_ok and c.attention_impl == "auto" and B >= 64 and Lc % 8 == 0
+            and prefill_attention.supported(B, Lq, c, True)):
+        out = prefill_attention.prefill_mha(qm, km, vm, enc_mask, n_head=H, scale=scale,
+                                            causal=False)
+    else:
+        out = _merge_heads(multihead_attention(
+            _split_heads(qm, H), _split_heads(km, H), _split_heads(vm, H), causal=False,
+            kv_mask=enc_mask, scale=scale, impl=c.attention_impl))
+    return _capless_row_gate(dense(out, p.c_proj), enc_mask), (km, vm)
+
+
+def _mlp(h, p: MLP, *, config):
+    return dense(_activation(config.activation)(dense(h, p.c_fc)), p.c_proj)
+
+
+def _write_cross_cache(cache: KVCache, li: int, km, vm, config) -> None:
+    """Store a layer's fresh caption K/V (merged [B, Lc, D]) in the cache;
+    int8 quantizes per (token, head) over the Dh groups of the minor dim."""
+    c = config
+    if cache.ck_scale is None:
+        cache.ck[li] = km
+        cache.cv[li] = vm
+        return
+    for x, codes, scales in ((km, cache.ck, cache.ck_scale), (vm, cache.cv, cache.cv_scale)):
+        b, lc, d = x.shape
+        q, s = _quantize_kv(x.view(b, lc, c.n_head, c.head_dim))
+        codes[li] = q.view(b, lc, d)
+        scales[li] = s[..., 0].float()
+
+
+def transformer(
+    params: GPT2,
+    config: ModelConfig,
+    input_ids: torch.Tensor,  # [B, L]
+    *,
+    token_type_ids: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,  # [B, Lk] 0/1 over keys
+    imgs: Optional[torch.Tensor] = None,  # [B, modality_dim]
+    auds: Optional[torch.Tensor] = None,  # [B, modality_dim]
+    caption_ids: Optional[torch.Tensor] = None,  # [B, Lc]
+    encoder_hidden_states: Optional[torch.Tensor] = None,  # [B, Lc, D]
+    encoder_attention_mask: Optional[torch.Tensor] = None,  # [B, Lc] 0/1
+    cache: Optional[KVCache] = None,
+    prefix_prefill: bool = False,  # the initial prompt: cache.index == 0
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """GPT2Model.forward: returns (final hidden [B, L, D], advanced cache or None)."""
+    c = config
+    dtype = c.compute_dtype
+    B, L = input_ids.shape
+    decode = cache is not None
+    if position_ids is None:
+        past = cache.index if decode else 0
+        position_ids = past + torch.arange(L, device=input_ids.device)[None, :].expand(B, L)
+
+    h = embed_rows(params.wte, input_ids, dtype)
+    enc = encoder_hidden_states
+    if caption_ids is not None and enc is None and c.use_cross_attention:
+        enc = embed_rows(params.wte, caption_ids, dtype)
+    use_cross = c.use_cross_attention and (
+        enc is not None or (decode and cache.ck is not None))
+    if use_cross and not hasattr(params.blocks[0], "cross_attn"):
+        raise ValueError("cross-attention inputs given but model has no cross-attn params "
+                         "(config.use_cross_attention=False)")
+
+    # image and audio features join the first two REAL positions; with a
+    # left-padded mask those differ per row
+    slot0 = slot1 = None
+    if (imgs is not None or auds is not None) and attention_mask is not None:
+        m = attention_mask[:, :L].float()
+        csum = torch.cumsum(m, dim=-1)
+        slot0 = ((csum == 1) & (m > 0)).to(dtype)
+        slot1 = ((csum == 2) & (m > 0)).to(dtype)
+    for feats, proj, slot, pos in ((imgs, "img_proj", slot0, 0), (auds, "aud_proj", slot1, 1)):
+        if feats is None:
+            continue
+        f = feats.to(dtype)
+        if hasattr(params, proj):
+            f = dense(f, getattr(params, proj))
+        if slot is not None:
+            h = h + slot[..., None] * f[:, None, :]
+        elif pos < L:
+            h[:, pos, :] += f
+
+    h = h + params.wpe.embedding[position_ids].to(dtype)
+    if token_type_ids is not None:
+        h = h + embed_rows(params.wte, token_type_ids, dtype)  # token types through wte
+
+    enc_mask = encoder_attention_mask if use_cross else None
+    eps = c.layer_norm_epsilon
+    for li, blk in enumerate(params.blocks):
+        attn_in = layer_norm(h, blk.ln_1, eps)
+        if decode:
+            h = h + _self_attention_cached(attn_in, blk.attn, li, cache, config=c,
+                                           attn_mask=attention_mask,
+                                           prefix_prefill=prefix_prefill)
+        else:
+            h = h + _self_attention(attn_in, blk.attn, li, config=c, attn_mask=attention_mask)
+        if use_cross:
+            ckv = None
+            if decode and enc is None:
+                ckv = (cache.ck[li], cache.cv[li])
+                if cache.ck_scale is not None:
+                    ckv += (cache.ck_scale[li], cache.cv_scale[li])
+            ca_out, fresh = _cross_attention(
+                layer_norm(h, blk.ln_cross, eps), enc, blk.cross_attn, li, config=c,
+                enc_mask=enc_mask, cached_kv=ckv, prefill_kernel_ok=decode)
+            h = h + ca_out
+            if decode and fresh is not None and cache.ck is not None:
+                _write_cross_cache(cache, li, *fresh, c)
+        h = h + _mlp(layer_norm(h, blk.ln_2, eps), blk.mlp, config=c)
+
+    h = layer_norm(h, params.ln_f, eps)
+    new_cache = dataclasses.replace(cache, index=cache.index + L) if decode else None
+    return h, new_cache
+
+
+def forward(
+    params: GPT2,
+    config: ModelConfig,
+    input_ids: torch.Tensor,
+    *,
+    token_type_ids: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    imgs: Optional[torch.Tensor] = None,
+    auds: Optional[torch.Tensor] = None,
+    caption_ids: Optional[torch.Tensor] = None,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
+    encoder_attention_mask: Optional[torch.Tensor] = None,
+    cache: Optional[KVCache] = None,
+    prefix_prefill: bool = False,
+    seq_lengths: Optional[torch.Tensor] = None,
+    compute_logits: Union[bool, str] = True,  # True | False | "last"
+) -> ModelOutput:
+    """GPT2LMHeadModel.forward for inference.
+
+    ``compute_logits="last"`` computes the logits of the final position
+    only (the prefill of ``generate``). ``seq_lengths`` [B]: the emotion
+    head reads each row's last REAL token instead of the final position.
+    A given ``cache`` is updated in place; the returned one carries the
+    advanced index."""
+    c = config
+    hidden, new_cache = transformer(
+        params, c, input_ids, token_type_ids=token_type_ids, position_ids=position_ids,
+        attention_mask=attention_mask, imgs=imgs, auds=auds, caption_ids=caption_ids,
+        encoder_hidden_states=encoder_hidden_states,
+        encoder_attention_mask=encoder_attention_mask, cache=cache,
+        prefix_prefill=prefix_prefill)
+    logits = None
+    if compute_logits:
+        logits = lm_logits(params, hidden[:, -1:, :] if compute_logits == "last" else hidden)
+    if seq_lengths is not None:
+        idx = torch.clamp(seq_lengths.long() - 1, 0, hidden.shape[1] - 1)
+        last_hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+    else:
+        last_hidden = hidden[:, -1, :]
+    emotion_logits = matmul_f32(last_hidden, params.emotion_head.kernel.to(hidden.dtype))
+    return ModelOutput(logits=logits, emotion_logits=emotion_logits, hidden=hidden,
+                       cache=new_cache)
