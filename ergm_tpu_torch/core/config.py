@@ -33,8 +33,10 @@ class ModelConfig:
     carried for config equality and change nothing here. Fields that
     steer TPU-only machinery are inert as well: ``remat``,
     ``remat_policy``, ``loss_chunk``, ``lm_loss_impl`` (training, not
-    ported yet), ``decode_scan_unroll`` (there is no layer scan) and
-    ``decode_fused_mlp`` (its kernel is not ported yet).
+    ported yet) and ``decode_scan_unroll`` (there is no layer scan).
+    ``decode_fused_mlp`` routes each single-token decode step's LN2 + MLP
+    + residual tail through kernel K4 (``ops/fused_decode.py``) where its
+    gate allows, as in JAX; off by default.
     """
 
     vocab_size: int = GPT2_VOCAB_SIZE

@@ -11,7 +11,13 @@ points: f32 LayerNorm statistics, f32 matmul accumulation, f32 softmax,
 bf16-rounded int8 KV scales. Layers and decode steps are Python loops.
 This slice runs inference only, deterministically: no dropout and no
 loss. Batched short prompt prefill routes its self- and cross-attention
-through kernel K1 (``ops/prefill_attention.py``).
+through kernel K1 (``ops/prefill_attention.py``). Single-token decode
+steps route, under JAX's switches (all off by default), through kernel
+K3 for the int8 cross sublayer (``ERGM_CROSS_KERNEL=1``,
+``ops/cross_decode.py``), K4 for the LN2 + MLP tail
+(``config.decode_fused_mlp``, ``ops/fused_decode.py``) and K2 for the
+int8 self-attention over a cache of 512 slots or more
+(``ERGM_DECODE_KERNEL=1``, ``ops/decode_attention.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ergm_tpu_torch.core.config import ModelConfig
-from ergm_tpu_torch.ops import prefill_attention
+from ergm_tpu_torch.ops import cross_decode, decode_attention, fused_decode, prefill_attention
 from ergm_tpu_torch.ops.attention import matmul_f32, multihead_attention
 
 
@@ -416,16 +422,16 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
 
     dt = c.compute_dtype
     q = _split_heads(qm, H)
+    if quant and L == 1 and T >= 512:
+        # scale-factored int8: the products read the raw codes (kernel K2
+        # under ERGM_DECODE_KERNEL=1, else its plain version)
+        attend = (decode_attention.decode_mha_int8 if decode_attention.supported(B, T, c)
+                  else decode_attention.decode_mha_int8_reference)
+        out_m = attend(q, cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li],
+                       idx, scale, None if attn_mask is None else attn_mask[:, :T], n_head=H)
+        return dense(out_m[:, None, :], p.c_proj)
     tail = (torch.arange(T, device=h.device) < idx + L).float()[None, :]
     kv_mask = tail if attn_mask is None else attn_mask[:, :T] * tail
-    if quant and L == 1 and T >= 512:
-        # scale-factored int8: the products read the raw codes
-        s = matmul_f32(q.to(dt), cache.k[li].to(dt).transpose(-1, -2)) * scale
-        s = s * cache.k_scale[li][..., 0].float()[:, :, None, :]
-        s = s + (1.0 - kv_mask).float()[:, None, None, :] * -1e9
-        probs = torch.softmax(s, dim=-1)
-        pv = (probs * cache.v_scale[li][..., 0].float()[:, :, None, :]).to(dt)
-        return _attn_project(torch.matmul(pv, cache.v[li].to(dt)), p)
     if quant:
         k_all = cache.k[li].to(dt) * cache.k_scale[li].to(dt)
         v_all = cache.v[li].to(dt) * cache.v_scale[li].to(dt)
@@ -462,21 +468,9 @@ def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
     if cached_kv is not None and h.shape[1] == 1:
         # single-token decode: reduce within the merged minor dim; int8
         # scales factor out of both reductions
-        B = h.shape[0]
         qf = dense(h, p.q_attn)[:, 0, :]
-        ck, cv = cached_kv[0], cached_kv[1]
-        Lc = ck.shape[1]
-        s = (ck.float() * qf.float()[:, None, :]).view(B, Lc, H, Dh).sum(-1) * scale
-        if len(cached_kv) == 4:
-            s = s * cached_kv[2].float()
-        if enc_mask is not None:
-            s = s + (1.0 - enc_mask.float())[:, :, None] * -1e9
-        pr = torch.softmax(s, dim=1)  # over Lc
-        if len(cached_kv) == 4:
-            pr = pr * cached_kv[3].float()
-        w = pr[..., None].expand(B, Lc, H, Dh).reshape(B, Lc, H * Dh)
-        out = (cv.float() * w).sum(dim=1).to(h.dtype)[:, None, :]
-        return _capless_row_gate(dense(out, p.c_proj), enc_mask), None
+        out = cross_decode.cross_attention_decode(qf, cached_kv, enc_mask, scale, H)
+        return _capless_row_gate(dense(out[:, None, :], p.c_proj), enc_mask), None
     qm = dense(h, p.q_attn)
     if cached_kv is not None:
         # multi-token step over the cached caption K/V
@@ -585,6 +579,13 @@ def transformer(
 
     enc_mask = encoder_attention_mask if use_cross else None
     eps = c.layer_norm_epsilon
+    # kernel K3 for the int8 cross sublayer: decided once per call, as JAX
+    # decides once per trace (gpt2.py:1201-1215)
+    cross_stacks = None
+    if decode and use_cross and enc is None and cache.ck_scale is not None:
+        cross_stacks = (cache.ck, cache.cv, cache.ck_scale, cache.cv_scale)
+        if not cross_decode.supported(h, params.blocks[0], cross_stacks, c):
+            cross_stacks = None
     for li, blk in enumerate(params.blocks):
         attn_in = layer_norm(h, blk.ln_1, eps)
         if decode:
@@ -593,7 +594,10 @@ def transformer(
                                            prefix_prefill=prefix_prefill)
         else:
             h = h + _self_attention(attn_in, blk.attn, li, config=c, attn_mask=attention_mask)
-        if use_cross:
+        if cross_stacks is not None:
+            h = cross_decode.fused_cross_decode(h, blk, li, _attn_scale(c, li), cross_stacks,
+                                                enc_mask, c)
+        elif use_cross:
             ckv = None
             if decode and enc is None:
                 ckv = (cache.ck[li], cache.cv[li])
@@ -605,7 +609,10 @@ def transformer(
             h = h + ca_out
             if decode and fresh is not None and cache.ck is not None:
                 _write_cross_cache(cache, li, *fresh, c)
-        h = h + _mlp(layer_norm(h, blk.ln_2, eps), blk.mlp, config=c)
+        if decode and c.decode_fused_mlp and fused_decode.supported(h, blk.mlp, c):
+            h = fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, c)  # kernel K4
+        else:
+            h = h + _mlp(layer_norm(h, blk.ln_2, eps), blk.mlp, config=c)
 
     h = layer_norm(h, params.ln_f, eps)
     new_cache = dataclasses.replace(cache, index=cache.index + L) if decode else None

@@ -1,16 +1,19 @@
 """Builds the port's CUDA kernels at first use.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. No
-PyTorch header is included, so a build takes seconds. The library's
-name carries a hash of the sources and the flags: an edited source
-builds anew, an unchanged tree reuses the file. It goes into
-``ergm_tpu_torch/_build/``, which git ignores; the compiler's report
-(registers, shared memory, spills) is kept beside it as a ``.log``.
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. No PyTorch header is included, so a build takes seconds. The
+library's name carries a hash of the sources (``*.cu`` and the ``*.cuh``
+headers they include) and the flags: an edited source builds anew, an
+unchanged tree reuses the file. It goes into ``ergm_tpu_torch/_build/``,
+which git ignores; the compiler's report (registers, shared memory,
+spills) is kept beside it as a ``.log``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,8 +26,12 @@ import tempfile
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# kMaxSplits of csrc/decode_gemm.cuh: a split-K workspace of
+# DENSE_MAX_SPLITS * M * N floats lets a decode GEMM split as far as it
+# may; the kernels split no further than the workspace they are given
+DENSE_MAX_SPLITS = 4
 
 
 def _nvcc() -> str:
@@ -37,12 +44,42 @@ def _nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD / f"libergm_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _compile(work: pathlib.Path, lib_path: pathlib.Path) -> None:
+    """Compile each source in its own ``nvcc``, all at once, then link."""
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    report, failed = [], []
+    with contextlib.ExitStack() as stack:
+        jobs = []
+        for src in sources:
+            log = stack.enter_context(open(work / f"{src.stem}.log", "w+"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(work / f"{src.stem}.o")]
+            jobs.append((src, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        for src, log, proc in jobs:
+            proc.wait()
+            log.seek(0)
+            text = log.read()
+            report.append(f"== {src.name}\n{text}")
+            if proc.returncode:
+                failed.append(f"{src.name} ({proc.returncode}):\n{text[:3000]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = work / "lib.so"
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *(str(work / f"{src.stem}.o") for src in sources)],
+                          capture_output=True, text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    lib_path.with_suffix(".log").write_text("".join(report) + link.stdout + link.stderr)
+    os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
 
 
 @functools.cache
@@ -51,23 +88,20 @@ def load() -> ctypes.CDLL:
     lib_path = library_path()
     if not lib_path.exists():
         BUILD.mkdir(exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD) as work:
+            _compile(pathlib.Path(work), lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ergm_prefill_mha.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-                                     ctypes.c_float, i, p]
-    lib.ergm_prefill_mha.restype = i
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    signatures = {
+        "ergm_prefill_mha": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, p],
+        "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, ll, p, i, i, i, i, i, p],
+        "ergm_fused_cross_decode": [p, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                    ll, i, i, i, i, i, f, p],
+        "ergm_decode_mha_int8": [p, ll, ll, p, p, p, p, p, ll, p, i, i, i, i, i, i, f, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, i
     return lib
 
 

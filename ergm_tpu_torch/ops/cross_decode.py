@@ -1,0 +1,176 @@
+"""Fused cross-attention sublayer of a decode step: kernel K3 of the port.
+
+Counterpart of ``ergm_tpu/ops/cross_decode.py``. ``fused_cross_decode``
+takes the hidden states of a single-token step, h [B, 1, D], and layer
+``li`` of the int8 cross cache, and returns
+``h + gate(c_proj(attn(q_attn(ln_cross(h)))))``. On a CUDA tensor it
+launches the hand-written kernel in ``csrc/cross_decode.cu`` (see the
+note at the top of that file), or raises; on a CPU tensor it runs
+``fused_cross_decode_reference``, the model's own unfused sublayer.
+
+``cross_attention_decode`` is the attention step of that sublayer in
+plain torch ops; the model's single-token cross branch calls it for
+every cross cache (int8 or not).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from ergm_tpu_torch.ops import _build
+
+# Caption keys the kernel takes: its scores for one row sit in shared memory.
+MAX_CAPTION = 1024
+# Kernel launches since the last reset; a run sets it to 0 and reads it
+# back to show that its path went through the kernel.
+LAUNCHES = 0
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def supported(h: torch.Tensor, blk, stacks: Optional[Sequence[torch.Tensor]], config) -> bool:
+    """JAX's gate (``cross_decode.py:207-235``): opt-in through
+    ``ERGM_CROSS_KERNEL`` (unset, "0" or "false" is off), single-token
+    rows, a quantized cross cache (four stacks: codes and scales),
+    full-precision weights, D = n_head * head_dim with D % 128 and
+    head_dim % 8. JAX's padded-scale and VMEM checks are TPU workarounds
+    and are not carried over; the kernel's own limit is ``MAX_CAPTION``."""
+    ov = os.environ.get("ERGM_CROSS_KERNEL")
+    if ov is None or ov in ("0", "false"):
+        return False
+    if stacks is None or len(stacks) != 4:
+        return False
+    if h.dim() != 3 or h.shape[1] != 1:
+        return False
+    ca = blk.cross_attn
+    if ca.q_attn.kernel_q is not None or ca.c_proj.kernel_q is not None:
+        return False
+    D = h.shape[-1]
+    if D != config.n_head * config.head_dim or D % 128 or config.head_dim % 8:
+        return False
+    return stacks[0].shape[2] <= MAX_CAPTION
+
+
+def cross_attention_decode(qf: torch.Tensor, cached_kv: Sequence[torch.Tensor],
+                           enc_mask: Optional[torch.Tensor], scale, n_head: int) -> torch.Tensor:
+    """Single-token attention over the merged cross cache: qf [B, D], ck/cv
+    [B, Lc, D] (int8 with per-(token, head) f32 scales [B, Lc, H] when
+    ``cached_kv`` has four entries). Reduces within the merged minor dim;
+    the int8 scales factor out of both reductions. Returns [B, D] in qf's
+    dtype."""
+    B, D = qf.shape
+    ck, cv = cached_kv[0], cached_kv[1]
+    Lc = ck.shape[1]
+    s = (ck.float() * qf.float()[:, None, :]).view(B, Lc, n_head, D // n_head).sum(-1) * scale
+    if len(cached_kv) == 4:
+        s = s * cached_kv[2].float()
+    if enc_mask is not None:
+        s = s + (1.0 - enc_mask.float())[:, :, None] * -1e9
+    pr = torch.softmax(s, dim=1)  # over Lc
+    if len(cached_kv) == 4:
+        pr = pr * cached_kv[3].float()
+    w = pr[..., None].expand(B, Lc, n_head, D // n_head).reshape(B, Lc, D)
+    return (cv.float() * w).sum(dim=1).to(qf.dtype)
+
+
+def fused_cross_decode_reference(h, blk, li, scale, stacks, mask, config):
+    """The plain version: the model's unfused cross sublayer over layer
+    ``li`` of the stacked cache, plus the residual."""
+    from ergm_tpu_torch.models import gpt2  # gpt2 imports this module
+
+    ca = blk.cross_attn
+    x = gpt2.layer_norm(h, blk.ln_cross, config.layer_norm_epsilon)
+    qf = gpt2.dense(x, ca.q_attn)[:, 0, :]
+    out = cross_attention_decode(qf, [s[li] for s in stacks], mask, scale, config.n_head)
+    return h + gpt2._capless_row_gate(gpt2.dense(out[:, None, :], ca.c_proj), mask)
+
+
+def _check(h, blk, stacks, mask, li, config):
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_cross_decode: h is on {h.device}")
+    if h.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_cross_decode: h is {h.dtype}; float32 or bfloat16 are "
+                        f"supported")
+    if h.dim() != 3 or h.shape[1] != 1 or h.stride(-1) != 1:
+        raise ValueError(f"fused_cross_decode: h has shape {tuple(h.shape)} and strides "
+                         f"{h.stride()}; want [B, 1, D] with a contiguous feature axis")
+    B, _, D = h.shape
+    H, Dh = config.n_head, config.head_dim
+    if D != H * Dh or D % 64 or Dh % 8:
+        raise ValueError(f"fused_cross_decode: D={D}, n_head={H}, head_dim={Dh}; want "
+                         f"D = n_head * head_dim, D % 64 == 0 and head_dim % 8 == 0")
+    ca = blk.cross_attn
+    for name, x, shape in (("ln_cross.scale", blk.ln_cross.scale, (D,)),
+                           ("ln_cross.bias", blk.ln_cross.bias, (D,)),
+                           ("q_attn.kernel", ca.q_attn.kernel, (D, D)),
+                           ("q_attn.bias", ca.q_attn.bias, (D,)),
+                           ("c_proj.kernel", ca.c_proj.kernel, (D, D)),
+                           ("c_proj.bias", ca.c_proj.bias, (D,))):
+        if (x is None or x.device != h.device or x.dtype != h.dtype or not x.is_contiguous()
+                or tuple(x.shape) != shape):
+            raise ValueError(f"fused_cross_decode: {name} must be a contiguous {h.dtype} "
+                             f"{shape} tensor on {h.device}")
+    if len(stacks) != 4:
+        raise ValueError("fused_cross_decode: needs the quantized cache (ck, cv, ck_scale, "
+                         "cv_scale)")
+    L, Lc = stacks[0].shape[0], stacks[0].shape[2]
+    for name, x, dtype, shape in (("ck", stacks[0], torch.int8, (L, B, Lc, D)),
+                                  ("cv", stacks[1], torch.int8, (L, B, Lc, D)),
+                                  ("ck_scale", stacks[2], torch.float32, (L, B, Lc, H)),
+                                  ("cv_scale", stacks[3], torch.float32, (L, B, Lc, H))):
+        if (x.device != h.device or x.dtype != dtype or not x.is_contiguous()
+                or tuple(x.shape) != shape):
+            raise ValueError(f"fused_cross_decode: {name} must be a contiguous {dtype} "
+                             f"{shape} tensor on {h.device}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    if not 0 <= li < L or not 1 <= Lc <= MAX_CAPTION:
+        raise ValueError(f"fused_cross_decode: layer {li} of {L}, {Lc} caption keys "
+                         f"(1..{MAX_CAPTION})")
+    if mask is not None and (tuple(mask.shape) != (B, Lc) or mask.device != h.device):
+        raise ValueError(f"fused_cross_decode: mask {tuple(mask.shape)} on {mask.device} "
+                         f"does not match [{B}, {Lc}] on {h.device}")
+
+
+def fused_cross_decode(h: torch.Tensor, blk, li: int, scale,
+                       stacks: Sequence[torch.Tensor], mask: Optional[torch.Tensor],
+                       config) -> torch.Tensor:
+    """One cross sublayer step: returns ``h + cross_attn(ln_cross(h))``.
+
+    ``h``: [B, 1, D]; ``blk``: the layer's ``Block`` (``ln_cross`` and
+    ``cross_attn``); ``stacks``: the FULL stacked (ck, cv, ck_scale,
+    cv_scale), [L, B, Lc, D] int8 and [L, B, Lc, H] f32, of which layer
+    ``li`` is read in place; ``mask``: [B, Lc] 0/1, or None when every
+    caption key is real; ``scale``: float or 0-dim tensor. The caller
+    checks ``supported`` first."""
+    if h.device.type == "cpu":
+        return fused_cross_decode_reference(h, blk, li, scale, stacks, mask, config)
+    _check(h, blk, stacks, mask, li, config)
+    B, _, D = h.shape
+    ck, cv, ks, vs = stacks
+    Lc = ck.shape[2]
+    m = None if mask is None else mask.to(torch.float32).contiguous()
+    qbuf = torch.empty((B, 1, D), dtype=h.dtype, device=h.device)  # q, then the output
+    abuf = torch.empty((B, D), dtype=h.dtype, device=h.device)
+    has = torch.empty((B,), dtype=torch.float32, device=h.device)
+    partial = torch.empty((_build.DENSE_MAX_SPLITS, B, D), dtype=torch.float32, device=h.device)
+    ca = blk.cross_attn
+    lib = _build.load()
+    with torch.cuda.device(h.device):  # the C side launches on the current device
+        err = lib.ergm_fused_cross_decode(
+            h.data_ptr(), h.stride(0), blk.ln_cross.scale.data_ptr(),
+            blk.ln_cross.bias.data_ptr(), ctypes.c_float(config.layer_norm_epsilon),
+            ca.q_attn.kernel.data_ptr(), ca.q_attn.bias.data_ptr(),
+            ca.c_proj.kernel.data_ptr(), ca.c_proj.bias.data_ptr(),
+            ck[li].data_ptr(), cv[li].data_ptr(), ks[li].data_ptr(), vs[li].data_ptr(),
+            None if m is None else m.data_ptr(), qbuf.data_ptr(), abuf.data_ptr(),
+            has.data_ptr(), partial.data_ptr(), partial.numel(), _DTYPE_CODE[h.dtype], B, Lc,
+            config.n_head, config.head_dim, ctypes.c_float(float(scale)),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_cross_decode kernel launch failed: cudaError {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return qbuf

@@ -11,6 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.models import gpt2 as tg
+from ergm_tpu_torch.ops import cross_decode as tcd
+from ergm_tpu_torch.ops import decode_attention as tda
+from ergm_tpu_torch.ops import fused_decode as tfd
 from ergm_tpu_torch.ops import prefill_attention as tpa
 
 torch.set_num_threads(1)
@@ -20,12 +25,72 @@ def _merged(rng, B, L, D):
     return torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32))
 
 
+def _block(d, n_head, dtype, device, activation="gelu_new", seed=0):
+    """A decoder block with random weights and non-trivial biases and
+    LayerNorm parameters, in ``dtype`` on ``device``."""
+    cfg = ModelConfig(n_layer=2, n_embd=d, n_head=n_head, vocab_size=64, n_positions=16,
+                      dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+                      activation=activation)
+    blk = tg.Block(cfg)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            x = torch.randn(p.shape, generator=g)
+            p.copy_(1.0 + 0.1 * x if name.endswith("ln_2.scale") or name.endswith("ln_cross.scale")
+                    else 0.05 * x)
+    return cfg, blk.to(device, dtype).requires_grad_(False)
+
+
+def _cross_stacks(rng, L, B, Lc, D, H, device):
+    codes = [torch.from_numpy(rng.integers(-127, 128, (L, B, Lc, D)).astype(np.int8))
+             for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(0.001, 0.02, (L, B, Lc, H)).astype(np.float32))
+              for _ in range(2)]
+    return tuple(x.to(device) for x in (*codes, *scales))
+
+
+def _k2_inputs(rng, B, H, T, dtype, device):
+    q = torch.from_numpy(rng.standard_normal((B, H, 1, 64)).astype(np.float32))
+    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (B, H, T, 64)).astype(np.int8))
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.001, 0.02, (B, H, T, 1)).astype(np.float32))
+              for _ in range(2))
+    return (q.to(device, dtype), kq.to(device), vq.to(device), ks.to(device, torch.bfloat16),
+            vs.to(device, torch.bfloat16))
+
+
+def _within(got, want, dtype, tol):
+    """fp32: |got - want| <= tol. bf16: one output rounding plus the
+    summation order, |got - want| <= 2e-2 + 1e-2 |want|."""
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return err.max().item() <= tol, err.max().item()
+    return bool((err <= 2e-2 + 1e-2 * want.float().abs()).all()), err.max().item()
+
+
 def test_wrapper_never_falls_back():
     """Off the CPU the wrapper launches the kernel or raises: a tensor on
     a device the kernel does not serve is refused, not computed plainly."""
     x = torch.empty((8, 16, 128), device="meta")
     with pytest.raises(ValueError, match="meta"):
         tpa.prefill_mha(x, x, x, None, n_head=2, scale=0.125)
+
+
+@pytest.mark.parametrize("kernel", ["fused_ln_mlp", "fused_cross_decode", "decode_mha_int8"])
+def test_decode_wrappers_never_fall_back(kernel):
+    """K2, K3 and K4 refuse a tensor on a device they do not serve."""
+    cfg, blk = _block(128, 2, torch.float32, "meta")
+    h = torch.empty((8, 1, 128), device="meta")
+    rng = np.random.default_rng(0)
+    with pytest.raises(ValueError, match="meta"):
+        if kernel == "fused_ln_mlp":
+            tfd.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)
+        elif kernel == "fused_cross_decode":
+            stacks = _cross_stacks(rng, 2, 8, 4, 128, 2, "meta")
+            tcd.fused_cross_decode(h, blk, 0, 0.125, stacks, None, cfg)
+        else:
+            q, kq, vq, ks, vs = _k2_inputs(rng, 8, 2, 512, torch.float32, "meta")
+            tda.decode_mha_int8(q, kq, vq, ks, vs, 100, 0.125, n_head=2)
 
 
 @pytest.mark.cuda
@@ -89,3 +154,106 @@ def test_prefill_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         tpa.prefill_mha(torch.zeros((8, 16, 128), device="cuda"), long_k, long_k, None,
                         n_head=2, scale=0.125, causal=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, None)])
+@pytest.mark.parametrize("act", ["gelu_new", "gelu"])
+def test_fused_ln_mlp_kernel_matches_reference(dtype, tol, act):
+    """K4 against its plain version; fp32 with TF32 off at JAX's 2e-5
+    bar. h is a strided view, as the model's residual stream can be."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, blk = _block(256, 4, dtype, "cuda", activation=act, seed=1)
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.standard_normal((24, 1, 2 * 256)).astype(np.float32))
+    h = h.to("cuda", dtype)[..., :256]
+    before = tfd.LAUNCHES
+    got = tfd.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)
+    want = tfd.fused_ln_mlp_reference(h, blk.ln_2, blk.mlp, cfg)
+    torch.cuda.synchronize()
+    assert tfd.LAUNCHES == before + 1 and got.shape == want.shape
+    ok, err = _within(got, want, dtype, tol)
+    assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, None)])
+@pytest.mark.parametrize("mask_mode", ["none", "ragged", "empty_row"])
+def test_cross_decode_kernel_matches_reference(dtype, tol, mask_mode):
+    """K3 against its plain version over layer 1 of a two-layer stacked
+    int8 cache with an odd caption length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Lc, D, H = 16, 21, 256, 4
+    cfg, blk = _block(D, H, dtype, "cuda", seed=2)
+    rng = np.random.default_rng(2)
+    h = torch.from_numpy(rng.standard_normal((B, 1, D)).astype(np.float32)).to("cuda", dtype)
+    stacks = _cross_stacks(rng, 2, B, Lc, D, H, "cuda")
+    mask = None
+    if mask_mode != "none":
+        m = (np.arange(Lc)[None] < rng.integers(1, Lc + 1, (B, 1))).astype(np.float32)
+        if mask_mode == "empty_row":
+            m[3] = 0.0
+        mask = torch.from_numpy(m).cuda()
+    before = tcd.LAUNCHES
+    got = tcd.fused_cross_decode(h, blk, 1, 0.125, stacks, mask, cfg)
+    want = tcd.fused_cross_decode_reference(h, blk, 1, 0.125, stacks, mask, cfg)
+    torch.cuda.synchronize()
+    assert tcd.LAUNCHES == before + 1 and got.shape == want.shape
+    ok, err = _within(got, want, dtype, tol)
+    assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4), (torch.bfloat16, None)])
+@pytest.mark.parametrize("T,index,leftpad", [(512, 400, True), (768, 767, False),
+                                             (1024, 5, True)])
+def test_decode_attention_kernel_matches_reference(dtype, tol, T, index, leftpad):
+    """K2 against its plain version, reading layer 1 of a stacked cache in
+    place, with q as a strided view of a fused projection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H = 8, 4
+    rng = np.random.default_rng(3)
+    q, kq, vq, ks, vs = _k2_inputs(rng, B, H, T, dtype, "cuda")
+    qkv = torch.cat([q, q, q], dim=-1)  # [B, H, 1, 192]
+    q = qkv[..., 64:128]
+    stack = [torch.stack([torch.zeros_like(x), x]) for x in (kq, vq, ks, vs)]
+    mask = None
+    if leftpad:
+        pads = rng.integers(0, min(index, 200) + 1, B)
+        mask = torch.from_numpy((np.arange(T)[None] >= pads[:, None]).astype(np.float32)).cuda()
+    before = tda.LAUNCHES
+    got = tda.decode_mha_int8(q, *(x[1] for x in stack), index, 0.125, mask, n_head=H)
+    want = tda.decode_mha_int8_reference(q, kq, vq, ks, vs, index, 0.125, mask, n_head=H)
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES == before + 1 and got.shape == (B, H * 64)
+    ok, err = _within(got, want, dtype, tol)
+    assert ok, err
+
+
+@pytest.mark.cuda
+def test_decode_kernels_reject_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg, blk = _block(128, 2, torch.float32, "cuda")
+    h16 = torch.zeros((8, 1, 128), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tfd.fused_ln_mlp(h16, blk.ln_2, blk.mlp, cfg)
+    with pytest.raises(ValueError):  # two tokens per row
+        tfd.fused_ln_mlp(torch.zeros((8, 2, 128), device="cuda"), blk.ln_2, blk.mlp, cfg)
+    stacks = _cross_stacks(np.random.default_rng(0), 2, 8, 4, 128, 2, "cuda")
+    h = torch.zeros((8, 1, 128), device="cuda")
+    with pytest.raises(ValueError):  # the unquantized cache
+        tcd.fused_cross_decode(h, blk, 0, 0.125, stacks[:2], None, cfg)
+    with pytest.raises(ValueError):  # no such layer
+        tcd.fused_cross_decode(h, blk, 2, 0.125, stacks, None, cfg)
+    q, kq, vq, ks, vs = _k2_inputs(np.random.default_rng(0), 8, 2, 512, torch.float32, "cuda")
+    with pytest.raises(ValueError):  # index past the cache
+        tda.decode_mha_int8(q, kq, vq, ks, vs, 512, 0.125, n_head=2)
+    with pytest.raises(ValueError):  # a bf16 cache instead of int8 codes
+        tda.decode_mha_int8(q, kq.bfloat16(), vq, ks, vs, 100, 0.125, n_head=2)
