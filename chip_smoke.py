@@ -37,10 +37,36 @@ Phases, each of which raises on failure:
    tokens in a 512-slot cache, with ``ERGM_DECODE_KERNEL=1`` and
    without, timed in turns; K2 must launch n_layer times per decode
    step.
+7. training kernels: K5 (block attention) forward and backward at the
+   training slice's [48, 12, 512, 64], causal, bf16, dropout 0 and 0.1
+   on one seed (output within 2e-2 + 1e-2 |plain|; gradients: against
+   the plain version run in f32, at most twice the plain bf16 version's
+   error, see ``bf16_grad_ratio``; dK without its last 64 keys must fail
+   that bar), and fp32 with TF32 off at [4, 12, 512, 64] (2e-5 and
+   5e-5); K6 (fused cross-entropy) forward, dh and dW at N=24,576,
+   V=50,271, D=768 in bf16 with logits of std 3 (NLL within 1e-4 +
+   1e-4 |plain|, gradients as K5's, and the gold term alone must fail
+   that bar) and fp32 at N=2,048 (NLL 1e-5, gradients rtol 1e-4 / atol
+   1e-5). Median CUDA-event times of kernel
+   and plain in turns, and of ``scaled_dot_product_attention`` as K5's
+   yardstick.
+8. training reference: a small fp32 model takes 3 AdamW steps on the
+   card (K5 and K6) and on the CPU (plain versions); losses within 1e-4.
+9. training slice: the ``scripts/train_bench.py`` configuration (gpt2
+   at full width, B=48, L=512, bf16, dropout 0.1, remat "mlp", random
+   weights from seed 0): ``make_train_step`` once, then 8 timed steps
+   (two chains of 4); K5 must launch 12 forward and 12 backward times
+   per step and K6's three kernels once each; the LM loss on the
+   repeated batch must fall. Then ``Trainer(cfg).train()`` for one epoch on a
+   synthetic dataset (B=48, batches padded to 512): validation, a
+   best-PPL checkpoint, and a resume that restores it.
 
 Prints the card's name and power limit, a JSON line with each kernel's
-numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits
-non-zero without a GPU.
+numbers (time, launches on its path, the bound computed from this run's
+shapes, the plain version's and a library call's time), and as its last
+line ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
+``--profile=PATH`` also writes a torch.profiler table of two train steps
+to PATH.
 """
 
 from __future__ import annotations
@@ -48,18 +74,27 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
+from ergm_tpu_torch.data.synthetic import write_synthetic_dataset
 from ergm_tpu_torch.infer.generate import generate, generate_batch
 from ergm_tpu_torch.models import gpt2
-from ergm_tpu_torch.ops import (_build, cross_decode, decode_attention, fused_decode,
-                                prefill_attention)
+from ergm_tpu_torch.ops import (_build, block_attention, cross_decode, decode_attention,
+                                fused_ce, fused_decode, prefill_attention)
+from ergm_tpu_torch.train import checkpoint as ckpt_lib
+from ergm_tpu_torch.train.steps import AdamW, create_train_state, make_train_step
+from ergm_tpu_torch.train.trainer import Trainer
+from ergm_tpu_torch.utils.flops import model_flops_per_token
 
 DEVICE = "cuda"
 B, PROMPT, NEW, CAPTION, D, H = 256, 128, 128, 32, 768, 12
@@ -73,6 +108,14 @@ K2_TOL, K3_TOL, K4_TOL = 3e-4, 2e-4, 2e-5
 # the long-history phase: gpt2 at full width over a 512-slot cache
 LONG_B, LONG_PROMPT, LONG_MAX = 64, 384, 512
 SWITCHES = ("ERGM_CROSS_KERNEL", "ERGM_DECODE_KERNEL")
+# the training configuration of scripts/train_bench.py:27-89
+TRAIN_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
+                   attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1, remat=True,
+                   remat_policy="mlp", lm_loss_impl="auto")
+TRAIN_B, TRAIN_L, SEED = 48, 512, 1234
+# H100 SXM data sheet: HBM bytes/s and dense peaks (bf16 tensor cores, f32 CUDA cores)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 @contextlib.contextmanager
@@ -108,8 +151,30 @@ class StepCounter:
 
 
 def reset_launches() -> None:
-    for mod in (prefill_attention, cross_decode, fused_decode, decode_attention):
+    for mod in (prefill_attention, cross_decode, fused_decode, decode_attention,
+                block_attention, fused_ce):
         mod.LAUNCHES = 0
+    block_attention.BWD_LAUNCHES = 0
+    fused_ce.DH_LAUNCHES = fused_ce.DW_LAUNCHES = 0
+
+
+def _train_counts() -> dict:
+    return {"block_mha": block_attention.LAUNCHES,
+            "block_mha_bwd": block_attention.BWD_LAUNCHES,
+            "fused_softmax_xent": fused_ce.LAUNCHES,
+            "fused_softmax_xent_dh": fused_ce.DH_LAUNCHES,
+            "fused_softmax_xent_dw": fused_ce.DW_LAUNCHES}
+
+
+def bound(nbytes: float, flops: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate of their type."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
 
 
 def _bf16_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -118,17 +183,17 @@ def _bf16_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
                  <= BF16_TOL + 1e-2 * want.float().abs()).all())
 
 
-def _timed_pair(name: str, run, plain) -> tuple:
+def _timed_pair(name: str, run, plain, reps: int = 20) -> tuple:
     """Median CUDA-event times of kernel and plain, in turns (plain,
     kernel, kernel, plain); returns (kernel ms, plain ms)."""
-    p1, k1, k2, p2 = (_median_ms(f) for f in (plain, run, run, plain))
+    p1, k1, k2, p2 = (_median_ms(f, reps) for f in (plain, run, run, plain))
     print(f"{name} bf16: kernel {min(k1, k2):.4f} ms, plain {min(p1, p2):.4f} ms "
-          f"(medians of 20; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f})")
+          f"(medians of {reps}; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f})")
     return min(k1, k2), min(p1, p2)
 
 
 def _median_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
+    for _ in range(min(3, reps)):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
@@ -177,6 +242,18 @@ def kernel_phase(gen: torch.Generator) -> dict:
                       f"(medians of 20; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f})")
                 prefix = "" if name == "self_leftpad" else "cross_"
                 res[f"{prefix}ms"], res[f"{prefix}plain_ms"] = kern_ms, plain_ms
+                if name == "self_leftpad":
+                    # the yardstick: one SDPA call over the same head views, with
+                    # the causal and left-pad masks as one boolean mask
+                    heads = [x.view(B, PROMPT, H, D // H).transpose(1, 2) for x in (qq, kk, vv)]
+                    allowed = (torch.ones(PROMPT, PROMPT, dtype=torch.bool, device=DEVICE).tril()
+                               & (m[:, None, None, :] > 0))
+                    res["library_ms"] = _median_ms(lambda: F.scaled_dot_product_attention(
+                        *heads, attn_mask=allowed, scale=0.125))
+                    pairs = B * H * PROMPT * (PROMPT + 1) // 2  # causal (query, key) pairs
+                    res.update(bound(4 * _nbytes(qq), 2 * 2 * pairs * (D // H)))
+                    print(f"K1 self_leftpad bf16: SDPA {res['library_ms']:.4f} ms, bound "
+                          f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
 
 
@@ -234,9 +311,27 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
         k2 = (lambda: decode_attention.decode_mha_int8(*k2_args, n_head=H),
               lambda: decode_attention.decode_mha_int8_reference(*k2_args, n_head=H), K2_TOL)
 
+        # bytes and operations each kernel's function needs at these inputs
+        F_ = cfg.inner_dim
+        bounds = {
+            "cross_decode": bound(
+                2 * _nbytes(h) + _nbytes(codes[0][1], codes[1][1], scales[0][1], scales[1][1],
+                                         cmask, *blk.ln_cross.parameters(),
+                                         *blk.cross_attn.q_attn.parameters(),
+                                         *blk.cross_attn.c_proj.parameters()),
+                2 * 2 * B * D * D + 2 * 2 * B * CAPTION * D),
+            "fused_ln_mlp": bound(
+                2 * _nbytes(h) + _nbytes(*blk.ln_2.parameters(), *blk.mlp.parameters()),
+                2 * 2 * B * D * F_),
+            "decode_mha_int8": bound(  # the slots up to the cursor
+                _nbytes(q, kmask) + LONG_B * H * Dh * h.element_size()
+                + (index + 1) * _nbytes(kq[1], vq[1], ks[1], vs[1]) // T,
+                2 * 2 * LONG_B * H * (index + 1) * Dh),
+        }
         for name, (run, plain, tol) in (("cross_decode", k3), ("fused_ln_mlp", k4),
                                         ("decode_mha_int8", k2)):
-            r = res.setdefault(name, {"max_abs_err": 0.0, "max_abs_err_f32": 0.0})
+            r = res.setdefault(name, {"max_abs_err": 0.0, "max_abs_err_f32": 0.0,
+                                      "library_ms": None})
             got, want = run(), plain()
             torch.cuda.synchronize()
             if got.shape != want.shape or not bool(torch.isfinite(got).all()):
@@ -250,6 +345,7 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
             if dtype == torch.bfloat16:
                 r["max_abs_err"] = err
                 r["ms"], r["plain_ms"] = _timed_pair(name, run, plain)
+                r.update(bounds[name])
             else:
                 r["max_abs_err_f32"] = err
     return res
@@ -264,8 +360,8 @@ def reference_phase() -> None:
     base = ModelConfig(n_layer=2, n_embd=128, n_head=2, vocab_size=256, n_positions=64,
                        modality_dim=768, dtype="float32", kv_cache_dtype="int8",
                        cross_kv_dtype="int8", weight_dtype="int8_lm_head")
-    cpu = gpt2.params_for_inference(gpt2.init_params(torch.Generator().manual_seed(1), base),
-                                    base)
+    cpu = gpt2.params_for_inference(
+        gpt2.init_params(torch.Generator().manual_seed(1), base, device="cpu"), base)
     card = copy.deepcopy(cpu).to(DEVICE)
     rng = np.random.default_rng(1)
     b, L, lc, steps = 64, 16, 8, 3
@@ -444,6 +540,373 @@ def slice_phase(card: str) -> tuple:
     return counts["K3+K4 on"], long_counts["K2 on"]
 
 
+def _k5_run(fn, q, k, v, do, rate) -> list:
+    """Output and (dQ, dK, dV) of ``fn`` (K5 or its plain version)."""
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = fn(qq, kk, vv, causal=True, scale=0.125, dropout_rate=rate,
+           dropout_seed=SEED if rate else None)
+    return [o, *torch.autograd.grad(o, (qq, kk, vv), do)]
+
+
+def bf16_grad_ratio(got, plain, exact) -> float:
+    """How far a bf16 gradient is from its bar; above 1 fails. ``exact`` is
+    the same math in f32 on the same (bf16-valued) inputs, TF32 off. The
+    kernel's error against it may be at most twice the plain bf16
+    version's: over the whole tensor (rms), and in each row (rms over the
+    last dim, plus 0.1 rms(exact) for rows the plain version gets exactly:
+    the kernels round ds and padj where the plain autograd rounds dP and
+    the output, and K5's delta = rowsum(dO∘O) carries O's rounding)."""
+    g, p, x = got.float(), plain.float(), exact.float()
+    if not bool(torch.isfinite(g).all()):
+        return math.inf
+    ek, ep = g - x, p - x
+    whole = ek.pow(2).mean().sqrt() / (2 * ep.pow(2).mean().sqrt()).clamp_min(1e-30)
+    rows = ek.pow(2).mean(-1).sqrt() / (2 * ep.pow(2).mean(-1).sqrt()
+                                        + 0.1 * x.pow(2).mean().sqrt())
+    return max(whole.item(), rows.max().item())
+
+
+def _grads_ok(got, want, dtype, f32_tol, exact=()) -> tuple:
+    """Raises unless every gradient passes: fp32 elementwise within
+    f32_tol (atol = rtol) of the plain version; bf16 by
+    ``bf16_grad_ratio`` against ``exact``. Returns the largest |kernel -
+    plain| and the largest ratio to the bar."""
+    worst = (0.0, 0.0)
+    for a, b, x in zip(got, want, exact if dtype == torch.bfloat16 else want):
+        err = (a.float() - b.float()).abs()
+        ratio = (bf16_grad_ratio(a, b, x) if dtype == torch.bfloat16 else
+                 (err / (f32_tol + f32_tol * b.float().abs())).max().item())
+        if not ratio <= 1.0:
+            raise AssertionError(f"{dtype} gradients disagree: max {err.max().item():.3e}, "
+                                 f"{ratio:.3f} of the bar")
+        worst = (max(worst[0], err.max().item()), max(worst[1], ratio))
+    return worst
+
+
+def train_kernel_phase(gen: torch.Generator) -> dict:
+    """K5 and K6 against their plain versions at the training slice's
+    shapes, forward and backward, with times. Returns their JSON numbers."""
+    res = {name: {"max_abs_err": 0.0} for name in (
+        "block_mha", "block_mha_bwd", "fused_softmax_xent", "fused_softmax_xent_dh",
+        "fused_softmax_xent_dw")}
+    H_, Dh = 12, 64
+    # K5: bf16 at the slice, dropout off and on (one seed); fp32 at B=4
+    for dtype, b in ((torch.bfloat16, TRAIN_B), (torch.float32, 4)):
+        q, k, v, do = (torch.randn((b, H_, TRAIN_L, Dh), generator=gen, device=DEVICE).to(dtype)
+                       for _ in range(4))
+        for rate in ((0.0, 0.1) if dtype == torch.bfloat16 else (0.1,)):
+            got = _k5_run(block_attention.block_mha, q, k, v, do, rate)
+            want = _k5_run(block_attention.block_mha_reference, q, k, v, do, rate)
+            exact = (_k5_run(block_attention.block_mha_reference,
+                             *(x.float() for x in (q, k, v, do)), rate)
+                     if dtype == torch.bfloat16 else ())
+            torch.cuda.synchronize()
+            o_err = (got[0].float() - want[0].float()).abs().max().item()
+            o_ok = _bf16_ok(got[0], want[0]) if dtype == torch.bfloat16 else o_err <= 2e-5
+            if not o_ok or not bool(torch.isfinite(got[0]).all()):
+                raise AssertionError(f"K5 {dtype} rate {rate}: output disagrees, {o_err:.3e}")
+            g_err, g_ratio = _grads_ok(got[1:], want[1:], dtype, 5e-5, exact[1:])
+            note = ""
+            if dtype == torch.bfloat16:
+                # the bar must see the late keys, which few queries reach
+                late = got[2].clone()
+                late[:, :, -64:] = 0
+                blind = bf16_grad_ratio(late, want[2], exact[2])
+                if blind <= 1.0:
+                    raise AssertionError(f"K5: the bar passes dK without its last keys, {blind}")
+                note = f"; dK with its last 64 keys zeroed reads {blind:.1f}"
+            print(f"K5 {dtype} [{b}, {H_}, {TRAIN_L}, {Dh}] causal, dropout {rate}: max |kernel - "
+                  f"plain| output {o_err:.3e}, gradients {g_err:.3e} ({g_ratio:.3f} of the "
+                  f"bar{note})")
+            key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
+            for name, err in (("block_mha", o_err), ("block_mha_bwd", g_err)):
+                res[name][key] = max(res[name].get(key, 0.0), err)
+            del got, want, exact
+    # K5 times at the training configuration (bf16, dropout 0.1); the
+    # yardstick is one scaled_dot_product_attention call
+    q, k, v, do = (torch.randn((TRAIN_B, H_, TRAIN_L, Dh), generator=gen,
+                               device=DEVICE).bfloat16() for _ in range(4))
+    kw = dict(causal=True, scale=0.125, dropout_rate=0.1, dropout_seed=SEED)
+    fwd = {"kernel": lambda *x: block_attention.block_mha(*x, **kw),
+           "plain": lambda *x: block_attention.block_mha_reference(*x, **kw),
+           "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True,
+                                                                dropout_p=0.1, scale=0.125)}
+    r = res["block_mha"]
+    r["ms"], r["plain_ms"] = _timed_pair("K5 forward", lambda: fwd["kernel"](q, k, v),
+                                         lambda: fwd["plain"](q, k, v))
+    r["library_ms"] = _median_ms(lambda: fwd["library"](q, k, v))
+    pairs = TRAIN_B * H_ * TRAIN_L * (TRAIN_L + 1) // 2  # causal (query, key) pairs
+    r.update(bound(4 * _nbytes(q), 2 * 2 * pairs * Dh))
+    bwd = {}
+    for name, fn in fwd.items():  # one forward graph each, its backward timed
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs)
+        bwd[name] = (lambda o=o, xs=xs: torch.autograd.grad(o, xs, do, retain_graph=True))
+    r = res["block_mha_bwd"]
+    r["ms"], r["plain_ms"] = _timed_pair("K5 backward", bwd["kernel"], bwd["plain"])
+    r["library_ms"] = _median_ms(bwd["library"])
+    r.update(bound(8 * _nbytes(q), 5 * 2 * pairs * Dh))  # S again, dP, dV, dQ, dK
+    for name in ("block_mha", "block_mha_bwd"):
+        print(f"{name}: SDPA {res[name]['library_ms']:.4f} ms, bound "
+              f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+    del fwd, bwd
+
+    # K6: bf16 at the slice's N, V, D; fp32 at N=2048. Logits of std 3, as
+    # a trained LM head gives, so that the softmax term carries a large
+    # share of dh and all of dW's rows without a gold token
+    V, D = TRAIN_SLICE["vocab_size"], 768
+    for dtype, n in ((torch.float32, 2048), (torch.bfloat16, TRAIN_B * TRAIN_L)):
+        h = torch.randn((n, D), generator=gen, device=DEVICE).to(dtype)
+        w = (3.0 / math.sqrt(D) * torch.randn((V, D), generator=gen, device=DEVICE)).to(dtype)
+        lbl = torch.randint(0, V, (n,), generator=gen, device=DEVICE)
+        lbl[::4] = -100
+        cot = torch.randn((n,), generator=gen, device=DEVICE)
+        outs = []
+        runs = [(fused_ce.fused_softmax_xent, dtype),
+                (fused_ce.fused_softmax_xent_reference, dtype)]
+        if dtype == torch.bfloat16:  # and the same math in f32, for the gradients' bar
+            runs.append((fused_ce.fused_softmax_xent_reference, torch.float32))
+        for fn, dt in runs:
+            hh, ww = (x.to(dt).clone().requires_grad_(True) for x in (h, w))
+            nll = fn(hh, ww, lbl)
+            outs.append([nll.detach(), *torch.autograd.grad((nll * cot).sum(), (hh, ww))])
+            del hh, ww, nll
+        torch.cuda.synchronize()
+        (nll, dh, dw), (nll_ref, dh_ref, dw_ref) = outs[:2]
+        tol = 1e-5 if dtype == torch.float32 else 1e-4
+        n_err = (nll - nll_ref).abs().max().item()
+        if not bool(((nll - nll_ref).abs() <= tol + tol * nll_ref.abs()).all()):
+            raise AssertionError(f"K6 {dtype}: NLL disagrees, {n_err:.3e}")
+        if dtype == torch.float32:
+            errs = []
+            for a, b in ((dh, dh_ref), (dw, dw_ref)):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+                errs.append((a - b).abs().max().item())
+            note = ""
+        else:
+            _, dh_x, dw_x = outs[2]
+            errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in ((dh, dh_ref), (dw, dw_ref))]
+            _, ratio = _grads_ok([dh, dw], [dh_ref, dw_ref], dtype, None, [dh_x, dw_x])
+            # the bar must see the softmax term, all there is in dW's rows
+            # that no token has as its label: the gold term alone fails it
+            gw = torch.where(lbl >= 0, cot, 0.0)[:, None]
+            gold_dh = -gw * w.float()[lbl.clamp_min(0)]
+            gold_dw = torch.zeros_like(dw_x).index_add_(0, lbl.clamp_min(0), -gw * h.float())
+            blind = [bf16_grad_ratio(a, b, x) for a, b, x in ((gold_dh, dh_ref, dh_x),
+                                                              (gold_dw, dw_ref, dw_x))]
+            if min(blind) <= 1.0:
+                raise AssertionError(f"K6 bf16: the bar passes the gold term alone, {blind}")
+            note = (f" ({ratio:.3f} of the bar; the gold term alone reads {blind[0]:.1f} and "
+                    f"{blind[1]:.1f})")
+            del gold_dh, gold_dw, dh_x, dw_x
+        del outs
+        print(f"K6 {dtype} N={n}, V={V}, D={D}: max |kernel - plain| NLL {n_err:.3e}, "
+              f"dh {errs[0]:.3e}, dW {errs[1]:.3e}{note}")
+        key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
+        for name, err in zip(("fused_softmax_xent", "fused_softmax_xent_dh",
+                              "fused_softmax_xent_dw"), (n_err, *errs)):
+            res[name][key] = err
+        del dh, dw, dh_ref, dw_ref, nll_ref
+    # K6 times at the slice (bf16): the kernels alone, and plain functions
+    # computing the same NLL, dh and dW
+    l32 = lbl.to(torch.int32)
+    _, logz = fused_ce.launch_fwd(h, w, l32)
+    g = torch.where(lbl >= 0, cot, 0.0)
+
+    def plain_padj():
+        p = torch.softmax(h.float() @ w.float().t(), dim=-1) * g[:, None]
+        ok = lbl >= 0
+        p[ok, lbl[ok]] -= g[ok]
+        return p
+
+    times = {
+        "fused_softmax_xent": (lambda: fused_ce.launch_fwd(h, w, l32),
+                               lambda: fused_ce.fused_softmax_xent_reference(h, w, lbl)),
+        "fused_softmax_xent_dh": (lambda: fused_ce.launch_bwd("dh", h, w, l32, logz, g),
+                                  lambda: (plain_padj() @ w.float()).to(h.dtype)),
+        "fused_softmax_xent_dw": (lambda: fused_ce.launch_bwd("dw", h, w, l32, logz, g),
+                                  lambda: (plain_padj().t() @ h.float()).to(w.dtype)),
+    }
+    products = {"fused_softmax_xent": 1, "fused_softmax_xent_dh": 2, "fused_softmax_xent_dw": 2}
+    for name, (run, plain) in times.items():
+        r = res[name]
+        r["ms"], r["plain_ms"] = _timed_pair(name, run, plain, reps=5)
+        r["library_ms"] = None  # no single PyTorch call computes it
+        # the logits (recomputed in the backward) and the gradient product
+        out = _nbytes(h) if name.endswith("dh") else _nbytes(w) if name.endswith("dw") else 0
+        r.update(bound(_nbytes(h, w, l32) + out, products[name] * 2 * h.shape[0] * V * D))
+        print(f"{name}: bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def _train_batch(rng, b: int, L: int, vocab: int, dev, caption: int = 0) -> dict:
+    ids = rng.integers(0, vocab, (b, L))
+    batch = {"input_ids": ids, "token_type_ids": rng.integers(0, vocab, (b, L)), "labels": ids,
+             "emotion_labels": rng.integers(0, 7, (b,)), "valid": np.ones((b,), bool),
+             "imgs": rng.standard_normal((b, 768)).astype(np.float32),
+             "auds": rng.standard_normal((b, 768)).astype(np.float32)}
+    if caption:
+        batch["caption_ids"] = rng.integers(0, vocab, (b, caption))
+        batch["caption_mask"] = np.ones((b, caption), np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def train_reference_phase() -> None:
+    """A small fp32 model: 3 AdamW steps on the card (K5, K6) and on the
+    CPU (plain versions) from one init, dropout 0, lr 1e-4, no warmup;
+    the losses agree within 1e-4 step by step."""
+    cfg = ModelConfig(n_layer=2, n_embd=128, n_head=2, vocab_size=256, n_positions=128,
+                      modality_dim=768, dtype="float32", embd_pdrop=0.0, attn_pdrop=0.0,
+                      resid_pdrop=0.0)
+    cpu = gpt2.init_params(torch.Generator().manual_seed(2), cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    steps, losses = 3, {}
+    for dev, params in (("cpu", cpu), (DEVICE, card)):
+        rng = np.random.default_rng(2)
+        tx = AdamW(1e-4)
+        state, step = create_train_state(params, tx), make_train_step(cfg, tx, device=dev)
+        reset_launches()
+        losses[dev] = []
+        for _ in range(steps):
+            state, m = step(state, _train_batch(rng, 4, 128, 256, dev, caption=8), 0)
+            losses[dev].append(float(m["loss"]))
+        if dev == DEVICE:
+            counts = _train_counts()
+            want = {"block_mha": 2 * steps, "block_mha_bwd": 2 * steps,
+                    "fused_softmax_xent": steps, "fused_softmax_xent_dh": steps,
+                    "fused_softmax_xent_dw": steps}
+            if counts != want:
+                raise AssertionError(f"training reference: launches {counts}, want {want}")
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses[DEVICE]))
+    print(f"training reference: small fp32 model, 3 AdamW steps, losses card "
+          f"{['%.6f' % x for x in losses[DEVICE]]} vs CPU {['%.6f' % x for x in losses['cpu']]}, "
+          f"max diff {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"the card's training steps disagree with the CPU's: {err}")
+
+
+def train_slice_phase(card: str) -> dict:
+    """gpt2 at full width under train_bench's configuration: make_train_step
+    timed, then one Trainer epoch with validation, a checkpoint and a
+    resume. Returns the launch counts read over the 8 timed steps."""
+    cfg = ModelConfig.from_model_type(**TRAIN_SLICE)
+    params = gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    tx = AdamW(1e-4)
+    state, step = create_train_state(params, tx), make_train_step(cfg, tx)
+    batch = _train_batch(np.random.default_rng(0), TRAIN_B, TRAIN_L, 50000, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, m = step(state, batch, SEED)
+    first_loss, first_lm = float(m["loss"]), float(m["lm_loss"])
+    print(f"train slice: first step {time.time() - t0:.3f} s, loss {first_loss:.4f} "
+          f"(LM {first_lm:.4f})")
+    reset_launches()
+    chains = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(4):
+            state, m = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        chains.append((time.time() - t0) / 4)
+    counts = _train_counts()
+    n = 8
+    want = {"block_mha": n * cfg.n_layer, "block_mha_bwd": n * cfg.n_layer,
+            "fused_softmax_xent": n, "fused_softmax_xent_dh": n, "fused_softmax_xent_dw": n}
+    if counts != want:
+        raise AssertionError(f"train slice: launches {counts} over {n} steps, want {want}")
+    # the LM loss over 24,576 tokens must fall on the repeated batch; the
+    # joint loss also carries a 7-way emotion CE over 48 rows, which the
+    # first Adam steps swing by a nat or more either way
+    loss, lm = float(m["loss"]), float(m["lm_loss"])
+    if not (math.isfinite(loss) and lm < first_lm):
+        raise AssertionError(f"train slice: LM loss {first_lm:.4f} -> {lm:.4f} (joint "
+                             f"{first_loss:.4f} -> {loss:.4f}) after {n} steps")
+    best = min(chains)
+    tokens = TRAIN_B * TRAIN_L
+    mfu = model_flops_per_token(cfg, TRAIN_L) * tokens / best / PEAK_FLOPS[torch.bfloat16]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train slice: gpt2 B={TRAIN_B} L={TRAIN_L} bf16, remat mlp, dropout 0.1: step "
+          f"{1e3 * best:.1f} ms (chains {'/'.join(f'{1e3 * c:.1f}' for c in chains)} ms), "
+          f"{tokens / best:.0f} tok/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s, peak memory "
+          f"{peak_gb:.2f} GB, loss {first_loss:.4f} -> {loss:.4f} (LM {first_lm:.4f} -> "
+          f"{lm:.4f}), launches per step "
+          f"{ {k: v // n for k, v in counts.items()} } on {card}")
+    del state, step, params, batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_synthetic_dataset(data, prefixes=("train", "valid"), num_dialogues=36,
+                                turns_per_dialogue=4, base_vocab_size=50257)
+        tcfg = TrainConfig(data_dir=data, ckpt_dir=os.path.join(tmp, "ckpt"),
+                           output_dir=os.path.join(tmp, "out"), model_type="gpt2",
+                           batch_size=TRAIN_B, num_epochs=1, max_len=TRAIN_L,
+                           pad_multiple=TRAIN_L, lr=1e-4, seed=0)
+        t0 = time.time()
+        tr = Trainer(tcfg)
+        reset_launches()
+        best_ppl = tr.train()
+        epoch_counts = _train_counts()
+        if not math.isfinite(best_ppl) or min(epoch_counts.values()) < 1:
+            raise AssertionError(f"Trainer: best PPL {best_ppl}, launches {epoch_counts}")
+        path = ckpt_lib.find_checkpoint(tcfg.ckpt_dir)
+        if path is None or not os.path.basename(path).startswith("best_ckpt_epoch=1_"):
+            raise AssertionError(f"Trainer: no best-PPL checkpoint in {tcfg.ckpt_dir}")
+        tr2 = Trainer(tcfg.replace(ckpt_name="best"))
+        same = all(torch.equal(a, b) for a, b in zip(tr.state.params.parameters(),
+                                                     tr2.state.params.parameters()))
+        if not same or tr2.state.step != tr.state.step or tr2.last_epoch != 1:
+            raise AssertionError("Trainer: the resume did not restore the checkpoint")
+        print(f"train slice: Trainer, one epoch of {tr.state.step} steps + validation, "
+              f"checkpoint {os.path.basename(path)}, resume checked, {time.time() - t0:.1f} s, "
+              f"launches {epoch_counts}")
+    return counts
+
+
+def profile_train_step(card: str, path: str) -> None:
+    """torch.profiler over two steps of the training slice; the table goes
+    to ``path``."""
+    cfg = ModelConfig.from_model_type(**TRAIN_SLICE)
+    tx = AdamW(1e-4)
+    state = create_train_state(gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                                                cfg), tx)
+    step = make_train_step(cfg, tx)
+    batch = _train_batch(np.random.default_rng(0), TRAIN_B, TRAIN_L, 50000, DEVICE)
+    for _ in range(3):
+        state, m = step(state, batch, SEED)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        for _ in range(2):
+            state, m = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    table = prof.key_averages().table(sort_by="device_time_total", row_limit=40,
+                                      max_name_column_width=70)
+    # device time per step by kind of kernel
+    kinds = {"K6 (fused_ce)": ("ergm_xent",), "K5 (block_attention)": ("ergm_block",),
+             "cuBLAS GEMM": ("nvjet", "gemm", "cutlass", "xmma"),
+             "AdamW": ("multi_tensor", "adam")}
+    by_kind, device_ms = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / 2
+        device_ms += ms
+        kind = next((k for k, pats in kinds.items()
+                     if any(s in e.key.lower() for s in pats)), "other (elementwise, copies)")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    split = ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(by_kind.items(), key=lambda x: -x[1]))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(f"{card}: per train step, wall {500 * wall:.1f} ms, device time "
+                f"{device_ms:.1f} ms: {split}\n{table}\n")
+    print(f"profile: per train step (two profiled), wall {500 * wall:.1f} ms, device time "
+          f"{device_ms:.1f} ms: {split}; table in {path}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is False")
@@ -458,21 +921,38 @@ def main() -> None:
 
     t0 = time.time()
     _build.load()
-    print(f"build: K1-K4 compiled and loaded in {time.time() - t0:.2f} s")
+    print(f"build: K1-K6 compiled and loaded in {time.time() - t0:.2f} s")
     print(_build.build_log().strip())
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1 = kernel_phase(gen)
     decode = decode_kernel_phase(gen)
+    train = train_kernel_phase(gen)
+    torch.cuda.empty_cache()
     reference_phase()
     on, long_on = slice_phase(card)
+    train_reference_phase()
+    train_on = train_slice_phase(card)
+    for arg in sys.argv[1:]:
+        if arg.startswith("--profile="):
+            profile_train_step(card, arg.split("=", 1)[1])
 
     rows = [("prefill_mha", "prefill_attention", "prefill_attention.py:111", on, k1),
             ("fused_cross_decode", "cross_decode", "cross_decode.py:127", on,
              decode["cross_decode"]),
             ("fused_ln_mlp", "fused_decode", "fused_decode.py:99", on, decode["fused_ln_mlp"]),
             ("decode_mha_int8", "decode_attention", "decode_attention.py:151", long_on,
-             decode["decode_mha_int8"])]
+             decode["decode_mha_int8"]),
+            ("block_mha", "block_attention", "block_attention.py:218", train_on,
+             train["block_mha"]),
+            ("block_mha_bwd", "block_attention", "block_attention.py:236", train_on,
+             train["block_mha_bwd"]),
+            ("fused_softmax_xent", "fused_ce", "fused_ce.py:172", train_on,
+             train["fused_softmax_xent"]),
+            ("fused_softmax_xent_dh", "fused_ce", "fused_ce.py:235", train_on,
+             train["fused_softmax_xent_dh"]),
+            ("fused_softmax_xent_dw", "fused_ce", "fused_ce.py:262", train_on,
+             train["fused_softmax_xent_dw"])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"ergm_tpu_torch/csrc/{src}.cu",
         "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[name], **nums}

@@ -1,15 +1,15 @@
 """Model configuration for the PyTorch port.
 
-``ModelConfig`` has the field names and defaults of
-``ergm_tpu.core.config.ModelConfig`` (a test holds the two equal), so a
-configuration means the same thing in both packages. The port carries
+``ModelConfig`` and ``TrainConfig`` have the field names and defaults of
+``ergm_tpu.core.config`` (tests hold them equal), so a configuration
+means the same thing in both packages. The port carries
 its own copy because every ``ergm_tpu`` module loads JAX on import.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,13 +27,16 @@ GPT2_VOCAB_SIZE = 50257
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture and serving config of the ERGM GPT-2 backbone.
+    """Architecture, training and serving config of the ERGM GPT-2 backbone.
 
-    The port runs deterministic inference: the dropout rates are
-    carried for config equality and change nothing here. Fields that
-    steer TPU-only machinery are inert as well: ``remat``,
-    ``remat_policy``, ``loss_chunk``, ``lm_loss_impl`` (training, not
-    ported yet) and ``decode_scan_unroll`` (there is no layer scan).
+    Training reads the dropout rates (``embd_pdrop``, ``attn_pdrop``,
+    ``resid_pdrop``; inference is deterministic), ``remat`` and
+    ``remat_policy`` (``mlp``, ``mlp_only`` or ``full``; ``dots`` is not
+    ported), ``loss_chunk`` and ``lm_loss_impl`` (``auto``: kernel K6 for
+    CUDA tensors, the chunked loss on the CPU; ``fused``: K6, or its
+    plain version on the CPU). ``attention_impl`` ``auto`` routes
+    training self-attention to kernel K5 and batched short prefill to
+    K1. ``decode_scan_unroll`` is inert (there is no layer scan).
     ``decode_fused_mlp`` routes each single-token decode step's LN2 + MLP
     + residual tail through kernel K4 (``ops/fused_decode.py``) where its
     gate allows, as in JAX; off by default.
@@ -105,4 +108,62 @@ class ModelConfig:
         return cls(**{**GPT2_SIZES[model_type], **overrides})
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Runtime config of training, the fields and defaults of
+    ``ergm_tpu.core.config.TrainConfig`` (the reference CLI's flags).
+
+    The port trains on one device. ``prng_impl``, ``mesh_shape``,
+    ``mesh_axis_names`` and ``shard_opt_state`` are carried for equality
+    and do nothing; ``num_workers > 0``, ``grad_accum_steps > 1`` and
+    ``adam_mu_dtype`` are refused by the ``Trainer`` until ported.
+    """
+
+    seed: int = 0
+    mode: str = "train"  # train | infer
+    data_dir: str = "data"
+    train_prefix: str = "train"
+    valid_prefix: str = "valid"
+    model_type: str = "gpt2"
+    bos_token: str = "<bos>"
+    sp1_token: str = "<sp1>"
+    sp2_token: str = "<sp2>"
+    lr: float = 2e-5
+    warmup_ratio: float = 0.1
+    batch_size: int = 16
+    num_workers: int = 0
+    num_epochs: int = 100
+    max_len: int = 1024
+    max_turns: int = 10
+    top_p: float = 0.95
+    ckpt_dir: str = "saved_models"
+    output_dir: str = "outputs"
+    ckpt_name: Optional[str] = None
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axis_names: Tuple[str, ...] = ("data",)
+    dtype: str = "bfloat16"
+    remat: bool = True
+    tokenizer_dir: Optional[str] = None
+    init_params: Optional[str] = None  # a params file saved with torch.save
+    keep_best: Optional[int] = None  # retain only the N lowest-PPL checkpoints
+    log_every: int = 50
+    prng_impl: str = "rbg"
+    # dropout overrides (None = ModelConfig defaults)
+    attn_pdrop: Optional[float] = None
+    resid_pdrop: Optional[float] = None
+    embd_pdrop: Optional[float] = None
+    adam_mu_dtype: Optional[str] = None
+    remat_policy: Optional[str] = None  # None = ModelConfig default "mlp"
+    grad_accum_steps: int = 1
+    shard_opt_state: bool = False
+    # on the first SIGTERM, save ckpt_dir/preempt_ckpt at the next step
+    # block and return (resume with ckpt_name="preempt")
+    save_on_preempt: bool = True
+    length_grouped: int = 0  # K > 1: sort by length within K * batch_size
+    pad_multiple: int = 128  # batch lengths pad to multiples of this
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

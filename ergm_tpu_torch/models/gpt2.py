@@ -9,9 +9,14 @@ JAX or HF checkpoint converts by copying (``models/convert.py``).
 The math mirrors the JAX functions one by one and keeps their rounding
 points: f32 LayerNorm statistics, f32 matmul accumulation, f32 softmax,
 bf16-rounded int8 KV scales. Layers and decode steps are Python loops.
-This slice runs inference only, deterministically: no dropout and no
-loss. Batched short prompt prefill routes its self- and cross-attention
-through kernel K1 (``ops/prefill_attention.py``). Single-token decode
+
+Training (``forward`` with ``labels`` and ``deterministic=False``) runs
+JAX's dropout sites with masks fixed by (step seed, layer, site)
+(``core/rng.py``), its remat policies through ``torch.utils.checkpoint``,
+self-attention through kernel K5 (``ops/block_attention.py``) and the LM
+loss through kernel K6 (``ops/fused_ce.py``) on the card. Inference is
+deterministic. Batched short prompt prefill routes its self- and
+cross-attention through kernel K1 (``ops/prefill_attention.py``). Single-token decode
 steps route, under JAX's switches (all off by default), through kernel
 K3 for the int8 cross sublayer (``ERGM_CROSS_KERNEL=1``,
 ``ops/cross_decode.py``), K4 for the LN2 + MLP tail
@@ -28,9 +33,13 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ergm_tpu_torch.core.config import ModelConfig
-from ergm_tpu_torch.ops import cross_decode, decode_attention, fused_decode, prefill_attention
+from ergm_tpu_torch.core.device import resolve
+from ergm_tpu_torch.core.rng import fold_seed
+from ergm_tpu_torch.ops import (cross_decode, decode_attention, fused_ce, fused_decode,
+                                prefill_attention)
 from ergm_tpu_torch.ops.attention import matmul_f32, multihead_attention
 
 
@@ -130,14 +139,14 @@ class GPT2(nn.Module):
 
 
 @torch.no_grad()
-def init_params(generator: torch.Generator, config: ModelConfig, device=None) -> GPT2:
+def init_params(generator: torch.Generator, config: ModelConfig, device="cuda") -> GPT2:
     """Random init as JAX's: N(0, initializer_range) kernels and
     embeddings, N(0, initializer_range / sqrt(2 n_layer)) for every
     ``c_proj``, zero biases, unit LayerNorm scales. The draws come from
-    ``generator`` (made on its device, then moved to ``device``)."""
+    ``generator`` (made on its device); the parameters live on ``device``,
+    the card unless the caller asks for the CPU."""
     c = config
-    device = device if device is not None else generator.device
-    model = GPT2(c, device=device)
+    model = GPT2(c, device=resolve(device))
     std = c.initializer_range
     proj_std = std / (2 * c.n_layer) ** 0.5
     for name, p in model.named_parameters():
@@ -286,8 +295,10 @@ class KVCache:
 
 
 def init_kv_cache(config: ModelConfig, batch: int, max_len: int,
-                  caption_len: int = 0, device=None) -> KVCache:
+                  caption_len: int = 0, device="cuda") -> KVCache:
+    """A zeroed cache on ``device`` (the card unless the caller asks for the CPU)."""
     c = config
+    device = resolve(device)
     if c.kv_cache_dtype not in ("auto", "int8"):
         raise NotImplementedError(f"kv_cache_dtype {c.kv_cache_dtype!r} is not ported yet")
     quant = c.kv_cache_dtype == "int8"
@@ -346,6 +357,9 @@ class ModelOutput(NamedTuple):
     logits: Optional[torch.Tensor]  # [B, L, V] f32; None when compute_logits=False
     emotion_logits: torch.Tensor    # [B, num_emotions] f32
     hidden: torch.Tensor            # [B, L, D] final hidden states
+    loss: Optional[torch.Tensor] = None
+    lm_loss: Optional[torch.Tensor] = None
+    emotion_loss: Optional[torch.Tensor] = None
     cache: Optional[KVCache] = None
 
 
@@ -361,19 +375,38 @@ def _attn_scale(config: ModelConfig, li: int) -> Scale:
     return scale
 
 
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Inverted dropout whose mask is drawn from a generator seeded with
+    ``seed`` (None: off). The same seed draws the same mask, in a
+    rematerialised forward too."""
+    if seed is None or rate == 0.0:
+        return x
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _site(seed: Optional[int], site: int) -> Optional[int]:
+    return None if seed is None else fold_seed(seed, site)
+
+
 def _attn_project(out: torch.Tensor, p: Attention) -> torch.Tensor:
     return dense(_merge_heads(out), p.c_proj)
 
 
-def _self_attention(h, p: Attention, li, *, config, attn_mask):
-    """No-cache self-attention sublayer."""
+def _self_attention(h, p: Attention, li, *, config, attn_mask, seed=None):
+    """No-cache self-attention sublayer; ``seed`` (the layer's, None when
+    deterministic) turns on attention-probability and residual dropout.
+    Padded queries are masked as keys are (K5's zero rows)."""
     c = config
     L = h.shape[1]
     q, k, v = (_split_heads(x, c.n_head) for x in dense(h, p.c_attn).chunk(3, dim=-1))
     kv_mask = None if attn_mask is None else attn_mask[:, :L]
-    out = multihead_attention(q, k, v, causal=True, kv_mask=kv_mask,
-                              scale=_attn_scale(c, li), impl=c.attention_impl)
-    return _attn_project(out, p)
+    out = multihead_attention(q, k, v, causal=True, kv_mask=kv_mask, q_mask=kv_mask,
+                              scale=_attn_scale(c, li), impl=c.attention_impl,
+                              dropout_rate=c.attn_pdrop, deterministic=seed is None,
+                              seed=_site(seed, 1))
+    return _dropout(_attn_project(out, p), c.resid_pdrop, _site(seed, 2))
 
 
 def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
@@ -456,7 +489,8 @@ CachedKV = Tuple[torch.Tensor, ...]
 
 
 def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
-                     cached_kv: Optional[CachedKV], prefill_kernel_ok: bool = False):
+                     cached_kv: Optional[CachedKV], prefill_kernel_ok: bool = False,
+                     seed: Optional[int] = None):
     """Cross-attention: Q from h, K/V from the caption states ``enc``
     through the shared ``c_attn``; non-causal; caption-less rows get a zero
     residual. ``cached_kv`` (decode) is ``(ck, cv[, ck_scale, cv_scale])``
@@ -496,12 +530,15 @@ def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
     else:
         out = _merge_heads(multihead_attention(
             _split_heads(qm, H), _split_heads(km, H), _split_heads(vm, H), causal=False,
-            kv_mask=enc_mask, scale=scale, impl=c.attention_impl))
-    return _capless_row_gate(dense(out, p.c_proj), enc_mask), (km, vm)
+            kv_mask=enc_mask, scale=scale, impl=c.attention_impl, dropout_rate=c.attn_pdrop,
+            deterministic=seed is None, seed=_site(seed, 3)))
+    out = _capless_row_gate(dense(out, p.c_proj), enc_mask)
+    return _dropout(out, c.resid_pdrop, _site(seed, 4)), (km, vm)
 
 
-def _mlp(h, p: MLP, *, config):
-    return dense(_activation(config.activation)(dense(h, p.c_fc)), p.c_proj)
+def _mlp(h, p: MLP, *, config, seed=None):
+    out = dense(_activation(config.activation)(dense(h, p.c_fc)), p.c_proj)
+    return _dropout(out, config.resid_pdrop, _site(seed, 5))
 
 
 def _write_cross_cache(cache: KVCache, li: int, km, vm, config) -> None:
@@ -519,6 +556,56 @@ def _write_cross_cache(cache: KVCache, li: int, km, vm, config) -> None:
         scales[li] = s[..., 0].float()
 
 
+def _train_block(h, blk: Block, li: int, enc, enc_mask, c: ModelConfig, attention_mask,
+                 use_cross: bool, seed: Optional[int], mlp_remat: bool, cross_remat: bool):
+    """One uncached block: pre-LN self-attention, cross-attention over the
+    caption states, MLP, each a residual; ``mlp_remat`` / ``cross_remat``
+    checkpoint the MLP / cross sublayer (their inputs, the LayerNorm
+    outputs, are kept)."""
+    eps = c.layer_norm_epsilon
+    h = h + _self_attention(layer_norm(h, blk.ln_1, eps), blk.attn, li, config=c,
+                            attn_mask=attention_mask, seed=seed)
+    if use_cross:
+        def cross(x, e):
+            return _cross_attention(x, e, blk.cross_attn, li, config=c, enc_mask=enc_mask,
+                                    cached_kv=None, seed=seed)[0]
+        ca_in = layer_norm(h, blk.ln_cross, eps)
+        h = h + (checkpoint(cross, ca_in, enc, use_reentrant=False, preserve_rng_state=False)
+                 if cross_remat else cross(ca_in, enc))
+    mlp_in = layer_norm(h, blk.ln_2, eps)
+    if mlp_remat:
+        return h + checkpoint(lambda x: _mlp(x, blk.mlp, config=c, seed=seed), mlp_in,
+                              use_reentrant=False, preserve_rng_state=False)
+    return h + _mlp(mlp_in, blk.mlp, config=c, seed=seed)
+
+
+def _decode_block(h, blk: Block, li: int, cache: KVCache, enc, enc_mask, cross_stacks,
+                  c: ModelConfig, attention_mask, prefix_prefill: bool, use_cross: bool):
+    """One block over the KV cache (prefill or decode step), updating it."""
+    eps = c.layer_norm_epsilon
+    attn_in = layer_norm(h, blk.ln_1, eps)
+    h = h + _self_attention_cached(attn_in, blk.attn, li, cache, config=c,
+                                   attn_mask=attention_mask, prefix_prefill=prefix_prefill)
+    if cross_stacks is not None:
+        h = cross_decode.fused_cross_decode(h, blk, li, _attn_scale(c, li), cross_stacks,
+                                            enc_mask, c)
+    elif use_cross:
+        ckv = None
+        if enc is None:
+            ckv = (cache.ck[li], cache.cv[li])
+            if cache.ck_scale is not None:
+                ckv += (cache.ck_scale[li], cache.cv_scale[li])
+        ca_out, fresh = _cross_attention(
+            layer_norm(h, blk.ln_cross, eps), enc, blk.cross_attn, li, config=c,
+            enc_mask=enc_mask, cached_kv=ckv, prefill_kernel_ok=True)
+        h = h + ca_out
+        if fresh is not None and cache.ck is not None:
+            _write_cross_cache(cache, li, *fresh, c)
+    if c.decode_fused_mlp and fused_decode.supported(h, blk.mlp, c):
+        return fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, c)  # kernel K4
+    return h + _mlp(layer_norm(h, blk.ln_2, eps), blk.mlp, config=c)
+
+
 def transformer(
     params: GPT2,
     config: ModelConfig,
@@ -534,8 +621,16 @@ def transformer(
     encoder_attention_mask: Optional[torch.Tensor] = None,  # [B, Lc] 0/1
     cache: Optional[KVCache] = None,
     prefix_prefill: bool = False,  # the initial prompt: cache.index == 0
+    deterministic: bool = True,
+    dropout_seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """GPT2Model.forward: returns (final hidden [B, L, D], advanced cache or None)."""
+    """GPT2Model.forward: returns (final hidden [B, L, D], advanced cache or None).
+
+    Dropout runs when ``deterministic`` is False and a ``dropout_seed``
+    (the step's) is given, at JAX's sites: the embedding (site 0) and, in
+    layer i (seed ``fold_seed(step seed, 1000 + i)``), the attention
+    probabilities (1), the attention residual (2), the cross-attention
+    probabilities (3) and residual (4) and the MLP residual (5)."""
     c = config
     dtype = c.compute_dtype
     B, L = input_ids.shape
@@ -576,6 +671,8 @@ def transformer(
     h = h + params.wpe.embedding[position_ids].to(dtype)
     if token_type_ids is not None:
         h = h + embed_rows(params.wte, token_type_ids, dtype)  # token types through wte
+    seed = None if deterministic or decode else dropout_seed
+    h = _dropout(h, c.embd_pdrop, _site(seed, 0))
 
     enc_mask = encoder_attention_mask if use_cross else None
     eps = c.layer_norm_epsilon
@@ -586,37 +683,92 @@ def transformer(
         cross_stacks = (cache.ck, cache.cv, cache.ck_scale, cache.cv_scale)
         if not cross_decode.supported(h, params.blocks[0], cross_stacks, c):
             cross_stacks = None
+    remat = c.remat and not decode and torch.is_grad_enabled()
+    if remat and c.remat_policy == "dots":
+        raise NotImplementedError("remat_policy 'dots' is not ported (ROADMAP queue 1)")
+    # "mlp" checkpoints the MLP and cross sublayers, "mlp_only" the MLP
+    # only; self-attention keeps its residuals (K5 is not recomputed).
+    # Other policies ("full") checkpoint the whole block.
+    mlp_remat = remat and c.remat_policy in ("mlp", "mlp_only")
+    cross_remat = mlp_remat and c.remat_policy == "mlp"
     for li, blk in enumerate(params.blocks):
-        attn_in = layer_norm(h, blk.ln_1, eps)
+        layer_seed = None if seed is None else fold_seed(seed, 1000 + li)
         if decode:
-            h = h + _self_attention_cached(attn_in, blk.attn, li, cache, config=c,
-                                           attn_mask=attention_mask,
-                                           prefix_prefill=prefix_prefill)
+            h = _decode_block(h, blk, li, cache, enc, enc_mask, cross_stacks, c, attention_mask,
+                              prefix_prefill, use_cross)
+        elif remat and not mlp_remat:
+            # the masks come from seeded generators, not the global RNG state
+            h = checkpoint(_train_block, h, blk, li, enc, enc_mask, c, attention_mask, use_cross,
+                           layer_seed, False, False, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            h = h + _self_attention(attn_in, blk.attn, li, config=c, attn_mask=attention_mask)
-        if cross_stacks is not None:
-            h = cross_decode.fused_cross_decode(h, blk, li, _attn_scale(c, li), cross_stacks,
-                                                enc_mask, c)
-        elif use_cross:
-            ckv = None
-            if decode and enc is None:
-                ckv = (cache.ck[li], cache.cv[li])
-                if cache.ck_scale is not None:
-                    ckv += (cache.ck_scale[li], cache.cv_scale[li])
-            ca_out, fresh = _cross_attention(
-                layer_norm(h, blk.ln_cross, eps), enc, blk.cross_attn, li, config=c,
-                enc_mask=enc_mask, cached_kv=ckv, prefill_kernel_ok=decode)
-            h = h + ca_out
-            if decode and fresh is not None and cache.ck is not None:
-                _write_cross_cache(cache, li, *fresh, c)
-        if decode and c.decode_fused_mlp and fused_decode.supported(h, blk.mlp, c):
-            h = fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, c)  # kernel K4
-        else:
-            h = h + _mlp(layer_norm(h, blk.ln_2, eps), blk.mlp, config=c)
+            h = _train_block(h, blk, li, enc, enc_mask, c, attention_mask, use_cross, layer_seed,
+                             mlp_remat, cross_remat)
 
     h = layer_norm(h, params.ln_f, eps)
     new_cache = dataclasses.replace(cache, index=cache.index + L) if decode else None
     return h, new_cache
+
+
+def chunked_lm_loss(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                    ignore_index: int = -100, chunk: int = 128) -> torch.Tensor:
+    """Shifted LM cross-entropy without [B, L, V] logits: position t is
+    scored against labels[t+1], the mean over non-ignored targets. The
+    sequence goes in chunks of ``chunk`` positions under
+    ``torch.utils.checkpoint``, so each chunk's f32 logits exist only
+    while it is computed, forward and backward (JAX's scan of
+    ``jax.checkpoint`` pieces)."""
+    B, L, D = hidden.shape
+    shifted = torch.cat([labels[:, 1:], torch.full((B, 1), ignore_index, dtype=labels.dtype,
+                                                   device=labels.device)], dim=1)
+
+    def piece(h_c, l_c):
+        logits = matmul_f32(h_c, wte.to(h_c.dtype).t())
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, l_c.clamp_min(0).long()[..., None])[..., 0]
+        mask = (l_c != ignore_index).float()
+        return ((logz - gold) * mask).sum(), mask.sum()
+
+    tot = cnt = 0.0
+    for s in range(0, L, chunk):
+        h_c, l_c = hidden[:, s:s + chunk], shifted[:, s:s + chunk]
+        if torch.is_grad_enabled():
+            ps, pc = checkpoint(piece, h_c, l_c, use_reentrant=False, preserve_rng_state=False)
+        else:
+            ps, pc = piece(h_c, l_c)
+        tot, cnt = tot + ps, cnt + pc
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Mean CE over non-ignored targets (torch CrossEntropyLoss), f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = logz - gold
+    if ignore_index is None:
+        return nll.mean()
+    mask = (labels != ignore_index).float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def lm_loss(hidden: torch.Tensor, params: GPT2, config: ModelConfig,
+            labels: torch.Tensor) -> torch.Tensor:
+    """The LM loss without logits, by ``lm_loss_impl``: ``auto`` takes
+    kernel K6 for CUDA tensors (as JAX goes fused on the TPU) and the
+    chunked loss on the CPU; ``fused`` takes K6, or its plain version on
+    the CPU; ``chunked`` the chunked loss. On the card K6 raises on what
+    it does not take (D not a multiple of 128 or above 1024, float16):
+    such a model sets ``chunked``."""
+    c = config
+    wte = wte_dense(params.wte, hidden.dtype)
+    impl = c.lm_loss_impl
+    if impl not in ("auto", "fused", "chunked"):
+        raise ValueError(f"unknown lm_loss_impl {impl!r}")
+    if impl == "fused" or (impl == "auto" and hidden.is_cuda):
+        return fused_ce.fused_lm_loss(hidden, wte, labels)
+    return chunked_lm_loss(hidden, wte, labels, chunk=c.loss_chunk)
 
 
 def forward(
@@ -632,25 +784,32 @@ def forward(
     caption_ids: Optional[torch.Tensor] = None,
     encoder_hidden_states: Optional[torch.Tensor] = None,
     encoder_attention_mask: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    emotion_labels: Optional[torch.Tensor] = None,
+    deterministic: bool = True,
+    dropout_seed: Optional[int] = None,
     cache: Optional[KVCache] = None,
     prefix_prefill: bool = False,
     seq_lengths: Optional[torch.Tensor] = None,
     compute_logits: Union[bool, str] = True,  # True | False | "last"
 ) -> ModelOutput:
-    """GPT2LMHeadModel.forward for inference.
+    """GPT2LMHeadModel.forward.
 
-    ``compute_logits="last"`` computes the logits of the final position
-    only (the prefill of ``generate``). ``seq_lengths`` [B]: the emotion
-    head reads each row's last REAL token instead of the final position.
-    A given ``cache`` is updated in place; the returned one carries the
-    advanced index."""
+    ``labels`` (-100 = ignored) give the shifted LM loss: from the dense
+    logits when they are computed, else without them (``lm_loss``);
+    ``emotion_labels`` the emotion CE; ``loss`` is their sum when both are
+    given. ``compute_logits="last"`` computes the logits of the final
+    position only (the prefill of ``generate``). ``seq_lengths`` [B]: the
+    emotion head reads each row's last REAL token instead of the final
+    position. Dropout: see ``transformer``. A given ``cache`` is updated in
+    place; the returned one carries the advanced index."""
     c = config
     hidden, new_cache = transformer(
         params, c, input_ids, token_type_ids=token_type_ids, position_ids=position_ids,
         attention_mask=attention_mask, imgs=imgs, auds=auds, caption_ids=caption_ids,
         encoder_hidden_states=encoder_hidden_states,
         encoder_attention_mask=encoder_attention_mask, cache=cache,
-        prefix_prefill=prefix_prefill)
+        prefix_prefill=prefix_prefill, deterministic=deterministic, dropout_seed=dropout_seed)
     logits = None
     if compute_logits:
         logits = lm_logits(params, hidden[:, -1:, :] if compute_logits == "last" else hidden)
@@ -660,5 +819,18 @@ def forward(
     else:
         last_hidden = hidden[:, -1, :]
     emotion_logits = matmul_f32(last_hidden, params.emotion_head.kernel.to(hidden.dtype))
-    return ModelOutput(logits=logits, emotion_logits=emotion_logits, hidden=hidden,
-                       cache=new_cache)
+
+    lm = emo = None
+    if labels is not None:
+        if compute_logits == "last":
+            raise ValueError("compute_logits='last' cannot serve an LM loss (labels given); "
+                             "use True or False")
+        if logits is not None:
+            lm = cross_entropy(logits[:, :-1, :], labels[:, 1:], ignore_index=-100)
+        else:
+            lm = lm_loss(hidden, params, c, labels)
+    if emotion_labels is not None:
+        emo = cross_entropy(emotion_logits, emotion_labels)
+    loss = lm + emo if lm is not None and emo is not None else (lm if lm is not None else emo)
+    return ModelOutput(logits=logits, emotion_logits=emotion_logits, hidden=hidden, loss=loss,
+                       lm_loss=lm, emotion_loss=emo, cache=new_cache)

@@ -92,12 +92,20 @@ def load() -> ctypes.CDLL:
             _compile(pathlib.Path(work), lib_path)
     lib = ctypes.CDLL(str(lib_path))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    u, strides = ctypes.c_uint, ctypes.POINTER(ctypes.c_longlong)
     signatures = {
         "ergm_prefill_mha": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, p],
         "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, ll, p, i, i, i, i, i, p],
         "ergm_fused_cross_decode": [p, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                     ll, i, i, i, i, i, f, p],
         "ergm_decode_mha_int8": [p, ll, ll, p, p, p, p, p, ll, p, i, i, i, i, i, i, f, p],
+        "ergm_block_mha_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, strides, f, i, i, f, f, u, u,
+                               p],
+        "ergm_block_mha_bwd": [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, strides, f, i,
+                               i, f, f, u, u, p],
+        "ergm_xent_fwd": [p, p, p, p, p, i, i, i, i, p],
+        "ergm_xent_bwd_dh": [p, p, p, p, p, p, i, i, i, i, p],
+        "ergm_xent_bwd_dw": [p, p, p, p, p, p, i, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -2,26 +2,43 @@
 
 ``xla_attention`` is the plain attention: f32 logits, a ``where``-style
 causal mask with ``causal_offset``, an additive -1e9 key bias, an f32
-softmax, and the probabilities cast to v's dtype before the PV product.
-It is the CPU path and the oracle of the port's kernels.
+softmax, optional attention-probability dropout, and the probabilities
+cast to v's dtype before the PV product. It is the CPU path and the
+oracle of the port's kernels.
+
+Dropout draws its keep mask from ``dropout_keep``: the counter hash that
+JAX's block-attention kernel uses in interpret mode
+(``ergm_tpu/ops/block_attention.py::_keep_mask``). The mask is a function
+of (seed, batch row, head, query, key) alone, so kernel K5, this plain
+path and JAX's interpret-mode K5 drop the same probabilities, a backward
+or a rematerialised forward regenerates them from the seed, and no mask
+is stored. The TPU's hardware random stream cannot be matched anyway.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
 
 _NEG_INF = -1e9
+_U32 = 1 << 32
+_GOLDEN = 2654435761
+_HASH_MUL = (0x7FEB352D, 0x846CA68B)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with f32 accumulation and an f32 result (JAX's
     ``preferred_element_type=float32``). Batch dims must match.
 
-    On the GPU, bf16 operands go to cuBLAS with an f32 output; elsewhere
-    the operands are upcast first, which forms the same exact products."""
-    if a.is_cuda and a.dtype == torch.bfloat16:
+    On the GPU, bf16 operands go to cuBLAS with an f32 output when no
+    gradient is needed (that call has no derivative); elsewhere the
+    operands are upcast first, which forms the same exact products and
+    gives JAX's gradients (f32 cotangent, cast back to the operand's
+    dtype)."""
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and a.dtype == torch.bfloat16 and not grad:
         if a.dim() == 2:
             return torch.mm(a, b, out_dtype=torch.float32)
         batch = a.shape[:-2]
@@ -37,6 +54,38 @@ def attention_bias_from_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.T
     return bias[:, None, None, :]
 
 
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), in two halves so
+    that no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & (_U32 - 1)
+
+
+def dropout_threshold(rate: float) -> int:
+    """The uint32 keep threshold: keep iff hash >= threshold."""
+    return int(min(rate * float(_U32), float(_U32 - 1)))
+
+
+def dropout_keep(seed: int, batch: int, n_head: int, lq: int, lk: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """Bool keep mask [B, H, Lq, Lk] of attention-probability dropout:
+    ``mix = seed + b*H + h``, ``x = r*Lk + c + mix*2654435761`` (mod
+    2**32), three xorshift-multiply rounds, keep iff ``x >= rate*2**32``."""
+    b = torch.arange(batch, dtype=torch.int64, device=device)[:, None, None, None]
+    h = torch.arange(n_head, dtype=torch.int64, device=device)[None, :, None, None]
+    r = torch.arange(lq, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(lk, dtype=torch.int64, device=device)[None, :]
+    mix = (int(seed) + b * n_head + h) % _U32
+    x = (r * lk + c + _mul32(mix, _GOLDEN)) & (_U32 - 1)
+    x = x ^ (x >> 16)
+    x = _mul32(x, _HASH_MUL[0])
+    x = x ^ (x >> 15)
+    x = _mul32(x, _HASH_MUL[1])
+    x = x ^ (x >> 16)
+    return x >= dropout_threshold(rate)
+
+
 def xla_attention(
     q: torch.Tensor,  # [B, H, Lq, D]
     k: torch.Tensor,  # [B, H, Lk, D]
@@ -46,8 +95,13 @@ def xla_attention(
     bias: Optional[torch.Tensor] = None,  # additive, broadcastable to [B, H, Lq, Lk]
     scale: Union[float, torch.Tensor, None] = None,
     causal_offset: int = 0,
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain attention; query i sees keys <= i + ``causal_offset`` when causal."""
+    """Plain attention; query i sees keys <= i + ``causal_offset`` when
+    causal. Dropout applies when not ``deterministic``, ``dropout_rate``
+    > 0 and a ``seed`` is given, as JAX's (which needs an rng)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = matmul_f32(q, k.transpose(-1, -2)) * scale
@@ -59,6 +113,10 @@ def xla_attention(
     if bias is not None:
         logits = logits + bias.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1)
+    if not deterministic and dropout_rate > 0.0 and seed is not None:
+        B, H, lq, lk = probs.shape
+        keep = dropout_keep(seed, B, H, lq, lk, dropout_rate, device=probs.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     return torch.matmul(probs.to(v.dtype), v)
 
 
@@ -69,17 +127,48 @@ def multihead_attention(
     *,
     causal: bool,
     kv_mask: Optional[torch.Tensor] = None,  # [B, Lk] 1=real key
+    q_mask: Optional[torch.Tensor] = None,   # [B, Lq] 1=real query (K5 only)
     extra_bias: Optional[torch.Tensor] = None,
     scale: Union[float, torch.Tensor, None] = None,
     causal_offset: int = 0,
     impl: str = "auto",
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Attention dispatch. Only the plain route is ported: ``auto`` and
-    ``xla`` take it; the block and flash kernels are not ported yet."""
-    if impl not in ("auto", "xla"):
-        raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
+    """Attention dispatch, as JAX's.
+
+    ``impl``: ``auto`` takes kernel K5 (``ops/block_attention.py``) for
+    CUDA tensors inside its gate, as JAX takes the block kernel on the
+    TPU, and the plain math elsewhere; ``pallas`` and ``block`` take K5
+    (its plain version on the CPU) inside the gate; ``xla`` the plain
+    math. The library flash kernel (``flash``) is not ported: shapes
+    outside K5's gate take the plain math, as JAX does off the TPU. The
+    ``ERGM_ATTN_IMPL`` environment variable overrides ``impl``. With an
+    ``extra_bias``, only the plain math applies; ``q_mask`` reaches K5
+    only (padded query rows give zero output and gradient there)."""
+    from ergm_tpu_torch.ops import block_attention
+
+    impl = os.environ.get("ERGM_ATTN_IMPL", impl)
+    if impl not in ("auto", "pallas", "block", "flash", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "flash":
+        raise NotImplementedError("the library flash kernel (K7) is not ported; use "
+                                  "'block', 'auto' or 'xla'")
+    dropout_active = (not deterministic) and dropout_rate > 0.0 and seed is not None
+    block = (impl in ("pallas", "block") or (impl == "auto" and q.is_cuda))
+    if (block and extra_bias is None
+            and block_attention.supported(q, k, v, causal=causal, causal_offset=causal_offset)):
+        if isinstance(scale, torch.Tensor):
+            q = q * scale.to(q.dtype)  # a tensor scale folds into q, as JAX folds a traced one
+            scale = 1.0
+        return block_attention.block_mha(
+            q, k, v, causal=causal, scale=scale, q_mask=q_mask, kv_mask=kv_mask,
+            dropout_rate=dropout_rate if dropout_active else 0.0,
+            dropout_seed=seed if dropout_active else None)
     bias = attention_bias_from_mask(kv_mask) if kv_mask is not None else None
     if extra_bias is not None:
         bias = extra_bias if bias is None else bias + extra_bias
     return xla_attention(q, k, v, causal=causal, bias=bias, scale=scale,
-                         causal_offset=causal_offset)
+                         causal_offset=causal_offset, dropout_rate=dropout_rate,
+                         deterministic=deterministic, seed=seed)

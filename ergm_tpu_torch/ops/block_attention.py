@@ -1,0 +1,194 @@
+"""Masked attention with probability dropout, forward and backward:
+kernel K5 of the port.
+
+Counterpart of ``ergm_tpu/ops/block_attention.py`` (``block_mha``). The
+training path's self-attention runs here: causal, q/kv 0/1 masks, zero
+output and gradient for padded query rows, and attention-probability
+dropout whose keep mask comes from the counter hash of
+``ops/attention.py::dropout_keep``. On CUDA tensors ``block_mha`` is a
+``torch.autograd.Function`` whose forward and backward launch the
+hand-written kernels of ``csrc/block_attention.cu`` (see the note at the
+top of that file), or raise; on CPU tensors it runs
+``block_mha_reference``, the same math in differentiable plain torch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ergm_tpu_torch.ops import _build
+from ergm_tpu_torch.ops.attention import _NEG_INF, dropout_keep, dropout_threshold, matmul_f32
+
+HEAD_DIM = 64  # the head dim the CUDA kernel is built for (the GPT-2 family)
+# Launches since the last reset: forward kernels, and backward calls (each
+# runs the dQ kernel, then the dK/dV kernel). A run sets them to 0 and
+# reads them back to show that its path went through the kernels.
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def supported(q, k, v, *, causal: bool, causal_offset=0) -> bool:
+    """JAX's gate (``block_attention_supported``): whole-sequence
+    problems with Dh <= 128 a multiple of 8, Lq and Lk multiples of 128
+    up to 1024, Lq == Lk and no offset when causal. Inside it, the CUDA
+    kernel raises on what it does not take: Dh other than 64, float16."""
+    B, H, lq, D = q.shape
+    lk = k.shape[2]
+    if D > 128 or D % 8 or lq % 128 or lk % 128 or lq < 128 or lq > 1024 or lk > 1024:
+        return False
+    return not (causal and (lq != lk or int(causal_offset) != 0))
+
+
+def _masks(q, k, q_mask, kv_mask):
+    B, lq, lk = q.shape[0], q.shape[2], k.shape[2]
+    qm = (torch.ones((B, lq), dtype=torch.int32, device=q.device) if q_mask is None
+          else (q_mask != 0).to(torch.int32).contiguous())
+    km = (torch.ones((B, lk), dtype=torch.int32, device=q.device) if kv_mask is None
+          else (kv_mask != 0).to(torch.int32).contiguous())
+    return qm, km
+
+
+def block_mha_reference(q, k, v, *, causal: bool, scale: float, q_mask=None, kv_mask=None,
+                        dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+    """The plain version, differentiable: JAX's ``_fwd_kernel`` over the
+    whole row (``_probs`` then dropout), f32 scores and softmax, the
+    probabilities rounded to q's dtype before the PV product, f32
+    accumulation, the output rounded to q's dtype."""
+    B, H, lq, _ = q.shape
+    lk = k.shape[2]
+    qm, km = _masks(q, k, q_mask, kv_mask)
+    s = matmul_f32(q, k.transpose(-1, -2)) * scale
+    mask = km[:, None, None, :].bool()
+    if causal:
+        mask = mask & (torch.arange(lk, device=q.device)[None, :]
+                       <= torch.arange(lq, device=q.device)[:, None])
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    pn = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    pn = torch.where(qm[:, None, :, None].bool(), pn, 0.0)
+    if dropout_rate > 0.0:
+        keep = dropout_keep(dropout_seed, B, H, lq, lk, dropout_rate, device=q.device)
+        pn = torch.where(keep, pn / (1.0 - dropout_rate), 0.0)
+    return matmul_f32(pn.to(q.dtype), v).to(q.dtype)
+
+
+def _check(name, x, like, shape):
+    if x.device.type != "cuda" or x.device != like.device:
+        raise ValueError(f"block_mha: {name} is on {x.device}, q on {like.device}")
+    if x.dtype != like.dtype or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"block_mha: {name} is {x.dtype}; float32 or bfloat16, all alike, "
+                        f"are supported")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"block_mha: {name} has shape {tuple(x.shape)}, want {tuple(shape)}")
+    vec = 16 // x.element_size()  # the kernel loads rows 16 bytes at a time
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
+        raise ValueError(f"block_mha: {name} needs a contiguous head dim and 16-byte aligned "
+                         f"rows, got strides {x.stride()}")
+
+
+def _heads_layout(B, H, L, dtype, device):
+    """A [B, H, L, Dh] view of [B, L, H, Dh] memory: the merged layout the
+    model reads next, so merging the heads back copies nothing."""
+    return torch.empty((B, L, H, HEAD_DIM), dtype=dtype, device=device).transpose(1, 2)
+
+
+def _dropout_args(rate: float, seed: int):
+    """(on, 1 - rate, 1 / (1 - rate), threshold, seed mod 2**32): the two
+    f32 factors are JAX's, the Python floats of its kernel rounded to f32."""
+    on = rate > 0.0
+    return (int(on), ctypes.c_float(1.0 - rate),
+            ctypes.c_float(1.0 / (1.0 - rate) if on else 1.0),
+            ctypes.c_uint(dropout_threshold(rate)), ctypes.c_uint(int(seed) % (1 << 32)))
+
+
+def _strides(*xs):
+    vals = [s for x in xs for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+class _BlockAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, qm, km, scale, causal, rate, seed):
+        B, H, L, D = q.shape
+        Lk = k.shape[2]
+        o = _heads_layout(B, H, L, q.dtype, q.device)
+        ml = torch.empty((2, B, H, L), dtype=torch.float32, device=q.device)
+        lib = _build.load()
+        with torch.cuda.device(q.device):
+            err = lib.ergm_block_mha_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ml.data_ptr(),
+                qm.data_ptr(), km.data_ptr(), _DTYPE_CODE[q.dtype], B, H, L, Lk,
+                _strides(q, k, v, o), ctypes.c_float(scale), int(causal),
+                *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"block_mha forward kernel launch failed: cudaError {err}")
+        global LAUNCHES
+        LAUNCHES += 1
+        ctx.save_for_backward(q, k, v, o, ml, qm, km)
+        ctx.args = (scale, causal, rate, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, ml, qm, km = ctx.saved_tensors
+        scale, causal, rate, seed = ctx.args
+        B, H, L, D = q.shape
+        Lk = k.shape[2]
+        if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
+            do = do.contiguous()
+        dq = _heads_layout(B, H, L, q.dtype, q.device)
+        dk = _heads_layout(B, H, Lk, q.dtype, q.device)
+        dv = _heads_layout(B, H, Lk, q.dtype, q.device)
+        delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+        lib = _build.load()
+        with torch.cuda.device(q.device):
+            err = lib.ergm_block_mha_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), delta.data_ptr(),
+                qm.data_ptr(), km.data_ptr(), _DTYPE_CODE[q.dtype], B, H, L, Lk,
+                _strides(q, k, v, o, do, dq, dk, dv), ctypes.c_float(scale), int(causal),
+                *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"block_mha backward kernel launch failed: cudaError {err}")
+        global BWD_LAUNCHES
+        BWD_LAUNCHES += 1
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+              scale: Optional[float] = None, q_mask: Optional[torch.Tensor] = None,
+              kv_mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+              dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Differentiable masked attention over q [B, H, Lq, Dh], k/v
+    [B, H, Lk, Dh] (strided views with a contiguous head dim are read in
+    place). ``q_mask`` [B, Lq] and ``kv_mask`` [B, Lk]: 1 = real.
+    ``dropout_seed``: an integer, needed when ``dropout_rate`` > 0.
+    Returns [B, H, Lq, Dh]; on the card a view of [B, Lq, H, Dh] memory."""
+    B, H, lq, D = q.shape
+    lk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if q.device.type == "cpu":
+        return block_mha_reference(q, k, v, causal=causal, scale=float(scale), q_mask=q_mask,
+                                   kv_mask=kv_mask, dropout_rate=dropout_rate,
+                                   dropout_seed=dropout_seed)
+    _check("q", q, q, (B, H, lq, HEAD_DIM))
+    _check("k", k, q, (B, H, lk, HEAD_DIM))
+    _check("v", v, q, (B, H, lk, HEAD_DIM))
+    if not supported(q, k, v, causal=causal):
+        raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)} (causal={causal}) "
+                         f"is outside the kernel's gate")
+    for name, m, n in (("q_mask", q_mask, lq), ("kv_mask", kv_mask, lk)):
+        if m is not None and (tuple(m.shape) != (B, n) or m.device != q.device):
+            raise ValueError(f"block_mha: {name} {tuple(m.shape)} on {m.device}, want "
+                             f"[{B}, {n}] on {q.device}")
+    qm, km = _masks(q, k, q_mask, kv_mask)
+    return _BlockAttention.apply(q, k, v, qm, km, float(scale), bool(causal),
+                                 float(dropout_rate), int(dropout_seed or 0))

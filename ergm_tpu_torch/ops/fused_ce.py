@@ -1,0 +1,141 @@
+"""Softmax cross-entropy over the tied vocab projection without [N, V]
+logits: kernel K6 of the port.
+
+Counterpart of ``ergm_tpu/ops/fused_ce.py``. ``fused_softmax_xent``
+returns each token's NLL under softmax(h Wᵀ); its gradient flows to h
+and W. On CUDA tensors it is a ``torch.autograd.Function`` whose forward
+(per-token NLL and logZ by an online logsumexp over vocab tiles) and two
+backward kernels (dh over vocab tiles, dW over token tiles, both from
+the recomputed (p − onehot)·g) are the hand-written kernels of
+``csrc/fused_ce.cu`` (see the note at the top of that file), or raise;
+on CPU tensors it runs ``fused_softmax_xent_reference``, the dense f32
+logsumexp − gold with autograd. ``fused_lm_loss`` is the shifted,
+masked mean of ``chunked_lm_loss`` through it. ``fused_lm_loss_sharded``
+(data parallel over several devices) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ergm_tpu_torch.ops import _build
+
+# Launches since the last reset, one count per kernel: forward, dh and dW.
+LAUNCHES = 0
+DH_LAUNCHES = 0
+DW_LAUNCHES = 0
+MAX_DIM = 1024
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_softmax_xent_reference(hidden: torch.Tensor, wte: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+    """The plain version: dense f32 logits, logsumexp − gold. A negative
+    label has no gold logit (its NLL is logZ, as in the kernel) and no
+    gradient."""
+    logits = hidden.float() @ wte.float().t()
+    logz = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    gold = logits.gather(1, labels.clamp_min(0).long()[:, None])[:, 0]
+    nll = logz - torch.where(valid, gold, 0.0)
+    return torch.where(valid, nll, nll.detach())
+
+
+def _check(hidden, wte, labels):
+    for name, x in (("hidden", hidden), ("wte", wte), ("labels", labels)):
+        if x.device.type != "cuda" or x.device != hidden.device:
+            raise ValueError(f"fused_softmax_xent: {name} is on {x.device}, hidden on "
+                             f"{hidden.device}")
+    if hidden.dtype not in _DTYPE_CODE or wte.dtype != hidden.dtype:
+        raise TypeError(f"fused_softmax_xent: hidden {hidden.dtype}, wte {wte.dtype}; float32 "
+                        f"or bfloat16, both alike, are supported")
+    if hidden.dim() != 2 or wte.dim() != 2 or wte.shape[1] != hidden.shape[1]:
+        raise ValueError(f"fused_softmax_xent: hidden {tuple(hidden.shape)}, wte "
+                         f"{tuple(wte.shape)}; want [N, D] and [V, D]")
+    if hidden.shape[1] % 128 or hidden.shape[1] > MAX_DIM:
+        raise ValueError(f"fused_softmax_xent: D={hidden.shape[1]}; the kernels take a "
+                         f"multiple of 128 up to {MAX_DIM}")
+    if labels.shape != hidden.shape[:1]:
+        raise ValueError(f"fused_softmax_xent: labels {tuple(labels.shape)}, want "
+                         f"[{hidden.shape[0]}]")
+
+
+def _call(name, *args):
+    err = getattr(_build.load(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def launch_fwd(hidden, wte, labels):
+    """The forward kernel on checked contiguous operands: (nll, logz) [N] f32."""
+    global LAUNCHES
+    N, D = hidden.shape
+    nll = torch.empty((N,), dtype=torch.float32, device=hidden.device)
+    logz = torch.empty((N,), dtype=torch.float32, device=hidden.device)
+    with torch.cuda.device(hidden.device):
+        _call("ergm_xent_fwd", hidden.data_ptr(), wte.data_ptr(), labels.data_ptr(),
+              nll.data_ptr(), logz.data_ptr(), _DTYPE_CODE[hidden.dtype], N, wte.shape[0], D)
+    LAUNCHES += 1
+    return nll, logz
+
+
+def launch_bwd(which, hidden, wte, labels, logz, g):
+    """The dh (``which="dh"``) or dW (``"dw"``) kernel: the gradient in
+    hidden's or wte's dtype from the per-token cotangent ``g`` [N] f32."""
+    global DH_LAUNCHES, DW_LAUNCHES
+    N, D = hidden.shape
+    out = torch.empty_like(hidden if which == "dh" else wte)
+    with torch.cuda.device(hidden.device):
+        _call(f"ergm_xent_bwd_{which}", hidden.data_ptr(), wte.data_ptr(), labels.data_ptr(),
+              logz.data_ptr(), g.data_ptr(), out.data_ptr(), _DTYPE_CODE[hidden.dtype], N,
+              wte.shape[0], D)
+    if which == "dh":
+        DH_LAUNCHES += 1
+    else:
+        DW_LAUNCHES += 1
+    return out
+
+
+class _FusedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, wte, labels):
+        nll, logz = launch_fwd(hidden, wte, labels)
+        ctx.save_for_backward(hidden, wte, labels, logz)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, wte, labels, logz = ctx.saved_tensors
+        g = g.float().contiguous()
+        return (launch_bwd("dh", hidden, wte, labels, logz, g),
+                launch_bwd("dw", hidden, wte, labels, logz, g), None)
+
+
+def fused_softmax_xent(hidden: torch.Tensor, wte: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL [N] f32 of ``labels`` under softmax(hidden @ wteᵀ).
+
+    hidden [N, D], wte [V, D] (one float dtype), labels [N] (negative =
+    ignored: NLL logZ, zero gradient; callers mask). Differentiable in
+    hidden and wte; dh comes back in hidden's dtype, dW in wte's."""
+    if hidden.device.type == "cpu":
+        return fused_softmax_xent_reference(hidden, wte, labels)
+    _check(hidden, wte, labels)
+    hidden, wte = hidden.contiguous(), wte.contiguous()
+    if hidden.data_ptr() % 16 or wte.data_ptr() % 16:
+        raise ValueError("fused_softmax_xent: the kernels load rows 16 bytes at a time; hidden "
+                         "and wte must start 16-byte aligned")
+    return _FusedXent.apply(hidden, wte, labels.to(torch.int32).contiguous())
+
+
+def fused_lm_loss(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -100) -> torch.Tensor:
+    """Shifted LM cross-entropy through ``fused_softmax_xent``, the
+    semantics of ``chunked_lm_loss``: position t is scored against
+    labels[t+1], mean over non-ignored targets."""
+    B, L, D = hidden.shape
+    shifted = torch.cat([labels[:, 1:], torch.full((B, 1), ignore_index, dtype=labels.dtype,
+                                                   device=labels.device)], dim=1).reshape(-1)
+    nll = fused_softmax_xent(hidden.reshape(B * L, D), wte, shifted)
+    mask = (shifted != ignore_index).float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -1,0 +1,292 @@
+"""Trainer on one device (counterpart of ``ergm_tpu/train/trainer.py``).
+
+Dataset meta -> model config -> parameters (fresh init, a params file,
+or the caller's) -> AdamW on the power-2 polynomial warmup schedule ->
+epoch loop with per-epoch validation, best-PPL checkpoints, resume and
+a SIGTERM preemption save. The epoch line reports tok/s, the step p50
+and MFU against the card's dense bf16 peak.
+
+Not ported yet, refused with ``NotImplementedError`` (ROADMAP queue 1):
+the Grain loader (``num_workers > 0``), several processes,
+``grad_accum_steps > 1`` and ``adam_mu_dtype``. TensorBoard scalars are
+not written.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import signal
+import sys
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
+from ergm_tpu_torch.core.device import resolve
+from ergm_tpu_torch.data.assembly import read_meta
+from ergm_tpu_torch.data.dataset import DialogueDataset, batches
+from ergm_tpu_torch.models import gpt2
+from ergm_tpu_torch.train import checkpoint as ckpt_lib
+from ergm_tpu_torch.train.schedule import polynomial_warmup_schedule
+from ergm_tpu_torch.train.steps import (AdamW, batch_to_device, create_train_state,
+                                        make_eval_step, make_train_step)
+from ergm_tpu_torch.utils.flops import device_peak_tflops, model_flops_per_token
+
+
+def _refuse_unported(cfg: TrainConfig) -> None:
+    missing = []
+    if cfg.num_workers > 0:
+        missing.append(f"num_workers={cfg.num_workers} (the Grain loader)")
+    if int(cfg.grad_accum_steps or 1) > 1:
+        missing.append(f"grad_accum_steps={cfg.grad_accum_steps}")
+    if cfg.adam_mu_dtype:
+        missing.append(f"adam_mu_dtype={cfg.adam_mu_dtype!r}")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
+            torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        missing.append("several processes")
+    if missing:
+        raise NotImplementedError("not ported yet (ROADMAP queue 1): " + ", ".join(missing))
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, model_config: Optional[ModelConfig] = None,
+                 params: Optional[gpt2.GPT2] = None, limit: Optional[int] = None,
+                 device="cuda"):
+        _refuse_unported(cfg)
+        self.cfg = cfg
+        self.device = resolve(device)
+        self.st = read_meta(cfg.data_dir)
+        if model_config is None:
+            drops = {k: getattr(cfg, k) for k in ("attn_pdrop", "resid_pdrop", "embd_pdrop")
+                     if getattr(cfg, k) is not None}
+            if cfg.remat_policy:
+                drops["remat_policy"] = cfg.remat_policy
+            model_config = ModelConfig.from_model_type(
+                cfg.model_type, vocab_size=self.st.vocab_size, dtype=cfg.dtype,
+                remat=cfg.remat, **drops)
+        self.max_len = min(cfg.max_len, model_config.n_positions)
+        self.mcfg = model_config
+
+        print(f"Loading {cfg.train_prefix} & {cfg.valid_prefix} data from {cfg.data_dir}...")
+        ds_kw = dict(data_dir=cfg.data_dir, sp1_id=self.st.sp1_id, sp2_id=self.st.sp2_id,
+                     eos_id=self.st.eos_id, max_len=self.max_len, limit=limit)
+        self.train_set = DialogueDataset(cfg.train_prefix, **ds_kw)
+        self.valid_set = DialogueDataset(cfg.valid_prefix, **ds_kw)
+        if len(self.train_set) < cfg.batch_size:
+            raise ValueError(f"train set has {len(self.train_set)} examples < batch_size "
+                             f"{cfg.batch_size}; training drops partial batches, so no step "
+                             f"would ever run")
+        num_batches = max(len(self.train_set) // cfg.batch_size, 1)
+        self.total_train_steps = max(cfg.num_epochs * num_batches, 1)
+        self.warmup_steps = int(cfg.warmup_ratio * self.total_train_steps)
+        self.tx = AdamW(polynomial_warmup_schedule(cfg.lr, self.warmup_steps,
+                                                   self.total_train_steps, power=2.0),
+                        b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+
+        if params is None:
+            params = gpt2.init_params(torch.Generator().manual_seed(cfg.seed), self.mcfg,
+                                      device=self.device)
+            if cfg.init_params:
+                print(f"Initializing params from {cfg.init_params}")
+                params = ckpt_lib.restore_params(cfg.init_params, params)
+        self.state = create_train_state(params.to(self.device), self.tx)
+        self.train_step = make_train_step(self.mcfg, self.tx, device=self.device)
+        self.eval_step = make_eval_step(self.mcfg)
+        self.seed = cfg.seed  # the dropout seed; each step folds in its update count
+
+        self.best_ppl = float(sys.float_info.max)
+        self.last_epoch = 0
+        os.makedirs(cfg.ckpt_dir, exist_ok=True)
+        if cfg.ckpt_name is not None:
+            path = ckpt_lib.find_checkpoint(cfg.ckpt_dir, cfg.ckpt_name)
+            if path:
+                print(f"Resuming from checkpoint: {path}")
+                restored = ckpt_lib.restore_checkpoint(path, self.state)
+                self.state = restored["state"]
+                self.best_ppl = restored["best_ppl"]
+                self.last_epoch = restored["epoch"]
+            else:
+                print(f"Cannot find the specified checkpoint under {cfg.ckpt_dir}; "
+                      "training starts from scratch.")
+
+    # -- helpers ---------------------------------------------------------
+
+    @staticmethod
+    def _fetch(metrics_list):
+        return [{k: float(v) for k, v in m.items()} for m in metrics_list]
+
+    @staticmethod
+    def _epoch_metrics(all_metrics):
+        losses = [m["loss"] for m in all_metrics]
+        lm = [m["lm_loss"] for m in all_metrics]
+        correct = sum(int(m["emotion_correct"]) for m in all_metrics)
+        total = sum(int(m["num_examples"]) for m in all_metrics)
+        avg_loss = float(np.mean(losses)) if losses else float("nan")
+        ppl = math.exp(float(np.mean(lm))) if lm else float("nan")
+        if math.isnan(ppl) or math.isinf(ppl):
+            ppl = 1e8  # the reference's NaN guard
+        acc = 100.0 * correct / max(total, 1)
+        return avg_loss, ppl, acc
+
+    @staticmethod
+    def _token_weighted_ppl(all_metrics) -> float:
+        """exp of the per-TOKEN mean CE (the reference's PPL weights batches
+        equally regardless of token count; both are reported)."""
+        tok = sum(m.get("lm_tokens", 0.0) for m in all_metrics)
+        tot = sum(m.get("lm_loss_sum", 0.0) for m in all_metrics)
+        if tok <= 0:
+            return float("nan")
+        ppl = math.exp(tot / tok)
+        return 1e8 if (math.isnan(ppl) or math.isinf(ppl)) else ppl
+
+    @staticmethod
+    def _throughput(step_stats, peak_tflops):
+        """(tok/s, step-p50 ms, MFU or None) from per-block (seconds,
+        tokens, flops, steps) tuples; the slowest block (the first, with
+        the kernel build and warm-up) is left out of the rate when more
+        than one ran."""
+        if not step_stats:
+            return float("nan"), float("nan"), None
+        stats = sorted(step_stats, key=lambda s: s[0] / max(s[3], 1))
+        if len(stats) > 1:
+            stats = stats[:-1]
+        secs = sum(s[0] for s in stats)
+        toks = sum(s[1] for s in stats)
+        flops = sum(s[2] for s in stats)
+        tok_s = toks / secs if secs > 0 else float("nan")
+        mid = stats[len(stats) // 2]
+        p50_ms = 1e3 * mid[0] / max(mid[3], 1)
+        mfu = (flops / 1e12) / secs / peak_tflops if peak_tflops and secs > 0 else None
+        return tok_s, p50_ms, mfu
+
+    def _batches(self, dataset, shuffle: bool, seed: int, drop_remainder: bool = False):
+        cfg = self.cfg
+        return batches(dataset, cfg.batch_size, self.st.eos_id, shuffle=shuffle, seed=seed,
+                       max_len=self.max_len, pad_multiple=cfg.pad_multiple,
+                       drop_remainder=drop_remainder, length_grouped=cfg.length_grouped)
+
+    # -- preemption ------------------------------------------------------
+
+    def _install_preempt_handler(self):
+        """The first SIGTERM sets a flag checked at step-block boundaries;
+        a second one falls through to the default handler. Returns the
+        previous handler, or None when not installed."""
+        if not self.cfg.save_on_preempt:
+            return None
+        if threading.current_thread() is not threading.main_thread():
+            return None
+
+        def _on_term(sig, frame):
+            if self._preempted:
+                signal.signal(sig, signal.SIG_DFL)
+                os.kill(os.getpid(), sig)
+                return
+            self._preempted = True
+            print("SIGTERM: will save a preemption checkpoint at the next step-block boundary "
+                  "(send again to exit immediately)")
+
+        return signal.signal(signal.SIGTERM, _on_term)
+
+    def _save_preempt(self) -> float:
+        path = ckpt_lib.save_preempt_checkpoint(self.cfg.ckpt_dir, self.state, self.last_epoch,
+                                                self.best_ppl)
+        print(f"Preemption checkpoint saved: {path} (resume with --ckpt_name=preempt)")
+        return self.best_ppl
+
+    # -- loops -----------------------------------------------------------
+
+    def train(self):
+        self._preempted = False
+        prev_handler = self._install_preempt_handler()
+        try:
+            return self._train_loop()
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    def _train_loop(self):
+        cfg = self.cfg
+        print("Training starts.")
+        start_epoch = self.last_epoch + 1
+        peak = (device_peak_tflops(torch.cuda.get_device_name(self.device))
+                if self.device.type == "cuda" else None)
+        # launches are asynchronous: wait for the device once per block of
+        # steps (on its last metrics) and fetch the epoch's metrics once
+        fetch_every = max(int(os.environ.get("ERGM_METRIC_FETCH_EVERY", "8")), 1)
+        for epoch in range(start_epoch, start_epoch + cfg.num_epochs):
+            t0 = time.time()
+            metrics_dev, step_stats = [], []
+            bt0 = time.time()
+            bn = btok = bflops = 0
+            real_tok = padded_tok = 0
+            for batch in self._batches(self.train_set, shuffle=True, seed=cfg.seed + epoch,
+                                       drop_remainder=True):
+                dev_batch = batch_to_device(batch, self.device)
+                self.state, metrics = self.train_step(self.state, dev_batch, self.seed)
+                metrics_dev.append(metrics)
+                b, l = batch.input_ids.shape
+                bn += 1
+                btok += b * l
+                real_tok += int(batch.attention_mask.sum())
+                padded_tok += batch.input_ids.size
+                bflops += model_flops_per_token(self.mcfg, l) * b * l
+                if bn == fetch_every:
+                    float(metrics["loss"])  # waits for the block's steps
+                    step_stats.append((time.time() - bt0, btok, bflops, bn))
+                    bt0 = time.time()
+                    bn = btok = bflops = 0
+                    if self._preempted:
+                        return self._save_preempt()
+            if bn:
+                float(metrics["loss"])
+                step_stats.append((time.time() - bt0, btok, bflops, bn))
+            train_metrics = self._fetch(metrics_dev)
+            loss, ppl, acc = self._epoch_metrics(train_metrics)
+            tw_ppl = self._token_weighted_ppl(train_metrics)
+            dt = time.time() - t0
+            tok_s, p50_ms, mfu = self._throughput(step_stats, peak)
+            perf = f"{tok_s:,.0f} tok/s | step p50 {p50_ms:.0f} ms"
+            if mfu is not None:
+                perf += f" | MFU {100 * mfu:.1f}%"
+            if padded_tok:
+                perf += f" | pad eff {100 * real_tok / padded_tok:.0f}%"
+            print(f"Epoch {epoch}: Train Loss: {loss:.4f} | Train PPL: {ppl:.4f} "
+                  f"(token-weighted {tw_ppl:.4f}) | Train Emotion Acc: {acc:.2f}% | "
+                  f"{dt:.1f}s | {perf}")
+
+            self.last_epoch = epoch
+            tv = time.time()
+            v_loss, v_ppl, v_acc = self.validation()
+            v_dt = time.time() - tv
+            if v_ppl < self.best_ppl:
+                self.best_ppl = v_ppl
+                tc = time.time()
+                path = ckpt_lib.save_checkpoint(cfg.ckpt_dir, self.state, epoch, v_ppl,
+                                                keep_best=cfg.keep_best)
+                print(f"Best checkpoint saved: {path} ({time.time() - tc:.1f}s)")
+            print(f"Best valid PPL: {self.best_ppl:.4f}")
+            print(f"Valid Loss: {v_loss:.4f} | Valid PPL: {v_ppl:.4f} "
+                  f"(token-weighted {self._last_valid_tw_ppl:.4f}) | "
+                  f"Valid Emotion Acc: {v_acc:.2f}% | {v_dt:.1f}s")
+            if self._preempted:
+                return self._save_preempt()
+        print("Training finished!")
+        if cfg.save_on_preempt:
+            # a stale emergency checkpoint resumed later would silently
+            # revert this run's result
+            ckpt_lib.clear_preempt_checkpoint(cfg.ckpt_dir)
+        return self.best_ppl
+
+    def validation(self):
+        metrics_dev = []
+        for batch in self._batches(self.valid_set, shuffle=False, seed=0):
+            metrics_dev.append(self.eval_step(self.state.params,
+                                              batch_to_device(batch, self.device)))
+        metrics = self._fetch(metrics_dev)
+        self._last_valid_tw_ppl = self._token_weighted_ppl(metrics)
+        return self._epoch_metrics(metrics)

@@ -1,0 +1,128 @@
+"""Port parity of kernel K5: ergm_tpu_torch.ops.block_attention's plain
+version against ergm_tpu.ops.block_attention.block_mha in Pallas
+interpret mode, on the same seeded numpy inputs, fp32 on the CPU.
+
+Bars: forward 2e-5, gradients 5e-5, the bars of JAX's own kernel test
+(tests/test_block_attention.py). Dropout uses one counter hash on both
+sides, so the same seed drops the same probabilities.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from ergm_tpu.ops import block_attention as jba
+from ergm_tpu_torch.ops import attention as tat
+from ergm_tpu_torch.ops import block_attention as tba
+
+torch.set_num_threads(1)
+
+B, H, L, D = 2, 2, 256, 64
+SEED = 1234
+
+
+def _inputs(rng, lk=L):
+    q = rng.standard_normal((B, H, L, D)).astype(np.float32)
+    k = rng.standard_normal((B, H, lk, D)).astype(np.float32)
+    v = rng.standard_normal((B, H, lk, D)).astype(np.float32)
+    g = rng.standard_normal((B, H, L, D)).astype(np.float32)  # the output's cotangent
+    kv_mask = rng.integers(0, 2, (B, lk)).astype(np.int32)
+    kv_mask[:, :8] = 1  # early keys real: every causal row sees one
+    q_mask = np.ones((B, L), np.int32)
+    q_mask[0, -32:] = 0
+    q_mask[1, -100:] = 0
+    return q, k, v, g, kv_mask, q_mask
+
+
+def _jax(q, k, v, g, causal, kv_mask, q_mask, rate):
+    def f(q, k, v):
+        return jba.block_mha(q, k, v, causal=causal, kv_mask=jnp.asarray(kv_mask),
+                             q_mask=None if q_mask is None else jnp.asarray(q_mask),
+                             dropout_rate=rate,
+                             dropout_seed=jnp.int32(SEED) if rate else None, interpret=True)
+    o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(o)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+def _torch(q, k, v, g, causal, kv_mask, q_mask, rate):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o = tba.block_mha(qt, kt, vt, causal=causal, kv_mask=torch.from_numpy(kv_mask),
+                      q_mask=None if q_mask is None else torch.from_numpy(q_mask),
+                      dropout_rate=rate, dropout_seed=SEED if rate else None)
+    grads = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(g))
+    return [o.detach().numpy()] + [x.numpy() for x in grads]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal,lk", [(True, L), (False, 128)])
+def test_plain_k5_matches_jax(causal, lk, rate):
+    """Causal (L=256) and non-causal (Lk=128), kv and q masks, dropout 0
+    and 0.1 on the same seed: output within 2e-5, dQ, dK, dV within 5e-5."""
+    q, k, v, g, kv_mask, q_mask = _inputs(np.random.default_rng(0 if causal else 1), lk)
+    want = _jax(q, k, v, g, causal, kv_mask, q_mask, rate)
+    got = _torch(q, k, v, g, causal, kv_mask, q_mask, rate)
+    np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=2e-5)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a, b, atol=5e-5, rtol=5e-5)
+
+
+def test_padded_queries_give_zero_output_and_gradient():
+    """Rows with q_mask 0 output exactly 0 and pass exactly 0 to dQ."""
+    q, k, v, g, kv_mask, q_mask = _inputs(np.random.default_rng(2))
+    o, dq, _, _ = _torch(q, k, v, g, True, kv_mask, q_mask, 0.1)
+    pad = q_mask == 0
+    assert np.abs(o.transpose(0, 2, 1, 3)[pad]).max() == 0.0
+    assert np.abs(dq.transpose(0, 2, 1, 3)[pad]).max() == 0.0
+    assert np.abs(o.transpose(0, 2, 1, 3)[~pad]).max() > 0.1
+
+
+def test_keep_mask_matches_dropout_rate():
+    """The hash keeps about 1 - rate of the probabilities, and another seed
+    keeps others."""
+    a = tat.dropout_keep(SEED, 2, 3, 128, 128, 0.1)
+    b = tat.dropout_keep(SEED + 1, 2, 3, 128, 128, 0.1)
+    assert abs(float(a.float().mean()) - 0.9) < 0.01
+    assert float((a != b).float().mean()) > 0.1
+
+
+def test_dead_rows_match_jax_forward():
+    """Causal rows whose every visible key is masked spread uniformly over
+    all keys, as JAX's kernel does (forward only: JAX's hand-written
+    backward and the true gradient differ on those rows)."""
+    q, k, v, g, kv_mask, _ = _inputs(np.random.default_rng(3))
+    kv_mask[:, :5] = 0
+    want = _jax(q, k, v, g, True, kv_mask, None, 0.0)[0]
+    got = _torch(q, k, v, g, True, kv_mask, None, 0.0)[0]
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_multihead_attention_routes_to_k5(monkeypatch):
+    """On K5's gate, ``multihead_attention`` takes K5's route (``block``
+    and ``pallas``; ``auto`` for CUDA tensors only) and passes q_mask,
+    dropout and seed through; outside the gate it takes the plain math."""
+    calls = []
+    real = tba.block_mha
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tba, "block_mha", spy)
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 128, 64)).astype(np.float32))
+               for _ in range(3))
+    qm = torch.ones((1, 128))
+    for impl in ("block", "pallas"):
+        tat.multihead_attention(q, k, v, causal=True, q_mask=qm, impl=impl, dropout_rate=0.1,
+                                deterministic=False, seed=7)
+    assert len(calls) == 2
+    assert calls[0]["dropout_rate"] == 0.1 and calls[0]["dropout_seed"] == 7
+    assert calls[0]["q_mask"] is qm
+    tat.multihead_attention(q, k, v, causal=True, impl="auto")  # CPU: plain math
+    tat.multihead_attention(q[:, :, :96], k[:, :, :96], v[:, :, :96], causal=True,
+                            impl="block")  # L=96: outside the gate
+    monkeypatch.setenv("ERGM_ATTN_IMPL", "xla")
+    tat.multihead_attention(q, k, v, causal=True, impl="block")
+    assert len(calls) == 2

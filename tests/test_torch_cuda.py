@@ -13,8 +13,10 @@ import torch
 
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.models import gpt2 as tg
+from ergm_tpu_torch.ops import block_attention as tba
 from ergm_tpu_torch.ops import cross_decode as tcd
 from ergm_tpu_torch.ops import decode_attention as tda
+from ergm_tpu_torch.ops import fused_ce as tce
 from ergm_tpu_torch.ops import fused_decode as tfd
 from ergm_tpu_torch.ops import prefill_attention as tpa
 
@@ -257,3 +259,213 @@ def test_decode_kernels_reject_what_they_do_not_take():
         tda.decode_mha_int8(q, kq, vq, ks, vs, 512, 0.125, n_head=2)
     with pytest.raises(ValueError):  # a bf16 cache instead of int8 codes
         tda.decode_mha_int8(q, kq.bfloat16(), vq, ks, vs, 100, 0.125, n_head=2)
+
+
+@pytest.mark.parametrize("kernel", ["block_mha", "fused_softmax_xent"])
+def test_training_wrappers_never_fall_back(kernel):
+    """K5 and K6 refuse a tensor on a device they do not serve."""
+    with pytest.raises(ValueError, match="meta"):
+        if kernel == "block_mha":
+            x = torch.empty((2, 2, 128, 64), device="meta")
+            tba.block_mha(x, x, x, causal=True)
+        else:
+            tce.fused_softmax_xent(torch.empty((8, 128), device="meta"),
+                                   torch.empty((32, 128), device="meta"),
+                                   torch.empty((8,), dtype=torch.int64, device="meta"))
+
+
+def _bf16_grad_ratio(got, plain, exact):
+    """How far a bf16 gradient is from its bar; above 1 fails. ``exact`` is
+    the same math in f32 on the same (bf16-valued) inputs. The kernel's
+    error against it may be at most twice the plain bf16 version's, over
+    the whole tensor (rms) and in each row (rms over the last dim, plus
+    0.1 rms(exact) for rows the plain version gets exactly): the kernels
+    round ds and padj where the plain autograd rounds dP and the output,
+    and K5's delta = rowsum(dO∘O) carries O's rounding."""
+    g, p, x = got.float(), plain.float(), exact.float()
+    assert bool(torch.isfinite(g).all())
+    ek, ep = g - x, p - x
+    whole = ek.pow(2).mean().sqrt() / (2 * ep.pow(2).mean().sqrt()).clamp_min(1e-30)
+    rows = ek.pow(2).mean(-1).sqrt() / (2 * ep.pow(2).mean(-1).sqrt()
+                                        + 0.1 * x.pow(2).mean().sqrt())
+    return max(whole.item(), rows.max().item())
+
+
+def _grads_within(got, want, dtype, f32_tol, exact=()):
+    """fp32: elementwise atol = rtol = ``f32_tol`` (JAX's kernel tests) of
+    the plain version; bf16: ``_bf16_grad_ratio`` against ``exact``."""
+    for a, b, x in zip(got, want, exact if dtype == torch.bfloat16 else want):
+        if dtype == torch.float32:
+            err = (a - b).abs()
+            assert bool((err <= f32_tol + f32_tol * b.abs()).all()), err.max().item()
+        else:
+            ratio = _bf16_grad_ratio(a, b, x)
+            assert ratio <= 1.0, ratio
+
+
+def _k5_case(dtype, causal, Lk, rate, masks, seed=0):
+    """(kernel, plain, plain in f32) runs, each [o, dQ, dK, dV]; the f32
+    run only for bf16 inputs."""
+    g = torch.Generator().manual_seed(seed)
+    B, H, L = 2, 4, 256
+    q, k, v, do = (torch.randn(s, generator=g).to("cuda", dtype)
+                   for s in ((B, H, L, 64), (B, H, Lk, 64), (B, H, Lk, 64), (B, H, L, 64)))
+    qm = km = None
+    if masks:
+        km = (torch.rand((B, Lk), generator=g) > 0.3).int().cuda()
+        km[:, :3] = 0 if causal else 1  # causal: rows before the first real key
+        qm = torch.ones((B, L), dtype=torch.int32, device="cuda")
+        qm[1, -40:] = 0
+    runs = [(tba.block_mha, dtype), (tba.block_mha_reference, dtype)]
+    if dtype == torch.bfloat16:
+        runs.append((tba.block_mha_reference, torch.float32))
+    outs = []
+    for fn, dt in runs:
+        qq, kk, vv = (x.to(dt).clone().requires_grad_(True) for x in (q, k, v))
+        o = fn(qq, kk, vv, causal=causal, scale=0.125, q_mask=qm, kv_mask=km, dropout_rate=rate,
+               dropout_seed=77 if rate else None)
+        outs.append([o, *torch.autograd.grad(o, (qq, kk, vv), do.to(dt))])
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal,Lk,masks", [(True, 256, True), (True, 256, False),
+                                             (False, 128, True)])
+def test_block_attention_kernel_matches_reference(dtype, rate, causal, Lk, masks):
+    """K5 forward and backward against the plain version: causal with q/kv
+    masks (including rows before the first real key), without masks, and
+    the rectangular non-causal form, dropout off and on with one seed.
+    fp32 with TF32 off at JAX's bars (2e-5 forward, 5e-5 gradients); bf16
+    output within 2e-2 + 1e-2 |plain|, gradients as ``_grads_within``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
+    (o, *grads), (o_ref, *grads_ref), *exact = _k5_case(dtype, causal, Lk, rate, masks)
+    assert (tba.LAUNCHES, tba.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    ok, err = _within(o, o_ref, dtype, 2e-5)
+    assert ok, err
+    exact = exact[0][1:] if exact else ()
+    _grads_within(grads, grads_ref, dtype, 5e-5, exact)
+    if exact:  # the bar sees the last keys, which few queries reach
+        late = grads[1].clone()
+        late[:, :, -32:] = 0
+        assert _bf16_grad_ratio(late, grads_ref[1], exact[1]) > 1.0
+
+
+@pytest.mark.cuda
+def test_block_attention_kernel_reads_strided_views():
+    """q, k, v as head views of one fused [B, L, 3*D] projection give the
+    same output and gradients as contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator().manual_seed(5)
+    qkv = torch.randn((2, 128, 3 * 128), generator=g).to("cuda", torch.bfloat16)
+    heads = [x.view(2, 128, 2, 64).transpose(1, 2) for x in qkv.split(128, dim=-1)]
+    do = torch.randn((2, 2, 128, 64), generator=g).to("cuda", torch.bfloat16)
+    res = []
+    for xs in (heads, [x.contiguous() for x in heads]):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        o = tba.block_mha(*xs, causal=True, dropout_rate=0.1, dropout_seed=3)
+        res.append([o, *torch.autograd.grad(o, xs, do)])
+    torch.cuda.synchronize()
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_block_attention_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    x16 = torch.zeros((2, 2, 128, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tba.block_mha(x16, x16, x16, causal=True)
+    x32 = torch.zeros((2, 2, 128, 32), device="cuda")
+    with pytest.raises(ValueError):  # head dim 32
+        tba.block_mha(x32, x32, x32, causal=True)
+    short = torch.zeros((2, 2, 96, 64), device="cuda")
+    with pytest.raises(ValueError):  # outside the gate: L=96
+        tba.block_mha(short, short, short, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,N,V,D", [(torch.float32, 300, 1000, 256),
+                                         (torch.bfloat16, 300, 5003, 768)])
+def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
+    """K6 forward, dh and dW against the plain version, with ignored labels
+    and ragged token and vocab tiles, on logits of std 3 (a trained LM
+    head's spread, where the softmax term is a large share of each
+    gradient). fp32 with TF32 off: NLL 1e-5, gradients rtol 1e-4 / atol
+    1e-5 (JAX's bars); bf16: NLL 1e-4 (the logits are exact bf16 products
+    summed in f32 on both sides), gradients as ``_grads_within``, a bar
+    that the gold term alone fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    h = torch.randn((N, D), generator=g).to("cuda", dtype)
+    w = (3.0 / D ** 0.5 * torch.randn((V, D), generator=g)).to("cuda", dtype)
+    lbl = torch.randint(0, V, (N,), generator=g).cuda()
+    lbl[::7] = -100
+    cot = torch.randn((N,), generator=g).cuda()
+    counts = (tce.LAUNCHES, tce.DH_LAUNCHES, tce.DW_LAUNCHES)
+    res = []
+    for fn, dt in ((tce.fused_softmax_xent, dtype), (tce.fused_softmax_xent_reference, dtype),
+                   (tce.fused_softmax_xent_reference, torch.float32)):
+        hh, ww = (x.to(dt).clone().requires_grad_(True) for x in (h, w))
+        nll = fn(hh, ww, lbl)
+        res.append([nll, *torch.autograd.grad((nll * cot).sum(), (hh, ww))])
+    torch.cuda.synchronize()
+    assert (tce.LAUNCHES, tce.DH_LAUNCHES, tce.DW_LAUNCHES) == tuple(c + 1 for c in counts)
+    (nll, dh, dw), (nll_ref, dh_ref, dw_ref), (_, dh_x, dw_x) = res
+    assert dh.dtype == dtype and dw.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    assert bool(((nll - nll_ref).abs() <= tol + tol * nll_ref.abs()).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(dh, dh_ref, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-5)
+    else:
+        _grads_within([dh, dw], [dh_ref, dw_ref], dtype, None, [dh_x, dw_x])
+        gw = torch.where(lbl >= 0, cot, 0.0)[:, None]
+        gold_dh = -gw * w.float()[lbl.clamp_min(0)]
+        gold_dw = torch.zeros((V, D), device="cuda").index_add_(0, lbl.clamp_min(0),
+                                                                -gw * h.float())
+        assert _bf16_grad_ratio(gold_dh, dh_ref, dh_x) > 1.0
+        assert _bf16_grad_ratio(gold_dw, dw_ref, dw_x) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+def test_training_routes_raise_instead_of_plain_math(impl):
+    """On the card the LM loss under ``auto`` and ``fused`` goes to K6, and
+    self-attention inside JAX's block gate to K5, also where the kernel
+    does not take the shape (D=96, head dim 48): they raise rather than
+    compute the plain math on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.ops.attention import multihead_attention
+    cfg = ModelConfig(n_layer=1, n_embd=96, n_head=2, vocab_size=64, n_positions=16,
+                      dtype="float32", lm_loss_impl=impl)
+    params = tg.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    hidden = torch.zeros((2, 8, 96), device="cuda")
+    with pytest.raises(ValueError, match="D=96"):
+        tg.lm_loss(hidden, params, cfg, torch.zeros((2, 8), dtype=torch.long, device="cuda"))
+    x = torch.zeros((2, 2, 128, 48), device="cuda")
+    with pytest.raises(ValueError, match="block_mha"):
+        multihead_attention(x, x, x, causal=True, impl=impl if impl == "auto" else "block")
+
+
+@pytest.mark.cuda
+def test_fused_xent_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    lbl = torch.zeros((8,), dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError):  # D = 96
+        tce.fused_softmax_xent(torch.zeros((8, 96), device="cuda"),
+                               torch.zeros((16, 96), device="cuda"), lbl)
+    with pytest.raises(TypeError):  # mixed dtypes
+        tce.fused_softmax_xent(torch.zeros((8, 128), device="cuda"),
+                               torch.zeros((16, 128), device="cuda", dtype=torch.bfloat16), lbl)

@@ -244,7 +244,8 @@ def _decode(side, params, cfg, x, B, L, Lc, T):
                    static_argnames=("prefix_prefill", "compute_logits"))
            if side == "jax" else lambda p, **kw: tg.forward(p, cfg, **kw))
     with torch.inference_mode():
-        cache = mod.init_kv_cache(cfg, B, T, caption_len=Lc)
+        cache = mod.init_kv_cache(cfg, B, T, caption_len=Lc,
+                                  **({} if side == "jax" else {"device": "cpu"}))
         o = fwd(params, input_ids=arr(x["ids"]), token_type_ids=arr(x["tts"]),
                 position_ids=arr(x["pos"]), attention_mask=arr(x["mask"]),
                 imgs=arr(x["imgs"]), auds=arr(x["auds"]), caption_ids=arr(x["caps"]),

@@ -46,7 +46,7 @@ def models():
         lambda x: np.asarray(x) + rng.normal(0, 0.02, x.shape).astype(np.float32),
         jg.init_params(jax.random.PRNGKey(0), jc))
     pj = jg.params_for_inference(jax.tree_util.tree_map(jnp.asarray, tree), jc)
-    pt = tg.params_for_inference(params_from_numpy(tree, tc), tc)
+    pt = tg.params_for_inference(params_from_numpy(tree, tc, device="cpu"), tc)
     return jc, tc, pj, pt
 
 
@@ -92,7 +92,8 @@ def _replay(side, params, cfg, ids, prompt_mask, tts, imgs, auds, caps, cap_mask
         def fwd(p, **kw):
             with torch.inference_mode():
                 return tg.forward(p, cfg, **kw)
-        cache = tg.init_kv_cache(cfg, ids.shape[0], max_len, caption_len=caps.shape[1])
+        cache = tg.init_kv_cache(cfg, ids.shape[0], max_len, caption_len=caps.shape[1],
+                                 device="cpu")
     B, Lp = ids.shape
     mask = np.zeros((B, max_len), np.float32)
     mask[:, :Lp] = prompt_mask

@@ -37,7 +37,7 @@ def _params(cfg_kw, seed=0):
         lambda x: np.asarray(x) + rng.normal(0, 0.02, x.shape).astype(np.float32),
         jg.init_params(jax.random.PRNGKey(seed), jc))
     pj = jg.params_for_inference(jax.tree_util.tree_map(jnp.asarray, tree), jc)
-    pt = tg.params_for_inference(params_from_numpy(tree, tc), tc)
+    pt = tg.params_for_inference(params_from_numpy(tree, tc, device="cpu"), tc)
     return jc, tc, pj, pt, tree
 
 
@@ -130,7 +130,8 @@ def _run(side, params, cfg, x, B, L, Lc, T, sp2=5):
         def run(p, **kw):
             with torch.inference_mode():
                 return tg.forward(p, cfg, **kw)
-    cache = mod.init_kv_cache(cfg, B, T, caption_len=Lc)
+    cache = mod.init_kv_cache(cfg, B, T, caption_len=Lc,
+                              **({} if side == "jax" else {"device": "cpu"}))
     o = run(params, input_ids=arr(x["ids"]), token_type_ids=arr(x["tts"]),
             position_ids=arr(x["pos"]), attention_mask=arr(x["mask"]), imgs=arr(x["imgs"]),
             auds=arr(x["auds"]), caption_ids=arr(x["caps"]),
@@ -188,7 +189,8 @@ def test_multi_token_cached_step_matches_jax(cross_kv_dtype):
     outs = []
     for side, params, cfg, arr, mod in (("jax", pj, jc, jnp.asarray, jg),
                                         ("torch", pt, tc, torch.as_tensor, tg)):
-        cache = mod.init_kv_cache(cfg, B, T, caption_len=Lc)
+        cache = mod.init_kv_cache(cfg, B, T, caption_len=Lc,
+                                  **({} if side == "jax" else {"device": "cpu"}))
         mask = x["mask"].copy()
         with torch.inference_mode():
             o = mod.forward(params, cfg, arr(x["ids"]), position_ids=arr(x["pos"]),
@@ -244,12 +246,14 @@ def test_init_params_shapes_and_stats():
     kernels and N(0, 0.02/sqrt(2 L)) residual projections."""
     kw = {**TINY, "vocab_size": 2048}
     cfg = ModelConfig(**kw)
-    model = tg.init_params(torch.Generator().manual_seed(0), cfg).requires_grad_(False)
+    model = tg.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu").requires_grad_(False)
     tree = jax.tree_util.tree_map(np.asarray, jg.init_params(jax.random.PRNGKey(0),
                                                              JaxConfig(**kw)))
     got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     # params_from_numpy loads strictly: JAX's leaves must fill exactly these shapes
-    want = {k: tuple(v.shape) for k, v in params_from_numpy(tree, cfg).state_dict().items()}
+    want = {k: tuple(v.shape)
+            for k, v in params_from_numpy(tree, cfg, device="cpu").state_dict().items()}
     assert got == want
     assert float(model.blocks[1].mlp.c_fc.bias.abs().max()) == 0.0
     assert float(model.blocks[0].ln_2.scale.min()) == 1.0
