@@ -50,8 +50,18 @@ Phases, each of which raises on failure:
    1e-5). Median CUDA-event times of kernel
    and plain in turns, and of ``scaled_dot_product_attention`` as K5's
    yardstick.
+   K7's shapes (JAX's library flash kernel, served by K5): [8, 12, 2048,
+   64] bf16, causal, left-pad key and query masks, no dropout, forward and
+   backward against the plain version (output and gradient bars as K5's,
+   on real rows), fp32 at [1, 2, 2048, 64] (2e-5 and 5e-5); times of
+   kernel, plain and ``scaled_dot_product_attention`` (``is_causal``, no
+   mask) as the yardstick.
 8. training reference: a small fp32 model takes 3 AdamW steps on the
    card (K5 and K6) and on the CPU (plain versions); losses within 1e-4.
+   Then the long-context path: one ``make_train_step`` step of gpt2 at
+   full width with ``n_positions=2048``, two layers, B=2, L=2048 and no
+   attention dropout, where the ``auto`` route takes K5 inside JAX's
+   flash gate: it must launch twice forward and twice backward.
 9. training slice: the ``scripts/train_bench.py`` configuration (gpt2
    at full width, B=48, L=512, bf16, dropout 0.1, remat "mlp", random
    weights from seed 0): ``make_train_step`` once, then 8 timed steps
@@ -65,6 +75,9 @@ Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
 shapes, the plain version's and a library call's time), and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
+Times are medians of CUDA events around single calls queued while the
+device is kept busy, so they read device time and not the host's launch
+overhead.
 ``--profile=PATH`` also writes a torch.profiler table of two train steps
 to PATH.
 """
@@ -113,6 +126,8 @@ TRAIN_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modali
                    attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1, remat=True,
                    remat_policy="mlp", lm_loss_impl="auto")
 TRAIN_B, TRAIN_L, SEED = 48, 512, 1234
+# K7's shapes: L past JAX's block gate (1024), served by K5 inside its flash gate
+LONG_L, FLASH_B = 2048, 8
 # H100 SXM data sheet: HBM bytes/s and dense peaks (bf16 tensor cores, f32 CUDA cores)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -195,6 +210,11 @@ def _timed_pair(name: str, run, plain, reps: int = 20) -> tuple:
 def _median_ms(fn, reps: int = 20) -> float:
     for _ in range(min(3, reps)):
         fn()
+    torch.cuda.synchronize()
+    # ~50 ms of device work ahead of the timed calls, so that the host has
+    # queued them before the first one starts: the events then bracket
+    # device time, not the launch overhead of the Python wrappers
+    torch.cuda._sleep(100_000_000)
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
     for start, end in pairs:
@@ -540,10 +560,11 @@ def slice_phase(card: str) -> tuple:
     return counts["K3+K4 on"], long_counts["K2 on"]
 
 
-def _k5_run(fn, q, k, v, do, rate) -> list:
-    """Output and (dQ, dK, dV) of ``fn`` (K5 or its plain version)."""
+def _k5_run(fn, q, k, v, do, rate=0.0, m=None) -> list:
+    """Output and (dQ, dK, dV) of ``fn`` (K5 or its plain version), causal,
+    with ``m`` as both the key and the query mask."""
     qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
-    o = fn(qq, kk, vv, causal=True, scale=0.125, dropout_rate=rate,
+    o = fn(qq, kk, vv, causal=True, scale=0.125, q_mask=m, kv_mask=m, dropout_rate=rate,
            dropout_seed=SEED if rate else None)
     return [o, *torch.autograd.grad(o, (qq, kk, vv), do)]
 
@@ -649,7 +670,14 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
     for name in ("block_mha", "block_mha_bwd"):
         print(f"{name}: SDPA {res[name]['library_ms']:.4f} ms, bound "
               f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
-    del fwd, bwd
+    # the same kernels without dropout: what the keep-mask hash costs
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o = block_attention.block_mha(*xs, causal=True, scale=0.125)
+    f0 = _median_ms(lambda: block_attention.block_mha(q, k, v, causal=True, scale=0.125))
+    b0 = _median_ms(lambda: torch.autograd.grad(o, xs, do, retain_graph=True))
+    print(f"K5 at dropout 0: forward {f0:.4f} ms, backward {b0:.4f} ms (the hash costs "
+          f"{res['block_mha']['ms'] - f0:.4f} and {res['block_mha_bwd']['ms'] - b0:.4f} ms)")
+    del fwd, bwd, o, xs
 
     # K6: bf16 at the slice's N, V, D; fp32 at N=2048. Logits of std 3, as
     # a trained LM head gives, so that the softmax term carries a large
@@ -740,6 +768,66 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
     return res
 
 
+def flash_kernel_phase(gen: torch.Generator) -> dict:
+    """K5 on the shapes of JAX's library flash kernel (K7): L=2048, causal,
+    left-pad masks, no dropout. Returns the K7 rows' numbers."""
+    res = {name: {"max_abs_err": 0.0} for name in ("block_mha_flash", "block_mha_flash_bwd")}
+    H_, Dh, L = 12, 64, LONG_L
+    for dtype, b, heads in ((torch.float32, 1, 2), (torch.bfloat16, FLASH_B, H_)):
+        q, k, v, do = (torch.randn((b, heads, L, Dh), generator=gen, device=DEVICE).to(dtype)
+                       for _ in range(4))
+        pads = torch.randint(0, 400, (b,), generator=gen, device=DEVICE)
+        pads[0] = 0
+        m = (torch.arange(L, device=DEVICE)[None] >= pads[:, None]).to(torch.int32)
+        real = m[:, None, :, None].bool()  # padded query rows: zeros here, junk in JAX's flash
+        got = _k5_run(block_attention.block_mha, q, k, v, do, m=m)
+        want = _k5_run(block_attention.block_mha_reference, q, k, v, do, m=m)
+        exact = (_k5_run(block_attention.block_mha_reference, *(x.float() for x in (q, k, v, do)),
+                         m=m)
+                 if dtype == torch.bfloat16 else ())
+        torch.cuda.synchronize()
+        o, o_ref = (torch.where(real, x.float(), 0.0) for x in (got[0], want[0]))
+        o_err = (o - o_ref).abs().max().item()
+        o_ok = _bf16_ok(o, o_ref) if dtype == torch.bfloat16 else o_err <= F32_TOL
+        if not o_ok or not bool(torch.isfinite(got[0]).all()):
+            raise AssertionError(f"K5 on K7's shape, {dtype}: output disagrees, {o_err:.3e}")
+        g_err, g_ratio = _grads_ok(got[1:], want[1:], dtype, 5e-5, exact[1:])
+        print(f"K5 on K7's shape {dtype} [{b}, {heads}, {L}, {Dh}] causal, left pads up to "
+              f"{int(pads.max())}: max |kernel - plain| output {o_err:.3e} (real rows), "
+              f"gradients {g_err:.3e} ({g_ratio:.3f} of the bar)")
+        key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
+        res["block_mha_flash"][key], res["block_mha_flash_bwd"][key] = o_err, g_err
+        del got, want, exact
+    # times at [8, 12, 2048, 64] bf16; the yardstick is one SDPA call
+    # (is_causal, no mask); the bound counts the pairs of real rows and keys
+    fwd = {"kernel": lambda *x: block_attention.block_mha(*x, causal=True, scale=0.125,
+                                                          q_mask=m, kv_mask=m),
+           "plain": lambda *x: block_attention.block_mha_reference(*x, causal=True, scale=0.125,
+                                                                   q_mask=m, kv_mask=m),
+           "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True, scale=0.125)}
+    r = res["block_mha_flash"]
+    r["ms"], r["plain_ms"] = _timed_pair("K5 on K7's shape, forward", lambda: fwd["kernel"](q, k, v),
+                                         lambda: fwd["plain"](q, k, v), reps=10)
+    r["library_ms"] = _median_ms(lambda: fwd["library"](q, k, v))
+    real_len = (L - pads).long()
+    pairs = int((real_len * (real_len + 1) // 2).sum()) * H_
+    r.update(bound(4 * _nbytes(q), 2 * 2 * pairs * Dh))
+    bwd = {}
+    for name, fn in fwd.items():
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs)
+        bwd[name] = (lambda o=o, xs=xs: torch.autograd.grad(o, xs, do, retain_graph=True))
+    r = res["block_mha_flash_bwd"]
+    r["ms"], r["plain_ms"] = _timed_pair("K5 on K7's shape, backward", bwd["kernel"],
+                                         bwd["plain"], reps=10)
+    r["library_ms"] = _median_ms(bwd["library"])
+    r.update(bound(8 * _nbytes(q), 5 * 2 * pairs * Dh))
+    for name in res:
+        print(f"{name}: SDPA {res[name]['library_ms']:.4f} ms, bound "
+              f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+    return res
+
+
 def _train_batch(rng, b: int, L: int, vocab: int, dev, caption: int = 0) -> dict:
     ids = rng.integers(0, vocab, (b, L))
     batch = {"input_ids": ids, "token_type_ids": rng.integers(0, vocab, (b, L)), "labels": ids,
@@ -784,6 +872,31 @@ def train_reference_phase() -> None:
           f"max diff {err:.3e} (tol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"the card's training steps disagree with the CPU's: {err}")
+
+
+def long_context_phase(card: str) -> dict:
+    """One make_train_step step of gpt2 at full width, n_positions=2048, two
+    layers, B=2, L=2048, no attention dropout: self-attention is outside
+    JAX's block gate and inside its flash gate, where ``auto`` takes K5.
+    Returns the launch counts of the step."""
+    cfg = ModelConfig.from_model_type(**{**TRAIN_SLICE, "n_positions": LONG_L, "n_layer": 2,
+                                         "attn_pdrop": 0.0})
+    params = gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(3), cfg)
+    tx = AdamW(1e-4)
+    state, step = create_train_state(params, tx), make_train_step(cfg, tx)
+    batch = _train_batch(np.random.default_rng(3), 2, LONG_L, 50000, DEVICE)
+    reset_launches()
+    t0 = time.time()
+    state, m = step(state, batch, SEED)
+    torch.cuda.synchronize()
+    counts = _train_counts()
+    want = {"block_mha": cfg.n_layer, "block_mha_bwd": cfg.n_layer}
+    if {k: counts[k] for k in want} != want or not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"long context: launches {counts}, want {want}; loss {m['loss']}")
+    print(f"long context: gpt2 n_positions={LONG_L}, 2 layers, B=2, L={LONG_L}, one train step "
+          f"in {time.time() - t0:.3f} s, loss {float(m['loss']):.4f}, K5 launches {counts} on "
+          f"{card}")
+    return counts
 
 
 def train_slice_phase(card: str) -> dict:
@@ -921,7 +1034,8 @@ def main() -> None:
 
     t0 = time.time()
     _build.load()
-    print(f"build: K1-K6 compiled and loaded in {time.time() - t0:.2f} s")
+    print(f"build: K1-K6 (K5 also for K7's shapes) compiled and loaded in "
+          f"{time.time() - t0:.2f} s")
     print(_build.build_log().strip())
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -929,9 +1043,12 @@ def main() -> None:
     decode = decode_kernel_phase(gen)
     train = train_kernel_phase(gen)
     torch.cuda.empty_cache()
+    flash = flash_kernel_phase(gen)
+    torch.cuda.empty_cache()
     reference_phase()
     on, long_on = slice_phase(card)
     train_reference_phase()
+    long_ctx = long_context_phase(card)
     train_on = train_slice_phase(card)
     for arg in sys.argv[1:]:
         if arg.startswith("--profile="):
@@ -947,15 +1064,21 @@ def main() -> None:
              train["block_mha"]),
             ("block_mha_bwd", "block_attention", "block_attention.py:236", train_on,
              train["block_mha_bwd"]),
+            ("block_mha_flash", "block_attention", "flash_attention.py:66", long_ctx,
+             flash["block_mha_flash"]),
+            ("block_mha_flash_bwd", "block_attention", "flash_attention.py:66", long_ctx,
+             flash["block_mha_flash_bwd"]),
             ("fused_softmax_xent", "fused_ce", "fused_ce.py:172", train_on,
              train["fused_softmax_xent"]),
             ("fused_softmax_xent_dh", "fused_ce", "fused_ce.py:235", train_on,
              train["fused_softmax_xent_dh"]),
             ("fused_softmax_xent_dw", "fused_ce", "fused_ce.py:262", train_on,
              train["fused_softmax_xent_dw"])]
+    # the K7 rows read the long-context step's K5 counts
+    counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"ergm_tpu_torch/csrc/{src}.cu",
-        "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[name], **nums}
+        "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[counts_of.get(name, name)], **nums}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,14 @@
 // Masked attention with probability dropout, forward and backward, for
-// Hopper (sm_90a): kernel K5 of the port.
+// Hopper (sm_90a): kernel K5 of the port, and the counterpart of JAX's
+// library flash kernel (K7) for the shapes JAX sends there.
 //
 // Replaces ergm_tpu/ops/block_attention.py::_fwd and ::_bwd, the Pallas
-// kernels behind block_mha (bodies _fwd_kernel and _bwd_kernel). The math
-// and its rounding points are JAX's (one q sub-block, the whole row):
+// kernels behind block_mha (bodies _fwd_kernel and _bwd_kernel), and
+// ergm_tpu/ops/flash_attention.py::flash_mha, which wraps JAX's library
+// TPU flash kernel for what the block kernel's VMEM cap refuses (L > 1024,
+// causal Lq < Lk at offset 0). A tiled kernel has no such cap, so one
+// kernel serves both gates. The math and its rounding points are JAX's
+// block kernel's (one q sub-block, the whole row):
 //   s = (q . k) * scale in f32; s = where(kv_mask & causal, s, -1e9);
 //   pn = exp(s - m) / max(l, 1e-30) with m, l over the row; pn = 0 on
 //   padded query rows; dropout: pn = keep ? pn / (1 - rate) : 0;
@@ -11,81 +16,87 @@
 // Backward: dpn = dO . v; with dropout dpn = keep ? dpn * inv : 0 and the
 // dV operand pv = keep ? pn * inv : 0; ds = pn * (dpn - delta), rounded to
 // the input type; dQ = scale * ds . K, dK = scale * ds^T . Q, dV = pv^T dO.
+// Causal means query i sees keys <= i, also when Lq < Lk.
 //
 // The keep mask is JAX's counter hash of its interpret mode (_keep_mask):
 // mix = seed + b*H + h, x = r*Lk + c + mix*2654435761 (mod 2^32), three
 // xorshift-multiply rounds, keep iff x >= rate*2^32. The TPU's hardware
 // random stream cannot be reproduced on another device; the hash gives the
 // same mask here, in the plain version and in JAX's interpret-mode kernel,
-// and the backward and a rematerialised forward regenerate it from the seed.
+// and the backward and a rematerialised forward regenerate it from the
+// seed instead of storing it.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM).
 // At the training slice, B=48, H=12, L=512, Dh=64, causal, one layer's
 // forward reads q, k, v and writes o: 4 x 37.7 MB = 151 MB, 45 us at the
 // HBM rate, against ~19 GFLOP of products, 20 us on the tensor cores: bytes
-// bind. The backward moves about 8 x 37.7 MB, ~90 us. The TPU kernel holds
-// a whole [L, L] f32 score block in VMEM (1 MB at L=512); an SM has 227 KB
-// of shared memory, so this design tiles: 64-row query tiles against
-// 64-key tiles, scores only in shared memory, causal tiles above the
-// diagonal skipped. To keep JAX's rounding points (the probabilities are
-// normalised by the whole row's statistics before they are rounded) the
-// forward walks the keys twice: pass 1 takes the row max m and sum l online
-// in f32, pass 2 recomputes s and accumulates the rounded pn . V. It writes
-// m and l (8 bytes a row) so that the backward's pn is bit-identical to the
-// forward's without a pass of its own. The backward is two kernels with no
-// atomics, so its result does not depend on scheduling: dQ (one CTA per
-// query tile, over the key tiles; it also writes delta = rowsum(dO * O) in
-// f32, which equals JAX's sum(pn * dpn) up to summation order in f32 and
-// differs in bf16 by O's rounding), then dK/dV (one CTA per key tile, over
-// the query tiles that see it). bf16 products run on the tensor cores
-// through nvcuda::wmma (16x16x16, f32 accumulate); f32 operands use f32
-// FMAs on the CUDA cores, so the f32 result holds JAX's bars with TF32 off.
-// bf16 tiles arrive by cp.async, all of a tile's copies in flight at once.
-// wgmma, TMA and keeping the score tiles in registers are later work.
+// bind the function. The kernel's own work is larger: two passes over the
+// keys (3 products where one pass needs 2), an exp per score and pass (46 us
+// of the SFUs a layer), and ~10 integer operations of the hash per score
+// when dropout is on. On an H100 none of these sets the pace (PERF.md):
+// the kernels run their products at a small share of the tensor cores'
+// rate and their exps at a small share of the SFUs'. They are bound by the
+// latency of each step (a tile's arrival, the block barrier, the dependent
+// chain product -> softmax -> product), which the two-pass structure
+// doubles.
 //
-// Rows whose every visible key is masked (causal rows before the first real
-// key) get JAX's forward result too: the uniform distribution over all Lk
-// keys; their query tiles walk every key tile instead of stopping at the
-// diagonal. Their gradient is the forward's true one (the plain version's):
-// masked scores are constants, so their ds is 0 (JAX's hand-written
-// backward gives them pn * (dpn - delta)).
+// bf16 design (tc::): CTAs of 128 query rows (keys, in dK/dV), 8 warps of
+// 16 rows; the other operand streams in 128-row tiles through a two-stage
+// cp.async ring (the next tile's copies are in flight while this one's
+// products run), worked in quarters of 32 columns so that a warp on the
+// causal diagonal skips the columns it cannot see. Products are mma.sync
+// m16n8k16 (bf16 in, f32 accumulate) with operands from shared memory by
+// ldmatrix (144-byte rows: conflict-free). Scores stay in the products'
+// accumulator registers; row max and sum are kept per lane and reduced
+// across the four lanes of a row with shuffles once, at the end of pass 1;
+// the rounded probabilities are repacked in registers as the A operand of
+// the PV product (and pv, ds of the dV, dK and dQ products), never stored.
+// mma.sync and not wgmma: a wgmma version of all three kernels (two
+// warpgroups of 64 rows, operands from shared memory by descriptor, P and
+// dS as register A), tried while this design was chosen, ran no faster, as
+// the latency bound above predicts; nor did 32-row warps, 64-column
+// sub-steps or a three- or four-stage ring; 128-row tiles (against 64)
+// made the forward a little faster. To keep JAX's rounding points
+// (the probabilities are normalised by the whole row's statistics before
+// they are rounded) the forward walks the keys twice: pass 1 takes the row
+// max m and sum l, pass 2 recomputes s and accumulates the rounded pn . V.
+// It writes m (in log2 units) and l, 8 bytes a row, so that the backward's
+// pn is the forward's without a pass of its own. The backward is two
+// kernels with no atomics, so its result does not depend on scheduling: dQ
+// (one CTA per query tile, over the key tiles; it also writes each row's
+// m, 1/l and delta = rowsum(dO * O) in f32, which equals JAX's
+// sum(pn * dpn) up to summation order in f32 and differs in bf16 by O's
+// rounding), then dK/dV (one CTA per key tile, over the query tiles that
+// see it, S^T and dP^T recomputed with keys as rows). Both regenerate the
+// keep mask from the hash rather than read a bit mask stored by the
+// forward, which would hold 19 MB a layer at the slice until the backward
+// (PERF.md weighs the two). A pre-pass turns the key mask into bits and
+// finds where each batch row's dead rows end, once per call.
+//
+// f32 design (f32::, the fp32 bars only): 64 x 64 tiles of 128 threads,
+// scores in shared memory, products as f32 FMAs on the CUDA cores in
+// order, so the f32 result holds JAX's bars with TF32 off.
+//
+// Dead rows, real rows whose every visible key is masked (causal rows
+// before the first real key), get JAX's forward result too: the uniform
+// distribution over all Lk keys; their query tiles walk every key tile
+// instead of stopping at the diagonal (padded rows there give 0 and stop).
+// Their gradient is the forward's true one (the plain version's): masked
+// scores are constants, so their ds is 0 (JAX's hand-written backward
+// gives them pn * (dpn - delta)).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
 
 #include "cp_async.cuh"
 
 namespace ergm_block {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kDh = 64;       // head dim
-constexpr int kT = 64;        // query rows and keys per tile
-constexpr int kThreads = 128;
+constexpr int kDh = 64;  // head dim
 constexpr float kNegInf = -1e9f;
-
-template <typename T>
-struct Tr;
-
-template <>
-struct Tr<float> {
-  static constexpr int kLd = kT + 1;   // element stride of operand tiles
-  static constexpr int kLdC = kT + 1;  // f32 stride of score and sum tiles
-  static __device__ __forceinline__ float cvt(float x) { return x; }
-  static __device__ __forceinline__ float f32(float x) { return x; }
-};
-
-template <>
-struct Tr<bf16> {
-  static constexpr int kLd = kT + 8;   // wmma: a multiple of 8, rows 16 B aligned
-  static constexpr int kLdC = kT + 4;  // wmma: a multiple of 4
-  static __device__ __forceinline__ bf16 cvt(float x) { return __float2bfloat16_rn(x); }
-  static __device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
-};
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -93,14 +104,15 @@ struct Args {
   const void* v;
   const void* o;
   const void* dout;
-  void* out;    // forward: o
+  void* out;  // forward: o
   void* dq;
   void* dk;
   void* dv;
-  float* ml;     // [2, B, H, L]: row max m, then row sum l
-  float* delta;  // [B, H, L]
-  const int* qmask;  // [B, L]
-  const int* kmask;  // [B, Lk]
+  float* ml;    // [2, B, H, L]: row max m (bf16: in log2 units), then row sum l
+  float* stat;  // [B, H, L, 4]: the backward's (m, 1/l or 0, delta, -) of each row
+  const int* qmask;       // [B, L]
+  const unsigned* kbits;  // [B, Lk / 32]: bit c of word w = key 32w + c is real
+  const int* dead;        // [B]: rows before it may be dead (see prep_kernel)
   int B, H, L, Lk;
   long long st[8][3];  // (batch, head, row) strides of q, k, v, o, dout, dq, dk, dv
   float scale;
@@ -111,10 +123,13 @@ struct Args {
 
 enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV };
 
-__device__ __forceinline__ bool keep(const Args& a, int b, int h, int r, int c) {
-  const unsigned mix = a.seed + static_cast<unsigned>(b * a.H + h);
-  unsigned x = static_cast<unsigned>(r) * static_cast<unsigned>(a.Lk) +
-               static_cast<unsigned>(c) + mix * 2654435761u;
+// The hash's per-(batch row, head) term, mix * 2654435761 (mod 2^32).
+__device__ __forceinline__ unsigned hash_base(const Args& a, int b, int h) {
+  return (a.seed + static_cast<unsigned>(b * a.H + h)) * 2654435761u;
+}
+
+// keep iff the hash of x = r*Lk + c + hash_base >= thr
+__device__ __forceinline__ bool keep(const Args& a, unsigned x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
@@ -122,6 +137,67 @@ __device__ __forceinline__ bool keep(const Args& a, int b, int h, int r, int c) 
   x ^= x >> 16;
   return x >= a.thr;
 }
+
+__device__ __forceinline__ bool key_real(const Args& a, int b, int c) {
+  return (a.kbits[static_cast<long long>(b) * (a.Lk >> 5) + (c >> 5)] >> (c & 31)) & 1u;
+}
+
+__device__ __forceinline__ long long row_index(const Args& a, int b, int h, int r) {
+  return (static_cast<long long>(b) * a.H + h) * a.L + r;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* head(const Args& a, const void* base, int which, int b,
+                                         int h) {
+  return static_cast<const T*>(base) + b * a.st[which][0] + h * a.st[which][1];
+}
+
+template <typename T>
+__device__ __forceinline__ T* head_out(const Args& a, void* base, int which, int b, int h) {
+  return static_cast<T*>(base) + b * a.st[which][0] + h * a.st[which][1];
+}
+
+// The key mask as bits, and where each batch row's dead rows end: one CTA
+// per batch row. A dead row is a real query row before the first real key
+// (causal: it sees no real key, and JAX spreads it over every key); rows
+// from dead[b] on walk only up to the diagonal. Padded rows before the
+// first real key are not dead: their output is 0 whatever they walk.
+__global__ void prep_kernel(const int* kmask, const int* qmask, unsigned* kbits, int* dead,
+                            int L, int Lk) {
+  __shared__ int warp_best[32];
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = Lk >> 5, warps = blockDim.x >> 5;
+  int mine = Lk;  // words rise along a warp's loop: its first hit is its least key
+  for (int w = warp; w < nw; w += warps) {
+    const unsigned bits =
+        __ballot_sync(0xffffffffu, kmask[static_cast<long long>(b) * Lk + w * 32 + lane] != 0);
+    if (lane == 0) kbits[static_cast<long long>(b) * nw + w] = bits;
+    if (bits && mine == Lk) mine = w * 32 + __ffs(bits) - 1;
+  }
+  if (lane == 0) warp_best[warp] = mine;
+  __syncthreads();
+  int first = warp_best[0];
+  for (int w = 1; w < warps; ++w) first = min(first, warp_best[w]);
+  __syncthreads();
+  int last = -1;  // the last real query row before the first real key
+  for (int r = threadIdx.x; r < min(first, L); r += blockDim.x)
+    if (qmask[static_cast<long long>(b) * L + r]) last = r;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0) warp_best[warp] = last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < warps; ++w) last = max(last, warp_best[w]);
+    dead[b] = last + 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core products in order, scores in shared memory.
+namespace f32 {
+
+constexpr int kT = 64;  // query rows and keys per tile
+constexpr int kThreads = 128;
+constexpr int kLd = kT + 1;  // odd stride: column walks hit distinct banks
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -135,178 +211,104 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__device__ __forceinline__ const T* head(const Args& a, const void* base, int which, int b,
-                                         int h) {
-  return static_cast<const T*>(base) + b * a.st[which][0] + h * a.st[which][1];
-}
-
-// Stage rows [0, 64) of one head (row stride sl elements, 64 contiguous
-// elements each) into an operand tile, 16 bytes at a time: bf16 rows by
-// cp.async (complete after ergm_async::wait_all()), f32 rows, whose odd
-// tile stride is not 16-byte aligned, through registers.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long sl) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPer = kDh / kVec;
-  constexpr int ld = Tr<T>::kLd;
-  for (int i = threadIdx.x; i < kT * kPer; i += kThreads) {
-    const int r = i / kPer, c = (i % kPer) * kVec;
-    if constexpr (sizeof(T) == 2) {
-      ergm_async::copy16(dst + r * ld + c, src + r * sl + c);
-    } else {
-      const uint4 val = *reinterpret_cast<const uint4*>(src + r * sl + c);
-      const float* f = reinterpret_cast<const float*>(&val);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[r * ld + c + e] = f[e];
-    }
+// Stage rows [0, 64) of one head (row stride sl floats) into a tile.
+__device__ __forceinline__ void stage(float* dst, const float* src, long long sl) {
+  for (int i = threadIdx.x; i < kT * 16; i += kThreads) {
+    const int r = i / 16, c = (i % 16) * 4;
+    const float4 val = *reinterpret_cast<const float4*>(src + r * sl + c);
+    dst[r * kLd + c] = val.x;
+    dst[r * kLd + c + 1] = val.y;
+    dst[r * kLd + c + 2] = val.z;
+    dst[r * kLd + c + 3] = val.w;
   }
 }
 
-// c[64 x 64] (f32, stride kLdC) = (acc ? c : 0) + A . B over k in [0, 64).
-// A(i, k) = a[i*ld + k], or a[k*ld + i] when AT; B(k, j) = b[k*ld + j], or
-// b[j*ld + k] when BT. Each output has one owner: bf16 warp w owns rows
-// [16w, 16w + 16) through wmma; f32 threads sum k in order with FMAs.
-template <typename T, bool AT, bool BT>
-__device__ __forceinline__ void mma64(float* c, const T* a, const T* b, bool acc) {
-  constexpr int ld = Tr<T>::kLd, ldc = Tr<T>::kLdC;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using LA = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-    const int w = threadIdx.x >> 5;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (acc) {
-        wmma::load_matrix_sync(cf[j], c + w * 16 * ldc + j * 16, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(cf[j], 0.0f);
-      }
-    }
-#pragma unroll
-    for (int kf = 0; kf < 4; ++kf) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> af;
-      wmma::load_matrix_sync(af, AT ? a + kf * 16 * ld + w * 16 : a + w * 16 * ld + kf * 16, ld);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> bfr;
-        wmma::load_matrix_sync(bfr, BT ? b + j * 16 * ld + kf * 16 : b + kf * 16 * ld + j * 16,
-                               ld);
-        wmma::mma_sync(cf[j], af, bfr, cf[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(c + w * 16 * ldc + j * 16, cf[j], ldc, wmma::mem_row_major);
-  } else {
-    for (int idx = threadIdx.x; idx < kT * kT; idx += kThreads) {
-      const int i = idx / kT, j = idx % kT;
-      float s = acc ? c[i * ldc + j] : 0.0f;
+// c[64 x 64] = (acc ? c : 0) + A . B over k in [0, 64). A(i, k) = a[i*kLd + k],
+// or a[k*kLd + i] when AT; B(k, j) = b[k*kLd + j], or b[j*kLd + k] when BT.
+// Each output has one owner, which sums k in order with FMAs.
+template <bool AT, bool BT>
+__device__ __forceinline__ void mma64(float* c, const float* a, const float* b, bool acc) {
+  for (int idx = threadIdx.x; idx < kT * kT; idx += kThreads) {
+    const int i = idx / kT, j = idx % kT;
+    float s = acc ? c[i * kLd + j] : 0.0f;
 #pragma unroll 8
-      for (int k = 0; k < kT; ++k)
-        s = fmaf(AT ? a[k * ld + i] : a[i * ld + k], BT ? b[j * ld + k] : b[k * ld + j], s);
-      c[i * ldc + j] = s;
-    }
+    for (int k = 0; k < kT; ++k)
+      s = fmaf(AT ? a[k * kLd + i] : a[i * kLd + k], BT ? b[j * kLd + k] : b[k * kLd + j], s);
+    c[i * kLd + j] = s;
   }
 }
 
-// Write a 64 x 64 f32 tile, times mul, rounded to T, to rows of one head.
-template <typename T>
-__device__ __forceinline__ void write_tile(T* dst, long long sl, const float* c, float mul) {
+// Write a 64 x 64 tile, times mul, to rows of one head.
+__device__ __forceinline__ void write_tile(float* dst, long long sl, const float* c, float mul) {
   for (int i = threadIdx.x; i < kT * kDh; i += kThreads) {
     const int r = i / kDh, d = i % kDh;
-    dst[r * sl + d] = Tr<T>::cvt(c[r * Tr<T>::kLdC + d] * mul);
+    dst[r * sl + d] = c[r * kLd + d] * mul;
   }
 }
 
-template <typename T>
 __device__ __forceinline__ void zero_tile(float* c) {
-  for (int i = threadIdx.x; i < kT * Tr<T>::kLdC; i += kThreads) c[i] = 0.0f;
-}
-
-// The key mask of row b into shared memory, and the first real key.
-__device__ __forceinline__ void load_keys(const Args& a, int b, int* keym, int* first) {
-  if (threadIdx.x == 0) *first = a.Lk;
-  for (int j = threadIdx.x; j < a.Lk; j += kThreads)
-    keym[j] = a.kmask[static_cast<long long>(b) * a.Lk + j] != 0;
-  __syncthreads();
-  for (int j = threadIdx.x; j < a.Lk; j += kThreads)
-    if (keym[j]) atomicMin(first, j);
-  __syncthreads();
+  for (int i = threadIdx.x; i < kT * kLd; i += kThreads) c[i] = 0.0f;
 }
 
 // Keys the query tile at q0 walks: up to its diagonal when causal, unless
-// it holds rows before the first real key (all their visible keys masked),
-// which JAX spreads uniformly over every key.
-__device__ __forceinline__ int key_end(const Args& a, int q0, int first) {
-  return (a.causal && q0 >= first) ? min(a.Lk, q0 + kT) : a.Lk;
+// it holds dead rows (all their visible keys masked), which JAX spreads
+// uniformly over every key.
+__device__ __forceinline__ int key_end(const Args& a, int q0, int dead) {
+  return (a.causal && q0 >= dead) ? min(a.Lk, q0 + kT) : a.Lk;
 }
 
-// Whether query q0 + r sees key k0 + c, and the masked, scaled score.
-__device__ __forceinline__ bool visible(const Args& a, const int* keym, int q0, int r, int k0,
-                                        int c) {
-  return keym[k0 + c] && (!a.causal || k0 + c <= q0 + r);
+// Whether query q0 + r sees key k0 + c.
+__device__ __forceinline__ bool visible(const Args& a, int b, int q0, int r, int k0, int c) {
+  return key_real(a, b, k0 + c) && (!a.causal || k0 + c <= q0 + r);
 }
 
-__device__ __forceinline__ float score(const Args& a, float dot, const int* keym, int q0,
-                                       int r, int k0, int c) {
-  return visible(a, keym, q0, r, k0, c) ? dot * a.scale : kNegInf;
-}
+constexpr size_t kTileBytes = sizeof(float) * kT * kLd;
+constexpr size_t smem_bytes(int tiles) { return tiles * kTileBytes + sizeof(float) * 4 * kT; }
 
-template <typename T>
-struct Smem {
-  static constexpr size_t tile = sizeof(T) * kT * Tr<T>::kLd;
-  static constexpr size_t ftile = sizeof(float) * kT * Tr<T>::kLdC;
-  static size_t bytes(int n_tiles, int n_ftiles, int Lk) {
-    return n_tiles * tile + n_ftiles * ftile + sizeof(float) * 4 * kT + sizeof(int) * Lk;
-  }
-};
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int first;
-  constexpr int ldc = Tr<T>::kLdC, ld = Tr<T>::kLd;
-  T* qs = reinterpret_cast<T*>(smem);
-  T* kvs = qs + kT * ld;
-  T* ps = kvs + kT * ld;
-  float* ss = reinterpret_cast<float*>(ps + kT * ld);
-  float* os = ss + kT * ldc;
-  float* row_m = os + kT * ldc;
+  float* qs = reinterpret_cast<float*>(smem);
+  float* kvs = qs + kT * kLd;
+  float* ps = kvs + kT * kLd;
+  float* ss = ps + kT * kLd;
+  float* os = ss + kT * kLd;
+  float* row_m = os + kT * kLd;
   float* row_l = row_m + kT;
-  int* row_q = reinterpret_cast<int*>(row_l + 2 * kT);
-  int* keym = row_q + kT;
+  int* row_q = reinterpret_cast<int*>(row_l + kT);
 
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* q = head<T>(a, a.q, kQ, b, h);
-  const T* k = head<T>(a, a.k, kK, b, h);
-  const T* v = head<T>(a, a.v, kV, b, h);
+  const float* q = head<float>(a, a.q, kQ, b, h);
+  const float* k = head<float>(a, a.k, kK, b, h);
+  const float* v = head<float>(a, a.v, kV, b, h);
+  const unsigned hb = hash_base(a, b, h);
 
-  load_keys(a, b, keym, &first);
   for (int r = threadIdx.x; r < kT; r += kThreads) {
     row_q[r] = a.qmask[static_cast<long long>(b) * a.L + q0 + r] != 0;
     row_m[r] = -INFINITY;
     row_l[r] = 0.0f;
   }
   stage(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
-  zero_tile<T>(os);
-  const int kend = key_end(a, q0, first);
+  zero_tile(os);
+  const int kend = key_end(a, q0, a.dead[b]);
 
   // pass 1: row max and sum, online over the key tiles
   for (int k0 = 0; k0 < kend; k0 += kT) {
     __syncthreads();
     stage(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
-    ergm_async::wait_all();
     __syncthreads();
-    mma64<T, false, true>(ss, qs, kvs, false);
+    mma64<false, true>(ss, qs, kvs, false);
     __syncthreads();
     for (int r = warp; r < kT; r += kThreads / 32) {
-      const float s0 = score(a, ss[r * ldc + lane], keym, q0, r, k0, lane);
-      const float s1 = score(a, ss[r * ldc + lane + 32], keym, q0, r, k0, lane + 32);
+      float s[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = lane + 32 * e;
+        s[e] = visible(a, b, q0, r, k0, c) ? ss[r * kLd + c] * a.scale : kNegInf;
+      }
       const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float sum = warp_sum(expf(s0 - m_new) + expf(s1 - m_new));
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
+      const float sum = warp_sum(expf(s[0] - m_new) + expf(s[1] - m_new));
       if (lane == 0) {
         row_l[r] = row_l[r] * expf(m_old - m_new) + sum;
         row_m[r] = m_new;
@@ -314,31 +316,33 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
     }
   }
 
-  // pass 2: recompute s, normalise, drop, round, accumulate pn . V
+  // pass 2: recompute s, normalise, drop, accumulate pn . V
   for (int k0 = 0; k0 < kend; k0 += kT) {
     __syncthreads();
     stage(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
-    ergm_async::wait_all();
     __syncthreads();
-    mma64<T, false, true>(ss, qs, kvs, false);
+    mma64<false, true>(ss, qs, kvs, false);
     __syncthreads();
     stage(kvs, v + k0 * a.st[kV][2], a.st[kV][2]);  // K is no longer read
     for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
       const int r = i / kT, c = i % kT;
-      const float s = score(a, ss[r * ldc + c], keym, q0, r, k0, c);
+      const float s = visible(a, b, q0, r, k0, c) ? ss[r * kLd + c] * a.scale : kNegInf;
       float p = expf(s - row_m[r]) / fmaxf(row_l[r], 1e-30f);
       if (!row_q[r]) p = 0.0f;
-      if (a.dropout) p = keep(a, b, h, q0 + r, k0 + c) ? p / a.drop_div : 0.0f;
-      ps[r * ld + c] = Tr<T>::cvt(p);
+      if (a.dropout) {
+        const unsigned x = static_cast<unsigned>(q0 + r) * static_cast<unsigned>(a.Lk) +
+                           static_cast<unsigned>(k0 + c) + hb;
+        p = keep(a, x) ? p / a.drop_div : 0.0f;
+      }
+      ps[r * kLd + c] = p;
     }
-    ergm_async::wait_all();
     __syncthreads();
-    mma64<T, false, false>(os, ps, kvs, true);
+    mma64<false, false>(os, ps, kvs, true);
   }
   __syncthreads();
-  T* o = static_cast<T*>(a.out) + b * a.st[kO][0] + h * a.st[kO][1];
+  float* o = head_out<float>(a, a.out, kO, b, h);
   write_tile(o + q0 * a.st[kO][2], a.st[kO][2], os, 1.0f);
-  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.L + q0;
+  const long long row0 = row_index(a, b, h, q0);
   const long long plane = static_cast<long long>(a.B) * a.H * a.L;
   for (int r = threadIdx.x; r < kT; r += kThreads) {
     a.ml[row0 + r] = row_m[r];
@@ -351,188 +355,684 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
 // A masked score is a constant of the forward (the where's fill), so its
 // ds is 0; this only matters on rows with every visible key masked, whose
 // pn is not 0 there.
-template <typename T>
-__device__ __forceinline__ void grad_step(const Args& a, int b, int h, int q0, int r, int k0,
-                                          int c, float dot, float dp, const int* keym,
+__device__ __forceinline__ void grad_step(const Args& a, int b, unsigned hb, int q0, int r,
+                                          int k0, int c, float dot, float dp,
                                           const float* row_m, const float* row_l,
-                                          const float* row_d, const int* row_q, T* pv_out,
-                                          T* ds_out) {
-  const bool ok = visible(a, keym, q0, r, k0, c);
+                                          const float* row_d, const int* row_q, float* pv_out,
+                                          float* ds_out) {
+  const bool ok = visible(a, b, q0, r, k0, c);
   float pn = expf((ok ? dot * a.scale : kNegInf) - row_m[r]) / fmaxf(row_l[r], 1e-30f);
   if (!row_q[r]) pn = 0.0f;
   float pv = pn;
   if (a.dropout) {
-    const bool kp = keep(a, b, h, q0 + r, k0 + c);
+    const unsigned x = static_cast<unsigned>(q0 + r) * static_cast<unsigned>(a.Lk) +
+                       static_cast<unsigned>(k0 + c) + hb;
+    const bool kp = keep(a, x);
     dp = kp ? dp * a.drop_mul : 0.0f;
     pv = kp ? pn * a.drop_mul : 0.0f;
   }
-  if (pv_out) *pv_out = Tr<T>::cvt(pv);
-  *ds_out = Tr<T>::cvt(ok ? pn * (dp - row_d[r]) : 0.0f);
+  if (pv_out) *pv_out = pv;
+  *ds_out = ok ? pn * (dp - row_d[r]) : 0.0f;
 }
 
-template <typename T>
 __device__ __forceinline__ void load_rows(const Args& a, int b, int h, int q0, float* row_m,
                                           float* row_l, float* row_d, int* row_q) {
-  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.L + q0;
+  const long long row0 = row_index(a, b, h, q0);
   const long long plane = static_cast<long long>(a.B) * a.H * a.L;
   for (int r = threadIdx.x; r < kT; r += kThreads) {
     row_m[r] = a.ml[row0 + r];
     row_l[r] = a.ml[plane + row0 + r];
-    if (row_d) row_d[r] = a.delta[row0 + r];
+    if (row_d) row_d[r] = a.stat[4 * (row0 + r) + 2];
     row_q[r] = a.qmask[static_cast<long long>(b) * a.L + q0 + r] != 0;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int first;
-  constexpr int ldc = Tr<T>::kLdC, ld = Tr<T>::kLd;
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kT * ld;
-  T* ks = dos + kT * ld;
-  T* vs = ks + kT * ld;
-  T* dss = vs + kT * ld;
-  float* ss = reinterpret_cast<float*>(dss + kT * ld);
-  float* dps = ss + kT * ldc;
-  float* acc = dps + kT * ldc;
-  float* row_m = acc + kT * ldc;
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + kT * kLd;
+  float* ks = dos + kT * kLd;
+  float* vs = ks + kT * kLd;
+  float* dss = vs + kT * kLd;
+  float* ss = dss + kT * kLd;
+  float* dps = ss + kT * kLd;
+  float* acc = dps + kT * kLd;
+  float* row_m = acc + kT * kLd;
   float* row_l = row_m + kT;
   float* row_d = row_l + kT;
   int* row_q = reinterpret_cast<int*>(row_d + kT);
-  int* keym = row_q + kT;
 
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* q = head<T>(a, a.q, kQ, b, h);
-  const T* k = head<T>(a, a.k, kK, b, h);
-  const T* v = head<T>(a, a.v, kV, b, h);
-  const T* o = head<T>(a, a.o, kO, b, h) + q0 * a.st[kO][2];
-  const T* dout = head<T>(a, a.dout, kDO, b, h);
+  const float* q = head<float>(a, a.q, kQ, b, h);
+  const float* k = head<float>(a, a.k, kK, b, h);
+  const float* v = head<float>(a, a.v, kV, b, h);
+  const float* o = head<float>(a, a.o, kO, b, h) + q0 * a.st[kO][2];
+  const float* dout = head<float>(a, a.dout, kDO, b, h);
+  const unsigned hb = hash_base(a, b, h);
 
-  load_keys(a, b, keym, &first);
-  load_rows<T>(a, b, h, q0, row_m, row_l, nullptr, row_q);
+  load_rows(a, b, h, q0, row_m, row_l, nullptr, row_q);
   stage(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
   stage(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
-  zero_tile<T>(acc);
-  ergm_async::wait_all();
+  zero_tile(acc);
   __syncthreads();
   // delta = rowsum(dO * O) in f32, for this kernel and the dK/dV kernel
-  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.L + q0;
+  const long long row0 = row_index(a, b, h, q0);
   for (int r = warp; r < kT; r += kThreads / 32) {
-    const T* orow = o + r * a.st[kO][2];
-    const float t = Tr<T>::f32(dos[r * ld + lane]) * Tr<T>::f32(orow[lane]) +
-                    Tr<T>::f32(dos[r * ld + lane + 32]) * Tr<T>::f32(orow[lane + 32]);
-    const float d = warp_sum(t);
+    const float* orow = o + r * a.st[kO][2];
+    const float d = warp_sum(dos[r * kLd + lane] * orow[lane] +
+                             dos[r * kLd + lane + 32] * orow[lane + 32]);
     if (lane == 0) {
       row_d[r] = d;
-      a.delta[row0 + r] = d;
+      a.stat[4 * (row0 + r) + 2] = d;
     }
   }
-  const int kend = key_end(a, q0, first);
+  const int kend = key_end(a, q0, a.dead[b]);
   for (int k0 = 0; k0 < kend; k0 += kT) {
     __syncthreads();
     stage(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
     stage(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
-    ergm_async::wait_all();
     __syncthreads();
-    mma64<T, false, true>(ss, qs, ks, false);
-    mma64<T, false, true>(dps, dos, vs, false);
+    mma64<false, true>(ss, qs, ks, false);
+    mma64<false, true>(dps, dos, vs, false);
     __syncthreads();
     for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
       const int r = i / kT, c = i % kT;
-      grad_step<T>(a, b, h, q0, r, k0, c, ss[r * ldc + c], dps[r * ldc + c], keym, row_m,
-                   row_l, row_d, row_q, nullptr, dss + r * ld + c);
+      grad_step(a, b, hb, q0, r, k0, c, ss[r * kLd + c], dps[r * kLd + c], row_m, row_l, row_d,
+                row_q, nullptr, dss + r * kLd + c);
     }
     __syncthreads();
-    mma64<T, false, false>(acc, dss, ks, true);
+    mma64<false, false>(acc, dss, ks, true);
   }
   __syncthreads();
-  T* dq = static_cast<T*>(a.dq) + b * a.st[kDQ][0] + h * a.st[kDQ][1];
+  float* dq = head_out<float>(a, a.dq, kDQ, b, h);
   write_tile(dq + q0 * a.st[kDQ][2], a.st[kDQ][2], acc, a.scale);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int first;
-  constexpr int ldc = Tr<T>::kLdC, ld = Tr<T>::kLd;
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kT * ld;
-  T* qs = vs + kT * ld;
-  T* dos = qs + kT * ld;
-  T* ps = dos + kT * ld;
-  T* dss = ps + kT * ld;
-  float* ss = reinterpret_cast<float*>(dss + kT * ld);
-  float* dps = ss + kT * ldc;
-  float* dk_acc = dps + kT * ldc;
-  float* dv_acc = dk_acc + kT * ldc;
-  float* row_m = dv_acc + kT * ldc;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kT * kLd;
+  float* qs = vs + kT * kLd;
+  float* dos = qs + kT * kLd;
+  float* ps = dos + kT * kLd;
+  float* dss = ps + kT * kLd;
+  float* ss = dss + kT * kLd;
+  float* dps = ss + kT * kLd;
+  float* dk_acc = dps + kT * kLd;
+  float* dv_acc = dk_acc + kT * kLd;
+  float* row_m = dv_acc + kT * kLd;
   float* row_l = row_m + kT;
   float* row_d = row_l + kT;
   int* row_q = reinterpret_cast<int*>(row_d + kT);
-  int* keym = row_q + kT;
 
   const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const T* q = head<T>(a, a.q, kQ, b, h);
-  const T* k = head<T>(a, a.k, kK, b, h);
-  const T* v = head<T>(a, a.v, kV, b, h);
-  const T* dout = head<T>(a, a.dout, kDO, b, h);
+  const float* q = head<float>(a, a.q, kQ, b, h);
+  const float* k = head<float>(a, a.k, kK, b, h);
+  const float* v = head<float>(a, a.v, kV, b, h);
+  const float* dout = head<float>(a, a.dout, kDO, b, h);
+  const unsigned hb = hash_base(a, b, h);
+  const int dead = a.dead[b];
 
-  load_keys(a, b, keym, &first);
   stage(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
   stage(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
-  zero_tile<T>(dk_acc);
-  zero_tile<T>(dv_acc);
+  zero_tile(dk_acc);
+  zero_tile(dv_acc);
   for (int q0 = 0; q0 < a.L; q0 += kT) {
-    if (k0 >= key_end(a, q0, first)) continue;  // the tile never sees these keys
+    if (k0 >= key_end(a, q0, dead)) continue;  // the tile never sees these keys
     __syncthreads();
-    load_rows<T>(a, b, h, q0, row_m, row_l, row_d, row_q);
+    load_rows(a, b, h, q0, row_m, row_l, row_d, row_q);
     stage(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
     stage(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
-    ergm_async::wait_all();
     __syncthreads();
-    mma64<T, false, true>(ss, qs, ks, false);
-    mma64<T, false, true>(dps, dos, vs, false);
+    mma64<false, true>(ss, qs, ks, false);
+    mma64<false, true>(dps, dos, vs, false);
     __syncthreads();
     for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
       const int r = i / kT, c = i % kT;
-      grad_step<T>(a, b, h, q0, r, k0, c, ss[r * ldc + c], dps[r * ldc + c], keym, row_m,
-                   row_l, row_d, row_q, ps + r * ld + c, dss + r * ld + c);
+      grad_step(a, b, hb, q0, r, k0, c, ss[r * kLd + c], dps[r * kLd + c], row_m, row_l, row_d,
+                row_q, ps + r * kLd + c, dss + r * kLd + c);
     }
     __syncthreads();
-    mma64<T, true, false>(dv_acc, ps, dos, true);
-    mma64<T, true, false>(dk_acc, dss, qs, true);
+    mma64<true, false>(dv_acc, ps, dos, true);
+    mma64<true, false>(dk_acc, dss, qs, true);
   }
   __syncthreads();
-  T* dk = static_cast<T*>(a.dk) + b * a.st[kDK][0] + h * a.st[kDK][1];
-  T* dv = static_cast<T*>(a.dv) + b * a.st[kDV][0] + h * a.st[kDV][1];
+  float* dk = head_out<float>(a, a.dk, kDK, b, h);
+  float* dv = head_out<float>(a, a.dv, kDV, b, h);
   write_tile(dk + k0 * a.st[kDK][2], a.st[kDK][2], dk_acc, a.scale);
   write_tile(dv + k0 * a.st[kDV][2], a.st[kDV][2], dv_acc, 1.0f);
 }
 
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core products (mma.sync), scores in registers.
+namespace tc {
+
+constexpr int kLd = kDh + 8;   // 72 elements: 144-byte rows, so ldmatrix's 8 rows hit 8 bank groups
+constexpr int kThreads = 256;  // 8 warps of 16 rows
+constexpr int kRows = 128;     // rows a CTA owns: queries (forward, dQ) or keys (dK/dV)
+constexpr int kTile = 128;     // rows of a streamed tile: keys (forward, dQ) or queries (dK/dV)
+constexpr int kSub = 32;       // a streamed tile is worked 32 columns at a time
+constexpr float kMaskL2 = kNegInf * kLog2e;  // the where's fill, in log2 units
+constexpr size_t kRowsBytes = sizeof(bf16) * kRows * kLd;
+constexpr size_t kTileBytes = sizeof(bf16) * kTile * kLd;
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the rows of matrix i. No
+// memory clobber: the barriers order them, and other loads may pass them.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col). Lane
+// (g, t) = (lane / 4, lane % 4) holds c[0..1] at row g, columns 2t, 2t+1
+// and c[2..3] at row g + 8.
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Stage N rows (64 bf16 each, row stride sl) into a [N][kLd] tile by
+// cp.async; the caller commits.
+template <int N>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl) {
+  static_assert((N * 8) % kThreads == 0, "whole rows per pass");
+#pragma unroll
+  for (int i = 0; i < N * 8 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx >> 3, c = (idx & 7) * 8;
+    ergm_async::copy16(dst + r * kLd + c, src + r * sl + c);
+  }
+}
+
+// c[j] = A . B^T over Dh for A = rows [ar, ar + 16) of tile ta and B = the
+// 32 rows at c0 of tile tb (8 columns per j; both Dh-contiguous). Each
+// k16 step loads its fragments first, then issues its 4 independent products.
+__device__ __forceinline__ void prod_nt(float (&c)[4][4], const bf16* ta, int ar, const bf16* tb,
+                                        int c0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    unsigned af[4], bf[2][4];
+    ldsm4(af, saddr(ta + (ar + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp)
+      ldsm4(bf[jp], saddr(tb + (c0 + jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd + kk * 16 +
+                          ((lane >> 3) & 1) * 8));
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      mma(c[2 * jp], af, bf[jp][0], bf[jp][1]);
+      mma(c[2 * jp + 1], af, bf[jp][2], bf[jp][3]);
+    }
+  }
+}
+
+// acc[j] (j < 8: Dh in groups of 8) += P . B, for P the warp's 16 x 32
+// block x (accumulator layout, rounded to bf16 here: the A operand straight
+// from registers) and B = the 32 rows at r0 of tile tb (Dh-contiguous).
+__device__ __forceinline__ void prod_nn(float (&acc)[8][4], const float (&x)[4][4], const bf16* tb,
+                                        int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc) {
+    const unsigned pf[4] = {pack(x[2 * kc][0], x[2 * kc][1]), pack(x[2 * kc][2], x[2 * kc][3]),
+                            pack(x[2 * kc + 1][0], x[2 * kc + 1][1]),
+                            pack(x[2 * kc + 1][2], x[2 * kc + 1][3])};
+    unsigned bf[4][4];
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp)
+      ldsm4t(bf[dp], saddr(tb + (r0 + kc * 16 + (lane & 15)) * kLd + dp * 16 + (lane >> 4) * 8));
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      mma(acc[2 * dp], pf, bf[dp][0], bf[dp][1]);
+      mma(acc[2 * dp + 1], pf, bf[dp][2], bf[dp][3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+}
+
+// The lane's rows r, r + 8 of the warp's 16 x 64 f32 block, times mul,
+// rounded to bf16, to rows of one head.
+__device__ __forceinline__ void store_rows(bf16* dst, long long sl, int r, const float (&acc)[8][4],
+                                           float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bf16* row = dst + static_cast<long long>(r + 8 * i) * sl;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
+  }
+}
+
+// The key-mask bits of the kTile keys at k0, a word for each 32.
+__device__ __forceinline__ void key_bits(unsigned (&bits)[kTile / kSub], const Args& a, int b,
+                                         int k0) {
+  const unsigned* w = a.kbits + static_cast<long long>(b) * (a.Lk >> 5) + (k0 >> 5);
+#pragma unroll
+  for (int i = 0; i < kTile / kSub; ++i) bits[i] = w[i];
+}
+
+// Mask the scores of the warp's 16 rows (from r0) against the 32 keys at c0
+// (bits: their key-mask bits from bit 0), scaled into log2 units:
+// s*scale*log2(e) where visible, exactly kMaskL2 (the where's fill) elsewhere.
+__device__ __forceinline__ void mask_scores(const Args& a, unsigned bits, float (&sc)[4][4],
+                                            int r0, int c0, float sl2) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (bits == ~0u && (!a.causal || c0 + kSub - 1 <= r0)) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] *= sl2;
+    return;
+  }
+  const unsigned kw = bits >> (2 * t);
+  const int lim = r0 + g - c0 - 2 * t;  // visible iff column offset <= lim + row offset
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + (e & 1);  // the column, less c0 + 2t
+      const bool vis = ((kw >> c) & 1u) && (!a.causal || c <= lim + 8 * (e >> 1));
+      sc[j][e] = vis ? sc[j][e] * sl2 : kMaskL2;
+    }
+}
+
+// The query rows [q0, q0 + 128) and the warp's [r0, r0 + 16): the keys they
+// walk (up to the diagonal when causal, all keys for rows that hold dead
+// ones).
+struct Walk {
+  int kend, wend;
+  __device__ Walk(const Args& a, int q0, int r0, int dead)
+      : kend((a.causal && q0 >= dead) ? min(a.Lk, q0 + kRows) : a.Lk),
+        wend((a.causal && r0 >= dead) ? min(a.Lk, r0 + 16) : a.Lk) {}
+};
+
+__global__ void __launch_bounds__(kThreads, 2) fwd_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [128][kLd]
+  bf16* ks = qs + kRows * kLd;               // [2][kTile][kLd]
+  bf16* vs = ks + 2 * kTile * kLd;           // [2][kTile][kLd]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16;
+  const long long sq = a.st[kQ][2], sk = a.st[kK][2], sv = a.st[kV][2];
+  const bf16* k = head<bf16>(a, a.k, kK, b, h);
+  const bf16* v = head<bf16>(a, a.v, kV, b, h);
+  const Walk walk(a, q0, r0, a.dead[b]);
+  const int n = walk.kend / kTile;
+  const float sl2 = a.scale * kLog2e;
+  unsigned xrow[2];  // the hash's r*Lk + mix*G + 2t for the lane's rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    xrow[i] = static_cast<unsigned>(r0 + g + 8 * i) * static_cast<unsigned>(a.Lk) +
+              hash_base(a, b, h) + 2 * t;
+
+  // steps 0..n-1: pass 1 over the key tiles (K); n..2n-1: pass 2 (K and V)
+  stage<kRows>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * sq, sq);
+  auto issue = [&](int s) {
+    if (s < 2 * n) {
+      const int k0 = (s < n ? s : s - n) * kTile;
+      stage<kTile>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
+      if (s >= n) stage<kTile>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
+    }
+    ergm_async::commit();
+  };
+  issue(0);
+
+  float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f};  // the lane's share of m, l
+  float mrow[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+  float o[8][4];
+  zero(o);
+
+  for (int s = 0; s < 2 * n; ++s) {
+    const int k0 = (s < n ? s : s - n) * kTile;
+    unsigned bits[kTile / kSub];
+    key_bits(bits, a, b, k0);
+    issue(s + 1);
+    ergm_async::wait<1>();
+    __syncthreads();
+    if (s == n) {
+      // the row's m and l from the four lanes that hold it
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        float l = lt[i] * ex2(mt[i] - mx);
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int r = r0 + g + 8 * i;
+        const bool real = a.qmask[static_cast<long long>(b) * a.L + r] != 0;
+        mrow[i] = mx;
+        inv[i] = real ? (a.dropout ? a.drop_mul : 1.0f) / fmaxf(l, 1e-30f) : 0.0f;
+        if (t == 0) {
+          const long long idx = row_index(a, b, h, r);
+          a.ml[idx] = mx;
+          a.ml[static_cast<long long>(a.B) * a.H * a.L + idx] = l;
+        }
+      }
+    }
+    const bf16* kt = ks + (s & 1) * kTile * kLd;
+    const bf16* vt = vs + (s & 1) * kTile * kLd;
+#pragma unroll
+    for (int u = 0; u < kTile / kSub; ++u) {
+      const int c0 = k0 + u * kSub;
+      if (c0 < walk.wend) {
+        float sc[4][4];
+        prod_nt(sc, qs, warp * 16, kt, u * kSub);
+        mask_scores(a, bits[u], sc, r0, c0, sl2);
+        if (s < n) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float w[4];  // a tree: independent maxima, then sums
+#pragma unroll
+            for (int j = 0; j < 4; ++j) w[j] = fmaxf(sc[j][2 * i], sc[j][2 * i + 1]);
+            const float mx = fmaxf(mt[i], fmaxf(fmaxf(w[0], w[1]), fmaxf(w[2], w[3])));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) w[j] = ex2(sc[j][2 * i] - mx) + ex2(sc[j][2 * i + 1] - mx);
+            lt[i] = lt[i] * ex2(mt[i] - mx) + ((w[0] + w[1]) + (w[2] + w[3]));
+            mt[i] = mx;
+          }
+        } else {
+          // pn = exp(s - m) / l (a masked score gives a dead row's 1/Lk, else
+          // 0), dropped and scaled, then rounded as the PV product's operand
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              float p = ex2(sc[j][e] - mrow[i]) * inv[i];
+              if (a.dropout && !keep(a, xrow[i] + c0 + 8 * j + (e & 1))) p = 0.0f;
+              sc[j][e] = p;
+            }
+          prod_nn(o, sc, vt, u * kSub);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  store_rows(head_out<bf16>(a, a.out, kO, b, h), a.st[kO][2], r0 + g, o, 1.0f);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [128][kLd]
+  bf16* dos = qs + kRows * kLd;              // [128][kLd]
+  bf16* ks = dos + kRows * kLd;              // [2][kTile][kLd]
+  bf16* vs = ks + 2 * kTile * kLd;           // [2][kTile][kLd]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16;
+  const long long sk = a.st[kK][2], sv = a.st[kV][2], so = a.st[kO][2];
+  const bf16* k = head<bf16>(a, a.k, kK, b, h);
+  const bf16* v = head<bf16>(a, a.v, kV, b, h);
+  const bf16* o = head<bf16>(a, a.o, kO, b, h);
+  const Walk walk(a, q0, r0, a.dead[b]);
+  const int n = walk.kend / kTile;
+  const float sl2 = a.scale * kLog2e;
+
+  stage<kRows>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * a.st[kQ][2], a.st[kQ][2]);
+  stage<kRows>(dos, head<bf16>(a, a.dout, kDO, b, h) + q0 * a.st[kDO][2], a.st[kDO][2]);
+  auto issue = [&](int s) {
+    if (s < n) {
+      stage<kTile>(ks + (s & 1) * kTile * kLd, k + s * kTile * sk, sk);
+      stage<kTile>(vs + (s & 1) * kTile * kLd, v + s * kTile * sv, sv);
+    }
+    ergm_async::commit();
+  };
+  issue(0);
+
+  float mrow[2], inv[2], delta[2] = {0.0f, 0.0f};
+  unsigned xrow[2];
+  const long long plane = static_cast<long long>(a.B) * a.H * a.L;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    const long long idx = row_index(a, b, h, r);
+    mrow[i] = a.ml[idx];
+    inv[i] = a.qmask[static_cast<long long>(b) * a.L + r] != 0
+                 ? 1.0f / fmaxf(a.ml[plane + idx], 1e-30f) : 0.0f;
+    xrow[i] = static_cast<unsigned>(r) * static_cast<unsigned>(a.Lk) + hash_base(a, b, h) + 2 * t;
+  }
+  float acc[8][4];
+  zero(acc);
+
+  for (int s = 0; s < n; ++s) {
+    const int k0 = s * kTile;
+    unsigned bits[kTile / kSub];
+    key_bits(bits, a, b, k0);
+    issue(s + 1);
+    ergm_async::wait<1>();
+    __syncthreads();
+    if (s == 0) {
+      // delta = rowsum(dO * O) in f32 over the warp's rows; the rows' (m, 1/l,
+      // delta) go to the dK/dV kernel
+#pragma unroll 4
+      for (int rr = 0; rr < 16; ++rr) {
+        const __nv_bfloat162 x =
+            *reinterpret_cast<const __nv_bfloat162*>(dos + (warp * 16 + rr) * kLd + 2 * lane);
+        const __nv_bfloat162 y =
+            *reinterpret_cast<const __nv_bfloat162*>(o + (r0 + rr) * so + 2 * lane);
+        float d = __bfloat162float(x.x) * __bfloat162float(y.x) +
+                  __bfloat162float(x.y) * __bfloat162float(y.y);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        if (rr == g) delta[0] = d;
+        if (rr == g + 8) delta[1] = d;
+      }
+      if (t == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          reinterpret_cast<float4*>(a.stat)[row_index(a, b, h, r0 + g + 8 * i)] =
+              make_float4(mrow[i], inv[i], delta[i], 0.0f);
+      }
+    }
+    const bf16* kt = ks + (s & 1) * kTile * kLd;
+    const bf16* vt = vs + (s & 1) * kTile * kLd;
+#pragma unroll
+    for (int u = 0; u < kTile / kSub; ++u) {
+      const int c0 = k0 + u * kSub;
+      if (c0 < walk.wend) {
+        float sc[4][4], dp[4][4];
+        prod_nt(sc, qs, warp * 16, kt, u * kSub);
+        prod_nt(dp, dos, warp * 16, vt, u * kSub);
+        mask_scores(a, bits[u], sc, r0, c0, sl2);
+        // ds = pn * (dpn - delta) where visible, 0 where masked (mask_scores
+        // wrote the fill there; no visible score comes near -1e9)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            float d = dp[j][e];
+            if (a.dropout) d = keep(a, xrow[i] + c0 + 8 * j + (e & 1)) ? d * a.drop_mul : 0.0f;
+            sc[j][e] = sc[j][e] == kMaskL2 ? 0.0f
+                                           : ex2(sc[j][e] - mrow[i]) * inv[i] * (d - delta[i]);
+          }
+        prod_nn(acc, sc, kt, u * kSub);
+      }
+    }
+    __syncthreads();
+  }
+  store_rows(head_out<bf16>(a, a.dq, kDQ, b, h), a.st[kDQ][2], r0 + g, acc, a.scale);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [128][kLd]
+  bf16* vs = ks + kRows * kLd;               // [128][kLd]
+  bf16* qs = vs + kRows * kLd;               // [2][kTile][kLd]
+  bf16* dos = qs + 2 * kTile * kLd;          // [2][kTile][kLd]
+  float4* sts = reinterpret_cast<float4*>(dos + 2 * kTile * kLd);  // [2][kTile]: (m, 1/l, delta, -)
+
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + warp * 16;  // the warp's first key
+  const long long sq = a.st[kQ][2], sdo = a.st[kDO][2];
+  const bf16* q = head<bf16>(a, a.q, kQ, b, h);
+  const bf16* dout = head<bf16>(a, a.dout, kDO, b, h);
+  const float4* stat = reinterpret_cast<const float4*>(a.stat) + row_index(a, b, h, 0);
+  const int dead = a.dead[b];
+  const float sl2 = a.scale * kLog2e;
+
+  // the query tiles that see these keys: those holding dead rows (they see
+  // every key), then the diagonal onwards
+  const int nq = a.L / kTile;
+  const int from = a.causal ? min(k0 / kTile, nq) : 0;
+  const int lo = a.causal ? min((dead + kTile - 1) / kTile, from) : 0;
+  const int n = lo + nq - from;
+  auto tile = [&](int s) { return (s < lo ? s : from + s - lo) * kTile; };
+
+  stage<kRows>(ks, head<bf16>(a, a.k, kK, b, h) + k0 * a.st[kK][2], a.st[kK][2]);
+  stage<kRows>(vs, head<bf16>(a, a.v, kV, b, h) + k0 * a.st[kV][2], a.st[kV][2]);
+  auto issue = [&](int s) {
+    if (s < n) {
+      const int q0 = tile(s);
+      stage<kTile>(qs + (s & 1) * kTile * kLd, q + q0 * sq, sq);
+      stage<kTile>(dos + (s & 1) * kTile * kLd, dout + q0 * sdo, sdo);
+      if (threadIdx.x < kTile)
+        ergm_async::copy16(sts + (s & 1) * kTile + threadIdx.x, stat + q0 + threadIdx.x);
+    }
+    ergm_async::commit();
+  };
+  issue(0);
+
+  int kr[2];
+  bool kreal[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kr[i] = kw0 + g + 8 * i;
+    kreal[i] = key_real(a, b, kr[i]);
+  }
+  const bool wreal = __all_sync(0xffffffffu, kreal[0] && kreal[1]);  // the warp's keys all real
+  const unsigned hb = hash_base(a, b, h);
+  float dk[8][4], dv[8][4];
+  zero(dk);
+  zero(dv);
+
+  for (int s = 0; s < n; ++s) {
+    issue(s + 1);
+    ergm_async::wait<1>();
+    __syncthreads();
+    const int q0 = tile(s);
+    const bf16* qt = qs + (s & 1) * kTile * kLd;
+    const bf16* dt = dos + (s & 1) * kTile * kLd;
+    const float4* st = sts + (s & 1) * kTile;
+#pragma unroll
+    for (int u = 0; u < kTile / kSub; ++u) {
+      const int c0 = q0 + u * kSub;  // the sub-step's first query
+      if (!a.causal || c0 + kSub - 1 >= kw0 || c0 < dead) {
+        // S^T and dP^T: the warp's 16 keys as rows, 32 queries as columns
+        float sc[4][4], dp[4][4];
+        prod_nt(sc, ks, warp * 16, qt, u * kSub);
+        prod_nt(dp, vs, warp * 16, dt, u * kSub);
+        const bool full = wreal && (!a.causal || kw0 + 15 <= c0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int qc = c0 + 8 * j + 2 * t + e1;
+            const float4 rs = st[qc - q0];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 2 * i + e1;
+              const bool ok = full || (kreal[i] && (!a.causal || kr[i] <= qc));
+              const float pn = ex2((ok ? sc[j][e] * sl2 : kMaskL2) - rs.x) * rs.y;
+              float d = dp[j][e], pv = pn;
+              if (a.dropout) {
+                const unsigned x = static_cast<unsigned>(qc) * static_cast<unsigned>(a.Lk) +
+                                   static_cast<unsigned>(kr[i]) + hb;
+                const bool kp = keep(a, x);
+                d = kp ? d * a.drop_mul : 0.0f;
+                pv = kp ? pn * a.drop_mul : 0.0f;
+              }
+              sc[j][e] = pv;
+              dp[j][e] = ok ? pn * (d - rs.z) : 0.0f;
+            }
+          }
+        prod_nn(dv, sc, dt, u * kSub);  // dV += pv^T dO
+        prod_nn(dk, dp, qt, u * kSub);  // dK += ds^T Q
+      }
+    }
+    __syncthreads();
+  }
+  store_rows(head_out<bf16>(a, a.dk, kDK, b, h), a.st[kDK][2], kw0 + g, dk, a.scale);
+  store_rows(head_out<bf16>(a, a.dv, kDV, b, h), a.st[kDV][2], kw0 + g, dv, 1.0f);
+}
+
+}  // namespace tc
+
 template <typename K>
-cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t s) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
+                   cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, s>>>(a);
+  kernel<<<grid, threads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t forward(const Args& a, cudaStream_t s) {
-  return launch(fwd_kernel<T>, dim3(a.L / kT, a.H, a.B), Smem<T>::bytes(3, 2, a.Lk), a, s);
+cudaError_t forward(const Args& a, bool bf, cudaStream_t s) {
+  if (bf)
+    return launch(tc::fwd_kernel, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
+                  tc::kRowsBytes + 4 * tc::kTileBytes, a, s);
+  return launch(f32::fwd_kernel, dim3(a.L / f32::kT, a.H, a.B), f32::kThreads,
+                f32::smem_bytes(5), a, s);
 }
 
-template <typename T>
-cudaError_t backward(const Args& a, cudaStream_t s) {
-  cudaError_t err =
-      launch(bwd_dq_kernel<T>, dim3(a.L / kT, a.H, a.B), Smem<T>::bytes(5, 3, a.Lk), a, s);
+cudaError_t backward(const Args& a, bool bf, cudaStream_t s) {
+  cudaError_t err;
+  if (bf) {
+    err = launch(tc::bwd_dq_kernel, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
+                 2 * tc::kRowsBytes + 4 * tc::kTileBytes, a, s);
+    if (err != cudaSuccess) return err;
+    return launch(tc::bwd_dkdv_kernel, dim3(a.Lk / tc::kRows, a.H, a.B), tc::kThreads,
+                  2 * tc::kRowsBytes + 4 * tc::kTileBytes + 2 * tc::kTile * sizeof(float4), a,
+                  s);
+  }
+  err = launch(f32::bwd_dq_kernel, dim3(a.L / f32::kT, a.H, a.B), f32::kThreads,
+               f32::smem_bytes(8), a, s);
   if (err != cudaSuccess) return err;
-  return launch(bwd_dkdv_kernel<T>, dim3(a.Lk / kT, a.H, a.B), Smem<T>::bytes(6, 4, a.Lk), a,
-                s);
+  return launch(f32::bwd_dkdv_kernel, dim3(a.Lk / f32::kT, a.H, a.B), f32::kThreads,
+                f32::smem_bytes(10), a, s);
 }
 
 Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, float scale,
@@ -558,13 +1058,22 @@ Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, flo
 }  // namespace ergm_block
 
 // dtype: 0 = float32, 1 = bfloat16. strides: host array of (batch, head,
-// row) element strides of q, k, v, o. Returns a cudaError_t (0 on success).
+// row) element strides of q, k, v, o. kbits [B, Lk/32] and dead [B] are
+// written here (by the pre-pass) for the backward. Returns a cudaError_t
+// (0 on success).
 extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, void* o,
-                                  void* ml, const void* qmask, const void* kmask, int dtype,
-                                  int B, int H, int L, int Lk, const long long* strides,
-                                  float scale, int causal, int dropout, float drop_div,
-                                  float drop_mul, unsigned thr, unsigned seed, void* stream) {
+                                  void* ml, const void* qmask, const void* kmask, void* kbits,
+                                  void* dead, int dtype, int B, int H, int L, int Lk,
+                                  const long long* strides, float scale, int causal,
+                                  int dropout, float drop_div, float drop_mul, unsigned thr,
+                                  unsigned seed, void* stream) {
   using namespace ergm_block;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  prep_kernel<<<B, 256, 0, s>>>(static_cast<const int*>(kmask), static_cast<const int*>(qmask),
+                                static_cast<unsigned*>(kbits), static_cast<int*>(dead), L, Lk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   Args a = make_args(B, H, L, Lk, strides, 4, scale, causal, dropout, drop_div, drop_mul, thr,
                      seed);
   a.q = q;
@@ -573,23 +1082,23 @@ extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, v
   a.out = o;
   a.ml = static_cast<float*>(ml);
   a.qmask = static_cast<const int*>(qmask);
-  a.kmask = static_cast<const int*>(kmask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(forward<float>(a, s));
-  if (dtype == 1) return static_cast<int>(forward<bf16>(a, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  a.kbits = static_cast<const unsigned*>(kbits);
+  a.dead = static_cast<const int*>(dead);
+  return static_cast<int>(forward(a, dtype == 1, s));
 }
 
-// strides: (batch, head, row) of q, k, v, o, dout, dq, dk, dv. delta is
-// [B, H, L] f32 scratch written by the dQ kernel and read by the dK/dV one.
+// strides: (batch, head, row) of q, k, v, o, dout, dq, dk, dv. stat is
+// [B, H, L, 4] f32 scratch written by the dQ kernel and read by the dK/dV
+// one; kbits and dead are the forward's.
 extern "C" int ergm_block_mha_bwd(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, void* dq, void* dk, void* dv,
-                                  const void* ml, void* delta, const void* qmask,
-                                  const void* kmask, int dtype, int B, int H, int L, int Lk,
-                                  const long long* strides, float scale, int causal,
-                                  int dropout, float drop_div, float drop_mul, unsigned thr,
-                                  unsigned seed, void* stream) {
+                                  const void* ml, void* stat, const void* qmask,
+                                  const void* kbits, const void* dead, int dtype, int B, int H,
+                                  int L, int Lk, const long long* strides, float scale,
+                                  int causal, int dropout, float drop_div, float drop_mul,
+                                  unsigned thr, unsigned seed, void* stream) {
   using namespace ergm_block;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(B, H, L, Lk, strides, 8, scale, causal, dropout, drop_div, drop_mul, thr,
                      seed);
   a.q = q;
@@ -601,11 +1110,9 @@ extern "C" int ergm_block_mha_bwd(const void* q, const void* k, const void* v, c
   a.dk = dk;
   a.dv = dv;
   a.ml = static_cast<float*>(const_cast<void*>(ml));
-  a.delta = static_cast<float*>(delta);
+  a.stat = static_cast<float*>(stat);
   a.qmask = static_cast<const int*>(qmask);
-  a.kmask = static_cast<const int*>(kmask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(backward<float>(a, s));
-  if (dtype == 1) return static_cast<int>(backward<bf16>(a, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  a.kbits = static_cast<const unsigned*>(kbits);
+  a.dead = static_cast<const int*>(dead);
+  return static_cast<int>(backward(a, dtype == 1, static_cast<cudaStream_t>(stream)));
 }

@@ -136,36 +136,42 @@ def multihead_attention(
     deterministic: bool = True,
     seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Attention dispatch, as JAX's.
+    """Attention dispatch, in JAX's order.
 
-    ``impl``: ``auto`` takes kernel K5 (``ops/block_attention.py``) for
-    CUDA tensors inside its gate, as JAX takes the block kernel on the
-    TPU, and the plain math elsewhere; ``pallas`` and ``block`` take K5
-    (its plain version on the CPU) inside the gate; ``xla`` the plain
-    math. The library flash kernel (``flash``) is not ported: shapes
-    outside K5's gate take the plain math, as JAX does off the TPU. The
-    ``ERGM_ATTN_IMPL`` environment variable overrides ``impl``. With an
-    ``extra_bias``, only the plain math applies; ``q_mask`` reaches K5
-    only (padded query rows give zero output and gradient there)."""
+    ``impl``: ``pallas`` and ``block`` take kernel K5
+    (``ops/block_attention.py``) inside JAX's block gate (``supported``);
+    otherwise, with no dropout active, ``pallas`` and ``flash`` take K5
+    inside JAX's flash gate (``flash_supported``: the shapes JAX sends to
+    its library flash kernel K7, L > 1024 or causal Lq < Lk at offset 0,
+    which a tiled CUDA kernel serves as well). ``auto`` is ``pallas`` for
+    CUDA tensors, as JAX takes the Pallas kernels on the TPU, and the
+    plain math elsewhere; on the CPU ``pallas``, ``block`` and ``flash``
+    run K5's plain version. ``xla`` and every shape outside the gates take
+    the plain math. The ``ERGM_ATTN_IMPL`` environment variable overrides
+    ``impl``. With an ``extra_bias``, only the plain math applies;
+    ``q_mask`` reaches K5 only (padded query rows give zero output and
+    gradient there)."""
     from ergm_tpu_torch.ops import block_attention
 
     impl = os.environ.get("ERGM_ATTN_IMPL", impl)
     if impl not in ("auto", "pallas", "block", "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "flash":
-        raise NotImplementedError("the library flash kernel (K7) is not ported; use "
-                                  "'block', 'auto' or 'xla'")
+    if impl == "auto":
+        impl = "pallas" if q.is_cuda else "xla"
     dropout_active = (not deterministic) and dropout_rate > 0.0 and seed is not None
-    block = (impl in ("pallas", "block") or (impl == "auto" and q.is_cuda))
-    if (block and extra_bias is None
-            and block_attention.supported(q, k, v, causal=causal, causal_offset=causal_offset)):
-        if isinstance(scale, torch.Tensor):
-            q = q * scale.to(q.dtype)  # a tensor scale folds into q, as JAX folds a traced one
-            scale = 1.0
-        return block_attention.block_mha(
-            q, k, v, causal=causal, scale=scale, q_mask=q_mask, kv_mask=kv_mask,
-            dropout_rate=dropout_rate if dropout_active else 0.0,
-            dropout_seed=seed if dropout_active else None)
+    if extra_bias is None and impl != "xla":
+        block = impl in ("pallas", "block") and block_attention.supported(
+            q, k, v, causal=causal, causal_offset=causal_offset)
+        flash = not block and impl in ("pallas", "flash") and block_attention.flash_supported(
+            q, k, v, causal=causal, causal_offset=causal_offset, dropout_active=dropout_active)
+        if block or flash:
+            if isinstance(scale, torch.Tensor):
+                q = q * scale.to(q.dtype)  # a tensor scale folds into q, as JAX folds a traced one
+                scale = 1.0
+            return block_attention.block_mha(
+                q, k, v, causal=causal, scale=scale, q_mask=q_mask, kv_mask=kv_mask,
+                dropout_rate=dropout_rate if dropout_active else 0.0,
+                dropout_seed=seed if dropout_active else None)
     bias = attention_bias_from_mask(kv_mask) if kv_mask is not None else None
     if extra_bias is not None:
         bias = extra_bias if bias is None else bias + extra_bias

@@ -1,15 +1,19 @@
 """Masked attention with probability dropout, forward and backward:
-kernel K5 of the port.
+kernel K5 of the port, which also serves the shapes of JAX's library
+flash kernel (K7).
 
-Counterpart of ``ergm_tpu/ops/block_attention.py`` (``block_mha``). The
-training path's self-attention runs here: causal, q/kv 0/1 masks, zero
-output and gradient for padded query rows, and attention-probability
-dropout whose keep mask comes from the counter hash of
-``ops/attention.py::dropout_keep``. On CUDA tensors ``block_mha`` is a
-``torch.autograd.Function`` whose forward and backward launch the
-hand-written kernels of ``csrc/block_attention.cu`` (see the note at the
-top of that file), or raise; on CPU tensors it runs
-``block_mha_reference``, the same math in differentiable plain torch.
+Counterpart of ``ergm_tpu/ops/block_attention.py`` (``block_mha``) and,
+inside ``flash_supported``, of ``ergm_tpu/ops/flash_attention.py``
+(``flash_mha``): the TPU needs a second kernel where the block kernel's
+VMEM runs out, a tiled CUDA kernel does not. The training path's
+self-attention runs here: causal, q/kv 0/1 masks, zero output and
+gradient for padded query rows, and attention-probability dropout whose
+keep mask comes from the counter hash of ``ops/attention.py::dropout_keep``.
+On CUDA tensors ``block_mha`` is a ``torch.autograd.Function`` whose
+forward and backward launch the hand-written kernels of
+``csrc/block_attention.cu`` (see the note at the top of that file), or
+raise; on CPU tensors it runs ``block_mha_reference``, the same math in
+differentiable plain torch.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def supported(q, k, v, *, causal: bool, causal_offset=0) -> bool:
-    """JAX's gate (``block_attention_supported``): whole-sequence
+    """JAX's block gate (``block_attention_supported``): whole-sequence
     problems with Dh <= 128 a multiple of 8, Lq and Lk multiples of 128
     up to 1024, Lq == Lk and no offset when causal. Inside it, the CUDA
     kernel raises on what it does not take: Dh other than 64, float16."""
@@ -41,6 +45,18 @@ def supported(q, k, v, *, causal: bool, causal_offset=0) -> bool:
     if D > 128 or D % 8 or lq % 128 or lk % 128 or lq < 128 or lq > 1024 or lk > 1024:
         return False
     return not (causal and (lq != lk or int(causal_offset) != 0))
+
+
+def flash_supported(q, k, v, *, causal: bool, causal_offset=0,
+                    dropout_active: bool = False) -> bool:
+    """JAX's flash gate (``flash_attention_supported``) without its TPU
+    check: no dropout, Lq >= 128, Lq and Lk multiples of 128 of any size,
+    and when causal Lq <= Lk with an offset of 0 (query i sees keys <= i).
+    The same kernel serves it; Dh other than 64 raises there too."""
+    lq, lk = q.shape[2], k.shape[2]
+    if dropout_active or lq < 128 or lq % 128 or lk % 128:
+        return False
+    return not (causal and (lq > lk or int(causal_offset) != 0))
 
 
 def _masks(q, k, q_mask, kv_mask):
@@ -118,24 +134,29 @@ class _BlockAttention(torch.autograd.Function):
         Lk = k.shape[2]
         o = _heads_layout(B, H, L, q.dtype, q.device)
         ml = torch.empty((2, B, H, L), dtype=torch.float32, device=q.device)
+        # the key mask as bits and where each batch row's dead rows end (real
+        # causal rows before the first real key): the forward's pre-pass
+        # writes them, the backward reads them
+        kbits = torch.empty((B, Lk // 32), dtype=torch.int32, device=q.device)
+        dead = torch.empty((B,), dtype=torch.int32, device=q.device)
         lib = _build.load()
         with torch.cuda.device(q.device):
             err = lib.ergm_block_mha_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ml.data_ptr(),
-                qm.data_ptr(), km.data_ptr(), _DTYPE_CODE[q.dtype], B, H, L, Lk,
-                _strides(q, k, v, o), ctypes.c_float(scale), int(causal),
-                *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
+                qm.data_ptr(), km.data_ptr(), kbits.data_ptr(), dead.data_ptr(),
+                _DTYPE_CODE[q.dtype], B, H, L, Lk, _strides(q, k, v, o), ctypes.c_float(scale),
+                int(causal), *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"block_mha forward kernel launch failed: cudaError {err}")
         global LAUNCHES
         LAUNCHES += 1
-        ctx.save_for_backward(q, k, v, o, ml, qm, km)
+        ctx.save_for_backward(q, k, v, o, ml, qm, kbits, dead)
         ctx.args = (scale, causal, rate, seed)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, ml, qm, km = ctx.saved_tensors
+        q, k, v, o, ml, qm, kbits, dead = ctx.saved_tensors
         scale, causal, rate, seed = ctx.args
         B, H, L, D = q.shape
         Lk = k.shape[2]
@@ -144,13 +165,15 @@ class _BlockAttention(torch.autograd.Function):
         dq = _heads_layout(B, H, L, q.dtype, q.device)
         dk = _heads_layout(B, H, Lk, q.dtype, q.device)
         dv = _heads_layout(B, H, Lk, q.dtype, q.device)
-        delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+        # each row's (m, 1/l, delta): written by the dQ kernel, read by dK/dV
+        stat = torch.empty((B, H, L, 4), dtype=torch.float32, device=q.device)
         lib = _build.load()
         with torch.cuda.device(q.device):
             err = lib.ergm_block_mha_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), delta.data_ptr(),
-                qm.data_ptr(), km.data_ptr(), _DTYPE_CODE[q.dtype], B, H, L, Lk,
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), stat.data_ptr(),
+                qm.data_ptr(), kbits.data_ptr(), dead.data_ptr(), _DTYPE_CODE[q.dtype],
+                B, H, L, Lk,
                 _strides(q, k, v, o, do, dq, dk, dv), ctypes.c_float(scale), int(causal),
                 *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
         if err:
@@ -167,8 +190,10 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     """Differentiable masked attention over q [B, H, Lq, Dh], k/v
     [B, H, Lk, Dh] (strided views with a contiguous head dim are read in
     place). ``q_mask`` [B, Lq] and ``kv_mask`` [B, Lk]: 1 = real.
-    ``dropout_seed``: an integer, needed when ``dropout_rate`` > 0.
-    Returns [B, H, Lq, Dh]; on the card a view of [B, Lq, H, Dh] memory."""
+    ``dropout_seed``: an integer, needed when ``dropout_rate`` > 0. The
+    card takes the shapes of either gate (``supported``, or
+    ``flash_supported`` without dropout). Returns [B, H, Lq, Dh]; on the
+    card a view of [B, Lq, H, Dh] memory."""
     B, H, lq, D = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -182,9 +207,10 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     _check("q", q, q, (B, H, lq, HEAD_DIM))
     _check("k", k, q, (B, H, lk, HEAD_DIM))
     _check("v", v, q, (B, H, lk, HEAD_DIM))
-    if not supported(q, k, v, causal=causal):
-        raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)} (causal={causal}) "
-                         f"is outside the kernel's gate")
+    if not (supported(q, k, v, causal=causal)
+            or flash_supported(q, k, v, causal=causal, dropout_active=dropout_rate > 0.0)):
+        raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)} (causal={causal}, "
+                         f"dropout {dropout_rate}) is outside the kernel's gates")
     for name, m, n in (("q_mask", q_mask, lq), ("kv_mask", kv_mask, lk)):
         if m is not None and (tuple(m.shape) != (B, n) or m.device != q.device):
             raise ValueError(f"block_mha: {name} {tuple(m.shape)} on {m.device}, want "

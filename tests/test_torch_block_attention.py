@@ -1,6 +1,8 @@
 """Port parity of kernel K5: ergm_tpu_torch.ops.block_attention's plain
 version against ergm_tpu.ops.block_attention.block_mha in Pallas
-interpret mode, on the same seeded numpy inputs, fp32 on the CPU.
+interpret mode, on the same seeded numpy inputs, fp32 on the CPU; and,
+for the shapes JAX sends to its library flash kernel (K7), against what
+JAX runs there off the TPU (``multihead_attention`` -> ``xla_attention``).
 
 Bars: forward 2e-5, gradients 5e-5, the bars of JAX's own kernel test
 (tests/test_block_attention.py). Dropout uses one counter hash on both
@@ -13,7 +15,9 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from ergm_tpu.ops import attention as jat
 from ergm_tpu.ops import block_attention as jba
+from ergm_tpu.ops import flash_attention as jfa
 from ergm_tpu_torch.ops import attention as tat
 from ergm_tpu_torch.ops import block_attention as tba
 
@@ -126,3 +130,74 @@ def test_multihead_attention_routes_to_k5(monkeypatch):
     monkeypatch.setenv("ERGM_ATTN_IMPL", "xla")
     tat.multihead_attention(q, k, v, causal=True, impl="block")
     assert len(calls) == 2
+
+    # JAX's flash gate (L > 1024): pallas and flash reach K5 without
+    # dropout; with dropout active, under xla, and under block (which pins
+    # JAX's block gate) the plain math runs
+    monkeypatch.delenv("ERGM_ATTN_IMPL")
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 1152, 64)).astype(np.float32))
+               for _ in range(3))
+    for impl in ("flash", "pallas"):
+        tat.multihead_attention(q, k, v, causal=True, kv_mask=torch.ones((1, 1152)), impl=impl)
+    assert len(calls) == 4 and calls[-1]["dropout_rate"] == 0.0
+    for impl in ("flash", "pallas"):
+        tat.multihead_attention(q, k, v, causal=True, impl=impl, dropout_rate=0.1,
+                                deterministic=False, seed=7)
+    tat.multihead_attention(q, k, v, causal=True, impl="block")
+    monkeypatch.setenv("ERGM_ATTN_IMPL", "xla")
+    tat.multihead_attention(q, k, v, causal=True, impl="flash")
+    assert len(calls) == 4
+
+
+def _leftpad(b, lk, pads):
+    m = np.ones((b, lk), np.int32)
+    for i, p in enumerate(pads):
+        m[i, :p] = 0
+    return m
+
+
+@pytest.mark.parametrize("lq,lk", [(1152, 1152), (128, 256)])
+def test_plain_k5_matches_jax_on_flash_shapes(lq, lk):
+    """K7's shapes, causal at offset 0 with a left-pad key mask: K5's
+    plain version (padded query rows masked as their keys are) against
+    what JAX's ``multihead_attention(impl="pallas")`` runs off the TPU,
+    the plain math. Real rows' outputs within 2e-5; dQ, dK and dV against
+    ``jax.vjp`` within 5e-5, with the cotangent zero on padded rows (JAX's
+    flash kernel leaves junk there, K5 zeros)."""
+    rng = np.random.default_rng(5)
+    b = 1 if lq > 1024 else 2
+    q = rng.standard_normal((b, 2, lq, D)).astype(np.float32)
+    k, v = (rng.standard_normal((b, 2, lk, D)).astype(np.float32) for _ in range(2))
+    kv_mask = _leftpad(b, lk, [37, 0][:b])
+    q_mask = kv_mask[:, :lq]
+    g = rng.standard_normal((b, 2, lq, D)).astype(np.float32) * q_mask[:, None, :, None]
+    assert jba.block_attention_supported(q, k, v, causal=True) is False
+
+    def f(q, k, v):
+        return jat.multihead_attention(q, k, v, causal=True, kv_mask=jnp.asarray(kv_mask),
+                                       q_mask=jnp.asarray(q_mask), impl="pallas")
+    o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(o)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    got = _torch(q, k, v, g, True, kv_mask, q_mask, 0.0)
+    real = q_mask.astype(bool)[:, None, :, None]
+    np.testing.assert_allclose(got[0] * real, want[0] * real, atol=2e-5, rtol=2e-5)
+    for a, b_ in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a, b_, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lq,lk,offset,dropout", [
+    (128, 128, 0, False), (1152, 1152, 0, False), (2048, 4096, 0, False), (128, 384, 0, False),
+    (384, 128, 0, False), (128, 256, 3, False), (64, 64, 0, False), (256, 200, 0, False),
+    (1152, 1152, 0, True)])
+def test_flash_gate_matches_jax_gate(monkeypatch, causal, lq, lk, offset, dropout):
+    """``flash_supported`` is JAX's ``flash_attention_supported`` without
+    its TPU check (JAX's gate read as if on a TPU)."""
+    monkeypatch.setattr(jfa.jax, "default_backend", lambda: "tpu")
+    q = np.zeros((1, 1, lq, D), np.float32)
+    k = np.zeros((1, 1, lk, D), np.float32)
+    want = jfa.flash_attention_supported(q, k, k, causal=causal, causal_offset=offset,
+                                         dropout_active=dropout)
+    got = tba.flash_supported(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(k),
+                              causal=causal, causal_offset=offset, dropout_active=dropout)
+    assert got == want

@@ -376,6 +376,113 @@ def test_block_attention_kernel_reads_strided_views():
         assert torch.equal(a, b)
 
 
+def _k5_gate_case(dtype, L, Lk, causal, rate, model_masks=False):
+    """K5 on both gates' shapes: q a head view of a fused [B, L, 3D]
+    projection, k and v of a fused [B, Lk, 2D] one (read in place), a
+    left-pad key mask (batch row 1 starts at key 37, so its causal rows
+    before it see no real key and spread over all keys) and a ragged tail
+    of padded query rows in batch row 0; with ``model_masks`` the query
+    mask is the key mask, as the model passes them (the rows before key 37
+    are padded, not dead). Returns the (kernel, plain, plain in f32 for
+    bf16) runs, each [o, dQ, dK, dV], and q_mask."""
+    g = torch.Generator().manual_seed(L + 3 * Lk + int(causal))
+    B, H = 2, 2
+    qkv = torch.randn((B, L, 3 * H * 64), generator=g)
+    kv = torch.randn((B, Lk, 2 * H * 64), generator=g)
+    heads = [x.view(B, -1, H, 64).transpose(1, 2)
+             for x in (qkv[..., :H * 64], *kv.split(H * 64, dim=-1))]
+    do = torch.randn((B, H, L, 64), generator=g)
+    km = torch.ones((B, Lk), dtype=torch.int32)
+    km[1, :37] = 0
+    qm = torch.ones((B, L), dtype=torch.int32)
+    qm[0, L - 20:] = 0
+    if model_masks:
+        qm = km[:, :L].clone()
+    km, qm = km.cuda(), qm.cuda()
+    runs = [(tba.block_mha, dtype), (tba.block_mha_reference, dtype)]
+    if dtype == torch.bfloat16:
+        runs.append((tba.block_mha_reference, torch.float32))
+    outs = []
+    for fn, dt in runs:
+        xs = [x.to("cuda", dt).detach().requires_grad_(True) for x in heads]
+        o = fn(*xs, causal=causal, scale=0.125, q_mask=qm, kv_mask=km, dropout_rate=rate,
+               dropout_seed=11 if rate else None)
+        outs.append([o, *torch.autograd.grad(o, xs, do.to("cuda", dt))])
+    torch.cuda.synchronize()
+    return outs, qm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,Lk,causal,rate", [
+    (128, 128, True, 0.1), (128, 128, False, 0.0), (512, 512, True, 0.0), (512, 512, True, 0.1),
+    (512, 512, False, 0.1), (1024, 1024, True, 0.1), (1024, 1024, False, 0.0),
+    (2048, 2048, True, 0.0), (2048, 2048, False, 0.0), (128, 384, True, 0.0),
+    (128, 384, False, 0.0), (128, 384, False, 0.1)])
+def test_block_attention_kernel_across_gates(dtype, L, Lk, causal, rate):
+    """The kernel inside JAX's block gate (L <= 1024, dropout 0 and 0.1)
+    and inside its flash gate (L = 2048; causal Lq = 128 over Lk = 384 at
+    offset 0, where query i sees keys <= i; no dropout there), against the
+    plain version, with strided views, a left-pad key mask and padded
+    query rows. fp32 with TF32 off at JAX's bars (2e-5 forward, 5e-5
+    gradients); bf16 output within 2e-2 + 1e-2 |plain|, gradients as
+    ``_grads_within``; where Lq == Lk, dK without its last 64 keys must
+    fail that bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
+    ((o, *grads), (o_ref, *grads_ref), *exact), qm = _k5_gate_case(dtype, L, Lk, causal, rate)
+    assert (tba.LAUNCHES, tba.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    ok, err = _within(o, o_ref, dtype, 2e-5)
+    assert ok, err
+    assert bool((o.transpose(1, 2)[qm == 0] == 0).all())  # padded rows are zeros
+    exact = exact[0][1:] if exact else ()
+    _grads_within(grads, grads_ref, dtype, 5e-5, exact)
+    if exact and L == Lk:
+        late = grads[1].clone()
+        late[:, :, -64:] = 0
+        assert _bf16_grad_ratio(late, grads_ref[1], exact[1]) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [512, 2048])
+def test_block_attention_kernel_model_masks(L):
+    """The model's masks (query mask = key mask, left-padded): padded rows
+    before the first real key output zeros and pass zero gradients without
+    walking every key. bf16, causal, no dropout, in both gates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    ((o, *grads), (o_ref, *grads_ref), (_, *exact)), qm = _k5_gate_case(
+        torch.bfloat16, L, L, True, 0.0, model_masks=True)
+    ok, err = _within(o, o_ref, torch.bfloat16, None)
+    assert ok, err
+    assert bool((o.transpose(1, 2)[qm == 0] == 0).all())
+    assert bool((grads[0].transpose(1, 2)[qm == 0] == 0).all())
+    _grads_within(grads, grads_ref, torch.bfloat16, None, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["flash", "auto", "pallas"])
+def test_flash_gate_routes_to_the_kernel(impl):
+    """At L = 2048 (JAX's flash gate) ``multihead_attention`` launches K5
+    on the card without dropout, and takes the plain math with dropout
+    active, as JAX does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.ops.attention import multihead_attention
+    x = torch.randn((1, 2, 2048, 64), device="cuda", dtype=torch.bfloat16)
+    f0 = tba.LAUNCHES
+    got = multihead_attention(x, x, x, causal=True, impl=impl)
+    assert tba.LAUNCHES == f0 + 1
+    want = tba.block_mha_reference(x, x, x, causal=True, scale=0.125)
+    ok, err = _within(got, want, torch.bfloat16, None)
+    assert ok, err
+    multihead_attention(x, x, x, causal=True, impl=impl, dropout_rate=0.1,
+                        deterministic=False, seed=3)
+    assert tba.LAUNCHES == f0 + 1
+
+
 @pytest.mark.cuda
 def test_block_attention_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
@@ -387,8 +494,11 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):  # head dim 32
         tba.block_mha(x32, x32, x32, causal=True)
     short = torch.zeros((2, 2, 96, 64), device="cuda")
-    with pytest.raises(ValueError):  # outside the gate: L=96
+    with pytest.raises(ValueError):  # outside the gates: L=96
         tba.block_mha(short, short, short, causal=True)
+    long = torch.zeros((1, 2, 2048, 64), device="cuda")
+    with pytest.raises(ValueError):  # the flash gate takes no dropout
+        tba.block_mha(long, long, long, causal=True, dropout_rate=0.1, dropout_seed=1)
 
 
 @pytest.mark.cuda
