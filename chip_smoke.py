@@ -12,7 +12,9 @@ Phases, each of which raises on failure:
    left-pad mask and cross q [256, 128, 768] over k/v [256, 32, 768]
    with a ragged caption mask, in bf16 (within 2e-2: output rounding
    plus summation order) and fp32 (within 2e-5, TF32 off); median
-   times of both from CUDA events.
+   times of both from CUDA events, and of one
+   ``scaled_dot_product_attention`` call with each form's masks as a
+   boolean mask, with each form's bound, on rows of their own.
 3. decode kernels: K3 (fused cross sublayer, B=256 over a 32-token int8
    caption cache with a ragged mask), K4 (fused LN2 + MLP, B=256,
    D=768, F=3072) and K2 (int8 decode attention, B=64, T=512, index
@@ -31,8 +33,8 @@ Phases, each of which raises on failure:
    top-p 0.8) with the switches off and with ``ERGM_CROSS_KERNEL=1``
    and ``decode_fused_mlp`` on, timed in turns (off, on, on, off); then
    ``generate_batch`` over 64 ragged greedy requests. K1 must launch
-   2 x n_layer times per prefill, K3 and K4 n_layer times per decode
-   step with the switches on.
+   n_layer times per prefill in each form (self and cross), K3 and K4
+   n_layer times per decode step with the switches on.
 6. long history: gpt2 at full width, B=64, a 384-token prompt, 128 new
    tokens in a 512-slot cache, with ``ERGM_DECODE_KERNEL=1`` and
    without, timed in turns; K2 must launch n_layer times per decode
@@ -43,13 +45,15 @@ Phases, each of which raises on failure:
    the plain version run in f32, at most twice the plain bf16 version's
    error, see ``bf16_grad_ratio``; dK without its last 64 keys must fail
    that bar), and fp32 with TF32 off at [4, 12, 512, 64] (2e-5 and
-   5e-5); K6 (fused cross-entropy) forward, dh and dW at N=24,576,
-   V=50,271, D=768 in bf16 with logits of std 3 (NLL within 1e-4 +
-   1e-4 |plain|, gradients as K5's, and the gold term alone must fail
-   that bar) and fp32 at N=2,048 (NLL 1e-5, gradients rtol 1e-4 / atol
-   1e-5). Median CUDA-event times of kernel
-   and plain in turns, and of ``scaled_dot_product_attention`` as K5's
-   yardstick.
+   5e-5); K6 (fused cross-entropy) forward and backward (dh and dW over
+   8192-column vocab chunks) at N=24,576, V=50,271, D=768 in bf16 with
+   logits of std 3 (NLL within 1e-4 + 1e-4 |plain|, gradients as K5's,
+   and the gold term alone must fail that bar; two backward runs bitwise
+   equal) and fp32 at N=2,048 (NLL 1e-5, gradients rtol 1e-4 / atol
+   1e-5). Median CUDA-event times of kernel and plain in turns, and of
+   ``scaled_dot_product_attention`` as K5's yardstick; K6's backward
+   also with 4096- and 16384-column chunks, and one cuBLAS ``h @ w.t()``
+   at its shapes as context.
    K7's shapes (JAX's library flash kernel, served by K5): [8, 12, 2048,
    64] bf16, causal, left-pad key and query masks, no dropout, forward and
    backward against the plain version (output and gradient bars as K5's,
@@ -66,8 +70,10 @@ Phases, each of which raises on failure:
    at full width, B=48, L=512, bf16, dropout 0.1, remat "mlp", random
    weights from seed 0): ``make_train_step`` once, then 8 timed steps
    (two chains of 4); K5 must launch 12 forward and 12 backward times
-   per step and K6's three kernels once each; the LM loss on the
-   repeated batch must fall. Then ``Trainer(cfg).train()`` for one epoch on a
+   per step and K6's forward and backward once each; the LM loss on the
+   repeated batch must fall. One more step reads the device memory in use
+   and at its peak before, during and after K6's backward, to show where
+   the step's peak is set. Then ``Trainer(cfg).train()`` for one epoch on a
    synthetic dataset (B=48, batches padded to 512): validation, a
    best-PPL checkpoint, and a resume that restores it.
 
@@ -169,16 +175,16 @@ def reset_launches() -> None:
     for mod in (prefill_attention, cross_decode, fused_decode, decode_attention,
                 block_attention, fused_ce):
         mod.LAUNCHES = 0
+    prefill_attention.CROSS_LAUNCHES = 0
     block_attention.BWD_LAUNCHES = 0
-    fused_ce.DH_LAUNCHES = fused_ce.DW_LAUNCHES = 0
+    fused_ce.BWD_LAUNCHES = 0
 
 
 def _train_counts() -> dict:
     return {"block_mha": block_attention.LAUNCHES,
             "block_mha_bwd": block_attention.BWD_LAUNCHES,
             "fused_softmax_xent": fused_ce.LAUNCHES,
-            "fused_softmax_xent_dh": fused_ce.DH_LAUNCHES,
-            "fused_softmax_xent_dw": fused_ce.DW_LAUNCHES}
+            "fused_softmax_xent_bwd": fused_ce.BWD_LAUNCHES}
 
 
 def bound(nbytes: float, flops: float, dtype=torch.bfloat16) -> dict:
@@ -226,8 +232,11 @@ def _median_ms(fn, reps: int = 20) -> float:
 
 
 def kernel_phase(gen: torch.Generator) -> dict:
-    """K1 vs plain at the slice's shapes. Returns the numbers for the JSON line."""
-    res = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0}
+    """K1 vs plain at the slice's shapes. Returns the numbers of its two
+    JSON rows, the self form ("prefill_mha") and the cross form
+    ("prefill_mha_cross")."""
+    res = {name: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0}
+           for name in ("prefill_mha", "prefill_mha_cross")}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         # the model hands K1 column slices of the fused projections
         qkv = torch.randn((B, PROMPT, 3 * D), generator=gen, device=DEVICE).to(dtype)
@@ -249,31 +258,30 @@ def kernel_phase(gen: torch.Generator) -> dict:
             got, want = run(), plain()
             torch.cuda.synchronize()
             err = ((got.float() - want.float()) * rows).abs().max().item()
-            print(f"K1 {name} {dtype}: max |kernel - plain| = {err:.3e} (tol {tol:g})")
+            print(f"K1 {name} {dtype}: max |kernel - plain| = {err:.3e} (tol {tol})")
             if not err <= tol:
                 raise AssertionError(f"K1 {name} {dtype} disagrees with its plain version: {err}")
+            r = res["prefill_mha_cross" if name == "cross" else "prefill_mha"]
             key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
-            res[key] = max(res[key], err)
+            r[key] = max(r[key], err)
             if dtype == torch.bfloat16 and name != "self":
-                # plain, kernel, kernel, plain
-                p1, k1, k2, p2 = (_median_ms(f) for f in (plain, run, run, plain))
-                kern_ms, plain_ms = min(k1, k2), min(p1, p2)
-                print(f"K1 {name} bf16: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms "
-                      f"(medians of 20; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f})")
-                prefix = "" if name == "self_leftpad" else "cross_"
-                res[f"{prefix}ms"], res[f"{prefix}plain_ms"] = kern_ms, plain_ms
-                if name == "self_leftpad":
-                    # the yardstick: one SDPA call over the same head views, with
-                    # the causal and left-pad masks as one boolean mask
-                    heads = [x.view(B, PROMPT, H, D // H).transpose(1, 2) for x in (qq, kk, vv)]
-                    allowed = (torch.ones(PROMPT, PROMPT, dtype=torch.bool, device=DEVICE).tril()
-                               & (m[:, None, None, :] > 0))
-                    res["library_ms"] = _median_ms(lambda: F.scaled_dot_product_attention(
-                        *heads, attn_mask=allowed, scale=0.125))
-                    pairs = B * H * PROMPT * (PROMPT + 1) // 2  # causal (query, key) pairs
-                    res.update(bound(4 * _nbytes(qq), 2 * 2 * pairs * (D // H)))
-                    print(f"K1 self_leftpad bf16: SDPA {res['library_ms']:.4f} ms, bound "
-                          f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+                r["ms"], r["plain_ms"] = _timed_pair(f"K1 {name}", run, plain)
+                # the yardstick: one SDPA call over the same head views, with
+                # the form's masks as one boolean mask; the bound counts the
+                # (query, key) pairs the form computes
+                heads = [x.view(B, -1, H, D // H).transpose(1, 2) for x in (qq, kk, vv)]
+                allowed = m[:, None, None, :] > 0
+                if causal:
+                    allowed = allowed & torch.ones(PROMPT, PROMPT, dtype=torch.bool,
+                                                   device=DEVICE).tril()
+                r["library_ms"] = _median_ms(lambda: F.scaled_dot_product_attention(
+                    *heads, attn_mask=allowed, scale=0.125))
+                lk = kk.shape[1]
+                pairs = B * H * (PROMPT * (PROMPT + 1) // 2 if causal else PROMPT * lk)
+                r.update(bound(2 * _nbytes(qq) + 2 * B * lk * D * qq.element_size(),
+                               2 * 2 * pairs * (D // H)))
+                print(f"K1 {name} bf16: SDPA {r['library_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return res
 
 
@@ -412,7 +420,7 @@ def reference_phase() -> None:
                         out.append(o.logits[:, -1])
                 if dev == DEVICE:
                     counts = _launch_counts()
-                    want = {"prefill_mha": 2 * cfg.n_layer,
+                    want = {"prefill_mha": cfg.n_layer, "prefill_mha_cross": cfg.n_layer,
                             **{k: (cfg.n_layer * steps if on else 0) for k in (
                                 "fused_cross_decode", "fused_ln_mlp", "decode_mha_int8")}}
                     if counts != want:
@@ -427,7 +435,8 @@ def reference_phase() -> None:
 
 
 def _launch_counts() -> dict:
-    return {"prefill_mha": prefill_attention.LAUNCHES,
+    cross = prefill_attention.CROSS_LAUNCHES
+    return {"prefill_mha": prefill_attention.LAUNCHES - cross, "prefill_mha_cross": cross,
             "fused_cross_decode": cross_decode.LAUNCHES,
             "fused_ln_mlp": fused_decode.LAUNCHES,
             "decode_mha_int8": decode_attention.LAUNCHES}
@@ -524,9 +533,10 @@ def slice_phase(card: str) -> tuple:
                             _gpt2_inputs(np.random.default_rng(0), B, PROMPT), PROMPT,
                             PROMPT + NEW, card)
     for name, got in counts.items():
-        if got["prefill_mha"] != 2 * cfg.n_layer:
-            raise AssertionError(f"[{name}] K1 launched {got['prefill_mha']} times in one "
-                                 f"prefill, want {2 * cfg.n_layer}")
+        if (got["prefill_mha"], got["prefill_mha_cross"]) != (cfg.n_layer, cfg.n_layer):
+            raise AssertionError(f"[{name}] K1 launched {got['prefill_mha']} (self) and "
+                                 f"{got['prefill_mha_cross']} (cross) times in one prefill, "
+                                 f"want {cfg.n_layer} each")
 
     brng = np.random.default_rng(1)
     n = 64
@@ -608,8 +618,7 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
     """K5 and K6 against their plain versions at the training slice's
     shapes, forward and backward, with times. Returns their JSON numbers."""
     res = {name: {"max_abs_err": 0.0} for name in (
-        "block_mha", "block_mha_bwd", "fused_softmax_xent", "fused_softmax_xent_dh",
-        "fused_softmax_xent_dw")}
+        "block_mha", "block_mha_bwd", "fused_softmax_xent", "fused_softmax_xent_bwd")}
     H_, Dh = 12, 64
     # K5: bf16 at the slice, dropout off and on (one seed); fp32 at B=4
     for dtype, b in ((torch.bfloat16, TRAIN_B), (torch.float32, 4)):
@@ -732,15 +741,21 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
         print(f"K6 {dtype} N={n}, V={V}, D={D}: max |kernel - plain| NLL {n_err:.3e}, "
               f"dh {errs[0]:.3e}, dW {errs[1]:.3e}{note}")
         key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
-        for name, err in zip(("fused_softmax_xent", "fused_softmax_xent_dh",
-                              "fused_softmax_xent_dw"), (n_err, *errs)):
-            res[name][key] = err
+        res["fused_softmax_xent"][key] = n_err
+        res["fused_softmax_xent_bwd"][key] = max(errs)
         del dh, dw, dh_ref, dw_ref, nll_ref
-    # K6 times at the slice (bf16): the kernels alone, and plain functions
-    # computing the same NLL, dh and dW
+    # K6 at the slice (bf16): the backward twice must agree bit for bit;
+    # times of the kernels alone and of plain functions computing the same
+    # NLL and (dh, dW); the backward's chunk width at 4096, 8192 (the
+    # default) and 16384 columns
     l32 = lbl.to(torch.int32)
     _, logz = fused_ce.launch_fwd(h, w, l32)
     g = torch.where(lbl >= 0, cot, 0.0)
+    first, second = (fused_ce.launch_bwd(h, w, l32, logz, g) for _ in range(2))
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("K6 bf16: two backward runs differ")
+    del first, second
+    print("K6 bf16: two backward runs are bitwise equal")
 
     def plain_padj():
         p = torch.softmax(h.float() @ w.float().t(), dim=-1) * g[:, None]
@@ -748,23 +763,31 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
         p[ok, lbl[ok]] -= g[ok]
         return p
 
+    def plain_bwd():
+        p = plain_padj()
+        return (p @ w.float()).to(h.dtype), (p.t() @ h.float()).to(w.dtype)
+
     times = {
         "fused_softmax_xent": (lambda: fused_ce.launch_fwd(h, w, l32),
-                               lambda: fused_ce.fused_softmax_xent_reference(h, w, lbl)),
-        "fused_softmax_xent_dh": (lambda: fused_ce.launch_bwd("dh", h, w, l32, logz, g),
-                                  lambda: (plain_padj() @ w.float()).to(h.dtype)),
-        "fused_softmax_xent_dw": (lambda: fused_ce.launch_bwd("dw", h, w, l32, logz, g),
-                                  lambda: (plain_padj().t() @ h.float()).to(w.dtype)),
+                               lambda: fused_ce.fused_softmax_xent_reference(h, w, lbl), 1),
+        "fused_softmax_xent_bwd": (lambda: fused_ce.launch_bwd(h, w, l32, logz, g), plain_bwd, 3),
     }
-    products = {"fused_softmax_xent": 1, "fused_softmax_xent_dh": 2, "fused_softmax_xent_dw": 2}
-    for name, (run, plain) in times.items():
+    for name, (run, plain, products) in times.items():
         r = res[name]
         r["ms"], r["plain_ms"] = _timed_pair(name, run, plain, reps=5)
         r["library_ms"] = None  # no single PyTorch call computes it
-        # the logits (recomputed in the backward) and the gradient product
-        out = _nbytes(h) if name.endswith("dh") else _nbytes(w) if name.endswith("dw") else 0
-        r.update(bound(_nbytes(h, w, l32) + out, products[name] * 2 * h.shape[0] * V * D))
+        # the forward reads h, W and the labels; the backward also the
+        # cotangent and logZ, and writes dh and dW; 1 or 3 products of 2NVD
+        nbytes = _nbytes(h, w, l32) + (_nbytes(g, logz, h, w) if name.endswith("bwd") else 0)
+        r.update(bound(nbytes, products * 2 * h.shape[0] * V * D))
         print(f"{name}: bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for chunk in (4096, 16384):
+        t = _median_ms(lambda: fused_ce.launch_bwd(h, w, l32, logz, g, chunk=chunk), 5)
+        print(f"fused_softmax_xent_bwd with {chunk}-column chunks: {t:.4f} ms "
+              f"({fused_ce.CHUNK}: {res['fused_softmax_xent_bwd']['ms']:.4f} ms)")
+    # context only, not a library_ms: one cuBLAS product of the same shape
+    print(f"cuBLAS h @ w.t() [{h.shape[0]}, {D}] x [{D}, {V}] bf16: "
+          f"{_median_ms(lambda: h @ w.t(), 5):.4f} ms")
     return res
 
 
@@ -862,8 +885,7 @@ def train_reference_phase() -> None:
         if dev == DEVICE:
             counts = _train_counts()
             want = {"block_mha": 2 * steps, "block_mha_bwd": 2 * steps,
-                    "fused_softmax_xent": steps, "fused_softmax_xent_dh": steps,
-                    "fused_softmax_xent_dw": steps}
+                    "fused_softmax_xent": steps, "fused_softmax_xent_bwd": steps}
             if counts != want:
                 raise AssertionError(f"training reference: launches {counts}, want {want}")
     err = max(abs(a - b) for a, b in zip(losses["cpu"], losses[DEVICE]))
@@ -899,6 +921,42 @@ def long_context_phase(card: str) -> dict:
     return counts
 
 
+def _k6_memory_step(step, state, batch):
+    """One more step with K6's backward wrapped: prints the device memory
+    allocated when it starts and the peak before, during and after it."""
+    seen = {}
+    launch_bwd = fused_ce.launch_bwd
+
+    def probe(*args, **kwargs):
+        torch.cuda.synchronize()
+        seen["before_peak"] = torch.cuda.max_memory_allocated()
+        seen["at_start"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = launch_bwd(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["during_peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_ce.launch_bwd = probe
+    try:
+        state, _ = step(state, batch, SEED)
+        torch.cuda.synchronize()
+    finally:
+        fused_ce.launch_bwd = launch_bwd
+    if len(seen) != 3:
+        raise AssertionError(f"train slice: K6's backward was not reached, {seen}")
+    after = torch.cuda.max_memory_allocated()
+    gb = {k: v / 1e9 for k, v in seen.items()}
+    print(f"train slice memory: {gb['at_start']:.3f} GB allocated as K6's backward starts; "
+          f"peak {gb['before_peak']:.3f} GB before it (forward and loss), "
+          f"{gb['during_peak']:.3f} GB during it, {after / 1e9:.3f} GB after it (the layers' "
+          f"backward and AdamW)")
+    return state
+
+
 def train_slice_phase(card: str) -> dict:
     """gpt2 at full width under train_bench's configuration: make_train_step
     timed, then one Trainer epoch with validation, a checkpoint and a
@@ -926,7 +984,7 @@ def train_slice_phase(card: str) -> dict:
     counts = _train_counts()
     n = 8
     want = {"block_mha": n * cfg.n_layer, "block_mha_bwd": n * cfg.n_layer,
-            "fused_softmax_xent": n, "fused_softmax_xent_dh": n, "fused_softmax_xent_dw": n}
+            "fused_softmax_xent": n, "fused_softmax_xent_bwd": n}
     if counts != want:
         raise AssertionError(f"train slice: launches {counts} over {n} steps, want {want}")
     # the LM loss over 24,576 tokens must fall on the repeated batch; the
@@ -946,6 +1004,7 @@ def train_slice_phase(card: str) -> dict:
           f"{peak_gb:.2f} GB, loss {first_loss:.4f} -> {loss:.4f} (LM {first_lm:.4f} -> "
           f"{lm:.4f}), launches per step "
           f"{ {k: v // n for k, v in counts.items()} } on {card}")
+    state = _k6_memory_step(step, state, batch)
     del state, step, params, batch
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1054,7 +1113,10 @@ def main() -> None:
         if arg.startswith("--profile="):
             profile_train_step(card, arg.split("=", 1)[1])
 
-    rows = [("prefill_mha", "prefill_attention", "prefill_attention.py:111", on, k1),
+    rows = [("prefill_mha", "prefill_attention", "prefill_attention.py:111", on,
+             k1["prefill_mha"]),
+            ("prefill_mha_cross", "prefill_attention", "prefill_attention.py:111", on,
+             k1["prefill_mha_cross"]),
             ("fused_cross_decode", "cross_decode", "cross_decode.py:127", on,
              decode["cross_decode"]),
             ("fused_ln_mlp", "fused_decode", "fused_decode.py:99", on, decode["fused_ln_mlp"]),
@@ -1070,10 +1132,8 @@ def main() -> None:
              flash["block_mha_flash_bwd"]),
             ("fused_softmax_xent", "fused_ce", "fused_ce.py:172", train_on,
              train["fused_softmax_xent"]),
-            ("fused_softmax_xent_dh", "fused_ce", "fused_ce.py:235", train_on,
-             train["fused_softmax_xent_dh"]),
-            ("fused_softmax_xent_dw", "fused_ce", "fused_ce.py:262", train_on,
-             train["fused_softmax_xent_dw"])]
+            ("fused_softmax_xent_bwd", "fused_ce", "fused_ce.py:220", train_on,
+             train["fused_softmax_xent_bwd"])]
     # the K7 rows read the long-context step's K5 counts
     counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
     print(json.dumps({"kernels": [{

@@ -1,5 +1,5 @@
 // Asynchronous 16-byte copies from device memory to shared memory
-// (cp.async, sm_80 and later), shared by the training kernels K5 and K6.
+// (cp.async, sm_80 and later), shared by the kernels K1 and K5.
 // A tile's loads are all in flight at once, where a load-then-store loop
 // waits one L2 round trip per load; nothing passes through registers.
 // Start the copies, then wait_all() and __syncthreads() before reading;

@@ -103,9 +103,9 @@ def load() -> ctypes.CDLL:
                                u, u, p],
         "ergm_block_mha_bwd": [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, strides, f,
                                i, i, f, f, u, u, p],
-        "ergm_xent_fwd": [p, p, p, p, p, i, i, i, i, p],
-        "ergm_xent_bwd_dh": [p, p, p, p, p, p, i, i, i, i, p],
-        "ergm_xent_bwd_dw": [p, p, p, p, p, p, i, i, i, i, p],
+        "ergm_xent_fwd": [p, p, p, p, p, p, i, i, i, i, p],
+        "ergm_xent_bwd_f32": [p, p, p, p, p, p, i, i, i, i, p],
+        "ergm_xent_bwd_chunk": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

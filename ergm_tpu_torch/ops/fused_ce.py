@@ -4,14 +4,17 @@ logits: kernel K6 of the port.
 Counterpart of ``ergm_tpu/ops/fused_ce.py``. ``fused_softmax_xent``
 returns each token's NLL under softmax(h Wᵀ); its gradient flows to h
 and W. On CUDA tensors it is a ``torch.autograd.Function`` whose forward
-(per-token NLL and logZ by an online logsumexp over vocab tiles) and two
-backward kernels (dh over vocab tiles, dW over token tiles, both from
-the recomputed (p − onehot)·g) are the hand-written kernels of
-``csrc/fused_ce.cu`` (see the note at the top of that file), or raise;
-on CPU tensors it runs ``fused_softmax_xent_reference``, the dense f32
-logsumexp − gold with autograd. ``fused_lm_loss`` is the shifted,
-masked mean of ``chunked_lm_loss`` through it. ``fused_lm_loss_sharded``
-(data parallel over several devices) is not ported.
+(per-token NLL and logZ) and backward are the hand-written kernels of
+``csrc/fused_ce.cu`` (see the note at the top of that file), or raise.
+In bf16 the backward walks the vocabulary in chunks of ``CHUNK``
+columns (``vocab_chunks``; ``launch_bwd`` takes another width as
+``chunk``), three tensor-core products per chunk: the
+recomputed (p − onehot)·g rounded into a scratch buffer, dh += padj·W_c
+into an f32 sum, and dW_c = padjᵀ·h. On CPU tensors it runs
+``fused_softmax_xent_reference``, the dense f32 logsumexp − gold with
+autograd. ``fused_lm_loss`` is the shifted, masked mean of
+``chunked_lm_loss`` through it. ``fused_lm_loss_sharded`` (data parallel
+over several devices) is not ported.
 """
 
 from __future__ import annotations
@@ -20,12 +23,25 @@ import torch
 
 from ergm_tpu_torch.ops import _build
 
-# Launches since the last reset, one count per kernel: forward, dh and dW.
+# Calls since the last reset: forward and backward (each backward call
+# launches its chunks' kernels).
 LAUNCHES = 0
-DH_LAUNCHES = 0
-DW_LAUNCHES = 0
+BWD_LAUNCHES = 0
 MAX_DIM = 1024
+# vocab columns per backward chunk by default (a multiple of the kernels'
+# 256-column tile); its bf16 scratch is [N rounded up to 128, CHUNK],
+# 403 MB at N = 24,576
+CHUNK = 8192
+_TILE_V = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def vocab_chunks(V: int, chunk: int) -> list:
+    """The backward's vocab chunks, (first row, width) in order: whole
+    chunks of ``chunk`` columns, then the rest up to V."""
+    if chunk <= 0 or chunk % _TILE_V:
+        raise ValueError(f"chunk={chunk}: a positive multiple of {_TILE_V} is needed")
+    return [(v0, min(chunk, V - v0)) for v0 in range(0, V, chunk)]
 
 
 def fused_softmax_xent_reference(hidden: torch.Tensor, wte: torch.Tensor,
@@ -66,34 +82,56 @@ def _call(name, *args):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def _rows_padded(n: int) -> int:
+    return -(-n // 128) * 128
+
+
 def launch_fwd(hidden, wte, labels):
-    """The forward kernel on checked contiguous operands: (nll, logz) [N] f32."""
+    """The forward kernels on checked contiguous operands: (nll, logz) [N] f32."""
     global LAUNCHES
     N, D = hidden.shape
-    nll = torch.empty((N,), dtype=torch.float32, device=hidden.device)
-    logz = torch.empty((N,), dtype=torch.float32, device=hidden.device)
-    with torch.cuda.device(hidden.device):
+    V = wte.shape[0]
+    dev = hidden.device
+    nll = torch.empty((N,), dtype=torch.float32, device=dev)
+    logz = torch.empty((N,), dtype=torch.float32, device=dev)
+    # the bf16 route's (max, sum, gold) partial per token and 256 vocab columns
+    part = (torch.empty((3, -(-V // _TILE_V), _rows_padded(N)), dtype=torch.float32, device=dev)
+            if hidden.dtype == torch.bfloat16 else None)
+    with torch.cuda.device(dev):
         _call("ergm_xent_fwd", hidden.data_ptr(), wte.data_ptr(), labels.data_ptr(),
-              nll.data_ptr(), logz.data_ptr(), _DTYPE_CODE[hidden.dtype], N, wte.shape[0], D)
+              nll.data_ptr(), logz.data_ptr(), None if part is None else part.data_ptr(),
+              _DTYPE_CODE[hidden.dtype], N, V, D)
     LAUNCHES += 1
     return nll, logz
 
 
-def launch_bwd(which, hidden, wte, labels, logz, g):
-    """The dh (``which="dh"``) or dW (``"dw"``) kernel: the gradient in
-    hidden's or wte's dtype from the per-token cotangent ``g`` [N] f32."""
-    global DH_LAUNCHES, DW_LAUNCHES
+def launch_bwd(hidden, wte, labels, logz, g, chunk: int = CHUNK):
+    """The backward kernels: (dh, dW) in hidden's and wte's dtype from the
+    per-token cotangent ``g`` [N] f32. bf16: vocab chunks of ``chunk``
+    columns in order, three products each; f32: one dh and one dW kernel."""
+    global BWD_LAUNCHES
     N, D = hidden.shape
-    out = torch.empty_like(hidden if which == "dh" else wte)
+    V = wte.shape[0]
+    dh, dw = torch.empty_like(hidden), torch.empty_like(wte)
+    ptrs = (hidden.data_ptr(), wte.data_ptr(), labels.data_ptr(), logz.data_ptr(), g.data_ptr())
     with torch.cuda.device(hidden.device):
-        _call(f"ergm_xent_bwd_{which}", hidden.data_ptr(), wte.data_ptr(), labels.data_ptr(),
-              logz.data_ptr(), g.data_ptr(), out.data_ptr(), _DTYPE_CODE[hidden.dtype], N,
-              wte.shape[0], D)
-    if which == "dh":
-        DH_LAUNCHES += 1
-    else:
-        DW_LAUNCHES += 1
-    return out
+        if hidden.dtype == torch.float32:
+            _call("ergm_xent_bwd_f32", *ptrs, dh.data_ptr(), 0, N, V, D)
+            _call("ergm_xent_bwd_f32", *ptrs, dw.data_ptr(), 1, N, V, D)
+        else:
+            chunks = vocab_chunks(V, chunk)
+            width = min(chunk, -(-V // _TILE_V) * _TILE_V)  # no wider than the vocab needs
+            padj = torch.empty((_rows_padded(N), width), dtype=torch.bfloat16,
+                               device=hidden.device)
+            acc = (torch.empty((N, D), dtype=torch.float32, device=hidden.device)
+                   if len(chunks) > 1 else None)
+            for i, (v0, w) in enumerate(chunks):
+                _call("ergm_xent_bwd_chunk", *ptrs, padj.data_ptr(),
+                      None if acc is None else acc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+                      N, V, D, v0, w, width, int(i == 0),
+                      int(i == len(chunks) - 1))
+    BWD_LAUNCHES += 1
+    return dh, dw
 
 
 class _FusedXent(torch.autograd.Function):
@@ -106,9 +144,8 @@ class _FusedXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hidden, wte, labels, logz = ctx.saved_tensors
-        g = g.float().contiguous()
-        return (launch_bwd("dh", hidden, wte, labels, logz, g),
-                launch_bwd("dw", hidden, wte, labels, logz, g), None)
+        dh, dw = launch_bwd(hidden, wte, labels, logz, g.float().contiguous())
+        return dh, dw, None
 
 
 def fused_softmax_xent(hidden: torch.Tensor, wte: torch.Tensor,

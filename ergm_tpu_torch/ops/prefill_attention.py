@@ -22,9 +22,11 @@ from ergm_tpu_torch.ops.attention import attention_bias_from_mask, xla_attention
 
 HEAD_DIM = 64
 MAX_KEYS = 512
-# Kernel launches since the last reset; a run sets it to 0 and reads it
-# back to show that its path went through the kernel.
+# Kernel launches since the last reset, of both forms and of the cross
+# form alone; a run sets them to 0 and reads them back to show that its
+# path went through the kernel.
 LAUNCHES = 0
+CROSS_LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,6 +115,7 @@ def prefill_mha(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"prefill_mha kernel launch failed: cudaError {err}")
-    global LAUNCHES
+    global LAUNCHES, CROSS_LAUNCHES
     LAUNCHES += 1
+    CROSS_LAUNCHES += not causal
     return out

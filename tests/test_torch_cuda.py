@@ -97,16 +97,21 @@ def test_decode_wrappers_never_fall_back(kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("causal,Lk", [(True, 96), (False, 40), (False, 512)])
-def test_prefill_kernel_matches_reference(dtype, tol, causal, Lk):
-    """K1 against its plain version: causal with a left-pad mask, and the
-    rectangular cross form with a ragged caption mask, including the
-    largest key count the kernel takes. fp32 with TF32 off at JAX's 2e-5
-    bar; bf16 within output rounding plus summation order (2e-2)."""
+@pytest.mark.parametrize("causal,L,Lk", [(True, 96, 96), (True, 128, 128), (True, 256, 256),
+                                         (False, 64, 40), (False, 128, 32), (False, 128, 256),
+                                         (False, 64, 512)])
+def test_prefill_kernel_matches_reference(dtype, tol, causal, L, Lk):
+    """K1 against its plain version: causal with a left-pad mask (the
+    bf16 kernel's register path at 128 keys, two query blocks and the
+    two-pass path at 256), and the rectangular cross form with a ragged
+    caption mask (register path up to 128 keys, two-pass beyond, up to the
+    largest key count the kernel takes). Compared on real rows. fp32 with
+    TF32 off at JAX's 2e-5 bar; bf16 within output rounding plus
+    summation order (2e-2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, H, L = 16, 4, (96 if causal else 64)
+    B, H = 16, 4
     rng = np.random.default_rng(4)
     q, k, v = (_merged(rng, B, n, H * 64).to("cuda", dtype) for n in (L, Lk, Lk))
     mask = np.ones((B, Lk), np.float32)
@@ -116,11 +121,11 @@ def test_prefill_kernel_matches_reference(dtype, tol, causal, Lk):
         else:
             mask[b, int(rng.integers(1, Lk)):] = 0.0
     m = torch.from_numpy(mask).cuda()
-    before = tpa.LAUNCHES
+    before = (tpa.LAUNCHES, tpa.CROSS_LAUNCHES)
     got = tpa.prefill_mha(q, k, v, m, n_head=H, scale=0.125, causal=causal)
     want = tpa.prefill_mha_reference(q, k, v, m, n_head=H, scale=0.125, causal=causal)
     torch.cuda.synchronize()
-    assert tpa.LAUNCHES == before + 1
+    assert (tpa.LAUNCHES, tpa.CROSS_LAUNCHES) == (before[0] + 1, before[1] + (not causal))
     rows = m[:, :, None] if causal else 1.0  # padded query rows are junk on both
     err = ((got.float() - want.float()) * rows).abs().max().item()
     assert err <= tol, err
@@ -503,15 +508,19 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,N,V,D", [(torch.float32, 300, 1000, 256),
-                                         (torch.bfloat16, 300, 5003, 768)])
+                                         (torch.bfloat16, 300, 5003, 768),
+                                         (torch.bfloat16, 200, 1000, 256)])
 def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
-    """K6 forward, dh and dW against the plain version, with ignored labels
-    and ragged token and vocab tiles, on logits of std 3 (a trained LM
-    head's spread, where the softmax term is a large share of each
-    gradient). fp32 with TF32 off: NLL 1e-5, gradients rtol 1e-4 / atol
-    1e-5 (JAX's bars); bf16: NLL 1e-4 (the logits are exact bf16 products
-    summed in f32 on both sides), gradients as ``_grads_within``, a bar
-    that the gold term alone fails."""
+    """K6 forward and backward against the plain version, with ignored
+    labels, N not a multiple of the 128-row tile and V not a multiple of
+    the 256-column tile or of the chunk (bf16: through autograd in one
+    chunk, then with 2048-column chunks, so three of them, the last
+    ragged), on logits of std 3 (a trained LM head's spread, where the
+    softmax term is a large share of each gradient). fp32 with TF32 off:
+    NLL 1e-5, gradients rtol 1e-4 / atol 1e-5 (JAX's bars); bf16: NLL 1e-4
+    (the logits are exact bf16 products summed in f32 on both sides),
+    gradients as ``_grads_within``, a bar that the gold term alone fails.
+    bf16 also at D = 256, which the 192-column dh and dW tiles overhang."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -521,7 +530,7 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     lbl = torch.randint(0, V, (N,), generator=g).cuda()
     lbl[::7] = -100
     cot = torch.randn((N,), generator=g).cuda()
-    counts = (tce.LAUNCHES, tce.DH_LAUNCHES, tce.DW_LAUNCHES)
+    counts = (tce.LAUNCHES, tce.BWD_LAUNCHES)
     res = []
     for fn, dt in ((tce.fused_softmax_xent, dtype), (tce.fused_softmax_xent_reference, dtype),
                    (tce.fused_softmax_xent_reference, torch.float32)):
@@ -529,7 +538,7 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
         nll = fn(hh, ww, lbl)
         res.append([nll, *torch.autograd.grad((nll * cot).sum(), (hh, ww))])
     torch.cuda.synchronize()
-    assert (tce.LAUNCHES, tce.DH_LAUNCHES, tce.DW_LAUNCHES) == tuple(c + 1 for c in counts)
+    assert (tce.LAUNCHES, tce.BWD_LAUNCHES) == tuple(c + 1 for c in counts)
     (nll, dh, dw), (nll_ref, dh_ref, dw_ref), (_, dh_x, dw_x) = res
     assert dh.dtype == dtype and dw.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else 1e-4
@@ -539,12 +548,46 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
         torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-5)
     else:
         _grads_within([dh, dw], [dh_ref, dw_ref], dtype, None, [dh_x, dw_x])
+        lbl32 = lbl.to(torch.int32)
+        _, logz = tce.launch_fwd(h, w, lbl32)
+        chunked = tce.launch_bwd(h, w, lbl32, logz, cot, chunk=2048)
+        _grads_within(list(chunked), [dh_ref, dw_ref], dtype, None, [dh_x, dw_x])
         gw = torch.where(lbl >= 0, cot, 0.0)[:, None]
         gold_dh = -gw * w.float()[lbl.clamp_min(0)]
         gold_dw = torch.zeros((V, D), device="cuda").index_add_(0, lbl.clamp_min(0),
                                                                 -gw * h.float())
         assert _bf16_grad_ratio(gold_dh, dh_ref, dh_x) > 1.0
         assert _bf16_grad_ratio(gold_dw, dw_ref, dw_x) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [256, 1024, 8192])
+def test_fused_xent_backward_is_deterministic(chunk):
+    """The bf16 backward (no atomics; chunks in order on the stream) gives
+    bitwise the same dh and dW on a second run, and gradients within
+    ``_bf16_grad_ratio``'s bar whatever the chunk width: one chunk,
+    several, and a last chunk of 133 columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator().manual_seed(7)
+    N, V, D = 333, 2181, 256
+    h = torch.randn((N, D), generator=g).to("cuda", torch.bfloat16)
+    w = (3.0 / D ** 0.5 * torch.randn((V, D), generator=g)).to("cuda", torch.bfloat16)
+    lbl = torch.randint(0, V, (N,), generator=g).cuda().to(torch.int32)
+    lbl[::5] = -100
+    cot = torch.randn((N,), generator=g).cuda()
+    _, logz = tce.launch_fwd(h, w, lbl)
+    first = tce.launch_bwd(h, w, lbl, logz, cot, chunk=chunk)
+    second = tce.launch_bwd(h, w, lbl, logz, cot, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    hh, ww = (x.float().requires_grad_(True) for x in (h, w))
+    nll = tce.fused_softmax_xent_reference(hh, ww, lbl)
+    exact = torch.autograd.grad((nll * cot).sum(), (hh, ww))
+    plain = [x.to(torch.bfloat16) for x in exact]  # one output rounding
+    for got, p, x in zip(first, plain, exact):
+        ratio = _bf16_grad_ratio(got, p, x)
+        assert ratio <= 1.0, ratio
 
 
 @pytest.mark.cuda

@@ -90,3 +90,21 @@ def test_fused_lm_loss_matches_chunked_and_jax():
         grads.append((h.grad.numpy(), w.grad.numpy()))
     for a, b in zip(*grads):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("V,chunk", [(50271, 8192), (50271, 4096), (50271, 16384), (8192, 8192),
+                                     (8193, 8192), (300, 8192), (5003, 2048)])
+def test_vocab_chunks_cover_a_ragged_vocab(V, chunk):
+    """The bf16 backward's chunk plan: in order, contiguous, every chunk
+    but the last exactly ``chunk`` wide (a whole number of the kernels'
+    256-column tiles), the last ending at V."""
+    chunks = tce.vocab_chunks(V, chunk)
+    assert chunks[0][0] == 0 and sum(w for _, w in chunks) == V
+    for (a, wa), (b, _) in zip(chunks, chunks[1:]):
+        assert b == a + wa and wa == chunk
+    assert 1 <= chunks[-1][1] <= chunk and chunks[-1][0] + chunks[-1][1] == V
+
+
+def test_vocab_chunks_refuse_a_partial_tile():
+    with pytest.raises(ValueError):
+        tce.vocab_chunks(1000, 300)
