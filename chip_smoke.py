@@ -20,7 +20,9 @@ Phases, each of which raises on failure:
    D=768, F=3072) and K2 (int8 decode attention, B=64, T=512, index
    400, left-pad mask) against their plain versions, fp32 with TF32 off
    (within 2e-4, 2e-5 and 3e-4) and bf16 (|kernel - plain| <= 2e-2 +
-   1e-2 |plain|); median times of both from CUDA events.
+   1e-2 |plain|); median times of both from CUDA events; K3 and K4 in
+   bf16 must repeat bit for bit and start at most 3 and 2 kernels a call;
+   the device duration of each of their kernels by torch.profiler.
 4. reference: a small fp32 model on the card against the same model on
    the CPU (plain versions), prefill and decode logits within 1e-3:
    once with the decode switches off, and once with all three on
@@ -34,11 +36,16 @@ Phases, each of which raises on failure:
    and ``decode_fused_mlp`` on, timed in turns (off, on, on, off); then
    ``generate_batch`` over 64 ragged greedy requests. K1 must launch
    n_layer times per prefill in each form (self and cross), K3 and K4
-   n_layer times per decode step with the switches on.
+   n_layer times per decode step with the switches on. Then the device
+   time and kernel count of one B=256 decode step, switches off and K3 +
+   K4 on, by torch.profiler over 8 steps, beside the host's wall time
+   per step.
 6. long history: gpt2 at full width, B=64, a 384-token prompt, 128 new
-   tokens in a 512-slot cache, with ``ERGM_DECODE_KERNEL=1`` and
-   without, timed in turns; K2 must launch n_layer times per decode
-   step.
+   tokens in a 512-slot cache, with ``ERGM_DECODE_KERNEL=1``, without,
+   and without with the prompt prefill's self-attention on the plain math
+   (``ERGM_ATTN_IMPL=xla``: the route taken before it followed JAX's rule),
+   timed in turns; K2 must launch n_layer times per decode step, and K5
+   n_layer times per prefill under ``auto``.
 7. training kernels: K5 (block attention) forward and backward at the
    training slice's [48, 12, 512, 64], causal, bf16, dropout 0 and 0.1
    on one seed (output within 2e-2 + 1e-2 |plain|; gradients: against
@@ -85,7 +92,8 @@ Times are medians of CUDA events around single calls queued while the
 device is kept busy, so they read device time and not the host's launch
 overhead.
 ``--profile=PATH`` also writes a torch.profiler table of two train steps
-to PATH.
+to PATH, and one of the B=256 decode steps (K3 + K4 on) beside it
+(``_decode`` before the extension).
 """
 
 from __future__ import annotations
@@ -126,7 +134,7 @@ BF16_TOL, F32_TOL = 2e-2, 2e-5
 K2_TOL, K3_TOL, K4_TOL = 3e-4, 2e-4, 2e-5
 # the long-history phase: gpt2 at full width over a 512-slot cache
 LONG_B, LONG_PROMPT, LONG_MAX = 64, 384, 512
-SWITCHES = ("ERGM_CROSS_KERNEL", "ERGM_DECODE_KERNEL")
+SWITCHES = ("ERGM_CROSS_KERNEL", "ERGM_DECODE_KERNEL", "ERGM_ATTN_IMPL")
 # the training configuration of scripts/train_bench.py:27-89
 TRAIN_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
                    attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1, remat=True,
@@ -142,9 +150,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 @contextlib.contextmanager
 def switches(*names: str):
     """Sets JAX's decode-kernel switches ``names`` to 1 and the others off
-    for the duration."""
+    for the duration; "ERGM_ATTN_IMPL=xla" among the names sets that
+    override (the plain math for every ``multihead_attention`` call)."""
     saved = {n: os.environ.pop(n, None) for n in SWITCHES}
-    os.environ.update({n: "1" for n in names})
+    os.environ.update(dict(n.split("=") if "=" in n else (n, "1") for n in names))
     try:
         yield
     finally:
@@ -229,6 +238,29 @@ def _median_ms(fn, reps: int = 20) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def _kernel_durations(name: str, run, calls: int = 5) -> None:
+    """Prints the device duration of each kernel of one call (medians over
+    ``calls`` calls, torch.profiler) and the gaps between them."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    per = len(evs) // calls
+    if per < 1 or per * calls != len(evs):
+        raise AssertionError(f"{name}: {len(evs)} device operations over {calls} calls")
+    calls_ev = [evs[i * per:(i + 1) * per] for i in range(calls)]
+    dur = np.median([[e.time_range.elapsed_us() for e in c] for c in calls_ev], axis=0)
+    gaps = np.median([[c[i + 1].time_range.start - c[i].time_range.end for i in range(per - 1)]
+                      for c in calls_ev], axis=0) if per > 1 else []
+    print(f"{name} bf16 kernels (torch.profiler, medians of {calls} calls): "
+          + ", ".join(f"{e.name[:40]} {d:.2f} us" for e, d in zip(calls_ev[0], dur))
+          + "; gaps " + ", ".join(f"{x:.2f} us" for x in gaps))
 
 
 def kernel_phase(gen: torch.Generator) -> dict:
@@ -372,8 +404,21 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
                 raise AssertionError(f"{name} {dtype} disagrees with its plain version: {err}")
             if dtype == torch.bfloat16:
                 r["max_abs_err"] = err
+                mod = {"cross_decode": cross_decode, "fused_ln_mlp": fused_decode}.get(name)
+                if mod is not None:  # the redesigned K3 and K4: repeats and kernels a call
+                    again = run()
+                    torch.cuda.synchronize()
+                    r["repeat_bitwise"] = bool(torch.equal(got, again))
+                    r["kernels_per_call"] = mod.KERNELS_PER_CALL
+                    most = 3 if name == "cross_decode" else 2
+                    print(f"{name} bf16: a repeat is bitwise equal: {r['repeat_bitwise']}; "
+                          f"{r['kernels_per_call']} kernels a call (at most {most})")
+                    if not r["repeat_bitwise"] or not 1 <= r["kernels_per_call"] <= most:
+                        raise AssertionError(f"{name}: repeat or kernel count fails")
                 r["ms"], r["plain_ms"] = _timed_pair(name, run, plain)
                 r.update(bounds[name])
+                if mod is not None:
+                    _kernel_durations(name, run)
             else:
                 r["max_abs_err_f32"] = err
     return res
@@ -421,6 +466,7 @@ def reference_phase() -> None:
                 if dev == DEVICE:
                     counts = _launch_counts()
                     want = {"prefill_mha": cfg.n_layer, "prefill_mha_cross": cfg.n_layer,
+                            "block_mha": 0,
                             **{k: (cfg.n_layer * steps if on else 0) for k in (
                                 "fused_cross_decode", "fused_ln_mlp", "decode_mha_int8")}}
                     if counts != want:
@@ -439,7 +485,8 @@ def _launch_counts() -> dict:
     return {"prefill_mha": prefill_attention.LAUNCHES - cross, "prefill_mha_cross": cross,
             "fused_cross_decode": cross_decode.LAUNCHES,
             "fused_ln_mlp": fused_decode.LAUNCHES,
-            "decode_mha_int8": decode_attention.LAUNCHES}
+            "decode_mha_int8": decode_attention.LAUNCHES,
+            "block_mha": block_attention.LAUNCHES}
 
 
 def _check_generate(out, cfg, ids, prompt: int, max_len: int) -> int:
@@ -533,10 +580,13 @@ def slice_phase(card: str) -> tuple:
                             _gpt2_inputs(np.random.default_rng(0), B, PROMPT), PROMPT,
                             PROMPT + NEW, card)
     for name, got in counts.items():
-        if (got["prefill_mha"], got["prefill_mha_cross"]) != (cfg.n_layer, cfg.n_layer):
+        if (got["prefill_mha"], got["prefill_mha_cross"], got["block_mha"]) != (
+                cfg.n_layer, cfg.n_layer, 0):
             raise AssertionError(f"[{name}] K1 launched {got['prefill_mha']} (self) and "
-                                 f"{got['prefill_mha_cross']} (cross) times in one prefill, "
-                                 f"want {cfg.n_layer} each")
+                                 f"{got['prefill_mha_cross']} (cross) times and K5 "
+                                 f"{got['block_mha']} times in one prefill, want "
+                                 f"{cfg.n_layer}, {cfg.n_layer} and 0")
+    step_tables = decode_step_phase(params, arms, card)
 
     brng = np.random.default_rng(1)
     n = 64
@@ -563,11 +613,81 @@ def slice_phase(card: str) -> tuple:
     print(f"slice generate_batch: {n} ragged greedy requests ({n // 4} without a caption) "
           f"in {bwall:.3f} s on {card}")
 
-    long_arms = {"K2 on": (cfg, ("ERGM_DECODE_KERNEL",)), "kernels off": (cfg, ())}
+    # "prefill as before": the prompt's self-attention on the plain math,
+    # the route taken before the prefill followed JAX's rule (the T=512
+    # decode steps do not call multihead_attention)
+    long_arms = {"K2 on": (cfg, ("ERGM_DECODE_KERNEL",)), "kernels off": (cfg, ()),
+                 "prefill as before": (cfg, ("ERGM_ATTN_IMPL=xla",))}
     long_counts = _generate_arms("long history", params, long_arms,
                                  _gpt2_inputs(np.random.default_rng(2), LONG_B, LONG_PROMPT),
                                  LONG_PROMPT, LONG_MAX, card)
-    return counts["K3+K4 on"], long_counts["K2 on"]
+    for name, got in long_counts.items():
+        want = 0 if name == "prefill as before" else cfg.n_layer
+        if got["block_mha"] != want:
+            raise AssertionError(f"long history [{name}]: K5 launched {got['block_mha']} times "
+                                 f"in one prefill, want {want}")
+    print(f"long history: K5 launched {long_counts['kernels off']['block_mha']} times in the "
+          f"prefill ({cfg.n_layer} layers) under auto")
+    return counts["K3+K4 on"], long_counts["K2 on"], step_tables
+
+
+def decode_step_phase(params, arms: dict, card: str, steps: int = 8) -> dict:
+    """Device time and kernel count of one B=256 decode step under each arm
+    ({name: (config, switch names)}), by torch.profiler over ``steps``
+    steps after a prefill and two warm-up steps, and the host's wall time
+    per step over as many unprofiled steps. Returns {arm: profiler table}."""
+    inputs = _gpt2_inputs(np.random.default_rng(4), B, PROMPT)
+    tok = torch.as_tensor(np.random.default_rng(5).integers(0, 50000, (B, 1)), device=DEVICE)
+    T = PROMPT + 2 + 2 * steps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tables = {}
+    for name, (cfg, names) in arms.items():
+        with switches(*names), torch.inference_mode():
+            mask = torch.zeros((B, T), device=DEVICE)
+            mask[:, :PROMPT] = 1.0
+            cache = gpt2.init_kv_cache(cfg, B, T, caption_len=CAPTION, device=DEVICE)
+            o = gpt2.forward(params, cfg, attention_mask=mask, cache=cache, prefix_prefill=True,
+                             compute_logits="last", **inputs)
+            pos = PROMPT
+
+            def step():
+                nonlocal o, pos
+                mask[:, pos] = 1.0
+                o = gpt2.forward(params, cfg, tok, position_ids=torch.full((B, 1), pos,
+                                                                           device=DEVICE),
+                                 attention_mask=mask, cache=o.cache)
+                pos += 1
+
+            step()
+            step()
+            torch.cuda.synchronize()
+            reset_launches()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+            counts = _launch_counts()
+            t0 = time.time()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) / steps
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
+        kernels = sum(e.count for e in device) / steps
+        want = cfg.n_layer * steps
+        if (counts["fused_cross_decode"], counts["fused_ln_mlp"]) != (
+                (want, want) if cfg.decode_fused_mlp else (0, 0)) or ms <= 0:
+            raise AssertionError(f"decode step [{name}]: launches {counts}, device {ms} ms")
+        print(f"decode step [{name}] B={B}: device time {ms:.3f} ms, {kernels:.0f} device "
+              f"operations, host wall {1e3 * wall:.3f} ms a step (torch.profiler over {steps} "
+              f"steps; wall unprofiled) on {card}")
+        tables[name] = (f"{card}: decode step [{name}] B={B}, device time {ms:.3f} ms, "
+                        f"{kernels:.0f} device operations a step\n"
+                        + prof.key_averages().table(sort_by="device_time_total", row_limit=30,
+                                                    max_name_column_width=70))
+    return tables
 
 
 def _k5_run(fn, q, k, v, do, rate=0.0, m=None) -> list:
@@ -1105,13 +1225,18 @@ def main() -> None:
     flash = flash_kernel_phase(gen)
     torch.cuda.empty_cache()
     reference_phase()
-    on, long_on = slice_phase(card)
+    on, long_on, step_tables = slice_phase(card)
     train_reference_phase()
     long_ctx = long_context_phase(card)
     train_on = train_slice_phase(card)
     for arg in sys.argv[1:]:
         if arg.startswith("--profile="):
-            profile_train_step(card, arg.split("=", 1)[1])
+            path = arg.split("=", 1)[1]
+            profile_train_step(card, path)
+            root, ext = os.path.splitext(path)
+            with open(f"{root}_decode{ext}", "w") as f:
+                f.write("\n\n".join(step_tables.values()) + "\n")
+            print(f"profile: decode-step tables in {root}_decode{ext}")
 
     rows = [("prefill_mha", "prefill_attention", "prefill_attention.py:111", on,
              k1["prefill_mha"]),

@@ -14,29 +14,45 @@
 // of the raw int8 codes, f32 softmax over the caption, the per-(token, head)
 // scales factored out of both reductions.
 //
-// Three stages, split where JAX rounds to the compute dtype: (1) LN
-// prologue + q projection (decode_gemm.cuh), (2) the attention below, (3)
-// c_proj + bias + capless-row gate + residual (decode_gemm.cuh). At the
-// slice's shape each projection has only 192 tiles of 16 x 64 for 132 SMs,
-// so it splits K four ways and adds the f32 partials in a second launch:
-// five launches in all, and no value is rounded at the extra boundaries. The cache
-// and its scales are read in place at layer li's offset into the stacked
-// [L, B, Lc, D] / [L, B, Lc, H] buffers: no per-layer slice is copied. The
-// scales keep the port's unpadded [.., H] layout (JAX's 128-lane padding is
-// a TPU workaround).
+// What bounds it on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16). At the
+// slice's shape, B = 256, Lc = 32, D = 768, one layer reads 12.6 MB of int8
+// cache, 0.8 MB of scales and 2.4 MB of weights: 4.9 us of bytes, against
+// 0.6 GFLOP of projections (0.6 us): bytes bind it.
 //
-// What bounds it on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s f32 CUDA cores).
-// At the slice's shape, B = 256, Lc = 32, D = 768, one layer reads 12.6 MB of
-// int8 cache (3.8 us at the HBM rate) and does 2 * 2 * B * D * D = 0.6 GFLOP
-// in its two projections (9 us at the f32 peak): on the CUDA cores the
-// projections bound it. The attention is one CTA of 128 threads per batch
-// row: q is staged in shared memory, one thread per (head, caption token)
-// forms a score from 8-byte loads of the int8 row (threads of a warp share
-// the head, so q reads are broadcasts), one warp per head runs the softmax,
-// and one thread per output column accumulates p * v over the caption with
-// consecutive threads on consecutive bytes. Measured on an NVIDIA H100 80GB
-// HBM3 at its 700 W limit: 0.083 ms per call in bf16, against 0.415 ms for
-// the plain version.
+// Three launches, split where JAX rounds to the compute dtype, so no value
+// changes at a boundary: (1) LN prologue + q projection, (2) the attention
+// below, (3) c_proj + bias + capless-row gate + residual. The projections
+// are the dense layer of decode_gemm.cuh: in bf16 on the tensor cores
+// (mma.sync m16n8k16), each CTA on all B rows of a 64-column tile, K split
+// over a cluster of 6 CTAs whose partials are added through distributed
+// shared memory in a fixed order (no workspace, no reduce launch, no
+// atomics; c_proj starts early by programmatic dependent launch); in fp32
+// on the CUDA cores, unsplit (K3's fp32 bar is 2e-4). q and the attention
+// output share one [B, D] buffer, which stays in L2: the attention reads
+// its row of q into shared memory and writes its output over it. The
+// capless-row gate is formed from the mask in (3)'s epilogue.
+//
+// The attention is one CTA of 256 threads per batch row and group of
+// heads (6 of 12 at B = 256: the grid is kept within four CTAs an SM),
+// launched by programmatic dependent launch. At its start it requests, by
+// cp.async, the row's scales and mask and its ck and cv codes for up to 64
+// caption tokens (all 32 of the slice's), read in place at layer li's
+// offset into the stacked [L, B, Lc, D] / [L, B, Lc, H] buffers with
+// 16-byte copies, consecutive threads on consecutive bytes; then it waits
+// for the q projection and requests q. The reductions read shared memory:
+// a thread takes one 16-byte chunk of its columns (8-byte where head_dim %
+// 16 != 0) and every G-th token, the chunks of a head are added in order
+// for the scores, and the groups are added in order for PV. One warp per
+// head runs the f32 softmax. Longer captions go tile by tile. The scales
+// keep the port's unpadded [.., H] layout (JAX's 128-lane padding is a TPU
+// workaround).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at its 700 W limit (chip_smoke.py,
+// device time): 0.039 ms a call in bf16, against 0.261 ms for the plain
+// version and 0.0821 ms for the five-launch CUDA-core design before it;
+// 8 times its bound. The attention kernel takes 12.4-14.6 us of device
+// time (starting 2.5-4.4 us before the q projection ends);
+// decode_gemm.cuh says what binds the projections.
 
 #include <cstdint>
 
@@ -44,55 +60,147 @@
 
 namespace ergm_decode {
 
-constexpr int kAttnThreads = 128;
+constexpr int kAttnThreads = 256;
+constexpr int kAttnSmemMax = 200 * 1024;  // what a CTA may take; three fit an SM at Lc = 32
 
 struct AttnArgs {
-  const void* q;       // [B, D]
-  const int8_t* ck;    // layer li: [B, Lc, D]
+  void* qa;          // [B, D]: q in, the attention output out
+  const int8_t* ck;  // layer li: [B, Lc, D]
   const int8_t* cv;
-  const float* ks;     // layer li: [B, Lc, H]
+  const float* ks;   // layer li: [B, Lc, H]
   const float* vs;
-  const float* mask;   // [B, Lc] 1 = real caption token, or null (all real)
-  void* out;           // [B, D]
-  float* has;          // [B] 1 if the row has a real caption token
-  float* partial;      // the projections' split workspace (decode_gemm.cuh)
-  long long partial_cap;
+  const float* mask;  // [B, Lc] 1 = real caption token, or null (all real)
   int Lc, H, Dh;
   float scale;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads) cross_attn_kernel(AttnArgs a) {
-  extern __shared__ float smem[];
-  const int D = a.H * a.Dh;
-  float* qs = smem;      // [D] q in f32
-  float* sc = qs + D;    // [H][Lc] scores, then p * v_scale
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const long long row = static_cast<long long>(b) * a.Lc;
-  const T* q = static_cast<const T*>(a.q) + static_cast<long long>(b) * D;
-  for (int d = tid; d < D; d += kAttnThreads) qs[d] = Cvt<T>::load(q + d);
-  __syncthreads();
-
-  const int8_t* ck = a.ck + row * D;
-  for (int i = tid; i < a.H * a.Lc; i += kAttnThreads) {
-    const int h = i / a.Lc, t = i % a.Lc;
-    const int8_t* kr = ck + static_cast<long long>(t) * D + h * a.Dh;
-    const float* qh = qs + h * a.Dh;
-    float s = 0.0f;
-    for (int d = 0; d < a.Dh; d += 8) {
-      const int2 raw = *reinterpret_cast<const int2*>(kr + d);
-      const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+// V bytes of int8 codes (from shared memory) as floats.
+template <int V>
+__device__ __forceinline__ void codes(const int8_t* p, float (&x)[V]) {
+  if constexpr (V == 16) {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) s = fmaf(static_cast<float>(c[e]), qh[d + e], s);
-    }
-    s = s * a.scale * a.ks[(row + t) * a.H + h];
-    if (a.mask) s += (1.0f - a.mask[row + t]) * kNegInf;
-    sc[i] = s;
+    for (int e = 0; e < V; ++e) x[e] = static_cast<float>(c[e]);
+  } else {
+    const int2 raw = *reinterpret_cast<const int2*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = static_cast<float>(c[e]);
   }
-  __syncthreads();
+}
 
-  for (int h = warp; h < a.H; h += kAttnThreads / 32) {
+// 4 bytes from device to shared memory by cp.async.
+__device__ __forceinline__ void copy4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// The attention's shared memory for a token tile of tt caption tokens:
+// the ck and cv tiles, q, the row's scales and mask, the scores and the
+// partial sums.
+inline size_t attn_smem(int D, int H, int Lc, int V, int tt) {
+  const int nch = D / V, span = nch < kAttnThreads ? nch : kAttnThreads;
+  const int groups = kAttnThreads / span;
+  const int part = tt * nch > groups * D ? tt * nch : groups * D;
+  return 2 * static_cast<size_t>(tt) * D +
+         sizeof(float) * (static_cast<size_t>(D) + 3 * static_cast<size_t>(H) * Lc + Lc + part);
+}
+
+// Tokens a tile holds: the whole caption up to 64, fewer where the shared
+// memory would not hold them; 0 if not even one token fits.
+inline int attn_tile(int D, int H, int Lc, int V) {
+  int tt = Lc < 64 ? Lc : 64;
+  while (tt > 0 && attn_smem(D, H, Lc, V, tt) > kAttnSmemMax) --tt;
+  return tt;
+}
+
+// One CTA per batch row and group of Hc heads (grid B x H / Hc). The ck
+// and cv codes of a tile of tt tokens are staged in shared memory by
+// 16-byte cp.async copies, consecutive threads on consecutive bytes, all
+// issued at the start where the caption fits one tile; the reductions then
+// read them from shared memory.
+template <typename T, int V>
+__global__ void __launch_bounds__(kAttnThreads) cross_attn_kernel(const AttnArgs a, const int tt) {
+  extern __shared__ __align__(16) unsigned char attn_smem_raw[];  // apart from the dense kernel's
+  const int D = a.H * a.Dh, Hc = a.H / gridDim.y, h0 = blockIdx.y * Hc;
+  const int Dl = Hc * a.Dh, col0 = h0 * a.Dh;  // this CTA's columns of the row
+  const int nch = Dl / V, G = a.Dh / V, n16 = Dl / 16;
+  const int span = min(nch, kAttnThreads), groups = kAttnThreads / span;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gi = tid / span, c0 = tid % span;  // token group and first chunk of this thread
+  const bool busy = gi < groups;
+  int8_t* kt = reinterpret_cast<int8_t*>(attn_smem_raw);  // [tt][Dl] ck tile
+  int8_t* vt = kt + tt * Dl;                               // [tt][Dl] cv tile
+  T* qs = reinterpret_cast<T*>(vt + tt * Dl);              // [Dl] q
+  float* part = reinterpret_cast<float*>(qs + Dl);         // partial sums of both reductions
+  float* ksm = part + (tt * nch > groups * Dl ? tt * nch : groups * Dl);  // [Lc][Hc] ck scales
+  float* vsm = ksm + a.Lc * Hc;                            // [Lc][Hc] cv scales of the row
+  float* mk = vsm + a.Lc * Hc;                             // [Lc] mask
+  float* sc = mk + a.Lc;                                   // [Hc][Lc] scores, then p * v_scale
+  const int b = blockIdx.x;
+  const long long row = static_cast<long long>(b) * a.Lc;
+  const int8_t* ck = a.ck + row * D + col0;
+  const int8_t* cv = a.cv + row * D + col0;
+  auto stage = [&](int8_t* dst, const int8_t* src, int t0, int n) {
+    for (int i = tid; i < n * n16; i += kAttnThreads) {
+      const int t = i / n16, c = i % n16;
+      ergm_async::copy16(dst + t * Dl + c * 16, src + static_cast<long long>(t0 + t) * D + c * 16);
+    }
+    ergm_async::commit();
+  };
+  // the row's scales and mask with the first ck tile, then the first cv
+  // tile, then (once the q projection is done) q
+  for (int i = tid; i < a.Lc * Hc; i += kAttnThreads) {
+    const long long at = (row + i / Hc) * a.H + h0 + i % Hc;
+    copy4(ksm + i, a.ks + at);
+    copy4(vsm + i, a.vs + at);
+  }
+  if (a.mask)
+    for (int t = tid; t < a.Lc; t += kAttnThreads) copy4(mk + t, a.mask + row + t);
+  stage(kt, ck, 0, min(tt, a.Lc));
+  stage(vt, cv, 0, min(tt, a.Lc));
+  griddep_wait();
+  T* qa = static_cast<T*>(a.qa) + static_cast<long long>(b) * D + col0;
+  constexpr int kQ16 = 16 / sizeof(T);
+  for (int i = tid; i < Dl / kQ16; i += kAttnThreads)
+    ergm_async::copy16(qs + i * kQ16, qa + i * kQ16);
+  ergm_async::commit();
+
+  // scores: thread (gi, c) forms chunk c's dot for tokens gi, gi + groups, ...
+  for (int t0 = 0; t0 < a.Lc; t0 += tt) {
+    const int nt = min(tt, a.Lc - t0);
+    if (t0 > 0) stage(kt, ck, t0, nt);
+    ergm_async::wait<0>();
+    __syncthreads();
+    if (busy) {
+      for (int c = c0; c < nch; c += span) {
+        float q[V], x[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) q[e] = Cvt<T>::load(qs + c * V + e);
+        for (int tl = gi; tl < nt; tl += groups) {
+          codes<V>(kt + tl * Dl + c * V, x);
+          float s = 0.0f;
+#pragma unroll
+          for (int e = 0; e < V; ++e) s = fmaf(x[e], q[e], s);
+          part[tl * nch + c] = s;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nt * Hc; i += kAttnThreads) {  // a head's chunks, in order
+      const int tl = i / Hc, h = i % Hc, t = t0 + tl;
+      const float* p = part + tl * nch + h * G;
+      float s = 0.0f;
+      for (int j = 0; j < G; ++j) s += p[j];
+      s = s * a.scale * ksm[t * Hc + h];
+      if (a.mask) s += (1.0f - mk[t]) * kNegInf;
+      sc[h * a.Lc + t] = s;
+    }
+    __syncthreads();  // the tile and the partials are consumed
+  }
+
+  for (int h = warp; h < Hc; h += kAttnThreads / 32) {
     float* srow = sc + h * a.Lc;
     float m = -INFINITY;
     for (int t = lane; t < a.Lc; t += 32) m = fmaxf(m, srow[t]);
@@ -101,33 +209,95 @@ __global__ void __launch_bounds__(kAttnThreads) cross_attn_kernel(AttnArgs a) {
     for (int t = lane; t < a.Lc; t += 32) z += expf(srow[t] - m);
     z = warp_sum(z);
     for (int t = lane; t < a.Lc; t += 32)
-      srow[t] = expf(srow[t] - m) / z * a.vs[(row + t) * a.H + h];
+      srow[t] = expf(srow[t] - m) / z * vsm[t * Hc + h];
   }
-  if (tid == 0) {
-    float n = 1.0f;
-    if (a.mask) {
-      n = 0.0f;
-      for (int t = 0; t < a.Lc; ++t) n += a.mask[row + t];
+
+  // PV: thread (gi, c) sums chunk c over tokens gi, gi + groups, ... in
+  // order, across tiles in part; the groups are added in order at the end
+  for (int t0 = 0; t0 < a.Lc; t0 += tt) {
+    const int nt = min(tt, a.Lc - t0);
+    if (t0 > 0) {
+      __syncthreads();  // the previous cv tile is consumed
+      stage(vt, cv, t0, nt);
     }
-    a.has[b] = n > 0.0f ? 1.0f : 0.0f;
+    ergm_async::wait<0>();
+    __syncthreads();  // the cv tile and the probabilities are in place
+    if (busy) {
+      for (int c = c0; c < nch; c += span) {
+        const float* w = sc + (c * V / a.Dh) * a.Lc + t0;
+        float* pd = part + gi * Dl + c * V;
+        float acc[V], x[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = t0 > 0 ? pd[e] : 0.0f;
+        for (int tl = gi; tl < nt; tl += groups) {
+          codes<V>(vt + tl * Dl + c * V, x);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] = fmaf(x[e], w[tl], acc[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < V; e += 4)
+          *reinterpret_cast<float4*>(pd + e) =
+              make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+      }
+    }
   }
   __syncthreads();
-
-  const int8_t* cv = a.cv + row * D;
-  T* out = static_cast<T*>(a.out) + static_cast<long long>(b) * D;
-  for (int d = tid; d < D; d += kAttnThreads) {
-    const float* w = sc + (d / a.Dh) * a.Lc;
-    float acc = 0.0f;
-    for (int t = 0; t < a.Lc; ++t)
-      acc = fmaf(static_cast<float>(cv[static_cast<long long>(t) * D + d]), w[t], acc);
-    Cvt<T>::store(out + d, acc);
+  griddep_launch();  // the codes are read; c_proj may start
+  for (int d = tid; d < Dl; d += kAttnThreads) {
+    float s = 0.0f;
+    for (int j = 0; j < groups; ++j) s += part[j * Dl + d];
+    Cvt<T>::store(qa + d, s);
   }
+}
+
+// Heads a CTA takes: the fewest (a divisor of H, with 16-byte rows of
+// codes) that keep the grid within four CTAs an SM.
+inline int attn_heads(int B, int H, int Dh, int sms) {
+  int hc = H;
+  for (int d = H - 1; d >= 1; --d)
+    if (H % d == 0 && (d * Dh) % 16 == 0 && static_cast<long long>(B) * (H / d) <= 4LL * sms)
+      hc = d;
+  return hc;
+}
+
+template <typename T, int V>
+cudaError_t launch_attn(const AttnArgs& a, int B, cudaStream_t stream, int* launches) {
+  static int sms = 0;  // once a process: the SM count and the kernel's shared-memory limit
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t err = cudaFuncSetAttribute(
+        cross_attn_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnSmemMax);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return err;
+    }
+  }
+  const int hc = attn_heads(B, a.H, a.Dh, sms), dl = hc * a.Dh;
+  const int tt = attn_tile(dl, hc, a.Lc, V);
+  if (tt < 1) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, a.H / hc);
+  cfg.blockDim = dim3(kAttnThreads);
+  cfg.dynamicSmemBytes = attn_smem(dl, hc, a.Lc, V, tt);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];  // q is the output of the kernel launched just before
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, cross_attn_kernel<T, V>, a, tt);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
 }
 
 template <typename T>
 cudaError_t launch_cross(const void* h, int ldh, const void* ln_s, const void* ln_b, float eps,
                          const void* wq, const void* bq, const void* wp, const void* bp,
-                         const AttnArgs& attn, int B, cudaStream_t stream) {
+                         const AttnArgs& attn, void* out, int B, cudaStream_t stream,
+                         int* launches) {
   const int D = attn.H * attn.Dh;
   DenseArgs qa{};
   qa.a = h;
@@ -137,73 +307,64 @@ cudaError_t launch_cross(const void* h, int ldh, const void* ln_s, const void* l
   qa.ln_scale = ln_s;
   qa.ln_bias = ln_b;
   qa.eps = eps;
-  qa.out = const_cast<void*>(attn.q);
+  qa.out = attn.qa;
   qa.ldo = D;
   qa.M = B;
   qa.N = D;
   qa.K = D;
   qa.epi = kEpiNone;
-  qa.partial = attn.partial;
-  qa.partial_cap = attn.partial_cap;
-  cudaError_t err = launch_dense<T>(qa, stream);
+  cudaError_t err = launch_dense<T>(qa, stream, launches);
   if (err != cudaSuccess) return err;
 
-  const size_t smem = sizeof(float) * (static_cast<size_t>(D) + attn.H * attn.Lc);
-  err = cudaFuncSetAttribute(cross_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cross_attn_kernel<T><<<B, kAttnThreads, smem, stream>>>(attn);
-  err = cudaGetLastError();
+  err = attn.Dh % 16 == 0 ? launch_attn<T, 16>(attn, B, stream, launches)
+                          : launch_attn<T, 8>(attn, B, stream, launches);
   if (err != cudaSuccess) return err;
 
   DenseArgs pa{};
-  pa.a = attn.out;
+  pa.a = attn.qa;
   pa.lda = D;
   pa.w = wp;
   pa.bias = bp;
   pa.res = h;
   pa.ldr = ldh;
-  pa.gate = attn.has;
-  pa.out = const_cast<void*>(attn.q);  // q is consumed; its buffer takes the result
+  pa.gate_mask = attn.mask;
+  pa.gate_len = attn.Lc;
+  pa.out = out;
   pa.ldo = D;
   pa.M = B;
   pa.N = D;
   pa.K = D;
   pa.epi = kEpiResidual;
-  pa.partial = attn.partial;
-  pa.partial_cap = attn.partial_cap;
-  return launch_dense<T>(pa, stream);
+  return launch_dense<T>(pa, stream, launches, true);
 }
 
 }  // namespace ergm_decode
 
 // dtype: 0 = float32, 1 = bfloat16. h [B, D] with row stride ldh; ck/cv and
 // ck_scale/cv_scale point at layer li of the stacked caches; mask [B, Lc] or
-// null. qbuf, abuf [B, D], has [B] and partial (partial_cap floats; with
-// kMaxSplits * B * D each projection splits fully) are scratch buffers:
-// qbuf holds the q projection and then the sublayer's output. Returns a
+// null. qa [B, D] holds q and then the attention output; out [B, D] gets the
+// result. *launches is set to the number of kernels started. Returns a
 // cudaError_t.
 extern "C" int ergm_fused_cross_decode(const void* h, int ldh, const void* ln_s,
                                        const void* ln_b, float eps, const void* wq,
                                        const void* bq, const void* wp, const void* bp,
                                        const void* ck, const void* cv, const void* ck_scale,
-                                       const void* cv_scale, const void* mask, void* qbuf,
-                                       void* abuf, void* has, void* partial,
-                                       long long partial_cap, int dtype, int B, int Lc, int H,
-                                       int Dh, float scale, void* stream) {
+                                       const void* cv_scale, const void* mask, void* qa,
+                                       void* out, int dtype, int B, int Lc, int H, int Dh,
+                                       float scale, int* launches, void* stream) {
   using namespace ergm_decode;
+  *launches = 0;
   const int D = H * Dh;
-  if (D % kBK || D % kBN || Dh % 8 || Lc < 1) return static_cast<int>(cudaErrorInvalidValue);
-  AttnArgs attn{qbuf, static_cast<const int8_t*>(ck), static_cast<const int8_t*>(cv),
+  if (D % kTcBK || D % kTcBN || Dh % 8 || Lc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  AttnArgs attn{qa, static_cast<const int8_t*>(ck), static_cast<const int8_t*>(cv),
                 static_cast<const float*>(ck_scale), static_cast<const float*>(cv_scale),
-                static_cast<const float*>(mask), abuf, static_cast<float*>(has),
-                static_cast<float*>(partial), partial_cap, Lc, H, Dh, scale};
+                static_cast<const float*>(mask), Lc, H, Dh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(
-        launch_cross<float>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, B, s));
+        launch_cross<float>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, out, B, s, launches));
   if (dtype == 1)
     return static_cast<int>(
-        launch_cross<__nv_bfloat16>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, B, s));
+        launch_cross<bf16>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, out, B, s, launches));
   return static_cast<int>(cudaErrorInvalidValue);
 }

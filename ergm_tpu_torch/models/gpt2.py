@@ -447,9 +447,14 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
                 and prefill_attention.supported(B, L, c, True)):
             out_m = prefill_attention.prefill_mha(qm, km, vm, m, n_head=H, scale=scale)
             return dense(out_m, p.c_proj)
-        impl = "xla" if c.attention_impl == "auto" else c.attention_impl
+        # JAX's rule (ergm_tpu/models/gpt2.py:797-809): the plain math
+        # only for short prompts at large batch; otherwise "auto" keeps
+        # K5 inside its gate and K7's route past it on the card
+        impl = c.attention_impl
+        if impl == "auto" and L <= 128 and B >= 64:
+            impl = "xla"
         out = multihead_attention(_split_heads(qm, H), _split_heads(km, H),
-                                  _split_heads(vm, H), causal=True, kv_mask=m,
+                                  _split_heads(vm, H), causal=True, kv_mask=m, q_mask=m,
                                   scale=scale, impl=impl)
         return _attn_project(out, p)
 

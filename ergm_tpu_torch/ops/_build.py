@@ -23,16 +23,13 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# kMaxSplits of csrc/decode_gemm.cuh: a split-K workspace of
-# DENSE_MAX_SPLITS * M * N floats lets a decode GEMM split as far as it
-# may; the kernels split no further than the workspace they are given
-DENSE_MAX_SPLITS = 4
-
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -95,9 +92,9 @@ def load() -> ctypes.CDLL:
     u, strides = ctypes.c_uint, ctypes.POINTER(ctypes.c_longlong)
     signatures = {
         "ergm_prefill_mha": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, p],
-        "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, ll, p, i, i, i, i, i, p],
-        "ergm_fused_cross_decode": [p, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                    ll, i, i, i, i, i, f, p],
+        "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, i, i, i, i, i, p, p],
+        "ergm_fused_cross_decode": [p, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                    i, f, p, p],
         "ergm_decode_mha_int8": [p, ll, ll, p, p, p, p, p, ll, p, i, i, i, i, i, i, f, p],
         "ergm_block_mha_fwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, strides, f, i, i, f, f,
                                u, u, p],
@@ -111,6 +108,16 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, i
     return lib
+
+
+def check_aligned(kernel: str, tensors: dict, row_stride: int) -> None:
+    """The decode GEMM's bf16 loads are 16-byte copies: each tensor must
+    start on a 16-byte boundary and rows of ``row_stride`` elements keep
+    that. Raises ValueError otherwise."""
+    for name, x in tensors.items():
+        if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or row_stride % 8):
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary with a row "
+                             f"stride that is a multiple of 8 elements")
 
 
 def build_log() -> str:

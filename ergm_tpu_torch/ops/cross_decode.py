@@ -28,6 +28,8 @@ MAX_CAPTION = 1024
 # Kernel launches since the last reset; a run sets it to 0 and reads it
 # back to show that its path went through the kernel.
 LAUNCHES = 0
+# CUDA kernels the last call started (three: q projection, attention, c_proj)
+KERNELS_PER_CALL = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,6 +115,11 @@ def _check(h, blk, stacks, mask, li, config):
                 or tuple(x.shape) != shape):
             raise ValueError(f"fused_cross_decode: {name} must be a contiguous {h.dtype} "
                              f"{shape} tensor on {h.device}")
+    _build.check_aligned("fused_cross_decode",
+                         {"h": h, "ln_cross.scale": blk.ln_cross.scale,
+                          "ln_cross.bias": blk.ln_cross.bias, "q_attn.kernel": ca.q_attn.kernel,
+                          "q_attn.bias": ca.q_attn.bias, "c_proj.kernel": ca.c_proj.kernel,
+                          "c_proj.bias": ca.c_proj.bias}, h.stride(0))
     if len(stacks) != 4:
         raise ValueError("fused_cross_decode: needs the quantized cache (ck, cv, ck_scale, "
                          "cv_scale)")
@@ -152,12 +159,11 @@ def fused_cross_decode(h: torch.Tensor, blk, li: int, scale,
     ck, cv, ks, vs = stacks
     Lc = ck.shape[2]
     m = None if mask is None else mask.to(torch.float32).contiguous()
-    qbuf = torch.empty((B, 1, D), dtype=h.dtype, device=h.device)  # q, then the output
-    abuf = torch.empty((B, D), dtype=h.dtype, device=h.device)
-    has = torch.empty((B,), dtype=torch.float32, device=h.device)
-    partial = torch.empty((_build.DENSE_MAX_SPLITS, B, D), dtype=torch.float32, device=h.device)
+    qa = torch.empty((B, D), dtype=h.dtype, device=h.device)  # q, then the attention output
+    out = torch.empty((B, 1, D), dtype=h.dtype, device=h.device)
     ca = blk.cross_attn
     lib = _build.load()
+    started = ctypes.c_int(0)
     with torch.cuda.device(h.device):  # the C side launches on the current device
         err = lib.ergm_fused_cross_decode(
             h.data_ptr(), h.stride(0), blk.ln_cross.scale.data_ptr(),
@@ -165,12 +171,13 @@ def fused_cross_decode(h: torch.Tensor, blk, li: int, scale,
             ca.q_attn.kernel.data_ptr(), ca.q_attn.bias.data_ptr(),
             ca.c_proj.kernel.data_ptr(), ca.c_proj.bias.data_ptr(),
             ck[li].data_ptr(), cv[li].data_ptr(), ks[li].data_ptr(), vs[li].data_ptr(),
-            None if m is None else m.data_ptr(), qbuf.data_ptr(), abuf.data_ptr(),
-            has.data_ptr(), partial.data_ptr(), partial.numel(), _DTYPE_CODE[h.dtype], B, Lc,
-            config.n_head, config.head_dim, ctypes.c_float(float(scale)),
+            None if m is None else m.data_ptr(), qa.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[h.dtype], B, Lc, config.n_head, config.head_dim,
+            ctypes.c_float(float(scale)), ctypes.byref(started),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_cross_decode kernel launch failed: cudaError {err}")
-    global LAUNCHES
+    global LAUNCHES, KERNELS_PER_CALL
+    KERNELS_PER_CALL = started.value
     LAUNCHES += 1
-    return qbuf
+    return out

@@ -20,6 +20,8 @@ from ergm_tpu_torch.ops import _build
 # Kernel launches since the last reset; a run sets it to 0 and reads it
 # back to show that its path went through the kernel.
 LAUNCHES = 0
+# CUDA kernels the last call started (two: the up and the down projection)
+KERNELS_PER_CALL = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,6 +61,7 @@ def _check(h, tensors):
         if x is None or x.device != h.device or x.dtype != h.dtype or not x.is_contiguous():
             raise ValueError(f"fused_ln_mlp: {name} must be a contiguous {h.dtype} tensor "
                              f"on {h.device}")
+    _build.check_aligned("fused_ln_mlp", {"h": h, **tensors}, h.stride(0))
 
 
 def fused_ln_mlp(h: torch.Tensor, ln, mlp, config) -> torch.Tensor:
@@ -77,19 +80,21 @@ def fused_ln_mlp(h: torch.Tensor, ln, mlp, config) -> torch.Tensor:
         raise ValueError(f"fused_ln_mlp: c_fc {tuple(fc.kernel.shape)}, c_proj "
                          f"{tuple(pr.kernel.shape)} and {config.activation!r} do not fit "
                          f"D={D} (D and F multiples of 64, a GELU)")
-    act = torch.empty((B, F), dtype=h.dtype, device=h.device)
-    partial = torch.empty((_build.DENSE_MAX_SPLITS, B, F), dtype=torch.float32, device=h.device)
+    act = torch.empty((B, F), dtype=h.dtype, device=h.device)  # stays in L2 between launches
     out = torch.empty((B, 1, D), dtype=h.dtype, device=h.device)
     lib = _build.load()
+    started = ctypes.c_int(0)
     with torch.cuda.device(h.device):  # the C side launches on the current device
         err = lib.ergm_fused_ln_mlp(
             h.data_ptr(), h.stride(0), ln.scale.data_ptr(), ln.bias.data_ptr(),
             ctypes.c_float(config.layer_norm_epsilon), fc.kernel.data_ptr(),
             fc.bias.data_ptr(), pr.kernel.data_ptr(), pr.bias.data_ptr(), act.data_ptr(),
-            partial.data_ptr(), partial.numel(), out.data_ptr(), _DTYPE_CODE[h.dtype], B, D, F,
-            int(config.activation == "gelu_new"), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), _DTYPE_CODE[h.dtype], B, D, F,
+            int(config.activation == "gelu_new"), ctypes.byref(started),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_ln_mlp kernel launch failed: cudaError {err}")
-    global LAUNCHES
+    global LAUNCHES, KERNELS_PER_CALL
+    KERNELS_PER_CALL = started.value
     LAUNCHES += 1
     return out

@@ -166,21 +166,25 @@ def test_prefill_kernel_rejects_what_it_does_not_take():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, None)])
 @pytest.mark.parametrize("act", ["gelu_new", "gelu"])
-def test_fused_ln_mlp_kernel_matches_reference(dtype, tol, act):
+@pytest.mark.parametrize("B", [8, 24, 256, 264])
+def test_fused_ln_mlp_kernel_matches_reference(dtype, tol, act, B):
     """K4 against its plain version; fp32 with TF32 off at JAX's 2e-5
-    bar. h is a strided view, as the model's residual stream can be."""
+    bar. h is a strided view, as the model's residual stream can be. B
+    past a 256-row tile (264) and under one (8, 24) leaves rows for the
+    kernel to zero-fill. One call starts two kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, blk = _block(256, 4, dtype, "cuda", activation=act, seed=1)
     rng = np.random.default_rng(1)
-    h = torch.from_numpy(rng.standard_normal((24, 1, 2 * 256)).astype(np.float32))
+    h = torch.from_numpy(rng.standard_normal((B, 1, 2 * 256)).astype(np.float32))
     h = h.to("cuda", dtype)[..., :256]
     before = tfd.LAUNCHES
     got = tfd.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)
     want = tfd.fused_ln_mlp_reference(h, blk.ln_2, blk.mlp, cfg)
     torch.cuda.synchronize()
     assert tfd.LAUNCHES == before + 1 and got.shape == want.shape
+    assert tfd.KERNELS_PER_CALL == 2
     ok, err = _within(got, want, dtype, tol)
     assert ok, err
 
@@ -188,13 +192,16 @@ def test_fused_ln_mlp_kernel_matches_reference(dtype, tol, act):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, None)])
 @pytest.mark.parametrize("mask_mode", ["none", "ragged", "empty_row"])
-def test_cross_decode_kernel_matches_reference(dtype, tol, mask_mode):
+@pytest.mark.parametrize("B,Lc", [(1, 21), (16, 21), (256, 21), (300, 21), (16, 150)])
+def test_cross_decode_kernel_matches_reference(dtype, tol, mask_mode, B, Lc):
     """K3 against its plain version over layer 1 of a two-layer stacked
-    int8 cache with an odd caption length."""
+    int8 cache with an odd caption length, at batches under and past a
+    256-row tile, and a caption longer than the attention's 64-token tile.
+    One call starts three kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, Lc, D, H = 16, 21, 256, 4
+    D, H = 256, 4
     cfg, blk = _block(D, H, dtype, "cuda", seed=2)
     rng = np.random.default_rng(2)
     h = torch.from_numpy(rng.standard_normal((B, 1, D)).astype(np.float32)).to("cuda", dtype)
@@ -203,15 +210,42 @@ def test_cross_decode_kernel_matches_reference(dtype, tol, mask_mode):
     if mask_mode != "none":
         m = (np.arange(Lc)[None] < rng.integers(1, Lc + 1, (B, 1))).astype(np.float32)
         if mask_mode == "empty_row":
-            m[3] = 0.0
+            m[min(3, B - 1)] = 0.0
         mask = torch.from_numpy(m).cuda()
     before = tcd.LAUNCHES
     got = tcd.fused_cross_decode(h, blk, 1, 0.125, stacks, mask, cfg)
     want = tcd.fused_cross_decode_reference(h, blk, 1, 0.125, stacks, mask, cfg)
     torch.cuda.synchronize()
     assert tcd.LAUNCHES == before + 1 and got.shape == want.shape
+    assert tcd.KERNELS_PER_CALL == 3
     ok, err = _within(got, want, dtype, tol)
     assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_ln_mlp", "fused_cross_decode"])
+def test_decode_kernels_repeat_bitwise(kernel):
+    """K4 and K3 in bf16 at the slice's width (D = 768, B = 256, where the
+    projections split K over clusters of 4 to 8 CTAs): two calls on the
+    same inputs are bitwise equal, since the split partials are added in
+    a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    B, D, H = 256, 768, 12
+    cfg, blk = _block(D, H, torch.bfloat16, "cuda", seed=3)
+    rng = np.random.default_rng(6)
+    h = torch.from_numpy(rng.standard_normal((B, 1, D)).astype(np.float32)).to("cuda",
+                                                                               torch.bfloat16)
+    if kernel == "fused_ln_mlp":
+        run = lambda: tfd.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)  # noqa: E731
+    else:
+        stacks = _cross_stacks(rng, 2, B, 32, D, H, "cuda")
+        mask = torch.from_numpy((np.arange(32)[None] < rng.integers(0, 33, (B, 1)))
+                                .astype(np.float32)).cuda()
+        run = lambda: tcd.fused_cross_decode(h, blk, 1, 0.125, stacks, mask, cfg)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(first).all()) and torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -264,6 +298,14 @@ def test_decode_kernels_reject_what_they_do_not_take():
         tda.decode_mha_int8(q, kq, vq, ks, vs, 512, 0.125, n_head=2)
     with pytest.raises(ValueError):  # a bf16 cache instead of int8 codes
         tda.decode_mha_int8(q, kq.bfloat16(), vq, ks, vs, 100, 0.125, n_head=2)
+    # bf16 rows off a 16-byte boundary: the decode GEMM's copies need it
+    cfg16, blk16 = _block(128, 2, torch.bfloat16, "cuda")
+    skew = torch.zeros((8, 1, 129), device="cuda", dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        tfd.fused_ln_mlp(skew, blk16.ln_2, blk16.mlp, cfg16)
+    stacks16 = _cross_stacks(np.random.default_rng(0), 2, 8, 4, 128, 2, "cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        tcd.fused_cross_decode(skew, blk16, 0, 0.125, stacks16, None, cfg16)
 
 
 @pytest.mark.parametrize("kernel", ["block_mha", "fused_softmax_xent"])
@@ -486,6 +528,38 @@ def test_flash_gate_routes_to_the_kernel(impl):
     multihead_attention(x, x, x, causal=True, impl=impl, dropout_rate=0.1,
                         deterministic=False, seed=3)
     assert tba.LAUNCHES == f0 + 1
+
+
+@pytest.mark.cuda
+def test_long_prompt_prefill_launches_k5():
+    """The cached prefill of a 384-token prompt at B = 64 (a 2-layer gpt2
+    at full width, fp32, left pads) takes K5 once per layer under "auto",
+    as JAX routes it, and its last-position logits match the plain math's
+    ("xla") within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, L = 64, 384
+    cfg = ModelConfig.from_model_type("gpt2", n_layer=2, vocab_size=1024, n_positions=512,
+                                      dtype="float32")
+    params = tg.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(7)
+    ids = torch.as_tensor(rng.integers(0, 1024, (B, L)), device="cuda")
+    mask = (torch.arange(L)[None] >= torch.as_tensor(rng.integers(0, 200, (B, 1)))).float()
+    mask = mask.cuda()
+    logits = {}
+    for impl in ("auto", "xla"):
+        c = cfg.replace(attention_impl=impl)
+        before = tba.LAUNCHES
+        with torch.inference_mode():
+            out = tg.forward(params, c, ids, attention_mask=mask,
+                             cache=tg.init_kv_cache(c, B, L), prefix_prefill=True,
+                             compute_logits="last")
+        torch.cuda.synchronize()
+        assert tba.LAUNCHES - before == (cfg.n_layer if impl == "auto" else 0)
+        logits[impl] = out.logits.float()
+    err = (logits["auto"] - logits["xla"]).abs().max().item()
+    assert err <= 1e-3, err
 
 
 @pytest.mark.cuda
