@@ -22,7 +22,13 @@ Phases, each of which raises on failure:
    (within 2e-4, 2e-5 and 3e-4) and bf16 (|kernel - plain| <= 2e-2 +
    1e-2 |plain|); median times of both from CUDA events; K3 and K4 in
    bf16 must repeat bit for bit and start at most 3 and 2 kernels a call;
-   the device duration of each of their kernels by torch.profiler.
+   the device duration of each of their kernels by torch.profiler. K2 in
+   bf16 must repeat bit for bit in one launch a call; its cluster size,
+   device duration (torch.profiler) and time at every cluster size the
+   row allows; then the same, with the plain version's time and the bound,
+   at B=1, T=1024, index 1000 (a single request over a long cache) and
+   B=256, T=256, index 200 (the headline decode's cache size, a reading
+   only: K2 is not routed below T=512).
 4. reference: a small fp32 model on the card against the same model on
    the CPU (plain versions), prefill and decode logits within 1e-3:
    once with the decode switches off, and once with all three on
@@ -45,7 +51,10 @@ Phases, each of which raises on failure:
    and without with the prompt prefill's self-attention on the plain math
    (``ERGM_ATTN_IMPL=xla``: the route taken before it followed JAX's rule),
    timed in turns; K2 must launch n_layer times per decode step, and K5
-   n_layer times per prefill under ``auto``.
+   n_layer times per prefill under ``auto``. Then the device time and
+   device operations of one B=64 decode step over the 512-slot cache with
+   K2 on and off, by torch.profiler over 8 steps, beside the host's wall
+   time per step.
 7. training kernels: K5 (block attention) forward and backward at the
    training slice's [48, 12, 512, 64], causal, bf16, dropout 0 and 0.1
    on one seed (output within 2e-2 + 1e-2 |plain|; gradients: against
@@ -92,7 +101,7 @@ Times are medians of CUDA events around single calls queued while the
 device is kept busy, so they read device time and not the host's launch
 overhead.
 ``--profile=PATH`` also writes a torch.profiler table of two train steps
-to PATH, and one of the B=256 decode steps (K3 + K4 on) beside it
+to PATH, and ones of the B=256 and long-history decode steps beside it
 (``_decode`` before the extension).
 """
 
@@ -132,6 +141,11 @@ SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim
 BF16_TOL, F32_TOL = 2e-2, 2e-5
 # the decode kernels' fp32 bars (JAX's own tests of K2, K3 and K4)
 K2_TOL, K3_TOL, K4_TOL = 3e-4, 2e-4, 2e-5
+# K2's readings (B, H, T, index): the long-history path's shape (its JSON
+# row), a single request over a long cache, and the headline decode's cache
+# size (a reading only: K2 is not routed below T = 512)
+K2_SHAPES = {"long history": (64, 12, 512, 400), "single request": (1, 12, 1024, 1000),
+             "headline cache": (256, 12, 256, 200)}
 # the long-history phase: gpt2 at full width over a 512-slot cache
 LONG_B, LONG_PROMPT, LONG_MAX = 64, 384, 512
 SWITCHES = ("ERGM_CROSS_KERNEL", "ERGM_DECODE_KERNEL", "ERGM_ATTN_IMPL")
@@ -240,19 +254,28 @@ def _median_ms(fn, reps: int = 20) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def _kernel_durations(name: str, run, calls: int = 5) -> None:
-    """Prints the device duration of each kernel of one call (medians over
-    ``calls`` calls, torch.profiler) and the gaps between them."""
+def _kernel_durations(name: str, run, per_call: int, calls: int = 5, attempts: int = 3) -> list:
+    """Prints the device duration of each of the ``per_call`` kernels of
+    one call (medians over ``calls`` calls, torch.profiler) and the gaps
+    between them; returns the durations in us. A trace that lost some of
+    the kernels (the profiler may miss the first ones after it starts) is
+    taken again, at most ``attempts`` times."""
     run()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    per = len(evs) // calls
-    if per < 1 or per * calls != len(evs):
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        per = per_call
+        if len(evs) == per * calls:
+            break
+        print(f"{name}: the trace holds {len(evs)} device operations over {calls} calls; "
+              f"taking it again")
+    else:
         raise AssertionError(f"{name}: {len(evs)} device operations over {calls} calls")
     calls_ev = [evs[i * per:(i + 1) * per] for i in range(calls)]
     dur = np.median([[e.time_range.elapsed_us() for e in c] for c in calls_ev], axis=0)
@@ -261,6 +284,7 @@ def _kernel_durations(name: str, run, calls: int = 5) -> None:
     print(f"{name} bf16 kernels (torch.profiler, medians of {calls} calls): "
           + ", ".join(f"{e.name[:40]} {d:.2f} us" for e, d in zip(calls_ev[0], dur))
           + "; gaps " + ", ".join(f"{x:.2f} us" for x in gaps))
+    return [float(d) for d in dur]
 
 
 def kernel_phase(gen: torch.Generator) -> dict:
@@ -328,6 +352,88 @@ def _random_block(cfg: ModelConfig, gen: torch.Generator) -> gpt2.Block:
     return blk.to(cfg.compute_dtype).requires_grad_(False)
 
 
+def _k2_case(gen: torch.Generator, b: int, h: int, t: int, index: int, dtype) -> tuple:
+    """K2's arguments at one shape: layer 1 of a stacked int8 cache [2, b,
+    h, t, 64] with bf16 scales, read in place; q a head view of a fused qkv
+    projection; a left-pad mask of up to 199 slots. Returns (args, the
+    bytes and the operations its function needs at these inputs)."""
+    dh = 64
+    kq, vq = (torch.randint(-127, 128, (2, b, h, t, dh), generator=gen, device=DEVICE,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = ((0.001 + 0.02 * torch.rand((2, b, h, t, 1), generator=gen,
+                                         device=DEVICE)).bfloat16() for _ in range(2))
+    qkv = torch.randn((b, 1, 3 * h * dh), generator=gen, device=DEVICE).to(dtype)
+    q = qkv[..., :h * dh].view(b, 1, h, dh).transpose(1, 2)
+    pads = torch.randint(0, 200, (b,), generator=gen, device=DEVICE)
+    kmask = (torch.arange(t, device=DEVICE)[None] >= pads[:, None]).float()
+    args = (q, kq[1], vq[1], ks[1], vs[1], index, 0.125, kmask)
+    nbytes = (_nbytes(q, kmask) + b * h * dh * q.element_size()  # the slots up to the cursor
+              + (index + 1) * _nbytes(kq[1], vq[1], ks[1], vs[1]) // t)
+    return args, nbytes, 2 * 2 * b * h * (index + 1) * dh
+
+
+def _k2_reading(label: str, args: tuple, h: int) -> dict:
+    """K2 in bf16: a repeat is bitwise equal, a call is one launch, the
+    cluster size it takes, its device duration (torch.profiler), and its
+    time at every cluster size the row allows (CUDA events), each within
+    the bar of the planned one's output."""
+    run = lambda: decode_attention.decode_mha_int8(*args, n_head=h)  # noqa: E731
+    decode_attention.LAUNCHES = 0
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    r = {"repeat_bitwise": bool(torch.equal(first, again)),
+         "launches_per_call": decode_attention.LAUNCHES / 2,
+         "cluster": decode_attention.LAST_CLUSTER}
+    print(f"decode_mha_int8 {label}: a repeat is bitwise equal: {r['repeat_bitwise']}; "
+          f"{r['launches_per_call']:g} launch a call; cluster of {r['cluster']} CTAs")
+    if not r["repeat_bitwise"] or r["launches_per_call"] != 1:
+        raise AssertionError(f"decode_mha_int8 {label}: repeat or launch count fails")
+    r["device_us"] = _kernel_durations(f"decode_mha_int8 {label}", run, 1)[0]
+    t, index = args[1].shape[2], args[5]
+    r["cluster_ms"] = {}
+    for c in range(1, decode_attention.MAX_CLUSTER + 1):
+        if decode_attention.slice_keys(t, index, c) > decode_attention.MAX_KEYS:
+            continue
+        at = lambda: decode_attention.decode_mha_int8(*args, n_head=h, cluster=c)  # noqa: E731
+        if not _bf16_ok(at(), first):
+            raise AssertionError(f"decode_mha_int8 {label}: a cluster of {c} disagrees")
+        r["cluster_ms"][c] = _median_ms(at)
+    print(f"decode_mha_int8 {label} bf16 by cluster size (medians of 20): "
+          + ", ".join(f"{c}: {ms:.4f} ms" for c, ms in r["cluster_ms"].items()))
+    return r
+
+
+def k2_shapes_phase(gen: torch.Generator) -> dict:
+    """K2 in bf16 at its two further shapes (``K2_SHAPES``) against its
+    plain version: the bar, a bitwise repeat, one launch a call, the
+    cluster size, the device duration, CUDA-event times of kernel and plain
+    in turns and the bound from the run's inputs. Also the floor of such a
+    time: the same events around one empty launch."""
+    res = {"launch_floor_ms": _median_ms(lambda: torch.cuda._sleep(0))}
+    print(f"an empty launch reads {res['launch_floor_ms']:.4f} ms between CUDA events")
+    for label, (b, h, t, index) in K2_SHAPES.items():
+        if label == "long history":  # decode_kernel_phase's row
+            continue
+        args, nbytes, flops = _k2_case(gen, b, h, t, index, torch.bfloat16)
+        run = lambda: decode_attention.decode_mha_int8(*args, n_head=h)  # noqa: E731
+        plain = lambda: decode_attention.decode_mha_int8_reference(*args, n_head=h)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"decode_mha_int8 {label} B={b} T={t} index {index} bf16: max |kernel - plain| "
+              f"= {err:.3e} (bar 2e-2 + 1e-2 |plain|)")
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+                or not _bf16_ok(got, want):
+            raise AssertionError(f"decode_mha_int8 {label} disagrees with its plain version")
+        r = {"shape": [b, h, t, index], "max_abs_err": err, **_k2_reading(label, args, h)}
+        r["ms"], r["plain_ms"] = _timed_pair(f"decode_mha_int8 {label}", run, plain)
+        r.update(bound(nbytes, flops))
+        print(f"decode_mha_int8 {label}: {r['ms']:.4f} ms against a bound of "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.0%} of it")
+        res[label] = r
+    return res
+
+
 def decode_kernel_phase(gen: torch.Generator) -> dict:
     """K2, K3 and K4 against their plain versions at the slice's shapes.
     Returns each kernel's numbers for the JSON line."""
@@ -336,7 +442,7 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
         cfg = ModelConfig.from_model_type(**{**SLICE, "dtype": "bfloat16" if dtype == torch.bfloat16
                                               else "float32"})
         blk = _random_block(cfg, gen)
-        L, D, Dh = 2, cfg.n_embd, cfg.head_dim
+        L, D = 2, cfg.n_embd
         h = torch.randn((B, 1, D), generator=gen, device=DEVICE).to(dtype)
 
         # K3: layer 1 of a two-layer stacked int8 caption cache, ragged mask
@@ -356,18 +462,8 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
         k4 = (lambda: fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg),
               lambda: fused_decode.fused_ln_mlp_reference(h, blk.ln_2, blk.mlp, cfg), K4_TOL)
 
-        # K2: layer 1 of a stacked int8 cache [2, 64, 12, 512, 64], read in
-        # place; q a head view of a fused qkv projection; left-pad mask
-        T, index = LONG_MAX, 400
-        kq, vq = (torch.randint(-127, 128, (L, LONG_B, H, T, Dh), generator=gen, device=DEVICE,
-                                dtype=torch.int8) for _ in range(2))
-        ks, vs = ((0.001 + 0.02 * torch.rand((L, LONG_B, H, T, 1), generator=gen,
-                                             device=DEVICE)).bfloat16() for _ in range(2))
-        qkv = torch.randn((LONG_B, 1, 3 * D), generator=gen, device=DEVICE).to(dtype)
-        q = qkv[..., :D].view(LONG_B, 1, H, Dh).transpose(1, 2)
-        pads = torch.randint(0, 200, (LONG_B,), generator=gen, device=DEVICE)
-        kmask = (torch.arange(T, device=DEVICE)[None] >= pads[:, None]).float()
-        k2_args = (q, kq[1], vq[1], ks[1], vs[1], index, 0.125, kmask)
+        # K2 at the long-history shape
+        k2_args, k2_bytes, k2_flops = _k2_case(gen, *K2_SHAPES["long history"], dtype)
         k2 = (lambda: decode_attention.decode_mha_int8(*k2_args, n_head=H),
               lambda: decode_attention.decode_mha_int8_reference(*k2_args, n_head=H), K2_TOL)
 
@@ -383,10 +479,7 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
             "fused_ln_mlp": bound(
                 2 * _nbytes(h) + _nbytes(*blk.ln_2.parameters(), *blk.mlp.parameters()),
                 2 * 2 * B * D * F_),
-            "decode_mha_int8": bound(  # the slots up to the cursor
-                _nbytes(q, kmask) + LONG_B * H * Dh * h.element_size()
-                + (index + 1) * _nbytes(kq[1], vq[1], ks[1], vs[1]) // T,
-                2 * 2 * LONG_B * H * (index + 1) * Dh),
+            "decode_mha_int8": bound(k2_bytes, k2_flops),
         }
         for name, (run, plain, tol) in (("cross_decode", k3), ("fused_ln_mlp", k4),
                                         ("decode_mha_int8", k2)):
@@ -415,10 +508,12 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
                           f"{r['kernels_per_call']} kernels a call (at most {most})")
                     if not r["repeat_bitwise"] or not 1 <= r["kernels_per_call"] <= most:
                         raise AssertionError(f"{name}: repeat or kernel count fails")
+                elif name == "decode_mha_int8":
+                    r.update(_k2_reading("long history", k2_args, H))
                 r["ms"], r["plain_ms"] = _timed_pair(name, run, plain)
                 r.update(bounds[name])
                 if mod is not None:
-                    _kernel_durations(name, run)
+                    _kernel_durations(name, run, mod.KERNELS_PER_CALL)
             else:
                 r["max_abs_err_f32"] = err
     return res
@@ -628,32 +723,39 @@ def slice_phase(card: str) -> tuple:
                                  f"in one prefill, want {want}")
     print(f"long history: K5 launched {long_counts['kernels off']['block_mha']} times in the "
           f"prefill ({cfg.n_layer} layers) under auto")
+    long_steps = decode_step_phase(params, {k: long_arms[k] for k in ("K2 on", "kernels off")},
+                                   card, b=LONG_B, prompt=LONG_PROMPT, slots=LONG_MAX)
+    step_tables.update({f"long history {k}": v for k, v in long_steps.items()})
     return counts["K3+K4 on"], long_counts["K2 on"], step_tables
 
 
-def decode_step_phase(params, arms: dict, card: str, steps: int = 8) -> dict:
-    """Device time and kernel count of one B=256 decode step under each arm
-    ({name: (config, switch names)}), by torch.profiler over ``steps``
-    steps after a prefill and two warm-up steps, and the host's wall time
-    per step over as many unprofiled steps. Returns {arm: profiler table}."""
-    inputs = _gpt2_inputs(np.random.default_rng(4), B, PROMPT)
-    tok = torch.as_tensor(np.random.default_rng(5).integers(0, 50000, (B, 1)), device=DEVICE)
-    T = PROMPT + 2 + 2 * steps
+def decode_step_phase(params, arms: dict, card: str, steps: int = 8, b: int = B,
+                      prompt: int = PROMPT, slots: int = 0) -> dict:
+    """Device time and kernel count of one decode step at batch ``b`` under
+    each arm ({name: (config, switch names)}), by torch.profiler over
+    ``steps`` steps after a ``prompt``-token prefill and two warm-up steps,
+    and the host's wall time per step over as many unprofiled steps; the
+    cache holds ``slots`` slots (0: just enough). K2-K4 must launch n_layer
+    times a step where their switch is on, and never where it is off.
+    Returns {arm: profiler table}."""
+    inputs = _gpt2_inputs(np.random.default_rng(4), b, prompt)
+    tok = torch.as_tensor(np.random.default_rng(5).integers(0, 50000, (b, 1)), device=DEVICE)
+    T = slots or prompt + 2 + 2 * steps
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     tables = {}
     for name, (cfg, names) in arms.items():
         with switches(*names), torch.inference_mode():
-            mask = torch.zeros((B, T), device=DEVICE)
-            mask[:, :PROMPT] = 1.0
-            cache = gpt2.init_kv_cache(cfg, B, T, caption_len=CAPTION, device=DEVICE)
+            mask = torch.zeros((b, T), device=DEVICE)
+            mask[:, :prompt] = 1.0
+            cache = gpt2.init_kv_cache(cfg, b, T, caption_len=CAPTION, device=DEVICE)
             o = gpt2.forward(params, cfg, attention_mask=mask, cache=cache, prefix_prefill=True,
                              compute_logits="last", **inputs)
-            pos = PROMPT
+            pos = prompt
 
             def step():
                 nonlocal o, pos
                 mask[:, pos] = 1.0
-                o = gpt2.forward(params, cfg, tok, position_ids=torch.full((B, 1), pos,
+                o = gpt2.forward(params, cfg, tok, position_ids=torch.full((b, 1), pos,
                                                                            device=DEVICE),
                                  attention_mask=mask, cache=o.cache)
                 pos += 1
@@ -676,14 +778,16 @@ def decode_step_phase(params, arms: dict, card: str, steps: int = 8) -> dict:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
         kernels = sum(e.count for e in device) / steps
-        want = cfg.n_layer * steps
-        if (counts["fused_cross_decode"], counts["fused_ln_mlp"]) != (
-                (want, want) if cfg.decode_fused_mlp else (0, 0)) or ms <= 0:
+        n = cfg.n_layer * steps
+        want = (n if "ERGM_CROSS_KERNEL" in names else 0, n if cfg.decode_fused_mlp else 0,
+                n if "ERGM_DECODE_KERNEL" in names and T >= 512 else 0)
+        if (counts["fused_cross_decode"], counts["fused_ln_mlp"],
+                counts["decode_mha_int8"]) != want or ms <= 0:
             raise AssertionError(f"decode step [{name}]: launches {counts}, device {ms} ms")
-        print(f"decode step [{name}] B={B}: device time {ms:.3f} ms, {kernels:.0f} device "
-              f"operations, host wall {1e3 * wall:.3f} ms a step (torch.profiler over {steps} "
-              f"steps; wall unprofiled) on {card}")
-        tables[name] = (f"{card}: decode step [{name}] B={B}, device time {ms:.3f} ms, "
+        print(f"decode step [{name}] B={b}, {T} slots: device time {ms:.3f} ms, {kernels:.0f} "
+              f"device operations, host wall {1e3 * wall:.3f} ms a step (torch.profiler over "
+              f"{steps} steps; wall unprofiled) on {card}")
+        tables[name] = (f"{card}: decode step [{name}] B={b}, {T} slots, device time {ms:.3f} ms, "
                         f"{kernels:.0f} device operations a step\n"
                         + prof.key_averages().table(sort_by="device_time_total", row_limit=30,
                                                     max_name_column_width=70))
@@ -1220,6 +1324,9 @@ def main() -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1 = kernel_phase(gen)
     decode = decode_kernel_phase(gen)
+    k2_shapes = k2_shapes_phase(gen)
+    decode["decode_mha_int8"]["launch_floor_ms"] = k2_shapes.pop("launch_floor_ms")
+    decode["decode_mha_int8"]["other_shapes"] = k2_shapes
     train = train_kernel_phase(gen)
     torch.cuda.empty_cache()
     flash = flash_kernel_phase(gen)

@@ -250,31 +250,70 @@ def test_decode_kernels_repeat_bitwise(kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4), (torch.bfloat16, None)])
-@pytest.mark.parametrize("T,index,leftpad", [(512, 400, True), (768, 767, False),
-                                             (1024, 5, True)])
-def test_decode_attention_kernel_matches_reference(dtype, tol, T, index, leftpad):
+@pytest.mark.parametrize("B,H,T,index,leftpad,cluster", [
+    (8, 4, 512, 400, True, None), (8, 4, 768, 767, False, None), (8, 4, 1024, 5, True, None),
+    (1, 12, 1024, 1000, True, None),  # a single request: the row split 8 ways
+    (64, 12, 512, 400, True, None),   # the long-history shape
+    (2, 2, 8192, 8191, True, None),   # the most slots: 1024 keys a CTA
+    (8, 4, 512, 0, False, None),      # index 0
+    (8, 4, 512, 0, False, 8),         # index 0 over 8 CTAs: 7 empty
+    (8, 4, 512, 112, True, 8),        # 16-key slices: index at the first key of the last
+    (8, 4, 512, 127, True, 8),        # ... and at the last key of the last
+    (8, 4, 512, 15, False, 8),        # one slice of keys: ranks 1..7 empty
+    (4, 2, 1024, 1000, 300, 8),       # a left pad of 300 covers slices 0 and 1 (128 keys)
+])
+def test_decode_attention_kernel_matches_reference(dtype, tol, B, H, T, index, leftpad,
+                                                   cluster):
     """K2 against its plain version, reading layer 1 of a stacked cache in
-    place, with q as a strided view of a fused projection."""
+    place, with q as a strided view of a fused projection; keys split over
+    the wrapper's cluster (``plan``) or the one given. ``leftpad``: random
+    left pads up to min(index, 200), or that many padded slots in every
+    row."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, H = 8, 4
     rng = np.random.default_rng(3)
     q, kq, vq, ks, vs = _k2_inputs(rng, B, H, T, dtype, "cuda")
     qkv = torch.cat([q, q, q], dim=-1)  # [B, H, 1, 192]
     q = qkv[..., 64:128]
     stack = [torch.stack([torch.zeros_like(x), x]) for x in (kq, vq, ks, vs)]
     mask = None
-    if leftpad:
-        pads = rng.integers(0, min(index, 200) + 1, B)
+    if leftpad is not False:
+        pads = (rng.integers(0, min(index, 200) + 1, B) if leftpad is True
+                else np.full(B, leftpad))
         mask = torch.from_numpy((np.arange(T)[None] >= pads[:, None]).astype(np.float32)).cuda()
     before = tda.LAUNCHES
-    got = tda.decode_mha_int8(q, *(x[1] for x in stack), index, 0.125, mask, n_head=H)
+    got = tda.decode_mha_int8(q, *(x[1] for x in stack), index, 0.125, mask, n_head=H,
+                              cluster=cluster)
     want = tda.decode_mha_int8_reference(q, kq, vq, ks, vs, index, 0.125, mask, n_head=H)
     torch.cuda.synchronize()
     assert tda.LAUNCHES == before + 1 and got.shape == (B, H * 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tda.LAST_CLUSTER == (cluster or tda.plan(B, H, T, index, sms))
+    assert bool(torch.isfinite(got).all())
     ok, err = _within(got, want, dtype, tol)
     assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,index", [(64, 512, 400), (1, 1024, 1000), (256, 256, 200)])
+def test_decode_attention_repeats_bitwise_in_one_launch(B, T, index):
+    """K2 in bf16 at the long-history, single-request and headline-cache
+    shapes: two calls are bitwise equal (the cluster adds its partials in
+    rank order), and a call is one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    H = 12
+    rng = np.random.default_rng(7)
+    q, kq, vq, ks, vs = _k2_inputs(rng, B, H, T, torch.bfloat16, "cuda")
+    pads = rng.integers(0, 200, B)
+    mask = torch.from_numpy((np.arange(T)[None] >= pads[:, None]).astype(np.float32)).cuda()
+    before = tda.LAUNCHES
+    first = tda.decode_mha_int8(q, kq, vq, ks, vs, index, 0.125, mask, n_head=H)
+    second = tda.decode_mha_int8(q, kq, vq, ks, vs, index, 0.125, mask, n_head=H)
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES == before + 2
+    assert bool(torch.isfinite(first).all()) and torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -298,6 +337,8 @@ def test_decode_kernels_reject_what_they_do_not_take():
         tda.decode_mha_int8(q, kq, vq, ks, vs, 512, 0.125, n_head=2)
     with pytest.raises(ValueError):  # a bf16 cache instead of int8 codes
         tda.decode_mha_int8(q, kq.bfloat16(), vq, ks, vs, 100, 0.125, n_head=2)
+    with pytest.raises(ValueError):  # past the portable cluster size
+        tda.decode_mha_int8(q, kq, vq, ks, vs, 100, 0.125, n_head=2, cluster=9)
     # bf16 rows off a 16-byte boundary: the decode GEMM's copies need it
     cfg16, blk16 = _block(128, 2, torch.bfloat16, "cuda")
     skew = torch.zeros((8, 1, 129), device="cuda", dtype=torch.bfloat16)[..., 1:]

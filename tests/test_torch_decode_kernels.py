@@ -87,6 +87,25 @@ def test_k2_plain_with_leftpad_mask_matches_dequantized_attention():
                                rtol=0, atol=1e-6)
 
 
+def test_k2_plan_splits_a_row_over_a_cluster():
+    """K2's launch plan on a 132-SM card: the long-history batch keeps one
+    CTA a row, a single request over a long cache spreads over 8, too few
+    keys are not split; and for every slot count the kernel takes, 1 to 8
+    CTAs whose 16-key slices cover the row's keys, at most MAX_KEYS each."""
+    assert tda.plan(64, 12, 512, 400) == 1
+    assert tda.plan(1, 12, 1024, 1000) == 8
+    assert tda.plan(256, 12, 256, 200) == 1
+    assert tda.plan(1, 12, 1024, 5) == 1
+    assert tda.slice_keys(512, 400, 4) == 112 and tda.slice_keys(512, 15, 8) == 16
+    for B, H in ((1, 1), (1, 12), (8, 12), (64, 12), (256, 12)):
+        for T in (1, 17, 256, 512, 1024, 4096, tda.MAX_T):
+            for index in {0, T // 3, T - 1}:
+                c = tda.plan(B, H, T, index)
+                share = tda.slice_keys(T, index, c)
+                assert 1 <= c <= tda.MAX_CLUSTER and share % 16 == 0
+                assert share <= tda.MAX_KEYS and c * share >= min(T, index + 1)
+
+
 # --- K3: fused cross sublayer -------------------------------------------
 
 
