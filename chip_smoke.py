@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, speculative, beam and training
+paths once on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -20,7 +21,8 @@ Phases, each of which raises on failure:
    D=768, F=3072) and K2 (int8 decode attention, B=64, T=512, index
    400, left-pad mask) against their plain versions, fp32 with TF32 off
    (within 2e-4, 2e-5 and 3e-4) and bf16 (|kernel - plain| <= 2e-2 +
-   1e-2 |plain|); median times of both from CUDA events; K3 and K4 in
+   1e-2 |plain|), K3 and K4 also at the beam path's 64 rows; median
+   times of both from CUDA events; K3 and K4 in
    bf16 must repeat bit for bit and start at most 3 and 2 kernels a call;
    the device duration of each of their kernels by torch.profiler. K2 in
    bf16 must repeat bit for bit in one launch a call; its cluster size,
@@ -55,7 +57,32 @@ Phases, each of which raises on failure:
    device operations of one B=64 decode step over the 512-slot cache with
    K2 on and off, by torch.profiler over 8 steps, beside the host's wall
    time per step.
-7. training kernels: K5 (block attention) forward and backward at the
+7. speculative decoding: bench.py:207-240's B=1 request (gpt2 at full
+   width, random weights from seed 0, int8 weights, bf16 caches, a
+   128-token prompt with token types, a 32-token caption, image and
+   audio features, 32 new tokens, greedy) through ``generate_batch`` on
+   three routes: plain (``spec_mode="none"``), ``auto`` (which must take
+   prompt-lookup drafting) and a 3-layer self-draft with gamma 4. In
+   fp32 the three token lists must be equal; in bf16 each speculative
+   route must equal plain wherever plain's top-2 logit margin exceeds
+   1e-3. K5 must launch n_layer times in the prefill (n_layer + 3 with
+   the draft's own). Then one first call a route (startup) and 5 timed
+   requests a route in turns: the median wall time, macro steps and
+   accepted proposals.
+8. beam search over the long history: the serving configuration, 16
+   ragged prompts bucketed to 384 tokens, 4 beams, 128 new tokens in 512
+   slots, ``beam_search_batch`` with the decode kernels off and with K2,
+   K3 and K4 on, in fp32 and in bf16. K5 must launch n_layer times in
+   the prefill and K2-K4 n_layer times a step with the kernels on. The
+   margin rule (each row's expansions pick the same candidates in both
+   runs up to its first expansion decided by a gap of at most 1e-3) is
+   asserted in fp32 and reported in bf16; in bf16 a third run with the
+   kernels on holds every launch of K2, K3 and K4 against its plain
+   version on the same inputs (2e-2 + 1e-2 |plain|). Then the device time of one
+   bf16 beam step each way (torch.profiler over 8 steps) and the time of
+   the step's cache reorder at 16, 64 and 127 generated slots, and of
+   the whole cache.
+9. training kernels: K5 (block attention) forward and backward at the
    training slice's [48, 12, 512, 64], causal, bf16, dropout 0 and 0.1
    on one seed (output within 2e-2 + 1e-2 |plain|; gradients: against
    the plain version run in f32, at most twice the plain bf16 version's
@@ -76,13 +103,13 @@ Phases, each of which raises on failure:
    on real rows), fp32 at [1, 2, 2048, 64] (2e-5 and 5e-5); times of
    kernel, plain and ``scaled_dot_product_attention`` (``is_causal``, no
    mask) as the yardstick.
-8. training reference: a small fp32 model takes 3 AdamW steps on the
+10. training reference: a small fp32 model takes 3 AdamW steps on the
    card (K5 and K6) and on the CPU (plain versions); losses within 1e-4.
    Then the long-context path: one ``make_train_step`` step of gpt2 at
    full width with ``n_positions=2048``, two layers, B=2, L=2048 and no
    attention dropout, where the ``auto`` route takes K5 inside JAX's
    flash gate: it must launch twice forward and twice backward.
-9. training slice: the ``scripts/train_bench.py`` configuration (gpt2
+11. training slice: the ``scripts/train_bench.py`` configuration (gpt2
    at full width, B=48, L=512, bf16, dropout 0.1, remat "mlp", random
    weights from seed 0): ``make_train_step`` once, then 8 timed steps
    (two chains of 4); K5 must launch 12 forward and 12 backward times
@@ -123,7 +150,8 @@ import torch.nn.functional as F
 
 from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
 from ergm_tpu_torch.data.synthetic import write_synthetic_dataset
-from ergm_tpu_torch.infer.generate import generate, generate_batch
+from ergm_tpu_torch.infer import beam, speculative
+from ergm_tpu_torch.infer.generate import generate, generate_batch, pack_ragged_batch
 from ergm_tpu_torch.models import gpt2
 from ergm_tpu_torch.ops import (_build, block_attention, cross_decode, decode_attention,
                                 fused_ce, fused_decode, prefill_attention)
@@ -149,6 +177,14 @@ K2_SHAPES = {"long history": (64, 12, 512, 400), "single request": (1, 12, 1024,
 # the long-history phase: gpt2 at full width over a 512-slot cache
 LONG_B, LONG_PROMPT, LONG_MAX = 64, 384, 512
 SWITCHES = ("ERGM_CROSS_KERNEL", "ERGM_DECODE_KERNEL", "ERGM_ATTN_IMPL")
+# the B=1 request of bench.py:207-240: int8 weights, bf16 self and cross
+# caches, a 128-token prompt and 32 new tokens; SPEC_REQS timed requests a route
+SPEC_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
+                  weight_dtype="int8")
+SPEC_PROMPT, SPEC_NEW, SPEC_REQS = 128, 32, 5
+# beam search over the long history: 16 ragged prompts bucketed to 384
+# tokens, 4 beams, 128 new tokens in LONG_MAX slots
+BEAM_B, BEAM_PROMPT, BEAM_W = 16, 384, 4
 # the training configuration of scripts/train_bench.py:27-89
 TRAIN_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
                    attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1, remat=True,
@@ -516,6 +552,34 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
                     _kernel_durations(name, run, mod.KERNELS_PER_CALL)
             else:
                 r["max_abs_err_f32"] = err
+
+        # K3 and K4 at the beam path's shape: B*W = 64 rows over the same
+        # 32-token caption cache (the cache as the path holds it, contiguous)
+        n = BEAM_B * BEAM_W
+        stacks_n = tuple(x[:, :n].contiguous() for x in stacks)
+        for name, run, plain, tol in (
+                ("cross_decode",
+                 lambda: cross_decode.fused_cross_decode(h[:n], blk, 1, 0.125, stacks_n,
+                                                         cmask[:n], cfg),
+                 lambda: cross_decode.fused_cross_decode_reference(h[:n], blk, 1, 0.125,
+                                                                   stacks_n, cmask[:n], cfg),
+                 K3_TOL),
+                ("fused_ln_mlp", lambda: fused_decode.fused_ln_mlp(h[:n], blk.ln_2, blk.mlp, cfg),
+                 lambda: fused_decode.fused_ln_mlp_reference(h[:n], blk.ln_2, blk.mlp, cfg),
+                 K4_TOL)):
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+                  and (_bf16_ok(got, want) if dtype == torch.bfloat16 else err <= tol))
+            bar = "2e-2 + 1e-2 |plain|" if dtype == torch.bfloat16 else f"{tol:g}"
+            print(f"{name} {dtype} at the beam path's {n} rows: max |kernel - plain| = "
+                  f"{err:.3e} (bar {bar})")
+            if not ok:
+                raise AssertionError(f"{name} {dtype} at {n} rows disagrees with its plain "
+                                     f"version: {err}")
+            key = "max_abs_err_beam_rows" + ("" if dtype == torch.bfloat16 else "_f32")
+            res[name][key] = err
     return res
 
 
@@ -792,6 +856,394 @@ def decode_step_phase(params, arms: dict, card: str, steps: int = 8, b: int = B,
                         + prof.key_averages().table(sort_by="device_time_total", row_limit=30,
                                                     max_name_column_width=70))
     return tables
+
+
+class LogitRecorder:
+    """Records the full-depth model's logits by the logical position of
+    the token they predict, the last call winning: a verify window's rows
+    past its accepted prefix are overwritten by the next window, so what
+    stays is what predicted the emitted tokens."""
+
+    def __init__(self, n_layer: int):
+        self.n_layer, self.at = n_layer, {}
+
+    def __enter__(self):
+        self.real = gpt2.forward
+
+        def forward(params, config, input_ids, *args, **kwargs):
+            out = self.real(params, config, input_ids, *args, **kwargs)
+            pos = kwargs.get("position_ids")
+            if out.logits is not None and config.n_layer == self.n_layer and pos is not None:
+                pos = pos[0, -out.logits.shape[1]:].tolist()
+                for i, q in enumerate(pos):
+                    self.at[q + 1] = out.logits[0, i].float()
+            return out
+        gpt2.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        gpt2.forward = self.real
+
+
+def _top2_margin(logits: torch.Tensor) -> float:
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def _first_difference(want: list, got: list, plain: dict, other: dict, start: int) -> dict:
+    """Where ``got`` first leaves ``want`` (``index``, None when they
+    agree), the plain route's top-2 logit margin there and the largest
+    |logit difference| of the two routes there (their prefixes are equal
+    up to it); and, over the positions up to it, the largest logit
+    difference as a share of the bf16 bar 2e-2 + 1e-2 |plain|."""
+    res = {"index": None, "margin": None, "delta": None, "bar_share": 0.0}
+    for j, (a, b) in enumerate(zip(want, got)):
+        p, o = plain[start + j], other[start + j]
+        err = (p - o).abs()
+        res["bar_share"] = max(res["bar_share"], float((err / (BF16_TOL + 1e-2 * p.abs())).max()))
+        if a != b:
+            res.update(index=j, margin=_top2_margin(p), delta=float(err.max()))
+            return res
+    if len(want) != len(got):
+        res["index"] = min(len(want), len(got))
+    return res
+
+
+class SpecSpy:
+    """Wraps ``speculative.speculative_generate`` to keep each call's mode
+    and (accepted, macro steps, proposed) from ``speculative_stats``."""
+
+    def __enter__(self):
+        self.real, self.calls = speculative.speculative_generate, []
+
+        def spy(*args, **kwargs):
+            out, stats = speculative.speculative_stats(*args, **kwargs)
+            self.calls.append((kwargs["mode"], stats))
+            return out
+        speculative.speculative_generate = spy
+        return self
+
+    def __exit__(self, *exc):
+        speculative.speculative_generate = self.real
+
+
+def _b1_request(rng) -> dict:
+    """bench.py:207-240's request: a 128-token prompt with token types, a
+    32-token caption, image and audio features."""
+    return dict(prompts=[rng.integers(0, 50000, SPEC_PROMPT).tolist()],
+                token_types=[rng.integers(0, 50000, SPEC_PROMPT).tolist()],
+                imgs=rng.standard_normal((1, 768)).astype(np.float32),
+                auds=rng.standard_normal((1, 768)).astype(np.float32),
+                captions=[rng.integers(0, 50000, CAPTION).tolist()])
+
+
+def spec_phase(card: str) -> dict:
+    """One B=1 request through ``generate_batch`` on three routes: plain
+    (``spec_mode="none"``), ``auto`` (which must take n-gram drafting)
+    and a 3-layer self-draft with gamma 4. fp32 tokens must be equal
+    across the routes; in bf16 each route is compared with the plain one
+    by the margin rule. K5 must launch n_layer times in the target's
+    prefill (and draft_layers more for the draft's). Returns the launch
+    counts of the last timed request of each route."""
+    routes = {"plain": dict(spec_mode="none"), "auto": {},
+              "draft": dict(draft_layers=3, spec_gamma=4)}
+    req = _b1_request(np.random.default_rng(1))
+    kw = dict(max_len=SPEC_PROMPT + SPEC_NEW, eos_id=EOS, sp2_id=SP2, greedy=True,
+              max_new_tokens=SPEC_NEW, **req)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig.from_model_type(**{**SPEC_SLICE, "dtype": dtype})
+        params = gpt2.params_for_inference(
+            gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg), cfg)
+        tokens, logits = {}, {}
+        for name, route in routes.items():
+            with switches(), SpecSpy() as spy, LogitRecorder(cfg.n_layer) as rec:
+                block_attention.LAUNCHES = 0
+                tokens[name] = generate_batch(params, cfg, **kw, **route)[0][0]
+                k5 = block_attention.LAUNCHES
+            logits[name] = rec.at
+            want_mode = {"plain": None, "auto": "ngram", "draft": "draft"}[name]
+            modes = [m for m, _ in spy.calls]
+            if modes != ([want_mode] if want_mode else []):
+                raise AssertionError(f"B=1 [{name}]: routed to {modes}, want {want_mode}")
+            want_k5 = cfg.n_layer + (3 if name == "draft" else 0)
+            if k5 != want_k5 or len(tokens[name]) != SPEC_NEW:
+                raise AssertionError(f"B=1 [{name}] {dtype}: K5 launched {k5} times (want "
+                                     f"{want_k5}), {len(tokens[name])} tokens")
+        for name in ("auto", "draft"):
+            d = _first_difference(tokens["plain"], tokens[name], logits["plain"], logits[name],
+                                  SPEC_PROMPT)
+            print(f"B=1 {dtype} [{name}]: first leaves plain greedy at new token {d['index']} "
+                  f"(None: all {SPEC_NEW} equal); plain's top-2 margin there {d['margin']}, the "
+                  f"routes' logits there differ by {d['delta']}; before it the logits differ by "
+                  f"at most {d['bar_share']:.3f} of the bf16 bar")
+            # fp32: token for token; bf16: the margin rule (equal wherever
+            # plain's top-2 margin exceeds 1e-3)
+            if d["index"] is not None and (dtype == "float32" or d["margin"] > 1e-3):
+                raise AssertionError(f"B=1 {dtype} [{name}] leaves plain greedy: {d}")
+        if dtype == "float32":
+            del params
+            torch.cuda.empty_cache()
+            continue
+
+        # times: a warm call (startup), then SPEC_REQS requests a route in turns
+        walls, stats = {name: [] for name in routes}, {}
+        for name, route in routes.items():
+            t0 = time.time()
+            generate_batch(params, cfg, **kw, **route)
+            print(f"B=1 [{name}]: first call {1e3 * (time.time() - t0):.1f} ms (startup)")
+        order = list(routes)
+        for i in range(SPEC_REQS):
+            for name in (order if i % 2 == 0 else order[::-1]):
+                with switches(), SpecSpy() as spy:
+                    reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    generate_batch(params, cfg, **kw, **routes[name])
+                    torch.cuda.synchronize()
+                    walls[name].append(time.time() - t0)
+                    out[name] = _launch_counts()
+                    stats[name] = spy.calls
+        for name in routes:
+            calls = stats[name]
+            acc, steps, prop = calls[0][1] if calls else (0, SPEC_NEW, 0)
+            ms = 1e3 * float(np.median(walls[name]))
+            print(f"B=1 [{name}] bf16: median {ms:.2f} ms a request over {SPEC_REQS} "
+                  f"(runs " + "/".join(f"{1e3 * w:.1f}" for w in walls[name]) + f" ms), "
+                  f"{steps} {'macro ' if calls else ''}steps, {acc} of {prop} proposals "
+                  f"accepted, {ms / steps:.2f} ms a step on {card}")
+    return out
+
+
+class KernelShadow:
+    """Holds every launch of K2, K3 and K4 in a run against its plain
+    version on the same inputs: each wrapper is wrapped to call the plain
+    version after it and keep, on the device, the largest |kernel - plain|
+    as a share of the bf16 bar 2e-2 + 1e-2 |plain|. The plain versions
+    add to no count; the kernels' own launches in such a run are not the
+    path's."""
+
+    KERNELS = ((decode_attention, "decode_mha_int8"), (cross_decode, "fused_cross_decode"),
+               (fused_decode, "fused_ln_mlp"))
+
+    def __enter__(self):
+        self.real, self.calls = {}, {}
+        self.share = {name: torch.zeros((), device=DEVICE) for _, name in self.KERNELS}
+        for mod, name in self.KERNELS:
+            real, plain = getattr(mod, name), getattr(mod, f"{name}_reference")
+            self.real[name], self.calls[name] = real, 0
+
+            def shadow(*args, _real=real, _plain=plain, _name=name, **kwargs):
+                got = _real(*args, **kwargs)
+                want = _plain(*args, **kwargs).float()
+                err = (got.float() - want).abs() / (BF16_TOL + 1e-2 * want.abs())
+                torch.maximum(self.share[_name], err.max(), out=self.share[_name])
+                self.calls[_name] += 1
+                return got
+            setattr(mod, name, shadow)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self.KERNELS:
+            setattr(mod, name, self.real[name])
+
+    def shares(self) -> dict:
+        return {name: float(x) for name, x in self.share.items()}
+
+
+def _beam_arms(params, cfg, prompts: list, kw: dict, card: str) -> tuple:
+    """``beam_search_batch`` with the decode kernels off, then with K2, K3
+    and K4 on, each from launch counts of 0: K5 must launch n_layer times
+    in the prefill, and K2-K4 n_layer times a step in the second run
+    only. Returns the arms, {arm: best hypotheses}, {arm: (each
+    expansion's picks [S, B, W], the smallest gap between adjacent ones
+    of its W+1 best candidate scores [S, B])} and the second run's
+    launch counts."""
+    arms = {"kernels off": (cfg, ()),
+            "K2+K3+K4 on": (cfg.replace(decode_fused_mlp=True),
+                            ("ERGM_DECODE_KERNEL", "ERGM_CROSS_KERNEL"))}
+    results, decisions = {}, {}
+    real_top_k = beam._top_k
+    for name, (c, names) in arms.items():
+        picks, gaps = [], []
+
+        def top_k(x, k):  # beam._top_k, keeping what it picked and by what gap
+            vals, idx = real_top_k(x, k)
+            best = torch.topk(x, k + 1, dim=-1).values
+            picks.append(idx)
+            gaps.append((best[:, :k] - best[:, 1:]).min(dim=-1).values)
+            return vals, idx
+
+        beam._top_k = top_k
+        try:
+            with switches(*names), StepCounter() as steps:
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res, emo = beam.beam_search_batch(params, c, prompts, **kw)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                got = _launch_counts()
+        finally:
+            beam._top_k = real_top_k
+        n = c.n_layer * steps.steps
+        on = bool(names)
+        want = {"block_mha": c.n_layer, "decode_mha_int8": n if on else 0,
+                "fused_cross_decode": n if on else 0, "fused_ln_mlp": n if on else 0}
+        if {k: got[k] for k in want} != want or steps.steps < 1:
+            raise AssertionError(f"beam [{name}]: launches {got} over {steps.steps} steps, "
+                                 f"want {want}")
+        if (len(res) != BEAM_B or any(not 1 <= len(r) <= LONG_MAX - BEAM_PROMPT for r in res)
+                or any(t < 0 or t >= c.vocab_size for r in res for t in r)
+                or emo.shape != (BEAM_B, c.num_emotions) or not np.isfinite(emo).all()):
+            raise AssertionError(f"beam [{name}]: bad output")
+        results[name] = res
+        decisions[name] = (torch.stack(picks).cpu().numpy(), torch.stack(gaps).cpu().numpy())
+        print(f"beam [{name}] {c.dtype} B={BEAM_B}, W={BEAM_W}, {LONG_MAX} slots: {wall:.3f} s, "
+              f"{steps.steps} steps, {sum(map(len, res))} best-hypothesis tokens, launches "
+              f"{got} on {card}")
+    return arms, results, decisions, got
+
+
+def _beam_agreement(label: str, results: dict, decisions: dict) -> int:
+    """The margin rule for beams: each row's expansions must pick the same
+    candidates in both arms, in the same order, up to its first expansion
+    whose kernels-off scores put two of its W+1 best candidates within
+    1e-3. A row is followed only up to its first differing expansion:
+    after it the arms hold different hypotheses. Prints how far the arms
+    agree; returns the number of rows whose picks differ before any such
+    close call."""
+    off, on = results["kernels off"], results["K2+K3+K4 on"]
+    (p_off, g_off), (p_on, _) = decisions["kernels off"], decisions["K2+K3+K4 on"]
+    to_end, close, broken = 0, [], []
+    for b in range(BEAM_B):
+        for s in range(g_off.shape[0]):
+            if g_off[s, b] <= 1e-3:
+                close.append(s)
+                break
+            if not np.array_equal(p_off[s, b], p_on[s, b]):
+                broken.append((b, s, float(g_off[s, b])))
+                break
+        else:
+            to_end += 1
+    same = sum(a == b for a, b in zip(off, on))
+    lead = sum(next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+               for a, b in zip(off, on))
+    print(f"beam {label}: best hypotheses equal in {same} of {BEAM_B} rows, tokens equal before "
+          f"the first difference {lead} of {sum(map(len, off))}; of {BEAM_B} rows, {to_end} "
+          f"pick alike in all {g_off.shape[0]} expansions, {len(close)} reach a close call "
+          f"(gap <= 1e-3) first (at expansions {close}), and {len(broken)} part where every "
+          f"gap so far exceeded 1e-3 (row, expansion, gap there: {broken})")
+    return len(broken)
+
+
+def beam_phase(card: str) -> dict:
+    """Beam search over a long history (the serving configuration, int8
+    KV and cross caches and int8 lm_head): 16 ragged prompts bucketed to
+    384 tokens, 4 beams, 128 new tokens in 512 slots, with the decode
+    kernels off and with K2, K3 and K4 on (``_beam_arms``), in fp32 and
+    in bf16. The margin rule (``_beam_agreement``) is asserted in fp32;
+    in bf16, where the kernels' rounding moves candidate scores by more
+    than 1e-3, the agreement is printed, and a third run with the kernels
+    on holds every launch of K2, K3 and K4 against its plain version
+    within the bf16 bar (``KernelShadow``). Then the device time of one
+    bf16 beam step each way (torch.profiler over 8 steps) and the time of
+    its cache reorder. Returns the bf16 kernels-on launch counts."""
+    rng = np.random.default_rng(3)
+    lens = [BEAM_PROMPT] + rng.integers(200, BEAM_PROMPT + 1, BEAM_B - 1).tolist()
+    prompts = [rng.integers(0, 50000, n).tolist() for n in lens]
+    kw = dict(num_beams=BEAM_W, max_len=LONG_MAX, eos_id=EOS, sp2_id=SP2,
+              token_types=[rng.integers(0, 50000, n).tolist() for n in lens],
+              captions=[None if i % 4 == 3 else rng.integers(0, 50000, CAPTION).tolist()
+                        for i in range(BEAM_B)],
+              imgs=rng.standard_normal((BEAM_B, 768)).astype(np.float32),
+              auds=rng.standard_normal((BEAM_B, 768)).astype(np.float32),
+              max_new_tokens=LONG_MAX - BEAM_PROMPT, prompt_bucket=128)
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig.from_model_type(**{**SLICE, "dtype": dtype})
+        params = gpt2.params_for_inference(
+            gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg), cfg)
+        arms, results, decisions, counts = _beam_arms(params, cfg, prompts, kw, card)
+        if _beam_agreement(dtype, results, decisions) and dtype == "float32":
+            raise AssertionError("beam fp32: the arms pick differently where the margin rule "
+                                 "says they must not")
+        if dtype == "bfloat16":
+            # once more with the kernels on, every launch of K2, K3 and K4
+            # held against its plain version at the path's shapes and data
+            c, names = arms["K2+K3+K4 on"]
+            with switches(*names), KernelShadow() as shadow, StepCounter() as steps:
+                beam.beam_search_batch(params, c, prompts, **kw)
+            shares = shadow.shares()
+            print(f"beam bf16 [K2+K3+K4 on]: every launch against its plain version on the same "
+                  f"inputs ({shadow.calls} launches over {steps.steps} steps); the largest "
+                  f"|kernel - plain| as a share of the bar 2e-2 + 1e-2 |plain|: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+            if (any(v > 1.0 or not math.isfinite(v) for v in shares.values())
+                    or set(shadow.calls.values()) != {c.n_layer * steps.steps}):
+                raise AssertionError(f"beam bf16: a kernel leaves its plain version's bar or "
+                                     f"was not held on every step: {shares}, {shadow.calls}")
+        if dtype == "float32":
+            del params
+            torch.cuda.empty_cache()
+    beam_step_phase(params, arms, prompts, kw, card)
+    return counts
+
+
+def beam_step_phase(params, arms: dict, prompts: list, kw: dict, card: str,
+                    steps: int = 8) -> None:
+    """The device time of one beam step under each arm (torch.profiler
+    over ``steps`` steps after two warm-up steps) beside the host's wall
+    time a step, and the device time of the step's cache reorder (the
+    generated slots of every self-attention field) by CUDA events, with
+    the reorder of the whole cache as JAX does it beside it."""
+    ids, mask, tts, cap_ids, cap_mask, buffer_len = pack_ragged_batch(
+        prompts, eos_id=EOS, sp2_id=SP2,
+        n_positions=1024, max_len=LONG_MAX, token_types=kw["token_types"],
+        captions=kw["captions"], prompt_bucket=128, max_new_tokens=kw["max_new_tokens"])
+    dev = lambda x: torch.as_tensor(x, device=DEVICE)  # noqa: E731
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, (cfg, names) in arms.items():
+        with switches(*names):
+            s, rows = beam.beam_start(
+                params, cfg, dev(ids).long(), prompt_mask=dev(mask), num_beams=BEAM_W,
+                max_len=buffer_len, eos_id=EOS, token_type_ids=dev(tts).long(),
+                imgs=dev(kw["imgs"]), auds=dev(kw["auds"]), caption_ids=dev(cap_ids).long(),
+                caption_mask=dev(cap_mask), logical_cap=LONG_MAX)
+            for _ in range(2):
+                s = beam.beam_step(params, cfg, s, rows, SP2)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(steps):
+                    s = beam.beam_step(params, cfg, s, rows, SP2)
+                torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(steps):
+                s = beam.beam_step(params, cfg, s, rows, SP2)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) / steps
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
+        kernels = sum(e.count for e in device) / steps
+        if ms <= 0:
+            raise AssertionError(f"beam step [{name}]: no device time in the trace")
+        flat = torch.randperm(BEAM_B * BEAM_W, device=DEVICE)
+        lo = rows.Lp
+        with torch.inference_mode():
+            # the reorder after 16, 64 and 127 generated slots (the first,
+            # middle and last steps), and of the whole cache
+            reorder = {n: _median_ms(lambda: beam._gather_beams(s.cache, flat, lo, lo + n))
+                       for n in (16, 64, buffer_len - lo - 1)}
+            whole_ms = _median_ms(lambda: [getattr(s.cache, f).index_select(1, flat)
+                                           for f in beam._SELF_FIELDS])
+        print(f"beam step [{name}] B*W={BEAM_B * BEAM_W}, {buffer_len} slots: device time "
+              f"{ms:.3f} ms, {kernels:.0f} device operations, host wall {1e3 * wall:.3f} ms a "
+              f"step (torch.profiler over {steps} steps; wall unprofiled); the reorder of "
+              + ", ".join(f"{n} generated slots {t:.4f} ms ({100 * t / ms:.1f}% of the step)"
+                          for n, t in reorder.items())
+              + f", of the whole cache {whole_ms:.4f} ms; on {card}")
+    del s
+    torch.cuda.empty_cache()
 
 
 def _k5_run(fn, q, k, v, do, rate=0.0, m=None) -> list:
@@ -1333,6 +1785,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     reference_phase()
     on, long_on, step_tables = slice_phase(card)
+    # this slice's paths, counted from 0 just before each run
+    spec_counts = spec_phase(card)
+    beam_on = beam_phase(card)
     train_reference_phase()
     long_ctx = long_context_phase(card)
     train_on = train_slice_phase(card)
@@ -1368,9 +1823,16 @@ def main() -> None:
              train["fused_softmax_xent_bwd"])]
     # the K7 rows read the long-context step's K5 counts
     counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
+    # launches on the speculative and beam paths: K5 in a B=1 request's
+    # prefills on each route, K2-K5 in the beam search with the kernels on
+    spec_beam = {k: {f"B=1 {r}": c[k] for r, c in spec_counts.items()} | {"beam": beam_on[k]}
+                 for k in ("block_mha",)}
+    spec_beam.update({k: {"beam": beam_on[k]}
+                      for k in ("decode_mha_int8", "fused_cross_decode", "fused_ln_mlp")})
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"ergm_tpu_torch/csrc/{src}.cu",
-        "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[counts_of.get(name, name)], **nums}
+        "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[counts_of.get(name, name)], **nums,
+        **({"spec_beam_launches": spec_beam[name]} if name in spec_beam else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ rows stop at eos or at their logical cap.
 
 from __future__ import annotations
 
+import warnings
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -246,39 +247,75 @@ def generate_batch(
     caption_bucket: int = 32,
     max_new_tokens: Optional[int] = None,
     sample_top_k: int = 64,
+    draft_layers: int = 0,
+    spec_gamma: int = 4,
     spec_mode: str = "auto",
+    spec_ngram: int = 3,
 ) -> Tuple[List[List[int]], np.ndarray]:
     """Batched decode over ragged prompts on the device of ``params``.
 
-    Left-pads prompts to a bucketed width, runs one ``generate`` for the
-    whole batch, and returns per-sample continuation token lists (eos
-    included when emitted) plus the emotion logits of each prompt's last
-    token. ``captions``: per-sample caption ids, right-padded and masked.
+    Left-pads prompts to a bucketed width and returns per-sample
+    continuation token lists (eos included when emitted) plus the
+    emotion logits of each prompt's last token. ``captions``: per-sample
+    caption ids, right-padded and masked.
 
-    Only the plain batched route is ported. JAX's ``spec_mode="auto"``
-    sends a greedy B=1 request to prompt-lookup speculative decoding,
-    whose output is byte-identical to plain greedy; here it takes the
-    plain route. Other ``spec_mode`` values are not ported yet."""
-    if spec_mode not in ("auto", "none"):
-        raise NotImplementedError(f"spec_mode {spec_mode!r} is not ported yet")
+    Routing, as JAX's (``ergm_tpu/infer/generate.py:422-469``):
+    ``spec_mode="auto"`` takes ``"draft"`` when ``draft_layers`` is set,
+    ``"ngram"`` (prompt lookup) for a greedy B=1 request, and ``"none"``
+    otherwise. A B=1 request in a speculative mode goes to
+    ``speculative.speculative_generate`` (a self-draft of the first
+    ``draft_layers`` blocks, or n-gram proposals of ``spec_ngram``
+    tokens; ``spec_gamma`` proposals a step; greedy output equals the
+    plain route's, and sampling there is full-vocab nucleus, so
+    ``sample_top_k`` does not apply). A larger batch in a speculative
+    mode warns and takes the plain route: one ``generate`` for the whole
+    batch."""
     ids, mask, tts, cap_ids, cap_mask, buffer_len = pack_ragged_batch(
         prompts, eos_id=eos_id, sp2_id=sp2_id, n_positions=config.n_positions,
         max_len=max_len, token_types=token_types, captions=captions,
         prompt_bucket=prompt_bucket, caption_bucket=caption_bucket,
         max_new_tokens=max_new_tokens)
     B, Lp = ids.shape
+    cap = min(max_len, config.n_positions)
     device = next(params.parameters()).device
 
     def dev(x, dtype=None):
         return None if x is None else torch.as_tensor(x, dtype=dtype, device=device)
 
+    if spec_mode == "auto":
+        # JAX's measured default: greedy B=1 takes prompt lookup, which
+        # costs nothing to draft; sampled and batched requests stay plain
+        if draft_layers:
+            spec_mode = "draft"
+        elif greedy and B == 1:
+            spec_mode = "ngram"
+        else:
+            spec_mode = "none"
+    if spec_mode != "none" and (draft_layers or spec_mode == "ngram"):
+        if B == 1:
+            from ergm_tpu_torch.infer import speculative  # it imports this module
+
+            out = speculative.speculative_generate(
+                params, config, dev(ids, torch.long), prompt_mask=dev(mask), max_len=cap,
+                max_new_tokens=buffer_len - Lp, eos_id=eos_id, sp2_id=sp2_id, top_p=top_p,
+                greedy=greedy, draft_layers=draft_layers, gamma=spec_gamma, mode=spec_mode,
+                ngram_n=spec_ngram, generator=generator,
+                token_type_ids=dev(tts, torch.long) if token_types is not None else None,
+                imgs=dev(imgs), auds=dev(auds), caption_ids=dev(cap_ids, torch.long),
+                caption_mask=dev(cap_mask))
+            length = int(out.lengths[0])
+            return ([out.tokens[0, Lp:length].tolist()],
+                    out.emotion_logits.float().cpu().numpy())
+        warnings.warn(f"speculative decode (draft_layers={draft_layers}, spec_mode={spec_mode}) "
+                      f"is a B=1 path; this call has B={B}: falling back to standard batched "
+                      f"decode")
     out = generate(
         params, config, dev(ids, torch.long), prompt_mask=dev(mask), max_len=buffer_len,
         eos_id=eos_id, sp2_id=sp2_id, top_p=top_p, generator=generator,
         token_type_ids=dev(tts, torch.long) if token_types is not None else None,
         imgs=dev(imgs), auds=dev(auds), caption_ids=dev(cap_ids, torch.long),
         caption_mask=dev(cap_mask), greedy=greedy,
-        logical_cap=min(max_len, config.n_positions), sample_top_k=sample_top_k)
+        logical_cap=cap, sample_top_k=sample_top_k)
     tokens = out.tokens.cpu().numpy()
     lengths = out.lengths.cpu().numpy()
     results = [tokens[b, Lp:lengths[b]].tolist() for b in range(B)]

@@ -1,16 +1,35 @@
 """Checkpoint conversion into the port's modules (counterpart of
-``ergm_tpu/models/convert.py``)."""
+``ergm_tpu/models/convert.py``).
+
+HF GPT-2 stores its attention and MLP weights as Conv1D ``[in, out]``,
+the port's orientation, so they copy straight across; ``nn.Linear``
+heads (the emotion head, the image and audio projections) store
+``[out, in]`` and are transposed. ``lm_head`` is tied to ``wte`` and
+never stored. A checkpoint without cross-attention (pretrained GPT-2)
+or without the heads gets those parts from the port's random init, and
+one with a smaller vocabulary gets new ``wte`` rows
+(``gpt2.resize_token_embeddings``), as the reference's non-strict load
+and ``resize_token_embeddings`` give them.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.device import resolve
-from ergm_tpu_torch.models.gpt2 import GPT2
+from ergm_tpu_torch.models.gpt2 import GPT2, init_params, resize_token_embeddings
+
+# the port's modules stored as nn.Linear ([out, in]) in a checkpoint, outside
+# HF's ``transformer.`` prefix
+_HEADS = ("emotion_head", "img_proj", "aud_proj")
+# what a checkpoint may lack: the cross-attention of a pretrained GPT-2 and
+# the heads, taken from the random init instead
+_OPTIONAL = ("ln_cross", "cross_attn") + _HEADS
+_HF_MODULE = {"blocks": "h", "ln_cross": "ln_cross_attn", "cross_attn": "crossattention"}
 
 
 def _flatten(node: Dict[str, Any], prefix: str, layer, out: Dict[str, np.ndarray]) -> None:
@@ -44,3 +63,82 @@ def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cuda") 
     model = GPT2(config, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def _hf_name(key: str) -> Tuple[str, bool]:
+    """A port parameter name -> (its HF name without the ``transformer.``
+    prefix, whether the tensor is transposed there)."""
+    mod, leaf = key.rsplit(".", 1)
+    leaf = "bias" if leaf == "bias" else "weight"
+    if mod in _HEADS:
+        return f"{mod}.{leaf}", leaf == "weight"
+    return ".".join(_HF_MODULE.get(m, m) for m in mod.split(".")) + f".{leaf}", False
+
+
+def _to_tensor(x) -> torch.Tensor:
+    # a copy: the converted model must not share storage with the source
+    return torch.as_tensor(np.asarray(x)).clone() if not isinstance(x, torch.Tensor) \
+        else x.detach().cpu().clone()
+
+
+def _strip_prefix(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k.removeprefix("transformer."): _to_tensor(v) for k, v in state.items()}
+
+
+def infer_geometry(state_dict: Mapping[str, Any]) -> Dict[str, int]:
+    """(n_layer, n_embd, n_positions, vocab_size) of a GPT-2 state dict.
+    n_head is not recoverable from the weights and comes from the config."""
+    sd = _strip_prefix(state_dict)
+    n_layer = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("h."))
+    vocab, n_embd = sd["wte.weight"].shape
+    return {"n_layer": n_layer, "n_embd": n_embd,
+            "n_positions": sd["wpe.weight"].shape[0], "vocab_size": vocab}
+
+
+def hf_to_params(state_dict: Mapping[str, Any], config: ModelConfig,
+                 generator: Optional[torch.Generator] = None, device="cuda") -> GPT2:
+    """An HF GPT-2 state dict (GPT2Model, GPT2LMHeadModel, or the
+    reference's model with ``crossattention.*`` and ``emotion_head.*``)
+    -> ``GPT2`` on ``device``, the card unless the caller asks for the
+    CPU. What the checkpoint lacks of the cross-attention and the heads,
+    and the rows of a larger ``config.vocab_size``, are drawn from
+    ``generator`` (a CPU generator seeded with 0 when None)."""
+    sd = _strip_prefix(state_dict)
+    vocab = sd["wte.weight"].shape[0]
+    if vocab > config.vocab_size:
+        raise ValueError(f"checkpoint vocab {vocab} > config vocab {config.vocab_size}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = init_params(generator, config.replace(vocab_size=vocab), device=device)
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            name, transposed = _hf_name(key)
+            if name not in sd:
+                if not any(part in _OPTIONAL for part in key.split(".")):
+                    raise KeyError(f"missing tensor {name!r} in checkpoint")
+                continue
+            p.copy_(sd[name].t() if transposed else sd[name])
+    model.config = config.replace(vocab_size=vocab)
+    return resize_token_embeddings(model, generator, config.vocab_size, config)
+
+
+def params_to_hf(params: GPT2, config: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The full-precision model as an HF-style state dict of CPU tensors,
+    ``lm_head.weight`` tied to ``wte``."""
+    out = {}
+    for key, p in params.named_parameters():
+        name, transposed = _hf_name(key)
+        if not name.startswith(_HEADS):
+            name = f"transformer.{name}"
+        out[name] = (p.t() if transposed else p).detach().cpu().contiguous().clone()
+    out["lm_head.weight"] = out["transformer.wte.weight"]
+    return out
+
+
+def load_torch_checkpoint(path: str, config: ModelConfig,
+                          generator: Optional[torch.Generator] = None, device="cuda") -> GPT2:
+    """A reference ``.ckpt`` file (a dict with ``model_state_dict``) or a
+    bare state dict, as a ``GPT2`` on ``device``."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = blob.get("model_state_dict", blob) if isinstance(blob, dict) else blob
+    return hf_to_params(state, config, generator=generator, device=device)

@@ -28,7 +28,7 @@ int8 self-attention over a cache of 512 slots or more
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -159,6 +159,55 @@ def init_params(generator: torch.Generator, config: ModelConfig, device="cuda") 
             s = proj_std if ".c_proj." in name else std
             p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * s)
     return model
+
+
+@torch.no_grad()
+def prune_heads(params: GPT2, config: ModelConfig,
+                heads_to_prune: Dict[int, List[int]]) -> Tuple[GPT2, ModelConfig]:
+    """Remove self-attention heads IN PLACE (reference: src/model.py:
+    106-117); returns ``(params, new_config)``.
+
+    As in JAX every layer keeps ``n_head - k`` heads, so each listed
+    layer prunes the same number k; unlisted layers drop their
+    highest-indexed heads. The head dim stays (``head_dim_override``) and
+    so does ``n_embd``; the model must not have been quantized."""
+    c = config
+    counts = {len(v) for v in heads_to_prune.values()}
+    if len(counts) != 1:
+        raise ValueError("stacked-layer pruning needs the same number of "
+                         "pruned heads per listed layer")
+    new_heads = c.n_head - counts.pop()
+    hd, D = c.head_dim, c.n_embd
+    for li, blk in enumerate(params.blocks):
+        pruned = set(heads_to_prune.get(li, []))
+        keep = [h for h in range(c.n_head) if h not in pruned] if pruned \
+            else list(range(new_heads))
+        cols = torch.cat([torch.arange(h * hd, (h + 1) * hd) for h in keep])
+        qkv = torch.cat([cols, D + cols, 2 * D + cols])
+        attn = blk.attn
+        attn.c_attn.kernel = nn.Parameter(attn.c_attn.kernel[:, qkv].clone())
+        attn.c_attn.bias = nn.Parameter(attn.c_attn.bias[qkv].clone())
+        attn.c_proj.kernel = nn.Parameter(attn.c_proj.kernel[cols].clone())
+    new_cfg = c.replace(n_head=new_heads, head_dim_override=hd, n_inner=c.inner_dim)
+    params.config = new_cfg
+    return params, new_cfg
+
+
+@torch.no_grad()
+def resize_token_embeddings(params: GPT2, generator: torch.Generator, new_vocab: int,
+                            config: ModelConfig) -> GPT2:
+    """Extend ``wte`` IN PLACE to ``new_vocab`` rows for added special
+    tokens, like HF ``resize_token_embeddings`` (reference: src/main.py:
+    63): the new rows are N(0, initializer_range) drawn from ``generator``
+    (on its device); the tied lm_head follows. Returns ``params``."""
+    wte = params.wte
+    old = wte.embedding.shape[0]
+    if new_vocab > old:
+        extra = torch.randn((new_vocab - old, wte.embedding.shape[1]), generator=generator,
+                            device=generator.device) * config.initializer_range
+        wte.embedding = nn.Parameter(torch.cat([wte.embedding, extra.to(wte.embedding)]))
+        params.config = params.config.replace(vocab_size=new_vocab)
+    return params
 
 
 def _quantize_kernel(kernel: torch.Tensor):

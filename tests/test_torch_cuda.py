@@ -23,6 +23,15 @@ from ergm_tpu_torch.ops import prefill_attention as tpa
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _tf32_restored():
+    """Tests here turn TF32 off for their fp32 bars; each test leaves the
+    process's TF32 settings as it found them."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def _merged(rng, B, L, D):
     return torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32))
 
@@ -737,3 +746,71 @@ def test_fused_xent_kernel_rejects_what_it_does_not_take():
     with pytest.raises(TypeError):  # mixed dtypes
         tce.fused_softmax_xent(torch.zeros((8, 128), device="cuda"),
                                torch.zeros((16, 128), device="cuda", dtype=torch.bfloat16), lbl)
+
+
+def _spec_model(n_layer=3):
+    """A small fp32 model on the card with a caption sublayer and head dim
+    64 (K5's), random weights from seed 0; TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(n_layer=n_layer, n_embd=128, n_head=2, vocab_size=512, n_positions=256,
+                      modality_dim=128, dtype="float32")
+    return cfg, tg.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["draft", "ngram"])
+def test_greedy_spec_equals_plain_greedy_on_card(mode):
+    """A B=1 request with a 128-token prompt and a caption, fp32: the
+    speculative tokens are plain greedy's, and the prefill takes K5 once
+    per layer of the target (and of the 2-layer draft)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.infer.generate import generate
+    from ergm_tpu_torch.infer.speculative import speculative_generate
+
+    cfg, p = _spec_model()
+    rng = np.random.default_rng(9)
+    ids = torch.as_tensor(rng.integers(0, 500, (1, 128)), device="cuda")
+    kw = dict(max_len=160, eos_id=511, sp2_id=510, greedy=True,
+              caption_ids=torch.as_tensor(rng.integers(0, 500, (1, 16)), device="cuda"))
+    ref = generate(p, cfg, ids, 128, **kw)
+    before = tba.LAUNCHES
+    got = speculative_generate(p, cfg, ids, 128, mode=mode, draft_layers=2, gamma=4,
+                               ngram_n=2, **kw)
+    torch.cuda.synchronize()
+    assert tba.LAUNCHES - before == cfg.n_layer + (2 if mode == "draft" else 0)
+    n = int(ref.lengths[0])
+    assert int(got.lengths[0]) == n
+    assert got.tokens[0, :n].tolist() == ref.tokens[0, :n].tolist()
+
+
+@pytest.mark.cuda
+def test_beam_reorder_carries_int8_scales_on_card():
+    """The beam reorder moves the int8 codes and their scales of the
+    generated slots on the card (index_select over strided views), and
+    one beam over an int8 cache is greedy decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.infer import beam
+    from ergm_tpu_torch.infer.generate import generate
+
+    cfg, p = _spec_model(n_layer=2)
+    cfg = cfg.replace(kv_cache_dtype="int8", cross_kv_dtype="int8")
+    cache = tg.init_kv_cache(cfg, 6, 40, caption_len=8)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for f in ("k", "v", "k_scale", "v_scale"):
+        x = getattr(cache, f)
+        x.copy_(torch.randint(-100, 100, x.shape, generator=g, device="cuda").to(x.dtype))
+    before = {f: getattr(cache, f).clone().cpu() for f in ("k", "v", "k_scale", "v_scale")}
+    flat = torch.tensor([2, 2, 0, 4, 3, 3], device="cuda")
+    beam._gather_beams(cache, flat, 10, 30)
+    for f, old in before.items():
+        want = old.clone()
+        want[:, :, :, 10:30] = old[:, flat.cpu()][:, :, :, 10:30]
+        assert torch.equal(getattr(cache, f).cpu(), want), f
+
+    ids = torch.as_tensor(np.random.default_rng(2).integers(0, 500, (2, 24)), device="cuda")
+    kw = dict(max_len=40, eos_id=511, sp2_id=510)
+    out = beam.beam_search(p, cfg, ids, 24, num_beams=1, **kw)
+    ref = generate(p, cfg, ids, 24, greedy=True, **kw)
+    assert torch.equal(out.tokens, ref.tokens) and torch.equal(out.lengths, ref.lengths)

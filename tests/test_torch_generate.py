@@ -265,6 +265,7 @@ def test_port_imports_no_jax():
     process has JAX loaded by the test setup)."""
     code = ("import sys, ergm_tpu_torch, ergm_tpu_torch.models.gpt2, "
             "ergm_tpu_torch.models.convert, ergm_tpu_torch.infer.generate, "
+            "ergm_tpu_torch.infer.speculative, ergm_tpu_torch.infer.beam, "
             "ergm_tpu_torch.ops.prefill_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ergm_tpu')]; "
             "assert not bad, bad")
