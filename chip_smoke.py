@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, speculative, beam and training
-paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, speculative, beam, continuous-batching
+server and training paths once on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -82,7 +82,30 @@ Phases, each of which raises on failure:
    bf16 beam step each way (torch.profiler over 8 steps) and the time of
    the step's cache reorder at 16, 64 and 127 generated slots, and of
    the whole cache.
-9. training kernels: K5 (block attention) forward and backward at the
+9. server: the continuous-batching server (``infer/server.py``) at gpt2
+   full width (bf16, int8 lm_head, random weights from seed 0): 256
+   requests submitted at once (``scripts/server_bench.py``'s defaults:
+   prompts of 16-128 tokens, 16-128 new tokens, greedy, a 32-token caption
+   on 3 of 4, image and audio features) through 64 slots, blocks of 32
+   steps, a capacity ladder of 32 slots up to 512. After one warm-up run,
+   five arms in turns: the bf16 cache, the same with ``decode_fused_mlp``
+   (K4), the int8 staged cache, sorted admission, and tiers (8 long slots,
+   ``kv_cache_dtype="auto"``, every 8th prompt 384 tokens, 1024 slots).
+   Every request must return its budget; K1 must launch n_layer times for
+   each admission group at a prompt bucket <= 128 (the cross form for each
+   carrying a caption), K5 for each at 384, K4 n_layer times a decode
+   step; every block dispatch runs under
+   ``torch.cuda.set_sync_debug_mode("error")``. Each arm's utt/s, tok/s,
+   slot utilisation, block lengths, grows, shrinks, phase times, and one
+   block's device time (torch.profiler) beside its host wall time; every
+   K1, K5 and K4 launch of the K4 and tier arms against its plain version
+   (2e-2 + 1e-2 |plain|, real rows); 16 requests (32 new tokens each) through the
+   server and one at a time through ``generate``, fp32 with TF32 off, on
+   the compute-dtype and the int8 staged cache: tokens equal up to each
+   row's first step where generate's top-2 margin is 1e-3 or less (bf16:
+   printed); and, as a reading, ``generate_batch`` over arrival-order
+   batches of 64.
+10. training kernels: K5 (block attention) forward and backward at the
    training slice's [48, 12, 512, 64], causal, bf16, dropout 0 and 0.1
    on one seed (output within 2e-2 + 1e-2 |plain|; gradients: against
    the plain version run in f32, at most twice the plain bf16 version's
@@ -103,13 +126,13 @@ Phases, each of which raises on failure:
    on real rows), fp32 at [1, 2, 2048, 64] (2e-5 and 5e-5); times of
    kernel, plain and ``scaled_dot_product_attention`` (``is_causal``, no
    mask) as the yardstick.
-10. training reference: a small fp32 model takes 3 AdamW steps on the
+11. training reference: a small fp32 model takes 3 AdamW steps on the
    card (K5 and K6) and on the CPU (plain versions); losses within 1e-4.
    Then the long-context path: one ``make_train_step`` step of gpt2 at
    full width with ``n_positions=2048``, two layers, B=2, L=2048 and no
    attention dropout, where the ``auto`` route takes K5 inside JAX's
    flash gate: it must launch twice forward and twice backward.
-11. training slice: the ``scripts/train_bench.py`` configuration (gpt2
+12. training slice: the ``scripts/train_bench.py`` configuration (gpt2
    at full width, B=48, L=512, bf16, dropout 0.1, remat "mlp", random
    weights from seed 0): ``make_train_step`` once, then 8 timed steps
    (two chains of 4); K5 must launch 12 forward and 12 backward times
@@ -152,6 +175,7 @@ from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
 from ergm_tpu_torch.data.synthetic import write_synthetic_dataset
 from ergm_tpu_torch.infer import beam, speculative
 from ergm_tpu_torch.infer.generate import generate, generate_batch, pack_ragged_batch
+from ergm_tpu_torch.infer.server import ContinuousServer, Request
 from ergm_tpu_torch.models import gpt2
 from ergm_tpu_torch.ops import (_build, block_attention, cross_decode, decode_attention,
                                 fused_ce, fused_decode, prefill_attention)
@@ -185,6 +209,23 @@ SPEC_PROMPT, SPEC_NEW, SPEC_REQS = 128, 32, 5
 # beam search over the long history: 16 ragged prompts bucketed to 384
 # tokens, 4 beams, 128 new tokens in LONG_MAX slots
 BEAM_B, BEAM_PROMPT, BEAM_W = 16, 384, 4
+# the continuous server (scripts/server_bench.py:37-43's defaults): gpt2 at
+# full width, bf16, int8 lm_head, full-precision MLP weights; SRV_REQS
+# requests through SRV_SLOTS slots, prompts of 16-SRV_PROMPT tokens and
+# 16-SRV_NEW new tokens, blocks of SRV_SYNC steps, a capacity ladder of
+# SRV_GROW slots up to SRV_CACHE; the tiered arm adds SRV_LONG_SLOTS long
+# slots, SRV_LONG_PROMPT-token prompts and SRV_LONG_CACHE slots
+SRV_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
+                 weight_dtype="int8_lm_head")
+SRV_REQS, SRV_SLOTS, SRV_PROMPT, SRV_NEW, SRV_SYNC, SRV_GROW, SRV_CACHE = (
+    256, 64, 128, 128, 32, 32, 512)
+SRV_LONG_SLOTS, SRV_LONG_PROMPT, SRV_LONG_CACHE = 8, 384, 1024
+# the fp32 identity with generate: the first SRV_IDENTITY requests, their
+# budgets cut to SRV_IDENTITY_NEW less 3 per place in a group of
+# SRV_IDENTITY_SLOTS (so rows finish in different blocks of
+# SRV_IDENTITY_SYNC steps), through SRV_IDENTITY_SLOTS slots: the later
+# requests join freed slots while other rows decode
+SRV_IDENTITY, SRV_IDENTITY_NEW, SRV_IDENTITY_SLOTS, SRV_IDENTITY_SYNC = 16, 32, 8, 8
 # the training configuration of scripts/train_bench.py:27-89
 TRAIN_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
                    attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1, remat=True,
@@ -1015,28 +1056,55 @@ def spec_phase(card: str) -> dict:
     return out
 
 
+def _k1_rows(args, kwargs):
+    """The rows of a K1 output that are compared: real queries of the self
+    form (left-pad mask), rows with a caption of the cross form."""
+    m = args[3] if len(args) > 3 else kwargs.get("kv_mask")
+    if m is None:
+        return None
+    return m[:, :, None] if kwargs.get("causal", True) else (m.sum(-1) > 0)[:, None, None]
+
+
+def _k5_rows(args, kwargs):
+    """Real query rows of a K5 output (K5 gives zeros on padded queries,
+    the plain version junk)."""
+    m = kwargs.get("q_mask")
+    return None if m is None else m[:, None, :, None]
+
+
 class KernelShadow:
-    """Holds every launch of K2, K3 and K4 in a run against its plain
+    """Holds every launch of the given kernels in a run against its plain
     version on the same inputs: each wrapper is wrapped to call the plain
     version after it and keep, on the device, the largest |kernel - plain|
-    as a share of the bf16 bar 2e-2 + 1e-2 |plain|. The plain versions
-    add to no count; the kernels' own launches in such a run are not the
-    path's."""
+    as a share of the bf16 bar 2e-2 + 1e-2 |plain|, over the output rows
+    that ``rows(args, kwargs)`` marks (all when it gives None). The plain
+    versions add to no count; the kernels' own launches in such a run are
+    not the path's. ``kernels``: (module, wrapper name, rows or None);
+    K2, K3 and K4 by default."""
 
-    KERNELS = ((decode_attention, "decode_mha_int8"), (cross_decode, "fused_cross_decode"),
-               (fused_decode, "fused_ln_mlp"))
+    KERNELS = ((decode_attention, "decode_mha_int8", None),
+               (cross_decode, "fused_cross_decode", None), (fused_decode, "fused_ln_mlp", None))
+    # the server's path: K1 (both forms), K5 and K4
+    SERVER = ((prefill_attention, "prefill_mha", _k1_rows),
+              (block_attention, "block_mha", _k5_rows), (fused_decode, "fused_ln_mlp", None))
+
+    def __init__(self, kernels=KERNELS):
+        self.kernels = kernels
 
     def __enter__(self):
         self.real, self.calls = {}, {}
-        self.share = {name: torch.zeros((), device=DEVICE) for _, name in self.KERNELS}
-        for mod, name in self.KERNELS:
+        self.share = {name: torch.zeros((), device=DEVICE) for _, name, _ in self.kernels}
+        for mod, name, rows in self.kernels:
             real, plain = getattr(mod, name), getattr(mod, f"{name}_reference")
             self.real[name], self.calls[name] = real, 0
 
-            def shadow(*args, _real=real, _plain=plain, _name=name, **kwargs):
+            def shadow(*args, _real=real, _plain=plain, _name=name, _rows=rows, **kwargs):
                 got = _real(*args, **kwargs)
                 want = _plain(*args, **kwargs).float()
                 err = (got.float() - want).abs() / (BF16_TOL + 1e-2 * want.abs())
+                keep = None if _rows is None else _rows(args, kwargs)
+                if keep is not None:
+                    err = torch.where(keep > 0, err, 0.0)
                 torch.maximum(self.share[_name], err.max(), out=self.share[_name])
                 self.calls[_name] += 1
                 return got
@@ -1044,7 +1112,7 @@ class KernelShadow:
         return self
 
     def __exit__(self, *exc):
-        for mod, name in self.KERNELS:
+        for mod, name, _ in self.kernels:
             setattr(mod, name, self.real[name])
 
     def shares(self) -> dict:
@@ -1244,6 +1312,322 @@ def beam_step_phase(params, arms: dict, prompts: list, kw: dict, card: str,
               + f", of the whole cache {whole_ms:.4f} ms; on {card}")
     del s
     torch.cuda.empty_cache()
+
+
+def _server_traffic(rng, n: int = SRV_REQS, long_every: int = 0) -> list:
+    """``scripts/server_bench.py``'s offline traffic: ``n`` greedy requests
+    (Request keyword dicts), prompts of 16-128 tokens, budgets of 16-128
+    new tokens, a 32-token caption on 3 of 4, image and audio features on
+    each; with ``long_every``, every long_every-th prompt has 384 tokens."""
+    out = []
+    for i in range(n):
+        plen = (SRV_LONG_PROMPT if long_every and i % long_every == long_every - 1
+                else int(rng.integers(16, SRV_PROMPT + 1)))
+        out.append(dict(prompt_ids=rng.integers(0, 50000, plen).tolist(),
+                        max_new_tokens=int(rng.integers(16, SRV_NEW + 1)), greedy=True,
+                        caption_ids=(None if i % 4 == 3
+                                     else rng.integers(0, 50000, CAPTION).tolist()),
+                        img=rng.standard_normal(768).astype(np.float32),
+                        aud=rng.standard_normal(768).astype(np.float32)))
+    return out
+
+
+def _server(params, cfg, **kw) -> ContinuousServer:
+    base = dict(slots=SRV_SLOTS, eos_id=EOS, sp2_id=SP2, max_prompt=SRV_PROMPT, prompt_bucket=64,
+                cache_len=SRV_CACHE, caption_len=CAPTION, sync_every=SRV_SYNC,
+                cache_grow_step=SRV_GROW)
+    return ContinuousServer(params, cfg, **{**base, **kw})
+
+
+class _Groups(list):
+    live = 0
+
+
+@contextlib.contextmanager
+def _no_sync_in_dispatch(srv: ContinuousServer):
+    """Runs every block dispatch of ``srv`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host read of a device
+    value there raises) and records each admission group's (prompt
+    bucket, whether a request carries a caption) in the list it yields,
+    and in its ``live`` attribute how many groups joined while another
+    row of the server was decoding."""
+    groups, dispatch, admit = _Groups(), srv._dispatch_block, srv._admit_group
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def recorded(entries, pb, g=0):
+        groups.append((pb, any(e[2].caption_ids for e in entries)))
+        groups.live += any(s.active for s in srv.slots)
+        return admit(entries, pb, g)
+
+    srv._dispatch_block, srv._admit_group = guarded, recorded
+    try:
+        yield groups
+    finally:
+        del srv._dispatch_block, srv._admit_group
+
+
+def _serve(srv: ContinuousServer, traffic: list) -> dict:
+    """All of ``traffic`` submitted at once, then drained, from a reset
+    server and zeroed launch counts; checks that each request returns its
+    budget of in-vocabulary tokens and finite emotion logits. Returns the
+    run's readings."""
+    srv.reset()
+    with _no_sync_in_dispatch(srv) as groups, StepCounter() as steps:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rids = [srv.submit(Request(**r)) for r in traffic]
+        res = srv.run_until_drained(max_iters=100_000)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _launch_counts()
+    V = srv.cfg.vocab_size
+    for rid, r in zip(rids, traffic):
+        got = res[rid]
+        if (len(got.tokens) != r["max_new_tokens"] or any(t < 0 or t >= V for t in got.tokens)
+                or not np.isfinite(got.emotion_logits).all()):
+            raise AssertionError(f"server: request {rid} returned {len(got.tokens)} tokens for a "
+                                 f"budget of {r['max_new_tokens']}, or bad values")
+    tokens = sum(len(res[r].tokens) for r in rids)
+    slot_steps = srv.S * sum(n * c for n, c in srv.block_len_hist.items())
+    return dict(tokens=[res[r].tokens for r in rids], wall=wall, groups=groups,
+                live_joins=groups.live,
+                steps=steps.steps, counts=counts, new_tokens=tokens,
+                slot_util=(tokens - len(rids)) / max(slot_steps, 1),
+                hist=dict(sorted(srv.block_len_hist.items())), grows=srv.grows,
+                shrinks=srv.shrinks, phases={k: round(v, 3) for k, v in
+                                             sorted(srv.phase_seconds.items())},
+                blocks=srv.server_step)
+
+
+def _server_counts_ok(label: str, cfg, run: dict) -> None:
+    """K1 self n_layer times for each admission group at a prompt bucket
+    <= 128, K1 cross for each of those carrying a caption, K5 for each at
+    384, K4 n_layer times a decode step with ``decode_fused_mlp``."""
+    L, got = cfg.n_layer, run["counts"]
+    short = [cap for pb, cap in run["groups"] if pb <= 128]
+    want = {"prefill_mha": L * len(short), "prefill_mha_cross": L * sum(short),
+            "block_mha": L * sum(pb == SRV_LONG_PROMPT for pb, _ in run["groups"]),
+            "fused_ln_mlp": L * run["steps"] if cfg.decode_fused_mlp else 0}
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"server [{label}]: launches {got} over {len(run['groups'])} "
+                             f"admission groups and {run['steps']} decode steps, want {want}")
+
+
+def _block_profile(srv: ContinuousServer, traffic: list) -> tuple:
+    """One steady decode block (after one, the queue still full): the host
+    wall time of its dispatch and harvest, then the device time and device
+    operations of the next one by torch.profiler; admissions before each
+    block are not counted."""
+    srv.reset()
+    for r in traffic:
+        srv.submit(Request(**r))
+    srv.step()
+    # device activity only: a host trace of a block's ~40,000 operations
+    # takes the profiler tens of seconds to process
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():  # the server's device state is inference tensors
+        def block():
+            n = srv._pick_block_len()
+            srv._harvest(srv._dispatch_block())
+            torch.cuda.synchronize()
+            return n
+
+        srv._admit()
+        srv._fit_capacity()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        block()
+        wall = time.time() - t0
+        srv._admit()
+        srv._fit_capacity()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            n = block()
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = sum(e.self_device_time_total for e in device) / 1e3
+    ops = sum(e.count for e in device)
+    if ms <= 0:
+        raise AssertionError("server block: no device time in the trace")
+    srv.reset()
+    return n, wall, ms, ops
+
+
+def _server_identity(card: str, bf16_params, bf16_cfg) -> None:
+    """SRV_IDENTITY requests (budgets cut to SRV_IDENTITY_NEW and
+    staggered) through SRV_IDENTITY_SLOTS slots of the server, where some
+    must join freed slots while other rows decode, and, one at a time,
+    through ``generate`` with the same inputs
+    (sp2 token types, the caption padded to 32 with its mask), on the
+    compute-dtype and the int8 staged cache in fp32 (TF32 off), where the
+    tokens must be equal up to each row's first step where ``generate``'s
+    top-2 logit margin is 1e-3 or less, and on the bf16 cache, where the
+    agreement is printed."""
+    traffic = [dict(r, max_new_tokens=min(r["max_new_tokens"],
+                                          SRV_IDENTITY_NEW - 3 * (i % SRV_IDENTITY_SLOTS)))
+               for i, r in enumerate(_server_traffic(np.random.default_rng(0), SRV_IDENTITY))]
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "float32":
+            cfg = ModelConfig.from_model_type(**{**SRV_SLICE, "dtype": dtype})
+            params = gpt2.params_for_inference(
+                gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg), cfg)
+        else:
+            cfg, params = bf16_cfg, bf16_params
+        for kv in ("auto", "int8") if dtype == "float32" else ("auto",):
+            c = cfg.replace(kv_cache_dtype=kv)
+            run = _serve(_server(params, c, slots=SRV_IDENTITY_SLOTS,
+                                 sync_every=SRV_IDENTITY_SYNC), traffic)
+            served = run["tokens"]
+            if run["live_joins"] < 1:
+                raise AssertionError(f"server identity [{kv}]: no admission group joined while "
+                                     f"other rows decoded ({len(run['groups'])} groups)")
+            equal, broken, lead = 0, [], 0
+            for i, r in enumerate(traffic):
+                ids = torch.tensor([r["prompt_ids"]], device=DEVICE)
+                Lp, n = ids.shape[1], r["max_new_tokens"]
+                cap, cap_mask = None, None
+                if r["caption_ids"] is not None:
+                    cap = torch.full((1, CAPTION), EOS, device=DEVICE)
+                    cap[0, :len(r["caption_ids"])] = torch.tensor(r["caption_ids"])
+                    cap_mask = torch.ones((1, CAPTION), device=DEVICE)
+                with LogitRecorder(c.n_layer) as rec:
+                    out = generate(params, c, ids, Lp, max_len=Lp + n, eos_id=EOS, sp2_id=SP2,
+                                   greedy=True, token_type_ids=torch.full_like(ids, SP2),
+                                   imgs=torch.as_tensor(r["img"][None], device=DEVICE),
+                                   auds=torch.as_tensor(r["aud"][None], device=DEVICE),
+                                   caption_ids=cap, caption_mask=cap_mask)
+                want = out.tokens[0, Lp:int(out.lengths[0])].tolist()
+                got = served[i]
+                close = next((j for j in range(len(want))
+                              if _top2_margin(rec.at[Lp + j]) <= 1e-3), len(want))
+                diff = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+                            None if len(want) == len(got) else min(len(want), len(got)))
+                equal += diff is None
+                lead += len(want) if diff is None else diff
+                if diff is not None and diff < close:
+                    broken.append((i, diff, _top2_margin(rec.at[Lp + diff])))
+            print(f"server identity {dtype} [{kv} cache]: {len(run['groups'])} admission groups "
+                  f"through {SRV_IDENTITY_SLOTS} slots, {run['live_joins']} joined while other "
+                  f"rows decoded; {equal} of {len(traffic)} requests equal to generate's, {lead} of {sum(len(s) for s in served)} tokens before "
+                  f"the first difference; {len(broken)} rows part before a close call "
+                  f"(margin <= 1e-3): {broken} on {card}")
+            if dtype == "float32" and broken:
+                raise AssertionError(f"server fp32 [{kv}]: tokens leave generate's where the "
+                                     f"margin rule says they must not: {broken}")
+        if dtype == "float32":
+            del params
+            torch.cuda.empty_cache()
+
+
+def server_phase(card: str) -> dict:
+    """The continuous-batching server at gpt2 full width (bf16, int8
+    lm_head): ``_server_traffic``'s 256 requests through 64 slots, after
+    one warm-up run, on five arms in turns: the bf16 cache (fifo), the
+    same with ``decode_fused_mlp`` (K4), the int8 staged cache, sorted
+    admission, and tiers (8 long slots, ``kv_cache_dtype="auto"``: the
+    long pool int8 staged; every 8th prompt 384 tokens, which takes K5);
+    each with its launch counts checked (``_server_counts_ok``) and every
+    block dispatched without a host sync. Then one block's device time
+    on arms 1, 3 and 5, ``KernelShadow`` over arms 2 and 5, the fp32 identity with
+    ``generate`` (``_server_identity``), and the static reading:
+    ``generate_batch`` over arrival-order batches of 64. Returns
+    {kernel: {arm: launches}}."""
+    cfg = ModelConfig.from_model_type(**SRV_SLICE)
+    params = gpt2.params_for_inference(
+        gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg), cfg)
+    k4 = cfg.replace(decode_fused_mlp=True)
+    base = _server_traffic(np.random.default_rng(0))
+    tiered = _server_traffic(np.random.default_rng(0), long_every=8)
+    arms = {"bf16 fifo": (cfg, {}, base), "K4": (k4, {}, base),
+            "int8 staged": (k4.replace(kv_cache_dtype="int8"), {}, base),
+            "sorted": (k4, dict(admit_policy="sorted"), base),
+            "tiers": (k4, dict(long_slots=SRV_LONG_SLOTS, max_prompt=SRV_LONG_PROMPT,
+                               cache_len=SRV_LONG_CACHE), tiered)}
+    servers = {name: _server(params, c, **kw) for name, (c, kw, _) in arms.items()}
+    t0 = time.time()
+    _serve(servers["bf16 fifo"], base[:SRV_SLOTS])
+    print(f"server: warm-up run ({SRV_SLOTS} requests) {time.time() - t0:.2f} s")
+    t_phase = time.time()
+    runs = {}
+    for name, (c, kw, traffic) in arms.items():
+        run = runs[name] = _serve(servers[name], traffic)
+        _server_counts_ok(name, c, run)
+        n = len(traffic)
+        print(f"server [{name}] {n} requests, {SRV_SLOTS} slots: {run['wall']:.3f} s, "
+              f"{n / run['wall']:.2f} utt/s, {run['new_tokens'] / run['wall']:.0f} generated "
+              f"tok/s ({run['new_tokens']} tokens, {run['blocks']} blocks, {run['steps']} "
+              f"forward steps), slot utilisation {run['slot_util']:.3f}, block lengths "
+              f"{run['hist']}, grows {run['grows']}, shrinks {run['shrinks']}, phases "
+              f"{run['phases']}, launches {run['counts']}, {len(run['groups'])} admission "
+              f"groups {run['groups']} on {card}")
+    for a, b in (("int8 staged", "K4"), ("sorted", "K4"), ("K4", "bf16 fifo")):
+        same = sum(x == y for x, y in zip(runs[a]["tokens"], runs[b]["tokens"]))
+        print(f"server: [{a}] gives [{b}]'s tokens on {same} of {len(base)} requests")
+    t_arms = time.time()
+    # one block each of the arms whose decode step differs in its cache:
+    # sorted runs K4's step (the decode phase reads K4's effect on a step)
+    for name in ("bf16 fifo", "int8 staged", "tiers"):
+        n, wall, ms, ops = _block_profile(servers[name], arms[name][2])
+        print(f"server block [{name}]: {n} steps over {SRV_SLOTS} slots, device time {ms:.3f} "
+              f"ms ({ms / n:.3f} ms a step), {ops} device operations, host wall {1e3 * wall:.3f} "
+              f"ms unprofiled (torch.profiler for the device) on {card}")
+
+    t_profile = time.time()
+    for name in ("K4", "tiers"):
+        c, kw, traffic = arms[name]
+        with KernelShadow(KernelShadow.SERVER) as shadow:
+            run = _serve(servers[name], traffic)
+        shares = shadow.shares()
+        print(f"server [{name}] bf16: every K1, K5 and K4 launch against its plain version on "
+              f"the same inputs ({shadow.calls} launches); the largest |kernel - plain| as a "
+              f"share of the bar 2e-2 + 1e-2 |plain|: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+        short = [cap for pb, cap in run["groups"] if pb <= 128]
+        want = {"prefill_mha": c.n_layer * (len(short) + sum(short)),
+                "block_mha": c.n_layer * (len(run["groups"]) - len(short)),
+                "fused_ln_mlp": c.n_layer * run["steps"]}
+        if any(v > 1.0 or not math.isfinite(v) for v in shares.values()) or shadow.calls != want:
+            raise AssertionError(f"server [{name}]: a kernel leaves its plain version's bar or "
+                                 f"was not held at every launch: {shares}, {shadow.calls}, "
+                                 f"want {want}")
+    for srv in servers.values():
+        srv.reset()
+    del servers
+    torch.cuda.empty_cache()
+    t_shadow = time.time()
+    _server_identity(card, params, cfg)
+    t_identity = time.time()
+
+    # the static reading: arrival-order batches of 64, every batch decoding
+    # 128 new tokens (server_bench.py's static arm)
+    for i, batch in enumerate([base[:SRV_SLOTS]] + [base[j:j + SRV_SLOTS]
+                                                      for j in range(0, len(base), SRV_SLOTS)]):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0, useful = time.time(), 0
+        outs, _ = generate_batch(
+            params, cfg, [r["prompt_ids"] for r in batch], max_len=SRV_PROMPT + SRV_NEW,
+            eos_id=EOS, sp2_id=SP2, imgs=np.stack([r["img"] for r in batch]),
+            auds=np.stack([r["aud"] for r in batch]),
+            captions=[r["caption_ids"] for r in batch], greedy=True, max_new_tokens=SRV_NEW)
+        if i:
+            useful += sum(min(len(o), r["max_new_tokens"]) for o, r in zip(outs, batch))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    print(f"server static reading: generate_batch over {len(base) // SRV_SLOTS} arrival-order "
+          f"batches of {SRV_SLOTS} (after one warm-up batch): {wall:.3f} s, "
+          f"{len(base) / wall:.2f} utt/s, {useful / wall:.0f} useful tok/s on {card}")
+    print(f"server phase wall s: arms {t_arms - t_phase:.1f}, block profiles "
+          f"{t_profile - t_arms:.1f}, shadow runs {t_shadow - t_profile:.1f}, identity "
+          f"{t_identity - t_shadow:.1f}, static {time.time() - t_identity:.1f}")
+    return {k: {name: run["counts"][k] for name, run in runs.items()}
+            for k in ("prefill_mha", "prefill_mha_cross", "block_mha", "fused_ln_mlp")}
 
 
 def _k5_run(fn, q, k, v, do, rate=0.0, m=None) -> list:
@@ -1788,6 +2172,7 @@ def main() -> None:
     # this slice's paths, counted from 0 just before each run
     spec_counts = spec_phase(card)
     beam_on = beam_phase(card)
+    server_on = server_phase(card)
     train_reference_phase()
     long_ctx = long_context_phase(card)
     train_on = train_slice_phase(card)
@@ -1832,7 +2217,9 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"ergm_tpu_torch/csrc/{src}.cu",
         "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[counts_of.get(name, name)], **nums,
-        **({"spec_beam_launches": spec_beam[name]} if name in spec_beam else {})}
+        **({"spec_beam_launches": spec_beam[name]} if name in spec_beam else {}),
+        # launches on the server's path: each arm's run of the 256 requests
+        **({"server_launches": server_on[name]} if name in server_on else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

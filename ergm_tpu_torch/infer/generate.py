@@ -12,7 +12,7 @@ rows stop at eos or at their logical cap.
 from __future__ import annotations
 
 import warnings
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,9 +47,12 @@ def top_p_filter(probs: torch.Tensor, top_p: float) -> torch.Tensor:
     return torch.zeros_like(probs).scatter(-1, sorted_idx, kept)
 
 
-def sample_top_p(logits: torch.Tensor, generator: Optional[torch.Generator], top_p: float,
-                 top_k: int = 64, gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+def sample_top_p(logits: torch.Tensor, generator: Optional[torch.Generator],
+                 top_p: Union[float, torch.Tensor], top_k: int = 64,
+                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample from the top-p nucleus of the ``top_k`` most probable tokens.
+    ``top_p`` is one float or a [B, 1] tensor of per-row cutoffs (the
+    server's rows each carry their own).
 
     The top-k comes from the exact ``torch.topk`` (JAX's TPU path uses an
     approximate top-k; off the TPU it is exact too). The cutoff is taken

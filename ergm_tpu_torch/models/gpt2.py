@@ -324,37 +324,54 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 class KVCache:
     """Fixed-size decode cache, updated IN PLACE by ``forward``.
 
-    ``k``/``v``: [L, B, H, T, Dh]; ``index``: filled positions, shared by
-    all rows (the scalar cursor of ``generate``). With
+    ``k``/``v``: [L, B, H, T, Dh]. ``index`` counts the filled positions:
+    a Python int shared by all rows (the scalar cursor of ``generate``),
+    or a [B] int32 tensor of per-row write cursors (``per_row_index``,
+    the continuous server's layout: row b's K/V lie at [0, index[b]) and
+    a single-token step writes at index[b]). With
     ``kv_cache_dtype="int8"`` they hold int8 codes with per-(token, head)
-    bf16 scales ``k_scale``/``v_scale`` [L, B, H, T, 1]. The caption's
-    cross K/V are computed once at prefill into ``ck``/``cv``, merged-head
-    [L, B, Lc, H*Dh]; with ``cross_kv_dtype="int8"`` they are int8 with
-    per-(token, head) f32 scales ``ck_scale``/``cv_scale`` [L, B, Lc, H]."""
+    bf16 scales ``k_scale``/``v_scale`` [L, B, H, T, 1]; ``"int4"`` packs
+    two codes in [-7, 7] per byte, [L, B, H, T, Dh/2] (``_pack_int4``).
+    The caption's cross K/V are computed once at prefill into
+    ``ck``/``cv``, merged-head [L, B, Lc, H*Dh]; with
+    ``cross_kv_dtype="int8"`` they are int8 with per-(token, head) f32
+    scales ``ck_scale``/``cv_scale`` [L, B, Lc, H].
+
+    ``sk``/``sv`` [L, B, H, K, Dh] (compute dtype) stage a server decode
+    block over a quantized cache: step j of the block writes every row's K/V at the uniform
+    index j there, and ``flush_staging`` commits the K steps to the main
+    cache once, quantized once. They are None outside a block."""
 
     k: torch.Tensor
     v: torch.Tensor
-    index: int = 0
+    index: Union[int, torch.Tensor] = 0
     ck: Optional[torch.Tensor] = None
     cv: Optional[torch.Tensor] = None
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
     ck_scale: Optional[torch.Tensor] = None
     cv_scale: Optional[torch.Tensor] = None
+    sk: Optional[torch.Tensor] = None
+    sv: Optional[torch.Tensor] = None
 
 
 def init_kv_cache(config: ModelConfig, batch: int, max_len: int,
-                  caption_len: int = 0, device="cuda") -> KVCache:
-    """A zeroed cache on ``device`` (the card unless the caller asks for the CPU)."""
+                  caption_len: int = 0, device="cuda",
+                  per_row_index: bool = False) -> KVCache:
+    """A zeroed cache on ``device`` (the card unless the caller asks for
+    the CPU); ``per_row_index`` gives it a [batch] int32 cursor tensor."""
     c = config
     device = resolve(device)
-    if c.kv_cache_dtype not in ("auto", "int8"):
-        raise NotImplementedError(f"kv_cache_dtype {c.kv_cache_dtype!r} is not ported yet")
-    quant = c.kv_cache_dtype == "int8"
-    shape = (c.n_layer, batch, c.n_head, max_len, c.head_dim)
+    if c.kv_cache_dtype not in ("auto", "int8", "int4"):
+        raise ValueError(f"unknown kv_cache_dtype {c.kv_cache_dtype!r}")
+    quant = c.kv_cache_dtype != "auto"
+    dm = c.head_dim // 2 if c.kv_cache_dtype == "int4" else c.head_dim
+    shape = (c.n_layer, batch, c.n_head, max_len, dm)
     dt = torch.int8 if quant else c.compute_dtype
     cache = KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                     v=torch.zeros(shape, dtype=dt, device=device))
+    if per_row_index:
+        cache.index = torch.zeros((batch,), dtype=torch.int32, device=device)
     if quant:
         sshape = (c.n_layer, batch, c.n_head, max_len, 1)
         cache.k_scale = torch.zeros(sshape, dtype=torch.bfloat16, device=device)
@@ -372,15 +389,84 @@ def init_kv_cache(config: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def _quantize_kv(x: torch.Tensor):
+def _kv_bits(config: ModelConfig) -> int:
+    return 4 if config.kv_cache_dtype == "int4" else 8
+
+
+def _quantize_kv(x: torch.Tensor, bits: int = 8):
     """[..., D] -> (int8 codes, bf16 scale [..., 1]). The scale is rounded
     to bf16 BEFORE the divide, so the stored codes invert exactly through
-    the stored scale; ``torch.round`` is half-to-even like ``jnp.round``."""
+    the stored scale; ``torch.round`` is half-to-even like ``jnp.round``.
+    ``bits=4`` clips to [-7, 7] and packs two codes a byte, [..., D/2]."""
+    lim = 127.0 if bits == 8 else 7.0
     xf = x.float()
-    scale = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).to(torch.bfloat16)
+    scale = (xf.abs().amax(dim=-1, keepdim=True) / lim).to(torch.bfloat16)
     safe = torch.where(scale == 0, 1.0, scale.float())
-    q = torch.clamp(torch.round(xf / safe), -127, 127).to(torch.int8)
-    return q, scale
+    q = torch.clamp(torch.round(xf / safe), -lim, lim).to(torch.int8)
+    return (_pack_int4(q) if bits == 4 else q), scale
+
+
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-7, 7], [..., D] -> [..., D/2], two a byte: the low
+    nibbles hold q[..., :D/2], the high nibbles q[..., D/2:] (JAX's
+    halves layout, so unpacking is a concatenation)."""
+    D = q.shape[-1]
+    return (q[..., D // 2:] << 4) | (q[..., :D // 2] & 15)
+
+
+def _unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """[..., D/2] packed -> [..., D] int8 codes, each nibble sign-extended
+    by arithmetic shifts of the int8 byte."""
+    return torch.cat([(p << 4) >> 4, p >> 4], dim=-1)
+
+
+def _dequantize(codes: torch.Tensor, scale: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """Codes (int4 packed or int8) times their scales, in the compute dtype."""
+    dt = config.compute_dtype
+    if config.kv_cache_dtype == "int4":
+        codes = _unpack_int4(codes)
+    return codes.to(dt) * scale.to(dt)
+
+
+def _scatter_rows(full: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """Write ``new`` [L, B, H, K, Dm] into ``full`` [L, B, H, T, Dm] IN
+    PLACE, row b's K entries at positions ``pos[b]`` ([B, K], long);
+    entries at positions >= T are dropped, as JAX's ``mode="drop"``
+    scatter drops them, without reading a position on the host and
+    without an out-of-range index (which asserts on the device).
+
+    Dropped entries are sent to T-1 carrying the value that T-1 ends up
+    with: the row's own entry for T-1 when it writes one, else T-1's old
+    value. Every write to a duplicated index then carries the same
+    value, so their order does not matter."""
+    T, K = full.shape[3], new.shape[3]
+    start = pos[:, :1]
+    valid = pos < T
+    src = torch.where(valid, torch.arange(K, device=pos.device)[None, :],
+                      (T - 1 - start).clamp(0, K - 1))
+    keep = (valid | (start <= T - 1))[..., None, None, None]
+    b_ix = torch.arange(full.shape[1], device=pos.device)[:, None]
+    tc = pos.clamp(max=T - 1)
+    # advanced indices [B, K] around the sliced L/H axes: values [B, K, L, H, Dm]
+    full[:, b_ix, :, tc] = torch.where(keep, new[:, b_ix, :, src], full[:, b_ix, :, tc])
+
+
+def flush_staging(cache: KVCache, K: int, config: ModelConfig) -> KVCache:
+    """Commit a decode block's staged K/V (``sk``/``sv``, [L, B, H, K,
+    Dh]) into the main cache at each row's pre-block cursor ``index - K``
+    (writes past capacity drop), quantized once from the staged values,
+    so the committed codes are byte-identical to a per-step quantized
+    write's. Returns the cache without its staging buffers."""
+    if cache.sk is None:
+        return cache
+    pos = (cache.index.long() - K)[:, None] + torch.arange(K, device=cache.k.device)[None, :]
+    bits = _kv_bits(config)
+    for codes, scales, staged in ((cache.k, cache.k_scale, cache.sk),
+                                  (cache.v, cache.v_scale, cache.sv)):
+        q, s = _quantize_kv(staged, bits)
+        _scatter_rows(codes, pos, q)
+        _scatter_rows(scales, pos, s)
+    return dataclasses.replace(cache, sk=None, sv=None)
 
 
 # ---------------------------------------------------------------------------
@@ -459,14 +545,19 @@ def _self_attention(h, p: Attention, li, *, config, attn_mask, seed=None):
 
 
 def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
-                           attn_mask, prefix_prefill: bool = False):
-    """Self-attention over the cache (scalar cursor ``cache.index``).
+                           attn_mask, prefix_prefill: bool = False,
+                           stage_index: Optional[int] = None):
+    """Self-attention over the cache.
 
-    Writes the new tokens' K/V at ``cache.index`` (quantized for an int8
-    cache). The initial prompt prefill attends over the FRESH k/v; the
-    batched short form goes through kernel K1. Other calls attend over
-    the cache's layer slice: dequantized first below T=512, with the
-    int8 scales factored out of both products from T=512 on."""
+    Scalar cursor ``cache.index``: writes the new tokens' K/V at it
+    (quantized for an int8 or int4 cache). The initial prompt prefill
+    attends over the FRESH k/v; the batched short form goes through
+    kernel K1. Other calls attend over the cache's layer slice:
+    dequantized first below T=512, with the scales factored out of both
+    products from T=512 on. Per-row cursors go to ``_self_attention_rows``."""
+    if torch.is_tensor(cache.index):
+        return _self_attention_rows(h, p, li, cache, config=config, attn_mask=attn_mask,
+                                    stage_index=stage_index)
     c = config
     B, L, _ = h.shape
     H, Dh = c.n_head, c.head_dim
@@ -478,8 +569,9 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
     k4, v4 = km.view(B, L, H, Dh), vm.view(B, L, H, Dh)
     quant = cache.k_scale is not None
     if quant:
-        kq, ksc = _quantize_kv(k4)
-        vq, vsc = _quantize_kv(v4)
+        bits = _kv_bits(c)
+        kq, ksc = _quantize_kv(k4, bits)
+        vq, vsc = _quantize_kv(v4, bits)
         cache.k[li, :, :, idx:idx + L] = kq.transpose(1, 2)
         cache.v[li, :, :, idx:idx + L] = vq.transpose(1, 2)
         cache.k_scale[li, :, :, idx:idx + L] = ksc.transpose(1, 2)
@@ -507,25 +599,94 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
                                   scale=scale, impl=impl)
         return _attn_project(out, p)
 
-    dt = c.compute_dtype
     q = _split_heads(qm, H)
     if quant and L == 1 and T >= 512:
-        # scale-factored int8: the products read the raw codes (kernel K2
-        # under ERGM_DECODE_KERNEL=1, else its plain version)
-        attend = (decode_attention.decode_mha_int8 if decode_attention.supported(B, T, c)
-                  else decode_attention.decode_mha_int8_reference)
-        out_m = attend(q, cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li],
+        # scale-factored attention over the raw codes: kernel K2 under
+        # ERGM_DECODE_KERNEL=1 (int8 only), else its plain version (int4
+        # codes unpacked first)
+        kc, vc = cache.k[li], cache.v[li]
+        if decode_attention.supported(B, T, c):
+            attend = decode_attention.decode_mha_int8
+        else:
+            attend = decode_attention.decode_mha_int8_reference
+            if c.kv_cache_dtype == "int4":
+                kc, vc = _unpack_int4(kc), _unpack_int4(vc)
+        out_m = attend(q, kc, vc, cache.k_scale[li], cache.v_scale[li],
                        idx, scale, None if attn_mask is None else attn_mask[:, :T], n_head=H)
         return dense(out_m[:, None, :], p.c_proj)
     tail = (torch.arange(T, device=h.device) < idx + L).float()[None, :]
     kv_mask = tail if attn_mask is None else attn_mask[:, :T] * tail
     if quant:
-        k_all = cache.k[li].to(dt) * cache.k_scale[li].to(dt)
-        v_all = cache.v[li].to(dt) * cache.v_scale[li].to(dt)
+        k_all = _dequantize(cache.k[li], cache.k_scale[li], c)
+        v_all = _dequantize(cache.v[li], cache.v_scale[li], c)
     else:
         k_all, v_all = cache.k[li], cache.v[li]
     out = multihead_attention(q, k_all, v_all, causal=True, kv_mask=kv_mask, scale=scale,
                               causal_offset=idx, impl=c.attention_impl)
+    return _attn_project(out, p)
+
+
+def _self_attention_rows(h, p: Attention, li: int, cache: KVCache, *, config, attn_mask,
+                         stage_index: Optional[int]):
+    """Single-token self-attention under per-row cursors (the server's
+    decode step, ``ergm_tpu/models/gpt2.py:658-737,820-861``); no value
+    is read on the host.
+
+    A compute-dtype cache decodes per step: row b writes its K/V at
+    index[b] (dropped past capacity) and sees the keys at kpos <=
+    index[b]; the attention is the plain math (K5's gates take no single
+    query). A quantized cache decodes staged (``cache.sk`` set), as the
+    server runs it: step ``stage_index`` of the block writes every row's
+    K/V at that uniform index of the staging buffers, and the query
+    attends, by one softmax over both score vectors, over the main
+    cache's flushed prefix [0, index[b] - stage_index) and the staging
+    tail [0, stage_index], read through the quantize-dequantize round
+    trip that ``flush_staging`` will commit, so reads agree with a
+    per-step quantized cache."""
+    c = config
+    B, L, _ = h.shape
+    if L != 1:
+        raise NotImplementedError("multi-token steps under per-row cursors (the speculative "
+                                  "server's verify window) are not ported yet; see ROADMAP.md "
+                                  "queue 1 item 5")
+    H = c.n_head
+    q, k, v = (_split_heads(x, H) for x in dense(h, p.c_attn).chunk(3, dim=-1))  # [B, H, 1, Dh]
+    idx = cache.index.long()
+    T = cache.k.shape[-2]
+    scale = _attn_scale(c, li)
+    quant = cache.k_scale is not None
+    kpos = torch.arange(T, device=h.device)[None, :]
+    if quant != (cache.sk is not None):
+        raise ValueError("under per-row cursors a quantized cache decodes staged (sk/sv set) "
+                         "and a compute-dtype cache per step")
+    if quant:
+        cache.sk[li, :, :, stage_index] = k[:, :, 0]
+        cache.sv[li, :, :, stage_index] = v[:, :, 0]
+        k_main = _dequantize(cache.k[li], cache.k_scale[li], c)
+        v_main = _dequantize(cache.v[li], cache.v_scale[li], c)
+        k_tail, v_tail = (_dequantize(*_quantize_kv(staged, _kv_bits(c)), c)
+                          for staged in (cache.sk[li], cache.sv[li]))
+        Ks = k_tail.shape[2]
+        main_mask = (kpos < (idx - stage_index)[:, None]).float()
+        stage_mask = (torch.arange(Ks, device=h.device) <= stage_index).float()[None, :]
+        lm = matmul_f32(q, k_main.to(q.dtype).transpose(-1, -2)) * scale
+        ls = matmul_f32(q, k_tail.to(q.dtype).transpose(-1, -2)) * scale
+        lm = lm + ((1.0 - main_mask) * -1e9)[:, None, None, :]
+        ls = ls + ((1.0 - stage_mask) * -1e9)[:, None, None, :]
+        probs = torch.softmax(torch.cat([lm, ls], dim=-1), dim=-1)
+        pv = v_main.dtype
+        out = (torch.matmul(probs[..., :T].to(pv), v_main)
+               + torch.matmul(probs[..., T:].to(pv), v_tail.to(pv)))
+        return _attn_project(out, p)
+    pos = idx[:, None]
+    _scatter_rows(cache.k[li:li + 1], pos, k[None].to(cache.k.dtype))
+    _scatter_rows(cache.v[li:li + 1], pos, v[None].to(cache.v.dtype))
+    k_all, v_all = cache.k[li], cache.v[li]
+    tail = (kpos <= pos).float()
+    kv_mask = tail if attn_mask is None else attn_mask[:, :T] * tail
+    out = multihead_attention(q, k_all, v_all, causal=False, kv_mask=kv_mask,
+                              q_mask=None if attn_mask is None else attn_mask[:, :L],
+                              scale=scale, impl=c.attention_impl)
     return _attn_project(out, p)
 
 
@@ -634,12 +795,14 @@ def _train_block(h, blk: Block, li: int, enc, enc_mask, c: ModelConfig, attentio
 
 
 def _decode_block(h, blk: Block, li: int, cache: KVCache, enc, enc_mask, cross_stacks,
-                  c: ModelConfig, attention_mask, prefix_prefill: bool, use_cross: bool):
+                  c: ModelConfig, attention_mask, prefix_prefill: bool, use_cross: bool,
+                  stage_index: Optional[int]):
     """One block over the KV cache (prefill or decode step), updating it."""
     eps = c.layer_norm_epsilon
     attn_in = layer_norm(h, blk.ln_1, eps)
     h = h + _self_attention_cached(attn_in, blk.attn, li, cache, config=c,
-                                   attn_mask=attention_mask, prefix_prefill=prefix_prefill)
+                                   attn_mask=attention_mask, prefix_prefill=prefix_prefill,
+                                   stage_index=stage_index)
     if cross_stacks is not None:
         h = cross_decode.fused_cross_decode(h, blk, li, _attn_scale(c, li), cross_stacks,
                                             enc_mask, c)
@@ -675,6 +838,7 @@ def transformer(
     encoder_attention_mask: Optional[torch.Tensor] = None,  # [B, Lc] 0/1
     cache: Optional[KVCache] = None,
     prefix_prefill: bool = False,  # the initial prompt: cache.index == 0
+    stage_index: Optional[int] = None,  # step in a staged server decode block
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
@@ -691,6 +855,8 @@ def transformer(
     decode = cache is not None
     if position_ids is None:
         past = cache.index if decode else 0
+        if torch.is_tensor(past):  # per-row cursors
+            past = past.long()[:, None]
         position_ids = past + torch.arange(L, device=input_ids.device)[None, :].expand(B, L)
 
     h = embed_rows(params.wte, input_ids, dtype)
@@ -749,7 +915,7 @@ def transformer(
         layer_seed = None if seed is None else fold_seed(seed, 1000 + li)
         if decode:
             h = _decode_block(h, blk, li, cache, enc, enc_mask, cross_stacks, c, attention_mask,
-                              prefix_prefill, use_cross)
+                              prefix_prefill, use_cross, stage_index)
         elif remat and not mlp_remat:
             # the masks come from seeded generators, not the global RNG state
             h = checkpoint(_train_block, h, blk, li, enc, enc_mask, c, attention_mask, use_cross,
@@ -844,6 +1010,7 @@ def forward(
     dropout_seed: Optional[int] = None,
     cache: Optional[KVCache] = None,
     prefix_prefill: bool = False,
+    stage_index: Optional[int] = None,
     seq_lengths: Optional[torch.Tensor] = None,
     compute_logits: Union[bool, str] = True,  # True | False | "last"
 ) -> ModelOutput:
@@ -856,14 +1023,17 @@ def forward(
     position only (the prefill of ``generate``). ``seq_lengths`` [B]: the
     emotion head reads each row's last REAL token instead of the final
     position. Dropout: see ``transformer``. A given ``cache`` is updated in
-    place; the returned one carries the advanced index."""
+    place; the returned one carries the advanced index. ``stage_index``:
+    the step of a staged server decode block (a cache with per-row
+    cursors and ``sk``/``sv`` buffers, see ``_self_attention_rows``)."""
     c = config
     hidden, new_cache = transformer(
         params, c, input_ids, token_type_ids=token_type_ids, position_ids=position_ids,
         attention_mask=attention_mask, imgs=imgs, auds=auds, caption_ids=caption_ids,
         encoder_hidden_states=encoder_hidden_states,
         encoder_attention_mask=encoder_attention_mask, cache=cache,
-        prefix_prefill=prefix_prefill, deterministic=deterministic, dropout_seed=dropout_seed)
+        prefix_prefill=prefix_prefill, stage_index=stage_index, deterministic=deterministic,
+        dropout_seed=dropout_seed)
     logits = None
     if compute_logits:
         logits = lm_logits(params, hidden[:, -1:, :] if compute_logits == "last" else hidden)

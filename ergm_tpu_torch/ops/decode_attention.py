@@ -55,10 +55,12 @@ def supported(B: int, T: int, config) -> bool:
     """JAX's gate (``decode_attention.py:181-192``): opt-in through
     ``ERGM_DECODE_KERNEL`` ("0" or "false" or unset is off) and head_dim
     64. JAX's TPU tiling rules (T % 256, an even head count, its batch
-    tile) are not carried over; the kernel's own limit is ``MAX_T``."""
+    tile) are not carried over; the kernel's own limit is ``MAX_T``. The
+    kernel reads int8 codes: an int4 cache takes the plain version."""
     if os.environ.get("ERGM_DECODE_KERNEL", "0") in ("0", "false"):
         return False
-    return config.head_dim == HEAD_DIM and 1 <= T <= MAX_T
+    return (config.kv_cache_dtype != "int4" and config.head_dim == HEAD_DIM
+            and 1 <= T <= MAX_T)
 
 
 def plan(B: int, H: int, T: int, index: int, sms: int = 132) -> int:

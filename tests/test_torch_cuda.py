@@ -814,3 +814,111 @@ def test_beam_reorder_carries_int8_scales_on_card():
     out = beam.beam_search(p, cfg, ids, 24, num_beams=1, **kw)
     ref = generate(p, cfg, ids, 24, greedy=True, **kw)
     assert torch.equal(out.tokens, ref.tokens) and torch.equal(out.lengths, ref.lengths)
+
+
+@pytest.mark.cuda
+def test_int4_pack_on_card():
+    """int4 packing and unpacking on the card equal the CPU's (held to
+    JAX's in tests/test_torch_cache.py) for all 225 pairs of codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q = torch.arange(-7, 8, dtype=torch.int8)
+    pairs = torch.stack(torch.meshgrid(q, q, indexing="ij"), -1).reshape(-1, 2)
+    packed = tg._pack_int4(pairs)
+    assert torch.equal(tg._pack_int4(pairs.cuda()).cpu(), packed)
+    assert torch.equal(tg._unpack_int4(packed.cuda()).cpu(), pairs)
+
+
+def _server_setup(kv="auto", **kw):
+    from ergm_tpu_torch.infer.server import ContinuousServer
+
+    cfg, p = _spec_model(n_layer=2)
+    cfg = cfg.replace(kv_cache_dtype=kv)
+    base = dict(slots=2, eos_id=511, sp2_id=510, max_prompt=32, prompt_bucket=16, sync_every=4)
+    return cfg, p, ContinuousServer(p, cfg, **{**base, **kw})
+
+
+def _card_greedy(p, cfg, prompt, n):
+    from ergm_tpu_torch.infer.generate import generate
+
+    ids = torch.tensor([prompt], device="cuda")
+    out = generate(p, cfg, ids, len(prompt), max_len=len(prompt) + n, eos_id=511, sp2_id=510,
+                   greedy=True, token_type_ids=torch.full_like(ids, 510))
+    return out.tokens[0, len(prompt):int(out.lengths[0])].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["auto", "int8", "int4"])
+def test_server_greedy_equals_generate_on_card(kv):
+    """The server on the card (fp32, TF32 off; K1 in each 64-row admission
+    prefill, int8 and int4 staged): 5 requests through 2 slots give
+    ``generate``'s greedy tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.infer.server import Request
+
+    cfg, p, srv = _server_setup(kv)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 500, (n,)).tolist() for n in (5, 11, 17, 8, 23)]
+    before = tpa.LAUNCHES
+    rids = [srv.submit(Request(prompt_ids=q, max_new_tokens=8, greedy=True)) for q in prompts]
+    res = srv.run_until_drained()
+    assert (tpa.LAUNCHES - before) % cfg.n_layer == 0 and tpa.LAUNCHES > before
+    for rid, q in zip(rids, prompts):
+        assert res[rid].tokens == _card_greedy(p, cfg, q, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_server_row_past_capacity_on_card(kv):
+    """A finished row keeps stepping until its cursor passes the cache's
+    40 slots: its writes drop without a device assert, and the rows
+    around it keep ``generate``'s tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.infer.server import Request
+
+    cfg, p, srv = _server_setup(kv, cache_len=40, cache_grow_step=0)
+    rng = np.random.default_rng(13)
+    short_run, long_run = rng.integers(0, 500, (30,)).tolist(), rng.integers(0, 500, (5,)).tolist()
+    r_a = srv.submit(Request(prompt_ids=short_run, max_new_tokens=2, greedy=True))
+    r_b = srv.submit(Request(prompt_ids=long_run, max_new_tokens=30, greedy=True))
+    res = srv.run_until_drained()
+    torch.cuda.synchronize()
+    assert int(srv.caches[0].index.max()) > srv.Tphys[0] == 40
+    assert res[r_a].tokens == _card_greedy(p, cfg, short_run, 2)
+    assert res[r_b].tokens == _card_greedy(p, cfg, long_run, 30)
+
+
+@pytest.mark.cuda
+def test_server_block_dispatch_has_no_host_sync():
+    """Every block dispatch (tiered pools: a compute-dtype pool and an int8
+    staged one; greedy, sampled and logprob rows) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on a host
+    read of a device value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.infer.server import Request
+
+    cfg, p, srv = _server_setup(slots=4, long_slots=2, long_threshold=24, cache_grow_step=16)
+    dispatch, calls = srv._dispatch_block, []
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            calls.append(1)
+            return dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    srv._dispatch_block = guarded
+    rng = np.random.default_rng(14)
+    reqs = [Request(prompt_ids=rng.integers(0, 500, (n,)).tolist(), max_new_tokens=6,
+                    greedy=g, logprobs=lp, seed=i)
+            for i, (n, g, lp) in enumerate([(6, True, False), (30, False, True),
+                                            (11, False, False), (27, True, True)])]
+    rids = [srv.submit(r) for r in reqs]
+    res = srv.run_until_drained()
+    assert len(calls) > 1 and set(res) == set(rids)
+    assert [c.kv_cache_dtype for c in srv.gcfgs] == ["auto", "int8"]
+    assert all(len(res[r].logprobs) == len(res[r].tokens) for r in rids[1::2])
