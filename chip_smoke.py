@@ -105,6 +105,35 @@ Phases, each of which raises on failure:
    row's first step where generate's top-2 margin is 1e-3 or less (bf16:
    printed); and, as a reading, ``generate_batch`` over arrival-order
    batches of 64.
+9b. the server's extension paths (``server_ext_phase``), the same model
+   with ``decode_fused_mlp``: 64 three-turn conversations (turn 1 of
+   48-96 tokens, each next turn the last prompt, its reply and 16-48 new
+   tokens, budgets 16-48, submitted as each result arrives) through 48
+   slots, with ``session_id`` (deltas through the extension program;
+   parked sessions evicted LRU) and re-prefilled whole (``max_prompt``
+   384, buckets over 128 through K5): utt/s, prefill tokens fed,
+   extension programs, fallbacks, evictions, phase times. 16 prompts of
+   448 tokens arriving one a step among 64 short requests (1,024 slots),
+   whole (``max_prompt`` 512, K5) and in 128-token chunks (``prefill_
+   chunk``): a step's wall time while they are admitted (median and
+   longest) and utt/s. 128 requests through speculative blocks (gamma 4,
+   n-gram 3) and plain blocks: proposed and accepted counts, macro steps,
+   utt/s, tok/s, one speculative block's device time and operations. K1
+   must launch n_layer times for each admission group at a bucket <= 128
+   (and for each carrying a caption), K5 for each over 128, K4 n_layer
+   times a decode step, and nothing launch inside an extension program or
+   a verify window; every dispatch and extension program runs under
+   ``set_sync_debug_mode("error")``; every K1 and K4 launch of the chunked
+   and speculative arms is held against its plain version (real rows).
+   Then fp32 at full width (TF32 off): 8 conversations' second turns
+   against a fresh server's full prefill, 8 prompts of 200-448 tokens in
+   64-token chunks against ``generate``, 16 requests through speculative
+   and plain blocks, and ``ServerFrontend`` on 127.0.0.1 (16 concurrent
+   ``POST /generate``, 8 of them streamed, a two-turn session, ``GET
+   /health``, a streamed client that disconnects and must be cancelled)
+   against the same requests submitted directly: each n of n equal, a row
+   that parts passing only where ``generate``'s top-2 margin is 1e-3 or
+   less.
 10. training kernels: K5 (block attention) forward and backward at the
    training slice's [48, 12, 512, 64], causal, bf16, dropout 0 and 0.1
    on one seed (output within 2e-2 + 1e-2 |plain|; gradients: against
@@ -162,10 +191,13 @@ import copy
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -175,7 +207,8 @@ from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
 from ergm_tpu_torch.data.synthetic import write_synthetic_dataset
 from ergm_tpu_torch.infer import beam, speculative
 from ergm_tpu_torch.infer.generate import generate, generate_batch, pack_ragged_batch
-from ergm_tpu_torch.infer.server import ContinuousServer, Request
+from ergm_tpu_torch.infer.http_server import ServerFrontend
+from ergm_tpu_torch.infer.server import ContinuousServer, Request, request_from_json
 from ergm_tpu_torch.models import gpt2
 from ergm_tpu_torch.ops import (_build, block_attention, cross_decode, decode_attention,
                                 fused_ce, fused_decode, prefill_attention)
@@ -226,6 +259,16 @@ SRV_LONG_SLOTS, SRV_LONG_PROMPT, SRV_LONG_CACHE = 8, 384, 1024
 # SRV_IDENTITY_SYNC steps), through SRV_IDENTITY_SLOTS slots: the later
 # requests join freed slots while other rows decode
 SRV_IDENTITY, SRV_IDENTITY_NEW, SRV_IDENTITY_SLOTS, SRV_IDENTITY_SYNC = 16, 32, 8, 8
+# the server's extension paths (server_ext_phase): SRV_CONVS conversations
+# of SRV_TURNS turns through SRV_CONV_SLOTS slots, re-prefilled up to
+# SRV_REPREFILL_MAX tokens; SRV_LONG_N prompts of SRV_CHUNK_PROMPT tokens
+# among SRV_CHUNK_SHORT short requests, whole or in SRV_CHUNK-token chunks,
+# in SRV_CHUNK_CACHE slots; SRV_SPEC_REQS requests through speculative
+# blocks (gamma SRV_GAMMA, n-gram SRV_NGRAM); the HTTP front end over
+# SRV_HTTP_SLOTS slots
+SRV_CONVS, SRV_TURNS, SRV_CONV_SLOTS, SRV_REPREFILL_MAX = 64, 3, 48, 384
+SRV_CHUNK_SHORT, SRV_LONG_N, SRV_CHUNK_PROMPT, SRV_CHUNK, SRV_CHUNK_CACHE = 64, 16, 448, 128, 1024
+SRV_SPEC_REQS, SRV_GAMMA, SRV_NGRAM, SRV_HTTP_SLOTS = 128, 4, 3, 16
 # the training configuration of scripts/train_bench.py:27-89
 TRAIN_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
                    attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1, remat=True,
@@ -1340,36 +1383,65 @@ def _server(params, cfg, **kw) -> ContinuousServer:
 
 
 class _Groups(list):
-    live = 0
+    """Admission groups as (prompt bucket, whether a request carries a
+    caption); ``live``: groups that joined while another row decoded;
+    ``fed``: prompt tokens through the groups, ``ext_fed``: delta tokens
+    through extension programs; ``rids``: the requests admitted through
+    groups; ``inner``: kernel launches inside extension programs and
+    speculative blocks (verify windows)."""
+    live = fed = ext_fed = 0
 
 
 @contextlib.contextmanager
 def _no_sync_in_dispatch(srv: ContinuousServer):
-    """Runs every block dispatch of ``srv`` under
-    ``torch.cuda.set_sync_debug_mode("error")`` (a host read of a device
-    value there raises) and records each admission group's (prompt
-    bucket, whether a request carries a caption) in the list it yields,
-    and in its ``live`` attribute how many groups joined while another
-    row of the server was decoding."""
-    groups, dispatch, admit = _Groups(), srv._dispatch_block, srv._admit_group
+    """Runs every block dispatch and every extension program of ``srv``
+    under ``torch.cuda.set_sync_debug_mode("error")`` (a host read of a
+    device value there raises) and records its admissions in the
+    ``_Groups`` it yields."""
+    groups = _Groups()
+    groups.rids, groups.inner = set(), {}
+    real = {n: getattr(srv, n) for n in ("_dispatch_block", "_admit_group", "_admit_ext_group",
+                                         "_extend", "_spec_decode")}
 
-    def guarded():
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return dispatch()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    def no_sync(fn):
+        def run(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            before = _launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for k, n in _launch_counts().items():
+                    groups.inner[k] = groups.inner.get(k, 0) + n - before[k]
+        return run
 
     def recorded(entries, pb, g=0):
         groups.append((pb, any(e[2].caption_ids for e in entries)))
         groups.live += any(s.active for s in srv.slots)
-        return admit(entries, pb, g)
+        groups.fed += sum(len(e[2].prompt_ids) for e in entries)
+        groups.rids.update(e[1] for e in entries)
+        return real["_admit_group"](entries, pb, g)
 
-    srv._dispatch_block, srv._admit_group = guarded, recorded
+    def ext_recorded(entries, pbd, g=0):
+        groups.ext_fed += sum(len(e["ids"]) for e in entries)
+        return real["_admit_ext_group"](entries, pbd, g)
+
+    srv._dispatch_block, srv._admit_group = no_sync(real["_dispatch_block"]), recorded
+    srv._admit_ext_group = ext_recorded
+    srv._extend = no_sync(counted(real["_extend"]))
+    srv._spec_decode = counted(real["_spec_decode"])
     try:
         yield groups
     finally:
-        del srv._dispatch_block, srv._admit_group
+        for n in real:
+            delattr(srv, n)
 
 
 def _serve(srv: ContinuousServer, traffic: list) -> dict:
@@ -1459,6 +1531,27 @@ def _block_profile(srv: ContinuousServer, traffic: list) -> tuple:
     return n, wall, ms, ops
 
 
+def _generate_request(params, cfg, r: dict) -> tuple:
+    """One request (Request keywords) through ``generate`` alone, as the
+    server sees it: sp2 token types, the caption padded to CAPTION with its
+    mask. Returns its greedy tokens and the ``LogitRecorder`` of the run."""
+    ids = torch.tensor([r["prompt_ids"]], device=DEVICE)
+    Lp, n = ids.shape[1], r["max_new_tokens"]
+    cap = cap_mask = None
+    if r.get("caption_ids") is not None:
+        cap = torch.full((1, CAPTION), EOS, device=DEVICE)
+        cap[0, :len(r["caption_ids"])] = torch.tensor(r["caption_ids"])
+        cap_mask = torch.zeros((1, CAPTION), device=DEVICE)
+        cap_mask[0, :len(r["caption_ids"])] = 1.0
+    feats = {k + "s": torch.as_tensor(r[k][None], device=DEVICE)
+             for k in ("img", "aud") if r.get(k) is not None}
+    with LogitRecorder(cfg.n_layer) as rec:
+        out = generate(params, cfg, ids, Lp, max_len=Lp + n, eos_id=EOS, sp2_id=SP2, greedy=True,
+                       token_type_ids=torch.full_like(ids, SP2), caption_ids=cap,
+                       caption_mask=cap_mask, **feats)
+    return out.tokens[0, Lp:int(out.lengths[0])].tolist(), rec
+
+
 def _server_identity(card: str, bf16_params, bf16_cfg) -> None:
     """SRV_IDENTITY requests (budgets cut to SRV_IDENTITY_NEW and
     staggered) through SRV_IDENTITY_SLOTS slots of the server, where some
@@ -1489,20 +1582,8 @@ def _server_identity(card: str, bf16_params, bf16_cfg) -> None:
                                      f"other rows decoded ({len(run['groups'])} groups)")
             equal, broken, lead = 0, [], 0
             for i, r in enumerate(traffic):
-                ids = torch.tensor([r["prompt_ids"]], device=DEVICE)
-                Lp, n = ids.shape[1], r["max_new_tokens"]
-                cap, cap_mask = None, None
-                if r["caption_ids"] is not None:
-                    cap = torch.full((1, CAPTION), EOS, device=DEVICE)
-                    cap[0, :len(r["caption_ids"])] = torch.tensor(r["caption_ids"])
-                    cap_mask = torch.ones((1, CAPTION), device=DEVICE)
-                with LogitRecorder(c.n_layer) as rec:
-                    out = generate(params, c, ids, Lp, max_len=Lp + n, eos_id=EOS, sp2_id=SP2,
-                                   greedy=True, token_type_ids=torch.full_like(ids, SP2),
-                                   imgs=torch.as_tensor(r["img"][None], device=DEVICE),
-                                   auds=torch.as_tensor(r["aud"][None], device=DEVICE),
-                                   caption_ids=cap, caption_mask=cap_mask)
-                want = out.tokens[0, Lp:int(out.lengths[0])].tolist()
+                Lp = len(r["prompt_ids"])
+                want, rec = _generate_request(params, c, r)
                 got = served[i]
                 close = next((j for j in range(len(want))
                               if _top2_margin(rec.at[Lp + j]) <= 1e-3), len(want))
@@ -1626,6 +1707,449 @@ def server_phase(card: str) -> dict:
     print(f"server phase wall s: arms {t_arms - t_phase:.1f}, block profiles "
           f"{t_profile - t_arms:.1f}, shadow runs {t_shadow - t_profile:.1f}, identity "
           f"{t_identity - t_shadow:.1f}, static {time.time() - t_identity:.1f}")
+    return {k: {name: run["counts"][k] for name, run in runs.items()}
+            for k in ("prefill_mha", "prefill_mha_cross", "block_mha", "fused_ln_mlp")}
+
+
+def _conversations(rng, n: int) -> list:
+    """``n`` conversations: turn 1's prompt (48-96 tokens), the new tokens
+    of each later turn (16-48), each turn's budget (16-48 new tokens,
+    greedy), and ``_server_traffic``'s caption (on 3 of 4), image and
+    audio features, which ride turn 1 (and every turn of a re-prefill)."""
+    out = []
+    for i in range(n):
+        out.append(dict(first=rng.integers(0, 50000, int(rng.integers(48, 97))).tolist(),
+                        news=[rng.integers(0, 50000, int(rng.integers(16, 49))).tolist()
+                              for _ in range(SRV_TURNS - 1)],
+                        budgets=[int(rng.integers(16, 49)) for _ in range(SRV_TURNS)],
+                        caption_ids=(None if i % 4 == 3
+                                     else rng.integers(0, 50000, CAPTION).tolist()),
+                        img=rng.standard_normal(768).astype(np.float32),
+                        aud=rng.standard_normal(768).astype(np.float32)))
+    return out
+
+
+def _converse(srv: ContinuousServer, convs: list, sessions: bool, turns: int = SRV_TURNS) -> dict:
+    """Each conversation's turns through ``srv`` from a reset and zeroed
+    launch counts: turn 1 of every conversation submitted at once, each
+    next turn (the last prompt, its reply and the turn's new tokens) when
+    the last result arrives, with the conversation's ``session_id`` when
+    ``sessions``, else re-prefilled whole. Every turn must return its
+    budget of in-vocabulary tokens. Returns the run's readings."""
+    srv.reset()
+    state, tokens, reqs = {}, {}, {}
+
+    def submit(ci, t, prompt):
+        c = convs[ci]
+        r = dict(prompt_ids=prompt, max_new_tokens=c["budgets"][t], greedy=True,
+                 caption_ids=c["caption_ids"], img=c["img"], aud=c["aud"],
+                 session_id=f"conv{ci}" if sessions else None)
+        rid = srv.submit(Request(**r))
+        state[rid], reqs[(ci, t)] = (ci, t), r
+
+    with _no_sync_in_dispatch(srv) as groups, StepCounter() as steps:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for ci, c in enumerate(convs):
+            submit(ci, 0, c["first"])
+        while srv.busy():
+            for res in srv.step():
+                ci, t = state[res.request_id]
+                tokens[(ci, t)] = res.tokens
+                if t + 1 < turns:
+                    submit(ci, t + 1, reqs[(ci, t)]["prompt_ids"] + res.tokens
+                           + convs[ci]["news"][t])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _launch_counts()
+    V = srv.cfg.vocab_size
+    for key, r in reqs.items():
+        got = tokens[key]
+        if len(got) != r["max_new_tokens"] or any(x < 0 or x >= V for x in got):
+            raise AssertionError(f"server conversation {key}: {len(got)} tokens for a budget of "
+                                 f"{r['max_new_tokens']}, or bad values")
+    later = {rid for rid, (_ci, t) in state.items() if t > 0}
+    return dict(tokens=tokens, reqs=reqs, wall=wall, groups=groups, steps=steps.steps,
+                counts=counts, fed=groups.fed + groups.ext_fed, ext=srv.ext_programs,
+                fallbacks=len(later & groups.rids) if sessions else 0, evictions=srv.evictions,
+                blocks=srv.server_step,
+                phases={k: round(v, 3) for k, v in sorted(srv.phase_seconds.items())})
+
+
+def _k1_launches(cfg, groups) -> dict:
+    """K1's launches for admission groups (prompt bucket, caption): the self
+    form n_layer times for each group at a bucket <= 128 (the model's K1
+    gate), the cross form for each group carrying a caption (K1's gate
+    takes up to 512 queries)."""
+    return {"prefill_mha": cfg.n_layer * sum(pb <= 128 for pb, _ in groups),
+            "prefill_mha_cross": cfg.n_layer * sum(cap and pb <= 512 for pb, cap in groups)}
+
+
+def _ext_profile(srv: ContinuousServer, convs: list) -> tuple:
+    """Extension programs: every slot of ``srv`` holds a parked turn 1; the
+    second turns of half of them are admitted (one extension program over
+    the pool for each delta bucket) and timed on the host, then the other
+    half's under torch.profiler. Returns (rows extended, programs of the
+    profiled pass, host wall s, device ms, device operations)."""
+    run = _converse(srv, convs[:srv.S], True, turns=1)
+    half = srv.S // 2
+
+    def submit(cis):
+        for ci in cis:
+            r = run["reqs"][(ci, 0)]
+            srv.submit(Request(**dict(r, max_new_tokens=convs[ci]["budgets"][1],
+                                      prompt_ids=r["prompt_ids"] + run["tokens"][(ci, 0)]
+                                      + convs[ci]["news"][0])))
+
+    with torch.inference_mode():
+        submit(range(half))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        srv._admit()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        submit(range(half, srv.S))
+        ext = srv.ext_programs
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            srv._admit()
+            torch.cuda.synchronize()
+    programs = srv.ext_programs - ext
+    if programs < 1:
+        raise AssertionError("extension profile: the admission ran no extension program")
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    srv.reset()
+    return (srv.S - half, programs, wall, sum(e.self_device_time_total for e in device) / 1e3,
+            sum(e.count for e in device))
+
+
+def _ext_counts_ok(label: str, cfg, run: dict) -> None:
+    """K1 as ``_k1_launches`` says for each admission group (a first chunk
+    among them), K5 n_layer times for each group at a bucket over 128, K4
+    n_layer times a single-token decode step with ``decode_fused_mlp``, and
+    no launch of K1, K4 or K5 inside an extension program or a verify
+    window."""
+    L, got, groups = cfg.n_layer, run["counts"], run["groups"]
+    want = {**_k1_launches(cfg, groups), "block_mha": L * sum(pb > 128 for pb, _ in groups),
+            "fused_ln_mlp": L * run["steps"] if cfg.decode_fused_mlp else 0}
+    inner = {k: v for k, v in groups.inner.items() if v}
+    if {k: got[k] for k in want} != want or inner:
+        raise AssertionError(f"server [{label}]: launches {got} over {len(groups)} admission "
+                             f"groups and {run['steps']} decode steps, want {want}; inside "
+                             f"extensions and verify windows {inner}, want none")
+
+
+def _long_arrivals(srv: ContinuousServer, shorts: list, longs: list) -> dict:
+    """``shorts`` submitted at once, then one of ``longs`` after each
+    server step, from a reset and zeroed counts; the wall time of every
+    step (its admissions, chunks and block) while a long prompt is queued
+    or being admitted. Every request must return its budget."""
+    srv.reset()
+    long_rids, walls = set(), []
+    with _no_sync_in_dispatch(srv) as groups, StepCounter() as steps:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rids = [srv.submit(Request(**r)) for r in shorts]
+        results, pending = {}, list(longs)
+        while srv.busy() or pending:
+            if pending:
+                rid = srv.submit(Request(**pending.pop(0)))
+                rids.append(rid)
+                long_rids.add(rid)
+            admitting = bool(srv._chunks) or any(q[0] in long_rids for q in srv.queue)
+            t1 = time.time()
+            results.update({r.request_id: r for r in srv.step()})
+            torch.cuda.synchronize()
+            if admitting or srv._chunks:
+                walls.append(time.time() - t1)
+        wall = time.time() - t0
+        counts = _launch_counts()
+    for rid, r in zip(rids, shorts + longs):
+        if len(results[rid].tokens) != r["max_new_tokens"]:
+            raise AssertionError(f"server long arrivals: request {rid} returned "
+                                 f"{len(results[rid].tokens)} tokens of {r['max_new_tokens']}")
+    return dict(wall=wall, walls=walls, groups=groups, steps=steps.steps, counts=counts,
+                ext=srv.ext_programs, tokens=[results[r].tokens for r in rids],
+                phases={k: round(v, 3) for k, v in sorted(srv.phase_seconds.items())})
+
+
+def _identity(label: str, reqs: list, got: list, want: list, params, cfg, card: str) -> None:
+    """Prints how many of ``reqs`` (Request keywords) gave ``want``'s tokens
+    in ``got``; a row that differs is looked up in ``generate``'s logits at
+    its first difference, and the phase fails unless the top-2 margin
+    there is 1e-3 or less (a close call, printed)."""
+    equal, close, broken = 0, [], []
+    for i, (r, a, b) in enumerate(zip(reqs, got, want)):
+        if a == b:
+            equal += 1
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        _, rec = _generate_request(params, cfg, dict(r, max_new_tokens=j + 1))
+        margin = _top2_margin(rec.at[len(r["prompt_ids"]) + j])
+        (close if margin <= 1e-3 else broken).append((i, j, margin))
+    print(f"server identity fp32 [{label}]: {equal} of {len(reqs)} requests equal; close calls "
+          f"(margin <= 1e-3) {close} on {card}")
+    if broken:
+        raise AssertionError(f"server identity [{label}]: rows part where the margin is wide: "
+                             f"{broken}")
+
+
+class _ByteTokenizer:
+    """Decodes one token a byte (byte-level BPE's worst case for the front
+    end's UTF-8-safe text deltas); no encoding is needed: requests carry
+    ids."""
+
+    def decode(self, ids):
+        return bytes(t % 256 for t in ids).decode("utf-8", errors="replace")
+
+
+def _http_post(fe, payload: dict):
+    req = urllib.request.Request(f"http://{fe.host}:{fe.port}/generate",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if not payload.get("stream"):
+            return json.loads(r.read())["tokens"]
+        rows = [json.loads(line) for line in r]
+    if not rows[-1].get("done") or any("error" in row for row in rows):
+        raise AssertionError(f"HTTP stream ended badly: {rows[-1]}")
+    return [t for row in rows[:-1] for t in row["tokens"]]
+
+
+def _http_health(fe) -> dict:
+    with urllib.request.urlopen(f"http://{fe.host}:{fe.port}/health", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _http_arm(params, cfg, traffic: list, card: str) -> tuple:
+    """``ServerFrontend`` on 127.0.0.1 at an ephemeral port over a
+    SRV_HTTP_SLOTS-slot server: the requests of ``traffic`` as concurrent
+    ``POST /generate`` (every second one streamed), one two-turn session
+    (the second turn through an extension), ``GET /health``, and a
+    streamed client that disconnects after its first byte, whose request
+    must be cancelled and its slot freed. Returns the payloads and their
+    tokens."""
+    srv = _server(params, cfg, slots=SRV_HTTP_SLOTS, sync_every=SRV_IDENTITY_SYNC)
+    fe = ServerFrontend(srv, tokenizer=_ByteTokenizer(), port=0).start()
+    try:
+        payloads = [{"prompt": r["prompt_ids"], "max_new_tokens": r["max_new_tokens"],
+                     "greedy": True, "caption_ids": r["caption_ids"], "stream": i % 2 == 1}
+                    for i, r in enumerate(traffic)]
+        got = [None] * len(payloads)
+
+        def worker(i):
+            got[i] = _http_post(fe, payloads[i])
+
+        t0 = time.time()
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.time() - t0
+        if any(g is None for g in got):
+            raise AssertionError("HTTP: a request got no answer")
+        turn1 = payloads[0]["prompt"][:40]
+        reply = _http_post(fe, {"prompt": turn1, "max_new_tokens": 8, "greedy": True,
+                                "session_id": "http"})
+        ext = srv.ext_programs
+        turn2 = turn1 + reply + payloads[1]["prompt"][:12]
+        _http_post(fe, {"prompt": turn2, "max_new_tokens": 8, "greedy": True,
+                        "session_id": "http", "stream": True})
+        if srv.ext_programs != ext + 1:
+            raise AssertionError("HTTP: the session's second turn did not extend its slot")
+        body = json.dumps({"prompt": payloads[0]["prompt"], "max_new_tokens": 300,
+                           "greedy": True, "stream": True}).encode()
+        sock = socket.create_connection((fe.host, fe.port), timeout=60)
+        sock.sendall(b"POST /generate HTTP/1.0\r\nContent-Type: application/json\r\n"
+                     + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        sock.recv(1)
+        sock.close()
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            h = _http_health(fe)
+            if h["cancelled"] == 1 and h["active"] == 0:
+                break
+            time.sleep(0.05)
+        if h["cancelled"] != 1 or h["active"] != 0 or h["served"] != len(payloads) + 2:
+            raise AssertionError(f"HTTP: the disconnected stream was not cancelled: {h}")
+    finally:
+        fe.close()
+    print(f"server [HTTP] {len(payloads)} concurrent requests ({len(payloads) // 2} streamed) "
+          f"through {SRV_HTTP_SLOTS} slots in {wall:.3f} s, a two-turn session extended, a "
+          f"disconnected stream cancelled; health {h} on {card}")
+    return srv, payloads, got
+
+
+def server_ext_phase(card: str) -> dict:
+    """The server's extension paths at gpt2 full width (SRV_SLICE: bf16,
+    int8 lm_head, random weights from seed 0, captions, image and audio
+    features, ``decode_fused_mlp``): SRV_CONVS three-turn conversations
+    through SRV_CONV_SLOTS slots with sessions and re-prefilled whole
+    (``max_prompt`` 384: buckets over 128 take K5); SRV_LONG_N prompts of
+    SRV_CHUNK_PROMPT tokens arriving among SRV_CHUNK_SHORT short requests,
+    whole and in SRV_CHUNK-token chunks (1024 slots), with each step's wall
+    time while they are admitted; ``_server_traffic``'s first
+    SRV_SPEC_REQS requests through speculative blocks (gamma SRV_GAMMA,
+    n-gram SRV_NGRAM) and through plain blocks, and one speculative block's
+    device time. Every arm's launch counts are checked (``_ext_counts_ok``)
+    and every dispatch and extension program runs without a host sync;
+    ``KernelShadow`` holds every K1, K5 and K4 launch of the re-prefill,
+    chunked and speculative arms against its plain version. Then, in fp32 at full
+    width: session turns against a fresh server's full prefill, chunked
+    prompts against ``generate``, speculative against plain blocks, and the
+    HTTP front end (``_http_arm``) against direct submission. Returns
+    {kernel: {arm: launches}}."""
+    cfg = ModelConfig.from_model_type(**SRV_SLICE)
+    params = gpt2.params_for_inference(
+        gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg), cfg)
+    k4 = cfg.replace(decode_fused_mlp=True)
+    runs, t_phase = {}, time.time()
+
+    convs = _conversations(np.random.default_rng(1), SRV_CONVS)
+    srv = _server(params, k4, slots=SRV_CONV_SLOTS, max_prompt=SRV_REPREFILL_MAX,
+                  prompt_bucket=128)
+    _converse(srv, convs[:8], True, turns=2)  # warm-up
+    for name, sessions in (("sessions", True), ("re-prefill", False)):
+        run = runs[name] = _converse(srv, convs, sessions)
+        _ext_counts_ok(name, k4, run)
+        n = len(run["reqs"])
+        print(f"server [{name}] {SRV_CONVS} conversations x {SRV_TURNS} turns, {SRV_CONV_SLOTS} "
+              f"slots: {run['wall']:.3f} s, {n / run['wall']:.2f} utt/s, prefill tokens fed "
+              f"{run['fed']}, extension programs {run['ext']}, continuations that fell back to a "
+              f"full prefill {run['fallbacks']}, evictions {run['evictions']}, {run['blocks']} "
+              f"blocks, {run['steps']} decode steps, phases {run['phases']}, launches "
+              f"{run['counts']}, {len(run['groups'])} admission groups on {card}")
+    same = sum(runs["sessions"]["tokens"][k] == runs["re-prefill"]["tokens"][k]
+               for k in runs["sessions"]["tokens"])
+    print(f"server: [sessions] gives [re-prefill]'s tokens on {same} of "
+          f"{len(runs['sessions']['tokens'])} turns (bf16)")
+    rows, programs, wall, ms, ops = _ext_profile(srv, convs)
+    print(f"server extension programs: an admission pass of {rows} continuations (17-49-token "
+          f"deltas) over {SRV_CONV_SLOTS} slots ran {programs} programs (one a delta bucket), "
+          f"device time {ms:.3f} ms, {ops} device operations ({ops / programs:.0f} a program); "
+          f"the other half's pass {1e3 * wall:.3f} ms of host wall unprofiled "
+          f"(torch.profiler for the device) on {card}")
+    conv_srv = srv
+    t_sessions = time.time()
+
+    rng = np.random.default_rng(2)
+    shorts = _server_traffic(rng, SRV_CHUNK_SHORT)
+    longs = [dict(r, prompt_ids=rng.integers(0, 50000, SRV_CHUNK_PROMPT).tolist())
+             for r in _server_traffic(rng, SRV_LONG_N)]
+    chunk_srv = {}
+    for name, chunk in (("chunk 0", 0), ("chunk 128", SRV_CHUNK)):
+        srv = chunk_srv[name] = _server(
+            params, k4, cache_len=SRV_CHUNK_CACHE, prompt_bucket=128, prefill_chunk=chunk,
+            max_prompt=SRV_CHUNK if chunk else SRV_CHUNK_PROMPT)
+        run = runs[name] = _long_arrivals(srv, shorts, longs)
+        _ext_counts_ok(name, k4, run)
+        n = len(shorts) + len(longs)
+        print(f"server [{name}] {len(shorts)} short requests and {len(longs)} prompts of "
+              f"{SRV_CHUNK_PROMPT} tokens arriving among them, {SRV_SLOTS} slots: "
+              f"{run['wall']:.3f} s, {n / run['wall']:.2f} utt/s; while the long prompts are "
+              f"admitted ({len(run['walls'])} steps) a step's wall median "
+              f"{1e3 * float(np.median(run['walls'])):.1f} ms, longest "
+              f"{1e3 * max(run['walls']):.1f} ms; extension programs {run['ext']}, "
+              f"{run['steps']} decode steps, phases {run['phases']}, launches {run['counts']} "
+              f"on {card}")
+    t_chunks = time.time()
+
+    traffic = _server_traffic(np.random.default_rng(0))[:SRV_SPEC_REQS]
+    spec_srv = {"spec": _server(params, k4, spec_gamma=SRV_GAMMA, spec_ngram=SRV_NGRAM),
+                "spec plain": _server(params, k4)}
+    _serve(spec_srv["spec"], traffic[:SRV_SLOTS])  # warm-up
+    for name, srv in spec_srv.items():
+        run = runs[name] = _serve(srv, traffic)
+        _ext_counts_ok(name, k4, run)
+        n = len(traffic)
+        print(f"server [{name}] {n} requests, {SRV_SLOTS} slots: {run['wall']:.3f} s, "
+              f"{n / run['wall']:.2f} utt/s, {run['new_tokens'] / run['wall']:.0f} generated "
+              f"tok/s, {run['blocks']} blocks; macro steps {srv.spec_macro}, proposed "
+              f"{srv.spec_proposed}, accepted {srv.spec_accepted}; phases {run['phases']}, "
+              f"launches {run['counts']} on {card}")
+    same = sum(a == b for a, b in zip(runs["spec"]["tokens"], runs["spec plain"]["tokens"]))
+    print(f"server: [spec] gives [spec plain]'s tokens on {same} of {len(traffic)} requests "
+          f"(bf16)")
+    n, wall, ms, ops = _block_profile(spec_srv["spec"], traffic)
+    print(f"server block [spec]: {n} macro steps over {SRV_SLOTS} slots, device time {ms:.3f} ms "
+          f"({ms / n:.3f} ms a macro step), {ops} device operations, host wall "
+          f"{1e3 * wall:.3f} ms unprofiled (torch.profiler for the device) on {card}")
+    t_spec = time.time()
+
+    # K5 launches in the re-prefill arm (buckets 256 and 384) and in chunk
+    # 0's whole long prompts (bucket 512, left-padded)
+    arrivals = lambda s: _long_arrivals(s, shorts, longs)  # noqa: E731
+    for name, srv, go in (("re-prefill", conv_srv, lambda s: _converse(s, convs, False)),
+                          ("chunk 0", chunk_srv["chunk 0"], arrivals),
+                          ("chunk 128", chunk_srv["chunk 128"], arrivals),
+                          ("spec", spec_srv["spec"], lambda s: _serve(s, traffic)),
+                          ("spec plain", spec_srv["spec plain"], lambda s: _serve(s, traffic))):
+        with KernelShadow(KernelShadow.SERVER) as shadow:
+            run = go(srv)
+        shares = shadow.shares()
+        want = {"prefill_mha": sum(_k1_launches(k4, run["groups"]).values()),
+                "block_mha": k4.n_layer * sum(pb > 128 for pb, _ in run["groups"]),
+                "fused_ln_mlp": k4.n_layer * run["steps"]}
+        if name in ("re-prefill", "chunk 0") and not want["block_mha"]:
+            raise AssertionError(f"server [{name}]: no admission group took K5")
+        print(f"server [{name}] bf16: every K1, K5 and K4 launch against its plain version on the "
+              f"same inputs ({shadow.calls} launches); the largest |kernel - plain| as a share of "
+              f"the bar 2e-2 + 1e-2 |plain|: " + ", ".join(f"{k} {v:.4f}"
+                                                          for k, v in shares.items()))
+        if any(v > 1.0 or not math.isfinite(v) for v in shares.values()) or shadow.calls != want:
+            raise AssertionError(f"server [{name}]: a kernel leaves its plain version's bar or "
+                                 f"was not held at every launch: {shares}, {shadow.calls}, "
+                                 f"want {want}")
+    del conv_srv, chunk_srv, spec_srv, params
+    torch.cuda.empty_cache()
+    t_shadow = time.time()
+
+    f32 = ModelConfig.from_model_type(**{**SRV_SLICE, "dtype": "float32"})
+    p32 = gpt2.params_for_inference(
+        gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), f32), f32)
+    small = dict(slots=SRV_IDENTITY_SLOTS, sync_every=SRV_IDENTITY_SYNC)
+    # sessions: turn 2 of 8 conversations against a fresh server's full prefill
+    convs8 = [dict(c, budgets=[min(b, SRV_IDENTITY_NEW) for b in c["budgets"]])
+              for c in convs[:SRV_IDENTITY_SLOTS]]
+    srv = _server(p32, f32, max_prompt=SRV_REPREFILL_MAX, prompt_bucket=128, **small)
+    run = _converse(srv, convs8, True, turns=2)
+    turn2 = [run["reqs"][(ci, 1)] for ci in range(len(convs8))]
+    fresh = _serve(srv, [dict(r, session_id=None) for r in turn2])
+    _identity("session turns vs full prefill", turn2, [run["tokens"][(ci, 1)]
+                                                       for ci in range(len(convs8))],
+              fresh["tokens"], p32, f32, card)
+    # chunked prompts of 200-448 tokens against generate
+    rng = np.random.default_rng(4)
+    chunked = [dict(r, prompt_ids=rng.integers(0, 50000, int(rng.integers(200, 449))).tolist(),
+                    max_new_tokens=min(r["max_new_tokens"], SRV_IDENTITY_NEW))
+               for r in _server_traffic(rng, SRV_IDENTITY_SLOTS)]
+    srv = _server(p32, f32, max_prompt=64, cache_len=SRV_CHUNK_CACHE, prefill_chunk=64, **small)
+    run = _serve(srv, chunked)
+    _identity("chunked prefill vs generate", chunked, run["tokens"],
+              [_generate_request(p32, f32, r)[0] for r in chunked], p32, f32, card)
+    # speculative against plain blocks
+    reqs = [dict(r, max_new_tokens=min(r["max_new_tokens"], SRV_IDENTITY_NEW))
+            for r in traffic[:SRV_IDENTITY]]
+    spec = _serve(_server(p32, f32, spec_gamma=SRV_GAMMA, spec_ngram=SRV_NGRAM, **small), reqs)
+    plain = _serve(_server(p32, f32, **small), reqs)
+    _identity("speculative vs plain blocks", reqs, spec["tokens"], plain["tokens"], p32, f32,
+              card)
+    # the HTTP front end against direct submission
+    srv, payloads, got = _http_arm(p32, f32, reqs, card)
+    direct = [request_from_json({k: v for k, v in p.items() if k != "stream"})
+              for p in payloads]
+    srv.reset()
+    rids = [srv.submit(r) for r in direct]
+    res = srv.run_until_drained()
+    _identity("HTTP vs direct submission", [dict(r, img=None, aud=None) for r in reqs], got,
+              [res[r].tokens for r in rids], p32, f32, card)
+    del p32, srv
+    torch.cuda.empty_cache()
+    print(f"server extension phase wall s: sessions {t_sessions - t_phase:.1f}, chunks "
+          f"{t_chunks - t_sessions:.1f}, speculative {t_spec - t_chunks:.1f}, shadow runs "
+          f"{t_shadow - t_spec:.1f}, fp32 identities and HTTP {time.time() - t_shadow:.1f}")
     return {k: {name: run["counts"][k] for name, run in runs.items()}
             for k in ("prefill_mha", "prefill_mha_cross", "block_mha", "fused_ln_mlp")}
 
@@ -2173,6 +2697,8 @@ def main() -> None:
     spec_counts = spec_phase(card)
     beam_on = beam_phase(card)
     server_on = server_phase(card)
+    for k, arms in server_ext_phase(card).items():
+        server_on[k].update(arms)
     train_reference_phase()
     long_ctx = long_context_phase(card)
     train_on = train_slice_phase(card)

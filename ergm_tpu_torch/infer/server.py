@@ -34,15 +34,30 @@ of decode slots busy: requests join and leave at block boundaries.
   (its own cache and rung); ``kv_cache_dtype="auto"`` then serves the
   short pool from a compute-dtype cache and the long pool from an int8
   staged one.
+- **The extension program** (``_admit_ext_group``): ONE multi-token
+  forward over a pool's rows, ``EXT_BUCKET``-quantized wide, against the
+  live cache, each extending row's delta attending to its retained
+  history under per-row cursors (query j sees kpos <= start + j). It
+  serves **sessions** (a finished request with a ``session_id`` parks
+  its slot with its K/V; the next turn, whose prompt extends the parked
+  history, prefills only the delta; parked slots are evicted LRU) and
+  **chunked prefill** (``prefill_chunk``: chunk 1 of a long prompt rides
+  the normal admission group, the rest one chunk a server step).
+- **Speculative serving** (``spec_gamma``): each macro step of a block
+  drafts gamma tokens a slot by prompt lookup over a device token buffer
+  [S, T], verifies them in one forward of gamma + 1 positions, and
+  moves each cursor back to its accepted prefix: 1..gamma+1 tokens of
+  the exact greedy stream a macro step. Blocks with a sampled or
+  logprob row run the plain decode block.
 
 Greedy output through the server is byte-identical to ``generate``.
 Sampling shares ``generate``'s nucleus sampler: one device generator
 drives the decode steps (seeded by ``reset``), and each admission group
 draws its first tokens from ``fold_seed(lead request's seed, admission
-counter)``; sampled streams depend on the schedule.
+counter)`` (an extension from the sum of its rows' seeds); sampled
+streams depend on the schedule.
 
-Not ported yet (``ROADMAP.md`` queue 1 item 5): sessions, chunked
-prefill, speculative serving and the slot-axis mesh.
+Not ported yet: the slot-axis mesh (``ROADMAP.md`` queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -61,9 +76,6 @@ from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.rng import fold_seed
 from ergm_tpu_torch.infer.generate import sample_top_p
 from ergm_tpu_torch.models import gpt2
-
-_NOT_PORTED = "is not ported to the PyTorch server yet (ROADMAP.md queue 1 item 5)"
-
 
 @dataclass
 class Request:
@@ -89,7 +101,9 @@ class Request:
     # called once per harvested block with (request_id, new_tokens, done);
     # in pipelined mode one block late
     stream_cb: Optional[Callable[[int, List[int], bool], None]] = None
-    # multi-turn session continuation: not ported (submit raises)
+    # multi-turn continuation: a finished request parks its slot's K/V
+    # under this id, and a later request with the same id whose prompt
+    # extends the parked history (prompt + reply) prefills only the delta
     session_id: Optional[str] = None
     # tiered pools: "long" / "short" pins the pool; None routes by length
     pool: Optional[str] = None
@@ -185,6 +199,15 @@ class _Slot:
     active: bool = False
     phys_len: int = 0            # host mirror of the device cursor
     admitted_block: int = 0      # first decode block the row rides in
+    # a finished slot whose request carried a session_id keeps its K/V
+    # for the session's next turn instead of freeing
+    parked: bool = False
+    session: Optional[str] = None
+    token_log: List[int] = field(default_factory=list)  # consumed + emitted
+    last_use: int = 0            # block counter, for LRU eviction
+    # chunked prefill in progress: [0, phys_len) holds a partial prompt;
+    # the slot is neither free nor decoding
+    prefilling: bool = False
 
 
 def _bucket(n: int, multiple: int) -> int:
@@ -205,23 +228,22 @@ class ContinuousServer:
     # every admission prefill has GROUP_CAP rows (pad rows cost one wasted
     # prefill row each), so K1's B >= 64 gate holds
     GROUP_CAP = 64
+    # the width quantum of an extension forward (session deltas, chunks)
+    EXT_BUCKET = 16
 
     def __init__(self, params: gpt2.GPT2, config: ModelConfig, *, slots: int,
                  eos_id: int, sp2_id: int, max_prompt: int = 256,
                  cache_len: Optional[int] = None, caption_len: int = 32,
                  prompt_bucket: int = 64, sync_every: int = 8,
                  mesh=None, cache_grow_step: int = 32,
-                 pipeline: bool = False, spec_gamma: int = 0,
+                 pipeline: bool = False, spec_gamma: int = 0, spec_ngram: int = 3,
                  prefill_chunk: int = 0, long_slots: int = 0,
                  long_threshold: Optional[int] = None, adaptive_block: bool = True,
                  admit_policy: str = "fifo"):
         c = config
         if mesh is not None:
-            raise NotImplementedError(f"the slot-axis mesh {_NOT_PORTED}")
-        if spec_gamma:
-            raise NotImplementedError(f"speculative serving (spec_gamma > 0) {_NOT_PORTED}")
-        if prefill_chunk:
-            raise NotImplementedError(f"chunked prefill (prefill_chunk > 0) {_NOT_PORTED}")
+            raise NotImplementedError("the slot-axis mesh is not ported to the PyTorch server yet "
+                                      "(ROADMAP.md queue 1 item 9)")
         self.params = params
         self.device = next(params.parameters()).device
         self.cfg = c
@@ -250,6 +272,17 @@ class ContinuousServer:
                              "serves the caption cache in the compute dtype (use 'auto' here)")
         self.grow_step = cache_grow_step
         self.pipeline = pipeline
+        # chunked prefill: a prompt longer than prefill_chunk admits in
+        # chunks, one a server step, so concurrent streams wait for at most
+        # one chunk-wide forward between blocks; prompts and session
+        # deltas may then exceed max_prompt
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk:
+            if self.prefill_chunk < self.EXT_BUCKET:
+                raise ValueError(f"prefill_chunk must be >= {self.EXT_BUCKET}")
+            if self.prefill_chunk > self.max_prompt:
+                raise ValueError(f"prefill_chunk {self.prefill_chunk} must be <= max_prompt "
+                                 f"{self.max_prompt} (the first chunk rides the prefill path)")
         self.long_slots = int(long_slots)
         if self.long_slots:
             if not 0 < self.long_slots < slots:
@@ -262,14 +295,33 @@ class ContinuousServer:
             self.long_threshold = None
             self.groups = ((0, slots),)
         # kv_cache_dtype="auto" with tiers: the short pool in the compute
-        # dtype, the long pool int8 staged; an explicit dtype holds for all
-        if c.kv_cache_dtype == "auto" and len(self.groups) > 1:
+        # dtype, the long pool int8 staged; an explicit dtype holds for all.
+        # Under spec_gamma "auto" is the compute dtype on every pool.
+        if c.kv_cache_dtype == "auto" and len(self.groups) > 1 and not spec_gamma:
             self.gcfgs = (c,) + (c.replace(kv_cache_dtype="int8"),) * (len(self.groups) - 1)
         else:
             self.gcfgs = tuple(c for _ in self.groups)
+        self.spec_gamma = int(spec_gamma)
+        self.spec_ngram = int(spec_ngram)
+        if self.spec_gamma:
+            if pipeline:
+                raise ValueError("spec_gamma with pipeline=True is unsupported: the host cursor "
+                                 "mirror is exact only after a harvest, which pipelining defers "
+                                 "past the next dispatch")
+            if self.spec_ngram < 1:
+                raise ValueError("spec_ngram must be >= 1")
+            if self.spec_ngram + self.spec_gamma >= self.T:
+                raise ValueError("spec_ngram + spec_gamma must be < cache_len")
+            if any(gc.kv_cache_dtype in ("int8", "int4") for gc in self.gcfgs):
+                # a macro step writes each row's accepted prefix, of its own
+                # length, which the uniform-index staging cannot express
+                raise ValueError("spec_gamma > 0 requires kv_cache_dtype='auto' in the server: "
+                                 "the speculative decode path has no staged quantized-cache "
+                                 "write")
         # two pinned buffers for the per-block device-to-host copy, so a
         # pipelined block cannot overwrite the one still being harvested
-        n = 2 * sync_every * slots + 2 * slots + slots * c.num_emotions
+        n = (sync_every * slots * max(2, self.spec_gamma + 2) + 2 * slots
+             + slots * c.num_emotions)
         pin = self.device.type == "cuda"
         self._host = [torch.empty(n, dtype=torch.float32, pin_memory=pin) for _ in range(2)]
         self._init_state(0)
@@ -328,9 +380,19 @@ class ContinuousServer:
 
     def _capacity_need(self, g: int) -> int:
         """Capacity pool ``g`` needs this block: its longest active row's
-        cursor (host mirror) plus one block of writes."""
-        lens = [self.slots[i].phys_len for i in self._group_slots(g) if self.slots[i].active]
-        return (max(lens) if lens else 0) + self.sync_every + 1
+        cursor (host mirror) plus one block of writes (a speculative block
+        writes gamma + 1 positions a macro step, rejected ones included),
+        and no less than its parked histories and partial prompts, which a
+        shrink must not cut."""
+        rows = [self.slots[i] for i in self._group_slots(g)]
+        lens = [s.phys_len for s in rows if s.active]
+        kept = [len(s.token_log) for s in rows if s.parked]
+        kept += [s.phys_len for s in rows if s.prefilling]
+        return max((max(lens) if lens else 0) + self._per_block_writes() + 1,
+                   max(kept) if kept else 0)
+
+    def _per_block_writes(self) -> int:
+        return self.sync_every * (self.spec_gamma + 1 if self.spec_gamma else 1)
 
     # -- state ---------------------------------------------------------------
 
@@ -342,6 +404,13 @@ class ContinuousServer:
         self.results: Dict[int, Result] = {}
         self._phase: Dict[str, float] = {}
         self.slots = [_Slot() for _ in range(self.S)]
+        self.sessions: Dict[str, int] = {}  # session_id -> its PARKED slot
+        # slot -> in-progress chunked admission: the delta ids/tts (from the
+        # absolute position ``base``), the consumed ``off``, the request
+        self._chunks: Dict[int, dict] = {}
+        self.ext_programs = 0  # extension forwards run
+        self.evictions = 0     # parked sessions evicted for other requests
+        self.spec_proposed = self.spec_accepted = self.spec_macro = 0
         self._next_id = 0
         self._admit_ctr = 0
         self.server_step = 0
@@ -350,7 +419,7 @@ class ContinuousServer:
         self.shrinks = 0
         self._inflight = None
         self._block_ctr = 0
-        t0 = self._phys_for(self.prompt_bucket + self.sync_every + 1)
+        t0 = self._phys_for(self.prompt_bucket + self._per_block_writes() + 1)
         self.Tphys = [t0 for _ in self.groups]
         self.caches = [gpt2.init_kv_cache(self.gcfgs[g], size, t0, caption_len=self.caption_len,
                                           device=dev, per_row_index=True)
@@ -367,6 +436,12 @@ class ContinuousServer:
         self.first_lp = torch.zeros((S,), device=dev)
         self.emo_slot = torch.zeros((S, c.num_emotions), device=dev)
         self._sp2 = torch.full((S, 1), self.sp2_id, dtype=torch.long, device=dev)
+        # speculative serving: tokens[s, p] is the token consumed at position
+        # p of slot s (the join writes the prompt, extensions their deltas,
+        # macro steps the pending token and the proposals), at the logical
+        # length T
+        self.tokens = (torch.full((S, self.T), self.eos_id, dtype=torch.long, device=dev)
+                       if self.spec_gamma else None)
 
     def _tick(self, name: str, t0: float) -> float:
         now = time.time()
@@ -380,11 +455,21 @@ class ContinuousServer:
 
     # -- public API ------------------------------------------------------------
 
+    def _session_delta(self, req: Request) -> Optional[int]:
+        """The length of the delta ``req`` would prefill (its new tokens
+        and the re-fed parked final token) when it continues a PARKED
+        session, its prompt extending the session's history; else None."""
+        sid = req.session_id
+        if not sid or sid not in self.sessions:
+            return None
+        log = self.slots[self.sessions[sid]].token_log
+        if not log or len(req.prompt_ids) < len(log) or list(req.prompt_ids[:len(log)]) != log:
+            return None
+        return len(req.prompt_ids) - len(log) + 1
+
     def submit(self, req: Request) -> int:
         """Queue a request; returns its id. The caller's Request is not
         changed (a normalized copy is queued)."""
-        if req.session_id is not None:
-            raise NotImplementedError(f"session continuation (Request.session_id) {_NOT_PORTED}")
         changes: dict = {"stop": _norm_stop(req.stop)}
         if req.temperature <= 0.0:  # temperature 0 is greedy
             if req.temperature < 0.0:
@@ -392,9 +477,16 @@ class ContinuousServer:
             changes["greedy"] = True
             changes["temperature"] = 1.0
         req = dataclasses.replace(req, **changes)
-        if len(req.prompt_ids) > self.max_prompt:
-            raise ValueError(f"prompt length {len(req.prompt_ids)} exceeds max_prompt "
-                             f"{self.max_prompt}")
+        if len(req.prompt_ids) > self.max_prompt and not self.prefill_chunk:
+            # a session continuation prefills only its delta, so the history
+            # may exceed max_prompt while a matching parked session exists
+            # (it is protected from eviction while this request is queued);
+            # with chunked prefill any prompt admits in chunks
+            d = self._session_delta(req)
+            if d is None or d > self.max_prompt:
+                raise ValueError(f"prompt length {len(req.prompt_ids)} exceeds max_prompt "
+                                 f"{self.max_prompt}" + (" (no matching parked session to "
+                                                         "extend)" if req.session_id else ""))
         # the row occupies [0, prompt + max_new - 1) of its slot
         if len(req.prompt_ids) + req.max_new_tokens - 1 > self.T:
             raise ValueError(f"prompt ({len(req.prompt_ids)}) + max_new_tokens "
@@ -425,6 +517,7 @@ class ContinuousServer:
         a finished row then decodes one extra block before its slot frees."""
         if not self.pipeline:
             self._admit()
+            self._advance_chunks(drain=not any(s.active for s in self.slots))
             if not any(s.active for s in self.slots):
                 return []
             self._fit_capacity()
@@ -434,17 +527,25 @@ class ContinuousServer:
         self._inflight = nxt
         # admissions enqueue after the in-flight block: they join the next one
         self._admit()
+        self._advance_chunks(drain=not any(s.active for s in self.slots))
         if any(s.active for s in self.slots):
             self._fit_capacity()
         return finished
 
     def cancel(self, request_id: int) -> bool:
-        """Abandon a request that is queued, decoding, or finished with an
-        unread result. A dispatched block keeps stepping the row, whose
-        tokens are skipped at harvest. False when the id is unknown."""
+        """Abandon a request that is queued, in a chunked admission,
+        decoding, or finished with an unread result. A dispatched block
+        keeps stepping the row, whose tokens are skipped at harvest. False
+        when the id is unknown."""
         for i, (rid, _req, _sub, _wall) in enumerate(self.queue):
             if rid == request_id:
                 del self.queue[i]
+                return True
+        for slot, st in list(self._chunks.items()):
+            if st["rid"] == request_id:
+                del self._chunks[slot]
+                s = self.slots[slot]
+                s.prefilling, s.req, s.request_id, s.phys_len = False, None, -1, 0
                 return True
         for s in self.slots:
             if s.active and s.request_id == request_id:
@@ -457,9 +558,10 @@ class ContinuousServer:
         return self.results.pop(request_id, None) is not None
 
     def busy(self) -> bool:
-        """Queued requests or active rows (a pipelined in-flight block is
-        harvested by ``flush``)."""
-        return bool(self.queue or any(s.active for s in self.slots))
+        """Queued requests, chunked admissions in progress (their slots are
+        neither active nor queued) or active rows; a pipelined in-flight
+        block is harvested by ``flush``."""
+        return bool(self.queue or self._chunks or any(s.active for s in self.slots))
 
     @torch.inference_mode()
     def flush(self) -> List[Result]:
@@ -543,8 +645,9 @@ class ContinuousServer:
         pmask = self._pmask_from_len(length, pb)
         pos = torch.clamp_min(torch.cumsum(pmask, dim=-1) - 1, 0).long()
         cap_mask_d = put(cap_mask)
+        ids_d = put(ids)
         out = gpt2.forward(
-            self.params, c, put(ids),
+            self.params, c, ids_d,
             token_type_ids=put(tts) if tts is not None else torch.full(
                 (gb, pb), self.sp2_id, dtype=torch.long, device=self.device),
             position_ids=pos, attention_mask=pmask,
@@ -564,7 +667,8 @@ class ContinuousServer:
                                    topp_d[:, None])
             first = torch.where(greedy_d, first, sampled)
         self._join(g, out, first, put(meta), pb, G, topp_d[:G], temps_d[:G], greedy_d[:G],
-                   cap_mask_d[:G], logits[:G] if any(r.logprobs for r in reqs) else None)
+                   cap_mask_d[:G], logits[:G] if any(r.logprobs for r in reqs) else None,
+                   ids_d[:G])
         for slot_idx, rid, req, sub, wall in entries:
             s = self.slots[slot_idx]
             s.request_id, s.req = rid, req
@@ -577,12 +681,13 @@ class ContinuousServer:
         self._tick("admit", t0)
 
     def _join(self, g: int, out, first, meta, pb: int, G: int, topp, temps, greedy,
-              cap_mask, logits) -> None:
+              cap_mask, logits, ids) -> None:
         """Scatter the group's first ``G`` prefilled rows into their slots:
         each row's prompt, right-aligned at [pb - len, pb) of the prefill
         cache, is gathered to [0, len) of its slot; the slot's cursor and
         per-row state are set. ``logits`` (given when a row asks for
-        logprobs) give the first tokens' logprobs."""
+        logprobs) give the first tokens' logprobs; ``ids`` [G, pb], the
+        prompts, go to the speculative token buffer."""
         temp, cache = out.cache, self.caches[g]
         local, glob, length = meta[0], meta[1], meta[2]
         src = torch.clamp(pb - length[:, None] + torch.arange(pb, device=self.device)[None, :],
@@ -611,11 +716,166 @@ class ContinuousServer:
         self.emo_slot[glob] = out.emotion_logits[:G].float()
         if self.caption_len:
             self.cap_mask[glob] = cap_mask
+        if self.tokens is not None:
+            # left-aligned prompt ids at [0, len); the duplicated tail is
+            # junk above the cursor, which a lookup never matches
+            self.tokens[glob, :pb] = ids.gather(1, src)
+
+    def _admit_ext_group(self, entries: List[dict], pbd: int, g: int = 0) -> None:
+        """One extension forward over pool ``g``'s Sg rows, ``pbd``
+        positions wide, against the LIVE pool cache (``_extend_fn`` and
+        ``_admit_ext_group`` of ``ergm_tpu``). entries: dicts with slot,
+        start, ids, tts, req, rid, sub, wall, final. Each extending row's
+        delta is written at [start, start + len) and attends to the row's
+        retained history (kpos <= start + j); its cursor moves to start +
+        len. The other rows run junk at their own cursor (above their
+        content, overwritten by later steps, dropped past capacity) and
+        keep their cursor. The last hidden row of each delta gives the
+        row's first token (greedy or sampled), its logprob and emotion
+        logits; the per-slot rows update on the device. A session
+        continuation re-feeds the parked final token, whose K/V write was
+        not guaranteed at park time, then the new tokens; a chunked
+        admission feeds its next slice. A non-final chunk leaves the slot
+        prefilling (its first token is mid-prompt junk that the next chunk
+        replaces); the final one activates it."""
+        t0 = time.time()
+        off, Sg = self.groups[g]
+        ids = np.full((Sg, pbd), self.eos_id, np.int64)
+        tts = np.full((Sg, pbd), self.sp2_id, np.int64)
+        meta = np.zeros((4, Sg), np.int64)  # extends, start, delta length, greedy
+        topp = np.full((Sg,), 0.95, np.float32)
+        temps = np.ones((Sg,), np.float32)
+        for e in entries:
+            i, d = e["slot"] - off, len(e["ids"])
+            ids[i, :d] = e["ids"]
+            if e["tts"] is not None:
+                tts[i, :d] = e["tts"][:d]
+            meta[:, i] = (1, e["start"], d, int(bool(e["req"].greedy)))
+            topp[i], temps[i] = e["req"].top_p, e["req"].temperature
+        self._admit_ctr += 1
+        put = self._put
+        seed = (None if all(e["req"].greedy for e in entries)
+                else fold_seed(sum(e["req"].seed for e in entries), self._admit_ctr))
+        self._extend(g, put(ids), put(tts), put(meta), put(topp), put(temps), seed,
+                     any(e["req"].logprobs for e in entries))
+        for e in entries:
+            s = self.slots[e["slot"]]
+            s.request_id, s.req = e["rid"], e["req"]
+            s.submitted_step, s.submitted_wall = e["sub"], e["wall"]
+            if e["final"]:
+                s.active, s.prefilling = True, False
+                s.admitted_step = self.server_step
+                s.admitted_block = self._block_ctr
+                s.generated, s.lps, s.has_first = [], [], False
+                s.phys_len = len(e["req"].prompt_ids)
+                self._chunks.pop(e["slot"], None)
+            else:
+                s.prefilling = True
+                s.phys_len = e["start"] + len(e["ids"])
+        self._tick("admit_ext", t0)
+
+    def _extend(self, g: int, ids_d, tts_d, meta_d, topp_d, temps_d, seed: Optional[int],
+                want_lp: bool) -> None:
+        """The extension program (``_extend_fn`` of ``ergm_tpu``) over pool
+        ``g``, from device inputs: ``meta_d`` [4, Sg] holds each row's
+        extends flag, start, delta length and greedy flag; sampled rows
+        draw from ``fold_seed``'s ``seed``. No host read."""
+        c, cl = self.gcfgs[g], self.caption_len
+        off, Sg = self.groups[g]
+        pbd = ids_d.shape[1]
+        self.ext_programs += 1
+        ext, start, dlen, greedy_d = meta_d[0] > 0, meta_d[1], meta_d[2], meta_d[3] > 0
+        cache = self.caches[g]
+        orig = cache.index
+        vis = torch.where(ext, start.to(orig.dtype), orig)
+        pos = torch.clamp_max(vis.long()[:, None] + torch.arange(pbd, device=self.device)[None, :],
+                              c.n_positions - 1)
+        out = gpt2.forward(
+            self.params, c, ids_d, token_type_ids=tts_d, position_ids=pos,
+            cache=dataclasses.replace(cache, index=vis),
+            encoder_attention_mask=self.cap_mask[off:off + Sg] if cl else None,
+            seq_lengths=dlen.clamp(1, pbd), compute_logits=False)
+        self.caches[g] = dataclasses.replace(
+            out.cache, index=torch.where(ext, (start + dlen).to(orig.dtype), orig))
+        # the last hidden row of each ragged delta: lm_head on [Sg, D] only
+        jlast = (dlen - 1).clamp(0, pbd - 1)
+        h_last = out.hidden[torch.arange(Sg, device=self.device), jlast][:, None, :]
+        logits = gpt2.lm_logits(self.params, h_last)[:, 0]
+        first = torch.argmax(logits, dim=-1)
+        if seed is not None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            sampled = sample_top_p(logits / temps_d.clamp_min(1e-6)[:, None], gen, topp_d[:, None])
+            first = torch.where(greedy_d, first, sampled)
+
+        def upd(x, new):  # the pool's rows of a per-slot tensor, where extending
+            rows = x[off:off + Sg]
+            keep = ext.view(-1, *([1] * (rows.dim() - 1)))
+            rows.copy_(torch.where(keep, new.to(rows.dtype), rows))
+
+        upd(self.last, first[:, None])
+        upd(self.greedy_row, greedy_d)
+        upd(self.top_p_row, topp_d)
+        upd(self.temp_row, temps_d)
+        upd(self.first_tok, first)
+        if want_lp:
+            lsm = torch.log_softmax(logits.float(), dim=-1)
+            upd(self.first_lp, lsm.gather(-1, first[:, None])[:, 0])
+        upd(self.emo_slot, out.emotion_logits.float())
+        if self.tokens is not None:
+            # the deltas into the token buffer, each at [start, start + len)
+            tok = self.tokens[off:off + Sg]
+            rel = torch.arange(self.T, device=self.device)[None, :] - start[:, None]
+            inwin = ext[:, None] & (rel >= 0) & (rel < dlen[:, None])
+            tok.copy_(torch.where(inwin, ids_d.gather(1, rel.clamp(0, pbd - 1)), tok))
+
+    def _grow_for(self, ext_groups: Dict[tuple, List[dict]], pbs=()) -> None:
+        """Grow each pool's rung to cover its active rows, the admission
+        windows [0, pb) of ``pbs`` ((pb, pool) pairs) and the extensions'
+        writes, plus one block of writes, before any program runs."""
+        extra = self._per_block_writes() + 1
+        for g in range(len(self.groups)):
+            need = self._capacity_need(g)
+            for pb, pg in pbs:
+                if pg == g:
+                    need = max(need, pb + extra)
+            for (_pbd, pg), entries in ext_groups.items():
+                if pg == g:
+                    need = max(need, max(e["start"] + len(e["ids"]) for e in entries) + extra)
+            need = self._phys_for(need)
+            if need > self.Tphys[g]:
+                self._grow_cache(g, need)
+
+    def _advance_chunks(self, drain: bool) -> None:
+        """Feed the next slice of every chunked admission in progress: ONE
+        chunk a server step (the interference bound: concurrent streams see
+        at most one chunk-wide forward between blocks), or, with ``drain``
+        (nothing decoding), every chunk until all are done."""
+        while self._chunks:
+            by_pbd: Dict[tuple, List[dict]] = {}  # (pbd, pool) -> entries
+            for slot, st in list(self._chunks.items()):
+                if st.pop("skip_once", None):
+                    # chunk 1 of a fresh admission ran this step
+                    continue
+                ids, off = st["ids"], st["off"]
+                dlen = min(self.prefill_chunk, len(ids) - off)
+                e = {"slot": slot, "start": st["base"] + off, "ids": ids[off:off + dlen],
+                     "tts": st["tts"][off:off + dlen] if st["tts"] is not None else None,
+                     "req": st["req"], "rid": st["rid"], "sub": st["sub"], "wall": st["wall"],
+                     "final": off + dlen == len(ids)}
+                st["off"] = off + dlen
+                by_pbd.setdefault((_bucket(dlen, self.EXT_BUCKET), self._slot_group(slot)),
+                                  []).append(e)
+            self._grow_for(by_pbd)
+            for (pbd, g), entries in by_pbd.items():
+                self._admit_ext_group(entries, pbd, g)
+            if not drain:
+                break
 
     def _route(self, req: Request) -> int:
         """The pool a fresh admission prefers: the long pool iff the row's
         expected final length (prompt + max_new - 1) exceeds
-        long_threshold, or the request pins a pool."""
+        long_threshold, or the request pins a pool. Session rows stay in
+        the pool that admitted their first turn."""
         if not self.long_slots:
             return 0
         if req.pool == "long":
@@ -624,50 +884,126 @@ class ContinuousServer:
             return 0
         return 1 if len(req.prompt_ids) + req.max_new_tokens - 1 > self.long_threshold else 0
 
-    def _take_free_slot(self, taken: set, g: int = 0) -> Optional[int]:
-        """A free slot, preferring pool ``g``. Short requests overflow into
-        idle long slots; long requests never take short slots (one long
-        row would widen the rung every short slot reads). ``taken`` holds
-        the slots already assigned in this admission pass."""
+    def _take_free_slot(self, protected: set, taken: set, g: int = 0) -> Optional[int]:
+        """A free slot, preferring pool ``g``, else the least recently used
+        parked one that no queued request's session names (``protected``).
+        Short requests overflow into idle long slots; long requests never
+        take short slots (one long row would widen the rung every short
+        slot reads). ``taken`` holds the slots already assigned in this
+        admission pass."""
         pools = [g] + ([1] if self.long_slots and g == 0 else [])
         for p in pools:
             for i in self._group_slots(p):
-                if not self.slots[i].active and i not in taken:
+                s = self.slots[i]
+                if not (s.active or s.parked or s.prefilling) and i not in taken:
                     taken.add(i)
                     return i
+        for p in pools:
+            cands = [(self.slots[i].last_use, i) for i in self._group_slots(p)
+                     if self.slots[i].parked and self.slots[i].session not in protected
+                     and i not in taken]
+            if cands:
+                i = min(cands)[1]
+                self._unpark(i)
+                self.evictions += 1
+                taken.add(i)
+                return i
         return None
+
+    def _session_ext_entry(self, slot_idx, rid, req, sub, wall, log) -> dict:
+        """A continuation's extension entry: the re-fed parked final token
+        (token type sp2: it was generated), then the prompt's new tokens
+        with their request token types."""
+        delta = [log[-1]] + list(req.prompt_ids[len(log):])
+        dtts = None
+        if req.token_type_ids is not None:
+            tt = list(req.token_type_ids)[-(len(delta) - 1):] if len(delta) > 1 else []
+            dtts = [self.sp2_id] + tt
+            dtts += [self.sp2_id] * (len(delta) - len(dtts))
+        return {"slot": slot_idx, "start": len(log) - 1, "ids": delta, "tts": dtts, "req": req,
+                "rid": rid, "sub": sub, "wall": wall, "final": True}
 
     def _admit(self) -> None:
         if not self.queue:
             return
         if self.admit_policy == "sorted" and len(self.queue) > 1:
             self.queue.sort(key=lambda q: -q[1].max_new_tokens)  # stable
-        by_pb: Dict[tuple, List[tuple]] = {}   # (prompt bucket, pool) -> entries
+        by_pb: Dict[tuple, List[tuple]] = {}   # (prompt bucket, pool) -> fresh entries
+        by_ext: Dict[tuple, List[dict]] = {}   # (delta bucket, pool) -> continuations
         deferred: List[tuple] = []
+        claimed: set = set()  # sessions extended in this pass
         taken: set = set()
+        chunk_first: List[tuple] = []  # (slot, request) of chunked fresh admissions
+        protected = {q[1].session_id for q in self.queue if q[1].session_id}
         for rid, req, sub, wall in self.queue:
-            slot_idx = self._take_free_slot(taken, self._route(req))
+            sid = req.session_id
+            if sid and (sid in claimed or any((s.active or s.prefilling) and s.req is not None
+                                              and s.req.session_id == sid for s in self.slots)):
+                # the session's previous turn is still running: wait for the park
+                deferred.append((rid, req, sub, wall))
+                continue
+            d = self._session_delta(req)
+            if d is not None and (d <= self.max_prompt or self.prefill_chunk):
+                slot_idx = self.sessions[sid]
+                s = self.slots[slot_idx]
+                log = list(s.token_log)
+                self._unpark(slot_idx)  # claimed by the continuation
+                claimed.add(sid)
+                taken.add(slot_idx)
+                e = self._session_ext_entry(slot_idx, rid, req, sub, wall, log)
+                if self.prefill_chunk and d > self.prefill_chunk:
+                    # a long continuation delta admits in chunks too
+                    self._chunks[slot_idx] = {"rid": rid, "req": req, "sub": sub, "wall": wall,
+                                              "ids": e["ids"], "tts": e["tts"], "off": 0,
+                                              "base": e["start"]}
+                    s.prefilling, s.req = True, req
+                    continue
+                by_ext.setdefault((_bucket(d, self.EXT_BUCKET), self._slot_group(slot_idx)),
+                                  []).append(e)
+                continue
+            if sid and sid in self.sessions:
+                # the prompt left the parked history: its K/V is useless
+                self._unpark(self.sessions[sid])
+            slot_idx = self._take_free_slot(protected, taken, self._route(req))
             if slot_idx is None:
                 deferred.append((rid, req, sub, wall))
                 continue
-            pb = _bucket(len(req.prompt_ids), self.prompt_bucket)
-            by_pb.setdefault((pb, self._slot_group(slot_idx)), []).append(
+            grp = self._slot_group(slot_idx)
+            Lp = len(req.prompt_ids)
+            if self.prefill_chunk and Lp > self.prefill_chunk:
+                # chunk 1 rides the admission group (the modality injection,
+                # the caption K/V and K1); the rest rides extensions
+                C = self.prefill_chunk
+                full_tt = (None if req.token_type_ids is None
+                           else (list(req.token_type_ids) + [self.sp2_id] * Lp)[:Lp])
+                pseudo = dataclasses.replace(
+                    req, prompt_ids=list(req.prompt_ids[:C]),
+                    token_type_ids=None if full_tt is None else full_tt[:C])
+                self._chunks[slot_idx] = {"rid": rid, "req": req, "sub": sub, "wall": wall,
+                                          "ids": list(req.prompt_ids), "tts": full_tt, "off": C,
+                                          "base": 0, "skip_once": True}
+                chunk_first.append((slot_idx, req))
+                by_pb.setdefault((_bucket(C, self.prompt_bucket), grp), []).append(
+                    (slot_idx, rid, pseudo, sub, wall))
+                continue
+            by_pb.setdefault((_bucket(Lp, self.prompt_bucket), grp), []).append(
                 (slot_idx, rid, req, sub, wall))
         self.queue = deferred
-        if not by_pb:
+        if not by_pb and not by_ext:
             return
-        # joins write the [0, pb) window: capacity must cover it first
-        for g in range(len(self.groups)):
-            need = self._capacity_need(g)
-            pbs = [pb for (pb, pg) in by_pb if pg == g]
-            if pbs:
-                need = max(need, max(pbs) + self.sync_every + 1)
-            need = self._phys_for(need)
-            if need > self.Tphys[g]:
-                self._grow_cache(g, need)
+        # joins write the [0, pb) window, extensions up to the whole
+        # continuation: capacity must cover both first
+        self._grow_for(by_ext, by_pb.keys())
         for (pb, g), entries in by_pb.items():
             for i in range(0, len(entries), self.GROUP_CAP):
                 self._admit_group(entries[i:i + self.GROUP_CAP], pb, g)
+        for (pbd, g), entries in by_ext.items():
+            self._admit_ext_group(entries, pbd, g)
+        for slot_idx, req in chunk_first:
+            # the group prefilled chunk 1 and activated the slot: back to
+            # prefilling, with the real request, until the last chunk
+            s = self.slots[slot_idx]
+            s.active, s.prefilling, s.req = False, True, req
 
     # -- decode ----------------------------------------------------------------
 
@@ -675,7 +1011,7 @@ class ContinuousServer:
         """``sync_every``, except while draining (no queue): the smallest
         ladder length covering the longest remaining budget (stop
         sequences only end rows earlier)."""
-        if not self.adaptive_block or self.queue:
+        if not self.adaptive_block or self.queue or self._chunks:
             return self.sync_every
         max_rem = 0
         for s in self.slots:
@@ -756,18 +1092,92 @@ class ContinuousServer:
         self.caches, self.last = caches, last
         return toks, lps
 
+    def _spec_decode(self, actives: tuple):
+        """``sync_every`` MACRO steps over the pools with an active row
+        (``_spec_decode_fn`` of ``ergm_tpu``), with no host read. Each
+        drafts ``spec_gamma`` tokens a slot from the most recent earlier
+        occurrence of its last ``spec_ngram`` consumed tokens in the token
+        buffer (the pending token repeated when there is none), verifies
+        [pending, proposals] in ONE forward of gamma + 1 positions, accepts
+        the longest prefix of proposals equal to the verify argmaxes y,
+        and moves the cursor to index + accepted + 1: the emitted tokens
+        are y[:accepted + 1]. Returns the [M, S, gamma + 1] argmaxes and
+        the [M, S] counts."""
+        c, cl, dev = self.cfg, self.caption_len, self.device
+        M, G, N, T = self.sync_every, self.spec_gamma, self.spec_ngram, self.T
+        W = T - N - G  # candidate window starts
+        out_toks = torch.zeros((M, self.S, G + 1), dtype=torch.long, device=dev)
+        out_cnt = torch.zeros((M, self.S), dtype=torch.long, device=dev)
+        tpos = torch.arange(T, device=dev)[None, :]
+        wpos = torch.arange(W, device=dev)[None, :]
+        for m in range(M):
+            for g in (g for g in range(len(self.groups)) if actives[g]):
+                off, Sg = self.groups[g]
+                cache = self.caches[g]
+                tok = self.tokens[off:off + Sg]
+                last = self.last[off:off + Sg]
+                idx = cache.index.long()
+                # the pending token at its position
+                tok.scatter_(1, idx.clamp(0, T - 1)[:, None], last)
+                key = tok.gather(1, (idx[:, None] - (N - 1) + torch.arange(N, device=dev)[None, :])
+                                 .clamp(0, T - 1))
+                eq = torch.ones((Sg, W), dtype=torch.bool, device=dev)
+                for j in range(N):
+                    eq &= tok[:, j:j + W] == key[:, j:j + 1]
+                # the window must end strictly before this occurrence
+                eq &= (wpos + N - 1 < idx[:, None]) & (idx >= N)[:, None]
+                found = eq.any(dim=1)
+                # the most recent match: the first maximum of the reversed row
+                t_star = torch.where(found, W - 1 - torch.argmax(eq.flip(1).int(), dim=1), 0)
+                props = tok.gather(1, t_star[:, None] + N + torch.arange(G, device=dev)[None, :])
+                props = torch.where(found[:, None], props, last)
+                # the proposals after the pending token (past T: dropped)
+                rel = tpos - idx[:, None] - 1
+                inwin = (rel >= 0) & (rel < G)
+                tok.copy_(torch.where(inwin, props.gather(1, rel.clamp(0, G - 1)), tok))
+                pos = torch.clamp_max(idx[:, None] + torch.arange(G + 1, device=dev)[None, :],
+                                      c.n_positions - 1)
+                out = gpt2.forward(
+                    self.params, self.gcfgs[g], torch.cat([last, props], dim=1),
+                    token_type_ids=self._sp2[off:off + Sg].expand(Sg, G + 1), position_ids=pos,
+                    cache=cache, encoder_attention_mask=self.cap_mask[off:off + Sg] if cl else None)
+                y = torch.argmax(out.logits, dim=-1)  # [Sg, G + 1]
+                match = props == y[:, :G]
+                a = torch.where(match.all(dim=1), G, torch.argmin(match.int(), dim=1))
+                cnt = a + 1
+                # the cursor back to the accepted prefix (the K/V above it is
+                # invisible junk, overwritten later)
+                self.caches[g] = dataclasses.replace(out.cache,
+                                                     index=(idx + cnt).to(cache.index.dtype))
+                last.copy_(y.gather(1, a[:, None]))
+                out_toks[m, off:off + Sg] = y
+                out_cnt[m, off:off + Sg] = cnt
+        return out_toks, out_cnt
+
     def _dispatch_block(self):
         """Enqueue one decode block and its one device-to-host copy;
-        returns the in-flight handle. The cursor mirrors advance here (the
-        device cursors move whether or not the host has harvested)."""
+        returns the in-flight handle. A plain block advances the cursor
+        mirrors here (the device cursors move whether or not the host has
+        harvested); a speculative one advances each row by its own count,
+        so its mirrors move at harvest (spec mode is synchronous only).
+        Blocks are speculative when every active row is greedy and none
+        wants logprobs."""
         all_greedy = all(s.req.greedy for s in self.slots if s.active)
         want_lp = any(s.active and s.req.logprobs for s in self.slots)
+        spec = bool(self.spec_gamma) and all_greedy and not want_lp
         actives = tuple(any(self.slots[i].active for i in self._group_slots(g))
                         for g in range(len(self.groups)))
         t0 = time.time()
-        n = self._pick_block_len()
-        toks, lps = self._decode(all_greedy, actives, want_lp, n)
-        parts = [toks.flatten().float(), self.first_tok.float(), self.emo_slot.flatten()]
+        if spec:
+            n = self.sync_every
+            toks, cnts = self._spec_decode(actives)
+            self.spec_macro += n
+            parts = [toks.flatten().float(), cnts.flatten().float()]
+        else:
+            n = self._pick_block_len()
+            toks, lps = self._decode(all_greedy, actives, want_lp, n)
+            parts = [toks.flatten().float()]
+        parts += [self.first_tok.float(), self.emo_slot.flatten()]
         if want_lp:
             parts += [lps.flatten(), self.first_lp]
         packed = torch.cat(parts)
@@ -784,27 +1194,34 @@ class ContinuousServer:
         block_id = self._block_ctr
         self._block_ctr += 1
         self.server_step += 1
-        for s in self.slots:
-            if s.active:
-                s.phys_len += n
-        return block_id, n, want_lp, host, event
+        if not spec:
+            for s in self.slots:
+                if s.active:
+                    s.phys_len += n
+        return block_id, n, spec, want_lp, host, event
 
     def _harvest(self, inflight) -> List[Result]:
         """Wait for one block's copy (its one host round trip) and do the
         token bookkeeping. Rows admitted after the block was dispatched
         (pipelined mode) are skipped: their tokens start in the next one."""
-        block_id, n, want_lp, host, event = inflight
+        block_id, n, spec, want_lp, host, event = inflight
         t0 = time.time()
         if event is not None:
             event.synchronize()
         arr = host.numpy()
-        S, E = self.S, self.cfg.num_emotions
-        toks_h = arr[:n * S].reshape(n, S).astype(np.int64)
-        first_h = arr[n * S:n * S + S].astype(np.int64)
-        emo_h = arr[n * S + S:n * S + S + S * E].reshape(S, E).copy()
+        S, E, G1 = self.S, self.cfg.num_emotions, self.spec_gamma + 1
+        if spec:
+            toks_h = arr[:n * S * G1].reshape(n, S, G1).astype(np.int64)
+            cnts_h = arr[n * S * G1:n * S * (G1 + 1)].reshape(n, S).astype(np.int64)
+            o = n * S * (G1 + 1)
+        else:
+            toks_h = arr[:n * S].reshape(n, S).astype(np.int64)
+            o = n * S
+        first_h = arr[o:o + S].astype(np.int64)
+        emo_h = arr[o + S:o + S + S * E].reshape(S, E).copy()
         lps_h = flp_h = None
         if want_lp:
-            o = n * S + S + S * E
+            o += S + S * E
             lps_h = arr[o:o + n * S].reshape(n, S).copy()
             flp_h = arr[o + n * S:o + n * S + S].copy()
         t0 = self._tick("block_wait", t0)
@@ -818,12 +1235,23 @@ class ContinuousServer:
                 s.generated = [int(first_h[i])]
                 s.lps = [float(flp_h[i])] if track_lp else []
                 s.has_first = True
-            for k in range(n):
-                if self._done(s):
-                    break
-                s.generated.append(int(toks_h[k, i]))
-                if track_lp:
-                    s.lps.append(float(lps_h[k, i]))
+            if spec:
+                for m in range(n):
+                    cnt = int(cnts_h[m, i])
+                    s.phys_len += cnt
+                    self.spec_proposed += self.spec_gamma
+                    self.spec_accepted += cnt - 1
+                    for k in range(cnt):
+                        if self._done(s):
+                            break
+                        s.generated.append(int(toks_h[m, i, k]))
+            else:
+                for k in range(n):
+                    if self._done(s):
+                        break
+                    s.generated.append(int(toks_h[k, i]))
+                    if track_lp:
+                        s.lps.append(float(lps_h[k, i]))
             done = self._done(s)
             if s.req.stream_cb is not None:
                 new = s.generated[n_before:]
@@ -855,6 +1283,27 @@ class ContinuousServer:
                      logprobs=list(s.lps[:len(s.generated)]) if s.req.logprobs else None)
         self.results[s.request_id] = res
         s.active = False
+        if s.req.session_id:
+            # park: keep the slot's K/V for the session's next turn. The
+            # last emitted token's K/V write is not guaranteed (it may be
+            # pending when the block ends), so the continuation re-feeds it:
+            # token_log is everything consumed or emitted, and the cache
+            # surely holds token_log[:-1]
+            sid = s.req.session_id
+            old = self.sessions.get(sid)
+            if old is not None and old != slot_idx:
+                self._unpark(old)  # the same session finished again elsewhere
+            s.parked, s.session = True, sid
+            s.token_log = list(s.req.prompt_ids) + list(s.generated)
+            s.phys_len = len(s.token_log)
+            s.last_use = self._block_ctr
+            self.sessions[sid] = slot_idx
         s.req = None
         s.generated, s.lps, s.has_first = [], [], False
         return res
+
+    def _unpark(self, slot_idx: int) -> None:
+        s = self.slots[slot_idx]
+        if s.session is not None:
+            self.sessions.pop(s.session, None)
+        s.parked, s.session, s.token_log = False, None, []

@@ -628,38 +628,39 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
 
 def _self_attention_rows(h, p: Attention, li: int, cache: KVCache, *, config, attn_mask,
                          stage_index: Optional[int]):
-    """Single-token self-attention under per-row cursors (the server's
-    decode step, ``ergm_tpu/models/gpt2.py:658-737,820-861``); no value
-    is read on the host.
+    """Self-attention under per-row cursors (the server's steps,
+    ``ergm_tpu/models/gpt2.py:658-737,820-875,905-922``); no value is read
+    on the host.
 
-    A compute-dtype cache decodes per step: row b writes its K/V at
-    index[b] (dropped past capacity) and sees the keys at kpos <=
-    index[b]; the attention is the plain math (K5's gates take no single
-    query). A quantized cache decodes staged (``cache.sk`` set), as the
-    server runs it: step ``stage_index`` of the block writes every row's
-    K/V at that uniform index of the staging buffers, and the query
-    attends, by one softmax over both score vectors, over the main
-    cache's flushed prefix [0, index[b] - stage_index) and the staging
-    tail [0, stage_index], read through the quantize-dequantize round
-    trip that ``flush_staging`` will commit, so reads agree with a
-    per-step quantized cache."""
+    Row b writes its L new entries at [index[b], index[b] + L) (entries
+    past capacity are dropped) and query j of the row sees the keys at
+    kpos <= index[b] + j: the single-token decode step, and with L > 1 the
+    speculative verify window and the server's extension (session deltas,
+    prompt chunks). The attention is the plain math (K5's gates take no
+    bias, and no single query). A quantized cache writes its codes and
+    scales straight into the cache and attends by dequantize-then-attend,
+    except for single-token steps, which a quantized cache decodes STAGED
+    (``cache.sk`` set), as the server runs them: step ``stage_index`` of
+    the block writes every row's K/V at that uniform index of the staging
+    buffers, and the query attends, by one softmax over both score
+    vectors, over the main cache's flushed prefix [0, index[b] -
+    stage_index) and the staging tail [0, stage_index], read through the
+    quantize-dequantize round trip that ``flush_staging`` will commit, so
+    reads agree with a per-step quantized cache."""
     c = config
     B, L, _ = h.shape
-    if L != 1:
-        raise NotImplementedError("multi-token steps under per-row cursors (the speculative "
-                                  "server's verify window) are not ported yet; see ROADMAP.md "
-                                  "queue 1 item 5")
     H = c.n_head
-    q, k, v = (_split_heads(x, H) for x in dense(h, p.c_attn).chunk(3, dim=-1))  # [B, H, 1, Dh]
+    q, k, v = (_split_heads(x, H) for x in dense(h, p.c_attn).chunk(3, dim=-1))  # [B, H, L, Dh]
     idx = cache.index.long()
     T = cache.k.shape[-2]
     scale = _attn_scale(c, li)
     quant = cache.k_scale is not None
     kpos = torch.arange(T, device=h.device)[None, :]
-    if quant != (cache.sk is not None):
+    if (cache.sk is not None) != (quant and L == 1):
         raise ValueError("under per-row cursors a quantized cache decodes staged (sk/sv set) "
-                         "and a compute-dtype cache per step")
-    if quant:
+                         "single-token steps; a compute-dtype cache and multi-token steps "
+                         "write the cache directly")
+    if cache.sk is not None:
         cache.sk[li, :, :, stage_index] = k[:, :, 0]
         cache.sv[li, :, :, stage_index] = v[:, :, 0]
         k_main = _dequantize(cache.k[li], cache.k_scale[li], c)
@@ -678,15 +679,25 @@ def _self_attention_rows(h, p: Attention, li: int, cache: KVCache, *, config, at
         out = (torch.matmul(probs[..., :T].to(pv), v_main)
                + torch.matmul(probs[..., T:].to(pv), v_tail.to(pv)))
         return _attn_project(out, p)
-    pos = idx[:, None]
-    _scatter_rows(cache.k[li:li + 1], pos, k[None].to(cache.k.dtype))
-    _scatter_rows(cache.v[li:li + 1], pos, v[None].to(cache.v.dtype))
-    k_all, v_all = cache.k[li], cache.v[li]
-    tail = (kpos <= pos).float()
-    kv_mask = tail if attn_mask is None else attn_mask[:, :T] * tail
-    out = multihead_attention(q, k_all, v_all, causal=False, kv_mask=kv_mask,
+    pos = idx[:, None] + torch.arange(L, device=h.device)[None, :]  # [B, L]
+    if quant:
+        bits = _kv_bits(c)
+        for x, codes, scales in ((k, cache.k, cache.k_scale), (v, cache.v, cache.v_scale)):
+            xq, xs = _quantize_kv(x, bits)
+            _scatter_rows(codes[li:li + 1], pos, xq[None])
+            _scatter_rows(scales[li:li + 1], pos, xs[None])
+        k_all = _dequantize(cache.k[li], cache.k_scale[li], c)
+        v_all = _dequantize(cache.v[li], cache.v_scale[li], c)
+    else:
+        _scatter_rows(cache.k[li:li + 1], pos, k[None].to(cache.k.dtype))
+        _scatter_rows(cache.v[li:li + 1], pos, v[None].to(cache.v.dtype))
+        k_all, v_all = cache.k[li], cache.v[li]
+    # query j of row b sees kpos <= index[b] + j: a [B, 1, L, T] bias
+    bias = torch.where(kpos[:, None, :] <= pos[:, :, None], 0.0, -1e9)[:, None]
+    out = multihead_attention(q, k_all, v_all, causal=False,
+                              kv_mask=None if attn_mask is None else attn_mask[:, :T],
                               q_mask=None if attn_mask is None else attn_mask[:, :L],
-                              scale=scale, impl=c.attention_impl)
+                              extra_bias=bias, scale=scale, impl=c.attention_impl)
     return _attn_project(out, p)
 
 

@@ -922,3 +922,120 @@ def test_server_block_dispatch_has_no_host_sync():
     assert len(calls) > 1 and set(res) == set(rids)
     assert [c.kv_cache_dtype for c in srv.gcfgs] == ["auto", "int8"]
     assert all(len(res[r].logprobs) == len(res[r].tokens) for r in rids[1::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_extension_rows_past_capacity_on_card(kv):
+    """A 6-token step under per-row cursors (the extension's and the verify
+    window's form) whose rows cross the cache's end (at T-3, at T-1, past
+    T): no device assert, and the cache and logits equal the same step's
+    on the CPU (fp32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import copy
+
+    cfg, p = _spec_model(n_layer=2)
+    cfg = cfg.replace(kv_cache_dtype=kv, use_cross_attention=False)
+    p_cpu = copy.deepcopy(p).to("cpu")
+    B, T, L = 4, 40, 6
+    cursors = torch.tensor([5, T - 3, T - 1, T + 4], dtype=torch.int32)
+    rng = np.random.default_rng(15)
+    ids = torch.as_tensor(rng.integers(0, 500, (B, L)))
+    pos = torch.clamp_max(cursors.long()[:, None] + torch.arange(L)[None, :], cfg.n_positions - 1)
+    init = {}  # the same contents on both
+    for f, x in vars(tg.init_kv_cache(cfg, B, T, device="cpu")).items():
+        if f in ("k", "v"):
+            init[f] = (torch.as_tensor(rng.integers(-100, 100, x.shape), dtype=torch.int8)
+                       if x.dtype == torch.int8 else torch.as_tensor(rng.standard_normal(x.shape),
+                                                                     dtype=x.dtype))
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p)):
+        cache = tg.init_kv_cache(cfg, B, T, device=dev, per_row_index=True)
+        for f, x in init.items():
+            getattr(cache, f).copy_(x)
+        if cache.k_scale is not None:
+            cache.k_scale.fill_(0.02)
+            cache.v_scale.fill_(0.03)
+        cache.index = cursors.to(dev)
+        with torch.inference_mode():
+            o = tg.forward(params, cfg, ids.to(dev), position_ids=pos.to(dev), cache=cache,
+                           token_type_ids=torch.full_like(ids, 510).to(dev))
+        torch.cuda.synchronize()
+        fields = ("k", "v", "k_scale", "v_scale")
+        out[dev] = (o.logits.cpu(), {f: getattr(cache, f).cpu() for f in fields
+                                     if getattr(cache, f) is not None}, o.cache.index.cpu())
+    (lc, cc, ic), (lg, cg, ig) = out["cpu"], out["cuda"]
+    assert torch.equal(ig, cursors + L)
+    assert (lg - lc).abs().max() <= 1e-3
+    for f in cc:
+        if cc[f].dtype == torch.int8:
+            assert (cg[f].int() - cc[f].int()).abs().max() <= 1, f  # a rounding edge at most
+        else:
+            assert torch.allclose(cg[f].float(), cc[f].float(), atol=1e-4), f
+
+
+def _sync_guarded(srv, *names):
+    """Wraps the server's methods ``names`` to run under
+    ``torch.cuda.set_sync_debug_mode("error")``; returns the call counts."""
+    calls = {n: 0 for n in names}
+    for name in names:
+        real = getattr(srv, name)
+
+        def guarded(*args, _real=real, _name=name, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                calls[_name] += 1
+                return _real(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        setattr(srv, name, guarded)
+    return calls
+
+
+@pytest.mark.cuda
+def test_spec_and_extension_dispatch_have_no_host_sync():
+    """Speculative blocks and the extension program (session deltas and
+    prompt chunks) run under ``torch.cuda.set_sync_debug_mode("error")``, which raises on a host
+    read of a device value; their greedy tokens equal ``generate``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.infer.server import Request
+
+    cfg, p, srv = _server_setup(max_prompt=64, spec_gamma=3, spec_ngram=2, prefill_chunk=16)
+    calls = _sync_guarded(srv, "_dispatch_block", "_extend")
+    rng = np.random.default_rng(16)
+    unit = rng.integers(0, 500, (5,)).tolist()
+    p1, long_p = unit * 3, rng.integers(0, 500, (50,)).tolist()
+    r1 = srv.submit(Request(prompt_ids=p1, max_new_tokens=8, greedy=True, session_id="s"))
+    r2 = srv.submit(Request(prompt_ids=long_p, max_new_tokens=8, greedy=True))
+    res = srv.run_until_drained()
+    p2 = p1 + res[r1].tokens + unit
+    r3 = srv.submit(Request(prompt_ids=p2, max_new_tokens=8, greedy=True, session_id="s"))
+    res = srv.run_until_drained()
+    assert calls["_dispatch_block"] > 1 and calls["_extend"] >= 3
+    assert srv.spec_macro > 0 and srv.spec_accepted > 0
+    for rid, q in ((r2, long_p), (r3, p2)):
+        assert res[rid].tokens == _card_greedy(p, cfg, q, 8)
+
+
+@pytest.mark.cuda
+def test_session_tokens_equal_full_prefill_on_card():
+    """fp32 on the card: a three-turn session (the deltas through the
+    extension, the second through two chunks) gives a fresh full-prompt
+    ``generate``'s tokens at every turn."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.infer.server import Request
+
+    cfg, p, srv = _server_setup(max_prompt=32, prefill_chunk=16)
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(0, 500, (12,)).tolist()
+    for turn, new in enumerate((0, 30, 7)):
+        prompt = prompt + rng.integers(0, 500, (new,)).tolist()
+        rid = srv.submit(Request(prompt_ids=prompt, max_new_tokens=8, greedy=True,
+                                 session_id="s"))
+        got = srv.run_until_drained()[rid].tokens
+        assert got == _card_greedy(p, cfg, prompt, 8), turn
+        prompt = prompt + got
+    assert srv.ext_programs == 3

@@ -188,21 +188,25 @@ def test_incremental_submission(setup):
 
 
 def test_rejections(setup):
-    """Prompts past max_prompt and budgets past the cache are refused at
-    submit; arguments of the parts not ported raise NotImplementedError."""
+    """Prompts past max_prompt (a session's history too, when no parked
+    session matches it) and budgets past the cache are refused at submit;
+    chunk sizes outside [EXT_BUCKET, max_prompt] at construction; the
+    slot-axis mesh, not ported, raises NotImplementedError."""
     cfg, params = setup
     srv = server(params, cfg, slots=1, max_prompt=16, cache_len=64)
     with pytest.raises(ValueError, match="max_prompt"):
         srv.submit(Request(prompt_ids=list(range(40))))
+    with pytest.raises(ValueError, match="no matching parked session"):
+        srv.submit(Request(prompt_ids=list(range(40)), session_id="s"))
     with pytest.raises(ValueError, match="cache"):
         srv.submit(Request(prompt_ids=[1] * 7, max_new_tokens=60))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.submit(Request(prompt_ids=[1] * 7, session_id="s"))
     srv.submit(Request(prompt_ids=[1] * 7, max_new_tokens=16, greedy=True))
     assert len(srv.run_until_drained()) == 1
-    for kw in (dict(spec_gamma=2), dict(prefill_chunk=16), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            server(params, cfg, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        server(params, cfg, mesh=object())
+    for chunk in (8, 48):
+        with pytest.raises(ValueError, match="prefill_chunk"):
+            server(params, cfg, prefill_chunk=chunk)
     with pytest.raises(ValueError, match="cross_kv_dtype"):
         server(params, cfg.replace(cross_kv_dtype="int8"))
     with pytest.raises(ValueError, match="admit_policy"):
