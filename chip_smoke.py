@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, speculative, beam, continuous-batching
-server and training paths once on an NVIDIA GPU.
+server, feature-extraction, test-run and training paths once on an NVIDIA
+GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -172,6 +173,37 @@ Phases, each of which raises on failure:
    synthetic dataset (B=48, batches padded to 512): validation, a
    best-PPL checkpoint, and a resume that restores it.
 
+13. feature extraction and test runs (``pipeline_phase``), run between
+   the server phases and training: the wav2vec2-base encoder (7 convs,
+   768 wide, 12 layers, random weights from seed 0) over clips of 41,040,
+   82,000, 48,000, 327,760 and 368,720 samples at 16 kHz (128, 256, 149,
+   1,024 and 1,152 frames) and one of 1.5 s at 22.05 kHz, at B=1 in fp32
+   and bf16, entered with cuDNN's TF32 on: K5 must launch 12 times for each
+   clip whose frame count is a multiple of 128 (1,152 through JAX's flash
+   gate) and never for the others, every launch within its bar (fp32
+   F32_TOL, bf16 the bf16 bar) of ``block_mha_reference``
+   (``KernelShadow``), the fp32 features of three clips within 1e-3 of the
+   CPU's; ms a clip (host wall), one clip's device busy time and host wall
+   read in the same profiled passes, and each convolution of a 128-frame
+   clip timed alone. ``extract_features.main`` over the same directory (PNG
+   keyframes where PIL imports): K5 as above, its audio features equal to
+   the direct run's. The BLIP ViT-B/16 encoder at 384 px (577 tokens, no
+   K5) in fp32 and bf16: ms an image. ``extract_text_features`` at gpt2
+   full width in bf16 over 256 utterances of 8-250 tokens: K5 12 times
+   for each batch bucketed to 128 or 256 tokens, none for 64 or 192.
+   ``run_test`` at gpt2 full width (bf16, random weights from seed 0) over
+   a synthetic split of 5 batches of 64 (words across the whole
+   vocabulary, captions on every other dialogue), 32 new tokens at top-p
+   0.8 (full sort), then ``Evaluator.evaluate_all`` (BERTScore skipped: no
+   local model): K5 12 times and K6 once an eval step, K1 12 times (self)
+   and 12 more (cross) a generate prefill; a second run holds every K1, K5
+   and K6 launch against its plain version; utt/s and the eval step's ms.
+   fp32 ``run_test`` on a 2-layer model of gpt2 width, greedy, card
+   against CPU: hypotheses by the margin rule, losses within 1e-4
+   relative. ``train_bpe`` with the native merge loop (built from
+   ``cpp/bpe_core.cpp`` into ``ergm_tpu_torch/_build/``), ``text2ids.main``,
+   and three turns of ``run_repl`` at gpt2 width.
+
 Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
 shapes, the plain version's and a library call's time), and as its last
@@ -188,6 +220,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -1119,8 +1152,9 @@ class KernelShadow:
     """Holds every launch of the given kernels in a run against its plain
     version on the same inputs: each wrapper is wrapped to call the plain
     version after it and keep, on the device, the largest |kernel - plain|
-    as a share of the bf16 bar 2e-2 + 1e-2 |plain|, over the output rows
-    that ``rows(args, kwargs)`` marks (all when it gives None). The plain
+    as a share of its bar, over the output rows that ``rows(args, kwargs)``
+    marks (all when it gives None): F32_TOL where the first input is fp32,
+    else the bf16 bar 2e-2 + 1e-2 |plain|. The plain
     versions add to no count; the kernels' own launches in such a run are
     not the path's. ``kernels``: (module, wrapper name, rows or None);
     K2, K3 and K4 by default."""
@@ -1144,7 +1178,8 @@ class KernelShadow:
             def shadow(*args, _real=real, _plain=plain, _name=name, _rows=rows, **kwargs):
                 got = _real(*args, **kwargs)
                 want = _plain(*args, **kwargs).float()
-                err = (got.float() - want).abs() / (BF16_TOL + 1e-2 * want.abs())
+                f32 = next(a for a in args if isinstance(a, torch.Tensor)).dtype == torch.float32
+                err = (got.float() - want).abs() / (F32_TOL if f32 else BF16_TOL + 1e-2 * want.abs())
                 keep = None if _rows is None else _rows(args, kwargs)
                 if keep is not None:
                     err = torch.where(keep > 0, err, 0.0)
@@ -2663,6 +2698,600 @@ def profile_train_step(card: str, path: str) -> None:
           f"{device_ms:.1f} ms: {split}; table in {path}")
 
 
+# ---------------------------------------------------------------------------
+# The feature-extraction and test-run paths (pipeline_phase)
+# ---------------------------------------------------------------------------
+
+# 16 kHz clips and their frame counts ((n - 400) // 320 + 1): 128, 256, 149
+# (the plain math), 1,024 and 1,152 (K5 inside JAX's flash gate); one 1.5 s
+# clip at 22.05 kHz (24,000 samples, 74 frames, after resampling)
+PIPE_CLIPS, PIPE_22K = (41_040, 82_000, 48_000, 327_760, 368_720), 33_075
+PIPE_IMAGES, PIPE_TEXT_UTTS = 2, 256
+# run_test: 80 dialogues of 4 turns (5 batches of 64), captions on every
+# other dialogue, words across gpt2's whole vocabulary; 32 new tokens at
+# top-p 0.8 with the full-sort sampler
+PIPE_DIALOGUES, PIPE_TURNS, PIPE_B, PIPE_NEW = 80, 4, 64, 32
+PIPE_CORPUS = [
+    "I can't believe you did that, it is amazing!",
+    "Why are you so upset about the meeting today?",
+    "We lost the game again, and I feel terrible.",
+    "That sounds wonderful, congratulations on the new job.",
+    "Don't worry, everything will be fine in the end.",
+    "Are you kidding me? That is the worst news I've heard all week.",
+    "Thanks for listening to me, I really needed that.",
+    "The weather was cold but the view from the mountain was beautiful.",
+]
+
+
+def _pipe_tone(n: int, sr: int, seed: int) -> np.ndarray:
+    t = np.arange(n) / sr
+    noise = np.random.default_rng(seed).standard_normal(n)
+    return (0.3 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 1330 * t)
+            + 0.02 * noise).astype(np.float32)
+
+
+def _pipe_clips(root: str) -> tuple:
+    """Writes the clips directory (dia0: the 16 kHz clips; dia1: the
+    22.05 kHz clip and the keyframes, PNGs when PIL imports). Returns
+    ({path: frames}, [image arrays, normalised], whether PIL imported)."""
+    import wave
+
+    from ergm_tpu_torch.tools.audio import AudioEncoderConfig
+    from ergm_tpu_torch.tools.extract_features import normalize_image
+
+    frames = {}
+    dirs = {0: [(16000, n) for n in PIPE_CLIPS], 1: [(22050, PIPE_22K)]}
+    cfg = AudioEncoderConfig()
+    for di, clips in dirs.items():
+        d = os.path.join(root, f"dia{di}")
+        os.makedirs(d)
+        for ci, (sr, n) in enumerate(clips):
+            path = os.path.join(d, f"u{ci}.wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(sr)
+                w.writeframes((_pipe_tone(n, sr, ci) * 32767).astype(np.int16).tobytes())
+            frames[path] = cfg.frames_for_samples(round(n * 16000 / sr))
+    rng = np.random.default_rng(9)
+    pixels = [rng.integers(0, 256, (384, 384, 3), dtype=np.uint8) for _ in range(PIPE_IMAGES)]
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        for i, px in enumerate(pixels):
+            Image.fromarray(px).save(os.path.join(root, "dia1", f"k{i}.png"))
+    return frames, [normalize_image(px.astype(np.float32)) for px in pixels], Image is not None
+
+
+def _busy_ms(fn, calls: int = 3) -> tuple:
+    """One call's device busy time and host wall, read in the same passes:
+    ``calls`` calls under torch.profiler after one untraced warm-up step,
+    the wall by the host clock around them (synchronised), the busy time as
+    the union of their device operations' intervals (operations on
+    different streams may overlap: cuDNN runs a grouped convolution as one
+    kernel a group on streams of its own). Returns (busy ms, wall ms, the
+    three device operations with the largest summed durations, with their
+    launches a call)."""
+    import warnings
+
+    cuda, trace = torch.autograd.DeviceType.CUDA, {}
+
+    def ready(prof):  # the active step's events, before the profiler clears them
+        trace["events"], trace["averages"] = list(prof.events()), prof.key_averages()
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Profiler clears events")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                                    on_trace_ready=ready) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.time()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.time() - t0) / calls
+            prof.step()
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in trace["events"]
+                              if e.device_type == cuda
+                              and not e.name.startswith("ProfilerStep")):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    dev = [e for e in trace["averages"]
+           if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
+    return (busy / 1e3 / calls, wall,
+            "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / calls:.3f} ms summed "
+                      f"over {e.count // calls} launches" for e in top))
+
+
+def _audio_convs(card: str, params, cfg) -> None:
+    """Each convolution of a 128-frame clip (41,040 samples) alone, as the
+    fp32 encoder runs it (cuDNN's TF32 off) on random inputs of its shape:
+    CUDA-event medians of 10, operations and rate; the positional conv
+    also under cuDNN's autotuner (``cudnn.benchmark``)."""
+    from ergm_tpu_torch.tools.audio import fp32_convolutions
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    convs, n, c_in = [], 41_040, 1
+    for i, layer in enumerate(params.feature_extractor):
+        c_out, _, k = layer.conv.shape
+        s = cfg.conv_stride[i]
+        x = torch.randn((1, c_in, n), generator=g, device=DEVICE)
+        n = (n - k) // s + 1
+        convs.append((f"conv {i} [{c_in} -> {c_out}, kernel {k}, stride {s}, {n} out]",
+                      lambda x=x, w=layer.conv, s=s: F.conv1d(x, w, stride=s),
+                      2 * n * c_out * c_in * k))
+        c_in = c_out
+    w = params.pos_conv.weight
+    k, groups = w.shape[-1], cfg.num_conv_pos_embedding_groups
+    h = torch.randn((1, cfg.hidden_size, n), generator=g, device=DEVICE)
+    pos = (lambda: F.conv1d(h, w, padding=k // 2, groups=groups))
+    convs.append((f"positional conv [{cfg.hidden_size}, {groups} groups, kernel {k}, {n + 1} "
+                  f"out]", pos, 2 * (n + 1) * cfg.hidden_size * w.shape[1] * k))
+    with fp32_convolutions():
+        for name, fn, ops in convs:
+            ms = _median_ms(fn, reps=10)
+            print(f"pipeline audio fp32 {name}: {ms:.4f} ms, {ops / 1e9:.3f} GFLOP, "
+                  f"{ops / ms / 1e9:.2f} TFLOP/s on {card}")
+        saved = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            ms = _median_ms(pos, reps=10)
+        finally:
+            torch.backends.cudnn.benchmark = saved
+    print(f"pipeline audio fp32 positional conv under cudnn.benchmark: {ms:.4f} ms on {card}")
+
+
+def _pipe_audio(card: str, clips_dir: str, frames: dict) -> dict:
+    """The wav2vec2-base encoder (7 convs, 768 wide, 12 layers, random
+    weights from seed 0, as ``build_audio_extractor`` draws them) over every
+    clip at B=1, fp32 then bf16, entered with cuDNN's TF32 at its default
+    (on): K5 must launch n_layer times for each clip whose frame count is a
+    multiple of 128 and never for the others. Every K5 launch is then held
+    against ``block_mha_reference``, and the fp32 features of three clips
+    against the CPU's. Returns {"fp32": K5 launches, "bf16": ...} and the
+    features by path (fp32)."""
+    from ergm_tpu_torch.tools import audio
+    from ergm_tpu_torch.tools.extract_features import load_wav
+
+    base = audio.AudioEncoderConfig()
+    params = audio.init_audio_params(torch.Generator().manual_seed(0), base, device=DEVICE)
+    paths = sorted(frames)
+
+    @torch.inference_mode()
+    def features(path, cfg, on=DEVICE, p=params):
+        x, sr = load_wav(path)
+        wav = torch.as_tensor(x, device=on)
+        if sr != 16000:
+            wav = audio.resample(wav, sr, 16000)
+        return audio.extract_audio_features(p, cfg, wav[None])[0].float().cpu().numpy()
+
+    launches, feats = {}, {}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the default: the encoder turns it off itself
+    try:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            name = "fp32" if dtype == "float32" else "bf16"
+            for path in paths:  # warm-up (cuBLAS and cuDNN plans per shape)
+                features(path, cfg)
+            runs = {path: [] for path in paths}
+            for _ in range(3):  # the median of three timed passes
+                total = 0
+                for path in paths:
+                    reset_launches()
+                    t0 = time.time()
+                    f = features(path, cfg)
+                    runs[path].append(1e3 * (time.time() - t0))
+                    got = block_attention.LAUNCHES
+                    want = base.num_layers if frames[path] % 128 == 0 else 0
+                    if (got != want or not np.isfinite(f).all()
+                            or f.shape != (base.hidden_size,)):
+                        raise AssertionError(f"audio {name} {os.path.basename(path)} "
+                                             f"({frames[path]} frames): K5 launched {got} times "
+                                             f"(want {want}), features {f.shape}")
+                    total += got
+                    if dtype == "float32":
+                        feats[path] = f
+            walls = [float(np.median(runs[path])) for path in paths]
+            launches[name] = total
+            print(f"pipeline audio {name}: " + ", ".join(
+                f"{frames[p]} frames {w:.1f} ms" for p, w in zip(paths, walls))
+                + f" a clip at B=1 (host wall, synchronised; medians of 3); K5 launched "
+                f"{total} times a pass on {card}")
+            clip = next(p for p in paths if frames[p] == 128)
+            busy, wall, top = _busy_ms(lambda: features(clip, cfg))
+            print(f"pipeline audio {name}: one 128-frame clip under torch.profiler, "
+                  f"{busy:.3f} ms of device busy time in {wall:.3f} ms of host wall (the "
+                  f"same passes): the device idle {1 - busy / wall:.1%} (most: {top}) on "
+                  f"{card}")
+            with KernelShadow(((block_attention, "block_mha", None),)) as shadow:
+                for path in paths:
+                    features(path, cfg)
+            share = shadow.shares()["block_mha"]
+            bar = "the fp32 bar (F32_TOL)" if dtype == "float32" else "the bf16 bar"
+            if shadow.calls["block_mha"] != total or not share <= 1.0:
+                raise AssertionError(f"audio {name}: {shadow.calls['block_mha']} K5 launches "
+                                     f"held, largest error {share:.4f} of {bar}")
+            print(f"pipeline audio {name}: every K5 launch ({total}) within {share:.4f} of "
+                  f"{bar} of its plain version")
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("the audio encoder left cuDNN's TF32 setting changed")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    _audio_convs(card, params, base)
+    cpu = copy.deepcopy(params).to("cpu")
+    for path in [p for p in paths if frames[p] in (128, 149, 74)]:
+        want = features(path, base, on="cpu", p=cpu)
+        err = float(np.abs(feats[path] - want).max())
+        if not err <= 1e-3:
+            raise AssertionError(f"audio fp32 {frames[path]} frames: card against CPU {err}")
+        print(f"pipeline audio fp32 {frames[path]} frames: card within {err:.2e} of the CPU "
+              f"(bar 1e-3, cuDNN TF32 on at entry)")
+    return launches, feats
+
+
+def _pipe_vision(card: str, images: list) -> None:
+    """The BLIP ViT-B/16 encoder at 384 px (577 tokens: no K5, as on the
+    TPU) over the keyframes at B=1, fp32 then bf16: ms per image."""
+    from ergm_tpu_torch.tools import vision
+
+    base = vision.VisionEncoderConfig()
+    params = vision.init_vision_params(torch.Generator().manual_seed(1), base, device=DEVICE)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+
+        @torch.inference_mode()
+        def one(img):
+            x = torch.as_tensor(img, device=DEVICE)[None]
+            return vision.extract_image_features(params, cfg, x)[0].float().cpu().numpy()
+
+        one(images[0])
+        reset_launches()
+        t0 = time.time()
+        out = [one(img) for img in images]
+        wall = 1e3 * (time.time() - t0) / len(images)
+        if block_attention.LAUNCHES or not all(np.isfinite(f).all()
+                                               and f.shape == (base.hidden_size,) for f in out):
+            raise AssertionError(f"vision {dtype}: K5 launched {block_attention.LAUNCHES} "
+                                 f"times at 577 tokens (want 0)")
+        busy, prof_wall, top = _busy_ms(lambda: one(images[0]))
+        print(f"pipeline vision {dtype}: {wall:.1f} ms an image at B=1 (host wall); under "
+              f"torch.profiler {busy:.3f} ms of device busy time in {prof_wall:.3f} ms of wall "
+              f"(the same passes): the device idle {1 - busy / prof_wall:.1%} (most: {top}), "
+              f"577 tokens, K5 not launched on {card}")
+
+
+def _pipe_extract_main(card: str, clips_dir: str, frames: dict, feats: dict,
+                       have_pil: bool) -> int:
+    """``extract_features.main`` on the card over the clips directory: K5
+    launches n_layer times for each 128-multiple clip; its audio features
+    equal the direct fp32 ones. Returns the K5 launches."""
+    import pickle
+
+    from ergm_tpu_torch.tools import extract_features
+    from ergm_tpu_torch.tools.audio import AudioEncoderConfig
+
+    out = os.path.join(clips_dir, "features.pkl")
+    reset_launches()
+    t0 = time.time()
+    extract_features.main([f"--clips_dir={clips_dir}", f"--output_file={out}",
+                           "--split=test", f"--device={DEVICE}"])
+    wall = time.time() - t0
+    launches = block_attention.LAUNCHES
+    want = AudioEncoderConfig().num_layers * sum(f % 128 == 0 for f in frames.values())
+    with open(out, "rb") as f:
+        got = pickle.load(f)["test"]
+    paths = sorted(frames)
+    aud = [x for dia in got["aud"] for x in dia]
+    img = [x for dia in got["img"] for x in dia]
+    if launches != want or len(aud) != len(paths) or len(img) != (PIPE_IMAGES if have_pil else 0):
+        raise AssertionError(f"extract_features.main: K5 launched {launches} times (want "
+                             f"{want}), {len(aud)} audio and {len(img)} image features")
+    err = max(float(np.abs(a - feats[p]).max()) for a, p in zip(aud, paths))
+    if not err <= 1e-5 or not all(np.isfinite(x).all() and x.shape == aud[0].shape for x in img):
+        raise AssertionError(f"extract_features.main: audio features {err} from the direct run")
+    print(f"pipeline extract_features.main: {len(aud)} clips and {len(img)} images "
+          f"{'(PNG through PIL)' if have_pil else '(PIL absent: no image files)'} in "
+          f"{wall:.2f} s (the encoders' random init on the CPU included), K5 launched "
+          f"{launches} times, audio features within {err:.1e} of the direct run, on {card}")
+    return launches
+
+
+def _pipe_text(card: str, params, cfg) -> int:
+    """``extract_text_features`` at gpt2 full width in bf16 over 256
+    utterances of 8-250 tokens in length order (batches of 16 bucketed to
+    64-256 tokens): K5 must launch n_layer times for each 128- and
+    256-token batch and never for the others; every launch is held
+    against its plain version. Returns the K5 launches."""
+    from ergm_tpu_torch.tools.text_features import extract_text_features
+
+    rng = np.random.default_rng(10)
+    lens = np.sort(rng.integers(8, 251, PIPE_TEXT_UTTS))
+    utts = [rng.integers(0, 50257, int(n)).tolist() for n in lens]
+    buckets = [-(-int(lens[s:s + 16].max()) // 64) * 64 for s in range(0, len(lens), 16)]
+    want = cfg.n_layer * sum(b % 128 == 0 for b in buckets)
+    extract_text_features(params, cfg, utts[:16])
+    reset_launches()
+    t0 = time.time()
+    feats = extract_text_features(params, cfg, utts)
+    wall = time.time() - t0
+    got = block_attention.LAUNCHES
+    if got != want or len(feats) != len(utts) or not all(np.isfinite(f).all() for f in feats):
+        raise AssertionError(f"text_features: K5 launched {got} times, want {want} (buckets "
+                             f"{buckets})")
+    with KernelShadow(((block_attention, "block_mha", _k5_rows),)) as shadow:
+        extract_text_features(params, cfg, utts)
+    share = shadow.shares()["block_mha"]
+    if shadow.calls["block_mha"] != got or not share <= 1.0:
+        raise AssertionError(f"text_features: {shadow.calls['block_mha']} K5 launches held "
+                             f"(want {got}), largest error {share} of the bf16 bar")
+    print(f"pipeline text_features bf16: {len(utts)} utterances in {1e3 * wall:.1f} ms "
+          f"({len(utts) / wall:.1f} utt/s), buckets {sorted(set(buckets))}, K5 launched {got} "
+          f"times (the 128 and 256 buckets), within {share:.4f} of the bf16 bar, on {card}")
+    return got
+
+
+def _pipe_split(root: str, n_dialogues: int, seed: int):
+    """A synthetic test split over gpt2's vocabulary, captions on every other
+    dialogue; returns (dataset, SpecialTokens)."""
+    from ergm_tpu_torch.data.assembly import write_meta, write_split
+    from ergm_tpu_torch.data.dataset import DialogueDataset
+    from ergm_tpu_torch.data.synthetic import make_synthetic_split
+
+    payloads, st = make_synthetic_split(num_dialogues=n_dialogues, turns_per_dialogue=PIPE_TURNS,
+                                        utter_len=range(4, 24), base_vocab_size=50257,
+                                        captions="random", seed=seed)
+    caps = payloads["multi"]["cap"]
+    for i in range(1, len(caps), 2):
+        caps[i] = [[] for _ in caps[i]]
+    write_split(payloads, root, "test")
+    write_meta(st, root)
+    ds = DialogueDataset("test", root, sp1_id=st.sp1_id, sp2_id=st.sp2_id, eos_id=st.eos_id)
+    return ds, st
+
+
+class _GreedyGaps:
+    """The top-2 logit margin of every full-sort sampling step, per
+    ``generate_batch`` call of the runner, and its emotion logits."""
+
+    def __enter__(self):
+        from ergm_tpu_torch.infer import generate as gen_mod
+        from ergm_tpu_torch.infer import runner
+
+        self.mods = (gen_mod, runner)
+        self.real = (gen_mod.top_p_filter, runner.generate_batch)
+        self.calls, self.emotion = [], []
+
+        def top_p_filter(probs, top_p):
+            top2 = torch.topk(probs, 2, dim=-1).values.double().log()
+            self.calls[-1].append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+            return self.real[0](probs, top_p)
+
+        def called(params, config, prompts, **kw):
+            self.calls.append([])
+            outs, emo = self.real[1](params, config, prompts, **kw)
+            self.emotion.append(emo)
+            return outs, emo
+        gen_mod.top_p_filter, runner.generate_batch = top_p_filter, called
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].top_p_filter, self.mods[1].generate_batch = self.real
+
+    def rows(self) -> tuple:
+        """([rows, steps] margins, [rows, emotions] logits)."""
+        return (np.concatenate([np.stack(c, axis=1) for c in self.calls]),
+                np.concatenate(self.emotion))
+
+
+def _pipe_runner(card: str, params, cfg) -> dict:
+    """``run_test`` at gpt2 full width, bf16, over 5 batches of 64 with 32
+    new tokens at top-p 0.8 (full sort), then ``Evaluator.evaluate_all``:
+    K5 must launch n_layer times and K6 once in each eval step, K1 n_layer
+    times (self) in each generate prefill and n_layer times more (cross)
+    for each batch carrying captions; a second run holds every K1, K5 and
+    K6 launch against its plain version. Then the fp32 identity: a 2-layer
+    model of gpt2 width, greedy, on the card and on the CPU. Returns the
+    launch counts by kernel."""
+    import warnings
+
+    from ergm_tpu_torch.data.dataset import batches
+    from ergm_tpu_torch.evaluation.evaluate import Evaluator
+    from ergm_tpu_torch.infer.runner import run_test
+    from ergm_tpu_torch.train.steps import batch_to_device, make_eval_step
+
+    with tempfile.TemporaryDirectory() as root:
+        ds, st = _pipe_split(root, PIPE_DIALOGUES, 11)
+    n_batches = -(-len(ds) // PIPE_B)
+    prompts = [sum(1 for t in e.input_ids if t != st.eos_id) for e in ds.examples]
+    if len(ds) != n_batches * PIPE_B or max(prompts) > 128:
+        raise AssertionError(f"runner split: {len(ds)} examples, prompts up to {max(prompts)}")
+    kw = dict(batch_size=PIPE_B, eos_id=st.eos_id, sp2_id=st.sp2_id, max_len=cfg.n_positions,
+              top_p=0.8, max_new_tokens=PIPE_NEW, sampler="full_sort", seed=0)
+    reset_launches()
+    t0 = time.time()
+    res = run_test(params, cfg, ds, **kw)
+    wall = time.time() - t0
+    counts = {**_launch_counts(), **_train_counts()}
+    L = cfg.n_layer
+    want = {"block_mha": L * n_batches, "fused_softmax_xent": n_batches,
+            "prefill_mha": L * n_batches, "prefill_mha_cross": L * n_batches,
+            "block_mha_bwd": 0, "fused_softmax_xent_bwd": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"run_test launches {counts}, want {want}")
+    if (len(res.hypotheses) != len(ds) or not all(math.isfinite(x) for x in res.losses)
+            or len(res.losses) != n_batches):
+        raise AssertionError(f"run_test: {len(res.hypotheses)} hypotheses, losses {res.losses}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        metrics = Evaluator().evaluate_all(
+            res.hypotheses, res.references, true_label_ids=res.true_labels, losses=res.losses,
+            pred_label_ids=res.pred_labels, loss_token_counts=res.loss_tokens)
+    if not any("BERTScore SKIPPED" in str(w.message) for w in caught) or not all(
+            math.isfinite(v) for v in metrics.values()) or "ppl" not in metrics:
+        raise AssertionError(f"evaluate_all: {metrics}")
+    eval_step = make_eval_step(cfg)
+    batch = batch_to_device(next(batches(ds, PIPE_B, st.eos_id)), DEVICE)
+    eval_step(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    for _ in range(5):
+        eval_step(params, batch)
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.time() - t1) / 5
+    eval_busy, eval_wall, top = _busy_ms(lambda: eval_step(params, batch))
+    print(f"pipeline run_test bf16: {len(ds)} utterances in {wall:.2f} s ({len(ds) / wall:.1f} "
+          f"utt/s), {n_batches} batches of {PIPE_B}, {PIPE_NEW} new tokens, eval step "
+          f"{eval_ms:.2f} ms a batch of [{PIPE_B}, 128] (host wall); under torch.profiler "
+          f"{eval_busy:.3f} ms of device busy time in {eval_wall:.3f} ms of wall (the same "
+          f"passes): the device idle {1 - eval_busy / eval_wall:.1%} (most: {top}); launches "
+          f"{counts} on {card}")
+    print(f"pipeline evaluate_all: " + json.dumps({k: round(v, 6) for k, v in metrics.items()})
+          + " (BERTScore skipped: no local model)")
+    shadowed = ((prefill_attention, "prefill_mha", _k1_rows),
+                (block_attention, "block_mha", _k5_rows), (fused_ce, "fused_softmax_xent", None))
+    with KernelShadow(shadowed) as shadow:
+        run_test(params, cfg, ds, **kw)
+    shares = shadow.shares()
+    if not all(v <= 1.0 for v in shares.values()) or shadow.calls["fused_softmax_xent"] != n_batches:
+        raise AssertionError(f"run_test shadow: {shares}, {shadow.calls}")
+    print(f"pipeline run_test: every K1, K5 and K6 launch within its plain version's bf16 bar: "
+          + ", ".join(f"{k} {v:.4f} over {shadow.calls[k]} launches" for k, v in shares.items()))
+    _pipe_identity(card)
+    return counts
+
+
+def _pipe_identity(card: str) -> None:
+    """``run_test`` in fp32 on a 2-layer model of gpt2 width, greedy
+    (top-p 1e-9, full sort), 64 utterances, on the card and on the CPU:
+    hypotheses equal up to each row's first step whose top-2 margin (read
+    on the card) is 1e-3 or less, losses within 1e-4 relative, emotion
+    labels equal where the logits' margin exceeds 1e-3."""
+    from ergm_tpu_torch.infer.runner import run_test
+
+    cfg = ModelConfig.from_model_type("gpt2", vocab_size=50271, dtype="float32",
+                                      modality_dim=768, n_layer=2)
+    cpu = gpt2.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    on_card = copy.deepcopy(cpu).to(DEVICE)
+    with tempfile.TemporaryDirectory() as root:
+        ds, st = _pipe_split(root, 16, 12)
+    kw = dict(batch_size=PIPE_B, eos_id=st.eos_id, sp2_id=st.sp2_id, max_len=cfg.n_positions,
+              top_p=1e-9, max_new_tokens=16, sampler="full_sort")
+    with _GreedyGaps() as gaps:
+        got = run_test(on_card, cfg, ds, **kw)
+    t0 = time.time()
+    want = run_test(cpu, cfg, ds, **kw)
+    cpu_s = time.time() - t0
+    margins, emo = gaps.rows()  # one batch of 64
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got.losses, want.losses))
+    top2 = np.sort(emo, axis=-1)[:, -2:]
+    emo_ok = top2[:, 1] - top2[:, 0] > 1e-3
+    whole = 0
+    for b, (g, w) in enumerate(zip(got.hypotheses, want.hypotheses)):
+        close = np.flatnonzero(margins[b] <= 1e-3)
+        k = int(close[0]) if len(close) else None
+        if g.split()[:k] != w.split()[:k]:
+            raise AssertionError(f"fp32 identity row {b}: {g!r} against the CPU's {w!r} "
+                                 f"(first close step {k})")
+        whole += k is None
+    bad = [b for b in np.flatnonzero(emo_ok) if got.pred_labels[b] != want.pred_labels[b]]
+    if not rel <= 1e-4 or bad or got.references != want.references:
+        raise AssertionError(f"fp32 identity: loss rel {rel}, emotion rows {bad}")
+    print(f"pipeline run_test fp32 identity (2 layers, gpt2 width, {len(ds)} utterances, "
+          f"16 greedy tokens): card equals CPU in {whole} of {len(ds)} rows whole, the rest up "
+          f"to a step decided by 1e-3 or less; losses within {rel:.2e} relative; emotion "
+          f"labels equal in {int(emo_ok.sum())} decided rows; the CPU took {cpu_s:.1f} s; "
+          f"on {card}")
+
+
+def _pipe_tokenizer_repl(card: str) -> int:
+    """``train_bpe`` on a small corpus with the native merge loop (built from
+    cpp/bpe_core.cpp into ergm_tpu_torch/_build/), ``text2ids.main`` over a
+    dialogue file, then three turns of ``run_repl`` at gpt2 width (bf16,
+    B=1). Returns K5's launches in the REPL."""
+    import io
+
+    from ergm_tpu_torch.core.tokens import ADDITIONAL_SPECIAL_TOKENS, SpecialTokens
+    from ergm_tpu_torch.infer.interact import run_repl
+    from ergm_tpu_torch.tokenizer import bpe, native
+    from ergm_tpu_torch.tools import text2ids
+
+    tok = bpe.train_bpe(PIPE_CORPUS * 4, vocab_size=600, special_tokens=ADDITIONAL_SPECIAL_TOKENS)
+    if not tok.native_loaded or native.LIB_PATH.parent != _build.BUILD:
+        raise AssertionError(f"native BPE not loaded from {_build.BUILD} ({native.LIB_PATH})")
+    with tempfile.TemporaryDirectory() as root:
+        tok.save(os.path.join(root, "tok"))
+        dialogues = [PIPE_CORPUS[i:i + 3] for i in range(0, len(PIPE_CORPUS), 3)]
+        with open(os.path.join(root, "test_sent_emo.json"), "w") as f:
+            json.dump(dialogues, f)
+        text2ids.main([f"--data_dir={root}", "--prefixes=test",
+                       f"--tokenizer_dir={os.path.join(root, 'tok')}"])
+        with open(os.path.join(root, "test_sent_emo_ids.json")) as f:
+            ids = json.load(f)
+    if [[tok.decode(u) for u in d] for d in ids] != dialogues:
+        raise AssertionError("text2ids: ids do not decode to the dialogues")
+    print(f"pipeline tokenizer: train_bpe ({len(tok)} tokens), text2ids over "
+          f"{sum(map(len, dialogues))} utterances, native merge loop loaded from {native.LIB_PATH.relative_to(_build.PACKAGE.parent)}")
+    vocab = dict(tok.vocab)
+    st = SpecialTokens.register(vocab)
+    cfg = ModelConfig.from_model_type("gpt2", vocab_size=st.vocab_size, dtype="bfloat16",
+                                      modality_dim=768)
+    params = gpt2.params_for_inference(
+        gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(2), cfg, device=DEVICE), cfg)
+    out = io.StringIO()
+    lines = PIPE_CORPUS[:3]
+    reset_launches()
+    t0 = time.time()
+    run_repl(params, cfg, st, tok, max_len=cfg.n_positions, top_p=0.9,
+             stdin=io.StringIO("\n".join(lines) + "\n\n"), stdout=out)
+    wall = time.time() - t0
+    text = out.getvalue()
+    if text.count("model>") != 3 or "[error" in text:
+        raise AssertionError(f"run_repl: {text}")
+    k5 = block_attention.LAUNCHES
+    print(f"pipeline run_repl: 3 turns at gpt2 width (bf16, B=1, up to 64 tokens a reply) "
+          f"in {wall:.2f} s, K5 launched {k5} times, on {card}")
+    return k5
+
+
+def pipeline_phase(card: str) -> dict:
+    """The feature-extraction and test-run paths on the card (see phase 13
+    of the module docstring). Returns their launches by kernel:
+    {kernel: {path: launches}}."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as clips_dir:
+        frames, images, have_pil = _pipe_clips(clips_dir)
+        if not have_pil:
+            print("pipeline: PIL is absent: the vision encoder runs on normalised arrays and "
+                  "extract_features.main finds no image files")
+        audio_k5, feats = _pipe_audio(card, clips_dir, frames)
+        main_k5 = _pipe_extract_main(card, clips_dir, frames, feats, have_pil)
+        _pipe_vision(card, images)
+    cfg = ModelConfig.from_model_type("gpt2", vocab_size=50271, dtype="bfloat16",
+                                      modality_dim=768)
+    params = gpt2.params_for_inference(
+        gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE),
+        cfg)
+    text_k5 = _pipe_text(card, params, cfg)
+    runner = _pipe_runner(card, params, cfg)
+    repl_k5 = _pipe_tokenizer_repl(card)
+    print(f"pipeline phase: {time.time() - t0:.1f} s on {card}")
+    return {"block_mha": {"audio fp32": audio_k5["fp32"], "audio bf16": audio_k5["bf16"],
+                          "extract_features.main": main_k5, "text_features": text_k5,
+                          "run_test": runner["block_mha"], "run_repl": repl_k5},
+            "prefill_mha": {"run_test": runner["prefill_mha"]},
+            "prefill_mha_cross": {"run_test": runner["prefill_mha_cross"]},
+            "fused_softmax_xent": {"run_test": runner["fused_softmax_xent"]}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is False")
@@ -2699,6 +3328,7 @@ def main() -> None:
     server_on = server_phase(card)
     for k, arms in server_ext_phase(card).items():
         server_on[k].update(arms)
+    pipeline_on = pipeline_phase(card)
     train_reference_phase()
     long_ctx = long_context_phase(card)
     train_on = train_slice_phase(card)
@@ -2745,7 +3375,9 @@ def main() -> None:
         "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[counts_of.get(name, name)], **nums,
         **({"spec_beam_launches": spec_beam[name]} if name in spec_beam else {}),
         # launches on the server's path: each arm's run of the 256 requests
-        **({"server_launches": server_on[name]} if name in server_on else {})}
+        **({"server_launches": server_on[name]} if name in server_on else {}),
+        # launches on the feature-extraction and test-run paths
+        **({"pipeline_launches": pipeline_on[name]} if name in pipeline_on else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

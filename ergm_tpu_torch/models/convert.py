@@ -10,11 +10,16 @@ or without the heads gets those parts from the port's random init, and
 one with a smaller vocabulary gets new ``wte`` rows
 (``gpt2.resize_token_embeddings``), as the reference's non-strict load
 and ``resize_token_embeddings`` give them.
+
+``audio_params_from_numpy`` and ``vision_params_from_numpy`` build the
+encoders of ``tools/audio.py`` and ``tools/vision.py`` from JAX's trees
+the same way (their HF state dicts go through ``hf_to_audio_params`` and
+``hf_to_vision_params`` there).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +27,10 @@ import torch
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.device import resolve
 from ergm_tpu_torch.models.gpt2 import GPT2, init_params, resize_token_embeddings
+
+if TYPE_CHECKING:  # the encoders import this module, not the other way round
+    from ergm_tpu_torch.tools.audio import AudioEncoder, AudioEncoderConfig
+    from ergm_tpu_torch.tools.vision import VisionEncoder, VisionEncoderConfig
 
 # the port's modules stored as nn.Linear ([out, in]) in a checkpoint, outside
 # HF's ``transformer.`` prefix
@@ -41,6 +50,29 @@ def _flatten(node: Dict[str, Any], prefix: str, layer, out: Dict[str, np.ndarray
             out[f"{prefix}{key}"] = arr if layer is None else arr[layer]
 
 
+def _module_from_tree(module: torch.nn.Module, tree: Dict[str, Any], stacked: str,
+                      n_layer: int, device: torch.device) -> torch.nn.Module:
+    """Fills ``module`` (built on the meta device) from a JAX parameter tree
+    of numpy arrays: the ``stacked`` subtree's arrays carry a leading layer
+    axis and layer ``i`` becomes ``{stacked}.{i}``; a list subtree's entry
+    ``i`` becomes ``{key}.{i}``; every other leaf copies as it is."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, node in tree.items():
+        if key == stacked:
+            for li in range(n_layer):
+                _flatten(node, f"{key}.{li}.", li, flat)
+        elif isinstance(node, (list, tuple)):
+            for i, sub in enumerate(node):
+                _flatten(sub, f"{key}.{i}.", None, flat)
+        elif isinstance(node, dict):
+            _flatten(node, f"{key}.", None, flat)
+        else:
+            flat[key] = np.asarray(node)
+    state = {k: torch.tensor(np.ascontiguousarray(v), device=device) for k, v in flat.items()}
+    module.load_state_dict(state, strict=True, assign=True)
+    return module
+
+
 def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cuda") -> GPT2:
     """A JAX parameter tree of numpy arrays (``jax.tree_util.tree_map(
     np.asarray, params)`` of full-precision params, e.g. from
@@ -51,18 +83,32 @@ def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cuda") 
     (kernels keep their [in, out] orientation). The tensors land on
     ``device``, the card unless the caller asks for the CPU. Quantize
     afterwards with ``params_for_inference``."""
-    device = resolve(device)
-    flat: Dict[str, np.ndarray] = {}
-    for key, node in tree.items():
-        if key == "blocks":
-            for li in range(config.n_layer):
-                _flatten(node, f"blocks.{li}.", li, flat)
-        else:
-            _flatten(node, f"{key}.", None, flat)
-    state = {k: torch.tensor(np.ascontiguousarray(v), device=device) for k, v in flat.items()}
-    model = GPT2(config, device="meta")
-    model.load_state_dict(state, strict=True, assign=True)
-    return model
+    return _module_from_tree(GPT2(config, device="meta"), tree, "blocks", config.n_layer,
+                             resolve(device))
+
+
+def audio_params_from_numpy(tree: Dict[str, Any], cfg: AudioEncoderConfig,
+                            device="cuda") -> AudioEncoder:
+    """JAX's audio-encoder tree as numpy arrays (``ergm_tpu.tools.audio``'s
+    ``init_audio_params`` or ``hf_to_audio_params``: the
+    ``feature_extractor`` list, ``pos_conv``, ``layers`` stacked on a
+    leading layer axis) -> ``AudioEncoder`` on ``device``, frozen."""
+    from ergm_tpu_torch.tools.audio import AudioEncoder
+
+    module = AudioEncoder(cfg, device="meta")
+    return _module_from_tree(module, tree, "layers", cfg.num_layers,
+                             resolve(device)).requires_grad_(False)
+
+
+def vision_params_from_numpy(tree: Dict[str, Any], cfg: VisionEncoderConfig,
+                             device="cuda") -> VisionEncoder:
+    """JAX's vision-encoder tree as numpy arrays (``layers`` stacked on a
+    leading layer axis) -> ``VisionEncoder`` on ``device``, frozen."""
+    from ergm_tpu_torch.tools.vision import VisionEncoder
+
+    module = VisionEncoder(cfg, device="meta")
+    return _module_from_tree(module, tree, "layers", cfg.num_layers,
+                             resolve(device)).requires_grad_(False)
 
 
 def _hf_name(key: str) -> Tuple[str, bool]:

@@ -68,13 +68,17 @@ def _masks(q, k, q_mask, kv_mask):
     return qm, km
 
 
-def block_mha_reference(q, k, v, *, causal: bool, scale: float, q_mask=None, kv_mask=None,
-                        dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+def block_mha_reference(q, k, v, *, causal: bool, scale: Optional[float] = None, q_mask=None,
+                        kv_mask=None, dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None):
     """The plain version, differentiable: JAX's ``_fwd_kernel`` over the
     whole row (``_probs`` then dropout), f32 scores and softmax, the
     probabilities rounded to q's dtype before the PV product, f32
-    accumulation, the output rounded to q's dtype."""
-    B, H, lq, _ = q.shape
+    accumulation, the output rounded to q's dtype. ``scale`` defaults to
+    1/sqrt(Dh), as ``block_mha``'s."""
+    B, H, lq, D = q.shape
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
     lk = k.shape[2]
     qm, km = _masks(q, k, q_mask, kv_mask)
     s = matmul_f32(q, k.transpose(-1, -2)) * scale

@@ -1039,3 +1039,103 @@ def test_session_tokens_equal_full_prefill_on_card():
         assert got == _card_greedy(p, cfg, prompt, 8), turn
         prompt = prompt + got
     assert srv.ext_programs == 3
+
+
+# -- the feature-extraction path: K5 non-causal at B=1, the audio encoder,
+# -- text features
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [128, 256, 1024, 1152])
+def test_block_attention_noncausal_unmasked_b1(dtype, L):
+    """The audio encoder's attention: K5 with ``causal=False``, no masks,
+    at B=1, through ``multihead_attention``'s ``auto`` route (the block
+    gate up to 1,024 frames, the flash gate at 1,152), against the plain
+    version: fp32 with TF32 off within 2e-5, bf16 within 2e-2 + 1e-2 |plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.ops.attention import multihead_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(L)
+    # head views of one [1, L, 3 * 768] projection, as the encoder hands them over
+    qkv = torch.randn((1, L, 3 * 768), generator=g, device="cuda").to(dtype)
+    q, k, v = (x.view(1, L, 12, 64).transpose(1, 2) for x in qkv.split(768, dim=-1))
+    assert tba.supported(q, k, v, causal=False) == (L <= 1024)
+    f0 = tba.LAUNCHES
+    out = multihead_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tba.LAUNCHES == f0 + 1
+    ref = tba.block_mha_reference(q, k, v, causal=False, scale=0.125)
+    ok, err = _within(out, ref, dtype, 2e-5)
+    assert ok, err
+
+
+def _tiny_audio():
+    from ergm_tpu_torch.tools.audio import AudioEncoderConfig, init_audio_params
+
+    cfg = AudioEncoderConfig(conv_dim=(64, 64), conv_stride=(5, 2), conv_kernel=(10, 3),
+                             hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    return cfg, init_audio_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1290, 1490])
+def test_audio_encoder_card_matches_cpu_with_tf32_default(n):
+    """The fp32 audio encoder (Dh 64) on the card against the CPU, entered
+    with cuDNN's TF32 at its default (on): the encoder turns it off for its
+    convolutions itself, so the features hold 1e-4. 1,290 samples give 128
+    frames (K5, 2 launches), 1,490 give 148 (the plain math)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import copy
+
+    from ergm_tpu_torch.tools.audio import audio_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    cfg, cpu = _tiny_audio()
+    card = copy.deepcopy(cpu).to("cuda")
+    wav = torch.from_numpy(np.random.default_rng(n).standard_normal((1, n)).astype(np.float32))
+    frames = cfg.frames_for_samples(n)
+    f0 = tba.LAUNCHES
+    with torch.inference_mode():
+        got = audio_encoder(card, cfg, wav.cuda()).cpu()
+        want = audio_encoder(cpu, cfg, wav)
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert tba.LAUNCHES - f0 == (cfg.num_layers if frames % 128 == 0 else 0)
+    assert got.shape == (1, frames, 128)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_text_features_launch_k5_per_bucket():
+    """``extract_text_features`` on the card: batches bucketed to 64, 128,
+    192 and 256 tokens; K5 launches n_layer times for the 128 and 256
+    buckets only, and the fp32 features equal the CPU's within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import copy
+
+    from ergm_tpu_torch.tools.text_features import extract_text_features
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(n_layer=2, n_embd=128, n_head=2, vocab_size=300, n_positions=256,
+                      dtype="float32", use_cross_attention=False)
+    cpu = tg.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(0)
+    launches = []
+    for longest in (50, 100, 150, 250):  # buckets 64, 128, 192, 256
+        utts = [rng.integers(0, 300, int(n)).tolist()
+                for n in [longest] + rng.integers(1, longest, 4).tolist()]
+        f0 = tba.LAUNCHES
+        got = extract_text_features(card, cfg, utts, batch_size=8)
+        launches.append(tba.LAUNCHES - f0)
+        want = extract_text_features(cpu, cfg, utts, batch_size=8)
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        assert err <= 1e-4, (longest, err)
+    assert launches == [0, cfg.n_layer, 0, cfg.n_layer]
