@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, speculative, beam, continuous-batching
-server, feature-extraction, test-run and training paths once on an NVIDIA
-GPU.
+server, feature-extraction, test-run and training paths and its command
+line once on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -204,6 +204,31 @@ Phases, each of which raises on failure:
    ``cpp/bpe_core.cpp`` into ``ergm_tpu_torch/_build/``), ``text2ids.main``,
    and three turns of ``run_repl`` at gpt2 width.
 
+14. the command line (``cli_phase``), after training: gpt2-medium at full
+   width and depth (24 layers, 1024 wide, 16 heads, bf16, random weights
+   from seed 0) through ``ergm_tpu_torch.cli``. ``load_data
+   --source=synthetic``, then a train split over GPT-2's vocabulary (24
+   dialogues of 16 turns, utterances of 8-40 tokens, captions; batches up
+   to 512 tokens) and a valid split (32 dialogues of 4 turns of 3-8
+   tokens). ``--mode=train`` with train_torch.sh's flags (B=8,
+   ``--max_len=1024``, lr 1e-5, no warmup, remat "mlp"), then with the
+   JAX help's gpt2-medium recipe (``--adam_mu_dtype=bfloat16
+   --grad_accum_steps=2 --num_workers=2``): the Trainer's epoch line (tok/s,
+   step p50, MFU), the peak memory, K5's and K6's launches exactly as their
+   gates give them at the epoch's batch shapes; a third, shorter run holds
+   every K5 and K6 forward launch against its plain version. One train
+   step under remat none, mlp, full and dots from the same weights, batch
+   and seed: losses equal bit for bit, gradients within the bf16 bar of no
+   remat's, K5 twice a layer forward under full and dots, each policy's
+   step time, peak memory and device busy time. ``--mode=infer`` over 128
+   valid utterances at B=64 (top-p 0.8, a 128-token cap): K1 (self and
+   cross), K5 and K6 as the gates give them, the results and generations
+   files, utt/s, and a second ``run_test`` of the same weights under
+   ``KernelShadow``. ``--mode=serve`` over 64 requests (half sampled,
+   captions on a third): every response, req/s.
+   ``convert_ckpt --reverse`` of the trained checkpoint and back: the
+   parameters and the fp32 logits equal bit for bit.
+
 Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
 shapes, the plain version's and a library call's time), and as its last
@@ -212,8 +237,9 @@ Times are medians of CUDA events around single calls queued while the
 device is kept busy, so they read device time and not the host's launch
 overhead.
 ``--profile=PATH`` also writes a torch.profiler table of two train steps
-to PATH, and ones of the B=256 and long-history decode steps beside it
-(``_decode`` before the extension).
+to PATH, and ones of the B=256 and long-history decode steps and of two
+steps of the command line's gpt2-medium recipe beside it (``_decode`` and
+``_medium`` before the extension).
 """
 
 from __future__ import annotations
@@ -221,9 +247,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
+import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -245,6 +274,7 @@ from ergm_tpu_torch.infer.server import ContinuousServer, Request, request_from_
 from ergm_tpu_torch.models import gpt2
 from ergm_tpu_torch.ops import (_build, block_attention, cross_decode, decode_attention,
                                 fused_ce, fused_decode, prefill_attention)
+from ergm_tpu_torch.ops.attention import dropout_keep
 from ergm_tpu_torch.train import checkpoint as ckpt_lib
 from ergm_tpu_torch.train.steps import AdamW, create_train_state, make_train_step
 from ergm_tpu_torch.train.trainer import Trainer
@@ -1148,28 +1178,102 @@ def _k5_rows(args, kwargs):
     return None if m is None else m[:, None, :, None]
 
 
+def _k5_key_mask(kbits: torch.Tensor, lk: int) -> torch.Tensor:
+    """K5's key mask [B, Lk] from the forward's bits (bit c of word w is key
+    32w + c)."""
+    bits = (kbits[:, :, None] >> torch.arange(32, device=kbits.device)) & 1
+    return bits.reshape(kbits.shape[0], lk)
+
+
+def _k5_bwd_plain(args, dtype) -> list:
+    """(dQ, dK, dV) of K5's plain version in ``dtype`` on the inputs of
+    ``block_attention.launch_bwd``, by autograd."""
+    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed = args
+    xs = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
+    with torch.enable_grad():
+        o = block_attention.block_mha_reference(*xs, causal=causal, scale=scale, q_mask=qm,
+                                                kv_mask=_k5_key_mask(kbits, k.shape[2]),
+                                                dropout_rate=rate, dropout_seed=seed)
+        return list(torch.autograd.grad(o, xs, do.to(dtype)))
+
+
+def _k5_bwd_jax(args) -> list:
+    """(dQ, dK, dV) by the arithmetic of JAX's K5 backward
+    (``ergm_tpu/ops/block_attention.py::_bwd_kernel``), in plain PyTorch:
+    scores, pn and dpn in f32 from the bf16 operands, delta = rowsum(pn *
+    dpn), ds = pn * (dpn - delta) and the dropped pn rounded to the
+    operands' dtype, f32 products, the results rounded. ds is 0 where a key
+    is masked (the where's derivative), as in K5 and the autograd twin."""
+    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed = args
+    B, H, L, _ = q.shape
+    lk = k.shape[2]
+    mask = _k5_key_mask(kbits, lk)[:, None, None, :].bool()
+    if causal:
+        mask = mask & (torch.arange(lk, device=q.device)[None, :]
+                       <= torch.arange(L, device=q.device)[:, None])
+    f = [x.float() for x in (q, k, v, do)]
+    s = torch.where(mask, f[0] @ f[1].transpose(-1, -2) * scale, -1e30)
+    pn = torch.where(qm[:, None, :, None].bool(), torch.softmax(s, -1), 0.0)
+    dpn = f[3] @ f[2].transpose(-1, -2)
+    pv = pn
+    if rate > 0.0:
+        keep = dropout_keep(seed, B, H, L, lk, rate, device=q.device)
+        dpn = torch.where(keep, dpn / (1.0 - rate), 0.0)
+        pv = torch.where(keep, pn / (1.0 - rate), 0.0)
+    delta = (pn * dpn).sum(-1, keepdim=True)
+    ds = torch.where(mask, pn * (dpn - delta), 0.0).to(q.dtype).float()
+    return [(ds @ f[1] * scale).to(q.dtype), (ds.transpose(-1, -2) @ f[0] * scale).to(q.dtype),
+            (pv.to(q.dtype).float().transpose(-1, -2) @ f[3]).to(q.dtype)]
+
+
+def _k6_bwd_plain(args, dtype) -> list:
+    """(dh, dW) of K6's plain version in ``dtype`` on the inputs of
+    ``fused_ce.launch_bwd`` (the per-token cotangent g)."""
+    hidden, wte, labels, _, g = args[:5]
+    hh, ww = (x.detach().to(dtype).requires_grad_(True) for x in (hidden, wte))
+    with torch.enable_grad():
+        nll = fused_ce.fused_softmax_xent_reference(hh, ww, labels)
+        return list(torch.autograd.grad((nll * g).sum(), (hh, ww)))
+
+
 class KernelShadow:
     """Holds every launch of the given kernels in a run against its plain
     version on the same inputs: each wrapper is wrapped to call the plain
     version after it and keep, on the device, the largest |kernel - plain|
     as a share of its bar, over the output rows that ``rows(args, kwargs)``
     marks (all when it gives None): F32_TOL where the first input is fp32,
-    else the bf16 bar 2e-2 + 1e-2 |plain|. The plain
-    versions add to no count; the kernels' own launches in such a run are
-    not the path's. ``kernels``: (module, wrapper name, rows or None);
-    K2, K3 and K4 by default."""
+    else the bf16 bar 2e-2 + 1e-2 |plain|. ``backward`` entries wrap a
+    module's ``launch_bwd`` likewise: each launch's bf16 gradients are
+    held by ``bf16_grad_ratio`` against ``plain(args)`` and ``exact(args)``
+    (the same math in f32), over the rows that ``rows(args)`` marks per
+    gradient; where ``also(args)`` is given (a second plain version), the
+    kernel's and the plain version's ratios against it are kept too
+    (``readings``), unchecked. The plain versions add to no count; the
+    kernels' own launches in such a run are not the path's. ``kernels``:
+    (module, wrapper name, rows or None); K2, K3 and K4 by default.
+    ``backward``: (module, count name, plain, exact, rows, also or None)."""
 
     KERNELS = ((decode_attention, "decode_mha_int8", None),
                (cross_decode, "fused_cross_decode", None), (fused_decode, "fused_ln_mlp", None))
     # the server's path: K1 (both forms), K5 and K4
     SERVER = ((prefill_attention, "prefill_mha", _k1_rows),
               (block_attention, "block_mha", _k5_rows), (fused_decode, "fused_ln_mlp", None))
+    # the training path's backward launches. K5 against JAX's backward
+    # arithmetic (the TPU kernel's), dQ on the rows of real queries, and read
+    # against the autograd of its forward's plain version; K6 against that
+    # autograd
+    BACKWARD = ((block_attention, "block_mha_bwd", _k5_bwd_jax,
+                 lambda a: _k5_bwd_plain(a, torch.float32),
+                 lambda a: (a[5][:, None, :, None], None, None),
+                 lambda a: _k5_bwd_plain(a, torch.bfloat16)),
+                (fused_ce, "fused_softmax_xent_bwd", lambda a: _k6_bwd_plain(a, torch.bfloat16),
+                 lambda a: _k6_bwd_plain(a, torch.float32), lambda a: (None, None), None))
 
-    def __init__(self, kernels=KERNELS):
-        self.kernels = kernels
+    def __init__(self, kernels=KERNELS, backward=()):
+        self.kernels, self.backward = kernels, backward
 
     def __enter__(self):
-        self.real, self.calls = {}, {}
+        self.real, self.calls, self.bwd_share = {}, {}, {}
         self.share = {name: torch.zeros((), device=DEVICE) for _, name, _ in self.kernels}
         for mod, name, rows in self.kernels:
             real, plain = getattr(mod, name), getattr(mod, f"{name}_reference")
@@ -1177,24 +1281,57 @@ class KernelShadow:
 
             def shadow(*args, _real=real, _plain=plain, _name=name, _rows=rows, **kwargs):
                 got = _real(*args, **kwargs)
-                want = _plain(*args, **kwargs).float()
-                f32 = next(a for a in args if isinstance(a, torch.Tensor)).dtype == torch.float32
-                err = (got.float() - want).abs() / (F32_TOL if f32 else BF16_TOL + 1e-2 * want.abs())
-                keep = None if _rows is None else _rows(args, kwargs)
-                if keep is not None:
-                    err = torch.where(keep > 0, err, 0.0)
-                torch.maximum(self.share[_name], err.max(), out=self.share[_name])
+                with torch.no_grad():  # a training forward's plain twin builds no graph
+                    want = _plain(*args, **kwargs).float()
+                    f32 = next(a for a in args
+                               if isinstance(a, torch.Tensor)).dtype == torch.float32
+                    err = (got.detach().float() - want).abs() / (
+                        F32_TOL if f32 else BF16_TOL + 1e-2 * want.abs())
+                    keep = None if _rows is None else _rows(args, kwargs)
+                    if keep is not None:
+                        err = torch.where(keep > 0, err, 0.0)
+                    torch.maximum(self.share[_name], err.max(), out=self.share[_name])
                 self.calls[_name] += 1
                 return got
             setattr(mod, name, shadow)
+        self.readings = {}
+        for mod, name, plain, exact, rows, also in self.backward:
+            real = mod.launch_bwd
+            self.real[name], self.calls[name], self.bwd_share[name] = real, 0, 0.0
+
+            def shadow_bwd(*args, _real=real, _plain=plain, _exact=exact, _name=name, _rows=rows,
+                           _also=also, **kwargs):
+                got = _real(*args, **kwargs)
+                if got[0].dtype != torch.bfloat16:
+                    raise TypeError(f"{_name}: the backward shadow holds bf16 gradients, got "
+                                    f"{got[0].dtype}")
+                with torch.no_grad():
+                    want, x32 = _plain(args), _exact(args)
+                    other = _also(args) if _also is not None else None
+                    for i, keep in enumerate(_rows(args)):
+                        g, p, x = got[i], want[i], x32[i]
+                        o = None if other is None else other[i]
+                        if keep is not None:
+                            g, p, x, o = (None if t is None else torch.where(keep > 0, t.float(), 0.0)
+                                          for t in (g, p, x, o))
+                        self.bwd_share[_name] = max(self.bwd_share[_name], bf16_grad_ratio(g, p, x))
+                        if o is not None:
+                            r = self.readings.setdefault(_name, [0.0, 0.0])
+                            r[0] = max(r[0], bf16_grad_ratio(g, o, x))
+                            r[1] = max(r[1], bf16_grad_ratio(p, o, x))
+                self.calls[_name] += 1
+                return got
+            mod.launch_bwd = shadow_bwd
         return self
 
     def __exit__(self, *exc):
         for mod, name, _ in self.kernels:
             setattr(mod, name, self.real[name])
+        for mod, name, *_ in self.backward:
+            mod.launch_bwd = self.real[name]
 
     def shares(self) -> dict:
-        return {name: float(x) for name, x in self.share.items()}
+        return {**{name: float(x) for name, x in self.share.items()}, **self.bwd_share}
 
 
 def _beam_arms(params, cfg, prompts: list, kw: dict, card: str) -> tuple:
@@ -2655,15 +2792,16 @@ def train_slice_phase(card: str) -> dict:
     return counts
 
 
-def profile_train_step(card: str, path: str) -> None:
-    """torch.profiler over two steps of the training slice; the table goes
-    to ``path``."""
-    cfg = ModelConfig.from_model_type(**TRAIN_SLICE)
+def profile_train_step(card: str, path: str, cfg=None, b: int = TRAIN_B, L: int = TRAIN_L,
+                       caption: int = 0) -> None:
+    """torch.profiler over two steps of the training slice (or of ``cfg`` at
+    [b, L] with a ``caption``-token caption); the table goes to ``path``."""
+    cfg = cfg or ModelConfig.from_model_type(**TRAIN_SLICE)
     tx = AdamW(1e-4)
     state = create_train_state(gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0),
                                                 cfg), tx)
     step = make_train_step(cfg, tx)
-    batch = _train_batch(np.random.default_rng(0), TRAIN_B, TRAIN_L, 50000, DEVICE)
+    batch = _train_batch(np.random.default_rng(0), b, L, 50000, DEVICE, caption=caption)
     for _ in range(3):
         state, m = step(state, batch, SEED)
     torch.cuda.synchronize()
@@ -3292,6 +3430,488 @@ def pipeline_phase(card: str) -> dict:
             "fused_softmax_xent": {"run_test": runner["fused_softmax_xent"]}}
 
 
+# ---------------------------------------------------------------------------
+# The command line (cli_phase): load_data -> train -> infer -> serve -> convert
+# ---------------------------------------------------------------------------
+
+# gpt2-medium at full width and depth through the port's CLI with
+# train_torch.sh's flags (B=8, --max_len=1024, lr 1e-5, no warmup, bf16,
+# remat "mlp"). The train split: utterances of 8-40 tokens over 16 turns with
+# captions (384 examples, the longest batch bucketed to 512); the valid split:
+# the default 3-8 tokens over 4 turns. Infer: the first CLI_INFER_DIALOGUES
+# valid dialogues (two batches of 64) capped at CLI_INFER_LEN tokens; serve:
+# CLI_SERVE_REQS requests through 64 slots; CLI_SHADOW_DIALOGUES dialogues for
+# the shadowed training run; CLI_REMAT_STEPS timed steps a remat policy
+CLI_MODEL, CLI_B, CLI_TRAIN_DIALOGUES, CLI_TRAIN_TURNS = "gpt2-medium", 8, 24, 16
+CLI_VALID_DIALOGUES, CLI_VALID_TURNS, CLI_INFER_DIALOGUES, CLI_INFER_LEN = 32, 4, 32, 128
+CLI_SERVE_REQS, CLI_SHADOW_DIALOGUES, CLI_REMAT_STEPS = 64, 2, 3
+# K5 and K6 forwards (with KernelShadow.BACKWARD, the training launches)
+# and K1 (infer's prefills)
+TRAIN_SHADOWED = ((block_attention, "block_mha", _k5_rows), (fused_ce, "fused_softmax_xent", None))
+INFER_SHADOWED = ((prefill_attention, "prefill_mha", _k1_rows),) + TRAIN_SHADOWED
+
+
+def _cli(main, argv: list) -> str:
+    """Runs a CLI entry point in this process; its standard output is
+    shown and returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    print(buf.getvalue(), end="")
+    return buf.getvalue()
+
+
+def _cli_data(root: str) -> tuple:
+    """load_data once through the CLI, then both splits at GPT-2's
+    vocabulary over one set of special tokens. Returns (data dir, tokens)."""
+    from ergm_tpu_torch.cli import load_data
+
+    _cli(load_data.main, ["--source=synthetic", f"--data_dir={root}",
+                          f"--model_type={CLI_MODEL}", "--captions"])
+    data = os.path.join(root, CLI_MODEL)
+    if not os.path.exists(os.path.join(data, "tokenizer_meta.json")):
+        raise AssertionError(f"load_data wrote nothing under {data}")
+    st = write_synthetic_dataset(data, prefixes=("train",), num_dialogues=CLI_TRAIN_DIALOGUES,
+                                 turns_per_dialogue=CLI_TRAIN_TURNS, utter_len=range(8, 41),
+                                 base_vocab_size=50257, captions="target", seed=21)
+    write_synthetic_dataset(data, prefixes=("valid",), num_dialogues=CLI_VALID_DIALOGUES,
+                            turns_per_dialogue=CLI_VALID_TURNS, base_vocab_size=50257,
+                            captions="target", seed=22, st=st)
+    return data, st
+
+
+def _k5_gate(b: int, h: int, lq: int, lk: int, causal: bool) -> bool:
+    q, k = (torch.empty((b, h, n, 64), device="meta") for n in (lq, lk))
+    return block_attention.supported(q, k, k, causal=causal)
+
+
+def _cli_train_expected(data: str, st, cfg, limit=None) -> dict:
+    """K5's and K6's launches in one Trainer epoch, from their gates at the
+    epoch's batch shapes (train shuffled with seed 1, the partial batch
+    dropped; valid in order)."""
+    from ergm_tpu_torch.data.dataset import DialogueDataset, batches
+
+    kw = dict(data_dir=data, sp1_id=st.sp1_id, sp2_id=st.sp2_id, eos_id=st.eos_id,
+              max_len=cfg.n_positions, limit=limit)
+    train = list(batches(DialogueDataset("train", **kw), CLI_B, st.eos_id, shuffle=True,
+                         seed=1, max_len=cfg.n_positions, drop_remainder=True))
+    valid = list(batches(DialogueDataset("valid", **kw), CLI_B, st.eos_id,
+                         max_len=cfg.n_positions))
+    def k5(bs):
+        return sum(cfg.n_layer for b in bs if _k5_gate(CLI_B, cfg.n_head, b.input_ids.shape[1],
+                                                       b.input_ids.shape[1], True))
+    if cfg.n_embd > 1024:
+        raise AssertionError("K6's gate takes D <= 1024")
+    return {"steps": len(train), "valid_batches": len(valid), "valid_k5": k5(valid),
+            "longest": max(b.input_ids.shape[1] for b in train),
+            "want": {"block_mha": k5(train) + k5(valid), "block_mha_bwd": k5(train),
+                     "fused_softmax_xent": len(train) + len(valid),
+                     "fused_softmax_xent_bwd": len(train)}}
+
+
+def _cli_train(card: str, label: str, argv: list, exp: dict) -> dict:
+    """One train_torch.sh run through ``cli.main``: checks the launches
+    against the gates and returns the epoch line's readings."""
+    from ergm_tpu_torch.cli import main as cli
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    text = _cli(cli.main, argv)
+    wall = time.time() - t0
+    counts = _train_counts()
+    if counts != exp["want"]:
+        raise AssertionError(f"cli train {label}: launches {counts}, want {exp['want']}")
+    m = re.search(r"Epoch 1: Train Loss: ([0-9.]+).*?\| ([0-9,.]+) tok/s \| step p50 (\d+) ms"
+                  r"(?: \| MFU ([0-9.]+)%)?", text)
+    v = re.search(r"Valid PPL: ([0-9.]+)", text)
+    if (m is None or v is None or not math.isfinite(float(m.group(1)))
+            or (m.group(4) is None and DEVICE == "cuda")):
+        raise AssertionError(f"cli train {label}: no epoch line with tok/s, step p50 and MFU")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n, nv = exp["steps"], exp["valid_batches"]
+    per_step = {"block_mha": (counts["block_mha"] - exp["valid_k5"]) / n,
+                "block_mha_bwd": counts["block_mha_bwd"] / n,
+                "fused_softmax_xent": (counts["fused_softmax_xent"] - nv) / n,
+                "fused_softmax_xent_bwd": counts["fused_softmax_xent_bwd"] / n}
+    print(f"cli train, {label}: {CLI_MODEL} B={CLI_B}, {n} steps, batches up to "
+          f"{exp['longest']} tokens: {m.group(2)} tok/s, step p50 {m.group(3)} ms, MFU "
+          f"{m.group(4)}% of 989 TFLOP/s (the Trainer's epoch line), valid PPL {v.group(1)}, "
+          f"peak memory {peak:.2f} GB, {wall:.1f} s for the call; launches a step {per_step} "
+          f"(and over {nv} valid batches K5 {exp['valid_k5']}, K6 {nv}) on {card}")
+    return {"tok_s": float(m.group(2).replace(",", "")), "step_p50_ms": float(m.group(3)),
+            "mfu_pct": float(m.group(4) or "nan"), "peak_gb": peak, "launches": counts}
+
+
+def _cli_remat(card: str, cfg, data: str, st) -> dict:
+    """One train step of gpt2-medium under remat none, mlp, full and dots from
+    the same parameters, batch (the train split's longest bucket) and seed:
+    the losses equal bit for bit, the gradients within the bf16 bar of
+    no-remat's. Then CLI_REMAT_STEPS timed steps, the peak memory at the
+    optimizer's entry (the forward and backward) and over the step, and the
+    device's busy time in the same profiled steps. Returns {policy: launches
+    of the first step}."""
+    from ergm_tpu_torch.data.dataset import DialogueDataset, batches
+    from ergm_tpu_torch.train.steps import batch_to_device
+
+    ds = DialogueDataset("train", data, sp1_id=st.sp1_id, sp2_id=st.sp2_id, eos_id=st.eos_id,
+                         max_len=cfg.n_positions)
+    batch = max(batches(ds, CLI_B, st.eos_id, max_len=cfg.n_positions, drop_remainder=True),
+                key=lambda b: b.input_ids.shape[1])
+    L = batch.input_ids.shape[1]
+    batch = batch_to_device(batch, DEVICE)
+    base = gpt2.init_params(torch.Generator().manual_seed(0), cfg, device=DEVICE)
+    launches, ref = {}, None
+    for policy in ("none", "mlp", "full", "dots"):
+        c = cfg.replace(remat=policy != "none", remat_policy="mlp" if policy == "none" else policy)
+        tx, seen = AdamW(1e-5), {}
+
+        def first_update(params, g, state, _tx=tx, _seen=seen):
+            _seen["grads"] = [x.clone() for x in g]
+            del _tx.update  # the class's method from here on
+            return _tx.update(params, g, state)
+        tx.update = first_update
+        state = create_train_state(copy.deepcopy(base), tx)
+        step = make_train_step(c, tx, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_launches()
+        state, m = step(state, batch, SEED)
+        loss, grads = float(m["loss"]), seen.pop("grads")
+        counts = _train_counts()
+        k5 = c.n_layer * (2 if policy in ("full", "dots") else 1)
+        want = {"block_mha": k5, "block_mha_bwd": c.n_layer, "fused_softmax_xent": 1,
+                "fused_softmax_xent_bwd": 1}
+        if counts != want:
+            raise AssertionError(f"remat {policy}: launches {counts}, want {want}")
+        if ref is None:
+            ref = (loss, grads)
+        ok = all(_bf16_ok(g, r) for g, r in zip(grads, ref[1]))
+        err = max(float((g - r).abs().max()) for g, r in zip(grads, ref[1]))
+        if loss != ref[0] or not ok:
+            raise AssertionError(f"remat {policy}: loss {loss!r} against {ref[0]!r}, gradients "
+                                 f"within the bf16 bar: {ok} (max |diff| {err})")
+        del grads  # no-remat's stay in ref, alike for every policy
+
+        def entry_peak(params, g, state, _tx=tx, _seen=seen):
+            _seen.setdefault("fwd_bwd", torch.cuda.max_memory_allocated())
+            return AdamW.update(_tx, params, g, state)
+        tx.update = entry_peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        for _ in range(CLI_REMAT_STEPS):
+            state, m = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.time() - t0) / CLI_REMAT_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy, wall, top = _busy_ms(lambda: step(state, batch, SEED), calls=CLI_REMAT_STEPS)
+        launches[policy] = counts
+        print(f"cli remat {policy}: {CLI_MODEL} B={CLI_B} L={L} bf16, loss {loss!r} (equal to "
+              f"no remat's), gradients within the bf16 bar (max |diff| {err:.3e}), step "
+              f"{step_ms:.1f} ms (mean of {CLI_REMAT_STEPS}), peak memory "
+              f"{seen['fwd_bwd'] / 1e9:.2f} GB at the optimizer's entry and {peak:.2f} GB over "
+              f"the step; under torch.profiler {busy:.1f} ms of device busy time in {wall:.1f} "
+              f"ms of wall (idle {1 - busy / wall:.1%}; most: {top}); launches {counts} on "
+              f"{card}")
+        del state, step
+    return launches
+
+
+def _cli_infer_expected(data: str, st, cfg) -> dict:
+    """K1's (self and cross), K5's and K6's launches of ``--mode=infer``,
+    from their gates at the run's shapes: per batch of 64 the eval step (K5
+    a layer at the 128-bucket, K6 once), then generate's prefill at the
+    prompts' 64-bucket (K1 self at <= 128 with B >= 64, else K5 inside its
+    gate) and the caption's 32-bucket (K1 cross)."""
+    from ergm_tpu_torch.data.dataset import DialogueDataset, batches
+    from ergm_tpu_torch.infer.generate import _bucket
+
+    ds = DialogueDataset("valid", data, sp1_id=st.sp1_id, sp2_id=st.sp2_id, eos_id=st.eos_id,
+                         max_len=CLI_INFER_LEN, limit=CLI_INFER_DIALOGUES)
+    L, H = cfg.n_layer, cfg.n_head
+    want = {"prefill_mha": 0, "prefill_mha_cross": 0, "block_mha": 0, "fused_softmax_xent": 0}
+    for b in batches(ds, 64, st.eos_id, max_len=CLI_INFER_LEN):
+        rows = np.flatnonzero(b.valid)
+        lp = _bucket(max(max(int((b.input_ids[i] != st.eos_id).sum()), 1) for i in rows), 64)
+        lc = _bucket(max(int(b.caption_mask[i].sum()) for i in rows), 32)
+        k1 = len(rows) >= 64 and lp <= 128 and prefill_attention.supported(len(rows), lp, cfg,
+                                                                             True)
+        want["prefill_mha"] += L * k1
+        want["block_mha"] += L * (not k1 and _k5_gate(len(rows), H, lp, lp, True))
+        want["prefill_mha_cross"] += L * (len(rows) >= 64 and lc % 8 == 0 and
+                                          prefill_attention.supported(len(rows), lp, cfg, True))
+        le = b.input_ids.shape[1]
+        want["block_mha"] += L * _k5_gate(64, H, le, le, True)
+        want["fused_softmax_xent"] += 1
+    return {"utterances": len(ds), "want": want}
+
+
+def _cli_infer(card: str, argv: list, exp: dict, data: str) -> dict:
+    """``--mode=infer`` through ``cli.main``: launches against the gates, the
+    results and generations files; then ``run_test`` again on the same
+    weights and dataset holds every K1, K5 and K6 launch against its plain
+    version."""
+    from ergm_tpu_torch.cli import main as cli
+    from ergm_tpu_torch.infer import runner
+
+    seen = {}
+    real = runner.run_test
+
+    def run_test(*args, **kwargs):
+        t0 = time.time()
+        res = real(*args, **kwargs)
+        seen["s"], seen["tokens"] = time.time() - t0, sum(len(h.split()) for h in res.hypotheses)
+        seen["counts"] = {**_launch_counts(), **_train_counts()}
+        with KernelShadow(INFER_SHADOWED) as shadow:
+            real(*args, **kwargs)
+        seen["shadow"] = shadow
+        return res
+    runner.run_test = run_test
+    try:
+        reset_launches()
+        _cli(cli.main, argv)
+    finally:
+        runner.run_test = real
+    counts = seen["counts"]
+    got = {k: counts[k] for k in exp["want"]}
+    if got != exp["want"] or counts["block_mha_bwd"] or counts["fused_softmax_xent_bwd"]:
+        raise AssertionError(f"cli infer: launches {counts}, want {exp['want']}")
+    results = os.path.join(data, "best_evaluation_results.txt")
+    gens = os.path.join(data, "best_generations.txt")
+    rows = dict(line.split(": ", 1) for line in open(results).read().splitlines())
+    if (not math.isfinite(float(rows["ppl"])) or rows["top_p"] != "0.8"
+            or open(gens).read().count("GPT-2:") != exp["utterances"]):
+        raise AssertionError(f"cli infer: results {rows}")
+    utt_s = exp["utterances"] / seen["s"]
+    print(f"cli infer: {exp['utterances']} utterances at B=64, top-p 0.8 (full sort), "
+          f"{CLI_INFER_LEN}-token cap: run_test {seen['s']:.2f} s ({utt_s:.1f} utt/s, "
+          f"{seen['tokens']} tokens generated), PPL {rows['ppl']}, emotion acc "
+          f"{rows['emotion_acc']}; launches {got} on {card}")
+    shadow, w = seen["shadow"], exp["want"]
+    shares = shadow.shares()
+    calls = {"prefill_mha": w["prefill_mha"] + w["prefill_mha_cross"],
+             "block_mha": w["block_mha"], "fused_softmax_xent": w["fused_softmax_xent"]}
+    if not all(v <= 1.0 for v in shares.values()) or shadow.calls != calls:
+        raise AssertionError(f"cli infer shadow: {shares}, {shadow.calls}, want {calls}")
+    print("cli infer: every K1, K5 and K6 launch within its plain version's bf16 bar: "
+          + ", ".join(f"{k} {v:.4f} over {shadow.calls[k]} launches" for k, v in shares.items()))
+    return {"utt_s": utt_s, "launches": got}
+
+
+def _cli_serve(card: str, root: str, argv: list, n_layer: int) -> dict:
+    """``--mode=serve`` over a requests file of CLI_SERVE_REQS requests: half
+    greedy, half sampled (every fourth with its own top-p and seed), a
+    caption on every third; every response line present. The weights are
+    the seeded init (no checkpoint), which seldom picks eos, so the decode
+    loop runs: at least 90% of the budgeted tokens must come back. The 64
+    requests fill the 64 slots as one admission group whose prompts (16-64
+    tokens) bucket inside K1's gate and which holds captions: K1 self and
+    cross launch once a layer, nothing else. A second run holds each of
+    those launches against its plain version."""
+    from ergm_tpu_torch.cli import main as cli
+
+    rng = np.random.default_rng(23)
+    path = os.path.join(root, "requests.jsonl")
+    budgets = []
+    with open(path, "w") as f:
+        for i in range(CLI_SERVE_REQS):
+            r = {"prompt": rng.integers(0, 50000, int(rng.integers(16, 65))).tolist(),
+                 "max_new_tokens": int(rng.integers(8, 33)), "greedy": i % 2 == 0}
+            if i % 4 == 1:
+                r.update(top_p=0.9, seed=i)
+            if i % 3 == 0:
+                r["caption_ids"] = rng.integers(0, 50000, int(rng.integers(8, 33))).tolist()
+            budgets.append(r["max_new_tokens"])
+            f.write(json.dumps(r) + "\n")
+    reset_launches()
+    text = _cli(cli.main, [*argv, f"--requests_file={path}"])
+    counts = _launch_counts()
+    out = [json.loads(line) for line in open(path + ".responses.jsonl")]
+    tokens = sum(len(r.get("tokens", ())) for r in out)
+    if [r["index"] for r in out] != list(range(CLI_SERVE_REQS)) or any(
+            "error" in r or not 1 <= len(r["tokens"]) <= b for r, b in zip(out, budgets)):
+        raise AssertionError(f"cli serve: responses {out[:3]}")
+    if tokens < 0.9 * sum(budgets):
+        raise AssertionError(f"cli serve: {tokens} tokens generated of {sum(budgets)} budgeted")
+    got = {k: v for k, v in counts.items() if v}
+    if got != {"prefill_mha": n_layer, "prefill_mha_cross": n_layer}:
+        raise AssertionError(f"cli serve: launches {counts}, want K1 self and cross {n_layer}")
+    m = re.search(r"Served \d+ requests in ([0-9.]+)s \(([0-9.]+) req/s\)", text)
+    print(f"cli serve: {CLI_SERVE_REQS} requests (16-64 + 8-32 tokens, half sampled, captions "
+          f"on a third) through 64 slots: {m.group(2)} req/s ({m.group(1)} s), {tokens} tokens "
+          f"generated of {sum(budgets)} budgeted (eos ends a row); launches {got} on {card}")
+    with KernelShadow(KernelShadow.SERVER) as shadow:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([*argv, f"--requests_file={path}"])
+    shares = shadow.shares()
+    calls = {"prefill_mha": 2 * n_layer, "block_mha": 0, "fused_ln_mlp": 0}
+    if not all(v <= 1.0 for v in shares.values()) or shadow.calls != calls:
+        raise AssertionError(f"cli serve shadow: {shares}, {shadow.calls}, want {calls}")
+    print(f"cli serve: every K1 launch within its plain version's bf16 bar: prefill_mha "
+          f"{shares['prefill_mha']:.4f} over {shadow.calls['prefill_mha']} launches (self and "
+          f"cross)")
+    return {"req_s": float(m.group(2)), "launches": counts}
+
+
+def _cli_convert(card: str, root: str, best: str, cfg) -> None:
+    """``convert_ckpt --reverse`` of the trained checkpoint, then
+    ``convert_ckpt`` back: the parameters equal bit for bit, and so do the
+    fp32 logits of the two models on the card."""
+    from ergm_tpu_torch.cli import convert_ckpt
+
+    hf, back = os.path.join(root, "hf.pt"), os.path.join(root, "params.pt")
+    t0 = time.time()
+    _cli(convert_ckpt.main, ["--reverse", f"--src={best}", f"--dst={hf}",
+                             f"--model_type={CLI_MODEL}"])
+    _cli(convert_ckpt.main, [f"--src={hf}", f"--dst={back}", f"--model_type={CLI_MODEL}"])
+    wall = time.time() - t0
+    orig = torch.load(os.path.join(best, ckpt_lib.STATE_FILE), map_location="cpu",
+                      weights_only=True)["params"]
+    conv = torch.load(back, map_location="cpu", weights_only=True)["params"]
+    if orig.keys() != conv.keys() or not all(torch.equal(orig[k], conv[k]) for k in orig):
+        raise AssertionError("convert round trip: the parameters changed")
+    cfg32 = cfg.replace(dtype="float32")
+    ids = torch.as_tensor(np.random.default_rng(24).integers(0, 50000, (2, 64)), device=DEVICE)
+    logits = []
+    for sd in (orig, conv):
+        params = gpt2.GPT2(cfg32, device=DEVICE)
+        params.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            logits.append(gpt2.forward(params, cfg32, ids).logits)
+        del params
+    if not torch.equal(*logits):
+        raise AssertionError("convert round trip: the fp32 logits changed")
+    print(f"cli convert: {CLI_MODEL} checkpoint -> HF state dict -> params in {wall:.1f} s, "
+          f"{len(orig)} tensors equal bit for bit, fp32 logits [2, 64, {logits[0].shape[-1]}] "
+          f"equal on {card}")
+
+
+def cli_phase(card: str) -> dict:
+    """load_data -> train (two recipes, then a shadowed run) -> remat
+    policies -> infer -> serve -> convert through the port's CLI at
+    gpt2-medium's full width and depth (phase 14 of the module docstring).
+    Returns {kernel: {path: launches}}."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        data, st = _cli_data(root)
+        cfg = ModelConfig.from_model_type(CLI_MODEL, vocab_size=st.vocab_size, dtype="bfloat16")
+        exp = _cli_train_expected(data, st, cfg)
+        if exp["longest"] < 512 or exp["steps"] < 32:
+            raise AssertionError(f"cli data: {exp}")
+        train_sh = ["--mode=train", "--seed=0", f"--data_dir={root}", "--train_prefix=train",
+                    "--valid_prefix=valid", f"--model_type={CLI_MODEL}", "--lr=1e-5",
+                    "--warmup_ratio=0.0", f"--batch_size={CLI_B}", "--num_epochs=1",
+                    "--max_len=1024", "--dtype=bfloat16", f"--output_dir={root}/out"]
+        ref = _cli_train(card, "reference recipe (remat mlp)",
+                         [*train_sh, f"--ckpt_dir={root}/ckpt", "--num_workers=0"], exp)
+        jax_recipe = _cli_train(
+            card, "the JAX help's gpt2-medium recipe (bf16 first moment, 2 micro-batches an "
+            "update, 2 loader workers)", [*train_sh, f"--ckpt_dir={root}/ckpt2",
+                                          "--adam_mu_dtype=bfloat16", "--grad_accum_steps=2",
+                                          "--num_workers=2"], exp)
+        shutil.rmtree(os.path.join(root, "ckpt2"))
+        shadow_exp = _cli_train_expected(data, st, cfg, limit=CLI_SHADOW_DIALOGUES)
+        from ergm_tpu_torch.cli import main as cli
+        with KernelShadow(TRAIN_SHADOWED, KernelShadow.BACKWARD) as shadow:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main([*train_sh, f"--ckpt_dir={root}/ckpt3",
+                          f"--limit={CLI_SHADOW_DIALOGUES}"])
+        shutil.rmtree(os.path.join(root, "ckpt3"))
+        shares = shadow.shares()
+        if not all(v <= 1.0 for v in shares.values()) or shadow.calls != shadow_exp["want"]:
+            raise AssertionError(f"cli train shadow: {shares}, {shadow.calls}, want "
+                                 f"{shadow_exp['want']}")
+        kernel, jax_arith = shadow.readings["block_mha_bwd"]
+        print(f"cli train (reference recipe, {CLI_SHADOW_DIALOGUES} dialogues, "
+              f"{shadow_exp['steps']} steps): every K5 and K6 launch, forward and backward, "
+              f"within its plain version's bar (outputs: share of 2e-2 + 1e-2 |plain|; "
+              f"gradients: bf16_grad_ratio, K5 against JAX's backward arithmetic, K6 against "
+              f"the autograd of its plain forward): " + ", ".join(
+                  f"{k} {v:.4f} over {shadow.calls[k]} launches" for k, v in shares.items())
+              + f"; K5's gradients against the autograd of its plain forward: {kernel:.4f}, "
+              f"JAX's arithmetic itself {jax_arith:.4f}, on {card}")
+        remat = _cli_remat(card, cfg, data, st)
+        best = ckpt_lib.find_checkpoint(os.path.join(root, "ckpt", CLI_MODEL))
+        serving = [f"--data_dir={root}", f"--model_type={CLI_MODEL}", "--batch_size=64",
+                   f"--max_len={CLI_INFER_LEN}", "--top_p=0.8", "--dtype=bfloat16", "--seed=0"]
+        infer = _cli_infer(card, ["--mode=infer", "--valid_prefix=valid", "--max_turns=35",
+                                  f"--limit={CLI_INFER_DIALOGUES}", f"--ckpt_dir={root}/ckpt",
+                                  "--ckpt_name=best", *serving],
+                           _cli_infer_expected(data, st, cfg), data)
+        serve = _cli_serve(card, root, ["--mode=serve", *serving], cfg.n_layer)
+        _cli_convert(card, root, best, cfg)
+    readings = {"train reference": {k: v for k, v in ref.items() if k != "launches"},
+                "train JAX recipe": {k: v for k, v in jax_recipe.items() if k != "launches"},
+                "infer utt/s": infer["utt_s"], "serve req/s": serve["req_s"]}
+    print(f"cli phase: {time.time() - t0:.1f} s on {card}; {json.dumps(readings)}")
+    paths = {"train reference": ref["launches"], "train JAX recipe": jax_recipe["launches"],
+             **{f"remat {p}": c for p, c in remat.items()}, "infer": infer["launches"],
+             "serve": serve["launches"]}
+    kernels = ("prefill_mha", "prefill_mha_cross", "block_mha", "block_mha_bwd",
+               "fused_softmax_xent", "fused_softmax_xent_bwd")
+    return {k: {p: c[k] for p, c in paths.items() if k in c} for k in kernels}
+
+
+def _descendants() -> list:
+    """The pids of the live (not zombie) processes below this one."""
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            except (OSError, ValueError):
+                continue
+            if state != "Z":
+                parent[int(entry)] = int(ppid)
+    found, front = [], [os.getpid()]
+    while front:
+        above = front.pop()
+        kids = [pid for pid, pp in parent.items() if pp == above]
+        found += kids
+        front += kids
+    return found
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def stop_processes() -> None:
+    """Stops every process the run started beside this one before it
+    exits: the fork server of the loader's workers and the resource
+    tracker it started (both would outlive this process for a moment),
+    then whatever else is still below it (SIGTERM, SIGKILL after 5 s)."""
+    import multiprocessing.forkserver
+    import multiprocessing.resource_tracker
+    import signal
+
+    below = _descendants()
+    multiprocessing.forkserver._forkserver._stop()
+    multiprocessing.resource_tracker._resource_tracker._stop()
+    left = [pid for pid in below if _alive(pid)]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            with contextlib.suppress(OSError):
+                os.kill(pid, sig)
+        deadline = time.time() + 5
+        while left and time.time() < deadline:
+            with contextlib.suppress(ChildProcessError):
+                while os.waitpid(-1, os.WNOHANG)[0]:
+                    pass
+            left = [pid for pid in left if _alive(pid)]
+            time.sleep(0.05)
+    if below:
+        # after the last line of standard output, so on standard error
+        print(f"processes stopped at exit: {len(below)}", file=sys.stderr)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is False")
@@ -3311,32 +3931,49 @@ def main() -> None:
     print(_build.build_log().strip())
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    k1 = kernel_phase(gen)
-    decode = decode_kernel_phase(gen)
-    k2_shapes = k2_shapes_phase(gen)
+    seconds = {}
+
+    def phase(fn, *args):
+        """Runs one phase and keeps its wall time (the script's time limit)."""
+        t = time.time()
+        out = fn(*args)
+        seconds[fn.__name__] = round(time.time() - t, 1)
+        return out
+
+    k1 = phase(kernel_phase, gen)
+    decode = phase(decode_kernel_phase, gen)
+    k2_shapes = phase(k2_shapes_phase, gen)
     decode["decode_mha_int8"]["launch_floor_ms"] = k2_shapes.pop("launch_floor_ms")
     decode["decode_mha_int8"]["other_shapes"] = k2_shapes
-    train = train_kernel_phase(gen)
+    train = phase(train_kernel_phase, gen)
     torch.cuda.empty_cache()
-    flash = flash_kernel_phase(gen)
+    flash = phase(flash_kernel_phase, gen)
     torch.cuda.empty_cache()
-    reference_phase()
-    on, long_on, step_tables = slice_phase(card)
+    phase(reference_phase)
+    on, long_on, step_tables = phase(slice_phase, card)
     # this slice's paths, counted from 0 just before each run
-    spec_counts = spec_phase(card)
-    beam_on = beam_phase(card)
-    server_on = server_phase(card)
-    for k, arms in server_ext_phase(card).items():
+    spec_counts = phase(spec_phase, card)
+    beam_on = phase(beam_phase, card)
+    server_on = phase(server_phase, card)
+    for k, arms in phase(server_ext_phase, card).items():
         server_on[k].update(arms)
-    pipeline_on = pipeline_phase(card)
-    train_reference_phase()
-    long_ctx = long_context_phase(card)
-    train_on = train_slice_phase(card)
+    pipeline_on = phase(pipeline_phase, card)
+    phase(train_reference_phase)
+    long_ctx = phase(long_context_phase, card)
+    train_on = phase(train_slice_phase, card)
+    torch.cuda.empty_cache()
+    cli_on = phase(cli_phase, card)
+    print(f"phase seconds: {json.dumps(seconds)}; {time.time() - t0:.1f} s since the build "
+          f"started")
     for arg in sys.argv[1:]:
         if arg.startswith("--profile="):
             path = arg.split("=", 1)[1]
             profile_train_step(card, path)
             root, ext = os.path.splitext(path)
+            # the command line's gpt2-medium step (train_torch.sh's B=8, the
+            # train split's longest bucket, its 64-token caption bucket)
+            profile_train_step(card, f"{root}_medium{ext}", ModelConfig.from_model_type(
+                CLI_MODEL, vocab_size=50271, dtype="bfloat16", remat=True), CLI_B, 512, 64)
             with open(f"{root}_decode{ext}", "w") as f:
                 f.write("\n\n".join(step_tables.values()) + "\n")
             print(f"profile: decode-step tables in {root}_decode{ext}")
@@ -3377,7 +4014,9 @@ def main() -> None:
         # launches on the server's path: each arm's run of the 256 requests
         **({"server_launches": server_on[name]} if name in server_on else {}),
         # launches on the feature-extraction and test-run paths
-        **({"pipeline_launches": pipeline_on[name]} if name in pipeline_on else {})}
+        **({"pipeline_launches": pipeline_on[name]} if name in pipeline_on else {}),
+        # launches on the command line's paths (gpt2-medium)
+        **({"cli_launches": cli_on[name]} if name in cli_on else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3385,4 +4024,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_processes()

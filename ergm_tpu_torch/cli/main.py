@@ -1,0 +1,639 @@
+"""CLI of the PyTorch port (counterpart of ``ergm_tpu/cli/main.py``):
+every flag of the reference-compatible surface, with the same names and
+defaults, so ``train_torch.sh`` / ``infer_torch.sh`` make the calls
+``train.sh`` / ``infer.sh`` make.
+
+``--mode=train`` runs the Trainer; ``--mode=infer`` needs a checkpoint,
+runs the batched KV-cached test pass, evaluates (dist-1/2, BERTScore
+with a local scorer model, PPL, emotion accuracy), prints, and writes
+``{ckpt_name}_evaluation_results.txt`` and ``{ckpt_name}_generations.txt``
+into the data dir; ``--mode=serve`` runs the continuous-batching server
+over a JSONL requests file or an HTTP endpoint (``--serve_http``);
+``--mode=interact`` a dialogue REPL.
+
+``--gpu`` picks the device: a CUDA index (default 0) or ``cpu``. A card
+that is not there fails the run. The port runs on one card: a mesh over
+several devices, ``--shard_opt_state`` and the multi-host launcher
+environment (``ERGM_COORDINATOR``) raise (ROADMAP.md queue 1 item 8).
+JAX's persistent compilation cache has no counterpart: the port builds
+its kernels once into ``ergm_tpu_torch/_build/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
+from ergm_tpu_torch.core.device import resolve
+
+# where the refusals point
+MULTI_DEVICE = "several devices are not ported (ROADMAP.md queue 1 item 8)"
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="ERGM train/infer CLI on PyTorch + CUDA")
+    # reference flags (src/main.py:339-361), names and defaults preserved
+    p.add_argument("--seed", type=int, default=0, help="The random seed.")
+    p.add_argument("--mode", type=str, required=True,
+                   choices=["train", "infer", "interact", "serve"],
+                   help="train/infer match the reference surface; interact "
+                        "adds a live dialogue REPL on a trained checkpoint; "
+                        "serve runs the continuous-batching server over a "
+                        "JSONL requests file (infer/server.py).")
+    p.add_argument("--data_dir", type=str, default="data")
+    p.add_argument("--train_prefix", type=str, default="train")
+    p.add_argument("--valid_prefix", type=str, default="valid")
+    p.add_argument("--model_type", type=str, default="gpt2")
+    p.add_argument("--bos_token", type=str, default="<bos>")
+    p.add_argument("--sp1_token", type=str, default="<sp1>")
+    p.add_argument("--sp2_token", type=str, default="<sp2>")
+    p.add_argument("--gpu", type=str, default="0",
+                   help="CUDA device index (the reference's meaning), or 'cpu'. "
+                        "Without a card an index fails; it never falls back "
+                        "to the CPU.")
+    p.add_argument("--lr", type=float, default=2e-5)
+    p.add_argument("--warmup_ratio", type=float, default=0.1)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--num_workers", type=int, default=0)
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--max_len", type=int, default=1024)
+    p.add_argument("--max_turns", type=int, default=10)
+    p.add_argument("--top_p", type=float, default=0.95)
+    p.add_argument("--ckpt_dir", type=str, default="saved_models")
+    p.add_argument("--output_dir", type=str, default="outputs")
+    p.add_argument("--ckpt_name", type=str, default=None)
+    # the reference's train.sh passes --layers=0 against an argparse that
+    # lacks the flag and dies (SURVEY.md §2.4.7); accept and ignore it
+    p.add_argument("--layers", type=int, default=None, help=argparse.SUPPRESS)
+    # ergm_tpu's additions
+    p.add_argument("--mesh_shape", type=str, default="-1",
+                   help="Comma-separated mesh shape. The port runs on one card: "
+                        "-1 or 1; several devices raise (ROADMAP.md queue 1 "
+                        "item 8).")
+    p.add_argument("--mesh_axes", type=str, default="data",
+                   help="Comma-separated axis names matching --mesh_shape.")
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--remat", dest="remat", action="store_true", default=True,
+                   help="Per-block rematerialization (default on: it unlocks "
+                        "larger batches).")
+    p.add_argument("--no_remat", dest="remat", action="store_false")
+    p.add_argument("--remat_policy", type=str, default=None,
+                   choices=["full", "dots", "mlp", "mlp_only"],
+                   help="Rematerialization policy (default mlp). ergm_tpu's "
+                        "single-chip recipes, measured on a TPU: gpt2 B=48 mlp; "
+                        "gpt2-medium B=12 mlp + --adam_mu_dtype=bfloat16; "
+                        "gpt2-large B=12 full + --adam_mu_dtype=bfloat16.")
+    p.add_argument("--tokenizer_dir", type=str, default=None,
+                   help="Dir with GPT-2 vocab.json/merges.txt for text decode.")
+    p.add_argument("--init_params", type=str, default=None,
+                   help="Params file or checkpoint dir to initialize from "
+                        "(see ergm_tpu_torch.cli.convert_ckpt; an ergm_tpu "
+                        "orbax checkpoint goes through ergm_tpu.cli."
+                        "convert_ckpt --reverse, then that tool).")
+    p.add_argument("--prompt_mode", type=str, default="reference",
+                   choices=["reference", "history"],
+                   help="Infer prompts: 'reference' replicates src/main.py:316 "
+                        "(full non-eos prefix); 'history' prompts with the "
+                        "masked-history prefix only.")
+    p.add_argument("--bert_model_dir", type=str, default=None,
+                   help="Local HF encoder dir for BERTScore (no downloads).")
+    p.add_argument("--bert_layer", type=int, default=None,
+                   help="Hidden layer for BERTScore embeddings. Default: "
+                        "the official scorer's per-model layer when the "
+                        "model is recognized (e.g. 17 for roberta-large), "
+                        "else the last layer.")
+    p.add_argument("--bert_idf", action="store_true",
+                   help="idf-weight BERTScore tokens (computed over the "
+                        "reference corpus, like the official scorer).")
+    p.add_argument("--bert_baselines", type=str, default=None,
+                   help="BERTScore rescaling baselines: either a path to "
+                        "an official bert_score rescale-baseline csv "
+                        "(LAYER,P,R,F1 rows; the layer row in use is "
+                        "selected automatically) or comma-separated P,R,F1 "
+                        "numbers, e.g. '0.83,0.83,0.83'.")
+    p.add_argument("--require_bertscore", action="store_true",
+                   help="Fail the run if BERTScore cannot be computed "
+                        "instead of skipping the metric.")
+    p.add_argument("--num_beams", type=int, default=1,
+                   help=">1 decodes with beam search instead of nucleus "
+                        "sampling during inference.")
+    p.add_argument("--sampler", type=str, default="full_sort",
+                   choices=["approx", "exact", "full_sort"],
+                   help="Nucleus sampler. Default 'full_sort' "
+                        "(reference-identical full-vocab top-p) — measured "
+                        "necessary for faithful quality metrics whenever "
+                        "the nucleus exceeds 64 tokens "
+                        "(results/sampler_quality.jsonl). 'approx' "
+                        "(approx_max_k top-64, a TPU option) is not ported "
+                        "and raises; 'exact' is the exact top-64.")
+    p.add_argument("--kv_cache", type=str, default="auto",
+                   choices=["auto", "int8"],
+                   help="Decode KV-cache storage; int8 trades ~1e-2-level "
+                        "sampling drift for decode throughput.")
+    p.add_argument("--weight_dtype", type=str, default="auto",
+                   choices=["auto", "int8"],
+                   help="Serving weight storage; int8 (weight-only, "
+                        "per-out-channel scales) halves weight-read HBM "
+                        "traffic — the small-batch decode bottleneck.")
+    p.add_argument("--keep_best", type=int, default=None,
+                   help="Retain only the N lowest-PPL checkpoints "
+                        "(default: keep all, like the reference).")
+    p.add_argument("--limit", type=int, default=None,
+                   help="Debug: use only the first N dialogues "
+                        "(the reference's [:1] slice, made explicit).")
+    p.add_argument("--draft_layers", type=int, default=0,
+                   help="B=1 serving: >0 enables self-speculative decoding "
+                        "with a draft built from the first N transformer "
+                        "blocks (greedy output identical; sampling exact "
+                        "via rejection sampling).")
+    p.add_argument("--spec_gamma", type=int, default=4,
+                   help="Speculative proposals per macro step.")
+    p.add_argument("--spec_mode", type=str, default="auto",
+                   choices=["auto", "none", "draft", "ngram"],
+                   help="Speculative draft source: 'draft' = first "
+                        "--draft_layers blocks of the model; 'ngram' = "
+                        "prompt-lookup (propose the continuation of the "
+                        "last n-gram's most recent earlier occurrence — "
+                        "zero draft compute, wins whenever dialogue "
+                        "repeats its context). Both are exact. 'auto' "
+                        "(default) applies ergm_tpu's policy, measured on "
+                        "a TPU: greedy B=1 -> ngram on; sampled -> off "
+                        "(B1_LATENCY.json, results/spec_bench.jsonl).")
+    p.add_argument("--spec_ngram", type=int, default=3,
+                   help="Lookup n-gram length for --spec_mode=ngram.")
+    p.add_argument("--requests_file", type=str, default=None,
+                   help="serve mode: JSONL requests — {'prompt': [ids...]} "
+                        "or {'text': '...'} (text needs --tokenizer_dir); "
+                        "optional max_new_tokens/top_p/temperature/"
+                        "greedy/seed/stop/logprobs/"
+                        "caption_ids/arrival_s/session_id/pool per line "
+                        "(session_id: multi-turn continuation — the next "
+                        "turn's full prompt prefills only its new tokens "
+                        "against the session's retained KV).")
+    p.add_argument("--serve_http", type=int, default=None, metavar="PORT",
+                   help="serve mode: run an online HTTP endpoint on "
+                        "localhost:PORT instead of a batch requests file "
+                        "(POST /generate with prompt|text + stream flag, "
+                        "GET /health; infer/http_server.py).")
+    p.add_argument("--serve_output", type=str, default=None,
+                   help="serve mode: output JSONL (default "
+                        "<requests_file>.responses.jsonl).")
+    p.add_argument("--serve_sync", type=int, default=8,
+                   help="serve mode: decode steps per host sync block.")
+    p.add_argument("--serve_spec_gamma", type=int, default=0,
+                   help="serve mode: speculative serving — draft this many "
+                        "tokens per macro step via device prompt-lookup "
+                        "(n-gram) and verify them in one forward; per-slot "
+                        "cursors advance by the accepted prefix + 1. Exact "
+                        "greedy output; blocks with sampled rows fall back "
+                        "to plain decode. 0 disables.")
+    p.add_argument("--serve_spec_ngram", type=int, default=3,
+                   help="serve mode: lookup n-gram length for "
+                        "--serve_spec_gamma.")
+    p.add_argument("--serve_prefill_chunk", type=int, default=0,
+                   help="serve mode: admit prompts in chunks of this many "
+                        "tokens (one chunk per decode block), bounding the "
+                        "decode-latency hiccup a long prompt's admission "
+                        "injects into concurrent streams; also lifts the "
+                        "max-prompt admission cap (only chunks ever "
+                        "prefill). 0 disables (single-shot admission).")
+    p.add_argument("--serve_long_slots", type=int, default=0,
+                   help="serve mode: length-tiered slot pools — reserve "
+                        "this many slots as a LONG pool with its own KV "
+                        "cache and capacity rung, so one long request no "
+                        "longer widens the cache every short slot reads "
+                        "(requests route by prompt + max_new_tokens - 1 "
+                        "— the final KV cursor — vs "
+                        "--serve_long_threshold, or per-request "
+                        "'pool': 'long'|'short'). 0 disables.")
+    p.add_argument("--serve_long_threshold", type=int, default=None,
+                   help="serve mode: expected final length above which a "
+                        "request routes to the long pool. Default: with "
+                        "--requests_file, the (1 - K/S) quantile of the "
+                        "file's expected final lengths (max_prompt — the "
+                        "library default — is the LONGEST prompt's bucket "
+                        "there, which would route everything short); with "
+                        "--serve_http, max_prompt, with a warning.")
+    p.add_argument("--serve_admit_policy", type=str, default=None,
+                   choices=["fifo", "sorted"],
+                   help="serve mode admission order: fifo (latency-fair) "
+                        "or sorted (length-sorted cohorts -- co-resident "
+                        "rows finish together). Default: sorted for batch "
+                        "--requests_file runs (ergm_tpu's choice, measured "
+                        "on a TPU: matrix2_summary_r5), fifo for "
+                        "--serve_http (sorted starves under live "
+                        "arrivals).")
+    p.add_argument("--serve_pipeline", action="store_true",
+                   help="serve mode: throughput mode — dispatch each decode "
+                        "block before harvesting the previous one, hiding "
+                        "the per-block host round trip behind device "
+                        "compute (costs one block of finish-detection lag; "
+                        "default synchronous order is the latency mode).")
+    p.add_argument("--attn_pdrop", type=float, default=None,
+                   help="Attention-probability dropout (default 0.1, the "
+                        "reference's regularization; runs in-kernel on the "
+                        "fused block-attention path — see PARITY.md).")
+    p.add_argument("--resid_pdrop", type=float, default=None,
+                   help="Residual dropout override (default 0.1).")
+    p.add_argument("--embd_pdrop", type=float, default=None,
+                   help="Embedding dropout override (default 0.1).")
+    p.add_argument("--adam_mu_dtype", type=str, default=None,
+                   choices=["bfloat16", "float32"],
+                   help="Adam first-moment storage dtype; bfloat16 halves "
+                        "the momentum buffer (HBM headroom for larger "
+                        "batches under remat).")
+    p.add_argument("--grad_accum_steps", type=int, default=1,
+                   help="Average gradients over k micro-batches per "
+                        "optimizer update (effective batch k*batch_size "
+                        "past the single-chip HBM frontier).")
+    p.add_argument("--length_grouped", type=int, default=0,
+                   help="K > 1: sort examples by length within megabatches "
+                        "of K*batch_size (batch order reshuffled) so "
+                        "similar-length rows share a bucket (less pad "
+                        "compute on real dialogue data). 0 = reference-like "
+                        "uniform shuffle.")
+    p.add_argument("--pad_multiple", type=int, default=128,
+                   help="Bucket quantum for batch sequence lengths; 64 with "
+                        "--length_grouped recovers more pad waste at the "
+                        "cost of up to 2x compiled shapes.")
+    p.add_argument("--shard_opt_state", action="store_true",
+                   help="ZeRO-1: shard AdamW's fp32 moments over the mesh "
+                        "data axis instead of replicating them per chip "
+                        "(the memory that gates gpt2-xl under pure data "
+                        "parallelism). Not ported: raises (ROADMAP.md "
+                        "queue 1 item 8).")
+    p.add_argument("--save_on_preempt", type=int, default=1, choices=[0, 1],
+                   help="1 (default): on SIGTERM (spot/preemptible VM "
+                        "preemption) save an emergency checkpoint at the "
+                        "next step-block boundary and exit; resume with "
+                        "--ckpt_name=preempt. A second SIGTERM exits "
+                        "immediately.")
+    return p
+
+
+def args_to_config(args) -> TrainConfig:
+    mesh_shape = tuple(int(x) for x in str(args.mesh_shape).split(","))
+    mesh_axes = tuple(str(args.mesh_axes).split(","))
+    return TrainConfig(
+        seed=args.seed, mode=args.mode, data_dir=args.data_dir,
+        train_prefix=args.train_prefix, valid_prefix=args.valid_prefix,
+        model_type=args.model_type, bos_token=args.bos_token,
+        sp1_token=args.sp1_token, sp2_token=args.sp2_token,
+        lr=args.lr, warmup_ratio=args.warmup_ratio, batch_size=args.batch_size,
+        num_workers=args.num_workers, num_epochs=args.num_epochs,
+        max_len=args.max_len, max_turns=args.max_turns, top_p=args.top_p,
+        ckpt_dir=args.ckpt_dir, output_dir=args.output_dir,
+        ckpt_name=args.ckpt_name, mesh_shape=mesh_shape,
+        mesh_axis_names=mesh_axes, dtype=args.dtype, remat=args.remat,
+        tokenizer_dir=args.tokenizer_dir, init_params=args.init_params,
+        keep_best=args.keep_best,
+        attn_pdrop=args.attn_pdrop, resid_pdrop=args.resid_pdrop,
+        embd_pdrop=args.embd_pdrop, adam_mu_dtype=args.adam_mu_dtype,
+        remat_policy=args.remat_policy,
+        grad_accum_steps=args.grad_accum_steps,
+        length_grouped=args.length_grouped, pad_multiple=args.pad_multiple,
+        save_on_preempt=bool(args.save_on_preempt),
+        shard_opt_state=args.shard_opt_state,
+    )
+
+
+
+
+def device_of(args) -> torch.device:
+    """``--gpu``: a CUDA index, or ``cpu``."""
+    gpu = str(args.gpu).strip()
+    return resolve("cpu" if gpu == "cpu" else f"cuda:{int(gpu)}")
+
+
+def _refuse_several_devices(cfg: TrainConfig) -> None:
+    if tuple(cfg.mesh_shape) != (-1,) and any(x != 1 for x in cfg.mesh_shape):
+        raise NotImplementedError(f"--mesh_shape={','.join(map(str, cfg.mesh_shape))}: "
+                                  f"{MULTI_DEVICE}; the port runs on one card "
+                                  f"(--mesh_shape=-1 or 1)")
+    if cfg.shard_opt_state:
+        raise NotImplementedError(f"--shard_opt_state (ZeRO-1): {MULTI_DEVICE}")
+    launcher = [k for k in ("ERGM_COORDINATOR", "ERGM_NUM_PROCESSES", "ERGM_PROCESS_ID")
+                if os.environ.get(k)]
+    if launcher:
+        raise NotImplementedError(f"the multi-host launcher environment ({', '.join(launcher)}): "
+                                  f"{MULTI_DEVICE}")
+
+
+def _load_tokenizer(tokenizer_dir: str, st):
+    """The decode tokenizer with the special-token registry attached,
+    checked against the vocab recorded at data-build time."""
+    from ergm_tpu_torch.tokenizer.bpe import load_or_train_default
+
+    tok = load_or_train_default(tokenizer_dir)
+    if len(tok) != st.vocab_size:
+        warnings.warn(
+            f"tokenizer vocab ({len(tok)}) != tokenizer_meta.json vocab "
+            f"({st.vocab_size}); decoded text may be wrong — rebuild the "
+            f"data or pass the tokenizer dir used at load_data time")
+    return tok
+
+
+def _serving_params(cfg: TrainConfig, mcfg: ModelConfig, device, seed: int,
+                    required: bool):
+    """Random init from ``seed`` with the checkpoint ``cfg.ckpt_name`` loaded
+    over it, ready for inference. A missing checkpoint exits when
+    ``required``, else warns (replies then come from the random init)."""
+    from ergm_tpu_torch.models import gpt2
+    from ergm_tpu_torch.train import checkpoint as ckpt_lib
+
+    params = gpt2.init_params(torch.Generator().manual_seed(seed), mcfg, device=device)
+    path = ckpt_lib.find_checkpoint(cfg.ckpt_dir, cfg.ckpt_name) if cfg.ckpt_name else None
+    if path:
+        print(f"Loading checkpoint {path}")
+        params = ckpt_lib.restore_params(path, params)
+    elif required:
+        print(f"Cannot find checkpoint {cfg.ckpt_name!r} under {cfg.ckpt_dir}")
+        sys.exit(1)
+    else:
+        print("WARNING: no checkpoint found; responses come from random init")
+    return gpt2.params_for_inference(params, mcfg)
+
+
+def run_infer(cfg: TrainConfig, args) -> dict:
+    from ergm_tpu_torch.data.assembly import read_meta
+    from ergm_tpu_torch.data.dataset import DialogueDataset
+    from ergm_tpu_torch.evaluation.evaluate import Evaluator
+    from ergm_tpu_torch.infer.runner import run_test, write_generations
+
+    device = device_of(args)
+    st = read_meta(cfg.data_dir)
+    mcfg = ModelConfig.from_model_type(cfg.model_type, vocab_size=st.vocab_size,
+                                       dtype=cfg.dtype, kv_cache_dtype=args.kv_cache,
+                                       weight_dtype=args.weight_dtype)
+    max_len = min(cfg.max_len, mcfg.n_positions)
+    dataset = DialogueDataset(cfg.valid_prefix, cfg.data_dir, sp1_id=st.sp1_id,
+                              sp2_id=st.sp2_id, eos_id=st.eos_id,
+                              max_len=max_len, limit=args.limit)
+    params = _serving_params(cfg, mcfg, device, seed=0, required=True)
+    tokenizer = _load_tokenizer(cfg.tokenizer_dir, st) if cfg.tokenizer_dir else None
+
+    res = run_test(
+        params, mcfg, dataset, batch_size=cfg.batch_size, eos_id=st.eos_id,
+        sp2_id=st.sp2_id, max_len=max_len, top_p=cfg.top_p, seed=cfg.seed,
+        tokenizer=tokenizer, prompt_mode=args.prompt_mode, num_beams=args.num_beams,
+        sampler=args.sampler, draft_layers=args.draft_layers, spec_gamma=args.spec_gamma,
+        spec_mode=args.spec_mode, spec_ngram=args.spec_ngram)
+
+    gen_path = os.path.join(cfg.data_dir, f"{cfg.ckpt_name}_generations.txt")
+    write_generations(gen_path, res.contexts, res.references, res.hypotheses)
+    print(f"Sample generations written to {gen_path}")
+
+    baselines = None
+    if args.bert_baselines:
+        if os.path.exists(args.bert_baselines):
+            baselines = args.bert_baselines  # official baseline csv path
+        else:
+            p_, r_, f_ = (float(x) for x in args.bert_baselines.split(","))
+            baselines = {"precision": p_, "recall": r_, "f1": f_}
+    evaluator = Evaluator(bert_model_dir=args.bert_model_dir, bert_layer=args.bert_layer,
+                          bert_idf=args.bert_idf, bert_baselines=baselines,
+                          require_bertscore=args.require_bertscore, device=device)
+    metrics = evaluator.evaluate_all(res.hypotheses, res.references,
+                                     true_label_ids=res.true_labels, losses=res.losses,
+                                     pred_label_ids=res.pred_labels,
+                                     loss_token_counts=res.loss_tokens)
+
+    print("\n--- Final Evaluation Results ---")
+    for k, v in metrics.items():
+        print(f"{k.upper():<12}: {v:.4f}" if isinstance(v, float) else f"{k.upper():<12}: {v}")
+    print("--------------------------------")
+    out_path = os.path.join(cfg.data_dir, f"{cfg.ckpt_name}_evaluation_results.txt")
+    with open(out_path, "w", encoding="utf-8") as f:
+        for k, v in metrics.items():
+            f.write(f"{k}: {v}\n")
+        # the decode configuration, so that published numbers are reproducible
+        f.write(f"sampler: {args.sampler}\n")
+        f.write(f"num_beams: {args.num_beams}\n")
+        f.write(f"top_p: {cfg.top_p}\n")
+        f.write(f"kv_cache: {args.kv_cache}\n")
+        f.write(f"weight_dtype: {args.weight_dtype}\n")
+        if args.draft_layers or args.spec_mode == "ngram":
+            f.write(f"spec_mode: {args.spec_mode}\n")
+            f.write(f"draft_layers: {args.draft_layers}\n")
+            f.write(f"spec_gamma: {args.spec_gamma}\n")
+            if args.spec_mode == "ngram":
+                f.write(f"spec_ngram: {args.spec_ngram}\n")
+    print(f"Results written to {out_path}")
+    return metrics
+
+
+def main(argv: Optional[list] = None):
+    args = build_argparser().parse_args(argv)
+    # path suffixing with the model type (src/main.py:364-365)
+    args.data_dir = os.path.join(args.data_dir, args.model_type)
+    args.ckpt_dir = os.path.join(args.ckpt_dir, args.model_type)
+    cfg = args_to_config(args)
+    _refuse_several_devices(cfg)
+
+    if args.mode == "train":
+        from ergm_tpu_torch.train.trainer import Trainer
+
+        Trainer(cfg, limit=args.limit, device=device_of(args)).train()
+    elif args.mode == "interact":
+        run_interact(cfg, args)
+    elif args.mode == "serve":
+        run_serve(cfg, args)
+    else:
+        if cfg.ckpt_name is None:
+            raise SystemExit("Please specify the trained checkpoint using --ckpt_name.")
+        run_infer(cfg, args)
+
+
+def run_serve(cfg: TrainConfig, args):
+    """--mode=serve: the continuous-batching server (infer/server.py)
+    over a JSONL requests file, or an HTTP endpoint with --serve_http.
+    Each input line becomes a Request; lines with "arrival_s" are
+    admitted on a real-time clock, others queue at once. One JSON line
+    per request goes to --serve_output: index, continuation token ids
+    (and text with a tokenizer), predicted emotion id, latency; or the
+    error of a rejected request."""
+    from ergm_tpu_torch.data.assembly import read_meta
+    from ergm_tpu_torch.infer.server import ContinuousServer, request_from_json
+
+    if not (args.requests_file or args.serve_http is not None):
+        raise SystemExit("serve mode needs --requests_file (batch) or --serve_http PORT "
+                         "(online)")
+    st = read_meta(cfg.data_dir)
+    mcfg = ModelConfig.from_model_type(cfg.model_type, vocab_size=st.vocab_size,
+                                       dtype=cfg.dtype, weight_dtype=args.weight_dtype,
+                                       kv_cache_dtype=args.kv_cache)
+    params = _serving_params(cfg, mcfg, device_of(args), seed=cfg.seed, required=False)
+    tokenizer = _load_tokenizer(cfg.tokenizer_dir, st) if cfg.tokenizer_dir else None
+
+    if args.serve_http is not None:  # port 0 = ephemeral, still truthy intent
+        from ergm_tpu_torch.infer.http_server import ServerFrontend
+
+        max_prompt = max(
+            64, (min(cfg.max_len, mcfg.n_positions - args.serve_sync - 1) // 64) * 64)
+        if args.serve_long_slots and args.serve_long_threshold is None:
+            print(f"WARNING: --serve_long_slots without "
+                  f"--serve_long_threshold defaults the threshold to "
+                  f"max_prompt={max_prompt}; requests only route long "
+                  f"above that. Set the threshold to your short-traffic "
+                  f"ceiling (or send per-request 'pool' hints) so the "
+                  f"tier actually separates your workload.")
+        srv = ContinuousServer(
+            params, mcfg, slots=cfg.batch_size, eos_id=st.eos_id,
+            sp2_id=st.sp2_id, max_prompt=max_prompt,
+            cache_len=mcfg.n_positions, sync_every=args.serve_sync,
+            pipeline=args.serve_pipeline,
+            spec_gamma=args.serve_spec_gamma,
+            spec_ngram=args.serve_spec_ngram,
+            prefill_chunk=args.serve_prefill_chunk,
+            long_slots=args.serve_long_slots,
+            long_threshold=args.serve_long_threshold,
+            admit_policy=args.serve_admit_policy or "fifo")
+        fe = ServerFrontend(srv, tokenizer=tokenizer, port=args.serve_http,
+                            default_top_p=cfg.top_p, default_seed=cfg.seed).start()
+        print(f"Serving HTTP on http://{fe.host}:{fe.port} "
+              f"(POST /generate, GET /health; Ctrl-C to stop)")
+        fe.serve_forever()
+        return
+
+    raw = []
+    with open(args.requests_file) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                raw.append(json.loads(line))
+    reqs = [(request_from_json(r, tokenizer, default_top_p=cfg.top_p,
+                               default_seed=cfg.seed),
+             float(r.get("arrival_s", 0.0))) for r in raw]
+
+    longest = max((len(q.prompt_ids) for q, _ in reqs), default=64)
+    longest = ((longest + 63) // 64) * 64
+    max_prompt = longest
+    if args.serve_prefill_chunk:
+        # chunked admission lifts the prompt cap (only chunks ever
+        # prefill); max_prompt just sizes the first-chunk bucket and
+        # must stay below the cache length
+        chunk_b = ((args.serve_prefill_chunk + 63) // 64) * 64
+        max_prompt = min(max(longest, chunk_b), max(
+            64, ((mcfg.n_positions - args.serve_sync - 2) // 64) * 64))
+    elif longest + args.serve_sync >= mcfg.n_positions:
+        raise ValueError(
+            f"longest request prompt buckets to {longest} tokens, but "
+            f"serving needs prompt + sync_every < n_positions "
+            f"({mcfg.n_positions}); shorten the prompt, or pass "
+            f"--serve_prefill_chunk to admit long prompts in chunks")
+    # logical cache length: with per-slot cursors the physical rung
+    # tracks max(active length), so a full-context cache costs nothing
+    # until requests grow into it; --max_len below n_positions still
+    # caps it (submit rejects requests that cannot fit, loudly)
+    cache_len = min(mcfg.n_positions,
+                    max(cfg.max_len, longest + args.serve_sync + 1,
+                        max_prompt + 1))
+    long_threshold = args.serve_long_threshold
+    if args.serve_long_slots and long_threshold is None:
+        # the library default (max_prompt) is the LONGEST prompt's bucket
+        # here, which would route every request short: route roughly the
+        # long pool's slot share of the traffic long, the (1 - K/S)
+        # quantile of expected final lengths (prompt + max_new - 1, the
+        # final KV cursor), bucketed down
+        exp = sorted(len(q.prompt_ids) + q.max_new_tokens - 1
+                     for q, _ in reqs)
+        if exp:
+            frac = 1.0 - args.serve_long_slots / max(cfg.batch_size, 1)
+            q_ix = min(int(len(exp) * frac), len(exp) - 1)
+            long_threshold = max(64, (exp[q_ix] // 64) * 64)
+            print(f"--serve_long_threshold not set; using "
+                  f"{long_threshold} (the {100 * frac:.0f}th percentile "
+                  f"of expected final lengths in the requests file)")
+    srv = ContinuousServer(
+        params, mcfg, slots=cfg.batch_size, eos_id=st.eos_id,
+        sp2_id=st.sp2_id, max_prompt=max_prompt, cache_len=cache_len,
+        sync_every=args.serve_sync,
+        pipeline=args.serve_pipeline,
+        spec_gamma=args.serve_spec_gamma,
+        spec_ngram=args.serve_spec_ngram,
+        prefill_chunk=args.serve_prefill_chunk,
+        long_slots=args.serve_long_slots,
+        long_threshold=long_threshold,
+        # the offline regime: length-sorted cohorts
+        admit_policy=args.serve_admit_policy or "sorted")
+
+    order = sorted(range(len(reqs)), key=lambda i: reqs[i][1])
+    rid_to_idx = {}
+    rejected = {}  # index -> error message (a bad request does not end the run)
+    t0 = time.time()
+    nxt = 0
+    while len(srv.results) < len(reqs) - len(rejected):
+        now = time.time() - t0
+        while nxt < len(reqs) and reqs[order[nxt]][1] <= now:
+            idx = order[nxt]
+            try:
+                rid_to_idx[srv.submit(reqs[idx][0])] = idx
+            except ValueError as e:
+                # e.g. prompt + budget exceeds the model context: record
+                # the rejection and keep serving the rest of the file
+                rejected[idx] = str(e)
+                print(f"WARNING: request {idx} rejected: {e}")
+            nxt += 1
+        if not srv.busy():
+            srv.flush()  # a pipelined in-flight block still harvests
+            time.sleep(0.002)
+            continue
+        srv.step()
+    wall = time.time() - t0
+
+    out_path = args.serve_output or args.requests_file + ".responses.jsonl"
+    rows = [{"index": idx, "error": msg} for idx, msg in rejected.items()]
+    for rid, res in srv.results.items():
+        row = {"index": rid_to_idx[rid], "tokens": res.tokens,
+               "emotion_id": int(np.argmax(res.emotion_logits)),
+               "latency_s": round(res.latency_s, 3)}
+        if res.logprobs is not None:
+            row["logprobs"] = [round(x, 5) for x in res.logprobs]
+        if tokenizer is not None:
+            stop = res.tokens[:-1] if (res.tokens and
+                                       res.tokens[-1] == st.eos_id) \
+                else res.tokens
+            row["text"] = tokenizer.decode(stop)
+        rows.append(row)
+    with open(out_path, "w") as f:
+        for row in sorted(rows, key=lambda r: r["index"]):
+            f.write(json.dumps(row) + "\n")
+    print(f"Served {len(reqs)} requests in {wall:.1f}s "
+          f"({len(reqs) / max(wall, 1e-9):.1f} req/s) -> {out_path}")
+    if srv.spec_proposed:
+        print(f"speculative: {srv.spec_accepted}/{srv.spec_proposed} drafts "
+              f"accepted ({srv.spec_accepted / srv.spec_proposed:.0%})")
+
+
+def run_interact(cfg: TrainConfig, args):
+    """--mode=interact: the dialogue REPL on stdin. ``run_repl`` takes no
+    speculative mode: JAX's CLI passes ``spec_mode`` and ``spec_ngram``
+    to a ``run_repl`` that does not accept them (its interact mode raises
+    TypeError); this one passes what ``run_repl`` takes."""
+    from ergm_tpu_torch.data.assembly import read_meta
+    from ergm_tpu_torch.infer.interact import run_repl
+
+    if not cfg.tokenizer_dir:
+        raise SystemExit("interact mode needs --tokenizer_dir")
+    st = read_meta(cfg.data_dir)
+    mcfg = ModelConfig.from_model_type(cfg.model_type, vocab_size=st.vocab_size,
+                                       dtype=cfg.dtype, weight_dtype=args.weight_dtype)
+    params = _serving_params(cfg, mcfg, device_of(args), seed=cfg.seed, required=False)
+    tokenizer = _load_tokenizer(cfg.tokenizer_dir, st)
+    run_repl(params, mcfg, st, tokenizer, max_len=cfg.max_len, max_turns=cfg.max_turns,
+             top_p=cfg.top_p, seed=cfg.seed, draft_layers=args.draft_layers,
+             spec_gamma=args.spec_gamma)
+
+
+if __name__ == "__main__":
+    main()

@@ -31,8 +31,8 @@ class ModelConfig:
 
     Training reads the dropout rates (``embd_pdrop``, ``attn_pdrop``,
     ``resid_pdrop``; inference is deterministic), ``remat`` and
-    ``remat_policy`` (``mlp``, ``mlp_only`` or ``full``; ``dots`` is not
-    ported), ``loss_chunk`` and ``lm_loss_impl`` (``auto``: kernel K6 for
+    ``remat_policy`` (``mlp``, ``mlp_only``, ``full`` or ``dots``),
+    ``loss_chunk`` and ``lm_loss_impl`` (``auto``: kernel K6 for
     CUDA tensors, the chunked loss on the CPU; ``fused``: K6, or its
     plain version on the CPU). ``attention_impl`` ``auto`` routes
     training self-attention to kernel K5 and batched short prefill to
@@ -118,8 +118,7 @@ class TrainConfig:
 
     The port trains on one device. ``prng_impl``, ``mesh_shape``,
     ``mesh_axis_names`` and ``shard_opt_state`` are carried for equality
-    and do nothing; ``num_workers > 0``, ``grad_accum_steps > 1`` and
-    ``adam_mu_dtype`` are refused by the ``Trainer`` until ported.
+    and do nothing (the CLI refuses a mesh and ``--shard_opt_state``).
     """
 
     seed: int = 0

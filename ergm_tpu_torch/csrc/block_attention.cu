@@ -63,10 +63,12 @@
 // It writes m (in log2 units) and l, 8 bytes a row, so that the backward's
 // pn is the forward's without a pass of its own. The backward is two
 // kernels with no atomics, so its result does not depend on scheduling: dQ
-// (one CTA per query tile, over the key tiles; it also writes each row's
-// m, 1/l and delta = rowsum(dO * O) in f32, which equals JAX's
-// sum(pn * dpn) up to summation order in f32 and differs in bf16 by O's
-// rounding), then dK/dV (one CTA per key tile, over the query tiles that
+// (one CTA per query tile, over the key tiles twice: pass 1 takes each
+// row's delta = sum(pn * dpn) in f32, JAX's, pass 2 accumulates dS . K; it
+// also writes each row's m, 1/l and delta; rowsum(dO * O) in its place
+// would carry O's bf16 rounding into every ds of a row, which a nearly
+// uniform row turns into a dQ error many times JAX's), then dK/dV (one
+// CTA per key tile, over the query tiles that
 // see it, S^T and dP^T recomputed with keys as rows). Both regenerate the
 // keep mask from the hash rather than read a bit mask stored by the
 // forward, which would hold 19 MB a layer at the slice until the backward
@@ -695,26 +697,27 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int r0 = q0 + warp * 16;
-  const long long sk = a.st[kK][2], sv = a.st[kV][2], so = a.st[kO][2];
+  const long long sk = a.st[kK][2], sv = a.st[kV][2];
   const bf16* k = head<bf16>(a, a.k, kK, b, h);
   const bf16* v = head<bf16>(a, a.v, kV, b, h);
-  const bf16* o = head<bf16>(a, a.o, kO, b, h);
   const Walk walk(a, q0, r0, a.dead[b]);
   const int n = walk.kend / kTile;
   const float sl2 = a.scale * kLog2e;
 
+  // steps 0..n-1: pass 1 over the key tiles (delta); n..2n-1: pass 2 (dQ)
   stage<kRows>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * a.st[kQ][2], a.st[kQ][2]);
   stage<kRows>(dos, head<bf16>(a, a.dout, kDO, b, h) + q0 * a.st[kDO][2], a.st[kDO][2]);
   auto issue = [&](int s) {
-    if (s < n) {
-      stage<kTile>(ks + (s & 1) * kTile * kLd, k + s * kTile * sk, sk);
-      stage<kTile>(vs + (s & 1) * kTile * kLd, v + s * kTile * sv, sv);
+    if (s < 2 * n) {
+      const int k0 = (s < n ? s : s - n) * kTile;
+      stage<kTile>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
+      stage<kTile>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
     }
     ergm_async::commit();
   };
   issue(0);
 
-  float mrow[2], inv[2], delta[2] = {0.0f, 0.0f};
+  float mrow[2], inv[2], delta[2] = {0.0f, 0.0f};  // delta: the lane's share until step n
   unsigned xrow[2];
   const long long plane = static_cast<long long>(a.B) * a.H * a.L;
 #pragma unroll
@@ -729,28 +732,22 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
   float acc[8][4];
   zero(acc);
 
-  for (int s = 0; s < n; ++s) {
-    const int k0 = s * kTile;
+  for (int s = 0; s < 2 * n; ++s) {
+    const int k0 = (s < n ? s : s - n) * kTile;
     unsigned bits[kTile / kSub];
     key_bits(bits, a, b, k0);
     issue(s + 1);
     ergm_async::wait<1>();
     __syncthreads();
-    if (s == 0) {
-      // delta = rowsum(dO * O) in f32 over the warp's rows; the rows' (m, 1/l,
-      // delta) go to the dK/dV kernel
-#pragma unroll 4
-      for (int rr = 0; rr < 16; ++rr) {
-        const __nv_bfloat162 x =
-            *reinterpret_cast<const __nv_bfloat162*>(dos + (warp * 16 + rr) * kLd + 2 * lane);
-        const __nv_bfloat162 y =
-            *reinterpret_cast<const __nv_bfloat162*>(o + (r0 + rr) * so + 2 * lane);
-        float d = __bfloat162float(x.x) * __bfloat162float(y.x) +
-                  __bfloat162float(x.y) * __bfloat162float(y.y);
+    if (s == n) {
+      // delta = rowsum(pn * dpn) in f32 from the four lanes that hold a row,
+      // as JAX's kernel takes it (rowsum(dO * O) would carry O's bf16
+      // rounding into every ds of the row); the rows' (m, 1/l, delta) go
+      // to the dK/dV kernel
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-        if (rr == g) delta[0] = d;
-        if (rr == g + 8) delta[1] = d;
+      for (int i = 0; i < 2; ++i) {
+        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
       }
       if (t == 0) {
 #pragma unroll
@@ -769,8 +766,9 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
         prod_nt(sc, qs, warp * 16, kt, u * kSub);
         prod_nt(dp, dos, warp * 16, vt, u * kSub);
         mask_scores(a, bits[u], sc, r0, c0, sl2);
-        // ds = pn * (dpn - delta) where visible, 0 where masked (mask_scores
-        // wrote the fill there; no visible score comes near -1e9)
+        // pass 1: delta += pn * dpn; pass 2: ds = pn * (dpn - delta), both
+        // where visible, 0 where masked (mask_scores wrote the fill there;
+        // no visible score comes near -1e9)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -778,10 +776,13 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
             const int i = e >> 1;
             float d = dp[j][e];
             if (a.dropout) d = keep(a, xrow[i] + c0 + 8 * j + (e & 1)) ? d * a.drop_mul : 0.0f;
-            sc[j][e] = sc[j][e] == kMaskL2 ? 0.0f
-                                           : ex2(sc[j][e] - mrow[i]) * inv[i] * (d - delta[i]);
+            const float pn = sc[j][e] == kMaskL2 ? 0.0f : ex2(sc[j][e] - mrow[i]) * inv[i];
+            if (s < n)
+              delta[i] += pn * d;
+            else
+              sc[j][e] = pn * (d - delta[i]);
           }
-        prod_nn(acc, sc, kt, u * kSub);
+        if (s >= n) prod_nn(acc, sc, kt, u * kSub);
       }
     }
     __syncthreads();

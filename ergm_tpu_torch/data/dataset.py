@@ -23,6 +23,7 @@ SURVEY.md §2.4.6) becomes an explicit ``limit`` argument, default off.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import warnings
@@ -64,6 +65,16 @@ class Batch:
     contexts: List[str]
     caption_ids: Optional[np.ndarray] = None  # [B, Lc] int32, eos-padded
     caption_mask: Optional[np.ndarray] = None  # [B, Lc] float32, 1 on real
+
+    def pin_memory(self) -> "Batch":
+        """A copy whose arrays are page-locked CPU tensors, so that their copy
+        to the card runs asynchronously (``torch.utils.data.DataLoader`` calls
+        this in its pinning thread under ``pin_memory=True``)."""
+        import torch
+
+        return dataclasses.replace(self, **{
+            f.name: torch.from_numpy(getattr(self, f.name)).pin_memory()
+            for f in dataclasses.fields(self) if isinstance(getattr(self, f.name), np.ndarray)})
 
 
 def _feat(x) -> np.ndarray:
@@ -267,6 +278,41 @@ def collate(
                  caption_ids=cap_ids, caption_mask=cap_mask)
 
 
+def batch_order(
+    dataset: DialogueDataset,
+    batch_size: int,
+    shuffle: bool = False,
+    seed: int = 0,
+    drop_remainder: bool = False,
+    static: bool = False,
+    length_grouped: int = 0,
+) -> List[np.ndarray]:
+    """The example indices of each batch ``batches`` yields, in order (the
+    plain iterator and ``data/loader.py``'s workers share it)."""
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    starts = list(range(0, len(order), batch_size))
+    if length_grouped > 1 and not static and len(order) > batch_size:
+        mega = length_grouped * batch_size
+        lens = np.array([len(dataset[i].input_ids) for i in order])
+        order = np.concatenate([
+            order[s:s + mega][np.argsort(lens[s:s + mega], kind="stable")]
+            for s in range(0, len(order), mega)])
+        if shuffle:
+            full = [s for s in starts if s + batch_size <= len(order)]
+            tail = [s for s in starts if s + batch_size > len(order)]
+            np.random.default_rng(seed + 1).shuffle(full)
+            starts = full + tail
+    out = []
+    for s in starts:
+        idx = order[s:s + batch_size]
+        if drop_remainder and len(idx) < batch_size:
+            break
+        out.append(idx)
+    return out
+
+
 def batches(
     dataset: DialogueDataset,
     batch_size: int,
@@ -294,24 +340,8 @@ def batches(
     0.358 -> 0.67 at pad_multiple=128 (0.80 at 64) with K=32. Ignored
     when ``static=True`` — multi-host pins every batch to max_len, so
     grouping cannot change shapes there."""
-    order = np.arange(len(dataset))
-    if shuffle:
-        np.random.default_rng(seed).shuffle(order)
-    starts = list(range(0, len(order), batch_size))
-    if length_grouped > 1 and not static and len(order) > batch_size:
-        mega = length_grouped * batch_size
-        lens = np.array([len(dataset[i].input_ids) for i in order])
-        order = np.concatenate([
-            order[s:s + mega][np.argsort(lens[s:s + mega], kind="stable")]
-            for s in range(0, len(order), mega)])
-        if shuffle:
-            full = [s for s in starts if s + batch_size <= len(order)]
-            tail = [s for s in starts if s + batch_size > len(order)]
-            np.random.default_rng(seed + 1).shuffle(full)
-            starts = full + tail
-    for s in starts:
-        chunk = [dataset[i] for i in order[s:s + batch_size]]
-        if drop_remainder and len(chunk) < batch_size:
-            return
-        yield collate(chunk, eos_id, batch_size, pad_multiple, max_len,
+    for idx in batch_order(dataset, batch_size, shuffle=shuffle, seed=seed,
+                           drop_remainder=drop_remainder, static=static,
+                           length_grouped=length_grouped):
+        yield collate([dataset[i] for i in idx], eos_id, batch_size, pad_multiple, max_len,
                       static=static, static_caps=static_caps)

@@ -74,9 +74,13 @@ class ServerFrontend:
     """
 
     def __init__(self, server: ContinuousServer, tokenizer=None,
-                 host: str = "127.0.0.1", port: int = 0):
+                 host: str = "127.0.0.1", port: int = 0, default_max_new: int = 128,
+                 default_top_p: float = 0.95, default_seed: int = 0):
         self.srv = server
         self.tok = tokenizer
+        # what a request that leaves these out gets (the CLI passes --top_p and --seed)
+        self.defaults = dict(default_max_new=default_max_new, default_top_p=default_top_p,
+                             default_seed=default_seed)
         self._inbox: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._served = 0
@@ -176,7 +180,7 @@ class ServerFrontend:
     # -- request construction (handler threads; touches no server state) --
 
     def _build_request(self, payload):
-        req = request_from_json(payload, self.tok)
+        req = request_from_json(payload, self.tok, **self.defaults)
         return req, bool(payload.get("stream", False))
 
     def _decode(self, tokens):

@@ -28,12 +28,14 @@ int8 self-attention over a cache of 512 slots or more
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.device import resolve
@@ -805,6 +807,20 @@ def _train_block(h, blk: Block, li: int, enc, enc_mask, c: ModelConfig, attentio
     return h + _mlp(mlp_in, blk.mlp, config=c, seed=seed)
 
 
+# remat "dots" (JAX's checkpoint_dots_with_no_batch_dims): the weight
+# products are saved; everything else is recomputed, the batched score and
+# PV products (bmm), the elementwise work and K5's autograd.Function, whose
+# kernel launch is no dispatcher operation
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.linear.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
 def _decode_block(h, blk: Block, li: int, cache: KVCache, enc, enc_mask, cross_stacks,
                   c: ModelConfig, attention_mask, prefix_prefill: bool, use_cross: bool,
                   stage_index: Optional[int]):
@@ -915,11 +931,10 @@ def transformer(
         if not cross_decode.supported(h, params.blocks[0], cross_stacks, c):
             cross_stacks = None
     remat = c.remat and not decode and torch.is_grad_enabled()
-    if remat and c.remat_policy == "dots":
-        raise NotImplementedError("remat_policy 'dots' is not ported (ROADMAP queue 1)")
     # "mlp" checkpoints the MLP and cross sublayers, "mlp_only" the MLP
     # only; self-attention keeps its residuals (K5 is not recomputed).
-    # Other policies ("full") checkpoint the whole block.
+    # "full" checkpoints the whole block, "dots" too but keeps its weight
+    # products (_dots_policy).
     mlp_remat = remat and c.remat_policy in ("mlp", "mlp_only")
     cross_remat = mlp_remat and c.remat_policy == "mlp"
     for li, blk in enumerate(params.blocks):
@@ -929,9 +944,10 @@ def transformer(
                               prefix_prefill, use_cross, stage_index)
         elif remat and not mlp_remat:
             # the masks come from seeded generators, not the global RNG state
+            kw = {"context_fn": _DOTS_CONTEXT} if c.remat_policy == "dots" else {}
             h = checkpoint(_train_block, h, blk, li, enc, enc_mask, c, attention_mask, use_cross,
                            layer_seed, False, False, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **kw)
         else:
             h = _train_block(h, blk, li, enc, enc_mask, c, attention_mask, use_cross, layer_seed,
                              mlp_remat, cross_remat)

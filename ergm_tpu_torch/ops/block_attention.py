@@ -131,6 +131,35 @@ def _strides(*xs):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def launch_bwd(q, k, v, o, ml, qm, kbits, dead, do, scale, causal, rate, seed):
+    """The backward kernels (dQ, then dK/dV) on the forward's saved tensors
+    and the output's cotangent ``do``: (dq, dk, dv) in q's dtype, each a
+    [B, H, L, Dh] view of [B, L, H, Dh] memory."""
+    B, H, L, D = q.shape
+    Lk = k.shape[2]
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
+        do = do.contiguous()
+    dq = _heads_layout(B, H, L, q.dtype, q.device)
+    dk = _heads_layout(B, H, Lk, q.dtype, q.device)
+    dv = _heads_layout(B, H, Lk, q.dtype, q.device)
+    # each row's (m, 1/l, delta): written by the dQ kernel, read by dK/dV
+    stat = torch.empty((B, H, L, 4), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.ergm_block_mha_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), stat.data_ptr(),
+            qm.data_ptr(), kbits.data_ptr(), dead.data_ptr(), _DTYPE_CODE[q.dtype],
+            B, H, L, Lk,
+            _strides(q, k, v, o, do, dq, dk, dv), ctypes.c_float(scale), int(causal),
+            *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"block_mha backward kernel launch failed: cudaError {err}")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
 class _BlockAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, qm, km, scale, causal, rate, seed):
@@ -160,30 +189,7 @@ class _BlockAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, ml, qm, kbits, dead = ctx.saved_tensors
-        scale, causal, rate, seed = ctx.args
-        B, H, L, D = q.shape
-        Lk = k.shape[2]
-        if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
-            do = do.contiguous()
-        dq = _heads_layout(B, H, L, q.dtype, q.device)
-        dk = _heads_layout(B, H, Lk, q.dtype, q.device)
-        dv = _heads_layout(B, H, Lk, q.dtype, q.device)
-        # each row's (m, 1/l, delta): written by the dQ kernel, read by dK/dV
-        stat = torch.empty((B, H, L, 4), dtype=torch.float32, device=q.device)
-        lib = _build.load()
-        with torch.cuda.device(q.device):
-            err = lib.ergm_block_mha_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), stat.data_ptr(),
-                qm.data_ptr(), kbits.data_ptr(), dead.data_ptr(), _DTYPE_CODE[q.dtype],
-                B, H, L, Lk,
-                _strides(q, k, v, o, do, dq, dk, dv), ctypes.c_float(scale), int(causal),
-                *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"block_mha backward kernel launch failed: cudaError {err}")
-        global BWD_LAUNCHES
-        BWD_LAUNCHES += 1
+        dq, dk, dv = launch_bwd(*ctx.saved_tensors, do, *ctx.args)
         return dq, dk, dv, None, None, None, None, None, None
 
 

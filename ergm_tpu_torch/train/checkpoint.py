@@ -3,9 +3,10 @@
 
 Best-valid-PPL checkpoints keep the reference's names,
 ``best_ckpt_epoch={E}_valid_ppl={P:.4f}``: a directory holding
-``state.pt`` with the parameters, the optimizer state, the update count,
-the epoch and the best PPL. A save writes a temporary file and renames
-it, so a crash never leaves half a checkpoint behind.
+``state.pt`` with the parameters, the optimizer state (with a gradient
+accumulation in progress), the step count, the epoch and the best PPL.
+A save writes a temporary file and renames it, so a crash never leaves
+half a checkpoint behind.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ STATE_FILE = "state.pt"
 PREEMPT_NAME = "preempt_ckpt"
 
 
-def _save(path: str, state: TrainState, epoch: int, best_ppl: float) -> str:
+def _save(path: str, state: TrainState, epoch: int, best_ppl: float,
+          drop_partial: bool = False) -> str:
     os.makedirs(path, exist_ok=True)
     payload = {
         "params": state.params.state_dict(),
-        "opt_state": state.opt_state.state_dict(),
+        "opt_state": state.opt_state.state_dict(drop_partial=drop_partial),
         "step": int(state.step),
         "epoch": int(epoch),
         "best_ppl": float(best_ppl),
@@ -68,8 +70,11 @@ def save_preempt_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
     overwrites the last), never matched by the best-PPL pruning or
     ``find_checkpoint``'s scan: resume it with ``ckpt_name="preempt"``.
     ``epoch`` is the last COMPLETED epoch: resume re-runs the interrupted
-    one from its start."""
-    return _save(os.path.join(os.path.abspath(ckpt_dir), PREEMPT_NAME), state, epoch, best_ppl)
+    one from its start. So a partial gradient accumulation is dropped
+    (zero gradients, micro-step 0), as JAX's ``_save_preempt`` drops it:
+    its batches come round again."""
+    return _save(os.path.join(os.path.abspath(ckpt_dir), PREEMPT_NAME), state, epoch, best_ppl,
+                 drop_partial=True)
 
 
 def clear_preempt_checkpoint(ckpt_dir: str) -> None:

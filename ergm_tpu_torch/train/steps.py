@@ -3,18 +3,21 @@
 One step: the forward with labels and without dense logits, the joint
 LM + emotion loss with fill rows (``valid`` False) masked out of both
 losses and the metrics, the backward, and AdamW with the schedule
-applied per update. The metrics stay on the device as a dict of 0-d
-tensors; the Trainer fetches them once per block.
+applied per update (optionally over accumulated micro-batches). The
+metrics stay on the device as a dict of 0-d tensors; the Trainer fetches
+them once per block.
 
 Where JAX threads a key and folds in the step, the port takes an integer
-seed and folds in the update count (``core/rng.py``): each step's
-dropout masks are a function of (seed, step, layer, site).
+seed and folds in the step count (``core/rng.py``), which counts
+micro-batches under accumulation as JAX's ``state.step`` does: each
+step's dropout masks are a function of (seed, step, layer, site).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from ergm_tpu_torch.core.config import ModelConfig
@@ -25,28 +28,127 @@ from ergm_tpu_torch.models import gpt2
 Schedule = Union[float, Callable[[int], float]]
 
 
+class AdamWState:
+    """What the optimizer carries between steps: per parameter the first
+    moment ``mu`` (in ``mu_dtype``) and the second moment ``nu`` (fp32),
+    the update count, and under gradient accumulation the running mean of
+    the micro-batch gradients ``acc`` with the micro-step ``mini_step``
+    (optax's ``MultiStepsState``). ``state_dict`` keeps
+    ``torch.optim.AdamW``'s layout (``exp_avg``, ``exp_avg_sq``, ``step``
+    per parameter) and adds ``acc_grad`` and ``mini_step``."""
+
+    def __init__(self, params: List[torch.Tensor], mu_dtype: Optional[torch.dtype],
+                 accumulate: bool):
+        self.count = 0
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.acc = [torch.zeros_like(p) for p in params] if accumulate else None
+        self.mini_step = 0
+
+    def state_dict(self, drop_partial: bool = False) -> dict:
+        """``drop_partial``: as if the accumulation had just been applied
+        (zero ``acc``, micro-step 0), as JAX's preemption save writes it."""
+        state = {}
+        for i, (mu, nu) in enumerate(zip(self.mu, self.nu)):
+            state[i] = {"step": torch.tensor(float(self.count)), "exp_avg": mu, "exp_avg_sq": nu}
+            if self.acc is not None:
+                state[i]["acc_grad"] = (torch.zeros_like(self.acc[i]) if drop_partial
+                                        else self.acc[i])
+        return {"state": state, "mini_step": 0 if drop_partial else self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copies into this state's tensors, which keep their dtypes and device."""
+        state = sd["state"]
+        for i, (mu, nu) in enumerate(zip(self.mu, self.nu)):
+            mu.copy_(state[i]["exp_avg"])
+            nu.copy_(state[i]["exp_avg_sq"])
+            if self.acc is not None:
+                self.acc[i].copy_(state[i]["acc_grad"])
+        self.count = int(state[0]["step"]) if state else 0
+        self.mini_step = int(sd.get("mini_step", 0))
+
+
 class AdamW:
-    """The optimizer recipe of JAX's ``optax.adamw(schedule, b1=0.9,
-    b2=0.999, eps=1e-8, weight_decay=0.01)``: ``init`` builds a
-    ``torch.optim.AdamW`` over the parameters and ``lr(i)`` is the rate
-    of update i."""
+    """JAX's optimizer, ``optax.adamw(schedule, b1, b2, eps, weight_decay,
+    mu_dtype=mu_dtype)``, wrapped in ``optax.MultiSteps(every_k_schedule=
+    accumulate)`` when ``accumulate > 1``; ``lr(i)`` is the rate of update i.
+
+    The update follows optax's arithmetic in in-place ``torch._foreach_*``
+    operations (one parameter-sized fp32 list of scratch, two with
+    ``mu_dtype``): mu and nu in fp32, bias-corrected, ``mu_hat /
+    (sqrt(nu_hat) + eps)``, plus ``weight_decay * param`` (decoupled),
+    times ``-lr``; the decay is applied as ``param * (1 - lr *
+    weight_decay)`` before the Adam step, as ``torch.optim.AdamW`` does.
+    With ``mu_dtype`` (bfloat16), mu is stored in that dtype: the new mu is
+    computed in fp32 from the stored one, the update uses that fp32 value,
+    and only the stored copy is rounded. ``b1 * mu`` is taken in mu's dtype
+    with ``b1`` rounded to it, as JAX's weakly typed scalar gives it.
+
+    Accumulation: each micro-batch's gradients join a running mean; the
+    parameters and moments change only on every ``accumulate``-th
+    micro-batch, and ``lr`` is indexed by the update count."""
 
     def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.01):
+                 eps: float = 1e-8, weight_decay: float = 0.01,
+                 mu_dtype: Optional[torch.dtype] = None, accumulate: int = 1):
         self.schedule = schedule
-        self.kw = dict(betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.mu_dtype = mu_dtype
+        self.accumulate = max(int(accumulate), 1)
 
     def lr(self, update: int) -> float:
         return float(self.schedule(update)) if callable(self.schedule) else float(self.schedule)
 
-    def init(self, params: gpt2.GPT2) -> torch.optim.AdamW:
-        return torch.optim.AdamW(params.parameters(), lr=self.lr(0), **self.kw)
+    def init(self, params: gpt2.GPT2) -> AdamWState:
+        return AdamWState(list(params.parameters()), self.mu_dtype, self.accumulate > 1)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdamWState) -> None:
+        """Applies one micro-batch's gradients to ``params`` and ``state`` in place."""
+        if state.acc is not None:
+            n = state.mini_step
+            # Welford's running mean, as MultiSteps(use_grad_mean=True)
+            delta = torch._foreach_sub(grads, state.acc)
+            torch._foreach_div_(delta, float(n + 1))
+            torch._foreach_add_(state.acc, delta)
+            del delta
+            state.mini_step = (n + 1) % self.accumulate
+            if state.mini_step:
+                return
+            grads = state.acc
+        b1, b2 = self.b1, self.b2
+        lr, count = self.lr(state.count), state.count + 1
+        # the moments in place: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2
+        if self.mu_dtype is not None:
+            torch._foreach_mul_(state.mu, float(torch.tensor(b1, dtype=self.mu_dtype)))
+            mu = [m.float() for m in state.mu]
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+            torch._foreach_copy_(state.mu, mu)  # only the stored copy is rounded
+        else:
+            mu = state.mu
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(state.nu, b2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
+        bc1 = float(1.0 - np.float32(b1) ** np.float32(count))
+        bc2 = float(1.0 - np.float32(b2) ** np.float32(count))
+        # p - lr (mu_hat / (sqrt(nu_hat) + eps) + wd p), as p (1 - lr wd) - lr / bc1 mu / denom
+        denom = torch._foreach_div(state.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_mul_(params, 1.0 - lr * self.weight_decay)
+        torch._foreach_addcdiv_(params, mu, denom, value=-lr / bc1)
+        state.count = count
+        if state.acc is not None:
+            torch._foreach_zero_(state.acc)
 
 
 class TrainState:
-    """Parameters (fp32 master weights), optimizer and update count."""
+    """Parameters (fp32 master weights), optimizer state and micro-step count."""
 
-    def __init__(self, params: gpt2.GPT2, opt_state: torch.optim.Optimizer, step: int = 0):
+    def __init__(self, params: gpt2.GPT2, opt_state: AdamWState, step: int = 0):
         self.params, self.opt_state, self.step = params, opt_state, step
 
 
@@ -109,20 +211,17 @@ def make_train_step(config: ModelConfig, tx: AdamW, device="cuda"):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
         _check_device(state.params, device)
         step_seed = fold_seed(seed, state.step)
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
+        params = list(state.params.parameters())
+        for p in params:
+            p.grad = None
         loss, metrics = _losses_and_metrics(state.params, config, batch, deterministic=False,
                                             seed=step_seed)
         loss.backward()
-        params = list(state.params.parameters())
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+        tx.update(params, grads, state.opt_state)
         for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        metrics["grad_norm"] = torch.nn.utils.get_total_norm([p.grad for p in params])
-        lr = tx.lr(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+            p.grad = None
         state.step += 1
         return state, metrics
 
@@ -149,7 +248,7 @@ def batch_to_device(batch, device="cuda", include_modalities: bool = True
         "labels": batch.labels,
         "emotion_labels": batch.emotion_labels,
         "valid": batch.valid,
-        "seq_lengths": batch.attention_mask.sum(axis=-1).astype("int64"),
+        "seq_lengths": torch.as_tensor(batch.attention_mask).sum(-1).long(),
     }
     if include_modalities:
         arrays["imgs"] = batch.imgs
@@ -159,8 +258,10 @@ def batch_to_device(batch, device="cuda", include_modalities: bool = True
         arrays["caption_mask"] = batch.caption_mask
     out = {}
     for k, v in arrays.items():
-        t = torch.as_tensor(v)
+        # a pinned batch (data/loader.py) copies asynchronously; the cast
+        # to int64 runs after the copy
+        t = torch.as_tensor(v).to(device, non_blocking=True)
         if t.dtype in (torch.int32, torch.int64):
             t = t.long()
-        out[k] = t.to(device, non_blocking=True)
+        out[k] = t
     return out

@@ -1,15 +1,18 @@
 """Trainer on one device (counterpart of ``ergm_tpu/train/trainer.py``).
 
 Dataset meta -> model config -> parameters (fresh init, a params file,
-or the caller's) -> AdamW on the power-2 polynomial warmup schedule ->
-epoch loop with per-epoch validation, best-PPL checkpoints, resume and
-a SIGTERM preemption save. The epoch line reports tok/s, the step p50
-and MFU against the card's dense bf16 peak.
+or the caller's) -> AdamW on the power-2 polynomial warmup schedule
+(``adam_mu_dtype``; ``grad_accum_steps`` micro-batches an update) ->
+epoch loop with per-epoch validation, best-PPL checkpoints, resume, a
+SIGTERM preemption save and TensorBoard scalars with the reference's
+tag names. Batches come from one loader per split (``data/loader.py``):
+collated in this process, or with ``num_workers > 0`` in worker
+processes that start once, serve every epoch (the same batches) and stop
+when ``train`` returns. The epoch line reports tok/s, the step p50 and
+MFU against the card's dense bf16 peak.
 
-Not ported yet, refused with ``NotImplementedError`` (ROADMAP queue 1):
-the Grain loader (``num_workers > 0``), several processes,
-``grad_accum_steps > 1`` and ``adam_mu_dtype``. TensorBoard scalars are
-not written.
+Several processes are not ported: they are refused with
+``NotImplementedError`` (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import signal
 import sys
 import threading
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -28,7 +32,8 @@ import torch
 from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
 from ergm_tpu_torch.core.device import resolve
 from ergm_tpu_torch.data.assembly import read_meta
-from ergm_tpu_torch.data.dataset import DialogueDataset, batches
+from ergm_tpu_torch.data.dataset import DialogueDataset
+from ergm_tpu_torch.data.loader import close, make_loader
 from ergm_tpu_torch.models import gpt2
 from ergm_tpu_torch.train import checkpoint as ckpt_lib
 from ergm_tpu_torch.train.schedule import polynomial_warmup_schedule
@@ -37,27 +42,29 @@ from ergm_tpu_torch.train.steps import (AdamW, batch_to_device, create_train_sta
 from ergm_tpu_torch.utils.flops import device_peak_tflops, model_flops_per_token
 
 
-def _refuse_unported(cfg: TrainConfig) -> None:
-    missing = []
-    if cfg.num_workers > 0:
-        missing.append(f"num_workers={cfg.num_workers} (the Grain loader)")
-    if int(cfg.grad_accum_steps or 1) > 1:
-        missing.append(f"grad_accum_steps={cfg.grad_accum_steps}")
-    if cfg.adam_mu_dtype:
-        missing.append(f"adam_mu_dtype={cfg.adam_mu_dtype!r}")
+def _refuse_several_processes() -> None:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
             torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
-        missing.append("several processes")
-    if missing:
-        raise NotImplementedError("not ported yet (ROADMAP queue 1): " + ", ".join(missing))
+        raise NotImplementedError("several processes are not ported (ROADMAP.md queue 1 "
+                                  "item 8)")
+
+
+def _summary_writer(logdir: str):
+    """tensorboardX's writer where it is installed, else PyTorch's (which
+    needs the tensorboard package)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        from torch.utils.tensorboard import SummaryWriter
+    return SummaryWriter(logdir)
 
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, model_config: Optional[ModelConfig] = None,
                  params: Optional[gpt2.GPT2] = None, limit: Optional[int] = None,
                  device="cuda"):
-        _refuse_unported(cfg)
+        _refuse_several_processes()
         self.cfg = cfg
         self.device = resolve(device)
         self.st = read_meta(cfg.data_dir)
@@ -81,12 +88,18 @@ class Trainer:
             raise ValueError(f"train set has {len(self.train_set)} examples < batch_size "
                              f"{cfg.batch_size}; training drops partial batches, so no step "
                              f"would ever run")
+        self.train_loader = self._loader(self.train_set, shuffle=True, drop_remainder=True)
+        self.valid_loader = self._loader(self.valid_set, shuffle=False)
         num_batches = max(len(self.train_set) // cfg.batch_size, 1)
-        self.total_train_steps = max(cfg.num_epochs * num_batches, 1)
+        accum = max(int(cfg.grad_accum_steps or 1), 1)
+        # the schedule advances per optimizer update
+        self.total_train_steps = max(cfg.num_epochs * num_batches // accum, 1)
         self.warmup_steps = int(cfg.warmup_ratio * self.total_train_steps)
         self.tx = AdamW(polynomial_warmup_schedule(cfg.lr, self.warmup_steps,
                                                    self.total_train_steps, power=2.0),
-                        b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+                        b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+                        mu_dtype=getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype else None,
+                        accumulate=accum)
 
         if params is None:
             params = gpt2.init_params(torch.Generator().manual_seed(cfg.seed), self.mcfg,
@@ -114,7 +127,27 @@ class Trainer:
                 print(f"Cannot find the specified checkpoint under {cfg.ckpt_dir}; "
                       "training starts from scratch.")
 
+        self.writer = None
+        if cfg.output_dir:
+            logdir = os.path.join(cfg.output_dir, "tb")
+            try:
+                self.writer = _summary_writer(logdir)
+            except Exception as e:  # noqa: BLE001 — JAX's message for any failure
+                # scalars silently vanishing in a prod run is worse than
+                # noise: say exactly what was lost and why
+                warnings.warn(
+                    f"TensorBoard logging DISABLED ({type(e).__name__}: {e}); "
+                    f"Loss/PPL/Accuracy scalars will not be written to "
+                    f"{logdir}")
+
     # -- helpers ---------------------------------------------------------
+
+    def _scalars(self, split: str, epoch: int, loss: float, ppl: float, acc: float):
+        if self.writer is not None:
+            self.writer.add_scalar(f"Loss/{split}", loss, epoch)
+            self.writer.add_scalar(f"PPL/{split}", ppl, epoch)
+            self.writer.add_scalar(f"Accuracy/{split}", acc, epoch)
+            self.writer.flush()
 
     @staticmethod
     def _fetch(metrics_list):
@@ -164,11 +197,15 @@ class Trainer:
         mfu = (flops / 1e12) / secs / peak_tflops if peak_tflops and secs > 0 else None
         return tok_s, p50_ms, mfu
 
-    def _batches(self, dataset, shuffle: bool, seed: int, drop_remainder: bool = False):
+    def _loader(self, dataset, shuffle: bool, drop_remainder: bool = False):
+        """The split's loader for every epoch (the reference's num_workers
+        flag); the epoch loop sets ``sampler.seed`` before each epoch."""
         cfg = self.cfg
-        return batches(dataset, cfg.batch_size, self.st.eos_id, shuffle=shuffle, seed=seed,
-                       max_len=self.max_len, pad_multiple=cfg.pad_multiple,
-                       drop_remainder=drop_remainder, length_grouped=cfg.length_grouped)
+        return make_loader(dataset, batch_size=cfg.batch_size, eos_id=self.st.eos_id,
+                           shuffle=shuffle, seed=cfg.seed, max_len=self.max_len,
+                           pad_multiple=cfg.pad_multiple, drop_remainder=drop_remainder,
+                           length_grouped=cfg.length_grouped, num_workers=cfg.num_workers,
+                           pin_memory=self.device.type == "cuda" and cfg.num_workers > 0)
 
     # -- preemption ------------------------------------------------------
 
@@ -206,6 +243,8 @@ class Trainer:
         try:
             return self._train_loop()
         finally:
+            close(self.train_loader)
+            close(self.valid_loader)
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
 
@@ -224,8 +263,8 @@ class Trainer:
             bt0 = time.time()
             bn = btok = bflops = 0
             real_tok = padded_tok = 0
-            for batch in self._batches(self.train_set, shuffle=True, seed=cfg.seed + epoch,
-                                       drop_remainder=True):
+            self.train_loader.sampler.seed = cfg.seed + epoch
+            for batch in self.train_loader:
                 dev_batch = batch_to_device(batch, self.device)
                 self.state, metrics = self.train_step(self.state, dev_batch, self.seed)
                 metrics_dev.append(metrics)
@@ -233,7 +272,7 @@ class Trainer:
                 bn += 1
                 btok += b * l
                 real_tok += int(batch.attention_mask.sum())
-                padded_tok += batch.input_ids.size
+                padded_tok += b * l
                 bflops += model_flops_per_token(self.mcfg, l) * b * l
                 if bn == fetch_every:
                     float(metrics["loss"])  # waits for the block's steps
@@ -258,6 +297,7 @@ class Trainer:
             print(f"Epoch {epoch}: Train Loss: {loss:.4f} | Train PPL: {ppl:.4f} "
                   f"(token-weighted {tw_ppl:.4f}) | Train Emotion Acc: {acc:.2f}% | "
                   f"{dt:.1f}s | {perf}")
+            self._scalars("train", epoch, loss, ppl, acc)
 
             self.last_epoch = epoch
             tv = time.time()
@@ -273,6 +313,7 @@ class Trainer:
             print(f"Valid Loss: {v_loss:.4f} | Valid PPL: {v_ppl:.4f} "
                   f"(token-weighted {self._last_valid_tw_ppl:.4f}) | "
                   f"Valid Emotion Acc: {v_acc:.2f}% | {v_dt:.1f}s")
+            self._scalars("valid", epoch, v_loss, v_ppl, v_acc)
             if self._preempted:
                 return self._save_preempt()
         print("Training finished!")
@@ -284,7 +325,7 @@ class Trainer:
 
     def validation(self):
         metrics_dev = []
-        for batch in self._batches(self.valid_set, shuffle=False, seed=0):
+        for batch in self.valid_loader:
             metrics_dev.append(self.eval_step(self.state.params,
                                               batch_to_device(batch, self.device)))
         metrics = self._fetch(metrics_dev)

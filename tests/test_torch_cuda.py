@@ -454,6 +454,34 @@ def test_block_attention_kernel_matches_reference(dtype, rate, causal, Lk, masks
 
 
 @pytest.mark.cuda
+def test_block_attention_dq_takes_delta_from_pn_dpn():
+    """bf16, nearly uniform rows over values with a large common part (a
+    model at init): ds = pn (dpn - delta) cancels most of dpn, so delta
+    must be JAX's rowsum(pn * dpn) in f32. rowsum(dO * O) with O rounded to
+    bf16 puts O's rounding into every ds of a row: dQ 5.0% (relative rms)
+    from the f64 math against JAX's arithmetic's 0.23% at these inputs.
+    Bar: 1%."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator().manual_seed(11)
+    B, H, L, D = 2, 2, 256, 64
+    q = (0.02 * torch.randn(B, H, L, D, generator=g)).bfloat16()
+    k = (0.02 * torch.randn(B, H, L, D, generator=g)).bfloat16()
+    v = (1.0 + 0.05 * torch.randn(B, H, L, D, generator=g)).bfloat16()
+    do = torch.randn(B, H, L, D, generator=g).bfloat16()
+    xs = [x.to("cuda").requires_grad_(True) for x in (q, k, v)]
+    o = tba.block_mha(*xs, causal=True, scale=0.125)
+    dq = torch.autograd.grad(o, xs[0], do.to("cuda"))[0].double().cpu()
+    qq, kk, vv, dd = (t.double() for t in (q, k, v, do))
+    mask = torch.ones(L, L, dtype=torch.bool).tril()
+    pn = torch.softmax(torch.where(mask, qq @ kk.transpose(-1, -2) * 0.125, -1e30), -1)
+    dpn = dd @ vv.transpose(-1, -2)
+    want = torch.where(mask, pn * (dpn - (pn * dpn).sum(-1, keepdim=True)), 0.0) @ kk * 0.125
+    rel = ((dq - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+    assert rel <= 1e-2, rel
+
+
+@pytest.mark.cuda
 def test_block_attention_kernel_reads_strided_views():
     """q, k, v as head views of one fused [B, L, 3*D] projection give the
     same output and gradients as contiguous copies."""
@@ -1139,3 +1167,90 @@ def test_text_features_launch_k5_per_bucket():
         err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
         assert err <= 1e-4, (longest, err)
     assert launches == [0, cfg.n_layer, 0, cfg.n_layer]
+
+
+@pytest.mark.cuda
+def test_cli_gpu_index_runs_trainer_and_server_on_the_card(tmp_path, monkeypatch):
+    """``--gpu=0``: the Trainer's parameters and the server's KV cache lie
+    on cuda:0; ``--num_workers=2`` hands the trainer pinned batches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import json
+
+    from ergm_tpu_torch.cli import main as cli
+    from ergm_tpu_torch.cli.load_data import main as load_data
+    from ergm_tpu_torch.core import config as config_mod
+    from ergm_tpu_torch.infer import server as server_mod
+    from ergm_tpu_torch.train import steps as steps_mod
+    from ergm_tpu_torch.train import trainer as trainer_mod
+
+    monkeypatch.setitem(config_mod.GPT2_SIZES, "tiny", dict(n_layer=2, n_head=2, n_embd=128))
+    data = tmp_path / "data"
+    load_data(["--source=synthetic", f"--data_dir={data}", "--model_type=tiny",
+               "--num_dialogues=4", "--turns=3"])
+    seen = {"pinned": []}
+    real_train, real_init = trainer_mod.Trainer.train, server_mod.ContinuousServer.__init__
+    real_to_device = steps_mod.batch_to_device
+
+    def train(self):
+        seen["trainer"] = next(self.state.params.parameters()).device
+        return real_train(self)
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        seen["cache"] = self.caches[0].k.device
+
+    def to_device(batch, *args, **kwargs):
+        seen["pinned"].append(torch.as_tensor(batch.input_ids).is_pinned())
+        return real_to_device(batch, *args, **kwargs)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "train", train)
+    monkeypatch.setattr(server_mod.ContinuousServer, "__init__", init)
+    monkeypatch.setattr(trainer_mod, "batch_to_device", to_device)
+    common = [f"--data_dir={data}", "--model_type=tiny", "--batch_size=4", "--max_len=128",
+              "--gpu=0", f"--ckpt_dir={tmp_path / 'ck'}", f"--output_dir={tmp_path / 'out'}"]
+    cli.main(["--mode=train", "--num_epochs=1", "--num_workers=2", *common])
+    assert seen["trainer"] == torch.device("cuda:0")
+    assert seen["pinned"] and all(seen["pinned"])
+    reqs = tmp_path / "reqs.jsonl"
+    reqs.write_text("".join(json.dumps({"prompt": [5, 6, 7, i], "max_new_tokens": 4,
+                                        "greedy": True}) + "\n" for i in range(3)))
+    cli.main(["--mode=serve", "--ckpt_name=best", f"--requests_file={reqs}", *common])
+    assert seen["cache"] == torch.device("cuda:0")
+    assert len(reqs.with_name("reqs.jsonl.responses.jsonl").read_text().splitlines()) == 3
+
+
+@pytest.mark.cuda
+def test_dots_remat_loss_equals_mlp_on_card():
+    """bf16 on the card, dropout 0.1 through K5: the losses under remat
+    "dots" and "mlp" are equal bit for bit (the forward is the same and the
+    masks are seeded), the gradients within the bf16 bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.train import steps as steps_mod
+
+    base = ModelConfig(n_layer=2, n_embd=128, n_head=2, vocab_size=300, n_positions=256,
+                       dtype="bfloat16", remat=True, attn_pdrop=0.1, resid_pdrop=0.1,
+                       embd_pdrop=0.1)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 300, (4, 256))
+    batch = {"input_ids": ids, "token_type_ids": rng.integers(0, 300, (4, 256)),
+             "labels": ids, "emotion_labels": rng.integers(0, 7, (4,)),
+             "valid": np.ones((4,), bool)}
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    out = {}
+    for policy in ("mlp", "dots"):
+        cfg = base.replace(remat_policy=policy)
+        params = tg.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+        f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
+        loss, _ = steps_mod._losses_and_metrics(params, cfg, batch, deterministic=False, seed=5)
+        loss.backward()
+        torch.cuda.synchronize()
+        # "dots" recomputes each block, K5's forward included
+        assert (tba.LAUNCHES - f0, tba.BWD_LAUNCHES - b0) == (
+            cfg.n_layer * (2 if policy == "dots" else 1), cfg.n_layer)
+        out[policy] = (loss.item(), [p.grad.float() for p in params.parameters()
+                                     if p.grad is not None])
+    assert out["dots"][0] == out["mlp"][0]
+    for a, b in zip(out["dots"][1], out["mlp"][1]):
+        assert _within(a, b, torch.bfloat16, None)[0]

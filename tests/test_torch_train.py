@@ -164,7 +164,7 @@ def test_joint_loss_and_gradients_match_jax(impl):
         np.testing.assert_allclose(p.grad.numpy(), want[name], atol=1e-4, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("policy", ["mlp", "mlp_only", "full"])
+@pytest.mark.parametrize("policy", ["mlp", "mlp_only", "full", "dots"])
 def test_remat_gradients_equal_no_remat_with_dropout(policy):
     """Every dropout site at 0.1 (attention probabilities through K5's
     route): rematerialised sublayers draw the same masks, so the
