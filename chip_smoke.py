@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, speculative, beam, continuous-batching
-server, feature-extraction, test-run and training paths and its command
-line once on an NVIDIA GPU.
+server, feature-extraction, test-run and training paths, its command
+line and its multi-device training once on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -84,7 +84,9 @@ Phases, each of which raises on failure:
    the step's cache reorder at 16, 64 and 127 generated slots, and of
    the whole cache.
 9. server: the continuous-batching server (``infer/server.py``) at gpt2
-   full width (bf16, int8 lm_head, random weights from seed 0): 256
+   full width, 2 of its 12 layers (cut so that the script keeps within
+   half its time limit; both server phases), bf16, int8 lm_head, random
+   weights from seed 0: 256
    requests submitted at once (``scripts/server_bench.py``'s defaults:
    prompts of 16-128 tokens, 16-128 new tokens, greedy, a 32-token caption
    on 3 of 4, image and audio features) through 64 slots, blocks of 32
@@ -210,7 +212,9 @@ Phases, each of which raises on failure:
    --source=synthetic``, then a train split over GPT-2's vocabulary (24
    dialogues of 16 turns, utterances of 8-40 tokens, captions; batches up
    to 512 tokens) and a valid split (32 dialogues of 4 turns of 3-8
-   tokens). ``--mode=train`` with train_torch.sh's flags (B=8,
+   tokens; 16 dialogues, 32 steps an epoch: cut from 24 so that the script
+   keeps within half its time limit). ``--mode=train`` with
+   train_torch.sh's flags (B=8,
    ``--max_len=1024``, lr 1e-5, no warmup, remat "mlp"), then with the
    JAX help's gpt2-medium recipe (``--adam_mu_dtype=bfloat16
    --grad_accum_steps=2 --num_workers=2``): the Trainer's epoch line (tok/s,
@@ -228,6 +232,31 @@ Phases, each of which raises on failure:
    captions on a third): every response, req/s.
    ``convert_ckpt --reverse`` of the trained checkpoint and back: the
    parameters and the fp32 logits equal bit for bit.
+
+15. multi-device training (``parallel_phase``), last: (a) ``cli.main
+   --mode=train`` at gpt2-medium's full width and depth over the first 4
+   train dialogues (8 steps of B=8, batches up to 512 tokens) in a world
+   of one rank over NCCL (torchrun's variables), default mesh and
+   ``--shard_opt_state``, fp32 then bf16:
+   the fp32 losses equal the plain Trainer's (no world) bit for bit, K5
+   and K6 launch as their gates give, every K6 launch through
+   ``fused_lm_loss_sharded``, the backend NCCL; a shorter bf16 run (2
+   dialogues, as ``cli_phase``) holds every K5 and K6 launch, forward and
+   backward, against its plain version. With two cards or more the CLI
+   also starts a world of 2 itself, fp32, dropout 0: its epoch loss equals
+   a world of one's. (b) Two processes share card 0 over a gloo group: the
+   collectives the port issues probed on CUDA tensors (all_reduce,
+   broadcast, all_gather), then gpt2 at full width (fp32, B=16, L=128,
+   captions) for 4 steps as data=2 with the sharded K6 loss and ZeRO-1
+   (dropout 0) and as model=2 (K5 on 6 heads a rank, dropout 0.1), each
+   against one process's steps in the same process: loss within 1e-5,
+   every gradient (this rank's part) within 1e-4; step times are readings
+   of gloo through the host on one shared card, not the port's speed.
+   (c) ``utils.profiling``: ``capture`` around one bf16 train step of
+   gpt2 (B=8, L=128) writes a trace holding the ``annotate`` region and
+   K5's and K6's kernels; ``StepTimer`` over 6 steps; ``start_server``'s
+   endpoint, asked from another thread, records a trace holding K5's and
+   K6's kernels while this thread launches steps.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
@@ -306,13 +335,15 @@ SPEC_PROMPT, SPEC_NEW, SPEC_REQS = 128, 32, 5
 # tokens, 4 beams, 128 new tokens in LONG_MAX slots
 BEAM_B, BEAM_PROMPT, BEAM_W = 16, 384, 4
 # the continuous server (scripts/server_bench.py:37-43's defaults): gpt2 at
-# full width, bf16, int8 lm_head, full-precision MLP weights; SRV_REQS
+# full width, 2 of its 12 layers (the depth cut that keeps the script within
+# half its time limit; the server's phases are bound by the host, a layer at
+# a time), bf16, int8 lm_head, full-precision MLP weights; SRV_REQS
 # requests through SRV_SLOTS slots, prompts of 16-SRV_PROMPT tokens and
 # 16-SRV_NEW new tokens, blocks of SRV_SYNC steps, a capacity ladder of
 # SRV_GROW slots up to SRV_CACHE; the tiered arm adds SRV_LONG_SLOTS long
 # slots, SRV_LONG_PROMPT-token prompts and SRV_LONG_CACHE slots
 SRV_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
-                 weight_dtype="int8_lm_head")
+                 weight_dtype="int8_lm_head", n_layer=2)
 SRV_REQS, SRV_SLOTS, SRV_PROMPT, SRV_NEW, SRV_SYNC, SRV_GROW, SRV_CACHE = (
     256, 64, 128, 128, 32, 32, 512)
 SRV_LONG_SLOTS, SRV_LONG_PROMPT, SRV_LONG_CACHE = 8, 384, 1024
@@ -1185,15 +1216,22 @@ def _k5_key_mask(kbits: torch.Tensor, lk: int) -> torch.Tensor:
     return bits.reshape(kbits.shape[0], lk)
 
 
+def _k5_bwd_args(args) -> tuple:
+    """``block_attention.launch_bwd``'s arguments with the head stride
+    (default: the launch's head count)."""
+    return tuple(args) + ((args[0].shape[1],) if len(args) == 13 else ())
+
+
 def _k5_bwd_plain(args, dtype) -> list:
     """(dQ, dK, dV) of K5's plain version in ``dtype`` on the inputs of
     ``block_attention.launch_bwd``, by autograd."""
-    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed = args
+    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed, stride = _k5_bwd_args(args)
     xs = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
     with torch.enable_grad():
         o = block_attention.block_mha_reference(*xs, causal=causal, scale=scale, q_mask=qm,
                                                 kv_mask=_k5_key_mask(kbits, k.shape[2]),
-                                                dropout_rate=rate, dropout_seed=seed)
+                                                dropout_rate=rate, dropout_seed=seed,
+                                                dropout_head_stride=stride)
         return list(torch.autograd.grad(o, xs, do.to(dtype)))
 
 
@@ -1204,7 +1242,7 @@ def _k5_bwd_jax(args) -> list:
     dpn), ds = pn * (dpn - delta) and the dropped pn rounded to the
     operands' dtype, f32 products, the results rounded. ds is 0 where a key
     is masked (the where's derivative), as in K5 and the autograd twin."""
-    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed = args
+    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed, stride = _k5_bwd_args(args)
     B, H, L, _ = q.shape
     lk = k.shape[2]
     mask = _k5_key_mask(kbits, lk)[:, None, None, :].bool()
@@ -1217,7 +1255,7 @@ def _k5_bwd_jax(args) -> list:
     dpn = f[3] @ f[2].transpose(-1, -2)
     pv = pn
     if rate > 0.0:
-        keep = dropout_keep(seed, B, H, L, lk, rate, device=q.device)
+        keep = dropout_keep(seed, B, H, L, lk, rate, device=q.device, head_stride=stride)
         dpn = torch.where(keep, dpn / (1.0 - rate), 0.0)
         pv = torch.where(keep, pn / (1.0 - rate), 0.0)
     delta = (pn * dpn).sum(-1, keepdim=True)
@@ -3437,12 +3475,14 @@ def pipeline_phase(card: str) -> dict:
 # gpt2-medium at full width and depth through the port's CLI with
 # train_torch.sh's flags (B=8, --max_len=1024, lr 1e-5, no warmup, bf16,
 # remat "mlp"). The train split: utterances of 8-40 tokens over 16 turns with
-# captions (384 examples, the longest batch bucketed to 512); the valid split:
+# captions (16 dialogues: 256 examples, 32 steps an epoch, the longest batch
+# bucketed to 512; 24 dialogues before the cut that keeps the script within
+# half its time limit); the valid split:
 # the default 3-8 tokens over 4 turns. Infer: the first CLI_INFER_DIALOGUES
 # valid dialogues (two batches of 64) capped at CLI_INFER_LEN tokens; serve:
 # CLI_SERVE_REQS requests through 64 slots; CLI_SHADOW_DIALOGUES dialogues for
 # the shadowed training run; CLI_REMAT_STEPS timed steps a remat policy
-CLI_MODEL, CLI_B, CLI_TRAIN_DIALOGUES, CLI_TRAIN_TURNS = "gpt2-medium", 8, 24, 16
+CLI_MODEL, CLI_B, CLI_TRAIN_DIALOGUES, CLI_TRAIN_TURNS = "gpt2-medium", 8, 16, 16
 CLI_VALID_DIALOGUES, CLI_VALID_TURNS, CLI_INFER_DIALOGUES, CLI_INFER_LEN = 32, 4, 32, 128
 CLI_SERVE_REQS, CLI_SHADOW_DIALOGUES, CLI_REMAT_STEPS = 64, 2, 3
 # K5 and K6 forwards (with KernelShadow.BACKWARD, the training launches)
@@ -3854,6 +3894,418 @@ def cli_phase(card: str) -> dict:
     return {k: {p: c[k] for p, c in paths.items() if k in c} for k in kernels}
 
 
+# parallel_phase: (a) the CLI's training in a world of every card (NCCL),
+# PAR_DIALOGUES train dialogues at CLI_B rows = PAR_STEPS steps; (b) two
+# processes sharing card 0 over gloo, gpt2 at full width, PAR_B x PAR_L,
+# PAR_GLOO_STEPS steps a case; (c) profiling around one bf16 train step
+PAR_DIALOGUES, PAR_STEPS, PAR_B, PAR_L, PAR_GLOO_STEPS = 4, 8, 16, 128, 4
+
+
+@contextlib.contextmanager
+def _launcher_env(world: int, rank: int, port: int):
+    """torchrun's variables for this process for the duration."""
+    env = dict(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+               LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _StepLosses:
+    """Records every train step's loss (device tensors, read after the run)
+    and the calls of ``fused_lm_loss_sharded``."""
+
+    def __enter__(self):
+        from ergm_tpu_torch.train import trainer
+
+        self.trainer, self.real = trainer, (trainer.make_train_step, fused_ce.fused_lm_loss_sharded)
+        self.losses, self.sharded = [], 0
+
+        def make(*args, **kwargs):
+            step = self.real[0](*args, **kwargs)
+
+            def recorded(state, batch, seed):
+                state, m = step(state, batch, seed)
+                self.losses.append(m["loss"])
+                return state, m
+            return recorded
+
+        def sharded(*args, **kwargs):
+            self.sharded += 1
+            return self.real[1](*args, **kwargs)
+        trainer.make_train_step, fused_ce.fused_lm_loss_sharded = make, sharded
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.make_train_step, fused_ce.fused_lm_loss_sharded = self.real
+        self.losses = [float(x) for x in self.losses]
+
+
+@contextlib.contextmanager
+def _saves_recorded(saves: list):
+    """The Trainer's best-checkpoint saves recorded, not written (a
+    gpt2-medium checkpoint is 4.3 GB; one run of the phase writes its own)."""
+    real = ckpt_lib.save_checkpoint
+
+    def record(ckpt_dir, state, epoch, best_ppl, keep_best=None, mesh=None):
+        saves.append((epoch, best_ppl, mesh is not None))
+        return os.path.join(ckpt_dir, "not-written")
+    ckpt_lib.save_checkpoint = record
+    try:
+        yield
+    finally:
+        ckpt_lib.save_checkpoint = real
+
+
+def _par_cli(argv: list, world: int, shadow=None, write_checkpoint: bool = False) -> dict:
+    """One ``cli.main --mode=train`` run, in a world of ``world`` ranks
+    (torchrun's variables; 0: one process, no world): the step losses, K5's
+    and K6's launches, the sharded loss's calls, the checkpoint saves, the
+    output."""
+    from ergm_tpu_torch.cli import main as cli
+
+    reset_launches()
+    t0 = time.time()
+    saves = []
+    with contextlib.ExitStack() as stack:
+        rec = stack.enter_context(_StepLosses())
+        if world:
+            stack.enter_context(_launcher_env(world, 0, _free_port()))
+        if shadow is not None:
+            stack.enter_context(shadow)
+        if not write_checkpoint:
+            stack.enter_context(_saves_recorded(saves))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    return {"losses": rec.losses, "counts": _train_counts(), "sharded": rec.sharded,
+            "saves": saves, "text": buf.getvalue(), "s": time.time() - t0}
+
+
+def _par_two_cards(base: list, root: str, card: str) -> None:
+    """On a machine with two cards or more: the CLI starts a world of 2
+    itself (``--mesh_shape=2``), fp32, dropout 0, default mesh and ZeRO-1;
+    its epoch line's loss must equal a world of 1's (printed to 4 places)."""
+    base = [*base, "--dtype=float32", "--attn_pdrop=0", "--resid_pdrop=0", "--embd_pdrop=0"]
+    want = None
+    for label, extra in (("1 card", []), ("2 cards", ["--mesh_shape=2"]),
+                         ("2 cards, ZeRO-1", ["--mesh_shape=2", "--shard_opt_state"])):
+        out = subprocess.run([sys.executable, "-m", "ergm_tpu_torch.cli.main", *base,
+                              f"--ckpt_dir={root}/two_{len(extra)}", *extra],
+                             capture_output=True, text=True, timeout=600)
+        m = re.search(r"Train Loss: ([0-9.]+)", out.stdout)
+        if out.returncode or m is None:
+            raise AssertionError(f"parallel, {label}: {out.stderr[-2000:]}")
+        want = m.group(1) if want is None else want
+        print(f"parallel (a) fp32, {label}: epoch loss {m.group(1)} on {card}")
+        if m.group(1) != want:
+            raise AssertionError(f"parallel, {label}: epoch loss {m.group(1)}, want {want}")
+
+
+def _gloo_rank(rank: int, port: int, go) -> dict:
+    """One of two processes that share card 0 over a gloo group: probes the
+    collectives on CUDA tensors, then each case's PAR_GLOO_STEPS mesh steps
+    against the single-process steps (which each rank also runs): the loss
+    and this rank's part of every reduced gradient."""
+    import torch.distributed as dist
+
+    from ergm_tpu_torch.core.mesh import (batch_rows, make_mesh, shard_opt_state, shard_params,
+                                          split_model, zero1_sharding_tree)
+    from ergm_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    _build.load()
+    info = distributed.initialize(f"127.0.0.1:{port}", 1, 0, local_rank=rank, local_world_size=2,
+                                  device=dev, backend="gloo")
+    go.wait()  # started early; the card's work waits for (a) to end
+    probes = {}
+    for name, fn in (("all_reduce", lambda t: dist.all_reduce(t)),
+                     ("broadcast", lambda t: dist.broadcast(t, 0)),
+                     ("all_gather", lambda t: dist.all_gather([torch.empty_like(t)] * 2, t))):
+        try:
+            fn(torch.full((4,), float(rank + 1), device=dev))
+            probes[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the refusal is the reading
+            probes[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    out = {"info": info, "probes": probes, "cases": {}}
+    cases = (("data=2, sharded K6 loss, ZeRO-1", (2,), ("data",), 0.0, True),
+             ("model=2, K5 on 6 heads a rank, dropout 0.1", (1, 2), ("data", "model"), 0.1, False))
+    for label, shape, names, drop, zero in cases:
+        if zero and probes["all_gather"] != "ok":
+            out["cases"][label] = {"skipped": "gloo refused all_gather on CUDA tensors"}
+            continue
+        cfg = ModelConfig.from_model_type(
+            "gpt2", vocab_size=50271, dtype="float32", modality_dim=768, remat=True,
+            remat_policy="mlp", attn_pdrop=drop, resid_pdrop=drop, embd_pdrop=drop)
+        init = gpt2.init_params(torch.Generator(device=dev).manual_seed(5), cfg, device=dev)
+        rng = np.random.default_rng(5)
+        batches = [_train_batch(rng, PAR_B, PAR_L, cfg.vocab_size, dev, caption=32)
+                   for _ in range(PAR_GLOO_STEPS)]
+        runs = {}
+        for arm in ("single", "mesh"):
+            mesh = make_mesh(shape, names) if arm == "mesh" else None
+            params = copy.deepcopy(init)
+            if mesh is not None:
+                shard_params(params, mesh)
+            tx = AdamW(1e-5)
+            state = create_train_state(params, tx)
+            dims = None
+            if mesh is not None and zero:
+                dims = zero1_sharding_tree(params, mesh)
+                shard_opt_state(state.opt_state, mesh, dims)
+            grads, real = [], tx.update
+
+            def update(ps, gs, st, reduce=None, _real=real, _grads=grads):
+                _real(ps, gs, st, reduce=reduce)  # gs is reduced in place first
+                _grads.append([g.clone() for g in gs])
+            tx.update = update
+            step = make_train_step(cfg, tx, device=dev, mesh=mesh, opt_shardings=dims)
+            lo, hi = batch_rows(PAR_B, mesh)
+            reset_launches()
+            losses, times = [], []
+            for b in batches:
+                t = time.time()
+                state, m = step(state, {k: v[lo:hi] for k, v in b.items()}, 0)
+                losses.append(float(m["loss"]))
+                times.append(time.time() - t)
+            runs[arm] = (losses, grads, _train_counts(), times, mesh, params)
+        (ref, ref_g, _, ref_s, *_), (got, got_g, counts, times, mesh, params) = (
+            runs["single"], runs["mesh"])
+        names_ = [n for n, _ in params.named_parameters()]
+        gerr = max(float((g - split_model(n, r, cfg, mesh)).abs().max())
+                   for gs, rs in zip(got_g, ref_g) for n, g, r in zip(names_, gs, rs))
+        out["cases"][label] = {
+            "loss_err": max(abs(a - b) for a, b in zip(ref, got)), "grad_err": gerr,
+            "losses": got, "launches": counts, "step_s": times, "single_s": ref_s}
+    distributed.shutdown()
+    return out
+
+
+def _gloo_worker(rank: int, port: int, queue, go) -> None:
+    import traceback
+
+    try:
+        queue.put((rank, _gloo_rank(rank, port, go)))
+    except BaseException:  # noqa: BLE001 - reported to the parent, then re-raised
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _par_profile(card: str) -> None:
+    """(c): ``capture`` around one bf16 train step of gpt2 (the training
+    configuration at B=8, L=128) must write a trace holding the
+    ``annotate`` region and K5's and K6's kernels; ``StepTimer`` over 6
+    steps; ``start_server``'s endpoint records a trace while this thread
+    launches steps, and the kernels must be in it."""
+    from ergm_tpu_torch.utils.profiling import (StepTimer, annotate, capture, start_server,
+                                                trace_files)
+
+    cfg = ModelConfig.from_model_type(**TRAIN_SLICE)
+    params = gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
+    tx = AdamW(1e-5)
+    state, step = create_train_state(params, tx), make_train_step(cfg, tx, device=DEVICE)
+    batch = _train_batch(np.random.default_rng(0), 8, 128, cfg.vocab_size, DEVICE, caption=32)
+    state, m = step(state, batch, 0)
+    float(m["loss"])
+    with tempfile.TemporaryDirectory() as logdir:
+        with capture(logdir):
+            with annotate("ergm.train_step"):
+                state, m = step(state, batch, 0)
+                float(m["loss"])
+        files = trace_files(logdir)
+        text = open(files[-1]).read() if files else ""
+        found = {k: k in text for k in ("ergm.train_step", "ergm_block", "ergm_xent")}
+        print(f"profiling: capture wrote {len(files)} trace ({len(text) / 1e6:.1f} MB); "
+              f"holds {found}")
+        if not files or not all(found.values()):
+            raise AssertionError(f"profiling: the trace lacks {found}")
+        timer = StepTimer()
+        for _ in range(6):
+            with timer.step(fetch=lambda: m["loss"]):
+                state, m = step(state, batch, 0)
+        print(f"profiling: StepTimer over 6 bf16 gpt2 steps (B=8, L=128) {timer.summary()} "
+              f"on {card}")
+        srv = start_server(0, logdir)
+        port = srv.server_address[1]
+        got = {}
+        client = threading.Thread(target=lambda: got.update(json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/capture?duration_ms=1500&logdir={logdir}/server",
+            timeout=60).read())))
+        client.start()
+        t0 = time.time()
+        while client.is_alive() and time.time() - t0 < 60:  # this thread launches the steps
+            state, m = step(state, batch, 0)
+            float(m["loss"])
+        client.join()
+        srv.shutdown()
+        srv.server_close()
+        text = open(got["trace"]).read() if got.get("trace") else ""
+        seen = {k: k in text for k in ("ergm_block", "ergm_xent")}
+        print(f"profiling: start_server's endpoint recorded {got.get('events')} events over "
+              f"1,500 ms from its own thread while the main thread launched steps; kernels in "
+              f"its trace: {seen}")
+        if not all(seen.values()):
+            raise AssertionError(f"profiling: the endpoint's trace lacks {seen}")
+
+
+def parallel_phase(card: str) -> dict:
+    """Multi-device training (phase 15 of the module docstring): (a) the
+    CLI's gpt2-medium training in a world of every card over NCCL, fp32
+    and bf16, default mesh and ZeRO-1, against the plain Trainer; (b) data=2
+    with the sharded K6 loss and ZeRO-1, and model=2 with dropout, in two
+    processes sharing card 0 over gloo, against one process; (c) the
+    profiling utilities. Returns {kernel: {path: launches a step}}."""
+    import multiprocessing
+
+    t0 = time.time()
+    cards = torch.cuda.device_count()
+    launches = {}
+    # (b)'s two processes import, build and join their group while (a) runs
+    ctx = multiprocessing.get_context("spawn")
+    queue, port, go = ctx.Queue(), _free_port(), ctx.Event()
+    procs = [ctx.Process(target=_gloo_worker, args=(r, port, queue, go)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        launches = _par_nccl(card, cards)
+        go.set()
+        results = {}
+        for _ in procs:
+            rank, res = queue.get(timeout=600)
+            results[rank] = res
+    finally:
+        go.set()
+        for p in procs:
+            p.join(30)
+            if p.exitcode is None:
+                p.kill()
+    for rank, res in sorted(results.items()):
+        if "error" in res:
+            raise AssertionError(f"gloo rank {rank}: {res['error']}")
+    launches.update(_par_gloo_readings(results))
+    _par_profile(card)
+    print(f"parallel phase: {time.time() - t0:.1f} s on {card}")
+    kernels = ("block_mha", "block_mha_bwd", "fused_softmax_xent", "fused_softmax_xent_bwd")
+    return {k: {p: c[k] for p, c in launches.items()} for k in kernels}
+
+
+def _par_nccl(card: str, cards: int) -> dict:
+    """(a): the CLI's training in a one-rank NCCL world against the plain
+    Trainer (and, with two cards or more, the CLI's own world of 2).
+    Returns {path: launches a step}."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        data, st = _cli_data(root)
+        cfg = ModelConfig.from_model_type(CLI_MODEL, vocab_size=st.vocab_size)
+        exp = _cli_train_expected(data, st, cfg, limit=PAR_DIALOGUES)
+        if exp["steps"] != PAR_STEPS:
+            raise AssertionError(f"parallel data: {exp['steps']} steps, want {PAR_STEPS}")
+        base = ["--mode=train", "--seed=0", f"--data_dir={root}", "--train_prefix=train",
+                "--valid_prefix=valid", f"--model_type={CLI_MODEL}", "--lr=1e-5",
+                "--warmup_ratio=0.0", f"--batch_size={CLI_B}", "--num_epochs=1",
+                "--max_len=1024", "--output_dir=", f"--limit={PAR_DIALOGUES}"]
+        runs = {}
+        shadow_exp = _cli_train_expected(data, st, cfg, limit=CLI_SHADOW_DIALOGUES)
+        for dtype, label, world, extra in (
+                ("float32", "plain Trainer", 0, []),
+                ("float32", "world of 1 (NCCL), default mesh", 1, []),
+                ("float32", "world of 1 (NCCL), --shard_opt_state", 1, ["--shard_opt_state"]),
+                ("bfloat16", "world of 1 (NCCL), default mesh", 1, []),
+                ("bfloat16", "world of 1 (NCCL), --shard_opt_state", 1, ["--shard_opt_state"]),
+                ("bfloat16", "world of 1 (NCCL), shadowed", 1, ["--shard_opt_state"])):
+            # as cli_phase, a shorter run (CLI_SHADOW_DIALOGUES dialogues) holds
+            # every K5 and K6 launch, forward and backward, against its plain version
+            shadowed = label.endswith("shadowed")
+            shadow = KernelShadow(TRAIN_SHADOWED, KernelShadow.BACKWARD) if shadowed else None
+            ckpt = f"{root}/par_{len(runs)}"
+            argv = [*base, f"--dtype={dtype}", f"--ckpt_dir={ckpt}", *extra]
+            if shadowed:
+                argv.append(f"--limit={CLI_SHADOW_DIALOGUES}")
+            # the fp32 default mesh's run writes its checkpoint (gathered,
+            # written by the primary rank); the others record their saves
+            writes = dtype == "float32" and label.endswith("default mesh")
+            run = _par_cli(argv, world, shadow, write_checkpoint=writes)
+            if writes and ckpt_lib.find_checkpoint(os.path.join(ckpt, CLI_MODEL)) is None:
+                raise AssertionError(f"parallel {label}: no checkpoint written under {ckpt}")
+            if not writes and len(run["saves"]) != 1:
+                raise AssertionError(f"parallel {label}: saves {run['saves']}, want one")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            want = (shadow_exp if shadowed else exp)["want"]
+            steps_want = (shadow_exp if shadowed else exp)["steps"]
+            if run["counts"] != want or len(run["losses"]) != steps_want:
+                raise AssertionError(f"parallel {label} {dtype}: launches {run['counts']} in "
+                                     f"{len(run['losses'])} steps, want {want}")
+            if world and ("backend nccl" not in run["text"]
+                          or run["sharded"] != want["fused_softmax_xent"]):
+                raise AssertionError(f"parallel {label}: not NCCL, or K6 not through "
+                                     f"fused_lm_loss_sharded ({run['sharded']} calls)")
+            if shadow is not None:
+                run["shadow"] = shadow.shares()
+                if not all(v <= 1.0 for v in run["shadow"].values()):
+                    raise AssertionError(f"parallel shadow: {run['shadow']}")
+            runs[(dtype, label)] = run
+            p50 = re.search(r"step p50 (\d+) ms", run["text"])
+            print(f"parallel (a) {dtype}, {label}: {CLI_MODEL} B={CLI_B}, {steps_want} steps, "
+                  f"step p50 {p50.group(1) if p50 else '?'} ms (the epoch line), "
+                  f"losses {run['losses']}"
+                  + (f"; every K5 and K6 launch within its plain version's bar {run['shadow']}"
+                     if shadow is not None else "") + f"; {run['s']:.1f} s on {card}")
+        plain = runs[("float32", "plain Trainer")]["losses"]
+        for (dtype, label), run in runs.items():
+            if dtype == "float32" and run["losses"] != plain:  # bit for bit
+                raise AssertionError(f"parallel {label}: fp32 losses {run['losses']} differ from "
+                                     f"the plain Trainer's {plain}")
+        if cards >= 2:
+            _par_two_cards(base, root, card)
+        one = runs[("bfloat16", "world of 1 (NCCL), default mesh")]["counts"]
+        launches["data-parallel step, NCCL world"] = {
+            k: (v - {"block_mha": exp["valid_k5"], "fused_softmax_xent": exp["valid_batches"]
+                     }.get(k, 0)) / PAR_STEPS for k, v in one.items()}
+    print(f"parallel (a): the fp32 losses of the NCCL world (default mesh and ZeRO-1) equal "
+          f"the plain Trainer's bit for bit over {PAR_STEPS} steps")
+    return launches
+
+
+def _par_gloo_readings(results: dict) -> dict:
+    """(b)'s readings from both ranks, held to their bars. Returns {path:
+    launches a step}."""
+    launches = {}
+    r0 = results[0]
+    print(f"parallel (b): gloo on CUDA tensors (two processes, card 0): {r0['probes']}")
+    for label in r0["cases"]:
+        per = [results[r]["cases"][label] for r in (0, 1)]
+        if "skipped" in per[0]:
+            print(f"parallel (b) {label}: not run on the card ({per[0]['skipped']}); held on the "
+                  f"CPU (tests/test_torch_parallel.py)")
+            continue
+        lerr = max(c["loss_err"] for c in per)
+        gerr = max(c["grad_err"] for c in per)
+        print(f"parallel (b) {label}: gpt2 fp32 B={PAR_B} L={PAR_L}, {PAR_GLOO_STEPS} steps "
+              f"against one process: loss err {lerr:.3e} (1e-5), gradient err {gerr:.3e} (1e-4); "
+              f"launches {per[0]['launches']}; step seconds (a reading of gloo through the host "
+              f"on one shared card, not the port's speed) {[round(x, 3) for x in per[0]['step_s']]} "
+              f"against one process's {[round(x, 3) for x in per[0]['single_s']]}")
+        if not (lerr <= 1e-5 and gerr <= 1e-4):
+            raise AssertionError(f"parallel (b) {label}: loss {lerr}, gradients {gerr}")
+        launches[f"{label} step, gloo"] = {k: v / PAR_GLOO_STEPS
+                                           for k, v in per[0]["launches"].items()}
+    return launches
+
+
 def _descendants() -> list:
     """The pids of the live (not zombie) processes below this one."""
     parent = {}
@@ -3963,6 +4415,7 @@ def main() -> None:
     train_on = phase(train_slice_phase, card)
     torch.cuda.empty_cache()
     cli_on = phase(cli_phase, card)
+    par_on = phase(parallel_phase, card)
     print(f"phase seconds: {json.dumps(seconds)}; {time.time() - t0:.1f} s since the build "
           f"started")
     for arg in sys.argv[1:]:
@@ -4016,7 +4469,9 @@ def main() -> None:
         # launches on the feature-extraction and test-run paths
         **({"pipeline_launches": pipeline_on[name]} if name in pipeline_on else {}),
         # launches on the command line's paths (gpt2-medium)
-        **({"cli_launches": cli_on[name]} if name in cli_on else {})}
+        **({"cli_launches": cli_on[name]} if name in cli_on else {}),
+        # launches a step on the multi-device training paths
+        **({"parallel_launches": par_on[name]} if name in par_on else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,23 @@ into the data dir; ``--mode=serve`` runs the continuous-batching server
 over a JSONL requests file or an HTTP endpoint (``--serve_http``);
 ``--mode=interact`` a dialogue REPL.
 
-``--gpu`` picks the device: a CUDA index (default 0) or ``cpu``. A card
-that is not there fails the run. The port runs on one card: a mesh over
-several devices, ``--shard_opt_state`` and the multi-host launcher
-environment (``ERGM_COORDINATOR``) raise (ROADMAP.md queue 1 item 8).
+``--gpu`` picks the device of one process: a CUDA index (default 0) or
+``cpu``. A card that is not there fails the run.
+
+``--mode=train`` trains over the mesh of ``--mesh_shape`` /
+``--mesh_axes`` with one process per device (``parallel/distributed.py``):
+- the default ``-1`` on a host with N cards starts N processes itself
+  (data parallelism over N; one card: one process, as before); an
+  explicit shape starts as many as it has ranks (``--gpu=cpu``: CPU
+  processes over gloo);
+- ``ERGM_COORDINATOR`` / ``ERGM_NUM_PROCESSES`` / ``ERGM_PROCESS_ID``
+  (JAX's launcher contract, one process per host) make each host start
+  its local processes and join them to one world;
+- under an external launcher (``WORLD_SIZE`` set, e.g. torchrun) the
+  process joins that world instead, on ``cuda:<LOCAL_RANK>``.
+``--shard_opt_state`` is ZeRO-1 over the data axis. Inference, serving
+and the REPL over several devices are not ported yet: a mesh, ZeRO-1
+or a world there raise (ROADMAP.md queue 1 item 8, the inference half).
 JAX's persistent compilation cache has no counterpart: the port builds
 its kernels once into ``ergm_tpu_torch/_build/``.
 """
@@ -24,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import sys
 import time
 import warnings
@@ -35,8 +49,10 @@ import torch
 from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
 from ergm_tpu_torch.core.device import resolve
 
-# where the refusals point
-MULTI_DEVICE = "several devices are not ported (ROADMAP.md queue 1 item 8)"
+# where the refusals of inference over several devices point
+MULTI_DEVICE = ("inference over several devices is not ported yet (ROADMAP.md queue 1 item 8, "
+                "the inference half: the next slice)")
+_LAUNCHER = ("ERGM_COORDINATOR", "ERGM_NUM_PROCESSES", "ERGM_PROCESS_ID")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -76,9 +92,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--layers", type=int, default=None, help=argparse.SUPPRESS)
     # ergm_tpu's additions
     p.add_argument("--mesh_shape", type=str, default="-1",
-                   help="Comma-separated mesh shape. The port runs on one card: "
-                        "-1 or 1; several devices raise (ROADMAP.md queue 1 "
-                        "item 8).")
+                   help="Comma-separated mesh shape over the world's ranks (one "
+                        "process per device); -1 = every local card, data "
+                        "parallel. Training only: inference over several "
+                        "devices raises (ROADMAP.md queue 1 item 8).")
     p.add_argument("--mesh_axes", type=str, default="data",
                    help="Comma-separated axis names matching --mesh_shape.")
     p.add_argument("--dtype", type=str, default="bfloat16",
@@ -270,8 +287,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="ZeRO-1: shard AdamW's fp32 moments over the mesh "
                         "data axis instead of replicating them per chip "
                         "(the memory that gates gpt2-xl under pure data "
-                        "parallelism). Not ported: raises (ROADMAP.md "
-                        "queue 1 item 8).")
+                        "parallelism). Training only.")
     p.add_argument("--save_on_preempt", type=int, default=1, choices=[0, 1],
                    help="1 (default): on SIGTERM (spot/preemptible VM "
                         "preemption) save an emergency checkpoint at the "
@@ -316,17 +332,118 @@ def device_of(args) -> torch.device:
 
 
 def _refuse_several_devices(cfg: TrainConfig) -> None:
+    """Inference, serving and the REPL run on one card."""
     if tuple(cfg.mesh_shape) != (-1,) and any(x != 1 for x in cfg.mesh_shape):
         raise NotImplementedError(f"--mesh_shape={','.join(map(str, cfg.mesh_shape))}: "
-                                  f"{MULTI_DEVICE}; the port runs on one card "
+                                  f"{MULTI_DEVICE}; --mode={cfg.mode} runs on one card "
                                   f"(--mesh_shape=-1 or 1)")
     if cfg.shard_opt_state:
-        raise NotImplementedError(f"--shard_opt_state (ZeRO-1): {MULTI_DEVICE}")
-    launcher = [k for k in ("ERGM_COORDINATOR", "ERGM_NUM_PROCESSES", "ERGM_PROCESS_ID")
-                if os.environ.get(k)]
-    if launcher:
-        raise NotImplementedError(f"the multi-host launcher environment ({', '.join(launcher)}): "
+        raise NotImplementedError(f"--shard_opt_state (ZeRO-1) with --mode={cfg.mode}: "
                                   f"{MULTI_DEVICE}")
+    launcher = [k for k in _LAUNCHER if os.environ.get(k)]
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        launcher.append("WORLD_SIZE")
+    if launcher:
+        raise NotImplementedError(f"the launcher environment ({', '.join(launcher)}) with "
+                                  f"--mode={cfg.mode}: {MULTI_DEVICE}")
+
+
+def _local_processes(cfg: TrainConfig, args, hosts: int) -> int:
+    """How many training processes this host runs: every card under the
+    default -1 (one on the CPU), else this host's share of the mesh's
+    ranks."""
+    shape = [int(x) for x in cfg.mesh_shape]
+    cpu = str(args.gpu).strip() == "cpu"
+    cards = 1 if cpu else torch.cuda.device_count()
+    if -1 in shape:
+        return cards
+    total = int(np.prod(shape))
+    n = -(-total // hosts)
+    if not cpu and n > max(cards, 1):  # one process takes --gpu's card, or fails there
+        raise ValueError(f"mesh shape {shape} needs {total} devices, have {cards * hosts}")
+    return n
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _child(argv: list, env: dict) -> None:
+    """A spawned training process: the launcher environment, then ``main``."""
+    os.environ.update(env)
+    main(argv)
+
+
+def _spawn(argv: list, n: int, hosts: int, host: int, coordinator: Optional[str]) -> None:
+    """Starts this host's ``n`` training processes (torchrun's environment:
+    ranks ``host * n`` on, ``LOCAL_RANK`` 0..n-1; multiprocessing's spawn
+    method, so each imports this program's main module anew) and waits
+    for them; the first to fail stops the others and fails the run."""
+    import multiprocessing
+
+    addr, port = (coordinator.rsplit(":", 1) if coordinator
+                  else ("127.0.0.1", str(_free_port())))
+    for k in _LAUNCHER:  # the children join by torchrun's variables
+        os.environ.pop(k, None)
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for lr in range(n):
+        env = dict(WORLD_SIZE=str(hosts * n), RANK=str(host * n + lr), LOCAL_RANK=str(lr),
+                   LOCAL_WORLD_SIZE=str(n), MASTER_ADDR=addr, MASTER_PORT=port)
+        p = ctx.Process(target=_child, args=(argv, env), name=f"ergm-train-{lr}")
+        p.start()
+        procs.append(p)
+    failed = 0
+    try:
+        while procs and not failed:
+            for p in list(procs):
+                if p.exitcode is not None:
+                    procs.remove(p)
+                    failed = failed or p.exitcode
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join(30)
+            if p.exitcode is None:
+                p.kill()
+                p.join()
+    if failed:
+        raise SystemExit(f"a training process exited with code {failed}")
+
+
+def run_train(cfg: TrainConfig, args, argv: list) -> None:
+    """--mode=train: one process, or this host's processes of a world
+    (see the module docstring)."""
+    from ergm_tpu_torch.parallel import distributed
+    from ergm_tpu_torch.train.trainer import Trainer
+
+    cpu = str(args.gpu).strip() == "cpu"
+    env = os.environ
+    if env.get("WORLD_SIZE") is None:
+        hosts = int(env["ERGM_NUM_PROCESSES"]) if env.get("ERGM_NUM_PROCESSES") else 1
+        launcher = any(env.get(k) for k in _LAUNCHER)
+        if launcher and not all(env.get(k) for k in _LAUNCHER):
+            distributed.initialize_from_env()  # raises JAX's partial-environment error
+        n = _local_processes(cfg, args, hosts)
+        if n > 1 or launcher:
+            _spawn(argv, n, hosts, int(env.get("ERGM_PROCESS_ID", "0")),
+                   env.get("ERGM_COORDINATOR"))
+            return
+        Trainer(cfg, limit=args.limit, device=device_of(args)).train()
+        return
+    device = torch.device("cpu") if cpu else distributed.local_device("cuda")
+    info = distributed.initialize_from_env(device=device)
+    try:
+        if distributed.is_primary():
+            print(f"world: {info['global_devices']} ranks over {info['process_count']} "
+                  f"host(s), {info['local_devices']} a host, backend {info['backend']}")
+        Trainer(cfg, limit=args.limit, device=device).train()
+    finally:
+        distributed.shutdown()
 
 
 def _load_tokenizer(tokenizer_dir: str, st):
@@ -433,17 +550,17 @@ def run_infer(cfg: TrainConfig, args) -> dict:
 
 
 def main(argv: Optional[list] = None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
     # path suffixing with the model type (src/main.py:364-365)
     args.data_dir = os.path.join(args.data_dir, args.model_type)
     args.ckpt_dir = os.path.join(args.ckpt_dir, args.model_type)
     cfg = args_to_config(args)
-    _refuse_several_devices(cfg)
+    if args.mode != "train":
+        _refuse_several_devices(cfg)
 
     if args.mode == "train":
-        from ergm_tpu_torch.train.trainer import Trainer
-
-        Trainer(cfg, limit=args.limit, device=device_of(args)).train()
+        run_train(cfg, args, argv)
     elif args.mode == "interact":
         run_interact(cfg, args)
     elif args.mode == "serve":

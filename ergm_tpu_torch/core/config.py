@@ -116,9 +116,10 @@ class TrainConfig:
     """Runtime config of training, the fields and defaults of
     ``ergm_tpu.core.config.TrainConfig`` (the reference CLI's flags).
 
-    The port trains on one device. ``prng_impl``, ``mesh_shape``,
-    ``mesh_axis_names`` and ``shard_opt_state`` are carried for equality
-    and do nothing (the CLI refuses a mesh and ``--shard_opt_state``).
+    ``mesh_shape`` / ``mesh_axis_names`` lay the training mesh over the
+    world's ranks (``core/mesh.py``; -1 absorbs the world) and
+    ``shard_opt_state`` turns on ZeRO-1 (``Trainer``). ``prng_impl`` is
+    carried for equality and does nothing.
     """
 
     seed: int = 0

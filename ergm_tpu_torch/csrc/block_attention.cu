@@ -19,12 +19,15 @@
 // Causal means query i sees keys <= i, also when Lq < Lk.
 //
 // The keep mask is JAX's counter hash of its interpret mode (_keep_mask):
-// mix = seed + b*H + h, x = r*Lk + c + mix*2654435761 (mod 2^32), three
+// mix = seed + b*S + h, x = r*Lk + c + mix*2654435761 (mod 2^32), three
 // xorshift-multiply rounds, keep iff x >= rate*2^32. The TPU's hardware
 // random stream cannot be reproduced on another device; the hash gives the
 // same mask here, in the plain version and in JAX's interpret-mode kernel,
 // and the backward and a rematerialised forward regenerate it from the
-// seed instead of storing it.
+// seed instead of storing it. S is the head stride, H unless the caller
+// runs a shard of a larger problem: rows from b0 and heads from h0 of one
+// with H_global heads draw its masks with seed + b0*H_global + h0 and
+// S = H_global (tensor parallelism over head groups).
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM).
 // At the training slice, B=48, H=12, L=512, Dh=64, causal, one layer's
@@ -122,13 +125,14 @@ struct Args {
   int causal, dropout;
   float drop_div, drop_mul;  // 1 - rate and 1 / (1 - rate)
   unsigned thr, seed;
+  int hs;  // the hash's head stride
 };
 
 enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV };
 
 // The hash's per-(batch row, head) term, mix * 2654435761 (mod 2^32).
 __device__ __forceinline__ unsigned hash_base(const Args& a, int b, int h) {
-  return (a.seed + static_cast<unsigned>(b * a.H + h)) * 2654435761u;
+  return (a.seed + static_cast<unsigned>(b * a.hs + h)) * 2654435761u;
 }
 
 // keep iff the hash of x = r*Lk + c + hash_base >= thr
@@ -932,7 +936,7 @@ cudaError_t backward(const Args& a, bool bf, cudaStream_t s) {
 
 Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, float scale,
                int causal, int dropout, float drop_div, float drop_mul, unsigned thr,
-               unsigned seed) {
+               unsigned seed, int hs) {
   Args a{};
   a.B = B;
   a.H = H;
@@ -947,6 +951,7 @@ Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, flo
   a.drop_mul = drop_mul;
   a.thr = thr;
   a.seed = seed;
+  a.hs = hs;
   return a;
 }
 
@@ -954,14 +959,15 @@ Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, flo
 
 // dtype: 0 = float32, 1 = bfloat16. strides: host array of (batch, head,
 // row) element strides of q, k, v, o. kbits [B, Lk/32] and dead [B] are
-// written here (by the pre-pass) for the backward. Returns a cudaError_t
-// (0 on success).
+// written here (by the pre-pass) for the backward. head_stride: the
+// dropout hash's (H for a whole problem). Returns a cudaError_t (0 on
+// success).
 extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, void* o,
                                   void* ml, const void* qmask, const void* kmask, void* kbits,
                                   void* dead, int dtype, int B, int H, int L, int Lk,
                                   const long long* strides, float scale, int causal,
                                   int dropout, float drop_div, float drop_mul, unsigned thr,
-                                  unsigned seed, void* stream) {
+                                  unsigned seed, int head_stride, void* stream) {
   using namespace ergm_block;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -970,7 +976,7 @@ extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, v
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   Args a = make_args(B, H, L, Lk, strides, 4, scale, causal, dropout, drop_div, drop_mul, thr,
-                     seed);
+                     seed, head_stride);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -991,11 +997,12 @@ extern "C" int ergm_block_mha_bwd(const void* q, const void* k, const void* v, c
                                   const void* kbits, const void* dead, int dtype, int B, int H,
                                   int L, int Lk, const long long* strides, float scale,
                                   int causal, int dropout, float drop_div, float drop_mul,
-                                  unsigned thr, unsigned seed, void* stream) {
+                                  unsigned thr, unsigned seed, int head_stride,
+                                  void* stream) {
   using namespace ergm_block;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(B, H, L, Lk, strides, 8, scale, causal, dropout, drop_div, drop_mul, thr,
-                     seed);
+                     seed, head_stride);
   a.q = q;
   a.k = k;
   a.v = v;

@@ -28,7 +28,7 @@ import os
 import pickle
 import warnings
 from dataclasses import dataclass
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -200,8 +200,14 @@ def collate(
     static: bool = False,
     static_caps: Optional[bool] = None,
     static_cap_len: int = 256,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Batch:
     """Pad a list of examples to a static [batch_size, bucketed_len] batch.
+
+    ``rows=(lo, hi)``: only rows [lo, hi) of that batch (a data-parallel
+    rank's), padded as the whole batch is (its lengths, caption bucket
+    and caption presence are the whole batch's), so the ranks' rows put
+    together are the whole batch.
 
     Fill semantics match the reference collator (eos for ids/token types,
     -100 for labels; custom_dataset.py:120-122). Short batches are
@@ -220,15 +226,17 @@ def collate(
     longest = max(len(e.input_ids) for e in examples)
     L = max_len if static else _bucket_len(longest, pad_multiple, max_len)
     D = examples[0].img.shape[0]
+    lo, hi = (0, batch_size) if rows is None else rows
+    nrows = hi - lo
 
-    ids = np.full((batch_size, L), eos_id, np.int32)
-    tts = np.full((batch_size, L), eos_id, np.int32)
-    lbl = np.full((batch_size, L), IGNORE_INDEX, np.int32)
-    mask = np.zeros((batch_size, L), np.float32)
-    imgs = np.zeros((batch_size, D), np.float32)
-    auds = np.zeros((batch_size, D), np.float32)
-    emo = np.zeros((batch_size,), np.int32)
-    valid = np.zeros((batch_size,), bool)
+    ids = np.full((nrows, L), eos_id, np.int32)
+    tts = np.full((nrows, L), eos_id, np.int32)
+    lbl = np.full((nrows, L), IGNORE_INDEX, np.int32)
+    mask = np.zeros((nrows, L), np.float32)
+    imgs = np.zeros((nrows, D), np.float32)
+    auds = np.zeros((nrows, D), np.float32)
+    emo = np.zeros((nrows,), np.int32)
+    valid = np.zeros((nrows,), bool)
     contexts: List[str] = []
 
     # captions: static [B, Lc] bucket when any example carries them
@@ -242,11 +250,12 @@ def collate(
         else:
             longest_cap = max(len(e.caption_ids or []) for e in examples)
             Lc = _bucket_len(max(longest_cap, 1), min(pad_multiple, 32), max_len)
-        cap_ids = np.full((batch_size, Lc), eos_id, np.int32)
-        cap_mask = np.zeros((batch_size, Lc), np.float32)
+        cap_ids = np.full((nrows, Lc), eos_id, np.int32)
+        cap_mask = np.zeros((nrows, Lc), np.float32)
 
-    for b in range(batch_size):
-        e = examples[min(b, n - 1)]
+    for row in range(lo, hi):
+        e = examples[min(row, n - 1)]
+        b = row - lo
         k = min(len(e.input_ids), L)
         ids[b, :k] = e.input_ids[:k]
         tts[b, :k] = e.token_type_ids[:k]
@@ -255,7 +264,7 @@ def collate(
         imgs[b] = e.img
         auds[b] = e.aud
         emo[b] = e.emotion_label
-        valid[b] = b < n
+        valid[b] = row < n
         contexts.append(e.context)
         if has_caps and e.caption_ids:
             kc = min(len(e.caption_ids), cap_ids.shape[1])

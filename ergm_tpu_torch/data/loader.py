@@ -19,8 +19,13 @@ worker would import torch and the main module anew (seconds each); the
 fork server imports them once per process and forks the workers from
 itself. ``close`` stops a loader's workers when its user is done with it
 (the Trainer at the end of ``train``), not when it is collected.
-Several hosts are not ported: ``host_count > 1`` raises (ROADMAP.md
-queue 1 item 8).
+
+Several hosts (``host_count > 1``) take JAX's plain path's rule: each
+epoch's index space is shuffled globally, then host ``host_index`` keeps
+its strided, equal-length shard (``dataset.host_shard_order``) and
+batches it in order. Within a host a data-parallel rank collates only
+its ``rows`` of each batch, padded as the whole batch, so the ranks'
+rows put together are the single-process batches.
 """
 
 from __future__ import annotations
@@ -30,18 +35,28 @@ import multiprocessing
 import numpy as np
 import torch
 
-from ergm_tpu_torch.data.dataset import Batch, DialogueDataset, batch_order, collate
+from ergm_tpu_torch.data.dataset import (Batch, DialogueDataset, Subset, batch_order, collate,
+                                         host_shard_order)
 
 
 class BatchOrder(torch.utils.data.Sampler):
     """One epoch's index lists, ``dataset.batch_order``'s for the current
-    ``seed``; it is read in the loader's own process."""
+    ``seed`` (over this host's shard when ``host_count > 1``); it is read
+    in the loader's own process."""
 
-    def __init__(self, dataset: DialogueDataset, batch_size: int, seed: int, **kw):
+    def __init__(self, dataset: DialogueDataset, batch_size: int, seed: int,
+                 host_index: int = 0, host_count: int = 1, **kw):
         self.dataset, self.batch_size, self.seed, self.kw = dataset, batch_size, seed, kw
+        self.host_index, self.host_count = host_index, host_count
 
     def _order(self) -> list:
-        return batch_order(self.dataset, self.batch_size, seed=self.seed, **self.kw)
+        if self.host_count <= 1:
+            return batch_order(self.dataset, self.batch_size, seed=self.seed, **self.kw)
+        idx = host_shard_order(len(self.dataset), self.host_index, self.host_count,
+                               shuffle=self.kw.get("shuffle", False), seed=self.seed)
+        kw = {**self.kw, "shuffle": False}
+        return [idx[b] for b in batch_order(Subset(self.dataset, idx), self.batch_size,
+                                            seed=self.seed, **kw)]
 
     def __iter__(self):
         return iter(self._order())
@@ -54,12 +69,13 @@ class _Collated(torch.utils.data.Dataset):
     """The batch of an index list: ``collate`` over its examples."""
 
     def __init__(self, dataset: DialogueDataset, eos_id: int, batch_size: int,
-                 pad_multiple: int, max_len: int):
+                 pad_multiple: int, max_len: int, rows=None):
         self.dataset = dataset
         self.args = (eos_id, batch_size, pad_multiple, max_len)
+        self.rows = rows
 
     def __getitem__(self, idx: np.ndarray) -> Batch:
-        return collate([self.dataset[j] for j in idx], *self.args)
+        return collate([self.dataset[j] for j in idx], *self.args, rows=self.rows)
 
 
 def _fork_server():
@@ -85,19 +101,19 @@ def make_loader(
     pin_memory: bool = False,
     host_index: int = 0,
     host_count: int = 1,
+    rows=None,
 ) -> torch.utils.data.DataLoader:
     """An iterable of ``dataset.Batch``, one epoch each time it is iterated
     (``loader.sampler.seed`` sets the next one's shuffle). ``pin_memory``
     (for a CUDA trainer) hands the batches over as page-locked tensors
-    (``Batch.pin_memory``)."""
-    if host_count > 1:
-        raise NotImplementedError(f"host_count={host_count}: several hosts are not ported "
-                                  f"(ROADMAP.md queue 1 item 8)")
-    del host_index  # one host: it reads every batch
-    order = BatchOrder(dataset, batch_size, seed, shuffle=shuffle,
-                       drop_remainder=drop_remainder, length_grouped=length_grouped)
+    (``Batch.pin_memory``). ``host_index`` / ``host_count``: this host's
+    shard of the dataset; ``rows=(lo, hi)``: the rows of each batch this
+    process collates (``core.mesh.batch_rows``)."""
+    order = BatchOrder(dataset, batch_size, seed, host_index=host_index, host_count=host_count,
+                       shuffle=shuffle, drop_remainder=drop_remainder,
+                       length_grouped=length_grouped)
     return torch.utils.data.DataLoader(
-        _Collated(dataset, eos_id, batch_size, pad_multiple, max_len), batch_size=None,
+        _Collated(dataset, eos_id, batch_size, pad_multiple, max_len, rows), batch_size=None,
         sampler=order, num_workers=num_workers, pin_memory=pin_memory,
         persistent_workers=num_workers > 0,
         multiprocessing_context=_fork_server() if num_workers else None)

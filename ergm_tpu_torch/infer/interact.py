@@ -31,8 +31,9 @@ class DialogueSession:
                  top_p: float = 0.95, seed: int = 0, mesh=None,
                  draft_layers: int = 0, spec_gamma: int = 4):
         if mesh is not None:
-            raise NotImplementedError("DialogueSession(mesh=...) is not ported: the port runs "
-                                      "on one card")
+            raise NotImplementedError("DialogueSession(mesh=...) is not ported yet: inference "
+                                      "runs on one card (ROADMAP.md queue 1 item 8, the "
+                                      "inference half)")
         self.params = params
         self.draft_layers = draft_layers
         self.spec_gamma = spec_gamma

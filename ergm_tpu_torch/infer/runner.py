@@ -96,14 +96,16 @@ def run_test(
     ``sampler``: "full_sort" (default: full-vocab sort, the reference's
     top-p math — the metric-reporting path) or "exact" (exact top-64
     nucleus). JAX's "approx" raises: the port uses the exact top-k.
-    ``mesh`` other than None raises: multi-GPU is not ported."""
+    ``mesh`` other than None raises: inference over several devices is not
+    ported yet (ROADMAP.md queue 1 item 8, the inference half)."""
     if sampler == "approx":
         raise ValueError("sampler='approx' (approximate top-k) is not ported: the port uses "
                          "the exact top-k; pass sampler='exact' or 'full_sort'")
     if sampler not in SAMPLE_TOP_K:
         raise ValueError(f"unknown sampler {sampler!r}")
     if mesh is not None:
-        raise NotImplementedError("run_test(mesh=...) is not ported: the port runs on one card")
+        raise NotImplementedError("run_test(mesh=...) is not ported yet: inference runs on one "
+                                  "card (ROADMAP.md queue 1 item 8, the inference half)")
     device = next(params.parameters()).device
     eval_step = make_eval_step(config)
     generator = torch.Generator(device=device).manual_seed(seed)

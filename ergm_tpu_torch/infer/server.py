@@ -57,7 +57,8 @@ draws its first tokens from ``fold_seed(lead request's seed, admission
 counter)`` (an extension from the sum of its rows' seeds); sampled
 streams depend on the schedule.
 
-Not ported yet: the slot-axis mesh (``ROADMAP.md`` queue 1 item 9).
+Not ported yet: the slot-axis mesh (``ROADMAP.md`` queue 1 item 8, the
+inference half of multi-device work).
 """
 
 from __future__ import annotations
@@ -243,7 +244,7 @@ class ContinuousServer:
         c = config
         if mesh is not None:
             raise NotImplementedError("the slot-axis mesh is not ported to the PyTorch server yet "
-                                      "(ROADMAP.md queue 1 item 9)")
+                                      "(ROADMAP.md queue 1 item 8, the inference half)")
         self.params = params
         self.device = next(params.parameters()).device
         self.cfg = c

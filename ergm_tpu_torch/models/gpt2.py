@@ -14,8 +14,10 @@ Training (``forward`` with ``labels`` and ``deterministic=False``) runs
 JAX's dropout sites with masks fixed by (step seed, layer, site)
 (``core/rng.py``), its remat policies through ``torch.utils.checkpoint``,
 self-attention through kernel K5 (``ops/block_attention.py``) and the LM
-loss through kernel K6 (``ops/fused_ce.py``) on the card. Inference is
-deterministic. Batched short prompt prefill routes its self- and
+loss through kernel K6 (``ops/fused_ce.py``) on the card. Over a mesh
+(``forward(mesh=...)``, ``core/mesh.py``) each data rank runs its rows,
+and with a model axis its head groups and MLP columns (Megatron's tensor
+parallelism, ``_Shard``). Inference is deterministic. Batched short prompt prefill routes its self- and
 cross-attention through kernel K1 (``ops/prefill_attention.py``). Single-token decode
 steps route, under JAX's switches (all off by default), through kernel
 K3 for the int8 cross sublayer (``ERGM_CROSS_KERNEL=1``,
@@ -39,10 +41,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.device import resolve
+from ergm_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, head_groups
 from ergm_tpu_torch.core.rng import fold_seed
 from ergm_tpu_torch.ops import (cross_decode, decode_attention, fused_ce, fused_decode,
                                 prefill_attention)
 from ergm_tpu_torch.ops.attention import matmul_f32, multihead_attention
+from ergm_tpu_torch.parallel.collectives import copy_to_model, global_mean, reduce_from_model
 
 
 # ---------------------------------------------------------------------------
@@ -523,27 +527,107 @@ def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def _site(seed: Optional[int], site: int) -> Optional[int]:
-    return None if seed is None else fold_seed(seed, site)
+@dataclasses.dataclass
+class _Shard:
+    """What one rank of a mesh runs of a training forward: its rows of
+    the global batch (from ``b_off``) and, with a model axis, its head
+    group [h0, h0 + heads) of ``n_head`` and the matching MLP columns.
+
+    - ``model``: the model axis's group (None without tensor
+      parallelism). Megatron's f (``copy_to_model``) stands before each
+      column-parallel product and g (``reduce_from_model``) after each
+      row-parallel ``c_proj``, whose bias joins once, after g. Everything
+      else (LayerNorms, embeddings, residuals, the emotion head and the
+      loss) is replicated across the model axis and so gets equal
+      gradients there.
+    - Attention-probability dropout draws the single device's masks: the
+      seed is folded to ``seed + b_off * n_head + h0`` and the hash's head
+      stride is ``n_head`` (``attention.dropout_keep``).
+    - The per-site masks act on replicated activations: every model rank
+      draws them from the same seed, with the data rank folded in
+      (``_site``), so no two data ranks drop the same positions of
+      different rows, and data rank 0 draws the single device's."""
+
+    model: object
+    data_rank: int
+    b_off: int
+    h0: int
+    heads: int
+    n_head: int
+
+
+def _shard_of(mesh, config: ModelConfig, rows: int) -> Optional[_Shard]:
+    if mesh is None:
+        return None
+    parts = mesh.axis_size(MODEL_AXIS)
+    model = mesh.group(MODEL_AXIS) if parts > 1 else None
+    if parts > 1 and model is None:
+        raise ValueError(f"a model axis of {parts} needs a torch.distributed world")
+    h0, h1 = head_groups(config.n_head, parts)[mesh.index(MODEL_AXIS)]
+    dr = mesh.index(DATA_AXIS)
+    return _Shard(model=model, data_rank=dr, b_off=dr * rows, h0=h0, heads=h1 - h0,
+                  n_head=config.n_head)
+
+
+def _site(seed: Optional[int], site: int, data_rank: int = 0) -> Optional[int]:
+    """The seed of a dropout site; a data rank other than 0 folds itself
+    in (see ``_Shard``)."""
+    if seed is None:
+        return None
+    s = fold_seed(seed, site)
+    return fold_seed(s, data_rank) if data_rank else s
+
+
+def _data_rank(shard: Optional[_Shard]) -> int:
+    return 0 if shard is None else shard.data_rank
+
+
+def _attn_seed(seed: Optional[int], site: int, shard: Optional[_Shard]) -> tuple:
+    """(the attention dropout seed, the hash's head stride) of a site: the
+    single device's masks for this rank's rows and heads."""
+    s = _site(seed, site)
+    if s is None or shard is None:
+        return s, None
+    return s + shard.b_off * shard.n_head + shard.h0, shard.n_head
+
+
+def _col_in(x: torch.Tensor, shard: Optional[_Shard]) -> torch.Tensor:
+    """The input of a column-parallel product (Megatron's f)."""
+    return x if shard is None or shard.model is None else copy_to_model(x, shard.model)
+
+
+def _row_dense(x: torch.Tensor, p: Dense, shard: Optional[_Shard]) -> torch.Tensor:
+    """A row-parallel ``c_proj``: this rank's partial product in f32, summed
+    over the model axis (Megatron's g), then the bias, one rounding."""
+    if shard is None or shard.model is None:
+        return dense(x, p)
+    y = reduce_from_model(matmul_f32(x.reshape(-1, x.shape[-1]), p.kernel.to(x.dtype)),
+                          shard.model)
+    return (y + p.bias.float()).to(x.dtype).view(*x.shape[:-1], y.shape[-1])
 
 
 def _attn_project(out: torch.Tensor, p: Attention) -> torch.Tensor:
     return dense(_merge_heads(out), p.c_proj)
 
 
-def _self_attention(h, p: Attention, li, *, config, attn_mask, seed=None):
+def _self_attention(h, p: Attention, li, *, config, attn_mask, seed=None,
+                    shard: Optional[_Shard] = None):
     """No-cache self-attention sublayer; ``seed`` (the layer's, None when
     deterministic) turns on attention-probability and residual dropout.
-    Padded queries are masked as keys are (K5's zero rows)."""
+    Padded queries are masked as keys are (K5's zero rows). ``shard``:
+    this rank's rows and head group over a mesh."""
     c = config
     L = h.shape[1]
-    q, k, v = (_split_heads(x, c.n_head) for x in dense(h, p.c_attn).chunk(3, dim=-1))
+    heads = c.n_head if shard is None else shard.heads
+    q, k, v = (_split_heads(x, heads) for x in dense(_col_in(h, shard), p.c_attn).chunk(3, dim=-1))
     kv_mask = None if attn_mask is None else attn_mask[:, :L]
+    aseed, stride = _attn_seed(seed, 1, shard)
     out = multihead_attention(q, k, v, causal=True, kv_mask=kv_mask, q_mask=kv_mask,
                               scale=_attn_scale(c, li), impl=c.attention_impl,
                               dropout_rate=c.attn_pdrop, deterministic=seed is None,
-                              seed=_site(seed, 1))
-    return _dropout(_attn_project(out, p), c.resid_pdrop, _site(seed, 2))
+                              seed=aseed, dropout_head_stride=stride)
+    return _dropout(_row_dense(_merge_heads(out), p.c_proj, shard), c.resid_pdrop,
+                    _site(seed, 2, _data_rank(shard)))
 
 
 def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
@@ -718,12 +802,13 @@ CachedKV = Tuple[torch.Tensor, ...]
 
 def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
                      cached_kv: Optional[CachedKV], prefill_kernel_ok: bool = False,
-                     seed: Optional[int] = None):
+                     seed: Optional[int] = None, shard: Optional[_Shard] = None):
     """Cross-attention: Q from h, K/V from the caption states ``enc``
     through the shared ``c_attn``; non-causal; caption-less rows get a zero
     residual. ``cached_kv`` (decode) is ``(ck, cv[, ck_scale, cv_scale])``
     in the cache's merged layout [B, Lc, H*Dh]. Returns (out, fresh merged
-    (k, v) or None)."""
+    (k, v) or None). ``shard`` (training over a mesh): this rank's rows
+    and head group."""
     c = config
     H, Dh = c.n_head, c.head_dim
     scale = _attn_scale(c, li)
@@ -733,7 +818,7 @@ def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
         qf = dense(h, p.q_attn)[:, 0, :]
         out = cross_decode.cross_attention_decode(qf, cached_kv, enc_mask, scale, H)
         return _capless_row_gate(dense(out[:, None, :], p.c_proj), enc_mask), None
-    qm = dense(h, p.q_attn)
+    qm = dense(_col_in(h, shard), p.q_attn)
     if cached_kv is not None:
         # multi-token step over the cached caption K/V
         B = qm.shape[0]
@@ -749,24 +834,28 @@ def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
         probs = torch.softmax(logits, dim=-1)
         out = _merge_heads(torch.matmul(probs.to(v_r.dtype), v_r.transpose(1, 2)))
         return _capless_row_gate(dense(out, p.c_proj), enc_mask), None
-    km, vm = dense(enc, p.c_attn).chunk(2, dim=-1)  # merged [B, Lc, D]
+    km, vm = dense(_col_in(enc, shard), p.c_attn).chunk(2, dim=-1)  # merged [B, Lc, D]
     B, Lq, Lc = h.shape[0], h.shape[1], km.shape[1]
     if (prefill_kernel_ok and c.attention_impl == "auto" and B >= 64 and Lc % 8 == 0
             and prefill_attention.supported(B, Lq, c, True)):
         out = prefill_attention.prefill_mha(qm, km, vm, enc_mask, n_head=H, scale=scale,
                                             causal=False)
     else:
+        heads = H if shard is None else shard.heads
+        aseed, stride = _attn_seed(seed, 3, shard)
         out = _merge_heads(multihead_attention(
-            _split_heads(qm, H), _split_heads(km, H), _split_heads(vm, H), causal=False,
-            kv_mask=enc_mask, scale=scale, impl=c.attention_impl, dropout_rate=c.attn_pdrop,
-            deterministic=seed is None, seed=_site(seed, 3)))
-    out = _capless_row_gate(dense(out, p.c_proj), enc_mask)
-    return _dropout(out, c.resid_pdrop, _site(seed, 4)), (km, vm)
+            _split_heads(qm, heads), _split_heads(km, heads), _split_heads(vm, heads),
+            causal=False, kv_mask=enc_mask, scale=scale, impl=c.attention_impl,
+            dropout_rate=c.attn_pdrop, deterministic=seed is None, seed=aseed,
+            dropout_head_stride=stride))
+    out = _capless_row_gate(_row_dense(out, p.c_proj, shard), enc_mask)
+    return _dropout(out, c.resid_pdrop, _site(seed, 4, _data_rank(shard))), (km, vm)
 
 
-def _mlp(h, p: MLP, *, config, seed=None):
-    out = dense(_activation(config.activation)(dense(h, p.c_fc)), p.c_proj)
-    return _dropout(out, config.resid_pdrop, _site(seed, 5))
+def _mlp(h, p: MLP, *, config, seed=None, shard: Optional[_Shard] = None):
+    out = _row_dense(_activation(config.activation)(dense(_col_in(h, shard), p.c_fc)), p.c_proj,
+                     shard)
+    return _dropout(out, config.resid_pdrop, _site(seed, 5, _data_rank(shard)))
 
 
 def _write_cross_cache(cache: KVCache, li: int, km, vm, config) -> None:
@@ -785,26 +874,27 @@ def _write_cross_cache(cache: KVCache, li: int, km, vm, config) -> None:
 
 
 def _train_block(h, blk: Block, li: int, enc, enc_mask, c: ModelConfig, attention_mask,
-                 use_cross: bool, seed: Optional[int], mlp_remat: bool, cross_remat: bool):
+                 use_cross: bool, seed: Optional[int], mlp_remat: bool, cross_remat: bool,
+                 shard: Optional[_Shard] = None):
     """One uncached block: pre-LN self-attention, cross-attention over the
     caption states, MLP, each a residual; ``mlp_remat`` / ``cross_remat``
     checkpoint the MLP / cross sublayer (their inputs, the LayerNorm
-    outputs, are kept)."""
+    outputs, are kept). ``shard``: this rank's part over a mesh."""
     eps = c.layer_norm_epsilon
     h = h + _self_attention(layer_norm(h, blk.ln_1, eps), blk.attn, li, config=c,
-                            attn_mask=attention_mask, seed=seed)
+                            attn_mask=attention_mask, seed=seed, shard=shard)
     if use_cross:
         def cross(x, e):
             return _cross_attention(x, e, blk.cross_attn, li, config=c, enc_mask=enc_mask,
-                                    cached_kv=None, seed=seed)[0]
+                                    cached_kv=None, seed=seed, shard=shard)[0]
         ca_in = layer_norm(h, blk.ln_cross, eps)
         h = h + (checkpoint(cross, ca_in, enc, use_reentrant=False, preserve_rng_state=False)
                  if cross_remat else cross(ca_in, enc))
     mlp_in = layer_norm(h, blk.ln_2, eps)
     if mlp_remat:
-        return h + checkpoint(lambda x: _mlp(x, blk.mlp, config=c, seed=seed), mlp_in,
-                              use_reentrant=False, preserve_rng_state=False)
-    return h + _mlp(mlp_in, blk.mlp, config=c, seed=seed)
+        return h + checkpoint(lambda x: _mlp(x, blk.mlp, config=c, seed=seed, shard=shard),
+                              mlp_in, use_reentrant=False, preserve_rng_state=False)
+    return h + _mlp(mlp_in, blk.mlp, config=c, seed=seed, shard=shard)
 
 
 # remat "dots" (JAX's checkpoint_dots_with_no_batch_dims): the weight
@@ -868,6 +958,7 @@ def transformer(
     stage_index: Optional[int] = None,  # step in a staged server decode block
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """GPT2Model.forward: returns (final hidden [B, L, D], advanced cache or None).
 
@@ -875,11 +966,23 @@ def transformer(
     (the step's) is given, at JAX's sites: the embedding (site 0) and, in
     layer i (seed ``fold_seed(step seed, 1000 + i)``), the attention
     probabilities (1), the attention residual (2), the cross-attention
-    probabilities (3) and residual (4) and the MLP residual (5)."""
+    probabilities (3) and residual (4) and the MLP residual (5).
+
+    ``mesh`` (``core/mesh.py``, no cache): the inputs are this rank's rows
+    of the global batch and, with a model axis, the parameters its shard
+    (``shard_params``); see ``_Shard``."""
     c = config
     dtype = c.compute_dtype
     B, L = input_ids.shape
     decode = cache is not None
+    if mesh is not None and decode:
+        raise NotImplementedError("decoding over a mesh is not ported yet (ROADMAP.md queue 1 "
+                                  "item 8, the inference half)")
+    shard = _shard_of(mesh, c, B)
+    if shard is not None and shard.model is not None and (
+            params.blocks[0].attn.c_attn.kernel.shape[1] != 3 * shard.heads * c.head_dim):
+        raise ValueError("over a model axis the parameters must be this rank's shard "
+                         "(core.mesh.shard_params)")
     if position_ids is None:
         past = cache.index if decode else 0
         if torch.is_tensor(past):  # per-row cursors
@@ -919,7 +1022,7 @@ def transformer(
     if token_type_ids is not None:
         h = h + embed_rows(params.wte, token_type_ids, dtype)  # token types through wte
     seed = None if deterministic or decode else dropout_seed
-    h = _dropout(h, c.embd_pdrop, _site(seed, 0))
+    h = _dropout(h, c.embd_pdrop, _site(seed, 0, _data_rank(shard)))
 
     enc_mask = encoder_attention_mask if use_cross else None
     eps = c.layer_norm_epsilon
@@ -946,11 +1049,11 @@ def transformer(
             # the masks come from seeded generators, not the global RNG state
             kw = {"context_fn": _DOTS_CONTEXT} if c.remat_policy == "dots" else {}
             h = checkpoint(_train_block, h, blk, li, enc, enc_mask, c, attention_mask, use_cross,
-                           layer_seed, False, False, use_reentrant=False,
+                           layer_seed, False, False, shard, use_reentrant=False,
                            preserve_rng_state=False, **kw)
         else:
             h = _train_block(h, blk, li, enc, enc_mask, c, attention_mask, use_cross, layer_seed,
-                             mlp_remat, cross_remat)
+                             mlp_remat, cross_remat, shard)
 
     h = layer_norm(h, params.ln_f, eps)
     new_cache = dataclasses.replace(cache, index=cache.index + L) if decode else None
@@ -965,6 +1068,13 @@ def chunked_lm_loss(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tenso
     ``torch.utils.checkpoint``, so each chunk's f32 logits exist only
     while it is computed, forward and backward (JAX's scan of
     ``jax.checkpoint`` pieces)."""
+    tot, cnt = chunked_lm_sums(hidden, wte, labels, ignore_index, chunk)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def chunked_lm_sums(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                    ignore_index: int = -100, chunk: int = 128) -> tuple:
+    """``chunked_lm_loss``'s (NLL sum, target count)."""
     B, L, D = hidden.shape
     shifted = torch.cat([labels[:, 1:], torch.full((B, 1), ignore_index, dtype=labels.dtype,
                                                    device=labels.device)], dim=1)
@@ -984,7 +1094,7 @@ def chunked_lm_loss(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tenso
         else:
             ps, pc = piece(h_c, l_c)
         tot, cnt = tot + ps, cnt + pc
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot, cnt
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -1001,21 +1111,38 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_loss(hidden: torch.Tensor, params: GPT2, config: ModelConfig,
-            labels: torch.Tensor) -> torch.Tensor:
+            labels: torch.Tensor, mesh=None) -> torch.Tensor:
     """The LM loss without logits, by ``lm_loss_impl``: ``auto`` takes
     kernel K6 for CUDA tensors (as JAX goes fused on the TPU) and the
     chunked loss on the CPU; ``fused`` takes K6, or its plain version on
     the CPU; ``chunked`` the chunked loss. On the card K6 raises on what
     it does not take (D not a multiple of 128 or above 1024, float16):
-    such a model sets ``chunked``."""
+    such a model sets ``chunked``.
+
+    Over a mesh (``hidden`` and ``labels`` this rank's rows) the loss is
+    the mean over the global count of targets, JAX's rule
+    (``ergm_tpu/models/gpt2.py:1529-1547``): a pure data-parallel mesh
+    takes ``fused_lm_loss_sharded`` where K6 is taken; a model axis takes
+    the chunked loss under ``auto`` (K6 under ``fused``), normalised over
+    the data axis (``global_mean``)."""
     c = config
     wte = wte_dense(params.wte, hidden.dtype)
     impl = c.lm_loss_impl
     if impl not in ("auto", "fused", "chunked"):
         raise ValueError(f"unknown lm_loss_impl {impl!r}")
-    if impl == "fused" or (impl == "auto" and hidden.is_cuda):
-        return fused_ce.fused_lm_loss(hidden, wte, labels)
-    return chunked_lm_loss(hidden, wte, labels, chunk=c.loss_chunk)
+    fused = impl == "fused" or (impl == "auto" and hidden.is_cuda)
+    if mesh is None:
+        if fused:
+            return fused_ce.fused_lm_loss(hidden, wte, labels)
+        return chunked_lm_loss(hidden, wte, labels, chunk=c.loss_chunk)
+    pure_dp = not any(a != DATA_AXIS and mesh.shape[a] > 1 for a in mesh.axis_names)
+    if fused and pure_dp and DATA_AXIS in mesh.axis_names:
+        return fused_ce.fused_lm_loss_sharded(hidden, wte, labels, mesh)
+    if impl == "fused":
+        s, n = fused_ce.masked_nll_sums(hidden, wte, labels)
+    else:
+        s, n = chunked_lm_sums(hidden, wte, labels, chunk=c.loss_chunk)
+    return global_mean(s, n, mesh.group(DATA_AXIS))
 
 
 def forward(
@@ -1040,6 +1167,7 @@ def forward(
     stage_index: Optional[int] = None,
     seq_lengths: Optional[torch.Tensor] = None,
     compute_logits: Union[bool, str] = True,  # True | False | "last"
+    mesh=None,
 ) -> ModelOutput:
     """GPT2LMHeadModel.forward.
 
@@ -1052,7 +1180,9 @@ def forward(
     position. Dropout: see ``transformer``. A given ``cache`` is updated in
     place; the returned one carries the advanced index. ``stage_index``:
     the step of a staged server decode block (a cache with per-row
-    cursors and ``sk``/``sv`` buffers, see ``_self_attention_rows``)."""
+    cursors and ``sk``/``sv`` buffers, see ``_self_attention_rows``).
+    ``mesh``: training and evaluation over a mesh (``transformer``); the
+    losses are then means over the global batch."""
     c = config
     hidden, new_cache = transformer(
         params, c, input_ids, token_type_ids=token_type_ids, position_ids=position_ids,
@@ -1060,7 +1190,7 @@ def forward(
         encoder_hidden_states=encoder_hidden_states,
         encoder_attention_mask=encoder_attention_mask, cache=cache,
         prefix_prefill=prefix_prefill, stage_index=stage_index, deterministic=deterministic,
-        dropout_seed=dropout_seed)
+        dropout_seed=dropout_seed, mesh=mesh)
     logits = None
     if compute_logits:
         logits = lm_logits(params, hidden[:, -1:, :] if compute_logits == "last" else hidden)
@@ -1078,10 +1208,16 @@ def forward(
                              "use True or False")
         if logits is not None:
             lm = cross_entropy(logits[:, :-1, :], labels[:, 1:], ignore_index=-100)
+            if mesh is not None:
+                n = (labels[:, 1:] != -100).sum()
+                lm = global_mean(lm * n, n, mesh.group(DATA_AXIS))
         else:
-            lm = lm_loss(hidden, params, c, labels)
+            lm = lm_loss(hidden, params, c, labels, mesh=mesh)
     if emotion_labels is not None:
         emo = cross_entropy(emotion_logits, emotion_labels)
+        if mesh is not None:
+            n = torch.tensor(float(emotion_labels.numel()), device=emo.device)
+            emo = global_mean(emo * n, n, mesh.group(DATA_AXIS))
     loss = lm + emo if lm is not None and emo is not None else (lm if lm is not None else emo)
     return ModelOutput(logits=logits, emotion_logits=emotion_logits, hidden=hidden, loss=loss,
                        lm_loss=lm, emotion_loss=emo, cache=new_cache)

@@ -68,15 +68,19 @@ def dropout_threshold(rate: float) -> int:
 
 
 def dropout_keep(seed: int, batch: int, n_head: int, lq: int, lk: int, rate: float,
-                 device=None) -> torch.Tensor:
+                 device=None, head_stride: Optional[int] = None) -> torch.Tensor:
     """Bool keep mask [B, H, Lq, Lk] of attention-probability dropout:
-    ``mix = seed + b*H + h``, ``x = r*Lk + c + mix*2654435761`` (mod
-    2**32), three xorshift-multiply rounds, keep iff ``x >= rate*2**32``."""
+    ``mix = seed + b*S + h`` with the head stride S (default H),
+    ``x = r*Lk + c + mix*2654435761`` (mod 2**32), three xorshift-multiply
+    rounds, keep iff ``x >= rate*2**32``. A shard of rows from b0 and
+    heads from h0 of a problem with H_global heads draws the whole
+    problem's masks with ``seed + b0*H_global + h0`` and S = H_global."""
+    stride = n_head if head_stride is None else int(head_stride)
     b = torch.arange(batch, dtype=torch.int64, device=device)[:, None, None, None]
     h = torch.arange(n_head, dtype=torch.int64, device=device)[None, :, None, None]
     r = torch.arange(lq, dtype=torch.int64, device=device)[:, None]
     c = torch.arange(lk, dtype=torch.int64, device=device)[None, :]
-    mix = (int(seed) + b * n_head + h) % _U32
+    mix = (int(seed) + b * stride + h) % _U32
     x = (r * lk + c + _mul32(mix, _GOLDEN)) & (_U32 - 1)
     x = x ^ (x >> 16)
     x = _mul32(x, _HASH_MUL[0])
@@ -98,10 +102,12 @@ def xla_attention(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     seed: Optional[int] = None,
+    dropout_head_stride: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain attention; query i sees keys <= i + ``causal_offset`` when
     causal. Dropout applies when not ``deterministic``, ``dropout_rate``
-    > 0 and a ``seed`` is given, as JAX's (which needs an rng)."""
+    > 0 and a ``seed`` is given, as JAX's (which needs an rng); its
+    mask's head stride is ``dropout_head_stride`` (``dropout_keep``)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = matmul_f32(q, k.transpose(-1, -2)) * scale
@@ -115,7 +121,8 @@ def xla_attention(
     probs = torch.softmax(logits, dim=-1)
     if not deterministic and dropout_rate > 0.0 and seed is not None:
         B, H, lq, lk = probs.shape
-        keep = dropout_keep(seed, B, H, lq, lk, dropout_rate, device=probs.device)
+        keep = dropout_keep(seed, B, H, lq, lk, dropout_rate, device=probs.device,
+                            head_stride=dropout_head_stride)
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     return torch.matmul(probs.to(v.dtype), v)
 
@@ -135,6 +142,7 @@ def multihead_attention(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     seed: Optional[int] = None,
+    dropout_head_stride: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention dispatch, in JAX's order.
 
@@ -150,7 +158,9 @@ def multihead_attention(
     the plain math. The ``ERGM_ATTN_IMPL`` environment variable overrides
     ``impl``. With an ``extra_bias``, only the plain math applies;
     ``q_mask`` reaches K5 only (padded query rows give zero output and
-    gradient there)."""
+    gradient there). ``dropout_head_stride``: the dropout hash's head
+    stride (``dropout_keep``; a tensor-parallel shard of heads passes the
+    model's head count with a folded ``seed``)."""
     from ergm_tpu_torch.ops import block_attention
 
     impl = os.environ.get("ERGM_ATTN_IMPL", impl)
@@ -171,10 +181,12 @@ def multihead_attention(
             return block_attention.block_mha(
                 q, k, v, causal=causal, scale=scale, q_mask=q_mask, kv_mask=kv_mask,
                 dropout_rate=dropout_rate if dropout_active else 0.0,
-                dropout_seed=seed if dropout_active else None)
+                dropout_seed=seed if dropout_active else None,
+                dropout_head_stride=dropout_head_stride)
     bias = attention_bias_from_mask(kv_mask) if kv_mask is not None else None
     if extra_bias is not None:
         bias = extra_bias if bias is None else bias + extra_bias
     return xla_attention(q, k, v, causal=causal, bias=bias, scale=scale,
                          causal_offset=causal_offset, dropout_rate=dropout_rate,
-                         deterministic=deterministic, seed=seed)
+                         deterministic=deterministic, seed=seed,
+                         dropout_head_stride=dropout_head_stride)

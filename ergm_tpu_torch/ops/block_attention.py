@@ -70,7 +70,8 @@ def _masks(q, k, q_mask, kv_mask):
 
 def block_mha_reference(q, k, v, *, causal: bool, scale: Optional[float] = None, q_mask=None,
                         kv_mask=None, dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None):
+                        dropout_seed: Optional[int] = None,
+                        dropout_head_stride: Optional[int] = None):
     """The plain version, differentiable: JAX's ``_fwd_kernel`` over the
     whole row (``_probs`` then dropout), f32 scores and softmax, the
     probabilities rounded to q's dtype before the PV product, f32
@@ -92,7 +93,8 @@ def block_mha_reference(q, k, v, *, causal: bool, scale: Optional[float] = None,
     pn = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
     pn = torch.where(qm[:, None, :, None].bool(), pn, 0.0)
     if dropout_rate > 0.0:
-        keep = dropout_keep(dropout_seed, B, H, lq, lk, dropout_rate, device=q.device)
+        keep = dropout_keep(dropout_seed, B, H, lq, lk, dropout_rate, device=q.device,
+                            head_stride=dropout_head_stride)
         pn = torch.where(keep, pn / (1.0 - dropout_rate), 0.0)
     return matmul_f32(pn.to(q.dtype), v).to(q.dtype)
 
@@ -117,13 +119,15 @@ def _heads_layout(B, H, L, dtype, device):
     return torch.empty((B, L, H, HEAD_DIM), dtype=dtype, device=device).transpose(1, 2)
 
 
-def _dropout_args(rate: float, seed: int):
-    """(on, 1 - rate, 1 / (1 - rate), threshold, seed mod 2**32): the two
-    f32 factors are JAX's, the Python floats of its kernel rounded to f32."""
+def _dropout_args(rate: float, seed: int, head_stride: int):
+    """(on, 1 - rate, 1 / (1 - rate), threshold, seed mod 2**32, head
+    stride): the two f32 factors are JAX's, the Python floats of its
+    kernel rounded to f32."""
     on = rate > 0.0
     return (int(on), ctypes.c_float(1.0 - rate),
             ctypes.c_float(1.0 / (1.0 - rate) if on else 1.0),
-            ctypes.c_uint(dropout_threshold(rate)), ctypes.c_uint(int(seed) % (1 << 32)))
+            ctypes.c_uint(dropout_threshold(rate)), ctypes.c_uint(int(seed) % (1 << 32)),
+            int(head_stride))
 
 
 def _strides(*xs):
@@ -131,10 +135,12 @@ def _strides(*xs):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def launch_bwd(q, k, v, o, ml, qm, kbits, dead, do, scale, causal, rate, seed):
+def launch_bwd(q, k, v, o, ml, qm, kbits, dead, do, scale, causal, rate, seed,
+               head_stride=None):
     """The backward kernels (dQ, then dK/dV) on the forward's saved tensors
     and the output's cotangent ``do``: (dq, dk, dv) in q's dtype, each a
-    [B, H, L, Dh] view of [B, L, H, Dh] memory."""
+    [B, H, L, Dh] view of [B, L, H, Dh] memory. ``head_stride``: the
+    dropout hash's (default H)."""
     B, H, L, D = q.shape
     Lk = k.shape[2]
     if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
@@ -152,7 +158,8 @@ def launch_bwd(q, k, v, o, ml, qm, kbits, dead, do, scale, causal, rate, seed):
             qm.data_ptr(), kbits.data_ptr(), dead.data_ptr(), _DTYPE_CODE[q.dtype],
             B, H, L, Lk,
             _strides(q, k, v, o, do, dq, dk, dv), ctypes.c_float(scale), int(causal),
-            *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
+            *_dropout_args(rate, seed, H if head_stride is None else head_stride),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"block_mha backward kernel launch failed: cudaError {err}")
     global BWD_LAUNCHES
@@ -162,7 +169,7 @@ def launch_bwd(q, k, v, o, ml, qm, kbits, dead, do, scale, causal, rate, seed):
 
 class _BlockAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, qm, km, scale, causal, rate, seed):
+    def forward(ctx, q, k, v, qm, km, scale, causal, rate, seed, head_stride):
         B, H, L, D = q.shape
         Lk = k.shape[2]
         o = _heads_layout(B, H, L, q.dtype, q.device)
@@ -178,29 +185,34 @@ class _BlockAttention(torch.autograd.Function):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ml.data_ptr(),
                 qm.data_ptr(), km.data_ptr(), kbits.data_ptr(), dead.data_ptr(),
                 _DTYPE_CODE[q.dtype], B, H, L, Lk, _strides(q, k, v, o), ctypes.c_float(scale),
-                int(causal), *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream)
+                int(causal), *_dropout_args(rate, seed, head_stride),
+                torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"block_mha forward kernel launch failed: cudaError {err}")
         global LAUNCHES
         LAUNCHES += 1
         ctx.save_for_backward(q, k, v, o, ml, qm, kbits, dead)
-        ctx.args = (scale, causal, rate, seed)
+        ctx.args = (scale, causal, rate, seed, head_stride)
         return o
 
     @staticmethod
     def backward(ctx, do):
         dq, dk, dv = launch_bwd(*ctx.saved_tensors, do, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
               scale: Optional[float] = None, q_mask: Optional[torch.Tensor] = None,
               kv_mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-              dropout_seed: Optional[int] = None) -> torch.Tensor:
+              dropout_seed: Optional[int] = None,
+              dropout_head_stride: Optional[int] = None) -> torch.Tensor:
     """Differentiable masked attention over q [B, H, Lq, Dh], k/v
     [B, H, Lk, Dh] (strided views with a contiguous head dim are read in
     place). ``q_mask`` [B, Lq] and ``kv_mask`` [B, Lk]: 1 = real.
-    ``dropout_seed``: an integer, needed when ``dropout_rate`` > 0. The
+    ``dropout_seed``: an integer, needed when ``dropout_rate`` > 0;
+    ``dropout_head_stride``: the hash's head stride (default H, see
+    ``attention.dropout_keep``: a shard of heads and rows draws the whole
+    problem's masks with a folded seed and the global head count). The
     card takes the shapes of either gate (``supported``, or
     ``flash_supported`` without dropout). Returns [B, H, Lq, Dh]; on the
     card a view of [B, Lq, H, Dh] memory."""
@@ -213,7 +225,8 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     if q.device.type == "cpu":
         return block_mha_reference(q, k, v, causal=causal, scale=float(scale), q_mask=q_mask,
                                    kv_mask=kv_mask, dropout_rate=dropout_rate,
-                                   dropout_seed=dropout_seed)
+                                   dropout_seed=dropout_seed,
+                                   dropout_head_stride=dropout_head_stride)
     _check("q", q, q, (B, H, lq, HEAD_DIM))
     _check("k", k, q, (B, H, lk, HEAD_DIM))
     _check("v", v, q, (B, H, lk, HEAD_DIM))
@@ -227,4 +240,5 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
                              f"[{B}, {n}] on {q.device}")
     qm, km = _masks(q, k, q_mask, kv_mask)
     return _BlockAttention.apply(q, k, v, qm, km, float(scale), bool(causal),
-                                 float(dropout_rate), int(dropout_seed or 0))
+                                 float(dropout_rate), int(dropout_seed or 0),
+                                 H if dropout_head_stride is None else int(dropout_head_stride))

@@ -13,8 +13,9 @@ recomputed (p − onehot)·g rounded into a scratch buffer, dh += padj·W_c
 into an f32 sum, and dW_c = padjᵀ·h. On CPU tensors it runs
 ``fused_softmax_xent_reference``, the dense f32 logsumexp − gold with
 autograd. ``fused_lm_loss`` is the shifted, masked mean of
-``chunked_lm_loss`` through it. ``fused_lm_loss_sharded`` (data parallel
-over several devices) is not ported.
+``chunked_lm_loss`` through it; ``fused_lm_loss_sharded`` the same mean
+over a data-parallel mesh, each data rank running the kernel on its own
+rows.
 """
 
 from __future__ import annotations
@@ -165,14 +166,46 @@ def fused_softmax_xent(hidden: torch.Tensor, wte: torch.Tensor,
     return _FusedXent.apply(hidden, wte, labels.to(torch.int32).contiguous())
 
 
-def fused_lm_loss(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = -100) -> torch.Tensor:
-    """Shifted LM cross-entropy through ``fused_softmax_xent``, the
-    semantics of ``chunked_lm_loss``: position t is scored against
-    labels[t+1], mean over non-ignored targets."""
+def masked_nll_sums(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                    ignore_index: int = -100) -> tuple:
+    """(sum of the shifted targets' NLL, their count) through
+    ``fused_softmax_xent``: position t is scored against labels[t+1]."""
     B, L, D = hidden.shape
     shifted = torch.cat([labels[:, 1:], torch.full((B, 1), ignore_index, dtype=labels.dtype,
                                                    device=labels.device)], dim=1).reshape(-1)
     nll = fused_softmax_xent(hidden.reshape(B * L, D), wte, shifted)
     mask = (shifted != ignore_index).float()
-    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return (nll * mask).sum(), mask.sum()
+
+
+def fused_lm_loss(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -100) -> torch.Tensor:
+    """Shifted LM cross-entropy through ``fused_softmax_xent``, the
+    semantics of ``chunked_lm_loss``: position t is scored against
+    labels[t+1], mean over non-ignored targets."""
+    s, n = masked_nll_sums(hidden, wte, labels, ignore_index)
+    return s / torch.clamp_min(n, 1.0)
+
+
+def fused_lm_loss_sharded(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                          mesh, ignore_index: int = -100,
+                          data_axis: str = "data") -> torch.Tensor:
+    """``fused_lm_loss`` under data parallelism (``ergm_tpu/ops/
+    fused_ce.py:310``): ``hidden`` and ``labels`` are this data rank's
+    rows, ``wte`` the replicated table. Each rank runs the kernel on its
+    rows for the masked NLL sum s and count n; (s, n) are all-reduced
+    over the data group and the value is S / max(N, 1), the mean over the
+    global count of targets. Its gradient is this rank's part, ds / N
+    (``parallel.collectives.global_mean``): the data-parallel gradient
+    reduction sums the ranks'. A mesh with another axis of size > 1
+    raises JAX's ``ValueError`` (the chunked loss serves tensor
+    parallelism)."""
+    from ergm_tpu_torch.parallel.collectives import global_mean
+
+    nontrivial = [a for a in mesh.axis_names if a != data_axis and mesh.shape[a] > 1]
+    if data_axis not in mesh.axis_names or nontrivial:
+        raise ValueError(
+            f"fused_lm_loss_sharded needs a pure '{data_axis}' mesh; "
+            f"got axes {dict(mesh.shape)} (use the chunked loss under TP)")
+    s, n = masked_nll_sums(hidden, wte, labels, ignore_index)
+    return global_mean(s, n, mesh.group(data_axis))

@@ -11,6 +11,15 @@ Where JAX threads a key and folds in the step, the port takes an integer
 seed and folds in the step count (``core/rng.py``), which counts
 micro-batches under accumulation as JAX's ``state.step`` does: each
 step's dropout masks are a function of (seed, step, layer, site).
+
+Over a mesh (``core/mesh.py``) each rank runs its rows of the global
+batch (and its tensor-parallel shard, ``models/gpt2.py``). The losses
+are means over the global batch whose gradients are each rank's part
+(``parallel.collectives.global_mean``), so the gradients are SUMMED over
+the data axis, once per update (after the accumulation, not per
+micro-batch), and the update equals one device's over the global batch.
+ZeRO-1 (``opt_shardings``) keeps each data rank's slice of the moments
+and all-gathers the updated parameters.
 """
 
 from __future__ import annotations
@@ -19,9 +28,12 @@ from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.device import resolve
+from ergm_tpu_torch.core.mesh import (DATA_AXIS, MODEL_AXIS, Zero1, batch_rows,
+                                      param_partition_spec)
 from ergm_tpu_torch.core.rng import fold_seed
 from ergm_tpu_torch.models import gpt2
 
@@ -35,7 +47,9 @@ class AdamWState:
     the micro-batch gradients ``acc`` with the micro-step ``mini_step``
     (optax's ``MultiStepsState``). ``state_dict`` keeps
     ``torch.optim.AdamW``'s layout (``exp_avg``, ``exp_avg_sq``, ``step``
-    per parameter) and adds ``acc_grad`` and ``mini_step``."""
+    per parameter) and adds ``acc_grad`` and ``mini_step``. Under ZeRO-1
+    (``core.mesh.shard_opt_state``) ``mu`` and ``nu`` hold this data
+    rank's slices and ``zero`` says where they lie."""
 
     def __init__(self, params: List[torch.Tensor], mu_dtype: Optional[torch.dtype],
                  accumulate: bool):
@@ -44,6 +58,7 @@ class AdamWState:
         self.nu = [torch.zeros_like(p) for p in params]
         self.acc = [torch.zeros_like(p) for p in params] if accumulate else None
         self.mini_step = 0
+        self.zero: Optional[Zero1] = None
 
     def state_dict(self, drop_partial: bool = False) -> dict:
         """``drop_partial``: as if the accumulation had just been applied
@@ -105,8 +120,11 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamWState) -> None:
-        """Applies one micro-batch's gradients to ``params`` and ``state`` in place."""
+               state: AdamWState, reduce=None) -> None:
+        """Applies one micro-batch's gradients to ``params`` and ``state`` in
+        place. ``reduce`` (a mesh's): called on the gradients an update is
+        about to apply (after the accumulation), in place. Under ZeRO-1
+        the update runs on this rank's slices, then gathers the params."""
         if state.acc is not None:
             n = state.mini_step
             # Welford's running mean, as MultiSteps(use_grad_mean=True)
@@ -118,6 +136,11 @@ class AdamW:
             if state.mini_step:
                 return
             grads = state.acc
+        if reduce is not None:
+            reduce(grads)
+        whole = params
+        if state.zero is not None:
+            params, grads = state.zero.local(params), state.zero.local(grads)
         b1, b2 = self.b1, self.b2
         lr, count = self.lr(state.count), state.count + 1
         # the moments in place: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2
@@ -141,6 +164,8 @@ class AdamW:
         torch._foreach_mul_(params, 1.0 - lr * self.weight_decay)
         torch._foreach_addcdiv_(params, mu, denom, value=-lr / bc1)
         state.count = count
+        if state.zero is not None:
+            state.zero.gather(whole)
         if state.acc is not None:
             torch._foreach_zero_(state.acc)
 
@@ -157,7 +182,10 @@ def create_train_state(params: gpt2.GPT2, tx: AdamW) -> TrainState:
 
 
 def _losses_and_metrics(params, config: ModelConfig, batch: Dict[str, torch.Tensor],
-                        deterministic: bool, seed=None):
+                        deterministic: bool, seed=None, mesh=None):
+    """The joint loss and the step's metrics. Over a mesh ``batch`` is this
+    rank's rows, the losses are global means (their gradients this rank's
+    part) and the metrics are the global batch's."""
     valid = batch["valid"]
     labels = torch.where(valid[:, None], batch["labels"], -100)
     out = gpt2.forward(
@@ -168,26 +196,40 @@ def _losses_and_metrics(params, config: ModelConfig, batch: Dict[str, torch.Tens
         # bucket-padded batches: the emotion head reads the last real token
         seq_lengths=batch.get("seq_lengths"),
         # the loss never needs dense [B, L, V] logits
-        compute_logits=False)
+        compute_logits=False, mesh=mesh)
     lm_loss = out.lm_loss
     emo_logits = out.emotion_logits
     logz = torch.logsumexp(emo_logits, dim=-1)
     gold = emo_logits.gather(-1, batch["emotion_labels"].long()[:, None])[:, 0]
     w = valid.float()
-    emo_loss = ((logz - gold) * w).sum() / torch.clamp_min(w.sum(), 1.0)
-    loss = lm_loss + emo_loss
+    s_emo = ((logz - gold) * w).sum()
     with torch.no_grad():
         preds = emo_logits.argmax(dim=-1)
         # supervised-token count for the token-weighted corpus PPL
         lm_tokens = (labels[:, 1:] != -100).sum().float()
+        correct = ((preds == batch["emotion_labels"]) & valid).sum()
+        n_valid = valid.sum()
+        if mesh is not None:
+            # one all-reduce for the emotion loss's sum and every count
+            sums = torch.stack([s_emo.detach().float(), w.sum(), correct.float(), lm_tokens])
+            if mesh.group(DATA_AXIS) is not None:
+                dist.all_reduce(sums, group=mesh.group(DATA_AXIS))
+            s_all, n_valid, correct, lm_tokens = sums.unbind()
+    if mesh is None:
+        emo_loss = s_emo / torch.clamp_min(w.sum(), 1.0)
+    else:  # the global mean; its gradient this rank's part (global_mean's rule)
+        denom = torch.clamp_min(n_valid, 1.0)
+        emo_loss = s_all / denom + (s_emo - s_emo.detach()) / denom
+    loss = lm_loss + emo_loss
+    with torch.no_grad():
         metrics = {
             "loss": loss.detach(),
             "lm_loss": lm_loss.detach(),
             "lm_loss_sum": lm_loss.detach() * lm_tokens,
             "lm_tokens": lm_tokens,
             "emotion_loss": emo_loss.detach(),
-            "emotion_correct": ((preds == batch["emotion_labels"]) & valid).sum(),
-            "num_examples": valid.sum(),
+            "emotion_correct": correct,
+            "num_examples": n_valid,
         }
     return loss, metrics
 
@@ -199,27 +241,92 @@ def _check_device(params: gpt2.GPT2, device: torch.device) -> None:
                          f"or pass device={str(where)!r}")
 
 
-def make_train_step(config: ModelConfig, tx: AdamW, device="cuda"):
+_BUCKET_BYTES = 64 << 20
+
+
+def all_reduce_(tensors: List[torch.Tensor], group) -> None:
+    """Sums each tensor over ``group`` IN PLACE, in flat buckets of about
+    64 MB (one dtype each)."""
+    bucket, size = [], 0
+
+    def flush():
+        if bucket:
+            flat = torch._utils._flatten_dense_tensors(bucket)
+            dist.all_reduce(flat, group=group)
+            for t, f in zip(bucket, torch._utils._unflatten_dense_tensors(flat, bucket)):
+                t.copy_(f)
+            bucket.clear()
+
+    for t in tensors:
+        if bucket and (t.dtype != bucket[0].dtype or size + t.nbytes > _BUCKET_BYTES):
+            flush()
+            size = 0
+        bucket.append(t)
+        size += t.nbytes
+    flush()
+
+
+def global_norm(grads: List[torch.Tensor], sharded: List[bool], model_group) -> torch.Tensor:
+    """The norm of the whole gradient: the model-split parts' squares summed
+    over the model axis, the replicated ones counted once."""
+    sq = torch.stack([n.float() ** 2 for n in torch._foreach_norm(grads)])
+    mask = torch.tensor(sharded, device=sq.device)
+    split = (sq * mask).sum()
+    if model_group is not None:
+        dist.all_reduce(split, group=model_group)
+    return torch.sqrt(split + (sq * ~mask).sum())
+
+
+def make_train_step(config: ModelConfig, tx: AdamW, device="cuda", mesh=None,
+                    opt_shardings=None):
     """Returns ``step(state, batch, seed) -> (state, metrics)``, which
     updates ``state`` in place. Runs on the card unless ``device="cpu"``.
 
     Every parameter without a gradient this step (e.g. the cross-attention
     on a caption-less batch) takes a zero gradient, as in JAX, so AdamW's
-    moments and weight decay advance for it too."""
+    moments and weight decay advance for it too.
+
+    ``mesh``: ``batch`` is this rank's rows of the global batch (and
+    ``state.params`` its shard); the gradients are summed over the data
+    axis once per update and ``grad_norm`` is the norm of the whole
+    gradient an update applies (NaN on the micro-batches of an
+    accumulation that apply none). ``opt_shardings``: the ZeRO-1 dims
+    (``core.mesh.zero1_sharding_tree``) that ``state.opt_state`` was
+    sharded with (``core.mesh.shard_opt_state``)."""
     device = resolve(device)
+    data_group = None if mesh is None else mesh.group(DATA_AXIS)
+    model_group = None if mesh is None or mesh.axis_size(MODEL_AXIS) <= 1 \
+        else mesh.group(MODEL_AXIS)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
         _check_device(state.params, device)
+        if opt_shardings is not None and (state.opt_state.zero is None
+                                          or state.opt_state.zero.dims != list(opt_shardings)):
+            raise ValueError("opt_shardings given, but the optimizer state is not sharded with "
+                             "them (core.mesh.shard_opt_state)")
         step_seed = fold_seed(seed, state.step)
-        params = list(state.params.parameters())
+        named = list(state.params.named_parameters())
+        params = [p for _, p in named]
         for p in params:
             p.grad = None
         loss, metrics = _losses_and_metrics(state.params, config, batch, deterministic=False,
-                                            seed=step_seed)
+                                            seed=step_seed, mesh=mesh)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
-        tx.update(params, grads, state.opt_state)
+        if mesh is None:
+            metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+            tx.update(params, grads, state.opt_state)
+        else:
+            sharded = [model_group is not None and MODEL_AXIS in param_partition_spec(n)
+                       for n, _ in named]
+            metrics["grad_norm"] = torch.full((), float("nan"), device=device)
+
+            def reduce(gs):
+                if data_group is not None:
+                    all_reduce_(gs, data_group)
+                metrics["grad_norm"] = global_norm(gs, sharded, model_group)
+
+            tx.update(params, grads, state.opt_state, reduce=reduce)
         for p in params:
             p.grad = None
         state.step += 1
@@ -228,20 +335,25 @@ def make_train_step(config: ModelConfig, tx: AdamW, device="cuda"):
     return train_step
 
 
-def make_eval_step(config: ModelConfig):
+def make_eval_step(config: ModelConfig, mesh=None):
+    """``eval(params, batch) -> metrics``; over a ``mesh`` ``batch`` is this
+    rank's rows and the metrics are the global batch's."""
     @torch.no_grad()
     def eval_step(params: gpt2.GPT2, batch: Dict[str, torch.Tensor]) -> dict:
-        _, metrics = _losses_and_metrics(params, config, batch, deterministic=True)
+        _, metrics = _losses_and_metrics(params, config, batch, deterministic=True, mesh=mesh)
         return metrics
 
     return eval_step
 
 
-def batch_to_device(batch, device="cuda", include_modalities: bool = True
+def batch_to_device(batch, device="cuda", mesh=None, include_modalities: bool = True
                     ) -> Dict[str, torch.Tensor]:
     """``data.dataset.Batch`` -> a dict of tensors on ``device`` (the card
-    unless ``device="cpu"``); integer arrays become int64."""
+    unless ``device="cpu"``); integer arrays become int64. With a ``mesh``
+    ``batch`` is the global batch and this rank takes its rows
+    (``core.mesh.batch_rows``)."""
     device = resolve(device)
+    lo, hi = batch_rows(len(batch.valid), mesh)
     arrays = {
         "input_ids": batch.input_ids,
         "token_type_ids": batch.token_type_ids,
@@ -260,7 +372,7 @@ def batch_to_device(batch, device="cuda", include_modalities: bool = True
     for k, v in arrays.items():
         # a pinned batch (data/loader.py) copies asynchronously; the cast
         # to int64 runs after the copy
-        t = torch.as_tensor(v).to(device, non_blocking=True)
+        t = torch.as_tensor(v)[lo:hi].to(device, non_blocking=True)
         if t.dtype in (torch.int32, torch.int64):
             t = t.long()
         out[k] = t

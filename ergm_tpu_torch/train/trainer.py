@@ -1,4 +1,4 @@
-"""Trainer on one device (counterpart of ``ergm_tpu/train/trainer.py``).
+"""Trainer (counterpart of ``ergm_tpu/train/trainer.py``).
 
 Dataset meta -> model config -> parameters (fresh init, a params file,
 or the caller's) -> AdamW on the power-2 polynomial warmup schedule
@@ -11,8 +11,16 @@ processes that start once, serve every epoch (the same batches) and stop
 when ``train`` returns. The epoch line reports tok/s, the step p50 and
 MFU against the card's dense bf16 peak.
 
-Several processes are not ported: they are refused with
-``NotImplementedError`` (ROADMAP.md queue 1 item 8).
+Inside a ``torch.distributed`` world (``parallel/distributed.py``, one
+process per device) it trains over the mesh of ``cfg.mesh_shape`` /
+``cfg.mesh_axis_names``: each data rank collates and runs its rows of
+each global batch, a model axis splits the parameters (Megatron), and
+``shard_opt_state`` shards AdamW's moments over the data axis (ZeRO-1).
+The step's metrics are the global batch's, so every rank computes the
+epoch line a single card would; the primary rank alone prints it,
+writes TensorBoard and writes checkpoints (in the single-card format).
+Several hosts (``LOCAL_WORLD_SIZE`` ranks each) shard the dataset per
+host as JAX does, each host's batch being ``batch_size`` rows.
 """
 
 from __future__ import annotations
@@ -28,13 +36,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
 from ergm_tpu_torch.core.device import resolve
+from ergm_tpu_torch.core.mesh import (DATA_AXIS, MODEL_AXIS, make_mesh, shard_opt_state,
+                                      shard_params, zero1_sharding_tree)
 from ergm_tpu_torch.data.assembly import read_meta
 from ergm_tpu_torch.data.dataset import DialogueDataset
 from ergm_tpu_torch.data.loader import close, make_loader
 from ergm_tpu_torch.models import gpt2
+from ergm_tpu_torch.parallel.distributed import is_primary
 from ergm_tpu_torch.train import checkpoint as ckpt_lib
 from ergm_tpu_torch.train.schedule import polynomial_warmup_schedule
 from ergm_tpu_torch.train.steps import (AdamW, batch_to_device, create_train_state,
@@ -42,12 +54,12 @@ from ergm_tpu_torch.train.steps import (AdamW, batch_to_device, create_train_sta
 from ergm_tpu_torch.utils.flops import device_peak_tflops, model_flops_per_token
 
 
-def _refuse_several_processes() -> None:
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
-            torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("several processes are not ported (ROADMAP.md queue 1 "
-                                  "item 8)")
+def _in_world() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The print of a rank other than the primary."""
 
 
 def _summary_writer(logdir: str):
@@ -64,9 +76,9 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, model_config: Optional[ModelConfig] = None,
                  params: Optional[gpt2.GPT2] = None, limit: Optional[int] = None,
                  device="cuda"):
-        _refuse_several_processes()
         self.cfg = cfg
         self.device = resolve(device)
+        self.log = print if is_primary() else _quiet
         self.st = read_meta(cfg.data_dir)
         if model_config is None:
             drops = {k: getattr(cfg, k) for k in ("attn_pdrop", "resid_pdrop", "embd_pdrop")
@@ -78,19 +90,23 @@ class Trainer:
                 remat=cfg.remat, **drops)
         self.max_len = min(cfg.max_len, model_config.n_positions)
         self.mcfg = model_config
+        self._layout()
 
-        print(f"Loading {cfg.train_prefix} & {cfg.valid_prefix} data from {cfg.data_dir}...")
+        self.log(f"Loading {cfg.train_prefix} & {cfg.valid_prefix} data from {cfg.data_dir}...")
         ds_kw = dict(data_dir=cfg.data_dir, sp1_id=self.st.sp1_id, sp2_id=self.st.sp2_id,
                      eos_id=self.st.eos_id, max_len=self.max_len, limit=limit)
         self.train_set = DialogueDataset(cfg.train_prefix, **ds_kw)
         self.valid_set = DialogueDataset(cfg.valid_prefix, **ds_kw)
-        if len(self.train_set) < cfg.batch_size:
-            raise ValueError(f"train set has {len(self.train_set)} examples < batch_size "
-                             f"{cfg.batch_size}; training drops partial batches, so no step "
-                             f"would ever run")
+        # each host iterates its equal-length shard (dataset.host_shard_order),
+        # so the schedule counts per_host // batch_size steps an epoch
+        per_host = len(self.train_set) // self.host_count
+        if per_host < cfg.batch_size:
+            raise ValueError(f"train set has {len(self.train_set)} examples -> {per_host} per "
+                             f"host (hosts={self.host_count}) < batch_size {cfg.batch_size}; "
+                             f"training drops partial batches, so no step would ever run")
         self.train_loader = self._loader(self.train_set, shuffle=True, drop_remainder=True)
         self.valid_loader = self._loader(self.valid_set, shuffle=False)
-        num_batches = max(len(self.train_set) // cfg.batch_size, 1)
+        num_batches = max(per_host // cfg.batch_size, 1)
         accum = max(int(cfg.grad_accum_steps or 1), 1)
         # the schedule advances per optimizer update
         self.total_train_steps = max(cfg.num_epochs * num_batches // accum, 1)
@@ -102,14 +118,25 @@ class Trainer:
                         accumulate=accum)
 
         if params is None:
+            # every rank draws the same init from the seed
             params = gpt2.init_params(torch.Generator().manual_seed(cfg.seed), self.mcfg,
                                       device=self.device)
             if cfg.init_params:
-                print(f"Initializing params from {cfg.init_params}")
+                self.log(f"Initializing params from {cfg.init_params}")
                 params = ckpt_lib.restore_params(cfg.init_params, params)
-        self.state = create_train_state(params.to(self.device), self.tx)
-        self.train_step = make_train_step(self.mcfg, self.tx, device=self.device)
-        self.eval_step = make_eval_step(self.mcfg)
+        params = params.to(self.device)
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh)
+        self.state = create_train_state(params, self.tx)
+        opt_shardings = None
+        if (cfg.shard_opt_state and self.mesh is not None
+                and self.mesh.axis_size(DATA_AXIS) > 1):
+            # ZeRO-1: each data rank keeps its slice of AdamW's moments
+            opt_shardings = zero1_sharding_tree(self.state.params, self.mesh)
+            shard_opt_state(self.state.opt_state, self.mesh, opt_shardings)
+        self.train_step = make_train_step(self.mcfg, self.tx, device=self.device,
+                                          mesh=self.mesh, opt_shardings=opt_shardings)
+        self.eval_step = make_eval_step(self.mcfg, mesh=self.mesh)
         self.seed = cfg.seed  # the dropout seed; each step folds in its update count
 
         self.best_ppl = float(sys.float_info.max)
@@ -118,17 +145,17 @@ class Trainer:
         if cfg.ckpt_name is not None:
             path = ckpt_lib.find_checkpoint(cfg.ckpt_dir, cfg.ckpt_name)
             if path:
-                print(f"Resuming from checkpoint: {path}")
-                restored = ckpt_lib.restore_checkpoint(path, self.state)
+                self.log(f"Resuming from checkpoint: {path}")
+                restored = ckpt_lib.restore_checkpoint(path, self.state, mesh=self.mesh)
                 self.state = restored["state"]
                 self.best_ppl = restored["best_ppl"]
                 self.last_epoch = restored["epoch"]
             else:
-                print(f"Cannot find the specified checkpoint under {cfg.ckpt_dir}; "
-                      "training starts from scratch.")
+                self.log(f"Cannot find the specified checkpoint under {cfg.ckpt_dir}; "
+                         "training starts from scratch.")
 
         self.writer = None
-        if cfg.output_dir:
+        if cfg.output_dir and is_primary():
             logdir = os.path.join(cfg.output_dir, "tb")
             try:
                 self.writer = _summary_writer(logdir)
@@ -141,6 +168,36 @@ class Trainer:
                     f"{logdir}")
 
     # -- helpers ---------------------------------------------------------
+
+    def _layout(self) -> None:
+        """The mesh of ``cfg.mesh_shape`` over the world (None for a single
+        process, after JAX's shape checks), this host's shard of the
+        dataset and this rank's rows of each host batch."""
+        cfg = self.cfg
+        mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+        world = dist.get_world_size() if _in_world() else 1
+        if mesh.size != world:
+            raise ValueError(f"mesh {mesh.shape} uses {mesh.size} of the world's {world} ranks; "
+                             f"every rank must be in the mesh")
+        self.mesh = mesh if _in_world() else None
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        self.host_count = max(world // max(local, 1), 1)
+        self.host_index = (dist.get_rank() // local) if _in_world() else 0
+        dp = mesh.axis_size(DATA_AXIS)
+        if dp % self.host_count or local % mesh.axis_size(MODEL_AXIS):
+            raise ValueError(f"mesh {mesh.shape} over {self.host_count} hosts of {local} ranks: "
+                             f"the data axis must split evenly over the hosts and the model "
+                             f"axis stay within one")
+        per_host = dp // self.host_count  # data ranks on this host
+        if cfg.batch_size % per_host:
+            raise ValueError(
+                f"batch_size={cfg.batch_size} must be divisible by the mesh data axis "
+                f"({per_host} devices a host); pick a divisible batch size or a smaller "
+                f"mesh_shape")
+        n = cfg.batch_size // per_host
+        d = mesh.index(DATA_AXIS) % per_host
+        self.rows = (d * n, (d + 1) * n)
+        self.dp = dp
 
     def _scalars(self, split: str, epoch: int, loss: float, ppl: float, acc: float):
         if self.writer is not None:
@@ -205,7 +262,9 @@ class Trainer:
                            shuffle=shuffle, seed=cfg.seed, max_len=self.max_len,
                            pad_multiple=cfg.pad_multiple, drop_remainder=drop_remainder,
                            length_grouped=cfg.length_grouped, num_workers=cfg.num_workers,
-                           pin_memory=self.device.type == "cuda" and cfg.num_workers > 0)
+                           pin_memory=self.device.type == "cuda" and cfg.num_workers > 0,
+                           host_index=self.host_index, host_count=self.host_count,
+                           rows=None if self.mesh is None else self.rows)
 
     # -- preemption ------------------------------------------------------
 
@@ -229,10 +288,21 @@ class Trainer:
 
         return signal.signal(signal.SIGTERM, _on_term)
 
+    def _preempt_agreed(self) -> bool:
+        """Every rank's agreement on the preempt flag: SIGTERM may reach the
+        ranks at different instants and the save is a collective, so all
+        enter it in the same step block or none does (one all-reduce a
+        block, only when a handler may be installed)."""
+        if not self.cfg.save_on_preempt or not _in_world():
+            return self._preempted
+        flag = torch.tensor([float(self._preempted)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     def _save_preempt(self) -> float:
         path = ckpt_lib.save_preempt_checkpoint(self.cfg.ckpt_dir, self.state, self.last_epoch,
-                                                self.best_ppl)
-        print(f"Preemption checkpoint saved: {path} (resume with --ckpt_name=preempt)")
+                                                self.best_ppl, mesh=self.mesh)
+        self.log(f"Preemption checkpoint saved: {path} (resume with --ckpt_name=preempt)")
         return self.best_ppl
 
     # -- loops -----------------------------------------------------------
@@ -250,10 +320,13 @@ class Trainer:
 
     def _train_loop(self):
         cfg = self.cfg
-        print("Training starts.")
+        self.log("Training starts.")
         start_epoch = self.last_epoch + 1
+        world = dist.get_world_size() if _in_world() else 1
         peak = (device_peak_tflops(torch.cuda.get_device_name(self.device))
                 if self.device.type == "cuda" else None)
+        if peak is not None:
+            peak *= world  # MFU over every rank's card
         # launches are asynchronous: wait for the device once per block of
         # steps (on its last metrics) and fetch the epoch's metrics once
         fetch_every = max(int(os.environ.get("ERGM_METRIC_FETCH_EVERY", "8")), 1)
@@ -269,17 +342,20 @@ class Trainer:
                 self.state, metrics = self.train_step(self.state, dev_batch, self.seed)
                 metrics_dev.append(metrics)
                 b, l = batch.input_ids.shape
+                # this rank's rows; the step ran the global batch, over the
+                # mesh's data axis (tok/s and MFU count global tokens)
+                b *= self.dp if self.mesh is not None else 1
                 bn += 1
                 btok += b * l
                 real_tok += int(batch.attention_mask.sum())
-                padded_tok += b * l
+                padded_tok += batch.input_ids.shape[0] * l
                 bflops += model_flops_per_token(self.mcfg, l) * b * l
                 if bn == fetch_every:
                     float(metrics["loss"])  # waits for the block's steps
                     step_stats.append((time.time() - bt0, btok, bflops, bn))
                     bt0 = time.time()
                     bn = btok = bflops = 0
-                    if self._preempted:
+                    if self._preempt_agreed():
                         return self._save_preempt()
             if bn:
                 float(metrics["loss"])
@@ -294,7 +370,7 @@ class Trainer:
                 perf += f" | MFU {100 * mfu:.1f}%"
             if padded_tok:
                 perf += f" | pad eff {100 * real_tok / padded_tok:.0f}%"
-            print(f"Epoch {epoch}: Train Loss: {loss:.4f} | Train PPL: {ppl:.4f} "
+            self.log(f"Epoch {epoch}: Train Loss: {loss:.4f} | Train PPL: {ppl:.4f} "
                   f"(token-weighted {tw_ppl:.4f}) | Train Emotion Acc: {acc:.2f}% | "
                   f"{dt:.1f}s | {perf}")
             self._scalars("train", epoch, loss, ppl, acc)
@@ -307,16 +383,16 @@ class Trainer:
                 self.best_ppl = v_ppl
                 tc = time.time()
                 path = ckpt_lib.save_checkpoint(cfg.ckpt_dir, self.state, epoch, v_ppl,
-                                                keep_best=cfg.keep_best)
-                print(f"Best checkpoint saved: {path} ({time.time() - tc:.1f}s)")
-            print(f"Best valid PPL: {self.best_ppl:.4f}")
-            print(f"Valid Loss: {v_loss:.4f} | Valid PPL: {v_ppl:.4f} "
+                                                keep_best=cfg.keep_best, mesh=self.mesh)
+                self.log(f"Best checkpoint saved: {path} ({time.time() - tc:.1f}s)")
+            self.log(f"Best valid PPL: {self.best_ppl:.4f}")
+            self.log(f"Valid Loss: {v_loss:.4f} | Valid PPL: {v_ppl:.4f} "
                   f"(token-weighted {self._last_valid_tw_ppl:.4f}) | "
                   f"Valid Emotion Acc: {v_acc:.2f}% | {v_dt:.1f}s")
             self._scalars("valid", epoch, v_loss, v_ppl, v_acc)
-            if self._preempted:
+            if self._preempt_agreed():
                 return self._save_preempt()
-        print("Training finished!")
+        self.log("Training finished!")
         if cfg.save_on_preempt:
             # a stale emergency checkpoint resumed later would silently
             # revert this run's result

@@ -326,10 +326,13 @@ def test_interact_runs_two_turns(ws, tmp_path, monkeypatch, capsys):
           "ERGM_PROCESS_ID": "0"}),
 ])
 def test_several_devices_are_refused(argv, env, monkeypatch):
+    """Inference over several devices is the next slice: a mesh, ZeRO-1 or
+    the launcher environment with ``--mode=infer`` raise (training takes
+    them: tests/test_torch_parallel.py)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        port_cli.main(["--mode=train", "--gpu=cpu", *argv])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8, the inference half"):
+        port_cli.main(["--mode=infer", "--gpu=cpu", "--ckpt_name=x", *argv])
 
 
 def test_gpu_index_without_a_card_fails(ws):

@@ -454,6 +454,68 @@ def test_block_attention_kernel_matches_reference(dtype, rate, causal, Lk, masks
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_attention_head_stride_draws_the_whole_problems_masks(dtype):
+    """K5 on a shard of rows and heads (rows 2-3 and heads 3-5 of a [4, 8]
+    problem, uneven as a tensor-parallel head group can be) with the
+    folded seed and the whole problem's head stride: forward and backward
+    equal its plain version's at those arguments, and that plain version
+    equals the whole problem's output on the shard (the same dropout
+    masks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(4)
+    B, H, L, rate, seed = 4, 8, 256, 0.1, 91
+    q, k, v, do = (torch.randn((B, H, L, 64), generator=g).to("cuda", dtype) for _ in range(4))
+    b0, h0, h1 = 2, 3, 6
+    part = [x[b0:, h0:h1].contiguous() for x in (q, k, v, do)]
+    fold = seed + b0 * H + h0
+    outs = []
+    for fn in (tba.block_mha, tba.block_mha_reference):
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in part[:3])
+        o = fn(qq, kk, vv, causal=True, scale=0.125, dropout_rate=rate, dropout_seed=fold,
+               dropout_head_stride=H)
+        outs.append([o, *torch.autograd.grad(o, (qq, kk, vv), part[3])])
+    qg = q.clone().requires_grad_(True)  # the shard's plain run took the same (grad) route
+    whole = tba.block_mha_reference(qg, k, v, causal=True, scale=0.125, dropout_rate=rate,
+                                    dropout_seed=seed)[b0:, h0:h1].detach()
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        ok, err = _within(got, want, dtype, 2e-5 if dtype == torch.float32 else 5e-5)
+        assert ok, err
+    assert torch.equal(outs[1][0], whole)
+
+
+@pytest.mark.cuda
+def test_sharded_lm_loss_on_one_rank_equals_fused_lm_loss():
+    """``fused_lm_loss_sharded`` over a one-rank mesh (no world: no
+    collective) gives ``fused_lm_loss``'s value and gradients bit for bit,
+    through K6 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.core.mesh import Mesh, make_mesh
+
+    g = torch.Generator().manual_seed(6)
+    h = torch.randn((2, 128, 256), generator=g).cuda()
+    w = torch.randn((1000, 256), generator=g).cuda() * 0.1
+    lbl = torch.randint(0, 1000, (2, 128), generator=g).cuda()
+    lbl[0, :40] = -100
+    outs = []
+    for fn in (lambda a, b: tce.fused_lm_loss(a, b, lbl),
+               lambda a, b: tce.fused_lm_loss_sharded(a, b, lbl, make_mesh((1,), ("data",)))):
+        hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        f0 = tce.LAUNCHES
+        loss = fn(hh, ww)
+        assert tce.LAUNCHES == f0 + 1
+        outs.append([loss, *torch.autograd.grad(loss, (hh, ww))])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="pure 'data' mesh"):
+        tce.fused_lm_loss_sharded(h, w, lbl, Mesh({"data": 1, "model": 2}, 0, {}))
+
+
+@pytest.mark.cuda
 def test_block_attention_dq_takes_delta_from_pn_dpn():
     """bf16, nearly uniform rows over values with a large common part (a
     model at init): ds = pn (dpn - delta) cancels most of dpn, so delta

@@ -224,5 +224,9 @@ def test_loader_covers_every_example_and_is_deterministic(dataset):
     def order(seed):
         return [b.input_ids.tolist() for b in make_loader(ds, shuffle=True, seed=seed, **kw)]
     assert order(1) == order(1) != order(2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        make_loader(ds, host_index=1, host_count=2, **kw)
+    # two hosts: disjoint shards of equal length (dataset.host_shard_order)
+    hosts = [[tuple(r[:int(m.sum())].tolist()) for b in make_loader(
+        ds, host_index=h, host_count=2, drop_remainder=True, **kw)
+        for r, m in zip(b.input_ids, b.attention_mask)] for h in (0, 1)]
+    assert len(hosts[0]) == len(hosts[1]) == len(ds) // 2 // 4 * 4
+    assert not set(hosts[0]) & set(hosts[1])
