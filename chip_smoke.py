@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, speculative, beam, continuous-batching
 server, feature-extraction, test-run and training paths, its command
-line and its multi-device training once on an NVIDIA GPU.
+line, its multi-device training and its inference over several devices
+once on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -38,8 +39,9 @@ Phases, each of which raises on failure:
    (``ERGM_CROSS_KERNEL=1``, ``ERGM_DECODE_KERNEL=1``,
    ``decode_fused_mlp``) over a 512-slot cache, where K2, K3 and K4
    must each launch on the card.
-5. slice: gpt2 at full width, random weights from seed 0, int8 KV and
-   cross caches, int8 lm_head, bf16: ``generate`` at B=256 (128-token
+5. slice: gpt2 at full width and 2 of its 12 layers (the depth cut that
+   keeps the script within half its time limit), random weights from seed
+   0, int8 KV and cross caches, int8 lm_head, bf16: ``generate`` at B=256 (128-token
    prompt, 128 new tokens, 32-token caption, image and audio features,
    top-p 0.8) with the switches off and with ``ERGM_CROSS_KERNEL=1``
    and ``decode_fused_mlp`` on, timed in turns (off, on, on, off); then
@@ -70,7 +72,8 @@ Phases, each of which raises on failure:
    the draft's own). Then one first call a route (startup) and 5 timed
    requests a route in turns: the median wall time, macro steps and
    accepted proposals.
-8. beam search over the long history: the serving configuration, 16
+8. beam search over the long history (2 of gpt2's 12 layers, as the
+   slice phase): the serving configuration, 16
    ragged prompts bucketed to 384 tokens, 4 beams, 128 new tokens in 512
    slots, ``beam_search_batch`` with the decode kernels off and with K2,
    K3 and K4 on, in fp32 and in bf16. K5 must launch n_layer times in
@@ -84,7 +87,7 @@ Phases, each of which raises on failure:
    the step's cache reorder at 16, 64 and 127 generated slots, and of
    the whole cache.
 9. server: the continuous-batching server (``infer/server.py``) at gpt2
-   full width, 2 of its 12 layers (cut so that the script keeps within
+   full width, 1 of its 12 layers (cut so that the script keeps within
    half its time limit; both server phases), bf16, int8 lm_head, random
    weights from seed 0: 256
    requests submitted at once (``scripts/server_bench.py``'s defaults:
@@ -258,6 +261,33 @@ Phases, each of which raises on failure:
    endpoint, asked from another thread, records a trace holding K5's and
    K6's kernels while this thread launches steps.
 
+16. inference over several devices (``mesh_infer_phase``), last: (a) four
+   processes sharing card 0 over gloo as data=2 x model=2, gpt2 at full
+   width and depth (6 heads a model rank; the serving slice: int8 KV and
+   cross caches, int8 lm_head, ``decode_fused_mlp``, ``ERGM_CROSS_KERNEL``):
+   ``generate_batch`` over 64 prompts of 128 tokens (captions on 3 of 4,
+   image and audio features) and 32 new greedy tokens in fp32 (TF32 off),
+   whose gathered tokens must equal the parent's one-process run up to each
+   row's first decision with a top-2 margin of 1e-3 or less and whose
+   emotion logits must be within 1e-4; then in bf16 with every K1 (self
+   and cross), K2 and tensor-parallel K3 and K4 launch of every rank held
+   against its plain version (``KernelShadow``), the K2 arm (a 512-token
+   bucket, 544 slots, ``ERGM_DECODE_KERNEL``), ``beam_search_batch`` over
+   8 prompts x 4 beams, and the slot-axis server (64 requests with budgets
+   up to 16 through 16 slots, 8 a data rank; plain blocks shadowed, then
+   speculative blocks). Each rank's launches must be K1 12 (self) and 12
+   (cross) a prefill and K3's and K4's partial forms 12 a decode step (K2
+   12 a step, K5 and K1 cross 12 a prefill in the K2 arm); each rank
+   prints them with its decode step's wall time over gloo (a reading).
+   (b) gpt2-xl's head geometry at 2 layers over model=2 (ranks 0 and 1:
+   13 and 12 heads), fp32, against one process by the margin rule. (c)
+   ``cli.main --mode=infer`` and ``--mode=serve`` at gpt2's full width in
+   a world of one rank over NCCL: generations and responses equal to the
+   runs without a world, before (a), so that no reading of the ranks
+   overlaps it. (d) ``dryrun_multichip(4)`` on the card. K3's and
+   K4's partial forms are also timed alone at a data rank's 32 rows against
+   their plain versions (the ``_tp`` rows of the JSON line).
+
 Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
 shapes, the plain version's and a library call's time), and as its last
@@ -325,6 +355,10 @@ K2_SHAPES = {"long history": (64, 12, 512, 400), "single request": (1, 12, 1024,
              "headline cache": (256, 12, 256, 200)}
 # the long-history phase: gpt2 at full width over a 512-slot cache
 LONG_B, LONG_PROMPT, LONG_MAX = 64, 384, 512
+# the slice and beam phases' depth: 2 of gpt2's 12 layers (cut so that the
+# script keeps within half its time limit with the mesh phase; their
+# readings from then on are not those of 12 layers)
+SLICE_LAYERS = 2
 SWITCHES = ("ERGM_CROSS_KERNEL", "ERGM_DECODE_KERNEL", "ERGM_ATTN_IMPL")
 # the B=1 request of bench.py:207-240: int8 weights, bf16 self and cross
 # caches, a 128-token prompt and 32 new tokens; SPEC_REQS timed requests a route
@@ -335,7 +369,7 @@ SPEC_PROMPT, SPEC_NEW, SPEC_REQS = 128, 32, 5
 # tokens, 4 beams, 128 new tokens in LONG_MAX slots
 BEAM_B, BEAM_PROMPT, BEAM_W = 16, 384, 4
 # the continuous server (scripts/server_bench.py:37-43's defaults): gpt2 at
-# full width, 2 of its 12 layers (the depth cut that keeps the script within
+# full width, 1 of its 12 layers (the depth cut that keeps the script within
 # half its time limit; the server's phases are bound by the host, a layer at
 # a time), bf16, int8 lm_head, full-precision MLP weights; SRV_REQS
 # requests through SRV_SLOTS slots, prompts of 16-SRV_PROMPT tokens and
@@ -343,7 +377,7 @@ BEAM_B, BEAM_PROMPT, BEAM_W = 16, 384, 4
 # SRV_GROW slots up to SRV_CACHE; the tiered arm adds SRV_LONG_SLOTS long
 # slots, SRV_LONG_PROMPT-token prompts and SRV_LONG_CACHE slots
 SRV_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modality_dim=768,
-                 weight_dtype="int8_lm_head", n_layer=2)
+                 weight_dtype="int8_lm_head", n_layer=1)
 SRV_REQS, SRV_SLOTS, SRV_PROMPT, SRV_NEW, SRV_SYNC, SRV_GROW, SRV_CACHE = (
     256, 64, 128, 128, 32, 32, 512)
 SRV_LONG_SLOTS, SRV_LONG_PROMPT, SRV_LONG_CACHE = 8, 384, 1024
@@ -413,6 +447,8 @@ def reset_launches() -> None:
                 block_attention, fused_ce):
         mod.LAUNCHES = 0
     prefill_attention.CROSS_LAUNCHES = 0
+    cross_decode.TP_LAUNCHES = 0
+    fused_decode.TP_LAUNCHES = 0
     block_attention.BWD_LAUNCHES = 0
     fused_ce.BWD_LAUNCHES = 0
 
@@ -903,9 +939,10 @@ def _gpt2_inputs(rng, b: int, prompt: int) -> dict:
 def slice_phase(card: str) -> tuple:
     """Full-width gpt2: generate at B=256 with the decode switches off and
     with K3 and K4 on, 64 ragged generate_batch requests, and the
-    long-history generate with K2 on and off. Returns the slice's
-    kernels-on launch counts and the long-history K2 arm's."""
-    cfg = ModelConfig.from_model_type(**SLICE)
+    long-history generate with K2 on and off, at SLICE_LAYERS layers.
+    Returns the slice's kernels-on launch counts and the long-history K2
+    arm's."""
+    cfg = ModelConfig.from_model_type(**{**SLICE, "n_layer": SLICE_LAYERS})
     t0 = time.time()
     params = gpt2.params_for_inference(
         gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg), cfg)
@@ -1481,7 +1518,7 @@ def beam_phase(card: str) -> dict:
               auds=rng.standard_normal((BEAM_B, 768)).astype(np.float32),
               max_new_tokens=LONG_MAX - BEAM_PROMPT, prompt_bucket=128)
     for dtype in ("float32", "bfloat16"):
-        cfg = ModelConfig.from_model_type(**{**SLICE, "dtype": dtype})
+        cfg = ModelConfig.from_model_type(**{**SLICE, "dtype": dtype, "n_layer": SLICE_LAYERS})
         params = gpt2.params_for_inference(
             gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg), cfg)
         arms, results, decisions, counts = _beam_arms(params, cfg, prompts, kw, card)
@@ -4306,6 +4343,512 @@ def _par_gloo_readings(results: dict) -> dict:
     return launches
 
 
+# -- 16. inference over several devices (mesh_infer_phase) ---------------------
+
+# gpt2 at full width and depth over data=2 x model=2: MESH_RANKS processes
+# sharing card 0 over gloo (NCCL takes one rank a device). MESH_B prompts of
+# MESH_PROMPT tokens and MESH_NEW new ones; the K2 arm buckets them to
+# MESH_K2_PROMPT (a cache of MESH_K2_PROMPT + MESH_NEW slots); beam search
+# over the first MESH_BEAM_B at MESH_BEAM_W beams; MESH_SRV_REQS server
+# requests (budgets cut to MESH_SRV_NEW) through MESH_SRV_SLOTS slots;
+# gpt2-xl's head geometry at MESH_XL_LAYERS layers over model=2 (ranks 0
+# and 1), MESH_XL_B prompts of MESH_XL_PROMPT tokens
+MESH_RANKS, MESH_B, MESH_PROMPT, MESH_NEW = 4, 64, 128, 32
+MESH_K2_PROMPT, MESH_BEAM_B, MESH_BEAM_W, MESH_BEAM_NEW = 512, 8, 4, 16
+MESH_SRV_REQS, MESH_SRV_SLOTS, MESH_SRV_NEW = 64, 16, 16
+MESH_XL_LAYERS, MESH_XL_B, MESH_XL_PROMPT, MESH_XL_NEW = 2, 8, 64, 16
+MESH_KW = dict(max_len=MESH_PROMPT + MESH_NEW, eos_id=EOS, sp2_id=SP2, prompt_bucket=64,
+               caption_bucket=32, max_new_tokens=MESH_NEW, greedy=True)
+# what the mesh's decode path launches, each launch held against its plain
+# version: K1 (both forms), K2, and K3's and K4's tensor-parallel forms
+MESH_SHADOWED = ((prefill_attention, "prefill_mha", _k1_rows),
+                 (decode_attention, "decode_mha_int8", None),
+                 (cross_decode, "fused_cross_decode_partial", None),
+                 (fused_decode, "fused_ln_mlp_partial", None))
+
+
+def _tp_counts() -> dict:
+    return {"fused_cross_decode_tp": cross_decode.TP_LAUNCHES,
+            "fused_ln_mlp_tp": fused_decode.TP_LAUNCHES}
+
+
+def _mesh_cfg(dtype: str, **kw) -> ModelConfig:
+    """The serving slice (int8 KV and cross caches, int8 lm_head) with
+    ``decode_fused_mlp`` (K4)."""
+    return ModelConfig.from_model_type(**{**SLICE, "dtype": dtype, "decode_fused_mlp": True,
+                                          **kw})
+
+
+def _mesh_params(cfg: ModelConfig, mesh=None, seed: int = 0):
+    """The seeded init for inference, whole or this rank's shard."""
+    from ergm_tpu_torch.core.mesh import shard_params
+
+    p = gpt2.params_for_inference(
+        gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, device=DEVICE),
+        cfg)
+    return p if mesh is None else shard_params(p, mesh)
+
+
+def _mesh_requests(b: int = MESH_B, prompt: int = MESH_PROMPT) -> tuple:
+    """``b`` prompts of ``prompt`` tokens with sp2 token types, a 32-token
+    caption on 3 of 4, image and audio features."""
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, 50000, prompt).tolist() for _ in range(b)]
+    caps = [None if i % 4 == 3 else rng.integers(0, 50000, CAPTION).tolist() for i in range(b)]
+    feats = rng.standard_normal((2, b, 768)).astype(np.float32)
+    return prompts, dict(token_types=[[SP2] * prompt] * b, captions=caps, imgs=feats[0],
+                         auds=feats[1])
+
+
+class _Margins:
+    """Each row's top-2 logit margin at every ``lm_logits`` call (the
+    prefill, then each decode step), recorded on the device."""
+
+    def __enter__(self):
+        self.real, self.steps = gpt2.lm_logits, []
+
+        def recorded(params, hidden):
+            logits = self.real(params, hidden)
+            top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+            self.steps.append(top[:, 0] - top[:, 1])
+            return logits
+        gpt2.lm_logits = recorded
+        return self
+
+    def __exit__(self, *exc):
+        gpt2.lm_logits = self.real
+        self.steps = [m.cpu().numpy() for m in self.steps]
+
+
+def _margin_rule(label: str, want: list, got: list, margins: list) -> tuple:
+    """``got`` must equal ``want`` on each row up to the row's first
+    decision whose margin in ``want``'s run is 1e-3 or less (through its
+    end with none). Returns (tokens compared, rows equal)."""
+    compared = equal = 0
+    for b, row in enumerate(want):
+        for j, tok in enumerate(row):
+            if j >= len(margins) or margins[j][b] <= 1e-3:
+                break
+            if j >= len(got[b]) or got[b][j] != tok:
+                raise AssertionError(f"{label}: row {b} parts at token {j} where the margin is "
+                                     f"{margins[j][b]:.3e}")
+            compared += 1
+        else:
+            if got[b] != row:
+                raise AssertionError(f"{label}: row {b} differs past its end")
+        equal += got[b] == row
+    return compared, equal
+
+
+class _StepTimes(StepCounter):
+    """``StepCounter`` that also sums each decode step's wall time (with a
+    device sync at its end when ``timed``)."""
+
+    def __init__(self, timed: bool = False):
+        self.timed, self.seconds = timed, 0.0
+
+    def __enter__(self):
+        super().__enter__()
+        counted = gpt2.forward
+
+        def forward(params, config, input_ids, *args, **kwargs):
+            step = kwargs.get("cache") is not None and input_ids.shape[1] == 1
+            t0 = time.time()
+            out = counted(params, config, input_ids, *args, **kwargs)
+            if step and self.timed:
+                torch.cuda.synchronize()
+                self.seconds += time.time() - t0
+            return out
+        gpt2.forward = forward
+        return self
+
+
+def _mesh_server(params, cfg, mesh, traffic: list, **kw) -> list:
+    """``traffic`` through the slot-axis server (rank 0 submits, the others
+    follow); each request's tokens, on every rank."""
+    srv = ContinuousServer(params, cfg, slots=MESH_SRV_SLOTS, eos_id=EOS, sp2_id=SP2,
+                           max_prompt=SRV_PROMPT, prompt_bucket=64, cache_len=SRV_CACHE,
+                           caption_len=CAPTION, sync_every=8, cache_grow_step=SRV_GROW,
+                           mesh=mesh, **kw)
+    rids = ([srv.submit(Request(**r)) for r in traffic] if srv.primary
+            else list(range(len(traffic))))
+    res = srv.run_until_drained(max_iters=100_000)
+    return [res[r].tokens for r in rids]
+
+
+def _mesh_rank(rank: int, port: int, go, device: str) -> dict:
+    """One of MESH_RANKS processes sharing card 0 over gloo: every path of
+    inference over data=2 x model=2, each run from launch counts of 0 (see
+    ``mesh_infer_phase``)."""
+    from ergm_tpu_torch.core.mesh import make_mesh
+    from ergm_tpu_torch.parallel import distributed
+    from ergm_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.load()
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, local_rank=rank,
+                           local_world_size=MESH_RANKS, device=dev, backend="gloo")
+    go.wait()  # started early; the card's work waits for the parent's references and (c)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"))
+        xl_mesh = make_mesh((1, 2), ("data", "model"))  # ranks 0 and 1
+        out = {"coords": (mesh.index("data"), mesh.index("model"))}
+        prompts, feats = _mesh_requests()
+
+        def run(key, names, call, shadowed=False, timed=False):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(switches(*names))
+                steps = stack.enter_context(_StepTimes(timed))
+                shadow = (stack.enter_context(KernelShadow(MESH_SHADOWED)) if shadowed
+                          else None)
+                reset_launches()
+                decode_attention.LAST_CLUSTER = 0
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res = call()
+                torch.cuda.synchronize()
+                r = {"s": time.time() - t0, "steps": steps.steps, "step_s": steps.seconds,
+                     "counts": {**_launch_counts(), **_tp_counts()},
+                     "cluster": decode_attention.LAST_CLUSTER}
+            if shadow is not None:
+                r["shares"], r["calls"] = shadow.shares(), dict(shadow.calls)
+            out[key] = r
+            return res
+
+        cfg = _mesh_cfg("float32")
+        params = _mesh_params(cfg, mesh)
+        res = run("fp32", ("ERGM_CROSS_KERNEL",),
+                  lambda: generate_batch(params, cfg, prompts, mesh=mesh, **feats, **MESH_KW))
+        out["fp32"]["tokens"], out["fp32"]["emotion"] = res
+        del params
+        torch.cuda.empty_cache()
+
+        cfg = _mesh_cfg("bfloat16")
+        params = _mesh_params(cfg, mesh)
+        gen = lambda **kw: generate_batch(params, cfg, prompts, mesh=mesh,  # noqa: E731
+                                          **feats, **{**MESH_KW, **kw})
+        run("bf16", ("ERGM_CROSS_KERNEL",), gen, shadowed=True)
+        run("bf16_timed", ("ERGM_CROSS_KERNEL",), gen, timed=True)
+        run("k2", ("ERGM_CROSS_KERNEL", "ERGM_DECODE_KERNEL"),
+            lambda: gen(prompt_bucket=MESH_K2_PROMPT, max_len=MESH_K2_PROMPT + MESH_NEW),
+            shadowed=True)
+        beams = run("beam", ("ERGM_CROSS_KERNEL",), lambda: beam.beam_search_batch(
+            params, cfg, prompts[:MESH_BEAM_B], num_beams=MESH_BEAM_W,
+            max_len=MESH_PROMPT + MESH_BEAM_NEW, eos_id=EOS, sp2_id=SP2,
+            max_new_tokens=MESH_BEAM_NEW, prompt_bucket=64, caption_bucket=32, mesh=mesh,
+            **{k: v[:MESH_BEAM_B] for k, v in feats.items()}), shadowed=True)
+        out["beam"]["tokens"] = beams[0]
+        del params
+        torch.cuda.empty_cache()
+
+        # the server: compute-dtype caches (the speculative blocks' and the
+        # caption cache's), K1 at admissions, K4's partial form a step
+        scfg = _mesh_cfg("bfloat16", kv_cache_dtype="auto", cross_kv_dtype="auto")
+        params = _mesh_params(scfg, mesh)
+        traffic = [dict(r, max_new_tokens=min(r["max_new_tokens"], MESH_SRV_NEW))
+                   for r in _server_traffic(np.random.default_rng(0), MESH_SRV_REQS)]
+        served = run("server", (), lambda: _mesh_server(params, scfg, mesh, traffic),
+                     shadowed=True)
+        out["server"]["tokens"] = served
+        served = run("spec", (), lambda: _mesh_server(params, scfg, mesh, traffic,
+                                                      spec_gamma=SRV_GAMMA, spec_ngram=SRV_NGRAM))
+        out["spec"]["tokens"] = served
+        out["budgets"] = [r["max_new_tokens"] for r in traffic]
+        del params
+        torch.cuda.empty_cache()
+
+        if xl_mesh.coords is not None:  # gpt2-xl's 25 heads over model=2
+            xcfg = ModelConfig.from_model_type("gpt2-xl", n_layer=MESH_XL_LAYERS,
+                                               vocab_size=50271, dtype="float32",
+                                               modality_dim=768)
+            xp = _mesh_params(xcfg, xl_mesh)
+            xprompts, xfeats = _mesh_requests(MESH_XL_B, MESH_XL_PROMPT)
+            out["xl_heads"] = xp.blocks[0].attn.c_attn.kernel.shape[1] // (3 * xcfg.head_dim)
+            out["xl"] = generate_batch(xp, xcfg, xprompts, mesh=xl_mesh, **xfeats,
+                                       **{**MESH_KW, "max_len": MESH_XL_PROMPT + MESH_XL_NEW,
+                                          "max_new_tokens": MESH_XL_NEW})
+            del xp
+            torch.cuda.empty_cache()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out["dryrun"] = dryrun_multichip(MESH_RANKS, dev)
+        out["dryrun"]["s"] = time.time() - t0
+        return out
+    finally:
+        distributed.shutdown()
+
+
+def _mesh_worker(rank: int, port: int, queue, go, device: str) -> None:
+    import traceback
+
+    try:
+        queue.put((rank, _mesh_rank(rank, port, go, device)))
+    except BaseException:  # noqa: BLE001 - reported to the parent, then re-raised
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _mesh_references(card: str) -> dict:
+    """The parent's one-process runs: the fp32 generate_batch of the mesh's
+    first run (with each decision's margin) and the xl geometry's."""
+    refs = {}
+    cfg = _mesh_cfg("float32")
+    params = _mesh_params(cfg)
+    prompts, feats = _mesh_requests()
+    with switches("ERGM_CROSS_KERNEL"), _Margins() as m:
+        refs["fp32"] = generate_batch(params, cfg, prompts, **feats, **MESH_KW)
+    refs["fp32_margins"] = m.steps
+    del params
+    xcfg = ModelConfig.from_model_type("gpt2-xl", n_layer=MESH_XL_LAYERS, vocab_size=50271,
+                                       dtype="float32", modality_dim=768)
+    xp = _mesh_params(xcfg)
+    xprompts, xfeats = _mesh_requests(MESH_XL_B, MESH_XL_PROMPT)
+    with _Margins() as m:
+        refs["xl"] = generate_batch(xp, xcfg, xprompts, **xfeats,
+                                    **{**MESH_KW, "max_len": MESH_XL_PROMPT + MESH_XL_NEW,
+                                       "max_new_tokens": MESH_XL_NEW})
+    refs["xl_margins"] = m.steps
+    del xp
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _tp_kernel_numbers(gen: torch.Generator) -> dict:
+    """K3's and K4's tensor-parallel forms at the mesh path's shapes (a data
+    rank's MESH_B / 2 rows, gpt2's 6 heads and 1,536 MLP columns of model
+    rank 0) against their plain versions, bf16: the JSON rows' numbers."""
+    from ergm_tpu_torch.core.mesh import make_mesh, split_model
+
+    cfg = _mesh_cfg("bfloat16")
+    blk = _random_block(cfg, gen)
+    mesh = make_mesh((1, 2), ("data", "model"), world_size=2, rank=0)
+    with torch.no_grad():
+        for name, p in list(blk.named_parameters()):
+            mod, leaf = name.rsplit(".", 1)
+            setattr(blk.get_submodule(mod), leaf, torch.nn.Parameter(
+                split_model(f"blocks.0.{name}", p.detach(), cfg, mesh).clone(),
+                requires_grad=False))
+    b, Dl, Fl, D = MESH_B // 2, blk.cross_attn.q_attn.kernel.shape[1], blk.mlp.c_fc.kernel.shape[1], cfg.n_embd
+    h = torch.randn((b, 1, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    codes = [torch.randint(-127, 128, (2, b, CAPTION, Dl), generator=gen, device=DEVICE,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [0.001 + 0.02 * torch.rand((2, b, CAPTION, Dl // 64), generator=gen,
+                                        device=DEVICE) for _ in range(2)]
+    clens = torch.randint(1, CAPTION + 1, (b,), generator=gen, device=DEVICE)
+    cmask = (torch.arange(CAPTION, device=DEVICE)[None] < clens[:, None]).float()
+    stacks = (*codes, *scales)
+    cases = {
+        "fused_cross_decode_tp": (
+            lambda: cross_decode.fused_cross_decode_partial(h, blk, 1, 0.125, stacks, cmask, cfg),
+            lambda: cross_decode.fused_cross_decode_partial_reference(h, blk, 1, 0.125, stacks,
+                                                                      cmask, cfg),
+            bound(_nbytes(h, codes[0][1], codes[1][1], scales[0][1], scales[1][1], cmask,
+                          *blk.ln_cross.parameters(), *blk.cross_attn.q_attn.parameters(),
+                          blk.cross_attn.c_proj.kernel) + 4 * b * D,
+                  2 * 2 * b * D * Dl + 2 * 2 * b * CAPTION * Dl)),
+        "fused_ln_mlp_tp": (
+            lambda: fused_decode.fused_ln_mlp_partial(h, blk.ln_2, blk.mlp, cfg),
+            lambda: fused_decode.fused_ln_mlp_partial_reference(h, blk.ln_2, blk.mlp, cfg),
+            bound(_nbytes(h, *blk.ln_2.parameters(), *blk.mlp.c_fc.parameters(),
+                          blk.mlp.c_proj.kernel) + 4 * b * D, 2 * 2 * b * D * Fl))}
+    res = {}
+    for name, (run, plain, bnd) in cases.items():
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if got.dtype != torch.float32 or not _bf16_ok(got, want):
+            raise AssertionError(f"{name}: the partial form disagrees with its plain version: "
+                                 f"{err}")
+        ms, plain_ms = _timed_pair(name, run, plain)
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                     "library_ms": None}
+        print(f"{name}: {b} rows, {Dl // 64} heads / {Fl} MLP columns of model rank 0, bf16: "
+              f"max |kernel - plain| = {err:.3e}; bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']})")
+    return res
+
+
+def _mesh_cli(card: str) -> None:
+    """(c): ``cli.main --mode=infer`` and ``--mode=serve`` at gpt2's full
+    width and depth (bf16, the seeded init as a checkpoint) in a world of
+    one rank over NCCL (torchrun's variables) against the same runs
+    without a world: generations and responses equal."""
+    from ergm_tpu_torch.cli import main as cli
+
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "gpt2")
+        st = write_synthetic_dataset(data, prefixes=("valid",), num_dialogues=4,
+                                     turns_per_dialogue=4, base_vocab_size=50257,
+                                     captions="target", seed=22)
+        cfg = ModelConfig.from_model_type("gpt2", vocab_size=st.vocab_size)
+        params = gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                                  device=DEVICE)
+        os.makedirs(os.path.join(root, "ck", "gpt2", "seeded"))
+        torch.save({"params": params.state_dict()},
+                   os.path.join(root, "ck", "gpt2", "seeded", ckpt_lib.STATE_FILE))
+        del params
+        base = ["--seed=0", f"--data_dir={root}", "--model_type=gpt2", "--batch_size=16",
+                "--max_len=96", f"--ckpt_dir={root}/ck", "--top_p=0.8",
+                f"--gpu={'0' if DEVICE == 'cuda' else 'cpu'}"]
+        rng = np.random.default_rng(24)
+        reqs = os.path.join(root, "requests.jsonl")
+        with open(reqs, "w") as f:
+            for i in range(16):
+                f.write(json.dumps({"prompt": rng.integers(0, 50000, int(rng.integers(16, 65)))
+                                    .tolist(), "max_new_tokens": int(rng.integers(8, 17)),
+                                    "greedy": True}) + "\n")
+        runs = {}
+        for label, world in (("no world", False), ("world of 1 (NCCL)", True)):
+            with contextlib.ExitStack() as stack:
+                if world:
+                    stack.enter_context(_launcher_env(1, 0, _free_port()))
+                reset_launches()
+                t0 = time.time()
+                text = _cli(cli.main, ["--mode=infer", "--ckpt_name=seeded", *base])
+                gens = open(os.path.join(data, "seeded_generations.txt")).read()
+                infer_counts = _launch_counts()
+                text += _cli(cli.main, ["--mode=serve", *base, f"--requests_file={reqs}"])
+                served = [json.loads(line)["tokens"] for line in open(reqs + ".responses.jsonl")]
+            runs[label] = (gens, served, text)
+            print(f"mesh (c) cli {label}: --mode=infer over 16 utterances, --mode=serve over 16 "
+                  f"requests: {time.time() - t0:.1f} s; infer launches {infer_counts} on {card}")
+        (g0, s0, _), (g1, s1, text) = runs.values()
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        if f"backend {backend}" not in text or "world: 1 ranks" not in text:
+            raise AssertionError("mesh (c): the world of one is not an NCCL world")
+        if g1 != g0 or s1 != s0 or g0.count("GPT-2:") != 16:
+            raise AssertionError("mesh (c): the world's generations or responses differ")
+    print("mesh (c): in a world of one rank over NCCL the command line's generations and "
+          "responses equal those without a world")
+
+
+def mesh_infer_phase(card: str, gen: torch.Generator) -> dict:
+    """Inference over several devices (phase 16 of the module docstring):
+    (a) MESH_RANKS processes sharing card 0 over gloo, data=2 x model=2 at
+    gpt2's full width and depth: fp32 generate_batch against the parent's
+    one process (the margin rule, emotion logits within 1e-4); in bf16
+    every K1-K4 launch of every rank held against its plain version and
+    counted; the K2 arm; beam search; the slot-axis server, plain and
+    speculative; (b) gpt2-xl's head geometry over model=2 (ranks 0 and 1)
+    against one process; (c) the command line in a world of one over NCCL;
+    (d) ``dryrun_multichip(4)``. Returns {kernel: {path: launches}} and the
+    tensor-parallel forms' JSON numbers."""
+    import multiprocessing
+
+    t0 = time.time()
+    ctx = multiprocessing.get_context("spawn")
+    queue, port, go = ctx.Queue(), _free_port(), ctx.Event()
+    device = "cuda:0" if DEVICE == "cuda" else DEVICE
+    procs = [ctx.Process(target=_mesh_worker, args=(r, port, queue, go, device))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        tp = _tp_kernel_numbers(gen)
+        refs = _mesh_references(card)
+        _mesh_cli(card)  # before the ranks' work, so that no reading of theirs overlaps it
+        go.set()
+        results = {}
+        for _ in procs:
+            rank, res = queue.get(timeout=900)
+            if "error" in res:
+                raise AssertionError(f"mesh rank {rank}: {res['error']}")
+            results[rank] = res
+    finally:
+        go.set()
+        for p in procs:
+            p.join(60)
+            if p.exitcode is None:
+                p.kill()
+    L = _mesh_cfg("float32").n_layer
+    r0 = results[0]
+    # (a) the fp32 identity with one process
+    compared, equal = _margin_rule("mesh fp32", refs["fp32"][0], r0["fp32"]["tokens"],
+                                   refs["fp32_margins"])
+    emo = float(np.abs(np.asarray(r0["fp32"]["emotion"]) - refs["fp32"][1]).max())
+    if emo > 1e-4:
+        raise AssertionError(f"mesh fp32: emotion logits {emo} from one process's")
+    print(f"mesh (a) fp32 generate_batch, {MESH_B} prompts of {MESH_PROMPT} + {MESH_NEW} tokens "
+          f"over data=2 x model=2 (6 heads a rank): {equal} of {MESH_B} rows equal to one "
+          f"process's, {compared} tokens compared under the margin rule; emotion logits within "
+          f"{emo:.2e} on {card}")
+    for rank, res in sorted(results.items()):
+        if res["fp32"]["tokens"] != r0["fp32"]["tokens"]:
+            raise AssertionError(f"mesh rank {rank}: its gathered tokens differ from rank 0's")
+        for key in ("fp32", "bf16", "bf16_timed", "k2", "beam", "server", "spec"):
+            run = res[key]
+            n, c = L * run["steps"], run["counts"]
+            want = {"fused_cross_decode": n, "fused_cross_decode_tp": n, "fused_ln_mlp": n,
+                    "fused_ln_mlp_tp": n}
+            if key in ("fp32", "bf16", "bf16_timed"):
+                want.update(prefill_mha=L, prefill_mha_cross=L, decode_mha_int8=0, block_mha=0)
+            elif key == "k2":
+                want.update(decode_mha_int8=n, prefill_mha=0, prefill_mha_cross=L,
+                            block_mha=L * _k5_gate(MESH_B // 2, 6, MESH_K2_PROMPT,
+                                                   MESH_K2_PROMPT, True))
+            elif key == "beam":
+                want.update(prefill_mha=0, prefill_mha_cross=0, decode_mha_int8=0)
+            else:  # the server: no cross kernel over its compute-dtype caption cache
+                want = {"fused_cross_decode": 0, "fused_ln_mlp": n, "fused_ln_mlp_tp": n,
+                        "decode_mha_int8": 0}
+            if {k: c[k] for k in want} != want or (run["steps"] < 1 and key != "spec"):
+                raise AssertionError(f"mesh rank {rank} [{key}]: launches {c} over "
+                                     f"{run['steps']} steps, want {want}")
+            if "shares" in run and not all(v <= 1.0 for v in run["shares"].values()):
+                raise AssertionError(f"mesh rank {rank} [{key}]: a launch outside its plain "
+                                     f"version's bar: {run['shares']}")
+        worst = max(v for k in ("bf16", "k2", "beam", "server") for v in res[k]["shares"].values())
+        shadowed = sum(n for k in ("bf16", "k2", "beam", "server") for n in res[k]["calls"].values())
+        print(f"mesh rank {rank} {res['coords']}: launches "
+              + "; ".join(f"{k} {({n: v for n, v in res[k]['counts'].items() if v})} over "
+                          f"{res[k]['steps']} steps" for k in ("bf16", "k2", "beam", "server",
+                                                                "spec"))
+              + f"; K2's cluster {res['k2']['cluster']} CTAs a row at {MESH_B // 2} rows x 6 "
+              f"heads; {shadowed} shadowed launches, the worst at {worst:.4f} of the bf16 bar; "
+              f"a bf16 decode step {1e3 * res['bf16_timed']['step_s'] / max(res['bf16_timed']['steps'], 1):.1f} ms "
+              f"of wall time over gloo (a reading: the host carries the collectives and "
+              f"{MESH_RANKS} processes share the card)")
+    for key, budgets in (("server", r0["budgets"]), ("spec", r0["budgets"])):
+        got = r0[key]["tokens"]
+        if any(not 1 <= len(t) <= b for t, b in zip(got, budgets)) or sum(map(len, got)) < 0.9 * sum(budgets):
+            raise AssertionError(f"mesh [{key}]: {sum(map(len, got))} tokens of {sum(budgets)}")
+        if any(results[r][key]["tokens"] != got for r in results):
+            raise AssertionError(f"mesh [{key}]: the ranks' results differ")
+    same = sum(a == b for a, b in zip(r0["server"]["tokens"], r0["spec"]["tokens"]))
+    print(f"mesh (a) server bf16: {MESH_SRV_REQS} requests through {MESH_SRV_SLOTS} slots "
+          f"({MESH_SRV_SLOTS // 2} a data rank), {sum(map(len, r0['server']['tokens']))} tokens, "
+          f"{r0['server']['s']:.2f} s; speculative blocks {r0['spec']['s']:.2f} s, {same} of "
+          f"{MESH_SRV_REQS} requests equal to the plain blocks' (bf16) on {card}")
+    # (b) gpt2-xl's 13/12 heads
+    heads = sorted(results[r]["xl_heads"] for r in (0, 1))
+    compared, equal = _margin_rule("mesh xl", refs["xl"][0], r0["xl"][0], refs["xl_margins"])
+    if heads != [12, 13] or results[1]["xl"][0] != r0["xl"][0]:
+        raise AssertionError(f"mesh xl: heads {heads}, or the ranks differ")
+    print(f"mesh (b) gpt2-xl geometry ({MESH_XL_LAYERS} layers, 25 heads: {heads} over model=2) "
+          f"fp32, {MESH_XL_B} prompts of {MESH_XL_PROMPT} + {MESH_XL_NEW}: {equal} of {MESH_XL_B} "
+          f"rows equal to one process's, {compared} tokens compared under the margin rule")
+    # (d) the dry run
+    d = r0["dryrun"]
+    if any(results[r]["dryrun"]["loss"] != d["loss"] for r in results):
+        raise AssertionError("mesh dryrun: the ranks' losses differ")
+    print(f"mesh (d) dryrun_multichip({MESH_RANKS}) on the card over gloo: loss {d['loss']:.4f}, "
+          f"mesh {d['mesh']}, decode lengths {d['lengths'][:4]}, xl loss {d['xl_loss']:.4f} "
+          f"({d['xl_heads']} heads on rank 0), ZeRO-1 shards {d['zero1_sharded']}; "
+          f"{d['s']:.1f} s")
+    print(f"mesh phase: {time.time() - t0:.1f} s on {card}")
+    launches = {name: {f"mesh {key}, rank 0": r0[key]["counts"][name]
+                       for key in ("bf16", "k2", "beam", "server")}
+                for name in ("prefill_mha", "prefill_mha_cross", "fused_cross_decode",
+                             "fused_ln_mlp", "decode_mha_int8", "fused_cross_decode_tp",
+                             "fused_ln_mlp_tp")}
+    for name in tp:
+        tp[name]["launches"] = r0["bf16"]["counts"][name]
+    return {"launches": launches, "tp": tp}
+
+
 def _descendants() -> list:
     """The pids of the live (not zombie) processes below this one."""
     parent = {}
@@ -4416,6 +4959,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_on = phase(cli_phase, card)
     par_on = phase(parallel_phase, card)
+    mesh_on = phase(mesh_infer_phase, card, gen)
     print(f"phase seconds: {json.dumps(seconds)}; {time.time() - t0:.1f} s since the build "
           f"started")
     for arg in sys.argv[1:]:
@@ -4451,7 +4995,15 @@ def main() -> None:
             ("fused_softmax_xent", "fused_ce", "fused_ce.py:172", train_on,
              train["fused_softmax_xent"]),
             ("fused_softmax_xent_bwd", "fused_ce", "fused_ce.py:220", train_on,
-             train["fused_softmax_xent_bwd"])]
+             train["fused_softmax_xent_bwd"]),
+            # K3's and K4's tensor-parallel forms: launches on the mesh's bf16
+            # generate_batch (rank 0), times at a data rank's rows
+            ("fused_cross_decode_tp", "cross_decode", "cross_decode.py:127",
+             {"fused_cross_decode_tp": mesh_on["tp"]["fused_cross_decode_tp"].pop("launches")},
+             mesh_on["tp"]["fused_cross_decode_tp"]),
+            ("fused_ln_mlp_tp", "fused_decode", "fused_decode.py:99",
+             {"fused_ln_mlp_tp": mesh_on["tp"]["fused_ln_mlp_tp"].pop("launches")},
+             mesh_on["tp"]["fused_ln_mlp_tp"])]
     # the K7 rows read the long-context step's K5 counts
     counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
     # launches on the speculative and beam paths: K5 in a B=1 request's
@@ -4471,7 +5023,10 @@ def main() -> None:
         # launches on the command line's paths (gpt2-medium)
         **({"cli_launches": cli_on[name]} if name in cli_on else {}),
         # launches a step on the multi-device training paths
-        **({"parallel_launches": par_on[name]} if name in par_on else {})}
+        **({"parallel_launches": par_on[name]} if name in par_on else {}),
+        # launches on the mesh's inference paths (rank 0 of data=2 x model=2)
+        **({"mesh_launches": mesh_on["launches"][name]} if name in mesh_on["launches"]
+           else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

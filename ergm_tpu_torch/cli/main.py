@@ -25,9 +25,18 @@ over a JSONL requests file or an HTTP endpoint (``--serve_http``);
   its local processes and join them to one world;
 - under an external launcher (``WORLD_SIZE`` set, e.g. torchrun) the
   process joins that world instead, on ``cuda:<LOCAL_RANK>``.
-``--shard_opt_state`` is ZeRO-1 over the data axis. Inference, serving
-and the REPL over several devices are not ported yet: a mesh, ZeRO-1
-or a world there raise (ROADMAP.md queue 1 item 8, the inference half).
+``--shard_opt_state`` is ZeRO-1 over the data axis.
+
+``--mode=infer|serve|interact`` serve over the mesh of ``--mesh_shape``
+(JAX's ``_serving_mesh``) in the same worlds: the default ``-1`` shrinks
+the data axis to the largest divisor of ``--batch_size`` (and of both
+serving pools) that the local cards allow, and the REPL takes a mesh only
+from an explicit shape; a mesh of one device is none. An explicit shape
+whose data axis does not divide the batch is refused. Each rank loads the
+checkpoint and keeps its shard of the parameters; rank 0 alone prints,
+writes the generations and results, reads the REPL's input and serves
+HTTP, the other ranks following it (``infer/server.py``). ZeRO-1 has no
+meaning at inference and is ignored there, as in JAX.
 JAX's persistent compilation cache has no counterpart: the port builds
 its kernels once into ``ergm_tpu_torch/_build/``.
 """
@@ -35,6 +44,8 @@ its kernels once into ``ergm_tpu_torch/_build/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import socket
@@ -49,9 +60,6 @@ import torch
 from ergm_tpu_torch.core.config import ModelConfig, TrainConfig
 from ergm_tpu_torch.core.device import resolve
 
-# where the refusals of inference over several devices point
-MULTI_DEVICE = ("inference over several devices is not ported yet (ROADMAP.md queue 1 item 8, "
-                "the inference half: the next slice)")
 _LAUNCHER = ("ERGM_COORDINATOR", "ERGM_NUM_PROCESSES", "ERGM_PROCESS_ID")
 
 
@@ -94,8 +102,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_shape", type=str, default="-1",
                    help="Comma-separated mesh shape over the world's ranks (one "
                         "process per device); -1 = every local card, data "
-                        "parallel. Training only: inference over several "
-                        "devices raises (ROADMAP.md queue 1 item 8).")
+                        "parallel (at inference: the largest data axis that "
+                        "divides the batch).")
     p.add_argument("--mesh_axes", type=str, default="data",
                    help="Comma-separated axis names matching --mesh_shape.")
     p.add_argument("--dtype", type=str, default="bfloat16",
@@ -331,21 +339,103 @@ def device_of(args) -> torch.device:
     return resolve("cpu" if gpu == "cpu" else f"cuda:{int(gpu)}")
 
 
-def _refuse_several_devices(cfg: TrainConfig) -> None:
-    """Inference, serving and the REPL run on one card."""
-    if tuple(cfg.mesh_shape) != (-1,) and any(x != 1 for x in cfg.mesh_shape):
-        raise NotImplementedError(f"--mesh_shape={','.join(map(str, cfg.mesh_shape))}: "
-                                  f"{MULTI_DEVICE}; --mode={cfg.mode} runs on one card "
-                                  f"(--mesh_shape=-1 or 1)")
-    if cfg.shard_opt_state:
-        raise NotImplementedError(f"--shard_opt_state (ZeRO-1) with --mode={cfg.mode}: "
-                                  f"{MULTI_DEVICE}")
-    launcher = [k for k in _LAUNCHER if os.environ.get(k)]
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        launcher.append("WORLD_SIZE")
-    if launcher:
-        raise NotImplementedError(f"the launcher environment ({', '.join(launcher)}) with "
-                                  f"--mode={cfg.mode}: {MULTI_DEVICE}")
+def _serving_batch(cfg: TrainConfig, args) -> tuple:
+    """(batch, long slots) that a serving mesh's data axis must divide:
+    none for the REPL (one row)."""
+    if cfg.mode == "interact":
+        return 0, 0
+    return cfg.batch_size, (args.serve_long_slots if cfg.mode == "serve" else 0)
+
+
+def _serving_shape(cfg: TrainConfig, devices: int, batch_size: int = 0,
+                   long_slots: int = 0) -> Optional[tuple]:
+    """JAX's ``_serving_mesh`` rule (``ergm_tpu/cli/main.py:305-345``) over
+    ``devices`` ranks: the mesh shape, or None for a single device. The
+    default -1 shrinks the data axis to the largest divisor of the batch
+    (and of both pools with ``long_slots``) instead of failing, and takes
+    no mesh without a batch (the REPL); an explicit shape is strict."""
+    shape, axes = [int(x) for x in cfg.mesh_shape], tuple(cfg.mesh_axis_names)
+    if tuple(shape) == (-1,):
+        if not batch_size:
+            return None
+        dp = devices
+        while dp > 1 and (batch_size % dp or (long_slots and (
+                (batch_size - long_slots) % dp or long_slots % dp))):
+            dp -= 1
+        shape = [dp] + [1] * (len(axes) - 1)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axis names {axes} differ in length")
+    if -1 in shape:
+        known = int(np.prod([s for s in shape if s != -1]))
+        if devices % known:
+            raise ValueError(f"{devices} devices not divisible by {known}")
+        shape[shape.index(-1)] = devices // known
+    if int(np.prod(shape)) <= 1:
+        return None
+    dp = shape[axes.index("data")] if "data" in axes else 1
+    if batch_size and batch_size % dp:
+        raise ValueError(f"batch_size={batch_size} must be divisible by the mesh data axis "
+                         f"({dp} devices); pick a divisible batch size or a smaller "
+                         f"--mesh_shape")
+    return tuple(shape)
+
+
+def _place_params(params, mesh):
+    """This rank's shard of the serving parameters (JAX's ``_place_params``):
+    the model axis's part of each tensor; whole without one."""
+    from ergm_tpu_torch.core.mesh import shard_params
+
+    return params if mesh is None else shard_params(params, mesh)
+
+
+def run_inference(cfg: TrainConfig, args, argv: list, run) -> None:
+    """--mode=infer|serve|interact: ``run(cfg, args, mesh, device)`` in one
+    process, or in each of a world's (the module docstring): this host's
+    processes are started as --mode=train starts them, or join a
+    launcher's world."""
+    from ergm_tpu_torch.parallel import distributed
+
+    cpu = str(args.gpu).strip() == "cpu"
+    env = os.environ
+    batch, long_slots = _serving_batch(cfg, args)
+    if env.get("WORLD_SIZE") is None:
+        hosts = int(env["ERGM_NUM_PROCESSES"]) if env.get("ERGM_NUM_PROCESSES") else 1
+        launcher = any(env.get(k) for k in _LAUNCHER)
+        if launcher and not all(env.get(k) for k in _LAUNCHER):
+            distributed.initialize_from_env()  # raises JAX's partial-environment error
+        explicit = tuple(cfg.mesh_shape) != (-1,)
+        devices = hosts * (1 if cpu else torch.cuda.device_count())
+        if explicit and -1 not in cfg.mesh_shape:
+            devices = int(np.prod(cfg.mesh_shape))
+        shape = _serving_shape(cfg, devices, batch, long_slots)
+        n = 1 if shape is None else -(-int(np.prod(shape)) // hosts)
+        if n > 1 and not cpu and n > torch.cuda.device_count():
+            raise ValueError(f"mesh shape {list(shape)} needs {int(np.prod(shape))} devices, "
+                             f"have {torch.cuda.device_count() * hosts}")
+        if n > 1 or launcher:
+            _spawn(argv, n, hosts, int(env.get("ERGM_PROCESS_ID", "0")),
+                   env.get("ERGM_COORDINATOR"), stdin=cfg.mode == "interact")
+            return
+        run(cfg, args, None, device_of(args))
+        return
+    from ergm_tpu_torch.core.mesh import make_mesh
+
+    device = torch.device("cpu") if cpu else distributed.local_device("cuda")
+    info = distributed.initialize_from_env(device=device)
+    try:
+        shape = _serving_shape(cfg, info["global_devices"], batch, long_slots)
+        mesh = None if shape is None else make_mesh(shape, cfg.mesh_axis_names)
+        with contextlib.ExitStack() as stack:
+            if distributed.is_primary():
+                print(f"world: {info['global_devices']} ranks over {info['process_count']} "
+                      f"host(s), {info['local_devices']} a host, backend {info['backend']}")
+                if mesh is not None:
+                    print(f"Serving over mesh {mesh.shape}")
+            else:  # rank 0 alone prints
+                stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+            run(cfg, args, mesh, device)
+    finally:
+        distributed.shutdown()
 
 
 def _local_processes(cfg: TrainConfig, args, hosts: int) -> int:
@@ -370,31 +460,62 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _child(argv: list, env: dict) -> None:
-    """A spawned training process: the launcher environment, then ``main``."""
+class _PipeLines:
+    """The lines the parent forwards over a pipe (None ends them): a
+    spawned process's stdin is /dev/null, so the REPL's rank 0 reads the
+    parent's this way."""
+
+    def __init__(self, conn):
+        self.conn = conn
+
+    def __iter__(self):
+        while True:
+            line = self.conn.recv()
+            if line is None:
+                return
+            yield line
+
+
+def _child(argv: list, env: dict, stdin=None) -> None:
+    """A spawned process: the launcher environment, then ``main``."""
     os.environ.update(env)
+    if stdin is not None:
+        sys.stdin = _PipeLines(stdin)
     main(argv)
 
 
-def _spawn(argv: list, n: int, hosts: int, host: int, coordinator: Optional[str]) -> None:
-    """Starts this host's ``n`` training processes (torchrun's environment:
+def _forward_stdin(conn) -> None:
+    for line in sys.stdin:
+        conn.send(line)
+    conn.send(None)
+
+
+def _spawn(argv: list, n: int, hosts: int, host: int, coordinator: Optional[str],
+           stdin: bool = False) -> None:
+    """Starts this host's ``n`` processes (torchrun's environment:
     ranks ``host * n`` on, ``LOCAL_RANK`` 0..n-1; multiprocessing's spawn
     method, so each imports this program's main module anew) and waits
-    for them; the first to fail stops the others and fails the run."""
+    for them; the first to fail stops the others and fails the run.
+    ``stdin``: this process's input lines go on to rank 0 (the REPL)."""
     import multiprocessing
+    import threading
 
     addr, port = (coordinator.rsplit(":", 1) if coordinator
                   else ("127.0.0.1", str(_free_port())))
     for k in _LAUNCHER:  # the children join by torchrun's variables
         os.environ.pop(k, None)
     ctx = multiprocessing.get_context("spawn")
+    lines = ctx.Pipe(duplex=False) if stdin and host == 0 else None
     procs = []
     for lr in range(n):
         env = dict(WORLD_SIZE=str(hosts * n), RANK=str(host * n + lr), LOCAL_RANK=str(lr),
                    LOCAL_WORLD_SIZE=str(n), MASTER_ADDR=addr, MASTER_PORT=port)
-        p = ctx.Process(target=_child, args=(argv, env), name=f"ergm-train-{lr}")
+        conn = lines[0] if lines is not None and lr == 0 else None
+        p = ctx.Process(target=_child, args=(argv, env, conn), name=f"ergm-rank-{lr}")
         p.start()
         procs.append(p)
+    if lines is not None:
+        threading.Thread(target=_forward_stdin, args=(lines[1],), daemon=True).start()
     failed = 0
     try:
         while procs and not failed:
@@ -412,7 +533,7 @@ def _spawn(argv: list, n: int, hosts: int, host: int, coordinator: Optional[str]
                 p.kill()
                 p.join()
     if failed:
-        raise SystemExit(f"a training process exited with code {failed}")
+        raise SystemExit(f"a process of the world exited with code {failed}")
 
 
 def run_train(cfg: TrainConfig, args, argv: list) -> None:
@@ -481,13 +602,16 @@ def _serving_params(cfg: TrainConfig, mcfg: ModelConfig, device, seed: int,
     return gpt2.params_for_inference(params, mcfg)
 
 
-def run_infer(cfg: TrainConfig, args) -> dict:
+def run_infer(cfg: TrainConfig, args, mesh=None, device=None) -> dict:
+    """--mode=infer on ``device`` (``--gpu``'s by default), over ``mesh``
+    when one is given: every rank decodes, rank 0 evaluates and writes."""
     from ergm_tpu_torch.data.assembly import read_meta
     from ergm_tpu_torch.data.dataset import DialogueDataset
     from ergm_tpu_torch.evaluation.evaluate import Evaluator
     from ergm_tpu_torch.infer.runner import run_test, write_generations
+    from ergm_tpu_torch.parallel.distributed import is_primary
 
-    device = device_of(args)
+    device = device_of(args) if device is None else device
     st = read_meta(cfg.data_dir)
     mcfg = ModelConfig.from_model_type(cfg.model_type, vocab_size=st.vocab_size,
                                        dtype=cfg.dtype, kv_cache_dtype=args.kv_cache,
@@ -496,7 +620,7 @@ def run_infer(cfg: TrainConfig, args) -> dict:
     dataset = DialogueDataset(cfg.valid_prefix, cfg.data_dir, sp1_id=st.sp1_id,
                               sp2_id=st.sp2_id, eos_id=st.eos_id,
                               max_len=max_len, limit=args.limit)
-    params = _serving_params(cfg, mcfg, device, seed=0, required=True)
+    params = _place_params(_serving_params(cfg, mcfg, device, seed=0, required=True), mesh)
     tokenizer = _load_tokenizer(cfg.tokenizer_dir, st) if cfg.tokenizer_dir else None
 
     res = run_test(
@@ -504,7 +628,9 @@ def run_infer(cfg: TrainConfig, args) -> dict:
         sp2_id=st.sp2_id, max_len=max_len, top_p=cfg.top_p, seed=cfg.seed,
         tokenizer=tokenizer, prompt_mode=args.prompt_mode, num_beams=args.num_beams,
         sampler=args.sampler, draft_layers=args.draft_layers, spec_gamma=args.spec_gamma,
-        spec_mode=args.spec_mode, spec_ngram=args.spec_ngram)
+        spec_mode=args.spec_mode, spec_ngram=args.spec_ngram, mesh=mesh)
+    if not is_primary():
+        return {}
 
     gen_path = os.path.join(cfg.data_dir, f"{cfg.ckpt_name}_generations.txt")
     write_generations(gen_path, res.contexts, res.references, res.hypotheses)
@@ -556,31 +682,32 @@ def main(argv: Optional[list] = None):
     args.data_dir = os.path.join(args.data_dir, args.model_type)
     args.ckpt_dir = os.path.join(args.ckpt_dir, args.model_type)
     cfg = args_to_config(args)
-    if args.mode != "train":
-        _refuse_several_devices(cfg)
 
     if args.mode == "train":
         run_train(cfg, args, argv)
     elif args.mode == "interact":
-        run_interact(cfg, args)
+        run_inference(cfg, args, argv, run_interact)
     elif args.mode == "serve":
-        run_serve(cfg, args)
+        run_inference(cfg, args, argv, run_serve)
     else:
         if cfg.ckpt_name is None:
             raise SystemExit("Please specify the trained checkpoint using --ckpt_name.")
-        run_infer(cfg, args)
+        run_inference(cfg, args, argv, run_infer)
 
 
-def run_serve(cfg: TrainConfig, args):
+def run_serve(cfg: TrainConfig, args, mesh=None, device=None):
     """--mode=serve: the continuous-batching server (infer/server.py)
     over a JSONL requests file, or an HTTP endpoint with --serve_http.
     Each input line becomes a Request; lines with "arrival_s" are
     admitted on a real-time clock, others queue at once. One JSON line
     per request goes to --serve_output: index, continuation token ids
     (and text with a tokenizer), predicted emotion id, latency; or the
-    error of a rejected request."""
+    error of a rejected request. Over ``mesh`` every rank builds the same
+    server (the slot axis over the data axis), rank 0 reads the requests
+    (or listens) and submits them, and the other ranks follow it."""
     from ergm_tpu_torch.data.assembly import read_meta
     from ergm_tpu_torch.infer.server import ContinuousServer, request_from_json
+    from ergm_tpu_torch.parallel.distributed import is_primary
 
     if not (args.requests_file or args.serve_http is not None):
         raise SystemExit("serve mode needs --requests_file (batch) or --serve_http PORT "
@@ -589,8 +716,11 @@ def run_serve(cfg: TrainConfig, args):
     mcfg = ModelConfig.from_model_type(cfg.model_type, vocab_size=st.vocab_size,
                                        dtype=cfg.dtype, weight_dtype=args.weight_dtype,
                                        kv_cache_dtype=args.kv_cache)
-    params = _serving_params(cfg, mcfg, device_of(args), seed=cfg.seed, required=False)
+    device = device_of(args) if device is None else device
+    params = _place_params(_serving_params(cfg, mcfg, device, seed=cfg.seed, required=False),
+                           mesh)
     tokenizer = _load_tokenizer(cfg.tokenizer_dir, st) if cfg.tokenizer_dir else None
+    primary = mesh is None or is_primary()
 
     if args.serve_http is not None:  # port 0 = ephemeral, still truthy intent
         from ergm_tpu_torch.infer.http_server import ServerFrontend
@@ -614,7 +744,10 @@ def run_serve(cfg: TrainConfig, args):
             prefill_chunk=args.serve_prefill_chunk,
             long_slots=args.serve_long_slots,
             long_threshold=args.serve_long_threshold,
-            admit_policy=args.serve_admit_policy or "fifo")
+            admit_policy=args.serve_admit_policy or "fifo", mesh=mesh)
+        if not primary:  # rank 0 listens; this rank steps with it until it stops
+            srv.follow()
+            return
         fe = ServerFrontend(srv, tokenizer=tokenizer, port=args.serve_http,
                             default_top_p=cfg.top_p, default_seed=cfg.seed).start()
         print(f"Serving HTTP on http://{fe.host}:{fe.port} "
@@ -682,31 +815,39 @@ def run_serve(cfg: TrainConfig, args):
         long_slots=args.serve_long_slots,
         long_threshold=long_threshold,
         # the offline regime: length-sorted cohorts
-        admit_policy=args.serve_admit_policy or "sorted")
+        admit_policy=args.serve_admit_policy or "sorted", mesh=mesh)
+    if not primary:  # rank 0 submits; this rank steps with it until it stops
+        srv.follow()
+        return
 
     order = sorted(range(len(reqs)), key=lambda i: reqs[i][1])
     rid_to_idx = {}
     rejected = {}  # index -> error message (a bad request does not end the run)
     t0 = time.time()
     nxt = 0
-    while len(srv.results) < len(reqs) - len(rejected):
-        now = time.time() - t0
-        while nxt < len(reqs) and reqs[order[nxt]][1] <= now:
-            idx = order[nxt]
-            try:
-                rid_to_idx[srv.submit(reqs[idx][0])] = idx
-            except ValueError as e:
-                # e.g. prompt + budget exceeds the model context: record
-                # the rejection and keep serving the rest of the file
-                rejected[idx] = str(e)
-                print(f"WARNING: request {idx} rejected: {e}")
-            nxt += 1
-        if not srv.busy():
-            srv.flush()  # a pipelined in-flight block still harvests
-            time.sleep(0.002)
-            continue
-        srv.step()
-    wall = time.time() - t0
+    try:
+        while len(srv.results) < len(reqs) - len(rejected):
+            now = time.time() - t0
+            while nxt < len(reqs) and reqs[order[nxt]][1] <= now:
+                idx = order[nxt]
+                try:
+                    rid_to_idx[srv.submit(reqs[idx][0])] = idx
+                except ValueError as e:
+                    # e.g. prompt + budget exceeds the model context: record
+                    # the rejection and keep serving the rest of the file
+                    rejected[idx] = str(e)
+                    print(f"WARNING: request {idx} rejected: {e}")
+                nxt += 1
+            if not srv.busy():
+                if srv.in_flight():
+                    srv.flush()  # a pipelined in-flight block still harvests
+                srv.heartbeat()  # the followers wait for the next arrival
+                time.sleep(0.002)
+                continue
+            srv.step()
+        wall = time.time() - t0
+    finally:
+        srv.stop_followers()
 
     out_path = args.serve_output or args.requests_file + ".responses.jsonl"
     rows = [{"index": idx, "error": msg} for idx, msg in rejected.items()]
@@ -732,11 +873,12 @@ def run_serve(cfg: TrainConfig, args):
               f"accepted ({srv.spec_accepted / srv.spec_proposed:.0%})")
 
 
-def run_interact(cfg: TrainConfig, args):
-    """--mode=interact: the dialogue REPL on stdin. ``run_repl`` takes no
-    speculative mode: JAX's CLI passes ``spec_mode`` and ``spec_ngram``
-    to a ``run_repl`` that does not accept them (its interact mode raises
-    TypeError); this one passes what ``run_repl`` takes."""
+def run_interact(cfg: TrainConfig, args, mesh=None, device=None):
+    """--mode=interact: the dialogue REPL on stdin (rank 0's, over a mesh).
+    ``run_repl`` takes no speculative mode: JAX's CLI passes ``spec_mode``
+    and ``spec_ngram`` to a ``run_repl`` that does not accept them (its
+    interact mode raises TypeError); this one passes what ``run_repl``
+    takes."""
     from ergm_tpu_torch.data.assembly import read_meta
     from ergm_tpu_torch.infer.interact import run_repl
 
@@ -745,11 +887,13 @@ def run_interact(cfg: TrainConfig, args):
     st = read_meta(cfg.data_dir)
     mcfg = ModelConfig.from_model_type(cfg.model_type, vocab_size=st.vocab_size,
                                        dtype=cfg.dtype, weight_dtype=args.weight_dtype)
-    params = _serving_params(cfg, mcfg, device_of(args), seed=cfg.seed, required=False)
+    device = device_of(args) if device is None else device
+    params = _place_params(_serving_params(cfg, mcfg, device, seed=cfg.seed, required=False),
+                           mesh)
     tokenizer = _load_tokenizer(cfg.tokenizer_dir, st)
     run_repl(params, mcfg, st, tokenizer, max_len=cfg.max_len, max_turns=cfg.max_turns,
              top_p=cfg.top_p, seed=cfg.seed, draft_layers=args.draft_layers,
-             spec_gamma=args.spec_gamma)
+             spec_gamma=args.spec_gamma, mesh=mesh)
 
 
 if __name__ == "__main__":

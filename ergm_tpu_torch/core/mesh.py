@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+ALL = "*"  # the group of every rank of a mesh
 
 
 class PartitionSpec(tuple):
@@ -53,7 +54,8 @@ class Mesh:
 
     ``shape``: {axis: size} in axis order. ``coords``: this rank's index
     on each axis. ``group(axis)``: the process group of the ranks that
-    share this rank's other coordinates (None outside a world)."""
+    share this rank's other coordinates (None outside a world);
+    ``group(ALL)``: every rank of the mesh."""
 
     def __init__(self, shape: Dict[str, int], rank: int, groups: Dict[str, object]):
         self.shape = dict(shape)
@@ -121,6 +123,9 @@ def make_mesh(shape: Sequence[int] = (-1,), axis_names: Sequence[str] = (DATA_AX
                 g = dist.new_group([int(r) for r in line])
                 if rank in line:
                     groups[name] = g
+        g = dist.new_group(list(range(total)))
+        if rank < total:
+            groups[ALL] = g
     return Mesh(dict(zip(names, shape)), rank, groups)
 
 
@@ -135,6 +140,33 @@ def batch_rows(batch_size: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
                          f"({dp} devices); pick a divisible batch size or a smaller mesh_shape")
     n = batch_size // dp
     return r * n, (r + 1) * n
+
+
+def fill_rows(batch_size: int, mesh: Optional[Mesh]) -> int:
+    """The batch padded to a multiple of the data axis (JAX's
+    ``_mesh_batch_placement``): the rows the ranks take between them."""
+    dp = 1 if mesh is None else mesh.axis_size(DATA_AXIS)
+    return -(-batch_size // dp) * dp
+
+
+def pad_rows(x, rows: int):
+    """A host array's leading (batch) axis filled up to ``rows`` by
+    repeating its last row (None stays None); callers drop the fill rows
+    by the original batch size."""
+    if x is None:
+        return None
+    x = np.asarray(x)
+    if x.shape[0] >= rows:
+        return x
+    return np.concatenate([x, np.repeat(x[-1:], rows - x.shape[0], axis=0)], axis=0)
+
+
+def local_heads(n_head: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """This model rank's head range [h0, h1) of ``n_head`` (``head_groups``;
+    all heads without a model axis)."""
+    if mesh is None:
+        return 0, n_head
+    return head_groups(n_head, mesh.axis_size(MODEL_AXIS))[mesh.index(MODEL_AXIS)]
 
 
 def logical_to_sharding(mesh: Mesh, spec: PartitionSpec) -> PartitionSpec:

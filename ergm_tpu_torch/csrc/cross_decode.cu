@@ -47,6 +47,15 @@
 // keep the port's unpadded [.., H] layout (JAX's 128-lane padding is a TPU
 // workaround).
 //
+// The tensor-parallel form: a model rank holds H of the model's heads, so
+// its head width Dl = H * Dh differs from the model width Dm; Wq is [Dm,
+// Dl] (its columns), Wp [Dl, Dm] (its rows) and the cross cache holds its
+// heads. The q projection reads Dm-wide rows and writes Dl-wide ones, the
+// attention runs on the rank's heads, and with partial = 1 c_proj writes
+// its f32 partial product [B, Dm] (decode_gemm.cuh's kEpiPartial): the
+// caller sums the partials over the model group and forms
+// round(h + round(round(sum + bp) * has_caption)) itself.
+//
 // Measured on an NVIDIA H100 80GB HBM3 at its 700 W limit (chip_smoke.py,
 // device time): 0.039 ms a call in bf16, against 0.261 ms for the plain
 // version and 0.0821 ms for the five-launch CUDA-core design before it;
@@ -64,7 +73,7 @@ constexpr int kAttnThreads = 256;
 constexpr int kAttnSmemMax = 200 * 1024;  // what a CTA may take; three fit an SM at Lc = 32
 
 struct AttnArgs {
-  void* qa;          // [B, D]: q in, the attention output out
+  void* qa;          // [B, D]: q in, the attention output out (D = H * Dh, this rank's heads)
   const int8_t* ck;  // layer li: [B, Lc, D]
   const int8_t* cv;
   const float* ks;   // layer li: [B, Lc, H]
@@ -296,9 +305,9 @@ cudaError_t launch_attn(const AttnArgs& a, int B, cudaStream_t stream, int* laun
 template <typename T>
 cudaError_t launch_cross(const void* h, int ldh, const void* ln_s, const void* ln_b, float eps,
                          const void* wq, const void* bq, const void* wp, const void* bp,
-                         const AttnArgs& attn, void* out, int B, cudaStream_t stream,
-                         int* launches) {
-  const int D = attn.H * attn.Dh;
+                         const AttnArgs& attn, void* out, int B, int Dm, bool partial,
+                         cudaStream_t stream, int* launches) {
+  const int D = attn.H * attn.Dh;  // the heads' width; Dm the model's
   DenseArgs qa{};
   qa.a = h;
   qa.lda = ldh;
@@ -311,7 +320,7 @@ cudaError_t launch_cross(const void* h, int ldh, const void* ln_s, const void* l
   qa.ldo = D;
   qa.M = B;
   qa.N = D;
-  qa.K = D;
+  qa.K = Dm;
   qa.epi = kEpiNone;
   cudaError_t err = launch_dense<T>(qa, stream, launches);
   if (err != cudaSuccess) return err;
@@ -330,41 +339,48 @@ cudaError_t launch_cross(const void* h, int ldh, const void* ln_s, const void* l
   pa.gate_mask = attn.mask;
   pa.gate_len = attn.Lc;
   pa.out = out;
-  pa.ldo = D;
+  pa.ldo = Dm;
   pa.M = B;
-  pa.N = D;
+  pa.N = Dm;
   pa.K = D;
-  pa.epi = kEpiResidual;
+  pa.epi = partial ? kEpiPartial : kEpiResidual;
   return launch_dense<T>(pa, stream, launches, true);
 }
 
 }  // namespace ergm_decode
 
-// dtype: 0 = float32, 1 = bfloat16. h [B, D] with row stride ldh; ck/cv and
-// ck_scale/cv_scale point at layer li of the stacked caches; mask [B, Lc] or
-// null. qa [B, D] holds q and then the attention output; out [B, D] gets the
-// result. *launches is set to the number of kernels started. Returns a
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. h [B, Dm] with row stride ldh; H heads
+// of Dh (D = H * Dh: Dm itself on one card, this rank's heads under tensor
+// parallelism); ck/cv and ck_scale/cv_scale point at layer li of the stacked
+// caches; mask [B, Lc] or null. qa [B, D] holds q and then the attention
+// output; out [B, Dm] gets the result, or with partial = 1 (f32) c_proj's
+// partial product. *launches is set to the number of kernels started.
+// Returns a cudaError_t.
 extern "C" int ergm_fused_cross_decode(const void* h, int ldh, const void* ln_s,
                                        const void* ln_b, float eps, const void* wq,
                                        const void* bq, const void* wp, const void* bp,
                                        const void* ck, const void* cv, const void* ck_scale,
                                        const void* cv_scale, const void* mask, void* qa,
                                        void* out, int dtype, int B, int Lc, int H, int Dh,
-                                       float scale, int* launches, void* stream) {
+                                       int Dm, int partial, float scale, int* launches,
+                                       void* stream) {
   using namespace ergm_decode;
   *launches = 0;
   const int D = H * Dh;
-  if (D % kTcBK || D % kTcBN || Dh % 8 || Lc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % kTcBK || D % kTcBN || Dm % kTcBK || Dm % kTcBN || Dh % 8 || Lc < 1 ||
+      (!partial && D != Dm))
+    return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs attn{qa, static_cast<const int8_t*>(ck), static_cast<const int8_t*>(cv),
                 static_cast<const float*>(ck_scale), static_cast<const float*>(cv_scale),
                 static_cast<const float*>(mask), Lc, H, Dh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(
-        launch_cross<float>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, out, B, s, launches));
+        launch_cross<float>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, out, B, Dm,
+                            partial != 0, s, launches));
   if (dtype == 1)
     return static_cast<int>(
-        launch_cross<bf16>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, out, B, s, launches));
+        launch_cross<bf16>(h, ldh, ln_s, ln_b, eps, wq, bq, wp, bp, attn, out, B, Dm,
+                           partial != 0, s, launches));
   return static_cast<int>(cudaErrorInvalidValue);
 }

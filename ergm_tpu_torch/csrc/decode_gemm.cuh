@@ -16,6 +16,12 @@
 //   kEpiGeluErf   round(gelu_erf(y))
 //   kEpiResidual  round(res + round(y * gate[row])), gate 1 unless the row's
 //                 caption mask sums to 0 (the capless-row gate of K3)
+//   kEpiPartial   the f32 accumulator as it is, into an f32 [M, N] output:
+//                 no bias, no rounding, no gate, no residual. The
+//                 tensor-parallel forms of K3 and K4 take it for their
+//                 row-parallel c_proj, whose partial products the caller
+//                 sums over the model group before it adds the bias, the
+//                 gate and the residual in the order kEpiResidual uses.
 //
 // bf16 (dense_tc_kernel): the products run on the tensor cores, mma.sync
 // m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix from shared memory.
@@ -112,17 +118,17 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-enum Epilogue { kEpiNone = 0, kEpiGeluTanh = 1, kEpiGeluErf = 2, kEpiResidual = 3 };
+enum Epilogue { kEpiNone = 0, kEpiGeluTanh = 1, kEpiGeluErf = 2, kEpiResidual = 3, kEpiPartial = 4 };
 
 struct DenseArgs {
   const void* a;          // [M, K], row stride lda
   const void* w;          // [K, N] row-major
-  const void* bias;       // [N]
+  const void* bias;       // [N] (unread by kEpiPartial)
   const void* ln_scale;   // [K], or null: no LayerNorm prologue
   const void* ln_bias;    // [K]
   const void* res;        // [M, N] residual (kEpiResidual), row stride ldr
   const float* gate_mask; // [M, gate_len] caption mask of the row gate, or null (gate 1)
-  void* out;              // [M, N], row stride ldo
+  void* out;              // [M, N], row stride ldo (f32 under kEpiPartial)
   int gate_len;
   int lda, ldr, ldo;
   int M, N, K;
@@ -159,6 +165,10 @@ __device__ __forceinline__ float dense_epi(const DenseArgs& g, float acc, float 
 template <typename T>
 __device__ __forceinline__ void dense_store(const DenseArgs& g, int row, int col, float acc,
                                             float gate) {
+  if (g.epi == kEpiPartial) {
+    static_cast<float*>(g.out)[static_cast<long long>(row) * g.ldo + col] = acc;
+    return;
+  }
   const float r = g.epi == kEpiResidual
                       ? Cvt<T>::load(static_cast<const T*>(g.res) +
                                      static_cast<long long>(row) * g.ldr + col)
@@ -565,7 +575,7 @@ static __global__ void __launch_bounds__(kTcThreads, 1) dense_tc_kernel(const De
         const int idx = idx0 + u * kTcThreads;
         if (idx >= mine * kQuads) continue;
         const int r = kidx + (idx / kQuads) * splits, c4 = (idx % kQuads) * 4;
-        braw[u] = *reinterpret_cast<const uint2*>(bias + n0 + c4);
+        if (g.epi != kEpiPartial) braw[u] = *reinterpret_cast<const uint2*>(bias + n0 + c4);
         if (g.epi == kEpiResidual)
           rraw[u] = *reinterpret_cast<const uint2*>(res + static_cast<long long>(m0 + r) * g.ldr +
                                                     n0 + c4);
@@ -589,6 +599,12 @@ static __global__ void __launch_bounds__(kTcThreads, 1) dense_tc_kernel(const De
           acc4[1] += p[u][q].y;
           acc4[2] += p[u][q].z;
           acc4[3] += p[u][q].w;
+        }
+        if (g.epi == kEpiPartial) {
+          *reinterpret_cast<float4*>(static_cast<float*>(g.out) +
+                                     static_cast<long long>(row) * g.ldo + col) =
+              make_float4(acc4[0], acc4[1], acc4[2], acc4[3]);
+          continue;
         }
         const float gate = g.epi == kEpiResidual ? gate_s[j] : 1.0f;
         float b4[4], r4[4] = {}, y[4];
@@ -641,7 +657,8 @@ inline void tc_shape(const DenseArgs& g, int sms, int* splits, int* cn) {
 
 // One launch on `stream`; N % 64 == 0 and K % 64 == 0 are the caller's
 // checks, and in bf16 16-byte aligned A, W, LayerNorm, bias and residual
-// rows (row strides a multiple of 8 elements). `launches` counts the
+// rows (row strides a multiple of 8 elements; an f32 kEpiPartial output
+// row a multiple of 4). `launches` counts the
 // kernels started; `after_kernel`: A is the output of the kernel launched
 // just before on the stream, and this one may start while it finishes.
 template <typename T>

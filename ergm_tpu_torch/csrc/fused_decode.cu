@@ -30,6 +30,13 @@
 // the down projection starts early by programmatic dependent launch. In
 // fp32 the same two products run on the CUDA cores, unsplit.
 //
+// The tensor-parallel form (partial = 1): on a model rank holding the
+// columns [f0, f1) of Wfc and bfc and the rows [f0, f1) of Wproj (F is
+// then this rank's F_local), the up projection and its GELU are this
+// rank's own, and the down projection writes its f32 partial product
+// [B, D] (decode_gemm.cuh's kEpiPartial): the caller sums the partials
+// over the model group and forms round(h + round(sum + bproj)) itself.
+//
 // Measured on an NVIDIA H100 80GB HBM3 at its 700 W limit (chip_smoke.py,
 // device time): 0.039 ms a call in bf16, against 0.063 ms for the plain
 // version and 0.2015 ms for the CUDA-core design before it; 13 times its
@@ -42,7 +49,7 @@ namespace ergm_decode {
 template <typename T>
 cudaError_t launch_mlp(const void* h, int ldh, const void* ln_s, const void* ln_b, float eps,
                        const void* wfc, const void* bfc, const void* wpr, const void* bpr,
-                       void* act, void* out, int B, int D, int F, int epi_act,
+                       void* act, void* out, int B, int D, int F, int epi_act, bool partial,
                        cudaStream_t stream, int* launches) {
   DenseArgs up{};
   up.a = h;
@@ -73,7 +80,7 @@ cudaError_t launch_mlp(const void* h, int ldh, const void* ln_s, const void* ln_
   down.M = B;
   down.N = D;
   down.K = F;
-  down.epi = kEpiResidual;
+  down.epi = partial ? kEpiPartial : kEpiResidual;
   return launch_dense<T>(down, stream, launches, true);
 }
 
@@ -81,13 +88,15 @@ cudaError_t launch_mlp(const void* h, int ldh, const void* ln_s, const void* ln_
 
 // dtype: 0 = float32, 1 = bfloat16. approximate: 1 = gelu_new (tanh form),
 // 0 = gelu (erf form). h has row stride ldh; act [B, F] receives the
-// activation, out [B, D] the result, both contiguous. *launches is set to
-// the number of kernels started. Returns a cudaError_t (0 on success).
+// activation, out [B, D] the result, both contiguous; with partial = 1, out
+// is f32 and receives the down projection's partial product (bpr unread).
+// *launches is set to the number of kernels started. Returns a cudaError_t
+// (0 on success).
 extern "C" int ergm_fused_ln_mlp(const void* h, int ldh, const void* ln_s, const void* ln_b,
                                  float eps, const void* wfc, const void* bfc,
                                  const void* wpr, const void* bpr, void* act, void* out,
-                                 int dtype, int B, int D, int F, int approximate, int* launches,
-                                 void* stream) {
+                                 int dtype, int B, int D, int F, int approximate, int partial,
+                                 int* launches, void* stream) {
   using namespace ergm_decode;
   *launches = 0;
   if (D % kTcBK || D % kTcBN || F % kTcBK || F % kTcBN)
@@ -96,9 +105,9 @@ extern "C" int ergm_fused_ln_mlp(const void* h, int ldh, const void* ln_s, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(launch_mlp<float>(h, ldh, ln_s, ln_b, eps, wfc, bfc, wpr, bpr, act,
-                                              out, B, D, F, epi, s, launches));
+                                              out, B, D, F, epi, partial != 0, s, launches));
   if (dtype == 1)
     return static_cast<int>(launch_mlp<bf16>(h, ldh, ln_s, ln_b, eps, wfc, bfc, wpr, bpr, act,
-                                             out, B, D, F, epi, s, launches));
+                                             out, B, D, F, epi, partial != 0, s, launches));
   return static_cast<int>(cudaErrorInvalidValue);
 }

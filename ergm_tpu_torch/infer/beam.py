@@ -13,6 +13,10 @@ Scoring follows HF's beam semantics: summed token log-probabilities;
 finished beams (and rows at their logical cap) are frozen by allowing
 only eos at zero added score; the final rank is score /
 gen_len**length_penalty.
+
+Over a mesh (``beam_search_batch(mesh=...)``) each data rank searches its
+rows on its model rank's heads, as ``generate_batch`` decodes them; the
+beam reorder stays within a rank's rows and heads.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ import numpy as np
 import torch
 
 from ergm_tpu_torch.core.config import ModelConfig
-from ergm_tpu_torch.infer.generate import _DONE_CHECK_EVERY, pack_ragged_batch
+from ergm_tpu_torch.core.mesh import ALL, batch_rows, fill_rows, pad_rows
+from ergm_tpu_torch.infer.generate import _DONE_CHECK_EVERY, gathered_results, pack_ragged_batch
 from ergm_tpu_torch.models import gpt2
+from ergm_tpu_torch.parallel.collectives import agree
 
 _NEG = -1e9
 # the self-attention cache fields, [L, B*W, H, T, ...]: the ones a beam
@@ -115,9 +121,10 @@ def beam_start(
     caption_ids: Optional[torch.Tensor] = None,
     caption_mask: Optional[torch.Tensor] = None,
     logical_cap: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[BeamState, BeamRows]:
     """The prefill and the first expansion: returns the loop's state and
-    what its steps share."""
+    what its steps share. ``mesh``: this rank's rows, ``params`` its shard."""
     if (input_len is None) == (prompt_mask is None):
         raise ValueError("pass exactly one of input_len / prompt_mask")
     if logical_cap is None:
@@ -138,11 +145,12 @@ def beam_start(
     prompt_pos = torch.clamp_min(torch.cumsum(prompt_mask, dim=-1) - 1, 0).long()
     row_len = prompt_mask.sum(dim=-1).long()
 
-    cache = gpt2.init_kv_cache(config, B, max_len, caption_len=caption_len, device=device)
+    cache = gpt2.init_kv_cache(config, B, max_len, caption_len=caption_len, device=device,
+                               mesh=mesh)
     out = gpt2.forward(params, config, input_ids, token_type_ids=token_type_ids,
                        position_ids=prompt_pos, attention_mask=mask, imgs=imgs, auds=auds,
                        caption_ids=caption_ids, encoder_attention_mask=caption_mask,
-                       cache=cache, prefix_prefill=True, compute_logits="last")
+                       cache=cache, prefix_prefill=True, compute_logits="last", mesh=mesh)
     logp0 = torch.log_softmax(out.logits[:, -1].float(), dim=-1)  # [B, V]
     V = logp0.shape[-1]
 
@@ -179,7 +187,7 @@ def beam_start(
 
 @torch.inference_mode()
 def beam_step(params: gpt2.GPT2, config: ModelConfig, s: BeamState, rows: BeamRows,
-              sp2_id: int) -> BeamState:
+              sp2_id: int, mesh=None) -> BeamState:
     """One step of every beam: a single-token forward, the top W of each
     row's W*V candidates, and the hypotheses reordered."""
     B, W = s.scores.shape
@@ -189,7 +197,7 @@ def beam_step(params: gpt2.GPT2, config: ModelConfig, s: BeamState, rows: BeamRo
     step_pos = torch.clamp_max(rows.row_len_bw + (cur - 1 - Lp), config.n_positions - 1)
     o = gpt2.forward(params, config, s.last.reshape(B * W, 1), token_type_ids=step_tt,
                      position_ids=step_pos[:, None], attention_mask=s.mask,
-                     encoder_attention_mask=rows.cap_mask, cache=s.cache)
+                     encoder_attention_mask=rows.cap_mask, cache=s.cache, mesh=mesh)
     logp = torch.log_softmax(o.logits[:, -1].float(), dim=-1).view(B, W, V)
     # finished beams and rows at their logical cap may only emit eos, at
     # no added cost
@@ -242,24 +250,28 @@ def beam_search(
     caption_ids: Optional[torch.Tensor] = None,
     caption_mask: Optional[torch.Tensor] = None,
     logical_cap: Optional[int] = None,
+    mesh=None,
 ) -> BeamOutput:
     """Uniform mode: pass ``input_len``. Ragged mode: pass a left-pad
     ``prompt_mask`` (``generate``'s layout). ``max_len`` sizes the
     physical buffer; ``logical_cap`` (default ``max_len``) bounds each
-    row's logical length."""
+    row's logical length. ``mesh``: this rank's rows, ``params`` its
+    shard; every rank of the mesh leaves the loop at one step."""
     s, rows = beam_start(params, config, input_ids, input_len, num_beams=num_beams,
                          max_len=max_len, eos_id=eos_id, token_type_ids=token_type_ids,
                          prompt_mask=prompt_mask, imgs=imgs, auds=auds,
                          caption_ids=caption_ids, caption_mask=caption_mask,
-                         logical_cap=logical_cap)
+                         logical_cap=logical_cap, mesh=mesh)
+    group = None if mesh is None else mesh.group(ALL)
     while s.cur < max_len:
         # a step after every beam is finished keeps every hypothesis where
         # it is (each beam's only candidate is eos at no cost, and the
         # scores are in descending order), so the flag is read every
         # _DONE_CHECK_EVERY steps only
-        if (s.cur - rows.Lp - 1) % _DONE_CHECK_EVERY == 0 and bool(s.finished.all()):
+        if (s.cur - rows.Lp - 1) % _DONE_CHECK_EVERY == 0 and agree(
+                bool(s.finished.all()), group, s.tokens.device):
             break
-        s = beam_step(params, config, s, rows, sp2_id)
+        s = beam_step(params, config, s, rows, sp2_id, mesh)
     return beam_finish(s, rows, length_penalty)
 
 
@@ -280,11 +292,14 @@ def beam_search_batch(
     length_penalty: float = 1.0,
     prompt_bucket: int = 64,
     caption_bucket: int = 32,
+    mesh=None,
 ) -> Tuple[List[List[int]], np.ndarray]:
     """Batched beam decode over ragged prompts on the device of
     ``params`` (the beam counterpart of ``generate_batch``): one
     ``beam_search`` for the whole left-padded batch; returns each row's
-    continuation ids (eos included when emitted) and emotion logits."""
+    continuation ids (eos included when emitted) and emotion logits.
+    ``mesh``: ``generate_batch``'s placement (fill rows, each data rank's
+    rows, the results gathered; every rank returns the whole list)."""
     ids, mask, tts, cap_ids, cap_mask, buffer_len = pack_ragged_batch(
         prompts, eos_id=eos_id, sp2_id=sp2_id, n_positions=config.n_positions,
         max_len=max_len, token_types=token_types, captions=captions,
@@ -296,14 +311,17 @@ def beam_search_batch(
     def dev(x, dtype=None):
         return None if x is None else torch.as_tensor(x, dtype=dtype, device=device)
 
+    if mesh is not None:
+        n = fill_rows(B, mesh)
+        lo, hi = batch_rows(n, mesh)
+        ids, mask, tts, cap_ids, cap_mask, imgs, auds = (
+            None if x is None else pad_rows(x, n)[lo:hi]
+            for x in (ids, mask, tts, cap_ids, cap_mask, imgs, auds))
     out = beam_search(
         params, config, dev(ids, torch.long), prompt_mask=dev(mask), num_beams=num_beams,
         max_len=buffer_len, logical_cap=min(max_len, config.n_positions), eos_id=eos_id,
         sp2_id=sp2_id, length_penalty=length_penalty,
         token_type_ids=dev(tts, torch.long) if token_types is not None else None,
         imgs=dev(imgs), auds=dev(auds), caption_ids=dev(cap_ids, torch.long),
-        caption_mask=dev(cap_mask))
-    tokens = out.tokens.cpu().numpy()
-    lengths = out.lengths.cpu().numpy()
-    return ([tokens[b, Lp:lengths[b]].tolist() for b in range(B)],
-            out.emotion_logits.float().cpu().numpy())
+        caption_mask=dev(cap_mask), mesh=mesh)
+    return gathered_results(out, Lp, B, mesh)

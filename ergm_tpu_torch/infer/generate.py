@@ -7,6 +7,14 @@ prompts are LEFT-padded so every row's last real token sits at the same
 slot; logical positions ride in explicit position ids and pads stay
 masked out of attention. Generated tokens carry the sp2 token type;
 rows stop at eos or at their logical cap.
+
+Over a mesh (``generate_batch(mesh=...)``) one process drives one
+device: the batch is padded to a multiple of the data axis, each data
+rank decodes its rows on its model rank's heads (``gpt2.forward(mesh=)``),
+and the tokens, lengths and emotion logits are all-gathered over the data
+axis, so every rank returns the whole batch. Sampled rows draw the
+one-process run's noise: each rank draws the global batch's Gumbel noise
+from its generator (seeded alike on every rank) and keeps its rows.
 """
 
 from __future__ import annotations
@@ -18,7 +26,9 @@ import numpy as np
 import torch
 
 from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.core.mesh import ALL, DATA_AXIS, batch_rows, fill_rows, pad_rows
 from ergm_tpu_torch.models import gpt2
+from ergm_tpu_torch.parallel.collectives import agree, all_gather_rows
 
 # The loop reads the device's all-rows-done flag only every this many
 # steps: a step after every row is done writes only eos where the
@@ -32,6 +42,19 @@ def _gumbel(shape, generator: Optional[torch.Generator], device) -> torch.Tensor
     ``jax.random.gumbel``)."""
     u = torch.rand(shape, generator=generator, device=device)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def row_noise(k: int, generator: Optional[torch.Generator], device,
+              rows: Tuple[int, int, int]) -> torch.Tensor:
+    """Gumbel noise for rows [lo, hi) of a batch of n real rows, ``rows =
+    (lo, hi, n)``: the [n, k] draw of one process, zero for fill rows past
+    n, so that every rank of a mesh advances its generator alike and each
+    row meets the noise it meets in one process."""
+    lo, hi, n = rows
+    g = _gumbel((n, k), generator, device)
+    if hi > n:
+        g = torch.cat([g, g.new_zeros((hi - n, k))])
+    return g[lo:hi]
 
 
 def top_p_filter(probs: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -101,12 +124,20 @@ def generate(
     temperature: float = 1.0,
     logical_cap: Optional[int] = None,
     sample_top_k: int = 64,  # 0 => exact full-sort nucleus (parity mode)
+    mesh=None,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> GenerateOutput:
     """Uniform mode: pass ``input_len`` (all rows share a true length).
     Batched mode: pass a left-pad ``prompt_mask``. ``max_len`` sizes the
     physical buffer; ``logical_cap`` (default max_len) bounds each row's
     logical length. ``generator`` (on the tensors' device) drives the
-    sampling; None seeds a fresh one with 0."""
+    sampling; None seeds a fresh one with 0.
+
+    ``mesh``: the inputs are this rank's rows and ``params`` this rank's
+    shard; ``rows = (lo, hi, n)`` places them in a batch of n real rows
+    (default: ``batch_rows`` of every rank's rows, all real), whose noise
+    the sampler draws (``row_noise``). The output is this rank's rows.
+    Every rank of the mesh leaves the loop at one step (``agree``)."""
     device = input_ids.device
     if logical_cap is None:
         logical_cap = max_len
@@ -121,9 +152,16 @@ def generate(
         prompt_mask = torch.ones(input_ids.shape, dtype=torch.float32, device=device)
     B, Lp = input_ids.shape
     prompt_mask = prompt_mask.float()
+    if mesh is not None and rows is None:
+        n = B * mesh.axis_size(DATA_AXIS)
+        rows = (*batch_rows(n, mesh), n)
+    # every rank of the mesh leaves the loop at one step: one process's
+    # step, so that sampling draws its noise in every step, across calls too
+    everyone = None if mesh is None else mesh.group(ALL)
 
     caption_len = caption_ids.shape[1] if caption_ids is not None else 0
-    cache = gpt2.init_kv_cache(config, B, max_len, caption_len=caption_len, device=device)
+    cache = gpt2.init_kv_cache(config, B, max_len, caption_len=caption_len, device=device,
+                               mesh=mesh)
     # full-width mask over the physical buffer; the tail starts masked
     mask = torch.zeros((B, max_len), dtype=torch.float32, device=device)
     mask[:, :Lp] = prompt_mask
@@ -134,7 +172,10 @@ def generate(
     out = gpt2.forward(params, config, input_ids, token_type_ids=token_type_ids,
                        position_ids=prompt_pos, attention_mask=mask, imgs=imgs, auds=auds,
                        caption_ids=caption_ids, encoder_attention_mask=caption_mask,
-                       cache=cache, prefix_prefill=True, compute_logits="last")
+                       cache=cache, prefix_prefill=True, compute_logits="last", mesh=mesh)
+
+    def noise(k):
+        return None if rows is None else row_noise(k, generator, device, rows)
 
     def sample(logits):
         if greedy:
@@ -142,9 +183,12 @@ def generate(
         if temperature != 1.0:
             logits = logits / max(temperature, 1e-6)
         if sample_top_k:
-            return sample_top_p(logits, generator, top_p, top_k=sample_top_k)
+            return sample_top_p(logits, generator, top_p, top_k=sample_top_k,
+                                gumbel=noise(min(sample_top_k, logits.shape[-1])))
         filtered = top_p_filter(torch.softmax(logits.float(), dim=-1), top_p)
-        g = _gumbel(filtered.shape, generator, device)
+        g = noise(filtered.shape[-1])
+        if g is None:
+            g = _gumbel(filtered.shape, generator, device)
         return torch.argmax(torch.log(torch.clamp_min(filtered, 1e-20)) + g, dim=-1)
 
     first = sample(out.logits[:, -1, :])
@@ -160,12 +204,14 @@ def generate(
     last = first[:, None]
     step_tt = torch.full((B, 1), sp2_id, dtype=torch.long, device=device)
     while cur < max_len:
-        if (cur - Lp - 1) % _DONE_CHECK_EVERY == 0 and bool(done.all()):
+        if (cur - Lp - 1) % _DONE_CHECK_EVERY == 0 and agree(bool(done.all()), everyone,
+                                                             device):
             break
         # `last` sits at physical slot cur-1 -> logical row_len + (cur-1-Lp)
         step_pos = torch.clamp_max(row_len + (cur - 1 - Lp), config.n_positions - 1)[:, None]
         o = gpt2.forward(params, config, last, token_type_ids=step_tt, position_ids=step_pos,
-                         attention_mask=mask, encoder_attention_mask=caption_mask, cache=cache)
+                         attention_mask=mask, encoder_attention_mask=caption_mask, cache=cache,
+                         mesh=mesh)
         nxt = sample(o.logits[:, -1, :])
         at_cap = (row_len + (cur - Lp)) >= logical_cap
         nxt = torch.where(done | at_cap, eos_id, nxt)
@@ -254,6 +300,7 @@ def generate_batch(
     spec_gamma: int = 4,
     spec_mode: str = "auto",
     spec_ngram: int = 3,
+    mesh=None,
 ) -> Tuple[List[List[int]], np.ndarray]:
     """Batched decode over ragged prompts on the device of ``params``.
 
@@ -272,7 +319,16 @@ def generate_batch(
     plain route's, and sampling there is full-vocab nucleus, so
     ``sample_top_k`` does not apply). A larger batch in a speculative
     mode warns and takes the plain route: one ``generate`` for the whole
-    batch."""
+    batch.
+
+    ``mesh`` (``core/mesh.py``; every rank calls this with the same
+    arguments, ``params`` its shard, ``generator`` seeded alike): the
+    batch is padded to a multiple of the data axis by repeating its last
+    row, each data rank decodes its contiguous rows, and the results are
+    all-gathered over the data axis; the fill rows are dropped and every
+    rank returns the whole list. A request that would take a speculative
+    route takes the plain one with JAX's warning: speculative decoding is
+    a B=1 single-device path."""
     ids, mask, tts, cap_ids, cap_mask, buffer_len = pack_ragged_batch(
         prompts, eos_id=eos_id, sp2_id=sp2_id, n_positions=config.n_positions,
         max_len=max_len, token_types=token_types, captions=captions,
@@ -290,12 +346,12 @@ def generate_batch(
         # costs nothing to draft; sampled and batched requests stay plain
         if draft_layers:
             spec_mode = "draft"
-        elif greedy and B == 1:
+        elif greedy and B == 1 and mesh is None:
             spec_mode = "ngram"
         else:
             spec_mode = "none"
     if spec_mode != "none" and (draft_layers or spec_mode == "ngram"):
-        if B == 1:
+        if B == 1 and mesh is None:
             from ergm_tpu_torch.infer import speculative  # it imports this module
 
             out = speculative.speculative_generate(
@@ -310,16 +366,33 @@ def generate_batch(
             return ([out.tokens[0, Lp:length].tolist()],
                     out.emotion_logits.float().cpu().numpy())
         warnings.warn(f"speculative decode (draft_layers={draft_layers}, spec_mode={spec_mode}) "
-                      f"is a B=1 path; this call has B={B}: falling back to standard batched "
-                      f"decode")
+                      f"is a B=1 single-device path; this call has B={B}"
+                      f"{' and a mesh' if mesh is not None else ''}: falling back to standard "
+                      f"batched decode")
+    rows = None
+    if mesh is not None:
+        n = fill_rows(B, mesh)
+        lo, hi = batch_rows(n, mesh)
+        rows = (lo, hi, B)
+        ids, mask, tts, cap_ids, cap_mask, imgs, auds = (
+            None if x is None else pad_rows(x, n)[lo:hi]
+            for x in (ids, mask, tts, cap_ids, cap_mask, imgs, auds))
     out = generate(
         params, config, dev(ids, torch.long), prompt_mask=dev(mask), max_len=buffer_len,
         eos_id=eos_id, sp2_id=sp2_id, top_p=top_p, generator=generator,
         token_type_ids=dev(tts, torch.long) if token_types is not None else None,
         imgs=dev(imgs), auds=dev(auds), caption_ids=dev(cap_ids, torch.long),
         caption_mask=dev(cap_mask), greedy=greedy,
-        logical_cap=cap, sample_top_k=sample_top_k)
-    tokens = out.tokens.cpu().numpy()
-    lengths = out.lengths.cpu().numpy()
-    results = [tokens[b, Lp:lengths[b]].tolist() for b in range(B)]
-    return results, out.emotion_logits.float().cpu().numpy()
+        logical_cap=cap, sample_top_k=sample_top_k, mesh=mesh, rows=rows)
+    return gathered_results(out, Lp, B, mesh)
+
+
+def gathered_results(out, Lp: int, B: int, mesh) -> Tuple[List[List[int]], np.ndarray]:
+    """Each of the first ``B`` rows' continuation (slots Lp to its length)
+    and emotion logits; over a mesh every data rank's rows are gathered
+    first."""
+    group = None if mesh is None else mesh.group(DATA_AXIS)
+    tokens = all_gather_rows(out.tokens, group).cpu().numpy()
+    lengths = all_gather_rows(out.lengths, group).cpu().numpy()
+    emo = all_gather_rows(out.emotion_logits.float(), group).cpu().numpy()
+    return [tokens[b, Lp:lengths[b]].tolist() for b in range(B)], emo[:B]

@@ -38,6 +38,13 @@ reply queue through ``Request.stream_cb``, which the server calls on the
 driver thread inside ``step()``. The tokenizer is any object with
 ``encode(text) -> ids`` and ``decode(ids) -> text``.
 
+Over a mesh (``ContinuousServer(mesh=...)``) the front end listens on
+rank 0 only; its driver's steps and flushes carry the submissions and
+cancellations to the other ranks, which run ``srv.follow()`` until the
+driver sends the stop (on ``close``, or when it fails). While idle the
+driver sends ``srv.heartbeat()``, so the followers never wait in a
+collective for as long as the process group's timeout.
+
 Start it from Python::
 
     srv = ContinuousServer(params, cfg, slots=16, eos_id=..., sp2_id=...)
@@ -296,13 +303,18 @@ class ServerFrontend:
                     self._deliver(self.srv.step())
                 else:
                     # drain a pipelined in-flight block, then idle
-                    self._deliver(self.srv.flush())
+                    if self.srv.in_flight():
+                        self._deliver(self.srv.flush())
+                    self.srv.heartbeat()
                     time.sleep(IDLE_SLEEP_S)
         except Exception as e:  # noqa: BLE001 — supervisor boundary
             # without this every blocked client would hang forever on a
             # dead driver while /health kept answering 200
             self._fail_all(f"serving loop died: {type(e).__name__}: {e}")
             raise
+        finally:
+            # the thread that issued the mesh's collectives ends its followers
+            self.srv.stop_followers()
 
     # -- lifecycle ----------------------------------------------------------
 

@@ -22,6 +22,12 @@ Sampling draws from one ``torch.Generator`` on the parameters' device,
 seeded with ``seed`` and advancing across batches; JAX splits a key per
 batch instead, so sampled text differs from JAX's (greedy text does not).
 
+Over a mesh every rank runs this with the same arguments: the eval step
+takes each data rank's rows of a batch and returns the global batch's
+metrics, the decode goes through ``generate_batch(mesh=)`` /
+``beam_search_batch(mesh=)``, and every rank returns the same results
+(the caller writes them on rank 0).
+
 Returns (hypotheses, references, true_labels, losses, pred_labels,
 contexts, loss_tokens); text decoding uses the provided tokenizer, or a
 space-joined-id fallback for synthetic corpora.
@@ -96,18 +102,15 @@ def run_test(
     ``sampler``: "full_sort" (default: full-vocab sort, the reference's
     top-p math — the metric-reporting path) or "exact" (exact top-64
     nucleus). JAX's "approx" raises: the port uses the exact top-k.
-    ``mesh`` other than None raises: inference over several devices is not
-    ported yet (ROADMAP.md queue 1 item 8, the inference half)."""
+    ``mesh``: the eval step and the decode over a mesh (``params`` this
+    rank's shard, ``core.mesh.shard_params``)."""
     if sampler == "approx":
         raise ValueError("sampler='approx' (approximate top-k) is not ported: the port uses "
                          "the exact top-k; pass sampler='exact' or 'full_sort'")
     if sampler not in SAMPLE_TOP_K:
         raise ValueError(f"unknown sampler {sampler!r}")
-    if mesh is not None:
-        raise NotImplementedError("run_test(mesh=...) is not ported yet: inference runs on one "
-                                  "card (ROADMAP.md queue 1 item 8, the inference half)")
     device = next(params.parameters()).device
-    eval_step = make_eval_step(config)
+    eval_step = make_eval_step(config, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(seed)
 
     hyps: List[str] = []
@@ -119,7 +122,7 @@ def run_test(
     contexts: List[str] = []
 
     for batch in batches(dataset, batch_size, eos_id, max_len=max_len):
-        metrics = eval_step(params, batch_to_device(batch, device))
+        metrics = eval_step(params, batch_to_device(batch, device, mesh=mesh))
         losses.append(float(metrics["lm_loss"]))
         loss_tokens.append(float(metrics["lm_tokens"]))
 
@@ -156,14 +159,14 @@ def run_test(
             outs, emo_logits = beam_search_batch(
                 params, config, prompts, num_beams=num_beams, max_len=max_len, eos_id=eos_id,
                 sp2_id=sp2_id, token_types=tts, captions=cap_arg,
-                max_new_tokens=max_new_tokens, **feats)
+                max_new_tokens=max_new_tokens, mesh=mesh, **feats)
         else:
             outs, emo_logits = generate_batch(
                 params, config, prompts, token_types=tts, captions=cap_arg, max_len=max_len,
                 eos_id=eos_id, sp2_id=sp2_id, top_p=top_p, generator=generator,
                 max_new_tokens=max_new_tokens, draft_layers=draft_layers,
                 spec_gamma=spec_gamma, spec_mode=spec_mode, spec_ngram=spec_ngram,
-                sample_top_k=SAMPLE_TOP_K[sampler], **feats)
+                sample_top_k=SAMPLE_TOP_K[sampler], mesh=mesh, **feats)
         hyps.extend(_decode(tokenizer, o) for o in outs)
         pred_labels.extend(int(p) for p in np.argmax(emo_logits, axis=-1))
 

@@ -57,8 +57,21 @@ draws its first tokens from ``fold_seed(lead request's seed, admission
 counter)`` (an extension from the sum of its rows' seeds); sampled
 streams depend on the schedule.
 
-Not ported yet: the slot-axis mesh (``ROADMAP.md`` queue 1 item 8, the
-inference half of multi-device work).
+**The slot axis over a mesh** (``mesh=``, JAX's ``_state_shardings``):
+one process drives one device, every rank holds ``slots / dp`` of every
+per-slot device tensor (each pool's contiguous share of its slots: the
+caches, with this model rank's heads under a model axis, the cursors,
+``last``, ``cap_mask``, the per-row sampling state, the first tokens and
+logprobs, the emotion rows and the token buffer), and the host schedule
+runs in lockstep: only rank 0 takes ``submit``/``cancel``/``reset`` from
+outside, and at the top of each ``step``/``flush`` it broadcasts them
+with the action; every rank then runs the same deterministic scheduler
+over the whole slot table (no decision reads the wall clock), prefills
+only the admission rows whose slots it owns, and all-gathers each
+block's per-slot results over the data axis before its harvest, so
+every rank's bookkeeping stays identical. The other ranks follow with
+``run_until_drained`` (until rank 0's ends) or ``follow`` (until
+``stop_followers``). Sampled rows draw the noise of one process's rows.
 """
 
 from __future__ import annotations
@@ -71,12 +84,15 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.core.mesh import DATA_AXIS
 from ergm_tpu_torch.core.rng import fold_seed
-from ergm_tpu_torch.infer.generate import sample_top_p
+from ergm_tpu_torch.infer.generate import _gumbel, sample_top_p
 from ergm_tpu_torch.models import gpt2
+from ergm_tpu_torch.parallel.collectives import HEARTBEAT_S, all_gather_rows
 
 @dataclass
 class Request:
@@ -224,7 +240,8 @@ class ContinuousServer:
         rid = srv.submit(Request(prompt_ids=[...], max_new_tokens=32))
         results = srv.run_until_drained()   # or step() incrementally
 
-    The server runs on the device of ``params``."""
+    The server runs on the device of ``params``; ``mesh``: over a mesh,
+    ``params`` this rank's shard (see the module docstring)."""
 
     # every admission prefill has GROUP_CAP rows (pad rows cost one wasted
     # prefill row each), so K1's B >= 64 gate holds
@@ -242,9 +259,16 @@ class ContinuousServer:
                  long_threshold: Optional[int] = None, adaptive_block: bool = True,
                  admit_policy: str = "fifo"):
         c = config
-        if mesh is not None:
-            raise NotImplementedError("the slot-axis mesh is not ported to the PyTorch server yet "
-                                      "(ROADMAP.md queue 1 item 8, the inference half)")
+        self.mesh = mesh
+        self.dp = 1 if mesh is None else mesh.axis_size(DATA_AXIS)
+        self.dr = 0 if mesh is None else mesh.index(DATA_AXIS)
+        self._data_group = None if mesh is None else mesh.group(DATA_AXIS)
+        # lockstep over a world: rank 0's submissions, cancellations and
+        # resets since the last broadcast, in order
+        self._shared = mesh is not None and dist.is_available() and dist.is_initialized()
+        self.primary = not self._shared or dist.get_rank() == 0
+        self._outbox: List[tuple] = []
+        self._synced_at = time.monotonic()
         self.params = params
         self.device = next(params.parameters()).device
         self.cfg = c
@@ -295,6 +319,23 @@ class ContinuousServer:
         else:
             self.long_threshold = None
             self.groups = ((0, slots),)
+        dp = self.dp
+        if dp > 1:  # JAX's rules (ergm_tpu/infer/server.py:597-627)
+            if slots % dp:
+                raise ValueError(f"slots={slots} must be divisible by the mesh data axis ({dp}) "
+                                 f"to shard the serving batch over it; pick divisible slots or "
+                                 f"a smaller data axis")
+            if any(size % dp for _off, size in self.groups):
+                raise ValueError(f"each slot pool must be divisible by the mesh data axis ({dp}); "
+                                 f"got pool sizes {[size for _o, size in self.groups]}")
+        # this rank's share of each pool, [off / dp, (off + size) / dp) of its
+        # per-slot tensors, and the global slot of each of every rank's rows
+        self.lgroups = tuple((off // dp, size // dp) for off, size in self.groups)
+        self.S_local = slots // dp
+        self._glob = np.zeros((dp, self.S_local), np.int64)
+        for (off, size), (loff, lsize) in zip(self.groups, self.lgroups):
+            for r in range(dp):
+                self._glob[r, loff:loff + lsize] = off + r * lsize + np.arange(lsize)
         # kv_cache_dtype="auto" with tiers: the short pool in the compute
         # dtype, the long pool int8 staged; an explicit dtype holds for all.
         # Under spec_gamma "auto" is the compute dtype on every pool.
@@ -379,6 +420,17 @@ class ContinuousServer:
         off, size = self.groups[g]
         return range(off, off + size)
 
+    def _owner(self, i: int) -> int:
+        """The data rank that holds slot ``i``."""
+        off, size = self.groups[self._slot_group(i)]
+        return (i - off) // (size // self.dp)
+
+    def _local(self, i: int) -> int:
+        """Slot ``i``'s row in its owner's per-slot tensors."""
+        g = self._slot_group(i)
+        off, size = self.groups[g]
+        return self.lgroups[g][0] + (i - off) % (size // self.dp)
+
     def _capacity_need(self, g: int) -> int:
         """Capacity pool ``g`` needs this block: its longest active row's
         cursor (host mirror) plus one block of writes (a speculative block
@@ -423,9 +475,9 @@ class ContinuousServer:
         t0 = self._phys_for(self.prompt_bucket + self._per_block_writes() + 1)
         self.Tphys = [t0 for _ in self.groups]
         self.caches = [gpt2.init_kv_cache(self.gcfgs[g], size, t0, caption_len=self.caption_len,
-                                          device=dev, per_row_index=True)
-                       for g, (_off, size) in enumerate(self.groups)]
-        S = self.S
+                                          device=dev, per_row_index=True, mesh=self.mesh)
+                       for g, (_off, size) in enumerate(self.lgroups)]
+        S = self.S_local
         self.last = torch.full((S, 1), self.eos_id, dtype=torch.long, device=dev)
         self.cap_mask = torch.zeros((S, max(self.caption_len, 1)), device=dev)
         # the decode chain's sampler stream
@@ -451,8 +503,73 @@ class ContinuousServer:
 
     def reset(self, seed: int = 0) -> None:
         """Drop all state (queue, results, slots, device buffers): a warm
-        restart, keeping the built kernels."""
+        restart, keeping the built kernels. Over a mesh rank 0's reset
+        reaches the other ranks with its next action."""
         self._init_state(seed)
+        if self._shared and self.primary:
+            self._outbox.append(("reset", seed))
+
+    # -- lockstep over a mesh --------------------------------------------------
+
+    def _sync(self, action: str = "") -> str:
+        """Over a mesh: rank 0 broadcasts its queued operations and the
+        ``action`` the ranks take next ("step", "flush", "done" at the end
+        of its ``run_until_drained``, "idle" from ``heartbeat``, "stop");
+        the others replay the operations in order and return the action.
+        Without a world it returns ``action``."""
+        if not self._shared:
+            return action
+        self._synced_at = time.monotonic()
+        box = [(self._outbox, action) if self.primary else None]
+        dist.broadcast_object_list(box, src=0)
+        ops, action = box[0]
+        self._outbox = []
+        if not self.primary:
+            for op, arg in ops:
+                if op == "reset":
+                    self._init_state(arg)
+                elif op == "submit":
+                    self.queue.append(arg)
+                    self._next_id = max(self._next_id, arg[0] + 1)
+                else:
+                    self._cancel(arg)
+        return action
+
+    def _follow_until(self, ends: tuple) -> str:
+        """A follower's loop: carry out rank 0's actions until one in ``ends``."""
+        while True:
+            action = self._sync()
+            if action in ends:
+                return action
+            if action == "step":
+                self._step()
+            elif action == "flush":
+                self._flush()
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0 over a mesh: step, flush and
+        replay rank 0's operations in lockstep until rank 0 calls
+        ``stop_followers``."""
+        if self.primary:
+            raise RuntimeError("follow() runs on the ranks other than 0")
+        self._follow_until(("stop",))
+
+    def heartbeat(self) -> None:
+        """Rank 0 while it has nothing to step: once ``HEARTBEAT_S`` has
+        passed since its last broadcast, an "idle" action that carries its
+        queued operations and that the followers answer with nothing, so
+        that no follower waits in a collective long enough to reach the
+        process group's timeout. The clock decides only when operations
+        travel: every rank applies them before its next step. A no-op
+        without a world."""
+        if self._shared and self.primary and time.monotonic() - self._synced_at >= HEARTBEAT_S:
+            self._sync("idle")
+
+    def stop_followers(self) -> None:
+        """Rank 0: ends the other ranks' ``follow`` (a no-op without a
+        world)."""
+        if self._shared and self.primary:
+            self._sync("stop")
 
     # -- public API ------------------------------------------------------------
 
@@ -470,7 +587,11 @@ class ContinuousServer:
 
     def submit(self, req: Request) -> int:
         """Queue a request; returns its id. The caller's Request is not
-        changed (a normalized copy is queued)."""
+        changed (a normalized copy is queued). Over a mesh only rank 0
+        takes requests."""
+        if not self.primary:
+            raise RuntimeError("over a mesh only rank 0 takes requests; the other ranks follow "
+                               "(run_until_drained or follow)")
         changes: dict = {"stop": _norm_stop(req.stop)}
         if req.temperature <= 0.0:  # temperature 0 is greedy
             if req.temperature < 0.0:
@@ -495,7 +616,11 @@ class ContinuousServer:
                              f"{self.T}); raise cache_len or lower max_new_tokens")
         rid = self._next_id
         self._next_id += 1
-        self.queue.append((rid, req, self.server_step, time.time()))
+        entry = (rid, req, self.server_step, time.time())
+        self.queue.append(entry)
+        if self._shared:  # the callback stays with rank 0
+            self._outbox.append(("submit", (rid, dataclasses.replace(req, stream_cb=None),
+                                            *entry[2:])))
         return rid
 
     def _fit_capacity(self) -> None:
@@ -507,7 +632,6 @@ class ContinuousServer:
                 # hysteresis: shrink only once the need halves
                 self._shrink_cache(g, need)
 
-    @torch.inference_mode()
     def step(self) -> List[Result]:
         """One server iteration: admit into free slots, fit the capacity
         rung, run a decode block, harvest completions. Returns the results
@@ -515,7 +639,25 @@ class ContinuousServer:
 
         With ``pipeline=True`` the block is dispatched FIRST, and the host
         harvests the previous block and stages admissions while it runs;
-        a finished row then decodes one extra block before its slot frees."""
+        a finished row then decodes one extra block before its slot frees.
+
+        Over a mesh rank 0's step is every rank's: the others carry out
+        rank 0's next action instead (its results, or [])."""
+        if not self.primary:
+            return self._follow_one()
+        self._sync("step")
+        return self._step()
+
+    def _follow_one(self) -> List[Result]:
+        """A rank other than 0 carries out rank 0's next action: the
+        results of its step or flush, or []."""
+        action = self._sync()
+        if action == "step":
+            return self._step()
+        return self._flush() if action == "flush" else []
+
+    @torch.inference_mode()
+    def _step(self) -> List[Result]:
         if not self.pipeline:
             self._admit()
             self._advance_chunks(drain=not any(s.active for s in self.slots))
@@ -537,7 +679,14 @@ class ContinuousServer:
         """Abandon a request that is queued, in a chunked admission,
         decoding, or finished with an unread result. A dispatched block
         keeps stepping the row, whose tokens are skipped at harvest. False
-        when the id is unknown."""
+        when the id is unknown. Over a mesh only rank 0 takes it."""
+        if not self.primary:
+            raise RuntimeError("over a mesh only rank 0 cancels requests")
+        if self._shared:
+            self._outbox.append(("cancel", request_id))
+        return self._cancel(request_id)
+
+    def _cancel(self, request_id: int) -> bool:
         for i, (rid, _req, _sub, _wall) in enumerate(self.queue):
             if rid == request_id:
                 del self.queue[i]
@@ -558,15 +707,25 @@ class ContinuousServer:
                 return True
         return self.results.pop(request_id, None) is not None
 
+    def in_flight(self) -> bool:
+        """A dispatched pipelined block awaits its harvest (``flush``)."""
+        return self._inflight is not None
+
     def busy(self) -> bool:
         """Queued requests, chunked admissions in progress (their slots are
         neither active nor queued) or active rows; a pipelined in-flight
         block is harvested by ``flush``."""
         return bool(self.queue or self._chunks or any(s.active for s in self.slots))
 
-    @torch.inference_mode()
     def flush(self) -> List[Result]:
         """Harvest a still-in-flight pipelined block (no-op otherwise)."""
+        if not self.primary:
+            return self._follow_one()
+        self._sync("flush")
+        return self._flush()
+
+    @torch.inference_mode()
+    def _flush(self) -> List[Result]:
         if self._inflight is None:
             return []
         finished = self._harvest(self._inflight)
@@ -574,11 +733,17 @@ class ContinuousServer:
         return finished
 
     def run_until_drained(self, max_iters: int = 10_000) -> Dict[int, Result]:
+        """Step until nothing is queued or decoding. Over a mesh the other
+        ranks follow rank 0's run to its end (and return the same results)."""
+        if not self.primary:
+            self._follow_until(("done", "stop"))
+            return self.results
         for _ in range(max_iters):
             if not self.busy() and self._inflight is None:
                 break
             self.step()
         self.flush()
+        self._sync("done")
         return self.results
 
     # -- admission -------------------------------------------------------------
@@ -601,14 +766,47 @@ class ContinuousServer:
 
     def _admit_group(self, entries: List[tuple], pb: int, g: int = 0) -> None:
         """entries: (slot_idx, rid, req, submit_step, submit_wall), all in
-        pool ``g``. One 64-row prefill, then the join of its real rows."""
+        pool ``g``. One 64-row prefill, then the join of its real rows.
+        Over a data axis each rank prefills the entries whose slots it
+        owns, padded to the same multiple of 8 on every rank and to at
+        least 64 rows over the axis (the kernels' gates read the global
+        batch); a rank that owns none skips the forward."""
         t0 = time.time()
         c, cl = self.gcfgs[g], self.caption_len
-        G = len(entries)
-        gb = self.GROUP_CAP
         reqs = [e[2] for e in entries]
+        owners = [self._owner(e[0]) for e in entries]
+        # (the entry's row in one process's group, the entry) of this rank
+        mine = [(r, e) for r, e in enumerate(entries) if owners[r] == self.dr]
+        G = len(mine)
+        gb = max(-(-self.GROUP_CAP // self.dp),
+                 _bucket(max(owners.count(r) for r in range(self.dp)), 8))
+        self._admit_ctr += 1
+        if G:
+            self._prefill_group(mine, reqs, pb, g, gb)
+        for slot_idx, rid, req, sub, wall in entries:
+            s = self.slots[slot_idx]
+            s.request_id, s.req = rid, req
+            s.submitted_step, s.submitted_wall = sub, wall
+            s.active = True
+            s.admitted_step = self.server_step
+            s.admitted_block = self._block_ctr
+            s.generated, s.lps, s.has_first = [], [], False
+            s.phys_len = len(req.prompt_ids)
+        self._tick("admit", t0)
+
+    def _prefill_group(self, mine: List[tuple], reqs: List[Request], pb: int, g: int,
+                       gb: int) -> None:
+        """The prefill of this rank's entries ``mine`` ((row in the whole
+        group, entry) pairs) at ``gb`` rows, and their join."""
+        c, cl = self.gcfgs[g], self.caption_len
+        G = len(mine)
+        # the noise row of each prefill row: its entry's row in one process's
+        # group (pad rows their own), so that sampled first tokens meet one
+        # process's draws
+        noise_rows = np.minimum(np.arange(gb), self.GROUP_CAP - 1)
+        noise_rows[:G] = [r for r, _e in mine]
         ids = np.full((gb, pb), self.eos_id, np.int64)
-        meta = np.zeros((3, G), np.int64)  # pool-local slot, global slot, length
+        meta = np.zeros((3, G), np.int64)  # the slot's row in the pool's cache, its row, length
         topp = np.full((gb,), 0.95, np.float32)
         temps = np.ones((gb,), np.float32)
         greedy = np.zeros((gb,), bool)
@@ -621,8 +819,7 @@ class ContinuousServer:
         cap_ids = np.full((gb, cl), self.eos_id, np.int64) if any_cap else None
         cap_mask = np.zeros((gb, max(cl, 1)), np.float32)
         lengths = np.zeros((gb,), np.int64)  # pad rows: length 0
-        off = self.groups[g][0]
-        for r, (slot_idx, _rid, req, _sub, _wall) in enumerate(entries):
+        for r, (_row, (slot_idx, _rid, req, _sub, _wall)) in enumerate(mine):
             Lp = len(req.prompt_ids)
             ids[r, pb - Lp:] = req.prompt_ids
             if req.token_type_ids is not None:
@@ -637,9 +834,9 @@ class ContinuousServer:
                 cap_ids[r, :n] = req.caption_ids[:n]
                 cap_mask[r, :n] = 1.0
             lengths[r] = Lp
-            meta[:, r] = (slot_idx - off, slot_idx, Lp)
+            local = self._local(slot_idx)
+            meta[:, r] = (local - self.lgroups[g][0], local, Lp)
             topp[r], temps[r], greedy[r] = req.top_p, req.temperature, bool(req.greedy)
-        self._admit_ctr += 1
 
         put = self._put
         length = put(lengths)
@@ -652,41 +849,35 @@ class ContinuousServer:
             token_type_ids=put(tts) if tts is not None else torch.full(
                 (gb, pb), self.sp2_id, dtype=torch.long, device=self.device),
             position_ids=pos, attention_mask=pmask,
-            cache=gpt2.init_kv_cache(c, gb, pb, caption_len=cl, device=self.device),
+            cache=gpt2.init_kv_cache(c, gb, pb, caption_len=cl, device=self.device,
+                                     mesh=self.mesh),
             imgs=put(img) if img is not None else None,
             auds=put(aud) if aud is not None else None,
             caption_ids=put(cap_ids) if cap_ids is not None else None,
             encoder_attention_mask=cap_mask_d if any_cap else None,
-            prefix_prefill=True, compute_logits="last")
+            prefix_prefill=True, compute_logits="last", mesh=self.mesh)
         logits = out.logits[:, -1, :]
         first = torch.argmax(logits, dim=-1)
         topp_d, temps_d, greedy_d = put(topp), put(temps), put(greedy)
         if not greedy[:G].all():
             gen = torch.Generator(device=self.device).manual_seed(
                 fold_seed(reqs[0].seed, self._admit_ctr))
-            sampled = sample_top_p(logits / temps_d.clamp_min(1e-6)[:, None], gen,
-                                   topp_d[:, None])
+            k = min(64, logits.shape[-1])
+            noise = _gumbel((self.GROUP_CAP, k), gen, self.device)[put(noise_rows)]
+            sampled = sample_top_p(logits / temps_d.clamp_min(1e-6)[:, None], None,
+                                   topp_d[:, None], gumbel=noise)
             first = torch.where(greedy_d, first, sampled)
         self._join(g, out, first, put(meta), pb, G, topp_d[:G], temps_d[:G], greedy_d[:G],
                    cap_mask_d[:G], logits[:G] if any(r.logprobs for r in reqs) else None,
                    ids_d[:G])
-        for slot_idx, rid, req, sub, wall in entries:
-            s = self.slots[slot_idx]
-            s.request_id, s.req = rid, req
-            s.submitted_step, s.submitted_wall = sub, wall
-            s.active = True
-            s.admitted_step = self.server_step
-            s.admitted_block = self._block_ctr
-            s.generated, s.lps, s.has_first = [], [], False
-            s.phys_len = len(req.prompt_ids)
-        self._tick("admit", t0)
 
     def _join(self, g: int, out, first, meta, pb: int, G: int, topp, temps, greedy,
               cap_mask, logits, ids) -> None:
-        """Scatter the group's first ``G`` prefilled rows into their slots:
-        each row's prompt, right-aligned at [pb - len, pb) of the prefill
-        cache, is gathered to [0, len) of its slot; the slot's cursor and
-        per-row state are set. ``logits`` (given when a row asks for
+        """Scatter the group's first ``G`` prefilled rows into their slots
+        (``meta``: each row's row in the pool's cache and in the per-slot
+        tensors, its length): each row's prompt, right-aligned at
+        [pb - len, pb) of the prefill cache, is gathered to [0, len) of its
+        slot; the slot's cursor and per-row state are set. ``logits`` (given when a row asks for
         logprobs) give the first tokens' logprobs; ``ids`` [G, pb], the
         prompts, go to the speculative token buffer."""
         temp, cache = out.cache, self.caches[g]
@@ -740,14 +931,15 @@ class ContinuousServer:
         prefilling (its first token is mid-prompt junk that the next chunk
         replaces); the final one activates it."""
         t0 = time.time()
-        off, Sg = self.groups[g]
+        loff, Sg = self.lgroups[g]
         ids = np.full((Sg, pbd), self.eos_id, np.int64)
         tts = np.full((Sg, pbd), self.sp2_id, np.int64)
         meta = np.zeros((4, Sg), np.int64)  # extends, start, delta length, greedy
         topp = np.full((Sg,), 0.95, np.float32)
         temps = np.ones((Sg,), np.float32)
-        for e in entries:
-            i, d = e["slot"] - off, len(e["ids"])
+        mine = [e for e in entries if self._owner(e["slot"]) == self.dr]
+        for e in mine:
+            i, d = self._local(e["slot"]) - loff, len(e["ids"])
             ids[i, :d] = e["ids"]
             if e["tts"] is not None:
                 tts[i, :d] = e["tts"][:d]
@@ -757,8 +949,11 @@ class ContinuousServer:
         put = self._put
         seed = (None if all(e["req"].greedy for e in entries)
                 else fold_seed(sum(e["req"].seed for e in entries), self._admit_ctr))
-        self._extend(g, put(ids), put(tts), put(meta), put(topp), put(temps), seed,
-                     any(e["req"].logprobs for e in entries))
+        if mine:  # a rank that owns none of the rows skips the forward
+            self._extend(g, put(ids), put(tts), put(meta), put(topp), put(temps), seed,
+                         any(e["req"].logprobs for e in entries))
+        else:
+            self.ext_programs += 1
         for e in entries:
             s = self.slots[e["slot"]]
             s.request_id, s.req = e["rid"], e["req"]
@@ -782,7 +977,7 @@ class ContinuousServer:
         extends flag, start, delta length and greedy flag; sampled rows
         draw from ``fold_seed``'s ``seed``. No host read."""
         c, cl = self.gcfgs[g], self.caption_len
-        off, Sg = self.groups[g]
+        off, Sg = self.lgroups[g]
         pbd = ids_d.shape[1]
         self.ext_programs += 1
         ext, start, dlen, greedy_d = meta_d[0] > 0, meta_d[1], meta_d[2], meta_d[3] > 0
@@ -795,7 +990,7 @@ class ContinuousServer:
             self.params, c, ids_d, token_type_ids=tts_d, position_ids=pos,
             cache=dataclasses.replace(cache, index=vis),
             encoder_attention_mask=self.cap_mask[off:off + Sg] if cl else None,
-            seq_lengths=dlen.clamp(1, pbd), compute_logits=False)
+            seq_lengths=dlen.clamp(1, pbd), compute_logits=False, mesh=self.mesh)
         self.caches[g] = dataclasses.replace(
             out.cache, index=torch.where(ext, (start + dlen).to(orig.dtype), orig))
         # the last hidden row of each ragged delta: lm_head on [Sg, D] only
@@ -805,7 +1000,10 @@ class ContinuousServer:
         first = torch.argmax(logits, dim=-1)
         if seed is not None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            sampled = sample_top_p(logits / temps_d.clamp_min(1e-6)[:, None], gen, topp_d[:, None])
+            # one process's [pool, k] draw; this rank's rows of the pool
+            noise = _gumbel((Sg * self.dp, min(64, logits.shape[-1])), gen, self.device)
+            sampled = sample_top_p(logits / temps_d.clamp_min(1e-6)[:, None], None,
+                                   topp_d[:, None], gumbel=noise[self.dr * Sg:(self.dr + 1) * Sg])
             first = torch.where(greedy_d, first, sampled)
 
         def upd(x, new):  # the pool's rows of a per-slot tensor, where extending
@@ -1033,7 +1231,22 @@ class ContinuousServer:
         """The rows of the pools ``inc`` of a per-slot tensor."""
         if len(inc) == len(self.groups):
             return x
-        return torch.cat([x[self.groups[g][0]:sum(self.groups[g])] for g in inc])
+        return torch.cat([x[self.lgroups[g][0]:sum(self.lgroups[g])] for g in inc])
+
+    def _decode_noise(self, inc: List[int], k: int) -> torch.Tensor:
+        """A decode step's Gumbel noise for this rank's rows of the pools
+        ``inc``: one process's [rows of inc, k] draw from the decode
+        generator, each rank keeping its rows."""
+        full = _gumbel((sum(self.groups[g][1] for g in inc), k), self.gen, self.device)
+        if self.dp == 1:
+            return full
+        parts, row0 = [], 0
+        for g in inc:
+            size = self.groups[g][1]
+            n = size // self.dp
+            parts.append(full[row0 + self.dr * n:row0 + (self.dr + 1) * n])
+            row0 += size
+        return torch.cat(parts)
 
     def _decode(self, all_greedy: bool, actives: tuple, want_lp: bool, K: int):
         """Enqueue K decode steps over the pools with an active row (the
@@ -1044,33 +1257,35 @@ class ContinuousServer:
         staged = [g for g in inc if self.gcfgs[g].kv_cache_dtype in ("int8", "int4")]
         caches = list(self.caches)
         for g in staged:
-            shape = (c.n_layer, self.groups[g][1], c.n_head, K, c.head_dim)
+            shape = (c.n_layer, *caches[g].k.shape[1:3], K, c.head_dim)
             caches[g] = dataclasses.replace(
                 caches[g], sk=torch.zeros(shape, dtype=c.compute_dtype, device=self.device),
                 sv=torch.zeros(shape, dtype=c.compute_dtype, device=self.device))
         if not all_greedy:
             topp, temp = self._rows(self.top_p_row, inc), self._rows(self.temp_row, inc)
             greedy = self._rows(self.greedy_row, inc)
-        toks = torch.empty((K, self.S), dtype=torch.long, device=self.device)
-        lps = torch.zeros((K, self.S), device=self.device) if want_lp else None
+        toks = torch.empty((K, self.S_local), dtype=torch.long, device=self.device)
+        lps = torch.zeros((K, self.S_local), device=self.device) if want_lp else None
         last = self.last
         for i in range(K):
             parts = []
             for g in inc:
-                off, Sg = self.groups[g]
+                off, Sg = self.lgroups[g]
                 pos = torch.clamp_max(caches[g].index, c.n_positions - 1).long()[:, None]
                 out = gpt2.forward(
                     self.params, self.gcfgs[g], last[off:off + Sg],
                     token_type_ids=self._sp2[off:off + Sg], position_ids=pos, cache=caches[g],
                     stage_index=i if g in staged else None,
-                    encoder_attention_mask=self.cap_mask[off:off + Sg] if cl else None)
+                    encoder_attention_mask=self.cap_mask[off:off + Sg] if cl else None,
+                    mesh=self.mesh)
                 parts.append(out.logits[:, -1, :])
                 caches[g] = out.cache
             logits = parts[0] if len(parts) == 1 else torch.cat(parts)
             nxt = torch.argmax(logits, dim=-1)
             if not all_greedy:
-                sampled = sample_top_p(logits / temp.clamp_min(1e-6)[:, None], self.gen,
-                                       topp[:, None])
+                sampled = sample_top_p(logits / temp.clamp_min(1e-6)[:, None], None,
+                                       topp[:, None],
+                                       gumbel=self._decode_noise(inc, min(64, logits.shape[-1])))
                 nxt = torch.where(greedy, nxt, sampled)
             if want_lp:
                 lp = torch.log_softmax(logits.float(), dim=-1).gather(-1, nxt[:, None])[:, 0]
@@ -1081,7 +1296,7 @@ class ContinuousServer:
             else:  # excluded pools keep their pending token
                 full, row0 = last[:, 0].clone(), 0
                 for g in inc:
-                    off, Sg = self.groups[g]
+                    off, Sg = self.lgroups[g]
                     full[off:off + Sg] = nxt[row0:row0 + Sg]
                     if want_lp:
                         lps[i, off:off + Sg] = lp[row0:row0 + Sg]
@@ -1107,13 +1322,13 @@ class ContinuousServer:
         c, cl, dev = self.cfg, self.caption_len, self.device
         M, G, N, T = self.sync_every, self.spec_gamma, self.spec_ngram, self.T
         W = T - N - G  # candidate window starts
-        out_toks = torch.zeros((M, self.S, G + 1), dtype=torch.long, device=dev)
-        out_cnt = torch.zeros((M, self.S), dtype=torch.long, device=dev)
+        out_toks = torch.zeros((M, self.S_local, G + 1), dtype=torch.long, device=dev)
+        out_cnt = torch.zeros((M, self.S_local), dtype=torch.long, device=dev)
         tpos = torch.arange(T, device=dev)[None, :]
         wpos = torch.arange(W, device=dev)[None, :]
         for m in range(M):
             for g in (g for g in range(len(self.groups)) if actives[g]):
-                off, Sg = self.groups[g]
+                off, Sg = self.lgroups[g]
                 cache = self.caches[g]
                 tok = self.tokens[off:off + Sg]
                 last = self.last[off:off + Sg]
@@ -1141,7 +1356,8 @@ class ContinuousServer:
                 out = gpt2.forward(
                     self.params, self.gcfgs[g], torch.cat([last, props], dim=1),
                     token_type_ids=self._sp2[off:off + Sg].expand(Sg, G + 1), position_ids=pos,
-                    cache=cache, encoder_attention_mask=self.cap_mask[off:off + Sg] if cl else None)
+                    cache=cache, encoder_attention_mask=self.cap_mask[off:off + Sg] if cl else None,
+                    mesh=self.mesh)
                 y = torch.argmax(out.logits, dim=-1)  # [Sg, G + 1]
                 match = props == y[:, :G]
                 a = torch.where(match.all(dim=1), G, torch.argmin(match.int(), dim=1))
@@ -1181,7 +1397,8 @@ class ContinuousServer:
         parts += [self.first_tok.float(), self.emo_slot.flatten()]
         if want_lp:
             parts += [lps.flatten(), self.first_lp]
-        packed = torch.cat(parts)
+        # every data rank's rows, rank by rank (``_harvest`` maps them back)
+        packed = all_gather_rows(torch.cat(parts), self._data_group)
         event = None
         if self.device.type == "cuda":
             host = self._host[self._block_ctr % 2][:packed.numel()]
@@ -1209,22 +1426,8 @@ class ContinuousServer:
         t0 = time.time()
         if event is not None:
             event.synchronize()
-        arr = host.numpy()
-        S, E, G1 = self.S, self.cfg.num_emotions, self.spec_gamma + 1
-        if spec:
-            toks_h = arr[:n * S * G1].reshape(n, S, G1).astype(np.int64)
-            cnts_h = arr[n * S * G1:n * S * (G1 + 1)].reshape(n, S).astype(np.int64)
-            o = n * S * (G1 + 1)
-        else:
-            toks_h = arr[:n * S].reshape(n, S).astype(np.int64)
-            o = n * S
-        first_h = arr[o:o + S].astype(np.int64)
-        emo_h = arr[o + S:o + S + S * E].reshape(S, E).copy()
-        lps_h = flp_h = None
-        if want_lp:
-            o += S + S * E
-            lps_h = arr[o:o + n * S].reshape(n, S).copy()
-            flp_h = arr[o + n * S:o + n * S + S].copy()
+        toks_h, cnts_h, first_h, emo_h, lps_h, flp_h = self._unpack(host.numpy(), n, spec,
+                                                                    want_lp)
         t0 = self._tick("block_wait", t0)
         finished = []
         for i, s in enumerate(self.slots):
@@ -1262,6 +1465,42 @@ class ContinuousServer:
                 finished.append(self._finish(i, emo_h[i]))
         self._tick("harvest", t0)
         return finished
+
+    def _unpack(self, arr: np.ndarray, n: int, spec: bool, want_lp: bool) -> tuple:
+        """A block's host copy (each data rank's part in turn) as per-slot
+        arrays over the whole slot table: tokens ([n, S], or [n, S, gamma +
+        1] with the [n, S] counts), first tokens, emotion rows and, with
+        ``want_lp``, the logprobs and first logprobs."""
+        S, E, G1 = self.S_local, self.cfg.num_emotions, self.spec_gamma + 1
+        out = None
+        for r, part in enumerate(arr.reshape(self.dp, -1)):
+            if spec:
+                toks = part[:n * S * G1].reshape(n, S, G1).astype(np.int64)
+                cnts = part[n * S * G1:n * S * (G1 + 1)].reshape(n, S).astype(np.int64)
+                o = n * S * (G1 + 1)
+            else:
+                toks, cnts = part[:n * S].reshape(n, S).astype(np.int64), None
+                o = n * S
+            got = [toks, cnts, part[o:o + S].astype(np.int64),
+                   part[o + S:o + S + S * E].reshape(S, E).copy(), None, None]
+            if want_lp:
+                o += S + S * E
+                got[4] = part[o:o + n * S].reshape(n, S).copy()
+                got[5] = part[o + n * S:o + n * S + S].copy()
+            if self.dp == 1:
+                return tuple(got)
+            if out is None:  # the slot axis is axis 1 of the per-step arrays, 0 of the others
+                out = [None if x is None else np.empty(
+                    (x.shape[0], self.S, *x.shape[2:]) if i in (0, 1, 4) else
+                    (self.S, *x.shape[1:]), x.dtype) for i, x in enumerate(got)]
+            cols = self._glob[r]
+            for i, x in enumerate(got):
+                if x is not None:
+                    if i in (0, 1, 4):
+                        out[i][:, cols] = x
+                    else:
+                        out[i][cols] = x
+        return tuple(out)
 
     def _done(self, s: _Slot) -> bool:
         if not s.generated:

@@ -17,7 +17,9 @@ self-attention through kernel K5 (``ops/block_attention.py``) and the LM
 loss through kernel K6 (``ops/fused_ce.py``) on the card. Over a mesh
 (``forward(mesh=...)``, ``core/mesh.py``) each data rank runs its rows,
 and with a model axis its head groups and MLP columns (Megatron's tensor
-parallelism, ``_Shard``). Inference is deterministic. Batched short prompt prefill routes its self- and
+parallelism, ``_Shard``), in training and in the cached forward of
+inference alike (the cache then holds this rank's rows and heads).
+Inference is deterministic. Batched short prompt prefill routes its self- and
 cross-attention through kernel K1 (``ops/prefill_attention.py``). Single-token decode
 steps route, under JAX's switches (all off by default), through kernel
 K3 for the int8 cross sublayer (``ERGM_CROSS_KERNEL=1``,
@@ -41,7 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.device import resolve
-from ergm_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, head_groups
+from ergm_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, head_groups, local_heads
 from ergm_tpu_torch.core.rng import fold_seed
 from ergm_tpu_torch.ops import (cross_decode, decode_attention, fused_ce, fused_decode,
                                 prefill_attention)
@@ -289,14 +291,18 @@ def layer_norm(x: torch.Tensor, p: LayerNorm, eps: float) -> torch.Tensor:
     return (y * p.scale + p.bias).to(x.dtype)
 
 
+def dense_weight(p: Dense, dtype) -> torch.Tensor:
+    """The [in, out] kernel in ``dtype`` (int8 kernels dequantized)."""
+    if p.kernel_q is not None:
+        return p.kernel_q.to(dtype) * p.kernel_scale.to(dtype)
+    return p.kernel.to(dtype)
+
+
 def dense(x: torch.Tensor, p: Dense) -> torch.Tensor:
     """y = x @ kernel + bias, kernel [in, out], in x's dtype. The product
     accumulates in f32 and the bias joins before the single rounding
     (cuBLAS's addmm epilogue on the GPU). int8 kernels dequantize first."""
-    if p.kernel_q is not None:
-        w = p.kernel_q.to(x.dtype) * p.kernel_scale.to(x.dtype)
-    else:
-        w = p.kernel.to(x.dtype)
+    w = dense_weight(p, x.dtype)
     y = torch.addmm(p.bias.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
     return y.view(*x.shape[:-1], w.shape[1])
 
@@ -363,33 +369,37 @@ class KVCache:
 
 def init_kv_cache(config: ModelConfig, batch: int, max_len: int,
                   caption_len: int = 0, device="cuda",
-                  per_row_index: bool = False) -> KVCache:
+                  per_row_index: bool = False, mesh=None) -> KVCache:
     """A zeroed cache on ``device`` (the card unless the caller asks for
-    the CPU); ``per_row_index`` gives it a [batch] int32 cursor tensor."""
+    the CPU); ``per_row_index`` gives it a [batch] int32 cursor tensor.
+    Over a ``mesh`` ``batch`` is this rank's rows and the cache holds this
+    model rank's heads (``core.mesh.local_heads``)."""
     c = config
     device = resolve(device)
     if c.kv_cache_dtype not in ("auto", "int8", "int4"):
         raise ValueError(f"unknown kv_cache_dtype {c.kv_cache_dtype!r}")
+    h0, h1 = local_heads(c.n_head, mesh)
+    H = h1 - h0
     quant = c.kv_cache_dtype != "auto"
     dm = c.head_dim // 2 if c.kv_cache_dtype == "int4" else c.head_dim
-    shape = (c.n_layer, batch, c.n_head, max_len, dm)
+    shape = (c.n_layer, batch, H, max_len, dm)
     dt = torch.int8 if quant else c.compute_dtype
     cache = KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                     v=torch.zeros(shape, dtype=dt, device=device))
     if per_row_index:
         cache.index = torch.zeros((batch,), dtype=torch.int32, device=device)
     if quant:
-        sshape = (c.n_layer, batch, c.n_head, max_len, 1)
+        sshape = (c.n_layer, batch, H, max_len, 1)
         cache.k_scale = torch.zeros(sshape, dtype=torch.bfloat16, device=device)
         cache.v_scale = torch.zeros(sshape, dtype=torch.bfloat16, device=device)
     if c.use_cross_attention and caption_len > 0:
         cquant = c.cross_kv_dtype == "int8"
-        cshape = (c.n_layer, batch, caption_len, c.n_head * c.head_dim)
+        cshape = (c.n_layer, batch, caption_len, H * c.head_dim)
         cdt = torch.int8 if cquant else c.compute_dtype
         cache.ck = torch.zeros(cshape, dtype=cdt, device=device)
         cache.cv = torch.zeros(cshape, dtype=cdt, device=device)
         if cquant:
-            csshape = (c.n_layer, batch, caption_len, c.n_head)
+            csshape = (c.n_layer, batch, caption_len, H)
             cache.ck_scale = torch.zeros(csshape, dtype=torch.float32, device=device)
             cache.cv_scale = torch.zeros(csshape, dtype=torch.float32, device=device)
     return cache
@@ -546,7 +556,11 @@ class _Shard:
     - The per-site masks act on replicated activations: every model rank
       draws them from the same seed, with the data rank folded in
       (``_site``), so no two data ranks drop the same positions of
-      different rows, and data rank 0 draws the single device's."""
+      different rows, and data rank 0 draws the single device's.
+    - The cached forward runs the same f and g. Every kernel gate reads
+      the global ``batch`` (this rank's rows times the data axis) and the
+      global config, as JAX's do, so the ranks of a model group take the
+      same route; the kernels then run on this rank's rows and heads."""
 
     model: object
     data_rank: int
@@ -554,6 +568,8 @@ class _Shard:
     h0: int
     heads: int
     n_head: int
+    parts: int = 1
+    batch: int = 0
 
 
 def _shard_of(mesh, config: ModelConfig, rows: int) -> Optional[_Shard]:
@@ -566,7 +582,20 @@ def _shard_of(mesh, config: ModelConfig, rows: int) -> Optional[_Shard]:
     h0, h1 = head_groups(config.n_head, parts)[mesh.index(MODEL_AXIS)]
     dr = mesh.index(DATA_AXIS)
     return _Shard(model=model, data_rank=dr, b_off=dr * rows, h0=h0, heads=h1 - h0,
-                  n_head=config.n_head)
+                  n_head=config.n_head, parts=parts, batch=rows * mesh.axis_size(DATA_AXIS))
+
+
+def _heads(config: ModelConfig, shard: Optional[_Shard]) -> int:
+    return config.n_head if shard is None else shard.heads
+
+
+def _gate_batch(B: int, shard: Optional[_Shard]) -> int:
+    """The batch a kernel gate reads: the global one over a mesh."""
+    return B if shard is None else shard.batch
+
+
+def _model_group(shard: Optional[_Shard]):
+    return None if shard is None else shard.model
 
 
 def _site(seed: Optional[int], site: int, data_rank: int = 0) -> Optional[int]:
@@ -593,7 +622,9 @@ def _attn_seed(seed: Optional[int], site: int, shard: Optional[_Shard]) -> tuple
 
 def _col_in(x: torch.Tensor, shard: Optional[_Shard]) -> torch.Tensor:
     """The input of a column-parallel product (Megatron's f)."""
-    return x if shard is None or shard.model is None else copy_to_model(x, shard.model)
+    if shard is None or shard.model is None:
+        return x
+    return copy_to_model(x, shard.model)
 
 
 def _row_dense(x: torch.Tensor, p: Dense, shard: Optional[_Shard]) -> torch.Tensor:
@@ -601,13 +632,14 @@ def _row_dense(x: torch.Tensor, p: Dense, shard: Optional[_Shard]) -> torch.Tens
     over the model axis (Megatron's g), then the bias, one rounding."""
     if shard is None or shard.model is None:
         return dense(x, p)
-    y = reduce_from_model(matmul_f32(x.reshape(-1, x.shape[-1]), p.kernel.to(x.dtype)),
-                          shard.model)
+    y = matmul_f32(x.reshape(-1, x.shape[-1]), dense_weight(p, x.dtype))
+    y = reduce_from_model(y, shard.model)
     return (y + p.bias.float()).to(x.dtype).view(*x.shape[:-1], y.shape[-1])
 
 
-def _attn_project(out: torch.Tensor, p: Attention) -> torch.Tensor:
-    return dense(_merge_heads(out), p.c_proj)
+def _attn_project(out: torch.Tensor, p: Attention, shard: Optional[_Shard] = None
+                  ) -> torch.Tensor:
+    return _row_dense(_merge_heads(out), p.c_proj, shard)
 
 
 def _self_attention(h, p: Attention, li, *, config, attn_mask, seed=None,
@@ -632,7 +664,8 @@ def _self_attention(h, p: Attention, li, *, config, attn_mask, seed=None,
 
 def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
                            attn_mask, prefix_prefill: bool = False,
-                           stage_index: Optional[int] = None):
+                           stage_index: Optional[int] = None,
+                           shard: Optional[_Shard] = None):
     """Self-attention over the cache.
 
     Scalar cursor ``cache.index``: writes the new tokens' K/V at it
@@ -640,13 +673,15 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
     attends over the FRESH k/v; the batched short form goes through
     kernel K1. Other calls attend over the cache's layer slice:
     dequantized first below T=512, with the scales factored out of both
-    products from T=512 on. Per-row cursors go to ``_self_attention_rows``."""
+    products from T=512 on. Per-row cursors go to ``_self_attention_rows``.
+    ``shard``: this rank's rows and head group over a mesh."""
     if torch.is_tensor(cache.index):
         return _self_attention_rows(h, p, li, cache, config=config, attn_mask=attn_mask,
-                                    stage_index=stage_index)
+                                    stage_index=stage_index, shard=shard)
     c = config
     B, L, _ = h.shape
-    H, Dh = c.n_head, c.head_dim
+    H, Dh = _heads(c, shard), c.head_dim
+    Bg = _gate_batch(B, shard)
     qm, km, vm = dense(h, p.c_attn).chunk(3, dim=-1)  # merged views [B, L, D]
     idx = cache.index
     T = cache.k.shape[-2]
@@ -670,20 +705,20 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
     if prefix_prefill and L > 1:
         # the caller guarantees cache.index == 0
         m = None if attn_mask is None else attn_mask[:, :L]
-        if (c.attention_impl == "auto" and L <= 128 and B >= 64
-                and prefill_attention.supported(B, L, c, True)):
+        if (c.attention_impl == "auto" and L <= 128 and Bg >= 64
+                and prefill_attention.supported(Bg, L, c, True)):
             out_m = prefill_attention.prefill_mha(qm, km, vm, m, n_head=H, scale=scale)
-            return dense(out_m, p.c_proj)
+            return _row_dense(out_m, p.c_proj, shard)
         # JAX's rule (ergm_tpu/models/gpt2.py:797-809): the plain math
         # only for short prompts at large batch; otherwise "auto" keeps
         # K5 inside its gate and K7's route past it on the card
         impl = c.attention_impl
-        if impl == "auto" and L <= 128 and B >= 64:
+        if impl == "auto" and L <= 128 and Bg >= 64:
             impl = "xla"
         out = multihead_attention(_split_heads(qm, H), _split_heads(km, H),
                                   _split_heads(vm, H), causal=True, kv_mask=m, q_mask=m,
                                   scale=scale, impl=impl)
-        return _attn_project(out, p)
+        return _attn_project(out, p, shard)
 
     q = _split_heads(qm, H)
     if quant and L == 1 and T >= 512:
@@ -691,7 +726,7 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
         # ERGM_DECODE_KERNEL=1 (int8 only), else its plain version (int4
         # codes unpacked first)
         kc, vc = cache.k[li], cache.v[li]
-        if decode_attention.supported(B, T, c):
+        if decode_attention.supported(Bg, T, c):
             attend = decode_attention.decode_mha_int8
         else:
             attend = decode_attention.decode_mha_int8_reference
@@ -699,7 +734,7 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
                 kc, vc = _unpack_int4(kc), _unpack_int4(vc)
         out_m = attend(q, kc, vc, cache.k_scale[li], cache.v_scale[li],
                        idx, scale, None if attn_mask is None else attn_mask[:, :T], n_head=H)
-        return dense(out_m[:, None, :], p.c_proj)
+        return _row_dense(out_m[:, None, :], p.c_proj, shard)
     tail = (torch.arange(T, device=h.device) < idx + L).float()[None, :]
     kv_mask = tail if attn_mask is None else attn_mask[:, :T] * tail
     if quant:
@@ -709,11 +744,11 @@ def _self_attention_cached(h, p: Attention, li: int, cache: KVCache, *, config,
         k_all, v_all = cache.k[li], cache.v[li]
     out = multihead_attention(q, k_all, v_all, causal=True, kv_mask=kv_mask, scale=scale,
                               causal_offset=idx, impl=c.attention_impl)
-    return _attn_project(out, p)
+    return _attn_project(out, p, shard)
 
 
 def _self_attention_rows(h, p: Attention, li: int, cache: KVCache, *, config, attn_mask,
-                         stage_index: Optional[int]):
+                         stage_index: Optional[int], shard: Optional[_Shard] = None):
     """Self-attention under per-row cursors (the server's steps,
     ``ergm_tpu/models/gpt2.py:658-737,820-875,905-922``); no value is read
     on the host.
@@ -735,7 +770,7 @@ def _self_attention_rows(h, p: Attention, li: int, cache: KVCache, *, config, at
     reads agree with a per-step quantized cache."""
     c = config
     B, L, _ = h.shape
-    H = c.n_head
+    H = _heads(c, shard)
     q, k, v = (_split_heads(x, H) for x in dense(h, p.c_attn).chunk(3, dim=-1))  # [B, H, L, Dh]
     idx = cache.index.long()
     T = cache.k.shape[-2]
@@ -764,7 +799,7 @@ def _self_attention_rows(h, p: Attention, li: int, cache: KVCache, *, config, at
         pv = v_main.dtype
         out = (torch.matmul(probs[..., :T].to(pv), v_main)
                + torch.matmul(probs[..., T:].to(pv), v_tail.to(pv)))
-        return _attn_project(out, p)
+        return _attn_project(out, p, shard)
     pos = idx[:, None] + torch.arange(L, device=h.device)[None, :]  # [B, L]
     if quant:
         bits = _kv_bits(c)
@@ -784,7 +819,7 @@ def _self_attention_rows(h, p: Attention, li: int, cache: KVCache, *, config, at
                               kv_mask=None if attn_mask is None else attn_mask[:, :T],
                               q_mask=None if attn_mask is None else attn_mask[:, :L],
                               extra_bias=bias, scale=scale, impl=c.attention_impl)
-    return _attn_project(out, p)
+    return _attn_project(out, p, shard)
 
 
 def _capless_row_gate(out: torch.Tensor, enc_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -810,14 +845,14 @@ def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
     (k, v) or None). ``shard`` (training over a mesh): this rank's rows
     and head group."""
     c = config
-    H, Dh = c.n_head, c.head_dim
+    H, Dh = _heads(c, shard), c.head_dim
     scale = _attn_scale(c, li)
     if cached_kv is not None and h.shape[1] == 1:
         # single-token decode: reduce within the merged minor dim; int8
         # scales factor out of both reductions
         qf = dense(h, p.q_attn)[:, 0, :]
         out = cross_decode.cross_attention_decode(qf, cached_kv, enc_mask, scale, H)
-        return _capless_row_gate(dense(out[:, None, :], p.c_proj), enc_mask), None
+        return _capless_row_gate(_row_dense(out[:, None, :], p.c_proj, shard), enc_mask), None
     qm = dense(_col_in(h, shard), p.q_attn)
     if cached_kv is not None:
         # multi-token step over the cached caption K/V
@@ -833,18 +868,18 @@ def _cross_attention(h, enc, p: CrossAttention, li: int, *, config, enc_mask,
             logits = logits + (1.0 - enc_mask.float())[:, None, None, :] * -1e9
         probs = torch.softmax(logits, dim=-1)
         out = _merge_heads(torch.matmul(probs.to(v_r.dtype), v_r.transpose(1, 2)))
-        return _capless_row_gate(dense(out, p.c_proj), enc_mask), None
-    km, vm = dense(_col_in(enc, shard), p.c_attn).chunk(2, dim=-1)  # merged [B, Lc, D]
+        return _capless_row_gate(_row_dense(out, p.c_proj, shard), enc_mask), None
+    km, vm = dense(_col_in(enc, shard), p.c_attn).chunk(2, dim=-1)  # merged [B, Lc, H*Dh]
     B, Lq, Lc = h.shape[0], h.shape[1], km.shape[1]
-    if (prefill_kernel_ok and c.attention_impl == "auto" and B >= 64 and Lc % 8 == 0
-            and prefill_attention.supported(B, Lq, c, True)):
+    Bg = _gate_batch(B, shard)
+    if (prefill_kernel_ok and c.attention_impl == "auto" and Bg >= 64 and Lc % 8 == 0
+            and prefill_attention.supported(Bg, Lq, c, True)):
         out = prefill_attention.prefill_mha(qm, km, vm, enc_mask, n_head=H, scale=scale,
                                             causal=False)
     else:
-        heads = H if shard is None else shard.heads
         aseed, stride = _attn_seed(seed, 3, shard)
         out = _merge_heads(multihead_attention(
-            _split_heads(qm, heads), _split_heads(km, heads), _split_heads(vm, heads),
+            _split_heads(qm, H), _split_heads(km, H), _split_heads(vm, H),
             causal=False, kv_mask=enc_mask, scale=scale, impl=c.attention_impl,
             dropout_rate=c.attn_pdrop, deterministic=seed is None, seed=aseed,
             dropout_head_stride=stride))
@@ -859,8 +894,9 @@ def _mlp(h, p: MLP, *, config, seed=None, shard: Optional[_Shard] = None):
 
 
 def _write_cross_cache(cache: KVCache, li: int, km, vm, config) -> None:
-    """Store a layer's fresh caption K/V (merged [B, Lc, D]) in the cache;
-    int8 quantizes per (token, head) over the Dh groups of the minor dim."""
+    """Store a layer's fresh caption K/V (merged [B, Lc, H*Dh], the cache's
+    heads) in the cache; int8 quantizes per (token, head) over the Dh
+    groups of the minor dim."""
     c = config
     if cache.ck_scale is None:
         cache.ck[li] = km
@@ -868,7 +904,7 @@ def _write_cross_cache(cache: KVCache, li: int, km, vm, config) -> None:
         return
     for x, codes, scales in ((km, cache.ck, cache.ck_scale), (vm, cache.cv, cache.cv_scale)):
         b, lc, d = x.shape
-        q, s = _quantize_kv(x.view(b, lc, c.n_head, c.head_dim))
+        q, s = _quantize_kv(x.view(b, lc, d // c.head_dim, c.head_dim))
         codes[li] = q.view(b, lc, d)
         scales[li] = s[..., 0].float()
 
@@ -913,16 +949,18 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_po
 
 def _decode_block(h, blk: Block, li: int, cache: KVCache, enc, enc_mask, cross_stacks,
                   c: ModelConfig, attention_mask, prefix_prefill: bool, use_cross: bool,
-                  stage_index: Optional[int]):
-    """One block over the KV cache (prefill or decode step), updating it."""
+                  stage_index: Optional[int], shard: Optional[_Shard] = None):
+    """One block over the KV cache (prefill or decode step), updating it;
+    ``shard``: this rank's rows and heads over a mesh (K3 and K4 then take
+    their tensor-parallel forms)."""
     eps = c.layer_norm_epsilon
     attn_in = layer_norm(h, blk.ln_1, eps)
     h = h + _self_attention_cached(attn_in, blk.attn, li, cache, config=c,
                                    attn_mask=attention_mask, prefix_prefill=prefix_prefill,
-                                   stage_index=stage_index)
+                                   stage_index=stage_index, shard=shard)
     if cross_stacks is not None:
         h = cross_decode.fused_cross_decode(h, blk, li, _attn_scale(c, li), cross_stacks,
-                                            enc_mask, c)
+                                            enc_mask, c, group=_model_group(shard))
     elif use_cross:
         ckv = None
         if enc is None:
@@ -931,13 +969,16 @@ def _decode_block(h, blk: Block, li: int, cache: KVCache, enc, enc_mask, cross_s
                 ckv += (cache.ck_scale[li], cache.cv_scale[li])
         ca_out, fresh = _cross_attention(
             layer_norm(h, blk.ln_cross, eps), enc, blk.cross_attn, li, config=c,
-            enc_mask=enc_mask, cached_kv=ckv, prefill_kernel_ok=True)
+            enc_mask=enc_mask, cached_kv=ckv, prefill_kernel_ok=True, shard=shard)
         h = h + ca_out
         if fresh is not None and cache.ck is not None:
             _write_cross_cache(cache, li, *fresh, c)
-    if c.decode_fused_mlp and fused_decode.supported(h, blk.mlp, c):
-        return fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, c)  # kernel K4
-    return h + _mlp(layer_norm(h, blk.ln_2, eps), blk.mlp, config=c)
+    parts = 1 if shard is None else shard.parts
+    if c.decode_fused_mlp and fused_decode.supported(h, blk.mlp, c,
+                                                     _gate_batch(h.shape[0], shard), parts):
+        return fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, c,
+                                         group=_model_group(shard))  # kernel K4
+    return h + _mlp(layer_norm(h, blk.ln_2, eps), blk.mlp, config=c, shard=shard)
 
 
 def transformer(
@@ -968,21 +1009,24 @@ def transformer(
     probabilities (1), the attention residual (2), the cross-attention
     probabilities (3) and residual (4) and the MLP residual (5).
 
-    ``mesh`` (``core/mesh.py``, no cache): the inputs are this rank's rows
-    of the global batch and, with a model axis, the parameters its shard
-    (``shard_params``); see ``_Shard``."""
+    ``mesh`` (``core/mesh.py``): the inputs are this rank's rows of the
+    global batch and, with a model axis, the parameters its shard
+    (``shard_params``); a ``cache`` then holds this rank's rows and heads
+    (``init_kv_cache(mesh=...)``); see ``_Shard``."""
     c = config
     dtype = c.compute_dtype
     B, L = input_ids.shape
     decode = cache is not None
-    if mesh is not None and decode:
-        raise NotImplementedError("decoding over a mesh is not ported yet (ROADMAP.md queue 1 "
-                                  "item 8, the inference half)")
     shard = _shard_of(mesh, c, B)
+    qkv = params.blocks[0].attn.c_attn
     if shard is not None and shard.model is not None and (
-            params.blocks[0].attn.c_attn.kernel.shape[1] != 3 * shard.heads * c.head_dim):
+            (qkv.kernel if qkv.kernel is not None else qkv.kernel_q).shape[1]
+            != 3 * shard.heads * c.head_dim):
         raise ValueError("over a model axis the parameters must be this rank's shard "
                          "(core.mesh.shard_params)")
+    if decode and cache.k.shape[2] != _heads(c, shard):
+        raise ValueError(f"the cache holds {cache.k.shape[2]} heads, this rank runs "
+                         f"{_heads(c, shard)} (init_kv_cache(mesh=...))")
     if position_ids is None:
         past = cache.index if decode else 0
         if torch.is_tensor(past):  # per-row cursors
@@ -1031,7 +1075,8 @@ def transformer(
     cross_stacks = None
     if decode and use_cross and enc is None and cache.ck_scale is not None:
         cross_stacks = (cache.ck, cache.cv, cache.ck_scale, cache.cv_scale)
-        if not cross_decode.supported(h, params.blocks[0], cross_stacks, c):
+        if not cross_decode.supported(h, params.blocks[0], cross_stacks, c,
+                                      1 if shard is None else shard.parts):
             cross_stacks = None
     remat = c.remat and not decode and torch.is_grad_enabled()
     # "mlp" checkpoints the MLP and cross sublayers, "mlp_only" the MLP
@@ -1044,7 +1089,7 @@ def transformer(
         layer_seed = None if seed is None else fold_seed(seed, 1000 + li)
         if decode:
             h = _decode_block(h, blk, li, cache, enc, enc_mask, cross_stacks, c, attention_mask,
-                              prefix_prefill, use_cross, stage_index)
+                              prefix_prefill, use_cross, stage_index, shard)
         elif remat and not mlp_remat:
             # the masks come from seeded generators, not the global RNG state
             kw = {"context_fn": _DOTS_CONTEXT} if c.remat_policy == "dots" else {}
@@ -1181,8 +1226,10 @@ def forward(
     place; the returned one carries the advanced index. ``stage_index``:
     the step of a staged server decode block (a cache with per-row
     cursors and ``sk``/``sv`` buffers, see ``_self_attention_rows``).
-    ``mesh``: training and evaluation over a mesh (``transformer``); the
-    losses are then means over the global batch."""
+    ``mesh``: training, evaluation and the cached forward of inference
+    over a mesh (``transformer``); the losses are then means over the
+    global batch, and the logits (the lm_head and the emotion head are
+    replicated) are equal on every rank of a model group."""
     c = config
     hidden, new_cache = transformer(
         params, c, input_ids, token_type_ids=token_type_ids, position_ids=position_ids,

@@ -92,9 +92,9 @@ def load() -> ctypes.CDLL:
     u, strides = ctypes.c_uint, ctypes.POINTER(ctypes.c_longlong)
     signatures = {
         "ergm_prefill_mha": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, p],
-        "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, i, i, i, i, i, p, p],
+        "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, i, i, i, i, i, i, p, p],
         "ergm_fused_cross_decode": [p, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                    i, f, p, p],
+                                    i, i, i, f, p, p],
         "ergm_decode_mha_int8": [p, ll, ll, p, p, p, p, p, ll, p, i, i, i, i, i, i, f, i, p],
         "ergm_block_mha_fwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, strides, f, i, i, f, f,
                                u, u, i, p],

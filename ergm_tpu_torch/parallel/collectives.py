@@ -13,12 +13,25 @@ model axis's process group:
 ``global_mean`` is the data-parallel loss normalisation; see its
 docstring for the invariant it keeps. A ``None`` group (no world, or an
 axis of one outside a world) makes each of them the identity.
+
+Inference runs the same f and g (under ``no_grad`` they record no
+graph), and two collectives of its own: ``all_gather_rows`` (every data
+rank's equal block of rows) and ``agree`` (a stop decision taken by
+every rank of a group at once: a rank that left a decode loop early
+would leave its partner waiting in a collective).
+
+``HEARTBEAT_S`` bounds how long a lockstep driver (rank 0 of the server
+or the REPL) leaves its followers waiting in a broadcast while it waits
+itself, for a request or a line: far inside any process group's timeout
+(10 min on NCCL, 30 min on gloo by default).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+HEARTBEAT_S = 1.0
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -74,3 +87,24 @@ def global_mean(s: torch.Tensor, n: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(both, group=group)
     denom = torch.clamp_min(both[1], 1.0)
     return both[0] / denom + (s - s.detach()) / denom
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every data rank's block of rows (equal sizes: the fill rows pad
+    them), concatenated along dim 0 in rank order."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    got = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(got, x, group=group)
+    return torch.cat(got)
+
+
+def agree(flag: bool, group, device) -> bool:
+    """The logical AND of ``flag`` over ``group``: every rank gets the
+    same answer."""
+    if group is None:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return bool(t.item())

@@ -319,19 +319,21 @@ def test_interact_runs_two_turns(ws, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--mesh_shape=2"], {}),
-    (["--mesh_shape=4,2", "--mesh_axes=data,model"], {}),
-    (["--shard_opt_state"], {}),
-    ([], {"ERGM_COORDINATOR": "localhost:1234", "ERGM_NUM_PROCESSES": "2",
-          "ERGM_PROCESS_ID": "0"}),
+    (["--mesh_shape=2", "--batch_size=3"], {}),
+    (["--mesh_shape=4,2", "--mesh_axes=data,model", "--batch_size=6"], {}),
+    (["--shard_opt_state", "--mesh_shape=3"], {}),
+    ([], {"ERGM_COORDINATOR": "localhost:1234", "ERGM_NUM_PROCESSES": "2"}),
 ])
 def test_several_devices_are_refused(argv, env, monkeypatch):
-    """Inference over several devices is the next slice: a mesh, ZeRO-1 or
-    the launcher environment with ``--mode=infer`` raise (training takes
-    them: tests/test_torch_parallel.py)."""
+    """``--mode=infer`` serves over several devices (tests/test_torch_mesh_infer.py)
+    and refuses what JAX's CLI refuses, before any process starts: an
+    explicit mesh whose data axis does not divide the batch (ZeRO-1 has no
+    meaning at inference and changes nothing), and a partial launcher
+    environment."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8, the inference half"):
+    match = "Partial multi-host" if env else "must be divisible by the mesh data axis"
+    with pytest.raises(ValueError, match=match):
         port_cli.main(["--mode=infer", "--gpu=cpu", "--ckpt_name=x", *argv])
 
 

@@ -1316,3 +1316,169 @@ def test_dots_remat_loss_equals_mlp_on_card():
     assert out["dots"][0] == out["mlp"][0]
     for a, b in zip(out["dots"][1], out["mlp"][1]):
         assert _within(a, b, torch.bfloat16, None)[0]
+
+
+# -- inference over a mesh: K1-K4 on a model rank's heads, K3's and K4's
+# tensor-parallel (partial) forms ---------------------------------------------
+
+
+def _rank_parts(blk, cfg, parts: int):
+    """Each model rank's part of ``blk`` (``core.mesh.split_model``) and its
+    head range."""
+    from ergm_tpu_torch.core import mesh as tmesh
+
+    out = []
+    for r in range(parts):
+        mesh = tmesh.make_mesh((1, parts), ("data", "model"), world_size=parts, rank=r)
+        part = tg.Block(cfg)
+        with torch.no_grad():
+            for name, p in blk.named_parameters():
+                mod, leaf = name.rsplit(".", 1)
+                setattr(part.get_submodule(mod), leaf, torch.nn.Parameter(
+                    tmesh.split_model(f"blocks.0.{name}", p.detach(), cfg, mesh).clone(),
+                    requires_grad=False))
+        out.append((part.to(p.device, p.dtype).requires_grad_(False),
+                    tmesh.local_heads(cfg.n_head, mesh)))
+    return out
+
+
+def _rank_stacks(stacks, h0: int, h1: int):
+    """Heads [h0, h1) of a stacked int8 cross cache."""
+    ck, cv, ks, vs = stacks
+    return (ck[..., h0 * 64:h1 * 64].contiguous(), cv[..., h0 * 64:h1 * 64].contiguous(),
+            ks[..., h0:h1].contiguous(), vs[..., h0:h1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, None)])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_k4_partial_form_matches_its_plain_version_and_sums_to_the_kernel(dtype, tol, parts):
+    """K4's partial form on each model rank's F/parts columns (1,536 and
+    1,024 of gpt2's 3,072): the f32 partial against its plain version
+    (fp32 at K4's 2e-5, bf16 within its bar), and the partials summed, then
+    bias and residual, against the unsplit kernel: two summation orders
+    of the same f32 products, each within 2e-5 of the plain version's, so
+    within 4e-5 of each other in fp32 (bf16: its bar)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, D = 64, 768
+    cfg, blk = _block(D, 12, dtype, "cuda", seed=7)
+    h = torch.from_numpy(np.random.default_rng(7).standard_normal((B, 1, D)).astype(
+        np.float32)).to("cuda", dtype)
+    before = (tfd.LAUNCHES, tfd.TP_LAUNCHES)
+    total = 0
+    for part, _ in _rank_parts(blk, cfg, parts):
+        got = tfd.fused_ln_mlp_partial(h, part.ln_2, part.mlp, cfg)
+        want = tfd.fused_ln_mlp_partial_reference(h, part.ln_2, part.mlp, cfg)
+        assert got.dtype == torch.float32 and got.shape == (B, 1, D)
+        ok, err = _within(got, want, dtype, tol)
+        assert ok, err
+        total = total + got
+    whole = tfd.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)
+    got = tfd.finish_partial(h, total, blk.mlp.c_proj.bias)
+    torch.cuda.synchronize()
+    assert (tfd.LAUNCHES, tfd.TP_LAUNCHES) == (before[0] + parts + 1, before[1] + parts)
+    ok, err = _within(got, whole, dtype, None if tol is None else 2 * tol)
+    assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, None)])
+@pytest.mark.parametrize("D,H,parts", [(768, 12, 2), (768, 12, 3), (1600, 25, 2)])
+def test_k3_partial_form_matches_its_plain_version_and_sums_to_the_kernel(dtype, tol, D, H,
+                                                                          parts):
+    """K3's partial form on each model rank's heads (gpt2's 6/6 and 4/4/4,
+    gpt2-xl's 13/12, whose q projection is 832 columns wide): the f32
+    partial against its plain version, and the partials summed, then bias,
+    capless-row gate and residual, against the whole sublayer (the kernel
+    where D % 128 == 0, else its plain version); fp32 at K3's 2e-4 (twice
+    that for the sum against the whole: two summation orders, each within
+    the bar of the plain version), bf16 within its bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Lc = 64, 21
+    cfg, blk = _block(D, H, dtype, "cuda", seed=8)
+    rng = np.random.default_rng(8)
+    h = torch.from_numpy(rng.standard_normal((B, 1, D)).astype(np.float32)).to("cuda", dtype)
+    stacks = _cross_stacks(rng, 2, B, Lc, D, H, "cuda")
+    m = (np.arange(Lc)[None] < rng.integers(1, Lc + 1, (B, 1))).astype(np.float32)
+    m[3] = 0.0  # a caption-less row
+    mask = torch.from_numpy(m).cuda()
+    before = tcd.TP_LAUNCHES
+    total = 0
+    for part, (h0, h1) in _rank_parts(blk, cfg, parts):
+        local = _rank_stacks(stacks, h0, h1)
+        got = tcd.fused_cross_decode_partial(h, part, 1, 0.125, local, mask, cfg)
+        want = tcd.fused_cross_decode_partial_reference(h, part, 1, 0.125, local, mask, cfg)
+        assert got.dtype == torch.float32 and got.shape == (B, 1, D)
+        ok, err = _within(got, want, dtype, tol)
+        assert ok, err
+        total = total + got
+    whole = (tcd.fused_cross_decode if D % 128 == 0 else tcd.fused_cross_decode_reference)(
+        h, blk, 1, 0.125, stacks, mask, cfg)
+    got = tfd.finish_partial(h, total, blk.cross_attn.c_proj.bias, mask)
+    torch.cuda.synchronize()
+    assert tcd.TP_LAUNCHES == before + parts
+    ok, err = _within(got, whole, dtype, None if tol is None else 2 * tol)
+    assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H", [6, 13])
+@pytest.mark.parametrize("causal", [True, False])
+def test_prefill_kernel_on_a_model_ranks_heads(dtype, tol, H, causal):
+    """K1 on a model rank's heads: gpt2's 6 of 12 (384 wide) and gpt2-xl's
+    13 of 25 (832 wide, not a multiple of 128), causal with left pads and
+    the cross form over a ragged 32-token caption, q a strided view of a
+    fused projection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, L = 32, 128
+    Lk = L if causal else 32
+    rng = np.random.default_rng(9)
+    qkv = _merged(rng, B, L, 3 * H * 64).to("cuda", dtype)
+    q = qkv[..., :H * 64]
+    k, v = ((qkv[..., H * 64:2 * H * 64], qkv[..., 2 * H * 64:]) if causal else
+            tuple(_merged(rng, B, Lk, H * 64).to("cuda", dtype) for _ in range(2)))
+    mask = np.ones((B, Lk), np.float32)
+    for b in range(B):
+        if causal:
+            mask[b, :rng.integers(0, Lk // 2)] = 0.0
+        else:
+            mask[b, int(rng.integers(1, Lk)):] = 0.0
+    m = torch.from_numpy(mask).cuda()
+    before = tpa.LAUNCHES
+    got = tpa.prefill_mha(q, k, v, m, n_head=H, scale=0.125, causal=causal)
+    want = tpa.prefill_mha_reference(q, k, v, m, n_head=H, scale=0.125, causal=causal)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES == before + 1 and got.shape == (B, L, H * 64)
+    rows = m[:, :, None] if causal else 1.0
+    err = ((got.float() - want.float()) * rows).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4), (torch.bfloat16, None)])
+@pytest.mark.parametrize("B,T,index", [(32, 512, 400), (8, 1024, 1000)])
+def test_decode_attention_kernel_on_a_model_ranks_heads(dtype, tol, B, T, index):
+    """K2 on 6 heads (gpt2's over model=2) at a data rank's rows: its plan
+    sees the local batch and heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H = 6
+    rng = np.random.default_rng(10)
+    q, kq, vq, ks, vs = _k2_inputs(rng, B, H, T, dtype, "cuda")
+    pads = rng.integers(0, min(index, 200) + 1, B)
+    mask = torch.from_numpy((np.arange(T)[None] >= pads[:, None]).astype(np.float32)).cuda()
+    got = tda.decode_mha_int8(q, kq, vq, ks, vs, index, 0.125, mask, n_head=H)
+    want = tda.decode_mha_int8_reference(q, kq, vq, ks, vs, index, 0.125, mask, n_head=H)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tda.LAST_CLUSTER == tda.plan(B, H, T, index, sms)
+    ok, err = _within(got, want, dtype, tol)
+    assert ok, err

@@ -453,11 +453,16 @@ def test_cli_trains_over_a_two_rank_world(tmp_path, monkeypatch, capsys):
     assert world[0].split(" | ")[:3] == single[0].split(" | ")[:3]
 
 
-@pytest.mark.parametrize("mode,flags", [("infer", ["--mesh_shape=2", "--ckpt_name=x"]),
-                                        ("serve", ["--mesh_shape=2,2", "--mesh_axes=data,model"]),
-                                        ("serve", ["--shard_opt_state"])])
+@pytest.mark.parametrize("mode,flags", [("infer", ["--mesh_shape=2", "--ckpt_name=x",
+                                                   "--batch_size=3"]),
+                                        ("serve", ["--mesh_shape=2,2", "--mesh_axes=data,model",
+                                                   "--batch_size=5"]),
+                                        ("serve", ["--shard_opt_state", "--mesh_shape=3"])])
 def test_cli_inference_over_several_devices_raises(mode, flags):
+    """Inference and serving take a mesh now (tests/test_torch_mesh_infer.py);
+    an explicit one whose data axis does not divide the batch (the serving
+    slots) raises JAX's error before any process starts."""
     from ergm_tpu_torch.cli import main as cli
 
-    with pytest.raises(NotImplementedError, match="the inference half"):
+    with pytest.raises(ValueError, match="must be divisible by the mesh data axis"):
         cli.main([f"--mode={mode}", "--gpu=cpu", *flags])

@@ -31,6 +31,7 @@ from ergm_tpu.infer import interact as jinteract
 from ergm_tpu.infer import runner as jrunner
 from ergm_tpu.models import gpt2 as jg
 from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.core.mesh import make_mesh
 from ergm_tpu_torch.core.tokens import SpecialTokens
 from ergm_tpu_torch.data.assembly import read_meta
 from ergm_tpu_torch.data.dataset import DialogueDataset
@@ -184,8 +185,10 @@ def test_run_test_refuses_what_is_not_ported(split):
     kw = dict(batch_size=BATCH, eos_id=st.eos_id, sp2_id=st.sp2_id, max_len=MAX_LEN, top_p=0.8)
     with pytest.raises(ValueError, match="exact top-k"):
         trunner.run_test(pt, tc, tds, sampler="approx", **kw)
-    with pytest.raises(NotImplementedError):
-        trunner.run_test(pt, tc, tds, mesh=object(), **kw)
+    # a model axis needs a world (a mesh laid out without one)
+    tp = make_mesh((1, 2), ("data", "model"), world_size=2, rank=0)
+    with pytest.raises(ValueError, match="needs a torch.distributed world"):
+        trunner.run_test(pt, tc, tds, mesh=tp, **kw)
 
 
 def test_write_generations_matches_jax(tmp_path):
@@ -227,8 +230,9 @@ def test_repl_windows_match_jax(monkeypatch):
         prompt, tts = session._window()
         assert window == (prompt, tts)
         session.turns.append(reply)
-    with pytest.raises(NotImplementedError):
-        tinteract.DialogueSession(pt, tc, st, tok, mesh=object())
+    tp = make_mesh((1, 2), ("data", "model"), world_size=2, rank=0)
+    with pytest.raises(ValueError, match="needs a torch.distributed world"):
+        tinteract.DialogueSession(pt, tc, st, tok, mesh=tp).reply("hello there")
 
 
 # -- evaluation --------------------------------------------------------------

@@ -19,6 +19,7 @@ from ergm_tpu.core.config import ModelConfig as JaxConfig
 from ergm_tpu.infer import server as jserver
 from ergm_tpu.models import gpt2 as jg
 from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.core.mesh import make_mesh
 from ergm_tpu_torch.infer.generate import generate
 from ergm_tpu_torch.infer.server import (ContinuousServer, Request, _norm_stop,
                                          request_from_json)
@@ -190,8 +191,9 @@ def test_incremental_submission(setup):
 def test_rejections(setup):
     """Prompts past max_prompt (a session's history too, when no parked
     session matches it) and budgets past the cache are refused at submit;
-    chunk sizes outside [EXT_BUCKET, max_prompt] at construction; the
-    slot-axis mesh, not ported, raises NotImplementedError."""
+    chunk sizes outside [EXT_BUCKET, max_prompt] at construction; so are
+    slots (and pools) that the slot-axis mesh's data axis does not divide,
+    with JAX's messages (a mesh laid out without a world)."""
     cfg, params = setup
     srv = server(params, cfg, slots=1, max_prompt=16, cache_len=64)
     with pytest.raises(ValueError, match="max_prompt"):
@@ -202,8 +204,11 @@ def test_rejections(setup):
         srv.submit(Request(prompt_ids=[1] * 7, max_new_tokens=60))
     srv.submit(Request(prompt_ids=[1] * 7, max_new_tokens=16, greedy=True))
     assert len(srv.run_until_drained()) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        server(params, cfg, mesh=object())
+    dp2 = make_mesh((2,), ("data",), world_size=2, rank=0)
+    with pytest.raises(ValueError, match="slots=3 must be divisible by the mesh data axis"):
+        server(params, cfg, slots=3, mesh=dp2)
+    with pytest.raises(ValueError, match=r"pool sizes \[3, 1\]"):
+        server(params, cfg, slots=4, long_slots=1, mesh=dp2)
     for chunk in (8, 48):
         with pytest.raises(ValueError, match="prefill_chunk"):
             server(params, cfg, prefill_chunk=chunk)

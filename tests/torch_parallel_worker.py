@@ -54,11 +54,21 @@ def _entry(rank, n, port, queue, fn, args):
 def run_world(n: int, fn, *args, timeout: float = 240) -> list:
     """``fn(rank, *args)`` in each of ``n`` spawned processes joined over
     gloo; returns their results in rank order (raises on any failure)."""
+    return start_world(n, fn, *args)(timeout)
+
+
+def start_world(n: int, fn, *args):
+    """``run_world`` without the wait: starts the processes and returns
+    ``results(timeout)``, which collects them (the caller works meanwhile)."""
     ctx = multiprocessing.get_context("spawn")
     queue, port = ctx.Queue(), _free_port()
     procs = [ctx.Process(target=_entry, args=(r, n, port, queue, fn, args)) for r in range(n)]
     for p in procs:
         p.start()
+    return lambda timeout=240: _collect(procs, queue, timeout)
+
+
+def _collect(procs, queue, timeout: float) -> list:
     out = {}
     try:
         for _ in procs:
@@ -71,7 +81,7 @@ def run_world(n: int, fn, *args, timeout: float = 240) -> list:
             p.join(10)
             if p.exitcode is None:
                 p.kill()
-    return [out[r] for r in range(n)]
+    return [out[r] for r in range(len(procs))]
 
 
 def batches(seed: int, n: int, vocab: int = 256, b: int = B, lc: int = LC) -> list:
@@ -311,4 +321,256 @@ def four_ranks(rank: int, xl_npz: str, xl_kw: dict) -> dict:
     dist.all_gather(got, mask.to(torch.uint8))
     out["masks"] = [g.numpy() for g in got]
     out["coords"] = (mesh.index("data"), mesh.index("model"))
+    return out
+
+
+# -- inference over a mesh (tests/test_torch_mesh_infer.py) --------------------
+
+# generate_batch's model: tri-modal, int8 self and cross caches; D % 128
+# and 2 heads of 32 a model rank, so that with the decode switches on K3's
+# and K4's tensor-parallel forms are taken (at a global batch of 8)
+GEN = dict(n_layer=2, n_embd=128, n_head=4, vocab_size=128, n_positions=64, modality_dim=64,
+           dtype="float32", kv_cache_dtype="int8", cross_kv_dtype="int8")
+GEN_KW = dict(max_len=48, eos_id=7, sp2_id=5, prompt_bucket=16, caption_bucket=8,
+              max_new_tokens=12)
+# JAX's beam (tests/test_beam.py:192) and server (tests/test_server.py) models
+BEAM = dict(vocab_size=64, n_positions=64, n_embd=32, n_layer=2, n_head=4,
+            use_cross_attention=False, dtype="float32", embd_pdrop=0.0, attn_pdrop=0.0,
+            resid_pdrop=0.0)
+BEAM_PROMPTS = [[1, 8, 3], [2, 5, 9, 11], [7, 4]]  # 3 rows -> padded to 4
+BEAM_KW = dict(num_beams=2, max_len=24, eos_id=60, sp2_id=61, max_new_tokens=5)
+SRV = dict(BEAM, n_positions=256)
+SRV_KW = dict(eos_id=60, sp2_id=61, max_prompt=32, prompt_bucket=16)
+# gpt2-xl's head geometry at 2 layers (25 heads: 13/12 over model=2)
+XL_KW = dict(n_layer=2, vocab_size=128, n_positions=64, dtype="float32",
+             use_cross_attention=False)
+XL_PROMPTS = [[3, 9, 27, 81, 5], [11, 13, 17]]
+# run_test's model over the synthetic corpus
+RUN = dict(n_layer=2, n_embd=64, n_head=4, n_positions=128, dtype="float32", modality_dim=768)
+
+
+def gen_inputs(b: int) -> tuple:
+    """``b`` ragged prompts with token types, captions (a caption-less row
+    among them), image and audio features."""
+    rng = np.random.default_rng(b)
+    prompts = [rng.integers(10, 120, (int(n),)).tolist() for n in rng.integers(3, 14, b)]
+    caps = [rng.integers(10, 120, (int(n),)).tolist() or None for n in rng.integers(0, 7, b)]
+    caps[1] = None
+    feats = rng.standard_normal((b, 64)).astype(np.float32)
+    tts = [[5 if j % 2 else 6 for j in range(len(p))] for p in prompts]
+    return prompts, dict(captions=caps, imgs=feats, auds=feats[::-1].copy(), token_types=tts)
+
+
+def server_prompts(seed: int, lens) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 50, (n,)).tolist() for n in lens]
+
+
+# the server's other paths over the mesh: pipelined blocks, tiers (the long
+# pool int8 staged) and chunked prefill (extension programs)
+SRV_FEATURES = {"pipeline": dict(pipeline=True),
+                "tiers": dict(long_slots=2, long_threshold=20),
+                "chunks": dict(prefill_chunk=16)}
+FEATURE_PROMPTS = server_prompts(10, (6, 13, 9, 17, 5, 30))
+SPEC_PROMPTS = (server_prompts(12, (6, 13, 9))
+                + [np.random.default_rng(13).integers(0, 50, (4,)).tolist() * 4])
+
+
+def serve_greedy(params, cfg, prompts, mesh, slots, max_new=8, **kw):
+    """JAX's ``_serve_greedy``: greedy requests through the server; only
+    rank 0 submits over a mesh. Returns (server, tokens in order)."""
+    from ergm_tpu_torch.infer.server import ContinuousServer, Request
+
+    srv = ContinuousServer(params, cfg, slots=slots, mesh=mesh, **{"sync_every": 4, **SRV_KW,
+                                                                   **kw})
+    rids = ([srv.submit(Request(prompt_ids=p, max_new_tokens=max_new, greedy=True))
+             for p in prompts] if srv.primary else list(range(len(prompts))))
+    res = srv.run_until_drained()
+    return srv, [res[r].tokens for r in rids]
+
+
+IDLE_PROMPT = server_prompts(14, (7,))[0]
+
+
+REPL_LINES = ["hello there\n", "how are you\n"]
+
+
+class SlowLines:
+    """Input lines that each come after ``wait`` seconds (a REPL's user)."""
+
+    def __init__(self, lines, wait: float):
+        self.lines, self.wait = lines, wait
+
+    def __iter__(self):
+        import time
+
+        for line in self.lines:
+            time.sleep(self.wait)
+            yield line
+
+
+def repl_model():
+    """The REPL's tokenizer, special tokens, config and weights."""
+    tok, st = session_tokenizer()
+    cfg = ModelConfig(**{**RUN, "vocab_size": st.vocab_size, "use_cross_attention": False})
+    return tok, st, cfg, init(cfg, seed=6)
+
+
+def idle_mesh_ranks(rank: int, idle_s: float, timeout_s: float) -> dict:
+    """Rank 0 of a model=2 mesh waits ``idle_s`` at a time, longer than the
+    world's collective timeout ``timeout_s``: the REPL for each of its
+    lines, then the HTTP front end for its one greedy request. Rank 0
+    returns the REPL's output and the reply; rank 1 follows both."""
+    import datetime
+    import io
+    import json
+    import time
+    import urllib.request
+
+    from torch.distributed.distributed_c10d import _set_pg_timeout
+
+    from ergm_tpu_torch.infer.http_server import ServerFrontend
+    from ergm_tpu_torch.infer.interact import run_repl
+    from ergm_tpu_torch.infer.server import ContinuousServer
+
+    dist.barrier()  # both ranks are up: the short timeout holds from here
+    _set_pg_timeout(datetime.timedelta(seconds=timeout_s))
+    mesh = make_mesh((1, 2), ("data", "model"))
+    tok, st, rcfg, rp = repl_model()
+    out = io.StringIO()
+    run_repl(shard_params(rp, mesh), rcfg, st, tok, max_len=64, top_p=0.9, seed=1, mesh=mesh,
+             stdin=SlowLines(REPL_LINES, idle_s), stdout=out)
+
+    cfg = ModelConfig(**SRV)
+    srv = ContinuousServer(shard_params(init(cfg), mesh), cfg, slots=2, mesh=mesh, sync_every=4,
+                           **SRV_KW)
+    if not srv.primary:
+        t0 = time.monotonic()
+        srv.follow()
+        return {"followed_s": time.monotonic() - t0}
+    fe = ServerFrontend(srv, port=0).start()
+    try:
+        time.sleep(idle_s)
+        body = json.dumps({"prompt": IDLE_PROMPT, "max_new_tokens": 8, "greedy": True})
+        req = urllib.request.Request(f"http://{fe.host}:{fe.port}/generate", data=body.encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return {"repl": out.getvalue(), "http": json.loads(r.read())}
+    finally:
+        fe.close()
+
+
+def session_tokenizer():
+    """A small BPE with the special tokens registered (the REPL's)."""
+    from ergm_tpu_torch.core.tokens import SpecialTokens
+    from ergm_tpu_torch.tokenizer.bpe import train_bpe
+
+    tok = train_bpe(["hello there how are you doing today my friend"] * 3, vocab_size=300)
+    vocab = dict(tok.vocab)
+    st = SpecialTokens.register(vocab)
+    tok.add_special_tokens([t for t in vocab if t not in tok.vocab])
+    return tok, st
+
+
+def counting(module, name: str, counts: dict):
+    """Wraps ``module.name`` to count its calls into ``counts[name]``."""
+    real = getattr(module, name)
+
+    def run(*args, **kwargs):
+        counts[name] = counts.get(name, 0) + 1
+        return real(*args, **kwargs)
+    setattr(module, name, run)
+
+
+def mesh_infer_ranks(rank: int, data_dir: str) -> dict:
+    """Every inference entry point over a data=2 x model=2 mesh (and a
+    data-only mesh of 4 for the server's slot axis), on weights each rank
+    makes from the same seeds (``init``)."""
+    import os
+
+    from ergm_tpu_torch.data.assembly import read_meta
+    from ergm_tpu_torch.data.dataset import DialogueDataset
+    from ergm_tpu_torch.infer.beam import beam_search_batch
+    from ergm_tpu_torch.infer.generate import generate_batch
+    from ergm_tpu_torch.infer.interact import DialogueSession
+    from ergm_tpu_torch.infer.runner import run_test
+    from ergm_tpu_torch.infer.server import ContinuousServer
+    from ergm_tpu_torch.ops import cross_decode, fused_decode
+    from ergm_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = {}
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out["coords"] = (mesh.index("data"), mesh.index("model"))
+
+    cfg = ModelConfig(**GEN)
+    params = shard_params(gpt2.params_for_inference(init(cfg), cfg), mesh)
+    out["heads"] = params.blocks[0].attn.c_attn.kernel.shape[1] // (3 * cfg.head_dim)
+    prompts, kw = gen_inputs(5)
+    out["greedy"] = generate_batch(params, cfg, prompts, greedy=True, mesh=mesh, **kw, **GEN_KW)
+    out["sampled"] = generate_batch(params, cfg, prompts, top_p=0.9, mesh=mesh,
+                                    generator=torch.Generator().manual_seed(3), **kw, **GEN_KW)
+    # K3's and K4's tensor-parallel forms (their plain versions here)
+    counts = {}
+    counting(cross_decode, "fused_cross_decode_partial_reference", counts)
+    counting(fused_decode, "fused_ln_mlp_partial_reference", counts)
+    os.environ["ERGM_CROSS_KERNEL"] = "1"
+    try:
+        prompts8, kw8 = gen_inputs(8)
+        kcfg = cfg.replace(decode_fused_mlp=True)
+        out["kernels"] = generate_batch(params, kcfg, prompts8, greedy=True, mesh=mesh, **kw8,
+                                        **GEN_KW)
+    finally:
+        del os.environ["ERGM_CROSS_KERNEL"]
+    out["tp_forms"] = counts
+    del params
+
+    bcfg = ModelConfig(**BEAM)
+    out["beam"] = beam_search_batch(shard_params(init(bcfg, seed=3), mesh), bcfg, BEAM_PROMPTS,
+                                    mesh=mesh, **BEAM_KW)
+
+    st = read_meta(data_dir)
+    rcfg = ModelConfig(**RUN, vocab_size=st.vocab_size)
+    rp = shard_params(init(rcfg, seed=4), mesh)
+    ds = DialogueDataset("valid", data_dir, sp1_id=st.sp1_id, sp2_id=st.sp2_id,
+                         eos_id=st.eos_id, max_len=128)
+    rkw = dict(batch_size=4, eos_id=st.eos_id, sp2_id=st.sp2_id, max_len=128, top_p=0.8,
+               seed=2, max_new_tokens=8, mesh=mesh)
+    out["run_test"] = tuple(run_test(rp, rcfg, ds, **rkw))
+    out["run_test_beam"] = tuple(run_test(rp, rcfg, ds, num_beams=2, **rkw))
+
+    tok, tst = session_tokenizer()
+    scfg = ModelConfig(**{**RUN, "vocab_size": tst.vocab_size, "use_cross_attention": False})
+    session = DialogueSession(shard_params(init(scfg, seed=6), mesh), scfg, tst, tok,
+                              max_len=64, top_p=0.9, seed=1, mesh=mesh)
+    out["session"] = [session.reply(t, max_new_tokens=8) for t in ("hello there", "how are you")]
+
+    srv_cfg = ModelConfig(**SRV)
+    sp = shard_params(init(srv_cfg), mesh)
+    srv, out["server"] = serve_greedy(sp, srv_cfg, server_prompts(8, (6, 13, 9)), mesh, 2)
+    out["server_state"] = (tuple(srv.caches[0].k.shape), tuple(srv.emo_slot.shape))
+    _, out["spec"] = serve_greedy(sp, srv_cfg, SPEC_PROMPTS, mesh, 4, sync_every=3,
+                                  spec_gamma=3, spec_ngram=2)
+    out["features"] = {k: serve_greedy(sp, srv_cfg, FEATURE_PROMPTS, mesh, 4, **kw_)[1]
+                       for k, kw_ in SRV_FEATURES.items()}
+    dp4 = make_mesh((4,), ("data",))
+    srv, out["server_dp4"] = serve_greedy(init(srv_cfg), srv_cfg,
+                                          server_prompts(9, (6, 13, 9, 17, 5)), dp4, 4)
+    out["server_dp4_state"] = (tuple(srv.caches[0].k.shape), tuple(srv.emo_slot.shape))
+    errors = []
+    for kw_ in (dict(slots=6), dict(slots=8, long_slots=2)):
+        try:
+            ContinuousServer(init(srv_cfg), srv_cfg, mesh=dp4, **SRV_KW, **kw_)
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["server_errors"] = errors
+    del sp, srv
+
+    xl = ModelConfig.from_model_type("gpt2-xl", **XL_KW)
+    xp = shard_params(init(xl, seed=5), mesh)
+    out["xl_heads"] = xp.blocks[0].attn.c_attn.kernel.shape[1] // (3 * xl.head_dim)
+    out["xl"] = generate_batch(xp, xl, XL_PROMPTS, greedy=True, mesh=mesh, max_len=32, eos_id=7,
+                               sp2_id=5, prompt_bucket=8, max_new_tokens=4)
+    del xp
+    out["dryrun"] = dryrun_multichip(4, "cpu")
     return out
