@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving, speculative, beam, continuous-batching
 server, feature-extraction, test-run and training paths, its command
-line, its multi-device training and its inference over several devices
-once on an NVIDIA GPU.
+line, its multi-device training, its inference over several devices and
+the large GPT-2 family once on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -210,8 +210,10 @@ Phases, each of which raises on failure:
    and three turns of ``run_repl`` at gpt2 width.
 
 14. the command line (``cli_phase``), after training: gpt2-medium at full
-   width and depth (24 layers, 1024 wide, 16 heads, bf16, random weights
-   from seed 0) through ``ergm_tpu_torch.cli``. ``load_data
+   width and 12 of its 24 layers (1024 wide, 16 heads, bf16, random
+   weights from seed 0; the depth cut that keeps the script near 850 s
+   beside phase 17, which drives the same command line at gpt2-large's
+   and gpt2-xl's full depth) through ``ergm_tpu_torch.cli``. ``load_data
    --source=synthetic``, then a train split over GPT-2's vocabulary (24
    dialogues of 16 turns, utterances of 8-40 tokens, captions; batches up
    to 512 tokens) and a valid split (32 dialogues of 4 turns of 3-8
@@ -287,6 +289,42 @@ Phases, each of which raises on failure:
    overlaps it. (d) ``dryrun_multichip(4)`` on the card. K3's and
    K4's partial forms are also timed alone at a data rank's 32 rows against
    their plain versions (the ``_tp`` rows of the JSON line).
+
+17. the large GPT-2 family (``large_phase``), last: (a) K6 at gpt2-large's
+   training shape (N=6,144, V=50,271, D=1,280) and gpt2-xl's (N=2,048,
+   D=1,600) in bf16 (NLL 1e-4 + 1e-4 |plain|, gradients by
+   ``bf16_grad_ratio``) and fp32 with TF32 off (NLL 1e-5, gradients rtol
+   1e-4 / atol 1e-5), times in turns with the plain version's and the
+   bound; K1 (self with left pads, cross over a ragged caption), K3 and
+   K4 at gpt2-large's width and the serving arm's shapes (B=64, 128
+   tokens, a 32-token caption; F=5,120), bf16 and fp32, with times and
+   bounds. (b, c) gpt2-large (36 layers, B=12) and gpt2-xl (48 layers,
+   B=4) through ``cli.main --mode=train`` with ergm_tpu's recipe (batches
+   of 512 tokens, ``--remat_policy=full --adam_mu_dtype=bfloat16``,
+   attention dropout 0.1, ``lm_loss_impl="auto"``), 8 steps each: K5 and
+   K6 launches as their gates give (K5 twice a layer forward under full
+   remat, and for the caption's cross-attention where its bucket passes
+   K5's gate), the epoch line (tok/s, step p50, MFU; blocks of 2 steps,
+   the first left out), finite losses and the peak memory; then the same
+   run with every K5 and K6 launch, forward and backward, held against
+   its plain version. (d) Both models at full width and depth in the
+   serving configuration (bf16, int8 KV and caption caches, int8
+   lm_head): ``generate_batch`` over 64 prompts of 128 tokens (captions
+   on 3 of 4, image and audio features), 32 new greedy tokens, with the
+   decode switches off and then with ``ERGM_CROSS_KERNEL`` and
+   ``decode_fused_mlp`` under ``KernelShadow``: K1 self and cross n_layer
+   times a prefill and K3 and K4 n_layer times a step at gpt2-large, none
+   of them at gpt2-xl (JAX's D % 128 gates); the long-history arm
+   (``generate``, 16 prompts of 384 tokens, 32 new, 512 slots) without
+   and with ``ERGM_DECODE_KERNEL``: K5 n_layer times a prefill, K2 n_layer
+   times a step; kernels-on tokens equal kernels-off ones wherever the
+   latter's top-2 margin exceeds 1e-3; utt/s of each arm. (e) The
+   agreement with ``ergm_tpu`` at gpt2-large's width: the seeded weights
+   and inputs of ``ergm_tpu_torch/models/seeded.py`` (4 of 36 layers) on
+   the card in fp32 against ``tests/fixtures/large_agreement.json``
+   (``scripts/large_agreement.py``): greedy tokens by the margin rule,
+   emotion logits within 1e-3, two AdamW steps' LM losses within 1e-5 and
+   2e-3, relative (K5's and K6's fp32 routes).
 
 Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
@@ -1311,6 +1349,25 @@ def _k6_bwd_plain(args, dtype) -> list:
         return list(torch.autograd.grad((nll * g).sum(), (hh, ww)))
 
 
+def _k6_bwd_jax(args) -> list:
+    """(dh, dW) by the arithmetic of JAX's K6 backward
+    (``ergm_tpu/ops/fused_ce.py::_vjp_bwd`` and its ``_padj``), in plain
+    PyTorch on the inputs of ``fused_ce.launch_bwd``: the f32 logits of the
+    operands, padj = exp(s - logZ) g - [v = label] g with the forward's logZ
+    (0 for an ignored label), rounded to the operands' dtype before both
+    products, f32 products, the results rounded. The kernel rounds where
+    this does; the autograd of the plain forward rounds only its results."""
+    hidden, wte, labels, logz, g = args[:5]
+    h, w = hidden.float(), wte.float()
+    ok = labels >= 0
+    gw = torch.where(ok, g, 0.0)
+    p = torch.exp(h @ w.t() - logz[:, None]) * gw[:, None]
+    rows = torch.nonzero(ok)[:, 0]
+    p[rows, labels[rows].long()] -= gw[rows]
+    p = p.to(hidden.dtype).float()
+    return [(p @ w).to(hidden.dtype), (p.t() @ h).to(wte.dtype)]
+
+
 class KernelShadow:
     """Holds every launch of the given kernels in a run against its plain
     version on the same inputs: each wrapper is wrapped to call the plain
@@ -1333,16 +1390,19 @@ class KernelShadow:
     # the server's path: K1 (both forms), K5 and K4
     SERVER = ((prefill_attention, "prefill_mha", _k1_rows),
               (block_attention, "block_mha", _k5_rows), (fused_decode, "fused_ln_mlp", None))
-    # the training path's backward launches. K5 against JAX's backward
-    # arithmetic (the TPU kernel's), dQ on the rows of real queries, and read
-    # against the autograd of its forward's plain version; K6 against that
-    # autograd
+    # the training path's backward launches, each against JAX's backward
+    # arithmetic (the TPU kernel's) and read against the autograd of its
+    # forward's plain version: K5 with dQ on the rows of real queries; K6
+    # (whose padj JAX rounds before both products: at gpt2-xl's width a
+    # training step's launch read 1.15 of the bar against the autograd,
+    # which rounds only the results)
     BACKWARD = ((block_attention, "block_mha_bwd", _k5_bwd_jax,
                  lambda a: _k5_bwd_plain(a, torch.float32),
                  lambda a: (a[5][:, None, :, None], None, None),
                  lambda a: _k5_bwd_plain(a, torch.bfloat16)),
-                (fused_ce, "fused_softmax_xent_bwd", lambda a: _k6_bwd_plain(a, torch.bfloat16),
-                 lambda a: _k6_bwd_plain(a, torch.float32), lambda a: (None, None), None))
+                (fused_ce, "fused_softmax_xent_bwd", _k6_bwd_jax,
+                 lambda a: _k6_bwd_plain(a, torch.float32), lambda a: (None, None),
+                 lambda a: _k6_bwd_plain(a, torch.bfloat16)))
 
     def __init__(self, kernels=KERNELS, backward=()):
         self.kernels, self.backward = kernels, backward
@@ -3509,8 +3569,10 @@ def pipeline_phase(card: str) -> dict:
 # The command line (cli_phase): load_data -> train -> infer -> serve -> convert
 # ---------------------------------------------------------------------------
 
-# gpt2-medium at full width and depth through the port's CLI with
-# train_torch.sh's flags (B=8, --max_len=1024, lr 1e-5, no warmup, bf16,
+# gpt2-medium at full width and CLI_LAYERS of its 24 layers (the depth cut
+# that keeps the script near 850 s with the large family's phase, which
+# runs the same CLI at gpt2-large's and gpt2-xl's full depth) through the
+# port's CLI with train_torch.sh's flags (B=8, --max_len=1024, lr 1e-5, no warmup, bf16,
 # remat "mlp"). The train split: utterances of 8-40 tokens over 16 turns with
 # captions (16 dialogues: 256 examples, 32 steps an epoch, the longest batch
 # bucketed to 512; 24 dialogues before the cut that keeps the script within
@@ -3521,7 +3583,21 @@ def pipeline_phase(card: str) -> dict:
 # the shadowed training run; CLI_REMAT_STEPS timed steps a remat policy
 CLI_MODEL, CLI_B, CLI_TRAIN_DIALOGUES, CLI_TRAIN_TURNS = "gpt2-medium", 8, 16, 16
 CLI_VALID_DIALOGUES, CLI_VALID_TURNS, CLI_INFER_DIALOGUES, CLI_INFER_LEN = 32, 4, 32, 128
-CLI_SERVE_REQS, CLI_SHADOW_DIALOGUES, CLI_REMAT_STEPS = 64, 2, 3
+CLI_SERVE_REQS, CLI_SHADOW_DIALOGUES, CLI_REMAT_STEPS, CLI_LAYERS = 64, 2, 3, 12
+
+
+@contextlib.contextmanager
+def _depth(model: str, n_layer: int):
+    """``model``'s preset at ``n_layer`` layers for the duration: the
+    command line builds its config from the preset."""
+    from ergm_tpu_torch.core import config
+
+    saved = config.GPT2_SIZES[model]
+    config.GPT2_SIZES[model] = {**saved, "n_layer": n_layer}
+    try:
+        yield
+    finally:
+        config.GPT2_SIZES[model] = saved
 # K5 and K6 forwards (with KernelShadow.BACKWARD, the training launches)
 # and K1 (infer's prefills)
 TRAIN_SHADOWED = ((block_attention, "block_mha", _k5_rows), (fused_ce, "fused_softmax_xent", None))
@@ -3562,31 +3638,43 @@ def _k5_gate(b: int, h: int, lq: int, lk: int, causal: bool) -> bool:
     return block_attention.supported(q, k, k, causal=causal)
 
 
-def _cli_train_expected(data: str, st, cfg, limit=None) -> dict:
-    """K5's and K6's launches in one Trainer epoch, from their gates at the
-    epoch's batch shapes (train shuffled with seed 1, the partial batch
-    dropped; valid in order)."""
+def _cli_train_expected(data: str, st, cfg, limit=None, b: int = CLI_B,
+                        max_len: int = 0) -> dict:
+    """K5's and K6's launches in one Trainer epoch of batch ``b``, from their
+    gates at the epoch's batch shapes (train shuffled with seed 1, the
+    partial batch dropped; valid in order; batches up to ``max_len``
+    tokens, by default the model's n_positions): K5 for the causal
+    self-attention and, where the batch's caption bucket passes its gate,
+    for the caption's cross-attention. Full and dots remat run each
+    layer's forward again in the backward, so K5 launches twice a layer
+    forward in a train step."""
     from ergm_tpu_torch.data.dataset import DialogueDataset, batches
 
+    max_len = max_len or cfg.n_positions
     kw = dict(data_dir=data, sp1_id=st.sp1_id, sp2_id=st.sp2_id, eos_id=st.eos_id,
-              max_len=cfg.n_positions, limit=limit)
-    train = list(batches(DialogueDataset("train", **kw), CLI_B, st.eos_id, shuffle=True,
-                         seed=1, max_len=cfg.n_positions, drop_remainder=True))
-    valid = list(batches(DialogueDataset("valid", **kw), CLI_B, st.eos_id,
-                         max_len=cfg.n_positions))
+              max_len=max_len, limit=limit)
+    train = list(batches(DialogueDataset("train", **kw), b, st.eos_id, shuffle=True,
+                         seed=1, max_len=max_len, drop_remainder=True))
+    valid = list(batches(DialogueDataset("valid", **kw), b, st.eos_id, max_len=max_len))
+
     def k5(bs):
-        return sum(cfg.n_layer for b in bs if _k5_gate(CLI_B, cfg.n_head, b.input_ids.shape[1],
-                                                       b.input_ids.shape[1], True))
-    if cfg.n_embd > 1024:
-        raise AssertionError("K6's gate takes D <= 1024")
+        n = 0
+        for x in bs:
+            L = x.input_ids.shape[1]
+            n += cfg.n_layer * _k5_gate(b, cfg.n_head, L, L, True)
+            if x.caption_ids is not None:
+                n += cfg.n_layer * _k5_gate(b, cfg.n_head, L, x.caption_ids.shape[1], False)
+        return n
+    again = 2 if cfg.remat and cfg.remat_policy in ("full", "dots") else 1
     return {"steps": len(train), "valid_batches": len(valid), "valid_k5": k5(valid),
-            "longest": max(b.input_ids.shape[1] for b in train),
-            "want": {"block_mha": k5(train) + k5(valid), "block_mha_bwd": k5(train),
+            "longest": max((x.input_ids.shape[1] for x in train), default=0), "k5_again": again,
+            "want": {"block_mha": again * k5(train) + k5(valid), "block_mha_bwd": k5(train),
                      "fused_softmax_xent": len(train) + len(valid),
                      "fused_softmax_xent_bwd": len(train)}}
 
 
-def _cli_train(card: str, label: str, argv: list, exp: dict) -> dict:
+def _cli_train(card: str, label: str, argv: list, exp: dict, model: str = CLI_MODEL,
+               b: int = CLI_B) -> dict:
     """One train_torch.sh run through ``cli.main``: checks the launches
     against the gates and returns the epoch line's readings."""
     from ergm_tpu_torch.cli import main as cli
@@ -3612,13 +3700,14 @@ def _cli_train(card: str, label: str, argv: list, exp: dict) -> dict:
                 "block_mha_bwd": counts["block_mha_bwd"] / n,
                 "fused_softmax_xent": (counts["fused_softmax_xent"] - nv) / n,
                 "fused_softmax_xent_bwd": counts["fused_softmax_xent_bwd"] / n}
-    print(f"cli train, {label}: {CLI_MODEL} B={CLI_B}, {n} steps, batches up to "
+    print(f"cli train, {label}: {model} B={b}, {n} steps, batches up to "
           f"{exp['longest']} tokens: {m.group(2)} tok/s, step p50 {m.group(3)} ms, MFU "
           f"{m.group(4)}% of 989 TFLOP/s (the Trainer's epoch line), valid PPL {v.group(1)}, "
           f"peak memory {peak:.2f} GB, {wall:.1f} s for the call; launches a step {per_step} "
           f"(and over {nv} valid batches K5 {exp['valid_k5']}, K6 {nv}) on {card}")
     return {"tok_s": float(m.group(2).replace(",", "")), "step_p50_ms": float(m.group(3)),
-            "mfu_pct": float(m.group(4) or "nan"), "peak_gb": peak, "launches": counts}
+            "mfu_pct": float(m.group(4) or "nan"), "peak_gb": peak, "launches": counts,
+            "train_loss": float(m.group(1)), "s": wall}
 
 
 def _cli_remat(card: str, cfg, data: str, st) -> dict:
@@ -3868,10 +3957,10 @@ def _cli_convert(card: str, root: str, best: str, cfg) -> None:
 def cli_phase(card: str) -> dict:
     """load_data -> train (two recipes, then a shadowed run) -> remat
     policies -> infer -> serve -> convert through the port's CLI at
-    gpt2-medium's full width and depth (phase 14 of the module docstring).
-    Returns {kernel: {path: launches}}."""
+    gpt2-medium's full width and CLI_LAYERS layers (phase 14 of the module
+    docstring). Returns {kernel: {path: launches}}."""
     t0 = time.time()
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, _depth(CLI_MODEL, CLI_LAYERS):
         data, st = _cli_data(root)
         cfg = ModelConfig.from_model_type(CLI_MODEL, vocab_size=st.vocab_size, dtype="bfloat16")
         exp = _cli_train_expected(data, st, cfg)
@@ -3904,8 +3993,7 @@ def cli_phase(card: str) -> dict:
         print(f"cli train (reference recipe, {CLI_SHADOW_DIALOGUES} dialogues, "
               f"{shadow_exp['steps']} steps): every K5 and K6 launch, forward and backward, "
               f"within its plain version's bar (outputs: share of 2e-2 + 1e-2 |plain|; "
-              f"gradients: bf16_grad_ratio, K5 against JAX's backward arithmetic, K6 against "
-              f"the autograd of its plain forward): " + ", ".join(
+              f"gradients: bf16_grad_ratio against JAX's backward arithmetic): " + ", ".join(
                   f"{k} {v:.4f} over {shadow.calls[k]} launches" for k, v in shares.items())
               + f"; K5's gradients against the autograd of its plain forward: {kernel:.4f}, "
               f"JAX's arithmetic itself {jax_arith:.4f}, on {card}")
@@ -4849,6 +4937,529 @@ def mesh_infer_phase(card: str, gen: torch.Generator) -> dict:
     return {"launches": launches, "tp": tp}
 
 
+# large_phase: the large GPT-2 family at full width and depth. LARGE gives
+# each model's recipe batch (ergm_tpu's README: gpt2-large B=12, gpt2-xl
+# B=4, both with full remat and a bf16 first moment) at LARGE_L tokens and
+# LARGE_STEPS steps; the serving arms take LARGE_SRV_B prompts of
+# LARGE_SRV_PROMPT tokens and LARGE_SRV_NEW new tokens, the long-history
+# arm LARGE_LONG_B prompts of LARGE_LONG_PROMPT tokens and as many new ones
+# in LARGE_LONG_SLOTS slots
+LARGE = {"gpt2-large": 12, "gpt2-xl": 4}
+LARGE_L, LARGE_STEPS = 512, 8
+LARGE_SRV_B, LARGE_SRV_PROMPT, LARGE_SRV_NEW = 64, 128, 32
+LARGE_LONG_B, LARGE_LONG_PROMPT, LARGE_LONG_SLOTS = 16, 384, 512
+LARGE_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "large_agreement.json")
+# K1 (both forms), K3 and K4 on the serving arms; K2 and K5 on the long one
+LARGE_SHADOWED = ((prefill_attention, "prefill_mha", _k1_rows),
+                  (block_attention, "block_mha", _k5_rows),
+                  (cross_decode, "fused_cross_decode", None),
+                  (fused_decode, "fused_ln_mlp", None),
+                  (decode_attention, "decode_mha_int8", None))
+
+
+def _large_k6(gen: torch.Generator, model: str, n: int) -> dict:
+    """K6 at ``model``'s training shape (n tokens, GPT-2's vocabulary, its
+    width), logits of std 3: bf16 forward (NLL 1e-4 + 1e-4 |plain|) and
+    backward (``bf16_grad_ratio`` against the plain version in bf16 and in
+    f32), fp32 forward (1e-5) and backward (rtol 1e-4, atol 1e-5) with TF32
+    off; CUDA-event times of kernel and plain in turns and the bound.
+    Returns the numbers of its forward and backward rows."""
+    V, D = SLICE["vocab_size"], ModelConfig.from_model_type(model).n_embd
+    res = {k: {"shape": [n, V, D], "library_ms": None} for k in ("fwd", "bwd")}
+    for dtype in (torch.bfloat16, torch.float32):
+        h = torch.randn((n, D), generator=gen, device=DEVICE).to(dtype)
+        w = (3.0 / math.sqrt(D) * torch.randn((V, D), generator=gen, device=DEVICE)).to(dtype)
+        lbl = torch.randint(0, V, (n,), generator=gen, device=DEVICE)
+        lbl[::4] = -100
+        l32 = lbl.to(torch.int32)
+        g = torch.where(lbl >= 0, torch.randn((n,), generator=gen, device=DEVICE), 0.0)
+        nll, logz = fused_ce.launch_fwd(h, w, l32)
+        got = fused_ce.launch_bwd(h, w, l32, logz, g)
+        args = (h, w, lbl, logz, g)
+        with torch.no_grad():
+            nll_ref = fused_ce.fused_softmax_xent_reference(h, w, lbl)
+        want = _k6_bwd_plain(args, dtype)
+        torch.cuda.synchronize()
+        n_err = (nll - nll_ref).abs().max().item()
+        tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
+        if not bool(((nll - nll_ref).abs() <= tol + tol * nll_ref.abs()).all()):
+            raise AssertionError(f"K6 {model} {dtype}: NLL disagrees, {n_err:.3e}")
+        if dtype == torch.bfloat16:
+            _, ratio = _grads_ok(got, want, dtype, None, _k6_bwd_plain(args, torch.float32))
+        else:  # JAX's bars: rtol 1e-4, atol 1e-5
+            ratio = max(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max().item()
+                        for a, b in zip(got, want))
+            if not ratio <= 1.0:
+                raise AssertionError(f"K6 {model} fp32: gradients at {ratio:.3f} of the bar")
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+        suffix = "" if dtype == torch.bfloat16 else "_f32"
+        res["fwd"][f"max_abs_err{suffix}"] = n_err
+        res["bwd"][f"max_abs_err{suffix}"] = max(errs)
+        res["bwd"][f"bar_share{suffix}"] = ratio
+        print(f"K6 {model} {dtype} N={n}, V={V}, D={D}: max |kernel - plain| NLL {n_err:.3e}, "
+              f"dh {errs[0]:.3e}, dW {errs[1]:.3e} ({ratio:.3f} of the gradients' bar)")
+        del got, want, nll_ref
+
+        def plain_bwd():
+            p = torch.softmax(h.float() @ w.float().t(), dim=-1) * g[:, None]
+            ok = lbl >= 0
+            p[ok, lbl[ok]] -= g[ok]
+            return (p @ w.float()).to(h.dtype), (p.t() @ h.float()).to(w.dtype)
+
+        reps = 5 if dtype == torch.bfloat16 else 2
+        pairs = {"fwd": (lambda: fused_ce.launch_fwd(h, w, l32),
+                         lambda: fused_ce.fused_softmax_xent_reference(h, w, lbl)),
+                 "bwd": (lambda: fused_ce.launch_bwd(h, w, l32, logz, g), plain_bwd)}
+        for key, extra, products in (("fwd", (), 1), ("bwd", (g, logz, h, w), 3)):
+            run, plain = pairs[key]
+            # in turns: plain, kernel, kernel, plain
+            p1, k1, k2, p2 = (_median_ms(f, reps) for f in (plain, run, run, plain))
+            ms, plain_ms = min(k1, k2), min(p1, p2)
+            r = res[key]
+            r[f"ms{suffix}"], r[f"plain_ms{suffix}"] = ms, plain_ms
+            b = bound(_nbytes(h, w, l32, *extra), products * 2 * n * V * D, dtype)
+            if dtype == torch.bfloat16:
+                r.update(b)
+            else:
+                r["bound_ms_f32"] = b["bound_ms"]
+            print(f"K6 {model} {dtype} {key}: kernel {ms:.4f} ms (runs {k1:.4f}/{k2:.4f}), "
+                  f"plain {plain_ms:.4f} ms (runs {p1:.4f}/{p2:.4f}; medians of {reps}), "
+                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        del h, w, nll, logz
+        torch.cuda.empty_cache()
+    return res
+
+
+def _large_decode_kernels(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """K1 (self with a left-pad mask, and cross over a ragged caption), K3
+    and K4 at ``cfg``'s width and the serving arm's shapes (B=64, a
+    128-token prompt, a 32-token caption; bf16 and fp32 with TF32 off)
+    against their plain versions, with times, bounds and, for K1, one
+    ``scaled_dot_product_attention`` call as the yardstick. Returns their
+    rows' numbers."""
+    b, L, lc, D, H = LARGE_SRV_B, LARGE_SRV_PROMPT, CAPTION, cfg.n_embd, cfg.n_head
+    res = {k: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "library_ms": None}
+           for k in ("prefill_mha", "prefill_mha_cross", "fused_cross_decode", "fused_ln_mlp")}
+    for dtype in (torch.bfloat16, torch.float32):
+        c = cfg.replace(dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+        blk = _random_block(c, gen)
+        qkv = torch.randn((b, L, 3 * D), generator=gen, device=DEVICE).to(dtype)
+        q, k, v = qkv.split(D, dim=-1)
+        ck, cv = torch.randn((b, lc, 2 * D), generator=gen, device=DEVICE).to(dtype).split(D, -1)
+        lens = torch.randint(L // 2, L + 1, (b,), generator=gen, device=DEVICE)
+        leftpad = (torch.arange(L, device=DEVICE)[None] >= L - lens[:, None]).float()
+        clens = torch.randint(1, lc + 1, (b,), generator=gen, device=DEVICE)
+        cmask = (torch.arange(lc, device=DEVICE)[None] < clens[:, None]).float()
+        h = torch.randn((b, 1, D), generator=gen, device=DEVICE).to(dtype)
+        codes = [torch.randint(-127, 128, (2, b, lc, D), generator=gen, device=DEVICE,
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [0.001 + 0.02 * torch.rand((2, b, lc, H), generator=gen, device=DEVICE)
+                  for _ in range(2)]
+        stacks = (*codes, *scales)
+        cases = {
+            "prefill_mha": (
+                lambda: prefill_attention.prefill_mha(q, k, v, leftpad, n_head=H, scale=0.125),
+                lambda: prefill_attention.prefill_mha_reference(q, k, v, leftpad, n_head=H,
+                                                                scale=0.125),
+                leftpad[:, :, None], F32_TOL),
+            "prefill_mha_cross": (
+                lambda: prefill_attention.prefill_mha(q.contiguous(), ck, cv, cmask, n_head=H,
+                                                      scale=0.125, causal=False),
+                lambda: prefill_attention.prefill_mha_reference(q.contiguous(), ck, cv, cmask,
+                                                                n_head=H, scale=0.125,
+                                                                causal=False), 1.0, F32_TOL),
+            "fused_cross_decode": (
+                lambda: cross_decode.fused_cross_decode(h, blk, 1, 0.125, stacks, cmask, c),
+                lambda: cross_decode.fused_cross_decode_reference(h, blk, 1, 0.125, stacks,
+                                                                  cmask, c), 1.0, K3_TOL),
+            "fused_ln_mlp": (
+                lambda: fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, c),
+                lambda: fused_decode.fused_ln_mlp_reference(h, blk.ln_2, blk.mlp, c), 1.0,
+                K4_TOL)}
+        for name, (run, plain, rows, tol) in cases.items():
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = ((got.float() - want.float()) * rows).abs().max().item()
+            ok = (got.shape == want.shape and bool(torch.isfinite(got).all()) and (
+                _bf16_ok(got * rows, want * rows) if dtype == torch.bfloat16 else err <= tol))
+            print(f"{name} D={D} {dtype}: max |kernel - plain| = {err:.3e}")
+            if not ok:
+                raise AssertionError(f"{name} at D={D} {dtype} disagrees with its plain "
+                                     f"version: {err}")
+            r = res[name]
+            r["max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"] = err
+            if dtype != torch.bfloat16:
+                continue
+            r["ms"], r["plain_ms"] = _timed_pair(f"{name} D={D}", run, plain)
+            if name.startswith("prefill"):
+                causal = name == "prefill_mha"
+                kk = k if causal else ck
+                heads = [x.view(b, -1, H, D // H).transpose(1, 2)
+                         for x in ((q, k, v) if causal else (q.contiguous(), ck, cv))]
+                m = leftpad if causal else cmask
+                allowed = m[:, None, None, :] > 0
+                if causal:
+                    allowed = allowed & torch.ones(L, L, dtype=torch.bool, device=DEVICE).tril()
+                r["library_ms"] = _median_ms(lambda: F.scaled_dot_product_attention(
+                    *heads, attn_mask=allowed, scale=0.125))
+                lk = kk.shape[1]
+                pairs = b * H * (L * (L + 1) // 2 if causal else L * lk)
+                r.update(bound(2 * _nbytes(q) + 2 * b * lk * D * q.element_size(),
+                               2 * 2 * pairs * (D // H)))
+            elif name == "fused_cross_decode":
+                r.update(bound(2 * _nbytes(h) + _nbytes(
+                    codes[0][1], codes[1][1], scales[0][1], scales[1][1], cmask,
+                    *blk.ln_cross.parameters(), *blk.cross_attn.q_attn.parameters(),
+                    *blk.cross_attn.c_proj.parameters()), 2 * 2 * b * D * D + 2 * 2 * b * lc * D))
+            else:
+                r.update(bound(2 * _nbytes(h) + _nbytes(*blk.ln_2.parameters(),
+                                                        *blk.mlp.parameters()),
+                               2 * 2 * b * D * cfg.inner_dim))
+            print(f"{name} D={D}: {r['ms']:.4f} ms against a bound of {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+        del blk
+    return res
+
+
+def _large_data(root: str, model: str) -> tuple:
+    """load_data for ``model``, then a train split of 6-turn dialogues with
+    utterances of 200-256 tokens and captions (two examples a dialogue,
+    each over LARGE_L tokens: every batch is LARGE_L long) and a valid split
+    of 4 short dialogues. Returns (the --limit that makes LARGE_STEPS
+    steps of the model's batch, the launches its epoch should make)."""
+    from ergm_tpu_torch.cli import load_data
+
+    _cli(load_data.main, ["--source=synthetic", f"--data_dir={root}", f"--model_type={model}",
+                          "--captions"])
+    data = os.path.join(root, model)
+    b = LARGE[model]
+    st = write_synthetic_dataset(data, prefixes=("train",), num_dialogues=60,
+                                 turns_per_dialogue=6, utter_len=range(200, 257),
+                                 base_vocab_size=50257, captions="target", seed=31)
+    write_synthetic_dataset(data, prefixes=("valid",), num_dialogues=4, turns_per_dialogue=4,
+                            base_vocab_size=50257, captions="target", seed=32, st=st)
+    cfg = ModelConfig.from_model_type(model, vocab_size=st.vocab_size, dtype="bfloat16",
+                                      remat=True, remat_policy="full")
+    for limit in range(1, 61):
+        exp = _cli_train_expected(data, st, cfg, limit=limit, b=b, max_len=LARGE_L)
+        if exp["steps"] == LARGE_STEPS:
+            if exp["longest"] != LARGE_L:
+                raise AssertionError(f"{model} data: batches up to {exp['longest']} tokens")
+            return limit, exp
+    raise AssertionError(f"{model} data: no limit gives {LARGE_STEPS} steps of B={b}")
+
+
+def _large_train(card: str, root: str, model: str) -> dict:
+    """ergm_tpu's recipe for ``model`` through ``cli.main --mode=train``
+    (B from LARGE, LARGE_L tokens, full remat, a bf16 first moment, the
+    default attention dropout and ``lm_loss_impl``), LARGE_STEPS steps:
+    K5's and K6's launches as their gates give (K5 twice a layer forward
+    under full remat, and for the caption's cross-attention in batches
+    whose caption bucket passes its gate), the epoch line's readings and
+    the peak memory; then the same run again with every K5 and K6
+    launch, forward and backward, held against its plain version. The
+    checkpoints (7.7 and 15.5 GB) go under ``root`` and are deleted."""
+    from ergm_tpu_torch.cli import main as cli
+
+    limit, exp = _large_data(root, model)
+    b = LARGE[model]
+    argv = ["--mode=train", "--seed=0", f"--data_dir={root}", "--train_prefix=train",
+            "--valid_prefix=valid", f"--model_type={model}", "--lr=1e-5", "--warmup_ratio=0.0",
+            f"--batch_size={b}", "--num_epochs=1", f"--max_len={LARGE_L}", "--dtype=bfloat16",
+            "--remat_policy=full", "--adam_mu_dtype=bfloat16", f"--limit={limit}",
+            f"--output_dir={root}/out", f"--ckpt_dir={root}/ckpt"]
+    # the Trainer times blocks of this many steps and leaves the slowest
+    # (the first: warm-up) out of its rate: 4 blocks of 2 over 8 steps
+    saved = os.environ.get("ERGM_METRIC_FETCH_EVERY")
+    os.environ["ERGM_METRIC_FETCH_EVERY"] = "2"
+    try:
+        run = _cli_train(card, "ergm_tpu's recipe (full remat, bf16 first moment; blocks of 2 "
+                         "steps, the first left out)", argv, exp, model=model, b=b)
+    finally:
+        os.environ.pop("ERGM_METRIC_FETCH_EVERY")
+        if saved is not None:
+            os.environ["ERGM_METRIC_FETCH_EVERY"] = saved
+    shutil.rmtree(os.path.join(root, "ckpt"))
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with KernelShadow(TRAIN_SHADOWED, KernelShadow.BACKWARD) as shadow:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv)
+    shutil.rmtree(os.path.join(root, "ckpt"))
+    torch.cuda.empty_cache()
+    shares = shadow.shares()
+    if not all(v <= 1.0 for v in shares.values()) or shadow.calls != exp["want"]:
+        raise AssertionError(f"{model} train shadow: {shares}, {shadow.calls}, want "
+                             f"{exp['want']}, readings {shadow.readings}")
+    print(f"{model} train shadowed ({LARGE_STEPS} steps, {time.time() - t0:.1f} s): every K5 "
+          f"and K6 launch, forward and backward, within its plain version's bar (gradients "
+          f"against JAX's backward arithmetic): " + ", ".join(
+              f"{k} {v:.4f} over {shadow.calls[k]} launches" for k, v in shares.items())
+          + "; against the autograd of the plain forward, the kernel and JAX's arithmetic "
+          "read: " + ", ".join(f"{k} {a:.4f} and {b:.4f}" for k, (a, b) in
+                               shadow.readings.items()) + f" on {card}")
+    return {**run, "shares": shares, "readings": shadow.readings, "steps": exp["steps"],
+            "tokens_per_step": b * LARGE_L}
+
+
+def _parting(want: list, got: list, want_margins: list, got_margins: list) -> dict:
+    """Where each row of ``got`` first leaves ``want``: the rows that part,
+    and at the first parting of each the top-2 logit margins of both runs
+    there (``*_margins``: [decision][row])."""
+    parts = []
+    for b, (w, g) in enumerate(zip(want, got)):
+        j = next((j for j, (x, y) in enumerate(zip(w, g)) if x != y),
+                 None if len(w) == len(g) else min(len(w), len(g)))
+        if j is not None:
+            parts.append({"row": b, "token": j, "margin": float(want_margins[j][b]),
+                          "margin_on": float(got_margins[j][b])})
+    return {"rows": len(want), "parted": parts}
+
+
+def _large_serving(card: str, model: str) -> dict:
+    """``model`` at full width and depth in the serving configuration (int8
+    KV and caption caches, int8 lm_head, random weights from seed 0):
+    ``generate_batch`` over LARGE_SRV_B prompts (a 32-token caption on 3 of
+    4, image and audio features) with the decode switches off, then with
+    ``ERGM_CROSS_KERNEL`` and ``decode_fused_mlp`` on; the long-history arm
+    (``generate``, LARGE_LONG_B prompts in LARGE_LONG_SLOTS slots) without
+    and with ``ERGM_DECODE_KERNEL``. K1 (self and cross) n_layer times a
+    prefill, K3 and K4 n_layer times a step where D % 128 == 0 (JAX's
+    gates), none otherwise (the prompt's attention then takes the plain
+    math, JAX's rule for short prompts at B >= 64); K2 n_layer times a step
+    and K5 n_layer times a prefill on the long arm. In bf16 every launch of
+    the kernels-on runs is held against its plain version
+    (``KernelShadow``), where the kernels-on tokens part from the
+    kernels-off ones is reported with both runs' top-2 margins there, and
+    each arm is timed once more; in fp32 (TF32 off) the kernels-on tokens
+    must equal the kernels-off ones up to each row's first decision whose
+    kernels-off margin is at most 1e-3. Returns {"launches": {path:
+    counts}, readings}."""
+    rng = np.random.default_rng(15)
+    long_in = _gpt2_inputs(rng, LARGE_LONG_B, LARGE_LONG_PROMPT)
+    long_cap = LARGE_LONG_PROMPT + LARGE_SRV_NEW
+    prompts, feats = _mesh_requests(LARGE_SRV_B, LARGE_SRV_PROMPT)
+    kw = dict(max_len=LARGE_SRV_PROMPT + LARGE_SRV_NEW, eos_id=EOS, sp2_id=SP2, prompt_bucket=64,
+              caption_bucket=32, max_new_tokens=LARGE_SRV_NEW, greedy=True, **feats)
+    # arm: (call, the switches of its kernels-on run, decode_fused_mlp there)
+    arms = {"serve": (lambda p, c: generate_batch(p, c, prompts, **kw)[0],
+                      ("ERGM_CROSS_KERNEL",), True),
+            "long history": (lambda p, c: _large_long(p, c, long_in, long_cap),
+                             ("ERGM_DECODE_KERNEL",), False)}
+    out = {"launches": {}, "utt_s": {}, "parting": {}}
+    for dtype in ("bfloat16", "float32"):
+        cfg = ModelConfig.from_model_type(**{**SLICE, "model_type": model, "dtype": dtype})
+        L, wide = cfg.n_layer, cfg.n_embd % 128 == 0
+        t0 = time.time()
+        params = gpt2.params_for_inference(
+            gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE),
+            cfg)
+        torch.cuda.synchronize()
+        print(f"{model} serving {dtype}: init + int8 lm_head in {time.time() - t0:.2f} s")
+        for arm, (call, names, fused) in arms.items():
+            runs = {}
+            for label in ("off", "on"):
+                c = cfg.replace(decode_fused_mlp=fused and label == "on")
+                shadowed = dtype == "bfloat16" and label == "on"
+                with contextlib.ExitStack() as stack:
+                    stack.enter_context(switches(*(names if label == "on" else ())))
+                    steps = stack.enter_context(StepCounter())
+                    margins = stack.enter_context(_Margins())
+                    shadow = (stack.enter_context(KernelShadow(LARGE_SHADOWED)) if shadowed
+                              else None)
+                    reset_launches()
+                    tokens = call(params, c)
+                    torch.cuda.synchronize()
+                    counts = _launch_counts()
+                n, on = steps.steps, label == "on"
+                if arm == "serve":
+                    # a prompt of at most 128 tokens at B >= 64 takes K1 or,
+                    # where K1's gate is shut, the plain math (JAX's rule)
+                    want = {"prefill_mha": L * wide, "prefill_mha_cross": L * wide,
+                            "block_mha": 0, "decode_mha_int8": 0,
+                            "fused_cross_decode": L * n * (wide and on),
+                            "fused_ln_mlp": L * n * (wide and on)}
+                else:
+                    want = {"prefill_mha": 0, "prefill_mha_cross": 0, "block_mha": L,
+                            "decode_mha_int8": L * n * on, "fused_cross_decode": 0,
+                            "fused_ln_mlp": 0}
+                if counts != want or n < 1:
+                    raise AssertionError(f"{model} {arm} {dtype} [{label}]: launches {counts} "
+                                         f"over {n} decode steps, want {want}")
+                if shadow is not None:
+                    shares = {k: v for k, v in shadow.shares().items() if shadow.calls[k]}
+                    if not all(v <= 1.0 for v in shares.values()):
+                        raise AssertionError(f"{model} {arm}: shadow {shares}")
+                    print(f"{model} {arm} bf16 [on]: every launch within its plain version's "
+                          f"bf16 bar: " + (", ".join(f"{k} {v:.4f} over {shadow.calls[k]} "
+                                                     f"launches" for k, v in shares.items())
+                                           or "no kernel launched"))
+                    out["launches"][f"{arm} on"] = counts
+                runs[label] = (tokens, margins.steps, counts, n)
+            (want_tok, want_m, _, _), (got_tok, got_m, _, _) = runs["off"], runs["on"]
+            if dtype == "float32":
+                compared, equal = _margin_rule(f"{model} {arm} fp32", want_tok, got_tok, want_m)
+                print(f"{model} {arm} fp32: tokens with the kernels on equal those with them "
+                      f"off by the margin rule ({compared} tokens compared, {equal} of "
+                      f"{len(want_tok)} rows equal throughout) on {card}")
+                continue
+            part = out["parting"][arm] = _parting(want_tok, got_tok, want_m, got_m)
+            print(f"{model} {arm} bf16: {part['rows'] - len(part['parted'])} of {part['rows']} "
+                  f"rows with the kernels on equal those with them off throughout; partings "
+                  f"(row, token, top-2 margin off / on there): " + (", ".join(
+                      f"({x['row']}, {x['token']}, {x['margin']:.3e} / {x['margin_on']:.3e})"
+                      for x in part["parted"]) or "none"))
+            for label in ("off", "on"):
+                c = cfg.replace(decode_fused_mlp=fused and label == "on")
+                with switches(*(names if label == "on" else ())):
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    tokens = call(params, c)
+                    torch.cuda.synchronize()
+                    wall = time.time() - t0
+                new = sum(len(t) for t in tokens)
+                out["utt_s"][f"{arm} {label}"] = len(tokens) / wall
+                print(f"{model} {arm} bf16 [{label}] B={len(tokens)}: {wall:.3f} s, "
+                      f"{len(tokens) / wall:.2f} utt/s, {new / wall:.0f} new tok/s ({new} "
+                      f"tokens, {runs[label][3]} decode steps), launches {runs[label][2]} on "
+                      f"{card}")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _large_long(params, cfg, inputs: dict, cap: int) -> list:
+    """The long-history arm: ``generate`` over ``inputs``' LARGE_LONG_PROMPT-
+    token prompts in LARGE_LONG_SLOTS slots up to ``cap`` tokens a row;
+    each row's new tokens."""
+    dt = cfg.compute_dtype
+    out = generate(params, cfg, inputs["input_ids"], LARGE_LONG_PROMPT, max_len=LARGE_LONG_SLOTS,
+                   logical_cap=cap, eos_id=EOS, sp2_id=SP2,
+                   token_type_ids=inputs["token_type_ids"], imgs=inputs["imgs"].to(dt),
+                   auds=inputs["auds"].to(dt), caption_ids=inputs["caption_ids"], greedy=True)
+    _check_generate(out, cfg, inputs["input_ids"], LARGE_LONG_PROMPT, LARGE_LONG_SLOTS)
+    return [out.tokens[i, LARGE_LONG_PROMPT:int(n)].tolist()
+            for i, n in enumerate(out.lengths.tolist())]
+
+
+def _large_agreement(card: str) -> dict:
+    """The full-width agreement with ergm_tpu: gpt2-large's width at the
+    fixture's depth (``models/seeded.py::AGREEMENT``), the seeded weights
+    through ``params_from_numpy`` on the card, fp32 with TF32 off. Greedy
+    ``generate`` over the fixture's requests: tokens equal to JAX's up to
+    each row's first decision whose JAX margin is at most 1e-3, emotion
+    logits within 1e-3. Two AdamW steps on the fixture's batch through
+    ``make_train_step`` (K5's and K6's fp32 routes): the LM loss of step 1
+    within 1e-5 and of step 2 within 2e-3 of JAX's, relative."""
+    from ergm_tpu_torch.models import seeded
+    from ergm_tpu_torch.models.convert import params_from_numpy
+
+    a = seeded.AGREEMENT
+    with open(LARGE_FIXTURE) as f:
+        fx = json.load(f)
+    if fx["agreement"] != a:
+        raise AssertionError("large agreement: the fixture was written for another recipe")
+    cfg = ModelConfig.from_model_type(a["model_type"], n_layer=a["n_layer"],
+                                      vocab_size=a["vocab_size"], dtype="float32",
+                                      embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
+    t0 = time.time()
+    tree = seeded.seeded_tree(cfg, a["seed"])
+    inputs = seeded.agreement_inputs(cfg, a["seed"])
+    lp, res = a["prompt"], {}
+    req = {k: torch.as_tensor(v, device=DEVICE) for k, v in inputs["generate"].items()}
+    params = gpt2.params_for_inference(params_from_numpy(tree, cfg, device=DEVICE), cfg)
+    print(f"large agreement: seeded {a['model_type']} width at {a['n_layer']} layers in "
+          f"{time.time() - t0:.1f} s")
+    out = generate(params, cfg, req["input_ids"], lp, max_len=lp + a["new"], eos_id=a["eos_id"],
+                   sp2_id=a["sp2_id"], token_type_ids=req["token_type_ids"], imgs=req["imgs"],
+                   auds=req["auds"], caption_ids=req["caption_ids"], greedy=True)
+    got = out.tokens[:, lp:].tolist()
+    compared = 0
+    for b, row in enumerate(fx["tokens"]):
+        for j, tok in enumerate(row[:fx["lengths"][b] - lp]):
+            if fx["margins"][b][j] <= seeded.MARGIN:
+                break
+            if got[b][j] != tok:
+                raise AssertionError(f"large agreement: row {b} parts at token {j} (JAX margin "
+                                     f"{fx['margins'][b][j]:.3e})")
+            compared += 1
+    emo = (out.emotion_logits.float().cpu() - torch.tensor(fx["emotion_logits"])).abs().max()
+    if not float(emo) <= seeded.EMOTION_TOL:
+        raise AssertionError(f"large agreement: emotion logits {float(emo):.3e} apart")
+    res.update(tokens_compared=compared, emotion_max_abs_err=float(emo))
+    del params
+    torch.cuda.empty_cache()
+
+    params = params_from_numpy(tree, cfg, device=DEVICE)
+    del tree
+    tx = AdamW(a["lr"])
+    state = create_train_state(params, tx)
+    step = make_train_step(cfg, tx, device=DEVICE)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in inputs["train"].items()}
+    reset_launches()
+    losses = [float(step(state, batch, 0)[1]["lm_loss"]) for _ in range(a["steps"])]
+    counts = _train_counts()
+    rel = [abs(x - y) / abs(y) for x, y in zip(losses, fx["lm_losses"])]
+    if rel[0] > seeded.STEP1_RTOL or max(rel[1:]) > seeded.STEP2_RTOL:
+        raise AssertionError(f"large agreement: LM losses {losses} against JAX's "
+                             f"{fx['lm_losses']}")
+    if counts["fused_softmax_xent"] != a["steps"] or counts["block_mha"] < 1:
+        raise AssertionError(f"large agreement: launches {counts}")
+    res.update(losses=losses, jax_losses=fx["lm_losses"], loss_rel_err=rel)
+    print(f"large agreement with ergm_tpu ({a['model_type']} width, {a['n_layer']} layers, fp32, "
+          f"TF32 off): {compared} greedy tokens equal to JAX's of {len(fx['tokens'])} x "
+          f"{a['new']} (rows stop at a margin <= {seeded.MARGIN:g}), emotion logits "
+          f"{float(emo):.3e} apart; LM losses {losses} against {fx['lm_losses']} (relative "
+          f"{rel[0]:.2e} and {rel[1]:.2e}); launches {counts} on {card}")
+    del state, step, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def large_phase(card: str, gen: torch.Generator) -> dict:
+    """The large GPT-2 family on the card (phase 17 of the module
+    docstring): (a) K6 at each model's training shape, K1, K3 and K4 at
+    gpt2-large's serving shapes; (b, c) each model's recipe through the
+    command line; (d) serving; (e) the agreement with ergm_tpu. Returns
+    {"rows": extra JSON rows, "launches": {kernel: {path: launches}}}."""
+    t0 = time.time()
+    k6 = {m: _large_k6(gen, m, b * LARGE_L) for m, b in LARGE.items()}
+    wide = _large_decode_kernels(gen, ModelConfig.from_model_type(**{
+        **SLICE, "model_type": "gpt2-large"}))
+    train, serving = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for model in LARGE:
+            train[model] = _large_train(card, root, model)
+    for model in LARGE:
+        serving[model] = _large_serving(card, model)
+    agreement = _large_agreement(card)
+    readings = {m: {k: train[m][k] for k in ("tok_s", "step_p50_ms", "mfu_pct", "peak_gb",
+                                             "train_loss")} | {"utt_s": serving[m]["utt_s"]}
+                for m in LARGE}
+    print(f"large phase: {time.time() - t0:.1f} s on {card}; {json.dumps(readings)}; "
+          f"agreement {json.dumps(agreement)}")
+    launches = {}
+    for m in LARGE:
+        for path, counts in [("train", train[m]["launches"]), *serving[m]["launches"].items()]:
+            for k, v in counts.items():
+                launches.setdefault(k, {})[f"{m} {path}"] = v
+    serve_on = serving["gpt2-large"]["launches"]["serve on"]
+    rows = []
+    for m in LARGE:
+        for key, name, tpu in (("fwd", "fused_softmax_xent", "fused_ce.py:172"),
+                               ("bwd", "fused_softmax_xent_bwd", "fused_ce.py:220")):
+            rows.append((f"{name}_{m}", "fused_ce", tpu, {f"{name}_{m}": train[m]["launches"][name]},
+                         k6[m][key]))
+    for name, src, tpu in (("prefill_mha", "prefill_attention", "prefill_attention.py:111"),
+                           ("prefill_mha_cross", "prefill_attention", "prefill_attention.py:111"),
+                           ("fused_cross_decode", "cross_decode", "cross_decode.py:127"),
+                           ("fused_ln_mlp", "fused_decode", "fused_decode.py:99")):
+        rows.append((f"{name}_gpt2-large", src, tpu, {f"{name}_gpt2-large": serve_on[name]},
+                     wide[name]))
+    return {"rows": rows, "launches": launches}
+
+
 def _descendants() -> list:
     """The pids of the live (not zombie) processes below this one."""
     parent = {}
@@ -4960,6 +5571,8 @@ def main() -> None:
     cli_on = phase(cli_phase, card)
     par_on = phase(parallel_phase, card)
     mesh_on = phase(mesh_infer_phase, card, gen)
+    torch.cuda.empty_cache()
+    large_on = phase(large_phase, card, gen)
     print(f"phase seconds: {json.dumps(seconds)}; {time.time() - t0:.1f} s since the build "
           f"started")
     for arg in sys.argv[1:]:
@@ -5004,6 +5617,10 @@ def main() -> None:
             ("fused_ln_mlp_tp", "fused_decode", "fused_decode.py:99",
              {"fused_ln_mlp_tp": mesh_on["tp"]["fused_ln_mlp_tp"].pop("launches")},
              mesh_on["tp"]["fused_ln_mlp_tp"])]
+    # K6 at gpt2-large's and gpt2-xl's widths (launches: their recipes'
+    # epochs through the command line), K1, K3 and K4 at gpt2-large's
+    # (launches: its serving arm with the kernels on)
+    rows += large_on["rows"]
     # the K7 rows read the long-context step's K5 counts
     counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
     # launches on the speculative and beam paths: K5 in a B=1 request's
@@ -5026,6 +5643,10 @@ def main() -> None:
         **({"parallel_launches": par_on[name]} if name in par_on else {}),
         # launches on the mesh's inference paths (rank 0 of data=2 x model=2)
         **({"mesh_launches": mesh_on["launches"][name]} if name in mesh_on["launches"]
+           else {}),
+        # launches on the large family's paths (train: the recipe's epoch;
+        # serve and long history: the kernels-on arms)
+        **({"large_launches": large_on["launches"][name]} if name in large_on["launches"]
            else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

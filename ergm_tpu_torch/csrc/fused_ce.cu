@@ -16,7 +16,10 @@
 // At the training slice, N = 48*512 = 24,576 tokens, V = 50,271, D = 768,
 // the forward is one product of 2NVD = 1.9 TFLOP (1.92 ms on the tensor
 // cores) and the backward three (the logits again, dh and dW: 5.76 ms),
-// while h is 38 MB and W 77 MB: operations bind, by far.
+// while h is 38 MB and W 77 MB: operations bind, by far. So they do at
+// gpt2-large's N = 6,144, D = 1,280 (bounds 0.80 / 2.40 ms) and gpt2-xl's
+// N = 2,048, D = 1,600 (0.33 / 1.00 ms), where chip_smoke.py measured
+// 1.257 / 4.735 and 0.583 / 2.399 ms (NVIDIA H100 80GB HBM3, 700 W).
 //
 // bf16 design (gemm::): every product is one hand-written GEMM with CTA
 // tiles of 128 rows by 256 columns (192 where the output is D = 768 wide)
@@ -45,7 +48,18 @@
 //
 // f32 operands (the fp32 bars only; f32::) keep the first design: one CTA
 // per 16-row resident tile, streaming the other table in 32-row tiles,
-// f32 FMAs on the CUDA cores in order.
+// f32 FMAs on the CUDA cores in order. The streamed tile comes in slices of
+// 256 columns (twice in the backward: once for the logits, once for the
+// product with padj), so shared memory grows with D only through the
+// resident rows, and each thread's share of the [16, D] backward sum is at
+// most 8 columns by 16 rows of registers.
+//
+// Widths: D a multiple of 64 from 128 to 2048, which covers GPT-2's family
+// up to gpt2-xl (1,600). The bf16 products stream D in 64-deep stages, so
+// their depth is free; the dh and dW products tile D in 192-column tiles,
+// the last one partly past D at widths that 192 does not divide (1,280 runs
+// 7 tiles, 1,600 runs 9): the overhang is computed on zero-filled loads and
+// not written.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -60,9 +74,12 @@ namespace ergm_xent {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxD = 1024;
+// D: a multiple of 64 (the bf16 mainloop's stage depth) from 128 to kMaxD
+constexpr int kMinD = 128, kMaxD = 2048;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+inline bool width_ok(int D) { return D % 64 == 0 && D >= kMinD && D <= kMaxD; }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -82,8 +99,11 @@ namespace f32 {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int R = 16;  // resident rows per CTA
-constexpr int M = 32;  // streamed rows per tile
+constexpr int R = 16;         // resident rows per CTA
+constexpr int M = 32;         // streamed rows per tile
+constexpr int KS = kThreads;  // columns of a streamed slice: one per thread
+constexpr int kPer = R * M / kThreads;  // logits of a tile per thread
+constexpr int kCols = kMaxD / KS;       // backward: output slices per thread
 
 enum Mode { kFwd = 0, kDh = 1, kDw = 2 };
 
@@ -101,32 +121,37 @@ struct Args {
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
-// tile strides D + 1 and M + 1: conflict-free column reads
+// The resident rows whole (stride D + 1), the streamed tile one slice of KS
+// columns at a time (stride KS + 1): conflict-free column reads, and the
+// shared memory grows with D only through the resident rows (168 KB at
+// D = 2048).
 struct Layout {
-  int ld, lds;
+  int ld, lds, ldt;
   size_t res, str, s, p, vec, total;
   __host__ __device__ explicit Layout(int D) {
     ld = D + 1;
+    ldt = KS + 1;
     lds = M + 1;
     res = 0;
     str = align128(res + sizeof(float) * R * ld);
-    s = align128(str + sizeof(float) * M * ld);
+    s = align128(str + sizeof(float) * M * ldt);
     p = align128(s + sizeof(float) * R * lds);
     vec = align128(p + sizeof(float) * R * lds);
     total = vec + 3 * sizeof(float) * M;
   }
 };
 
-// Rows [row0, row0 + rows) of a [limit, D] table into a tile of stride ld,
-// 16 bytes at a time through registers; rows past the table are zero.
+// Columns [c0, c0 + width) of rows [row0, row0 + rows) of a [limit, D] table
+// into a tile of stride ld, 16 bytes at a time through registers; rows past
+// the table are zero.
 __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src, int row0,
-                                           int limit, int rows, int D) {
-  const int per = D / 4;
+                                           int limit, int rows, int D, int c0, int width) {
+  const int per = width / 4;
   for (int i = threadIdx.x; i < rows * per; i += kThreads) {
     const int r = i / per, c = (i % per) * 4;
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row0 + r < limit)
-      val = *reinterpret_cast<const float4*>(src + static_cast<long long>(row0 + r) * D + c);
+      val = *reinterpret_cast<const float4*>(src + static_cast<long long>(row0 + r) * D + c0 + c);
     dst[r * ld + c] = val.x;
     dst[r * ld + c + 1] = val.y;
     dst[r * ld + c + 2] = val.z;
@@ -165,7 +190,8 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
   const int r0 = blockIdx.x * R;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr bool vocab_rows = MODE == kDw;
-  stage_rows(res, L.ld, vocab_rows ? a.w : a.h, r0, vocab_rows ? a.V : a.N, R, D);
+  const float* streamed = vocab_rows ? a.h : a.w;
+  stage_rows(res, L.ld, vocab_rows ? a.w : a.h, r0, vocab_rows ? a.V : a.N, R, D, 0, D);
   if (!vocab_rows) stage_tokens(a, r0, R, lbl, lz, gg, MODE == kDh);
 
   // forward: online max, sum and gold logit of this warp's token rows
@@ -177,8 +203,7 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
     l[i] = 0.0f;
     gold[i] = 0.0f;
   }
-  // backward: the [R, D] f32 sum, thread t holding columns t + 256 c
-  constexpr int kCols = kMaxD / kThreads;
+  // backward: the [R, D] f32 sum, thread t holding columns t + KS c
   float facc[R][kCols];
   if constexpr (MODE != kFwd) {
 #pragma unroll
@@ -189,16 +214,31 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
 
   const int limit = vocab_rows ? a.N : a.V;
   for (int t0 = 0; t0 < limit; t0 += M) {
-    __syncthreads();  // the previous tile is done with str, s and p
-    stage_rows(str, L.ld, vocab_rows ? a.h : a.w, t0, limit, M, D);
-    if (vocab_rows) stage_tokens(a, t0, M, lbl, lz, gg, true);
-    __syncthreads();
-    // s[R x M] = res[R x D] . str[M x D]^T
-    for (int idx = threadIdx.x; idx < R * M; idx += kThreads) {
-      const int i = idx / M, j = idx % M;
-      float acc = 0.0f;
-      for (int k = 0; k < D; ++k) acc = fmaf(res[i * L.ld + k], str[j * L.ld + k], acc);
-      s[i * L.lds + j] = acc;
+    // s[R x M] = res[R x D] . str[M x D]^T, the depth in slices of KS
+    // columns, each logit summed in column order
+    float sacc[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) sacc[q] = 0.0f;
+    for (int k0 = 0; k0 < D; k0 += KS) {
+      const int width = min(KS, D - k0);
+      __syncthreads();  // the previous slice (or tile) is done with str, s and p
+      stage_rows(str, L.ldt, streamed, t0, limit, M, D, k0, width);
+      if (vocab_rows && k0 == 0) stage_tokens(a, t0, M, lbl, lz, gg, true);
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int idx = threadIdx.x + kThreads * q, i = idx / M, j = idx % M;
+        const float* rr = res + i * L.ld + k0;
+        const float* ss = str + j * L.ldt;
+        float acc = sacc[q];
+        for (int k = 0; k < width; ++k) acc = fmaf(rr[k], ss[k], acc);
+        sacc[q] = acc;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int idx = threadIdx.x + kThreads * q;
+      s[(idx / M) * L.lds + idx % M] = sacc[q];
     }
     __syncthreads();
     if constexpr (MODE == kFwd) {
@@ -232,14 +272,18 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
         if (v == lbl[t]) x -= gg[t];
         p[i * L.lds + j] = x;
       }
-      __syncthreads();
-      // acc[R x D] += p[R x M] . str[M x D]
-      for (int k = 0; k < M; ++k) {
+      // acc[R x D] += p[R x M] . str[M x D], a slice of the streamed tile at
+      // a time (staged again: the logits took it in the same slices)
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int col = threadIdx.x + kThreads * c;
-          if (col < D) {
-            const float b = str[k * L.ld + col];
+      for (int c = 0; c < kCols; ++c) {
+        const int k0 = c * KS;
+        if (k0 >= D) break;
+        __syncthreads();  // p is written; the last slice is read
+        stage_rows(str, L.ldt, streamed, t0, limit, M, D, k0, min(KS, D - k0));
+        __syncthreads();
+        if (k0 + threadIdx.x < D) {
+          for (int k = 0; k < M; ++k) {
+            const float b = str[k * L.ldt + threadIdx.x];
 #pragma unroll
             for (int r = 0; r < R; ++r) facc[r][c] = fmaf(p[r * L.lds + k], b, facc[r][c]);
           }
@@ -266,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const int col = threadIdx.x + kThreads * c;
+        const int col = threadIdx.x + KS * c;
         if (col < D && r0 + r < rows_total)
           a.out[static_cast<long long>(r0 + r) * D + col] = facc[r][c];
       }
@@ -275,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
 
 template <int MODE>
 int launch(const Args& a, cudaStream_t stream) {
-  if (a.D % 128 || a.D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (!width_ok(a.D)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L(a.D);
   cudaError_t err = cudaFuncSetAttribute(xent_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -766,7 +810,7 @@ using ergm_xent::gemm::Operand;
 using ergm_xent::gemm::Params;
 
 // dtype: 0 = float32, 1 = bfloat16; h [N, D] and W [V, D] contiguous, D a
-// multiple of 128 up to 1024. part: the bf16 route's [3, ceil(V / 256),
+// multiple of 64 from 128 to 2048. part: the bf16 route's [3, ceil(V / 256),
 // m_pad] f32 partials, m_pad = N rounded up to 128 (unused in f32).
 // Returns a cudaError_t (0 on success).
 extern "C" int ergm_xent_fwd(const void* h, const void* w, const void* labels, void* nll,
@@ -774,7 +818,7 @@ extern "C" int ergm_xent_fwd(const void* h, const void* w, const void* labels, v
                              void* stream) {
   using namespace ergm_xent;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 128 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (!width_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     f32::Args a{static_cast<const float*>(h), static_cast<const float*>(w),
                 static_cast<const int*>(labels), nullptr, nullptr, static_cast<float*>(nll),
@@ -828,7 +872,7 @@ extern "C" int ergm_xent_bwd_chunk(const void* h, const void* w, const void* lab
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // a chunk that ends before V must be whole tiles: the padj kernel writes
   // its tiles' columns past `width`, which the next chunk would count again
-  if (D % 128 || D > kMaxD || chunk % gemm::kTileV || width < 1 || width > chunk ||
+  if (!width_ok(D) || chunk % gemm::kTileV || width < 1 || width > chunk ||
       (v0 + width != V && width % gemm::kTileV))
     return static_cast<int>(cudaErrorInvalidValue);
   const int m_pad = (N + gemm::BM - 1) / gemm::BM * gemm::BM;

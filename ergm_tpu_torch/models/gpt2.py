@@ -1160,9 +1160,9 @@ def lm_loss(hidden: torch.Tensor, params: GPT2, config: ModelConfig,
     """The LM loss without logits, by ``lm_loss_impl``: ``auto`` takes
     kernel K6 for CUDA tensors (as JAX goes fused on the TPU) and the
     chunked loss on the CPU; ``fused`` takes K6, or its plain version on
-    the CPU; ``chunked`` the chunked loss. On the card K6 raises on what
-    it does not take (D not a multiple of 128 or above 1024, float16):
-    such a model sets ``chunked``.
+    the CPU; ``chunked`` the chunked loss. K6 takes every GPT-2 width
+    (D a multiple of 64 from 128 to 2,048, so gpt2 to gpt2-xl); on the
+    card it raises on what it does not take (another D, float16).
 
     Over a mesh (``hidden`` and ``labels`` this rank's rows) the loss is
     the mean over the global count of targets, JAX's rule

@@ -28,13 +28,20 @@ from ergm_tpu_torch.ops import _build
 # launches its chunks' kernels).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-MAX_DIM = 1024
+# widths the kernels take: a multiple of DIM_STEP from MIN_DIM to MAX_DIM
+# (GPT-2's family, gpt2 768 to gpt2-xl 1,600, and more)
+MIN_DIM, MAX_DIM, DIM_STEP = 128, 2048, 64
 # vocab columns per backward chunk by default (a multiple of the kernels'
 # 256-column tile); its bf16 scratch is [N rounded up to 128, CHUNK],
 # 403 MB at N = 24,576
 CHUNK = 8192
 _TILE_V = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def width_ok(D: int) -> bool:
+    """Whether the kernels take hidden width ``D``."""
+    return D % DIM_STEP == 0 and MIN_DIM <= D <= MAX_DIM
 
 
 def vocab_chunks(V: int, chunk: int) -> list:
@@ -69,9 +76,9 @@ def _check(hidden, wte, labels):
     if hidden.dim() != 2 or wte.dim() != 2 or wte.shape[1] != hidden.shape[1]:
         raise ValueError(f"fused_softmax_xent: hidden {tuple(hidden.shape)}, wte "
                          f"{tuple(wte.shape)}; want [N, D] and [V, D]")
-    if hidden.shape[1] % 128 or hidden.shape[1] > MAX_DIM:
+    if not width_ok(hidden.shape[1]):
         raise ValueError(f"fused_softmax_xent: D={hidden.shape[1]}; the kernels take a "
-                         f"multiple of 128 up to {MAX_DIM}")
+                         f"multiple of {DIM_STEP} from {MIN_DIM} to {MAX_DIM}")
     if labels.shape != hidden.shape[:1]:
         raise ValueError(f"fused_softmax_xent: labels {tuple(labels.shape)}, want "
                          f"[{hidden.shape[0]}]")

@@ -723,7 +723,11 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,N,V,D", [(torch.float32, 300, 1000, 256),
                                          (torch.bfloat16, 300, 5003, 768),
-                                         (torch.bfloat16, 200, 1000, 256)])
+                                         (torch.bfloat16, 200, 1000, 256),
+                                         (torch.float32, 300, 3001, 1280),
+                                         (torch.bfloat16, 300, 5003, 1280),
+                                         (torch.float32, 200, 2181, 1600),
+                                         (torch.bfloat16, 333, 5003, 1600)])
 def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     """K6 forward and backward against the plain version, with ignored
     labels, N not a multiple of the 128-row tile and V not a multiple of
@@ -734,7 +738,10 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     NLL 1e-5, gradients rtol 1e-4 / atol 1e-5 (JAX's bars); bf16: NLL 1e-4
     (the logits are exact bf16 products summed in f32 on both sides),
     gradients as ``_grads_within``, a bar that the gold term alone fails.
-    bf16 also at D = 256, which the 192-column dh and dW tiles overhang."""
+    bf16 also at D = 256, which the 192-column dh and dW tiles overhang;
+    both types at gpt2-large's and gpt2-xl's widths, 1,280 and 1,600 (the
+    f32 route's 256-column slices, the last one 0 or 64 wide, and 7 and 9
+    overhanging dh and dW tiles)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -775,16 +782,16 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [256, 1024, 8192])
-def test_fused_xent_backward_is_deterministic(chunk):
+@pytest.mark.parametrize("chunk,D", [(256, 256), (1024, 256), (8192, 256), (1024, 1600)])
+def test_fused_xent_backward_is_deterministic(chunk, D):
     """The bf16 backward (no atomics; chunks in order on the stream) gives
     bitwise the same dh and dW on a second run, and gradients within
     ``_bf16_grad_ratio``'s bar whatever the chunk width: one chunk,
-    several, and a last chunk of 133 columns."""
+    several, and a last chunk of 133 columns; also at gpt2-xl's width."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     g = torch.Generator().manual_seed(7)
-    N, V, D = 333, 2181, 256
+    N, V = 333, 2181
     h = torch.randn((N, D), generator=g).to("cuda", torch.bfloat16)
     w = (3.0 / D ** 0.5 * torch.randn((V, D), generator=g)).to("cuda", torch.bfloat16)
     lbl = torch.randint(0, V, (N,), generator=g).cuda().to(torch.int32)
@@ -830,9 +837,10 @@ def test_fused_xent_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     lbl = torch.zeros((8,), dtype=torch.int64, device="cuda")
-    with pytest.raises(ValueError):  # D = 96
-        tce.fused_softmax_xent(torch.zeros((8, 96), device="cuda"),
-                               torch.zeros((16, 96), device="cuda"), lbl)
+    for d in (96, 1632, 2112):  # below 128, not a multiple of 64, above 2048
+        with pytest.raises(ValueError, match=f"D={d}"):
+            tce.fused_softmax_xent(torch.zeros((8, d), device="cuda"),
+                                   torch.zeros((16, d), device="cuda"), lbl)
     with pytest.raises(TypeError):  # mixed dtypes
         tce.fused_softmax_xent(torch.zeros((8, 128), device="cuda"),
                                torch.zeros((16, 128), device="cuda", dtype=torch.bfloat16), lbl)
