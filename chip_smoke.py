@@ -326,6 +326,30 @@ Phases, each of which raises on failure:
    emotion logits within 1e-3, two AdamW steps' LM losses within 1e-5 and
    2e-3, relative (K5's and K6's fp32 routes).
 
+18. K5 and K6 over the whole domain of their JAX kernels (``domain_phase``),
+   last: (a) K5 at [48, 768 / Dh, 512, Dh] for Dh = 24 (padded to the
+   32-wide kernel), 32, 96 and 128, causal and not, dropout 0 and 0.1, bf16
+   (fp32 at B=4), forward and backward against the plain version at the
+   bars of phase 10, with the times of kernel, plain and
+   ``scaled_dot_product_attention`` at the training configuration and the
+   bound; K7's shape at the widest head, [2, 6, 2048, 128], causal, left
+   pads, the same way. (b) K6 at gpt2's training shape (N=24,576, GPT-2's
+   50,257-row vocabulary) for D = 32, 96, 100 and 776 (padded to 64, 128,
+   128 and 832, whole stages of the kernels' products), bf16
+   and fp32 (N=2,048), with times and bounds and, at D = 100, the bf16
+   backward twice bit for bit. (c) Nine 2-layer models (n_embd x n_head:
+   768 x 6, 768 x 24, 96 x 4, 768 x 8, 32 x 4, 100 x 4, 776 x 8, 1088 x 8,
+   2112 x 33; bf16, dropout 0.1) through ``Trainer`` for 2 steps of 8 x
+   512 tokens and validation, every K5 and K6 launch held against its plain
+   version (``KernelShadow``, forward and backward): K5 launches exactly at
+   head widths in JAX's gate (not at 25, 97 or 136) and K6 at widths up to
+   2,048 (not at 2,112), and there the explicit ``block`` or ``fused``
+   route raises; one long-context step at 6 heads of 128 (K7's route). (d)
+   gpt2 at its full width and 12 layers in fp32 against
+   ``tests/fixtures/gpt2_agreement.json`` (``GPT2_AGREEMENT``): tokens by
+   the margin rule, emotion logits within 1e-4, losses within 1e-5 and
+   2e-3, relative.
+
 Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
 shapes, the plain version's and a library call's time), and as its last
@@ -545,26 +569,34 @@ def _median_ms(fn, reps: int = 20) -> float:
 def _kernel_durations(name: str, run, per_call: int, calls: int = 5, attempts: int = 3) -> list:
     """Prints the device duration of each of the ``per_call`` kernels of
     one call (medians over ``calls`` calls, torch.profiler) and the gaps
-    between them; returns the durations in us. A trace that lost some of
-    the kernels (the profiler may miss the first ones after it starts) is
-    taken again, at most ``attempts`` times."""
+    between them; returns the durations in us. The profiler may miss the
+    first kernels after it starts, so one call runs inside it before the
+    ``calls`` that are read, and the trace's last ``per_call * calls``
+    kernels are read when they repeat with the call's period (a kernel
+    lost among them would break it); a trace that fails that is taken
+    again, at most ``attempts`` times."""
     run()
     torch.cuda.synchronize()
+    per = per_call
     for _ in range(attempts):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()  # not read: the profiler may miss it
+            torch.cuda.synchronize()
             for _ in range(calls):
                 run()
             torch.cuda.synchronize()
         evs = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-        per = per_call
-        if len(evs) == per * calls:
+        held = len(evs)
+        evs = evs[-per * calls:]
+        if (per * calls <= held <= per * (calls + 1)
+                and all(e.name == evs[i % per].name for i, e in enumerate(evs))):
             break
-        print(f"{name}: the trace holds {len(evs)} device operations over {calls} calls; "
+        print(f"{name}: the trace holds {held} device operations over {calls} + 1 calls; "
               f"taking it again")
     else:
-        raise AssertionError(f"{name}: {len(evs)} device operations over {calls} calls")
+        raise AssertionError(f"{name}: {held} device operations over {calls} + 1 calls")
     calls_ev = [evs[i * per:(i + 1) * per] for i in range(calls)]
     dur = np.median([[e.time_range.elapsed_us() for e in c] for c in calls_ev], axis=0)
     gaps = np.median([[c[i + 1].time_range.start - c[i].time_range.end for i in range(per - 1)]
@@ -2461,13 +2493,35 @@ def server_ext_phase(card: str) -> dict:
             for k in ("prefill_mha", "prefill_mha_cross", "block_mha", "fused_ln_mlp")}
 
 
-def _k5_run(fn, q, k, v, do, rate=0.0, m=None) -> list:
-    """Output and (dQ, dK, dV) of ``fn`` (K5 or its plain version), causal,
-    with ``m`` as both the key and the query mask."""
+def _k5_grads(fn, q, k, v, do, **kw) -> list:
+    """Output and (dQ, dK, dV) of ``fn`` (K5 or its plain version)."""
     qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
-    o = fn(qq, kk, vv, causal=True, scale=0.125, q_mask=m, kv_mask=m, dropout_rate=rate,
-           dropout_seed=SEED if rate else None)
+    o = fn(qq, kk, vv, **kw)
     return [o, *torch.autograd.grad(o, (qq, kk, vv), do)]
+
+
+def _k5_held(label: str, dtype, got: list, want: list, exact: list, rows=None) -> tuple:
+    """Raises unless K5's output is within its bar of the plain version
+    (bf16: 2e-2 + 1e-2 |plain|; fp32: F32_TOL) on ``rows`` (all when None)
+    and its gradients pass ``_grads_ok`` (fp32 5e-5). Returns the largest
+    |kernel - plain| of the output and of the gradients, and the
+    gradients' share of their bar."""
+    o, o_ref = got[0].float(), want[0].float()
+    if rows is not None:
+        o, o_ref = (torch.where(rows, x, 0.0) for x in (o, o_ref))
+    o_err = (o - o_ref).abs().max().item()
+    ok = _bf16_ok(o, o_ref) if dtype == torch.bfloat16 else o_err <= F32_TOL
+    if not ok or not bool(torch.isfinite(got[0]).all()) or got[0].shape != want[0].shape:
+        raise AssertionError(f"{label}: output disagrees, {o_err:.3e}")
+    g_err, g_ratio = _grads_ok(got[1:], want[1:], dtype, 5e-5, exact[1:])
+    return o_err, g_err, g_ratio
+
+
+def _k5_run(fn, q, k, v, do, rate=0.0, m=None) -> list:
+    """``_k5_grads`` causal at the 64-wide heads' scale, with ``m`` as both
+    the key and the query mask."""
+    return _k5_grads(fn, q, k, v, do, causal=True, scale=0.125, q_mask=m, kv_mask=m,
+                     dropout_rate=rate, dropout_seed=SEED if rate else None)
 
 
 def bf16_grad_ratio(got, plain, exact) -> float:
@@ -2522,11 +2576,8 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
                              *(x.float() for x in (q, k, v, do)), rate)
                      if dtype == torch.bfloat16 else ())
             torch.cuda.synchronize()
-            o_err = (got[0].float() - want[0].float()).abs().max().item()
-            o_ok = _bf16_ok(got[0], want[0]) if dtype == torch.bfloat16 else o_err <= 2e-5
-            if not o_ok or not bool(torch.isfinite(got[0]).all()):
-                raise AssertionError(f"K5 {dtype} rate {rate}: output disagrees, {o_err:.3e}")
-            g_err, g_ratio = _grads_ok(got[1:], want[1:], dtype, 5e-5, exact[1:])
+            o_err, g_err, g_ratio = _k5_held(f"K5 {dtype} rate {rate}", dtype, got, want,
+                                             list(exact))
             note = ""
             if dtype == torch.bfloat16:
                 # the bar must see the late keys, which few queries reach
@@ -2684,61 +2735,67 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
 
 def flash_kernel_phase(gen: torch.Generator) -> dict:
     """K5 on the shapes of JAX's library flash kernel (K7): L=2048, causal,
-    left-pad masks, no dropout. Returns the K7 rows' numbers."""
-    res = {name: {"max_abs_err": 0.0} for name in ("block_mha_flash", "block_mha_flash_bwd")}
-    H_, Dh, L = 12, 64, LONG_L
-    for dtype, b, heads in ((torch.float32, 1, 2), (torch.bfloat16, FLASH_B, H_)):
-        q, k, v, do = (torch.randn((b, heads, L, Dh), generator=gen, device=DEVICE).to(dtype)
+    left-pad masks, no dropout, [8, 12, 2048, 64] in bf16 and [1, 2, 2048,
+    64] in fp32 (``_k7_case``). Returns the K7 rows' numbers."""
+    res = _k7_case(gen, 64, ((torch.float32, 1, 2), (torch.bfloat16, FLASH_B, 12)))
+    return {"block_mha_flash": res["fwd"], "block_mha_flash_bwd": res["bwd"]}
+
+
+def _k7_case(gen: torch.Generator, dh: int, shapes: tuple) -> dict:
+    """K5 on K7's shapes at head width ``dh``: [b, heads, LONG_L, dh] for
+    each (dtype, b, heads) of ``shapes`` (bf16 last), causal, left-pad key
+    and query masks, no dropout, forward and backward against the plain
+    version on real rows (``_k5_held``); bf16 times of kernel, plain and
+    SDPA (``is_causal``, no mask) and the bound over the pairs of real rows
+    and keys. Returns {"fwd": numbers, "bwd": numbers}."""
+    L, scale = LONG_L, dh ** -0.5
+    res = {k: {"max_abs_err": 0.0} for k in ("fwd", "bwd")}
+    for dtype, b, heads in shapes:
+        q, k, v, do = (torch.randn((b, heads, L, dh), generator=gen, device=DEVICE).to(dtype)
                        for _ in range(4))
         pads = torch.randint(0, 400, (b,), generator=gen, device=DEVICE)
         pads[0] = 0
         m = (torch.arange(L, device=DEVICE)[None] >= pads[:, None]).to(torch.int32)
-        real = m[:, None, :, None].bool()  # padded query rows: zeros here, junk in JAX's flash
-        got = _k5_run(block_attention.block_mha, q, k, v, do, m=m)
-        want = _k5_run(block_attention.block_mha_reference, q, k, v, do, m=m)
-        exact = (_k5_run(block_attention.block_mha_reference, *(x.float() for x in (q, k, v, do)),
-                         m=m)
-                 if dtype == torch.bfloat16 else ())
+        # padded query rows: zeros here, junk in JAX's flash kernel
+        kw = dict(causal=True, scale=scale, q_mask=m, kv_mask=m)
+        got = _k5_grads(block_attention.block_mha, q, k, v, do, **kw)
+        want = _k5_grads(block_attention.block_mha_reference, q, k, v, do, **kw)
+        exact = (_k5_grads(block_attention.block_mha_reference,
+                           *(x.float() for x in (q, k, v, do)), **kw)
+                 if dtype == torch.bfloat16 else [])
         torch.cuda.synchronize()
-        o, o_ref = (torch.where(real, x.float(), 0.0) for x in (got[0], want[0]))
-        o_err = (o - o_ref).abs().max().item()
-        o_ok = _bf16_ok(o, o_ref) if dtype == torch.bfloat16 else o_err <= F32_TOL
-        if not o_ok or not bool(torch.isfinite(got[0]).all()):
-            raise AssertionError(f"K5 on K7's shape, {dtype}: output disagrees, {o_err:.3e}")
-        g_err, g_ratio = _grads_ok(got[1:], want[1:], dtype, 5e-5, exact[1:])
-        print(f"K5 on K7's shape {dtype} [{b}, {heads}, {L}, {Dh}] causal, left pads up to "
+        o_err, g_err, g_ratio = _k5_held(f"K5 on K7's shape Dh={dh} {dtype}", dtype, got, want,
+                                         exact, rows=m[:, None, :, None].bool())
+        print(f"K5 on K7's shape {dtype} [{b}, {heads}, {L}, {dh}] causal, left pads up to "
               f"{int(pads.max())}: max |kernel - plain| output {o_err:.3e} (real rows), "
               f"gradients {g_err:.3e} ({g_ratio:.3f} of the bar)")
         key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
-        res["block_mha_flash"][key], res["block_mha_flash_bwd"][key] = o_err, g_err
+        res["fwd"][key], res["bwd"][key] = o_err, g_err
         del got, want, exact
-    # times at [8, 12, 2048, 64] bf16; the yardstick is one SDPA call
-    # (is_causal, no mask); the bound counts the pairs of real rows and keys
-    fwd = {"kernel": lambda *x: block_attention.block_mha(*x, causal=True, scale=0.125,
-                                                          q_mask=m, kv_mask=m),
-           "plain": lambda *x: block_attention.block_mha_reference(*x, causal=True, scale=0.125,
-                                                                   q_mask=m, kv_mask=m),
-           "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True, scale=0.125)}
-    r = res["block_mha_flash"]
-    r["ms"], r["plain_ms"] = _timed_pair("K5 on K7's shape, forward", lambda: fwd["kernel"](q, k, v),
+    fwd = {"kernel": lambda *x: block_attention.block_mha(*x, **kw),
+           "plain": lambda *x: block_attention.block_mha_reference(*x, **kw),
+           "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True, scale=scale)}
+    real_len = (L - pads).long()
+    pairs = int((real_len * (real_len + 1) // 2).sum()) * heads
+    r = res["fwd"]
+    r["ms"], r["plain_ms"] = _timed_pair(f"K5 on K7's shape Dh={dh}, forward",
+                                         lambda: fwd["kernel"](q, k, v),
                                          lambda: fwd["plain"](q, k, v), reps=10)
     r["library_ms"] = _median_ms(lambda: fwd["library"](q, k, v))
-    real_len = (L - pads).long()
-    pairs = int((real_len * (real_len + 1) // 2).sum()) * H_
-    r.update(bound(4 * _nbytes(q), 2 * 2 * pairs * Dh))
+    r.update(bound(4 * _nbytes(q), 2 * 2 * pairs * dh))
     bwd = {}
     for name, fn in fwd.items():
         xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
         o = fn(*xs)
         bwd[name] = (lambda o=o, xs=xs: torch.autograd.grad(o, xs, do, retain_graph=True))
-    r = res["block_mha_flash_bwd"]
-    r["ms"], r["plain_ms"] = _timed_pair("K5 on K7's shape, backward", bwd["kernel"],
+    r = res["bwd"]
+    r["ms"], r["plain_ms"] = _timed_pair(f"K5 on K7's shape Dh={dh}, backward", bwd["kernel"],
                                          bwd["plain"], reps=10)
     r["library_ms"] = _median_ms(bwd["library"])
-    r.update(bound(8 * _nbytes(q), 5 * 2 * pairs * Dh))
-    for name in res:
-        print(f"{name}: SDPA {res[name]['library_ms']:.4f} ms, bound "
-              f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+    r.update(bound(8 * _nbytes(q), 5 * 2 * pairs * dh))
+    for key in ("fwd", "bwd"):
+        print(f"K5 on K7's shape Dh={dh} {key}: SDPA {res[key]['library_ms']:.4f} ms, bound "
+              f"{res[key]['bound_ms']:.4f} ms ({res[key]['bound_by']})")
     return res
 
 
@@ -4960,22 +5017,36 @@ LARGE_SHADOWED = ((prefill_attention, "prefill_mha", _k1_rows),
 
 def _large_k6(gen: torch.Generator, model: str, n: int) -> dict:
     """K6 at ``model``'s training shape (n tokens, GPT-2's vocabulary, its
-    width), logits of std 3: bf16 forward (NLL 1e-4 + 1e-4 |plain|) and
-    backward (``bf16_grad_ratio`` against the plain version in bf16 and in
-    f32), fp32 forward (1e-5) and backward (rtol 1e-4, atol 1e-5) with TF32
-    off; CUDA-event times of kernel and plain in turns and the bound.
-    Returns the numbers of its forward and backward rows."""
-    V, D = SLICE["vocab_size"], ModelConfig.from_model_type(model).n_embd
-    res = {k: {"shape": [n, V, D], "library_ms": None} for k in ("fwd", "bwd")}
-    for dtype in (torch.bfloat16, torch.float32):
-        h = torch.randn((n, D), generator=gen, device=DEVICE).to(dtype)
-        w = (3.0 / math.sqrt(D) * torch.randn((V, D), generator=gen, device=DEVICE)).to(dtype)
-        lbl = torch.randint(0, V, (n,), generator=gen, device=DEVICE)
+    width) in bf16 and fp32 (``_k6_case``). Returns the numbers of its
+    forward and backward rows."""
+    return _k6_case(gen, model, ModelConfig.from_model_type(model).n_embd, n, n,
+                    SLICE["vocab_size"])
+
+
+def _k6_case(gen: torch.Generator, label: str, d: int, n: int, n_f32: int, V: int,
+             repeat: bool = False) -> dict:
+    """K6 at width ``d`` over a vocabulary of ``V`` rows, n tokens in bf16
+    and n_f32 in fp32 (TF32 off), logits of std 3: the kernels on operands
+    padded to ``padded_width(d)`` (as ``fused_softmax_xent`` runs them)
+    against the plain version, NLL within 1e-4 + 1e-4 |plain| (bf16) and
+    1e-5 (fp32), gradients by ``bf16_grad_ratio`` against the plain version
+    in bf16 and in f32 (bf16) and within rtol 1e-4 / atol 1e-5 (fp32); with
+    ``repeat`` the bf16 backward twice, bit for bit; CUDA-event times of
+    kernel and plain in turns and the bound at the true ``d``. Returns the
+    numbers of its forward and backward rows; the kernels' times are the
+    wrapper's, pad copies included."""
+    width = fused_ce.padded_width(d)
+    res = {k: {"shape": [n, V, d], "library_ms": None} for k in ("fwd", "bwd")}
+    for dtype, rows in ((torch.bfloat16, n), (torch.float32, n_f32)):
+        h = torch.randn((rows, d), generator=gen, device=DEVICE).to(dtype)
+        w = (3.0 / math.sqrt(d) * torch.randn((V, d), generator=gen, device=DEVICE)).to(dtype)
+        lbl = torch.randint(0, V, (rows,), generator=gen, device=DEVICE)
         lbl[::4] = -100
         l32 = lbl.to(torch.int32)
-        g = torch.where(lbl >= 0, torch.randn((n,), generator=gen, device=DEVICE), 0.0)
-        nll, logz = fused_ce.launch_fwd(h, w, l32)
-        got = fused_ce.launch_bwd(h, w, l32, logz, g)
+        g = torch.where(lbl >= 0, torch.randn((rows,), generator=gen, device=DEVICE), 0.0)
+        hp, wp = (F.pad(x, (0, width - d)) for x in (h, w))
+        nll, logz = fused_ce.launch_fwd(hp, wp, l32)
+        got = [x[:, :d] for x in fused_ce.launch_bwd(hp, wp, l32, logz, g)]
         args = (h, w, lbl, logz, g)
         with torch.no_grad():
             nll_ref = fused_ce.fused_softmax_xent_reference(h, w, lbl)
@@ -4984,22 +5055,30 @@ def _large_k6(gen: torch.Generator, model: str, n: int) -> dict:
         n_err = (nll - nll_ref).abs().max().item()
         tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
         if not bool(((nll - nll_ref).abs() <= tol + tol * nll_ref.abs()).all()):
-            raise AssertionError(f"K6 {model} {dtype}: NLL disagrees, {n_err:.3e}")
+            raise AssertionError(f"K6 {label} D={d} {dtype}: NLL disagrees, {n_err:.3e}")
         if dtype == torch.bfloat16:
             _, ratio = _grads_ok(got, want, dtype, None, _k6_bwd_plain(args, torch.float32))
         else:  # JAX's bars: rtol 1e-4, atol 1e-5
             ratio = max(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max().item()
                         for a, b in zip(got, want))
             if not ratio <= 1.0:
-                raise AssertionError(f"K6 {model} fp32: gradients at {ratio:.3f} of the bar")
+                raise AssertionError(f"K6 {label} D={d} fp32: gradients at {ratio:.3f} of the "
+                                     f"bar")
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
         suffix = "" if dtype == torch.bfloat16 else "_f32"
         res["fwd"][f"max_abs_err{suffix}"] = n_err
         res["bwd"][f"max_abs_err{suffix}"] = max(errs)
         res["bwd"][f"bar_share{suffix}"] = ratio
-        print(f"K6 {model} {dtype} N={n}, V={V}, D={D}: max |kernel - plain| NLL {n_err:.3e}, "
-              f"dh {errs[0]:.3e}, dW {errs[1]:.3e} ({ratio:.3f} of the gradients' bar)")
+        print(f"K6 {label} {dtype} N={rows}, V={V}, D={d} (run at {width}): max |kernel - "
+              f"plain| NLL {n_err:.3e}, dh {errs[0]:.3e}, dW {errs[1]:.3e} ({ratio:.3f} of the "
+              f"gradients' bar)")
         del got, want, nll_ref
+        if repeat and dtype == torch.bfloat16:
+            first, second = (fused_ce.launch_bwd(hp, wp, l32, logz, g) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"K6 {label} D={d} bf16: two backward runs differ")
+            del first, second
+            print(f"K6 {label} D={d} bf16: two backward runs are bitwise equal")
 
         def plain_bwd():
             p = torch.softmax(h.float() @ w.float().t(), dim=-1) * g[:, None]
@@ -5008,9 +5087,20 @@ def _large_k6(gen: torch.Generator, model: str, n: int) -> dict:
             return (p @ w.float()).to(h.dtype), (p.t() @ h.float()).to(w.dtype)
 
         reps = 5 if dtype == torch.bfloat16 else 2
-        pairs = {"fwd": (lambda: fused_ce.launch_fwd(h, w, l32),
+        # the kernels are timed through the wrapper, as the main path calls
+        # them: with its pad copies where D is padded, and the backward's
+        # slices of dh and dW
+        hg, wg = (x.detach().requires_grad_(True) for x in (h, w))
+        loss = fused_ce.fused_softmax_xent(hg, wg, lbl)
+        pairs = {"fwd": (lambda: fused_ce.fused_softmax_xent(h, w, lbl),
                          lambda: fused_ce.fused_softmax_xent_reference(h, w, lbl)),
-                 "bwd": (lambda: fused_ce.launch_bwd(h, w, l32, logz, g), plain_bwd)}
+                 "bwd": (lambda: torch.autograd.grad(loss, (hg, wg), g, retain_graph=True),
+                         plain_bwd)}
+        if width != d:
+            pad_ms = _median_ms(lambda: (F.pad(h, (0, width - d)), F.pad(w, (0, width - d))),
+                                reps)
+            print(f"K6 {label} D={d} {dtype}: the wrapper's pad copies to {width} take "
+                  f"{pad_ms:.4f} ms a call (in the times below)")
         for key, extra, products in (("fwd", (), 1), ("bwd", (g, logz, h, w), 3)):
             run, plain = pairs[key]
             # in turns: plain, kernel, kernel, plain
@@ -5018,15 +5108,15 @@ def _large_k6(gen: torch.Generator, model: str, n: int) -> dict:
             ms, plain_ms = min(k1, k2), min(p1, p2)
             r = res[key]
             r[f"ms{suffix}"], r[f"plain_ms{suffix}"] = ms, plain_ms
-            b = bound(_nbytes(h, w, l32, *extra), products * 2 * n * V * D, dtype)
+            b = bound(_nbytes(h, w, l32, *extra), products * 2 * rows * V * d, dtype)
             if dtype == torch.bfloat16:
                 r.update(b)
             else:
                 r["bound_ms_f32"] = b["bound_ms"]
-            print(f"K6 {model} {dtype} {key}: kernel {ms:.4f} ms (runs {k1:.4f}/{k2:.4f}), "
+            print(f"K6 {label} D={d} {dtype} {key}: kernel {ms:.4f} ms (runs {k1:.4f}/{k2:.4f}), "
                   f"plain {plain_ms:.4f} ms (runs {p1:.4f}/{p2:.4f}; medians of {reps}), "
                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        del h, w, nll, logz
+        del h, w, hp, wp, nll, logz, hg, wg, loss
         torch.cuda.empty_cache()
     return res
 
@@ -5344,32 +5434,41 @@ def _large_long(params, cfg, inputs: dict, cap: int) -> list:
 
 
 def _large_agreement(card: str) -> dict:
-    """The full-width agreement with ergm_tpu: gpt2-large's width at the
-    fixture's depth (``models/seeded.py::AGREEMENT``), the seeded weights
-    through ``params_from_numpy`` on the card, fp32 with TF32 off. Greedy
+    """The full-width agreement with ergm_tpu at gpt2-large's width and the
+    fixture's depth (``models/seeded.py::AGREEMENT``): ``_agreement``, emotion
+    logits within 1e-3."""
+    from ergm_tpu_torch.models import seeded
+
+    return _agreement(card, "large agreement", seeded.AGREEMENT, LARGE_FIXTURE,
+                      seeded.EMOTION_TOL)
+
+
+def _agreement(card: str, label: str, a: dict, fixture: str, emotion_tol: float) -> dict:
+    """The agreement with ergm_tpu on recipe ``a`` of ``models/seeded.py``:
+    the seeded weights through ``params_from_numpy`` on the card, fp32 with
+    TF32 off, against ``fixture`` (``scripts/large_agreement.py``). Greedy
     ``generate`` over the fixture's requests: tokens equal to JAX's up to
     each row's first decision whose JAX margin is at most 1e-3, emotion
-    logits within 1e-3. Two AdamW steps on the fixture's batch through
-    ``make_train_step`` (K5's and K6's fp32 routes): the LM loss of step 1
-    within 1e-5 and of step 2 within 2e-3 of JAX's, relative."""
+    logits within ``emotion_tol``. Two AdamW steps on the fixture's batch
+    through ``make_train_step`` (K5's and K6's fp32 routes): the LM loss of
+    step 1 within 1e-5 and of step 2 within 2e-3 of JAX's, relative."""
     from ergm_tpu_torch.models import seeded
     from ergm_tpu_torch.models.convert import params_from_numpy
 
-    a = seeded.AGREEMENT
-    with open(LARGE_FIXTURE) as f:
+    with open(fixture) as f:
         fx = json.load(f)
     if fx["agreement"] != a:
-        raise AssertionError("large agreement: the fixture was written for another recipe")
+        raise AssertionError(f"{label}: the fixture was written for another recipe")
     cfg = ModelConfig.from_model_type(a["model_type"], n_layer=a["n_layer"],
                                       vocab_size=a["vocab_size"], dtype="float32",
                                       embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
     t0 = time.time()
     tree = seeded.seeded_tree(cfg, a["seed"])
-    inputs = seeded.agreement_inputs(cfg, a["seed"])
+    inputs = seeded.agreement_inputs(cfg, a["seed"], a)
     lp, res = a["prompt"], {}
     req = {k: torch.as_tensor(v, device=DEVICE) for k, v in inputs["generate"].items()}
     params = gpt2.params_for_inference(params_from_numpy(tree, cfg, device=DEVICE), cfg)
-    print(f"large agreement: seeded {a['model_type']} width at {a['n_layer']} layers in "
+    print(f"{label}: seeded {a['model_type']} width at {a['n_layer']} layers in "
           f"{time.time() - t0:.1f} s")
     out = generate(params, cfg, req["input_ids"], lp, max_len=lp + a["new"], eos_id=a["eos_id"],
                    sp2_id=a["sp2_id"], token_type_ids=req["token_type_ids"], imgs=req["imgs"],
@@ -5381,12 +5480,12 @@ def _large_agreement(card: str) -> dict:
             if fx["margins"][b][j] <= seeded.MARGIN:
                 break
             if got[b][j] != tok:
-                raise AssertionError(f"large agreement: row {b} parts at token {j} (JAX margin "
+                raise AssertionError(f"{label}: row {b} parts at token {j} (JAX margin "
                                      f"{fx['margins'][b][j]:.3e})")
             compared += 1
     emo = (out.emotion_logits.float().cpu() - torch.tensor(fx["emotion_logits"])).abs().max()
-    if not float(emo) <= seeded.EMOTION_TOL:
-        raise AssertionError(f"large agreement: emotion logits {float(emo):.3e} apart")
+    if not float(emo) <= emotion_tol:
+        raise AssertionError(f"{label}: emotion logits {float(emo):.3e} apart")
     res.update(tokens_compared=compared, emotion_max_abs_err=float(emo))
     del params
     torch.cuda.empty_cache()
@@ -5402,12 +5501,11 @@ def _large_agreement(card: str) -> dict:
     counts = _train_counts()
     rel = [abs(x - y) / abs(y) for x, y in zip(losses, fx["lm_losses"])]
     if rel[0] > seeded.STEP1_RTOL or max(rel[1:]) > seeded.STEP2_RTOL:
-        raise AssertionError(f"large agreement: LM losses {losses} against JAX's "
-                             f"{fx['lm_losses']}")
+        raise AssertionError(f"{label}: LM losses {losses} against JAX's {fx['lm_losses']}")
     if counts["fused_softmax_xent"] != a["steps"] or counts["block_mha"] < 1:
-        raise AssertionError(f"large agreement: launches {counts}")
+        raise AssertionError(f"{label}: launches {counts}")
     res.update(losses=losses, jax_losses=fx["lm_losses"], loss_rel_err=rel)
-    print(f"large agreement with ergm_tpu ({a['model_type']} width, {a['n_layer']} layers, fp32, "
+    print(f"{label} with ergm_tpu ({a['model_type']} width, {a['n_layer']} layers, fp32, "
           f"TF32 off): {compared} greedy tokens equal to JAX's of {len(fx['tokens'])} x "
           f"{a['new']} (rows stop at a margin <= {seeded.MARGIN:g}), emotion logits "
           f"{float(emo):.3e} apart; LM losses {losses} against {fx['lm_losses']} (relative "
@@ -5458,6 +5556,220 @@ def large_phase(card: str, gen: torch.Generator) -> dict:
         rows.append((f"{name}_gpt2-large", src, tpu, {f"{name}_gpt2-large": serve_on[name]},
                      wide[name]))
     return {"rows": rows, "launches": launches}
+
+
+# domain_phase: K5 and K6 over the whole domain of their JAX kernels. K5 at
+# the training slice's [TRAIN_B, H, TRAIN_L, Dh] with H * Dh = 768 for each
+# Dh of DOMAIN_HEADS (32, 96 and 128 have kernels of their own, 24 is padded
+# to 32) and at K7's shape [2, 6, LONG_L, 128]; K6 at gpt2's training shape
+# (TRAIN_B * TRAIN_L tokens, GPT-2's vocabulary DOMAIN_V) for each D of
+# DOMAIN_WIDTHS (padded to the next multiple of 64); the models of DOMAIN_TRAIN (n_embd,
+# n_head; 2 layers, bf16, dropout 0.1) through ``Trainer`` for DOMAIN_STEPS
+# steps of DOMAIN_B x TRAIN_L tokens: the first four launch K5 at Dh 128,
+# 32, 24 and 96 and K6 at 768 and 96; the next three K6 at 32, 100 and 776
+# (K5 at 8, padded to 32; not at 25 or 97, outside JAX's gate); the last
+# two take the plain math where the kernels' domain ends (Dh 136, D 2,112)
+DOMAIN_HEADS = (24, 32, 96, 128)
+DOMAIN_WIDTHS = (32, 96, 100, 776)
+DOMAIN_V = 50257
+DOMAIN_TRAIN = ((768, 6), (768, 24), (96, 4), (768, 8), (32, 4), (100, 4), (776, 8), (1088, 8),
+                (2112, 33))
+DOMAIN_B, DOMAIN_STEPS = 8, 2
+GPT2_FIXTURE = os.path.join(os.path.dirname(LARGE_FIXTURE), "gpt2_agreement.json")
+
+
+def _domain_k5(gen: torch.Generator, dh: int) -> dict:
+    """K5 at [TRAIN_B, 768 / dh, TRAIN_L, dh] (fp32 at B=4), causal and not,
+    dropout 0 and 0.1, forward and backward against the plain version; in
+    bf16 the times of kernel, plain and ``scaled_dot_product_attention`` at
+    the training configuration (causal, dropout 0.1) and the bound. Returns
+    the numbers of its forward and backward rows."""
+    heads, scale = 768 // dh, dh ** -0.5
+    res = {k: {"shape": [TRAIN_B, heads, TRAIN_L, dh], "max_abs_err": 0.0,
+               "max_abs_err_f32": 0.0} for k in ("fwd", "bwd")}
+    for dtype, b in ((torch.bfloat16, TRAIN_B), (torch.float32, 4)):
+        q, k, v, do = (torch.randn((b, heads, TRAIN_L, dh), generator=gen, device=DEVICE).to(dtype)
+                       for _ in range(4))
+        key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
+        for causal in (True, False):
+            for rate in (0.0, 0.1):
+                kw = dict(causal=causal, scale=scale, dropout_rate=rate,
+                          dropout_seed=SEED if rate else None)
+                got = _k5_grads(block_attention.block_mha, q, k, v, do, **kw)
+                want = _k5_grads(block_attention.block_mha_reference, q, k, v, do, **kw)
+                exact = (_k5_grads(block_attention.block_mha_reference,
+                                   *(x.float() for x in (q, k, v, do)), **kw)
+                         if dtype == torch.bfloat16 else [])
+                torch.cuda.synchronize()
+                o_err, g_err, ratio = _k5_held(f"K5 Dh={dh} {dtype} causal={causal} dropout "
+                                               f"{rate}", dtype, got, want, exact)
+                print(f"K5 Dh={dh} {dtype} [{b}, {heads}, {TRAIN_L}, {dh}] causal={causal}, "
+                      f"dropout {rate}: max |kernel - plain| output {o_err:.3e}, gradients "
+                      f"{g_err:.3e} ({ratio:.3f} of the bar)")
+                res["fwd"][key] = max(res["fwd"][key], o_err)
+                res["bwd"][key] = max(res["bwd"][key], g_err)
+                del got, want, exact
+        del q, k, v, do
+    q, k, v, do = (torch.randn((TRAIN_B, heads, TRAIN_L, dh), generator=gen,
+                               device=DEVICE).bfloat16() for _ in range(4))
+    kw = dict(causal=True, scale=scale, dropout_rate=0.1, dropout_seed=SEED)
+    fwd = {"kernel": lambda *x: block_attention.block_mha(*x, **kw),
+           "plain": lambda *x: block_attention.block_mha_reference(*x, **kw),
+           "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True,
+                                                                dropout_p=0.1, scale=scale)}
+    pairs = TRAIN_B * heads * TRAIN_L * (TRAIN_L + 1) // 2  # causal (query, key) pairs
+    r = res["fwd"]
+    r["ms"], r["plain_ms"] = _timed_pair(f"K5 Dh={dh} forward", lambda: fwd["kernel"](q, k, v),
+                                         lambda: fwd["plain"](q, k, v))
+    r["library_ms"] = _median_ms(lambda: fwd["library"](q, k, v))
+    r.update(bound(4 * _nbytes(q), 2 * 2 * pairs * dh))
+    bwd = {}
+    for name, fn in fwd.items():  # one forward graph each, its backward timed
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs)
+        bwd[name] = (lambda o=o, xs=xs: torch.autograd.grad(o, xs, do, retain_graph=True))
+    r = res["bwd"]
+    r["ms"], r["plain_ms"] = _timed_pair(f"K5 Dh={dh} backward", bwd["kernel"], bwd["plain"])
+    r["library_ms"] = _median_ms(bwd["library"])
+    r.update(bound(8 * _nbytes(q), 5 * 2 * pairs * dh))  # S again, dP, dV, dQ, dK
+    for key in ("fwd", "bwd"):
+        print(f"K5 Dh={dh} {key}: kernel {res[key]['ms']:.4f} ms, plain "
+              f"{res[key]['plain_ms']:.4f} ms, SDPA {res[key]['library_ms']:.4f} ms, bound "
+              f"{res[key]['bound_ms']:.4f} ms ({res[key]['bound_by']})")
+    del fwd, bwd, o, xs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _domain_train(card: str) -> dict:
+    """Each model of DOMAIN_TRAIN through ``Trainer`` (``auto`` routes, 2
+    layers, bf16, dropout 0.1; DOMAIN_STEPS steps of DOMAIN_B rows padded to
+    TRAIN_L tokens, then validation): K5 launches forward and backward
+    exactly where its head width is in JAX's gate (a multiple of 8 up to
+    128), K6 where its width is at most 2,048, every launch within its
+    plain version's bar (``KernelShadow``); where a kernel's domain ends the
+    step runs on the plain math, and the explicit route (``block``,
+    ``fused``) raises. Then K7's route at the widest head: one step at
+    n_embd 768, 6 heads, B=2, L=LONG_L, no attention dropout (K5 twice
+    forward and twice backward). Returns {(n_embd, n_head): launches,
+    "long": launches}."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        st = write_synthetic_dataset(data, prefixes=("train", "valid"),
+                                     num_dialogues=DOMAIN_B * DOMAIN_STEPS // 4,
+                                     turns_per_dialogue=4, base_vocab_size=50257)
+        for n_embd, n_head in DOMAIN_TRAIN:
+            dh = n_embd // n_head
+            k5, k6 = block_attention.head_ok(dh), fused_ce.width_ok(n_embd)
+            cfg = ModelConfig(n_layer=2, n_embd=n_embd, n_head=n_head, vocab_size=st.vocab_size,
+                              dtype="bfloat16", attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1)
+            tag = f"{n_embd}x{n_head}"
+            tcfg = TrainConfig(data_dir=data, ckpt_dir=os.path.join(tmp, f"ckpt{tag}"),
+                               output_dir=os.path.join(tmp, f"out{tag}"), model_type="gpt2",
+                               batch_size=DOMAIN_B, num_epochs=1, max_len=TRAIN_L,
+                               pad_multiple=TRAIN_L, lr=1e-4, seed=0)
+            t0 = time.time()
+            with KernelShadow(TRAIN_SHADOWED, KernelShadow.BACKWARD) as shadow:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    tr = Trainer(tcfg, model_config=cfg)
+                    reset_launches()
+                    best = tr.train()
+                torch.cuda.synchronize()
+            counts = _train_counts()
+            shares = {k: v for k, v in shadow.shares().items() if shadow.calls[k]}
+            fired = {"K5": counts["block_mha"] > 0 and counts["block_mha_bwd"] > 0,
+                     "K6": (counts["fused_softmax_xent"] > 0
+                            and counts["fused_softmax_xent_bwd"] > 0)}
+            silent = {"K5": counts["block_mha"] + counts["block_mha_bwd"] == 0,
+                      "K6": counts["fused_softmax_xent"] + counts["fused_softmax_xent_bwd"] == 0}
+            if (tr.state.step != DOMAIN_STEPS or not math.isfinite(best)
+                    or not all(v <= 1.0 for v in shares.values())
+                    or not (fired["K5"] if k5 else silent["K5"])
+                    or not (fired["K6"] if k6 else silent["K6"])):
+                raise AssertionError(f"domain train {tag}: {tr.state.step} steps, best PPL {best}, "
+                                     f"launches {counts}, shadow {shares}")
+            note = ""
+            if not (k5 and k6):
+                route = {"attention_impl": "block"} if not k5 else {"lm_loss_impl": "fused"}
+                tx = AdamW(1e-4)
+                step = make_train_step(cfg.replace(**route), tx)
+                batch = _train_batch(np.random.default_rng(0), 2, TRAIN_L, 50000, DEVICE)
+                try:
+                    step(create_train_state(tr.state.params, tx), batch, SEED)
+                except ValueError as e:
+                    note = f"; explicit {route} raises: {str(e)[:90]}"
+                else:
+                    raise AssertionError(f"domain train {tag}: explicit {route} did not raise")
+            print(f"domain train {tag} (Dh={dh}): Trainer {tr.state.step} steps + validation in "
+                  f"{time.time() - t0:.1f} s, best PPL {best:.1f}, launches {counts}, every launch "
+                  f"within its plain version's bar: "
+                  + (", ".join(f"{k} {v:.4f} over {shadow.calls[k]}" for k, v in shares.items())
+                     or "none") + note)
+            out[(n_embd, n_head)] = counts
+            del tr
+            torch.cuda.empty_cache()
+    cfg = ModelConfig.from_model_type(**{**TRAIN_SLICE, "n_positions": LONG_L, "n_layer": 2,
+                                         "n_head": 6, "attn_pdrop": 0.0})
+    params = gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(3), cfg)
+    tx = AdamW(1e-4)
+    state, step = create_train_state(params, tx), make_train_step(cfg, tx)
+    batch = _train_batch(np.random.default_rng(3), 2, LONG_L, 50000, DEVICE)
+    reset_launches()
+    state, m = step(state, batch, SEED)
+    torch.cuda.synchronize()
+    counts = _train_counts()
+    if counts["block_mha"] != 2 or counts["block_mha_bwd"] != 2 or not math.isfinite(
+            float(m["loss"])):
+        raise AssertionError(f"domain long context Dh=128: launches {counts}, loss {m['loss']}")
+    print(f"domain long context: n_embd 768, 6 heads (Dh=128), B=2, L={LONG_L}, one step, loss "
+          f"{float(m['loss']):.4f}, launches {counts} on {card}")
+    out["long"] = counts
+    del state, step, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def domain_phase(card: str, gen: torch.Generator) -> dict:
+    """K5 and K6 over the whole domain of their JAX kernels (phase 18 of the
+    module docstring): (a) K5 at DOMAIN_HEADS and K7's shape at Dh=128, (b)
+    K6 at DOMAIN_WIDTHS, (c) DOMAIN_TRAIN through ``Trainer`` and K7's route
+    at Dh=128, (d) gpt2 at its full 12 layers against ergm_tpu
+    (``tests/fixtures/gpt2_agreement.json``). Returns {"rows": JSON rows}."""
+    from ergm_tpu_torch.models import seeded
+
+    t0 = time.time()
+    k5 = {dh: _domain_k5(gen, dh) for dh in DOMAIN_HEADS}
+    k7 = _k7_case(gen, 128, ((torch.float32, 2, 6), (torch.bfloat16, 2, 6)))
+    # K6 at gpt2's training shape (fp32 at 2,048 tokens); D = 100 runs padded
+    # to 128 and its bf16 backward must repeat bit for bit
+    k6 = {d: _k6_case(gen, "gpt2 shape", d, TRAIN_B * TRAIN_L, 2048, DOMAIN_V, repeat=d == 100)
+          for d in DOMAIN_WIDTHS}
+    train = _domain_train(card)
+    agreement = _agreement(card, "gpt2 agreement", seeded.GPT2_AGREEMENT, GPT2_FIXTURE,
+                           seeded.GPT2_EMOTION_TOL)
+    print(f"domain phase: {time.time() - t0:.1f} s on {card}; gpt2 agreement "
+          f"{json.dumps(agreement)}")
+    # each row's launches: the (first) Trainer run at its width
+    runs = {k: c for k, c in train.items() if k != "long"}
+    k5_runs = {dh: next(c for (e, h), c in runs.items() if e // h == dh) for dh in DOMAIN_HEADS}
+    k6_runs = {d: next(c for (e, _), c in runs.items() if e == d) for d in DOMAIN_WIDTHS}
+    rows = []
+    for dh in DOMAIN_HEADS:
+        for key, name, tpu in (("fwd", "block_mha", "block_attention.py:218"),
+                               ("bwd", "block_mha_bwd", "block_attention.py:236")):
+            label = f"{name}_dh{dh}"
+            rows.append((label, "block_attention", tpu, {label: k5_runs[dh][name]}, k5[dh][key]))
+    for key, name in (("fwd", "block_mha"), ("bwd", "block_mha_bwd")):
+        label = f"block_mha_flash{'_bwd' if key == 'bwd' else ''}_dh128"
+        rows.append((label, "block_attention", "flash_attention.py:66",
+                     {label: train["long"][name]}, k7[key]))
+    for d in DOMAIN_WIDTHS:
+        for key, name, tpu in (("fwd", "fused_softmax_xent", "fused_ce.py:172"),
+                               ("bwd", "fused_softmax_xent_bwd", "fused_ce.py:220")):
+            label = f"{name}_d{d}"
+            rows.append((label, "fused_ce", tpu, {label: k6_runs[d][name]}, k6[d][key]))
+    return {"rows": rows}
 
 
 def _descendants() -> list:
@@ -5573,6 +5885,8 @@ def main() -> None:
     mesh_on = phase(mesh_infer_phase, card, gen)
     torch.cuda.empty_cache()
     large_on = phase(large_phase, card, gen)
+    torch.cuda.empty_cache()
+    domain_on = phase(domain_phase, card, gen)
     print(f"phase seconds: {json.dumps(seconds)}; {time.time() - t0:.1f} s since the build "
           f"started")
     for arg in sys.argv[1:]:
@@ -5621,6 +5935,9 @@ def main() -> None:
     # epochs through the command line), K1, K3 and K4 at gpt2-large's
     # (launches: its serving arm with the kernels on)
     rows += large_on["rows"]
+    # K5, K7 and K6 at the other head widths and hidden widths of their JAX
+    # kernels' domain (launches: the Trainer run at each width)
+    rows += domain_on["rows"]
     # the K7 rows read the long-context step's K5 counts
     counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
     # launches on the speculative and beam paths: K5 in a B=1 request's

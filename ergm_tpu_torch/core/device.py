@@ -14,3 +14,9 @@ def resolve(device) -> torch.device:
         raise RuntimeError(f"device {str(dev)!r} was asked for, but torch.cuda.is_available() is "
                            f"False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``auto`` routes take the kernels for ``x``: a CUDA tensor.
+    The routes read it here, so that a test can stand in a card."""
+    return x.is_cuda

@@ -78,9 +78,24 @@
 // (PERF.md weighs the two). A pre-pass turns the key mask into bits and
 // finds where each batch row's dead rows end, once per call.
 //
-// f32 design (f32::, the fp32 bars only): 64 x 64 tiles of 128 threads,
-// scores in shared memory, products as f32 FMAs on the CUDA cores in
-// order, so the f32 result holds JAX's bars with TF32 off.
+// f32 design (f32::, the fp32 bars only): tiles of 64 rows (32 above a
+// 64-wide head, so that the dK/dV kernel's ten tiles fit in shared memory)
+// and 128 threads, scores in shared memory, products as f32 FMAs on the
+// CUDA cores in order, so the f32 result holds JAX's bars with TF32 off.
+//
+// Head widths. JAX's gate takes every head width DH that is a multiple of 8
+// up to 128. The kernels are templates built for DH = 32, 64, 96 and 128;
+// the wrapper (ops/block_attention.py) pads q, k and v with zero columns to
+// the next of them and slices the result back, which is exact: the zero
+// columns add nothing to q . k and give zero output and gradient columns,
+// and the softmax scale passed in is the true width's. The keep mask's hash
+// does not read DH. At DH = 64 the code is the one the design above was
+// measured with. Wider heads cost registers and shared memory: the bf16
+// dK/dV kernel holds two 16 x DH f32 accumulators a warp (128 registers a
+// thread at 128) and the dQ kernel six 128-row tiles of DH + 8 bf16 (204 KB
+// at 128), so above 64 a CTA of 128 rows runs alone on its SM instead of
+// beside a second one; a x4 ldmatrix group of the PV-style products loads
+// at most 64 columns of B at once whatever DH is.
 //
 // Dead rows, real rows whose every visible key is masked (causal rows
 // before the first real key), get JAX's forward result too: the uniform
@@ -100,7 +115,6 @@ namespace ergm_block {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDh = 64;  // head dim
 constexpr float kNegInf = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -202,9 +216,22 @@ __global__ void prep_kernel(const int* kmask, const int* qmask, unsigned* kbits,
 // f32: CUDA-core products in order, scores in shared memory.
 namespace f32 {
 
-constexpr int kT = 64;  // query rows and keys per tile
 constexpr int kThreads = 128;
-constexpr int kLd = kT + 1;  // odd stride: column walks hit distinct banks
+
+// The tiles of a DH-wide head: T query rows (or keys) by DH, odd strides so
+// that column walks hit distinct banks.
+template <int DH>
+struct Tiles {
+  static constexpr int T = DH <= 64 ? 64 : 32;  // query rows and keys per tile
+  static constexpr int LdD = DH + 1;            // [T][DH] tiles
+  static constexpr int LdS = T + 1;             // [T][T] score tiles
+  // shared memory of `data` [T][DH] tiles, `score` [T][T] tiles and four
+  // per-row vectors
+  static constexpr size_t bytes(int data, int score) {
+    return sizeof(float) * (static_cast<size_t>(data) * T * LdD +
+                            static_cast<size_t>(score) * T * LdS + 4 * T);
+  }
+};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -218,50 +245,72 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage rows [0, 64) of one head (row stride sl floats) into a tile.
+// Stage rows [0, T) of one head (row stride sl floats) into a [T][DH] tile.
+template <int DH>
 __device__ __forceinline__ void stage(float* dst, const float* src, long long sl) {
-  for (int i = threadIdx.x; i < kT * 16; i += kThreads) {
-    const int r = i / 16, c = (i % 16) * 4;
+  using S = Tiles<DH>;
+  constexpr int kVec = DH / 4;
+  for (int i = threadIdx.x; i < S::T * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 4;
     const float4 val = *reinterpret_cast<const float4*>(src + r * sl + c);
-    dst[r * kLd + c] = val.x;
-    dst[r * kLd + c + 1] = val.y;
-    dst[r * kLd + c + 2] = val.z;
-    dst[r * kLd + c + 3] = val.w;
+    dst[r * S::LdD + c] = val.x;
+    dst[r * S::LdD + c + 1] = val.y;
+    dst[r * S::LdD + c + 2] = val.z;
+    dst[r * S::LdD + c + 3] = val.w;
   }
 }
 
-// c[64 x 64] = (acc ? c : 0) + A . B over k in [0, 64). A(i, k) = a[i*kLd + k],
-// or a[k*kLd + i] when AT; B(k, j) = b[k*kLd + j], or b[j*kLd + k] when BT.
-// Each output has one owner, which sums k in order with FMAs.
-template <bool AT, bool BT>
-__device__ __forceinline__ void mma64(float* c, const float* a, const float* b, bool acc) {
-  for (int idx = threadIdx.x; idx < kT * kT; idx += kThreads) {
-    const int i = idx / kT, j = idx % kT;
-    float s = acc ? c[i * kLd + j] : 0.0f;
+// c[M x N] = (acc ? c : 0) + A . B over k in [0, K), strides LDC, LDA, LDB.
+// A(i, k) = a[i*LDA + k], or a[k*LDA + i] when AT; B(k, j) = b[k*LDB + j],
+// or b[j*LDB + k] when BT. Each output has one owner, which sums k in order
+// with FMAs.
+template <int M, int N, int K, bool AT, bool BT, int LDC, int LDA, int LDB>
+__device__ __forceinline__ void mm(float* c, const float* a, const float* b, bool acc) {
+  for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
+    const int i = idx / N, j = idx % N;
+    float s = acc ? c[i * LDC + j] : 0.0f;
 #pragma unroll 8
-    for (int k = 0; k < kT; ++k)
-      s = fmaf(AT ? a[k * kLd + i] : a[i * kLd + k], BT ? b[j * kLd + k] : b[k * kLd + j], s);
-    c[i * kLd + j] = s;
+    for (int k = 0; k < K; ++k)
+      s = fmaf(AT ? a[k * LDA + i] : a[i * LDA + k], BT ? b[j * LDB + k] : b[k * LDB + j], s);
+    c[i * LDC + j] = s;
   }
 }
 
-// Write a 64 x 64 tile, times mul, to rows of one head.
+// scores [T][T] = x [T][DH] . y [T][DH]^T
+template <int DH>
+__device__ __forceinline__ void mm_scores(float* c, const float* x, const float* y) {
+  using S = Tiles<DH>;
+  mm<S::T, S::T, DH, false, true, S::LdS, S::LdD, S::LdD>(c, x, y, false);
+}
+
+// c [T][DH] += p [T][T] (p^T when PT) . y [T][DH]
+template <int DH, bool PT>
+__device__ __forceinline__ void mm_acc(float* c, const float* p, const float* y) {
+  using S = Tiles<DH>;
+  mm<S::T, DH, S::T, PT, false, S::LdD, S::LdS, S::LdD>(c, p, y, true);
+}
+
+// Write a [T][DH] tile, times mul, to rows of one head.
+template <int DH>
 __device__ __forceinline__ void write_tile(float* dst, long long sl, const float* c, float mul) {
-  for (int i = threadIdx.x; i < kT * kDh; i += kThreads) {
-    const int r = i / kDh, d = i % kDh;
-    dst[r * sl + d] = c[r * kLd + d] * mul;
+  using S = Tiles<DH>;
+  for (int i = threadIdx.x; i < S::T * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH;
+    dst[r * sl + d] = c[r * S::LdD + d] * mul;
   }
 }
 
+template <int DH>
 __device__ __forceinline__ void zero_tile(float* c) {
-  for (int i = threadIdx.x; i < kT * kLd; i += kThreads) c[i] = 0.0f;
+  using S = Tiles<DH>;
+  for (int i = threadIdx.x; i < S::T * S::LdD; i += kThreads) c[i] = 0.0f;
 }
 
-// Keys the query tile at q0 walks: up to its diagonal when causal, unless
-// it holds dead rows (all their visible keys masked), which JAX spreads
-// uniformly over every key.
-__device__ __forceinline__ int key_end(const Args& a, int q0, int dead) {
-  return (a.causal && q0 >= dead) ? min(a.Lk, q0 + kT) : a.Lk;
+// Keys the query tile at q0 (T rows) walks: up to its diagonal when causal,
+// unless it holds dead rows (all their visible keys masked), which JAX
+// spreads uniformly over every key.
+__device__ __forceinline__ int key_end(const Args& a, int q0, int T, int dead) {
+  return (a.causal && q0 >= dead) ? min(a.Lk, q0 + T) : a.Lk;
 }
 
 // Whether query q0 + r sees key k0 + c.
@@ -269,53 +318,57 @@ __device__ __forceinline__ bool visible(const Args& a, int b, int q0, int r, int
   return key_real(a, b, k0 + c) && (!a.causal || k0 + c <= q0 + r);
 }
 
-constexpr size_t kTileBytes = sizeof(float) * kT * kLd;
-constexpr size_t smem_bytes(int tiles) { return tiles * kTileBytes + sizeof(float) * 4 * kT; }
-
+template <int DH>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
+  using S = Tiles<DH>;
+  constexpr int T = S::T, LdD = S::LdD, LdS = S::LdS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* kvs = qs + kT * kLd;
-  float* ps = kvs + kT * kLd;
-  float* ss = ps + kT * kLd;
-  float* os = ss + kT * kLd;
-  float* row_m = os + kT * kLd;
-  float* row_l = row_m + kT;
-  int* row_q = reinterpret_cast<int*>(row_l + kT);
+  float* kvs = qs + T * LdD;
+  float* os = kvs + T * LdD;
+  float* ps = os + T * LdD;
+  float* ss = ps + T * LdS;
+  float* row_m = ss + T * LdS;
+  float* row_l = row_m + T;
+  int* row_q = reinterpret_cast<int*>(row_l + T);
 
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* q = head<float>(a, a.q, kQ, b, h);
   const float* k = head<float>(a, a.k, kK, b, h);
   const float* v = head<float>(a, a.v, kV, b, h);
   const unsigned hb = hash_base(a, b, h);
 
-  for (int r = threadIdx.x; r < kT; r += kThreads) {
+  for (int r = threadIdx.x; r < T; r += kThreads) {
     row_q[r] = a.qmask[static_cast<long long>(b) * a.L + q0 + r] != 0;
     row_m[r] = -INFINITY;
     row_l[r] = 0.0f;
   }
-  stage(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
-  zero_tile(os);
-  const int kend = key_end(a, q0, a.dead[b]);
+  stage<DH>(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
+  zero_tile<DH>(os);
+  const int kend = key_end(a, q0, T, a.dead[b]);
 
   // pass 1: row max and sum, online over the key tiles
-  for (int k0 = 0; k0 < kend; k0 += kT) {
+  for (int k0 = 0; k0 < kend; k0 += T) {
     __syncthreads();
-    stage(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
+    stage<DH>(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
     __syncthreads();
-    mma64<false, true>(ss, qs, kvs, false);
+    mm_scores<DH>(ss, qs, kvs);
     __syncthreads();
-    for (int r = warp; r < kT; r += kThreads / 32) {
-      float s[2];
+    for (int r = warp; r < T; r += kThreads / 32) {
+      float s[T / 32], mx = kNegInf;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int e = 0; e < T / 32; ++e) {
         const int c = lane + 32 * e;
-        s[e] = visible(a, b, q0, r, k0, c) ? ss[r * kLd + c] * a.scale : kNegInf;
+        s[e] = visible(a, b, q0, r, k0, c) ? ss[r * LdS + c] * a.scale : kNegInf;
+        mx = fmaxf(mx, s[e]);
       }
       const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
-      const float sum = warp_sum(expf(s[0] - m_new) + expf(s[1] - m_new));
+      const float m_new = fmaxf(m_old, warp_max(mx));
+      float part = 0.0f;
+#pragma unroll
+      for (int e = 0; e < T / 32; ++e) part += expf(s[e] - m_new);
+      const float sum = warp_sum(part);
       if (lane == 0) {
         row_l[r] = row_l[r] * expf(m_old - m_new) + sum;
         row_m[r] = m_new;
@@ -324,16 +377,16 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   }
 
   // pass 2: recompute s, normalise, drop, accumulate pn . V
-  for (int k0 = 0; k0 < kend; k0 += kT) {
+  for (int k0 = 0; k0 < kend; k0 += T) {
     __syncthreads();
-    stage(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
+    stage<DH>(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
     __syncthreads();
-    mma64<false, true>(ss, qs, kvs, false);
+    mm_scores<DH>(ss, qs, kvs);
     __syncthreads();
-    stage(kvs, v + k0 * a.st[kV][2], a.st[kV][2]);  // K is no longer read
-    for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-      const int r = i / kT, c = i % kT;
-      const float s = visible(a, b, q0, r, k0, c) ? ss[r * kLd + c] * a.scale : kNegInf;
+    stage<DH>(kvs, v + k0 * a.st[kV][2], a.st[kV][2]);  // K is no longer read
+    for (int i = threadIdx.x; i < T * T; i += kThreads) {
+      const int r = i / T, c = i % T;
+      const float s = visible(a, b, q0, r, k0, c) ? ss[r * LdS + c] * a.scale : kNegInf;
       float p = expf(s - row_m[r]) / fmaxf(row_l[r], 1e-30f);
       if (!row_q[r]) p = 0.0f;
       if (a.dropout) {
@@ -341,17 +394,17 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
                            static_cast<unsigned>(k0 + c) + hb;
         p = keep(a, x) ? p / a.drop_div : 0.0f;
       }
-      ps[r * kLd + c] = p;
+      ps[r * LdS + c] = p;
     }
     __syncthreads();
-    mma64<false, false>(os, ps, kvs, true);
+    mm_acc<DH, false>(os, ps, kvs);
   }
   __syncthreads();
   float* o = head_out<float>(a, a.out, kO, b, h);
-  write_tile(o + q0 * a.st[kO][2], a.st[kO][2], os, 1.0f);
+  write_tile<DH>(o + q0 * a.st[kO][2], a.st[kO][2], os, 1.0f);
   const long long row0 = row_index(a, b, h, q0);
   const long long plane = static_cast<long long>(a.B) * a.H * a.L;
-  for (int r = threadIdx.x; r < kT; r += kThreads) {
+  for (int r = threadIdx.x; r < T; r += kThreads) {
     a.ml[row0 + r] = row_m[r];
     a.ml[plane + row0 + r] = row_l[r];
   }
@@ -382,11 +435,11 @@ __device__ __forceinline__ void grad_step(const Args& a, int b, unsigned hb, int
   *ds_out = ok ? pn * (dp - row_d[r]) : 0.0f;
 }
 
-__device__ __forceinline__ void load_rows(const Args& a, int b, int h, int q0, float* row_m,
-                                          float* row_l, float* row_d, int* row_q) {
+__device__ __forceinline__ void load_rows(const Args& a, int b, int h, int q0, int T,
+                                          float* row_m, float* row_l, float* row_d, int* row_q) {
   const long long row0 = row_index(a, b, h, q0);
   const long long plane = static_cast<long long>(a.B) * a.H * a.L;
-  for (int r = threadIdx.x; r < kT; r += kThreads) {
+  for (int r = threadIdx.x; r < T; r += kThreads) {
     row_m[r] = a.ml[row0 + r];
     row_l[r] = a.ml[plane + row0 + r];
     if (row_d) row_d[r] = a.stat[4 * (row0 + r) + 2];
@@ -394,22 +447,25 @@ __device__ __forceinline__ void load_rows(const Args& a, int b, int h, int q0, f
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
+  using S = Tiles<DH>;
+  constexpr int T = S::T, LdD = S::LdD, LdS = S::LdS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* dos = qs + kT * kLd;
-  float* ks = dos + kT * kLd;
-  float* vs = ks + kT * kLd;
-  float* dss = vs + kT * kLd;
-  float* ss = dss + kT * kLd;
-  float* dps = ss + kT * kLd;
-  float* acc = dps + kT * kLd;
-  float* row_m = acc + kT * kLd;
-  float* row_l = row_m + kT;
-  float* row_d = row_l + kT;
-  int* row_q = reinterpret_cast<int*>(row_d + kT);
+  float* dos = qs + T * LdD;
+  float* ks = dos + T * LdD;
+  float* vs = ks + T * LdD;
+  float* acc = vs + T * LdD;
+  float* dss = acc + T * LdD;
+  float* ss = dss + T * LdS;
+  float* dps = ss + T * LdS;
+  float* row_m = dps + T * LdS;
+  float* row_l = row_m + T;
+  float* row_d = row_l + T;
+  int* row_q = reinterpret_cast<int*>(row_d + T);
 
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* q = head<float>(a, a.q, kQ, b, h);
   const float* k = head<float>(a, a.k, kK, b, h);
@@ -418,62 +474,67 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   const float* dout = head<float>(a, a.dout, kDO, b, h);
   const unsigned hb = hash_base(a, b, h);
 
-  load_rows(a, b, h, q0, row_m, row_l, nullptr, row_q);
-  stage(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
-  stage(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
-  zero_tile(acc);
+  load_rows(a, b, h, q0, T, row_m, row_l, nullptr, row_q);
+  stage<DH>(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
+  stage<DH>(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
+  zero_tile<DH>(acc);
   __syncthreads();
   // delta = rowsum(dO * O) in f32, for this kernel and the dK/dV kernel
   const long long row0 = row_index(a, b, h, q0);
-  for (int r = warp; r < kT; r += kThreads / 32) {
+  for (int r = warp; r < T; r += kThreads / 32) {
     const float* orow = o + r * a.st[kO][2];
-    const float d = warp_sum(dos[r * kLd + lane] * orow[lane] +
-                             dos[r * kLd + lane + 32] * orow[lane + 32]);
+    float part = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DH / 32; ++e) part += dos[r * LdD + lane + 32 * e] * orow[lane + 32 * e];
+    const float d = warp_sum(part);
     if (lane == 0) {
       row_d[r] = d;
       a.stat[4 * (row0 + r) + 2] = d;
     }
   }
-  const int kend = key_end(a, q0, a.dead[b]);
-  for (int k0 = 0; k0 < kend; k0 += kT) {
+  const int kend = key_end(a, q0, T, a.dead[b]);
+  for (int k0 = 0; k0 < kend; k0 += T) {
     __syncthreads();
-    stage(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
-    stage(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
+    stage<DH>(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
+    stage<DH>(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
     __syncthreads();
-    mma64<false, true>(ss, qs, ks, false);
-    mma64<false, true>(dps, dos, vs, false);
+    mm_scores<DH>(ss, qs, ks);
+    mm_scores<DH>(dps, dos, vs);
     __syncthreads();
-    for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-      const int r = i / kT, c = i % kT;
-      grad_step(a, b, hb, q0, r, k0, c, ss[r * kLd + c], dps[r * kLd + c], row_m, row_l, row_d,
-                row_q, nullptr, dss + r * kLd + c);
+    for (int i = threadIdx.x; i < T * T; i += kThreads) {
+      const int r = i / T, c = i % T;
+      grad_step(a, b, hb, q0, r, k0, c, ss[r * LdS + c], dps[r * LdS + c], row_m, row_l, row_d,
+                row_q, nullptr, dss + r * LdS + c);
     }
     __syncthreads();
-    mma64<false, false>(acc, dss, ks, true);
+    mm_acc<DH, false>(acc, dss, ks);
   }
   __syncthreads();
   float* dq = head_out<float>(a, a.dq, kDQ, b, h);
-  write_tile(dq + q0 * a.st[kDQ][2], a.st[kDQ][2], acc, a.scale);
+  write_tile<DH>(dq + q0 * a.st[kDQ][2], a.st[kDQ][2], acc, a.scale);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
+  using S = Tiles<DH>;
+  constexpr int T = S::T, LdD = S::LdD, LdS = S::LdS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + kT * kLd;
-  float* qs = vs + kT * kLd;
-  float* dos = qs + kT * kLd;
-  float* ps = dos + kT * kLd;
-  float* dss = ps + kT * kLd;
-  float* ss = dss + kT * kLd;
-  float* dps = ss + kT * kLd;
-  float* dk_acc = dps + kT * kLd;
-  float* dv_acc = dk_acc + kT * kLd;
-  float* row_m = dv_acc + kT * kLd;
-  float* row_l = row_m + kT;
-  float* row_d = row_l + kT;
-  int* row_q = reinterpret_cast<int*>(row_d + kT);
+  float* vs = ks + T * LdD;
+  float* qs = vs + T * LdD;
+  float* dos = qs + T * LdD;
+  float* dk_acc = dos + T * LdD;
+  float* dv_acc = dk_acc + T * LdD;
+  float* ps = dv_acc + T * LdD;
+  float* dss = ps + T * LdS;
+  float* ss = dss + T * LdS;
+  float* dps = ss + T * LdS;
+  float* row_m = dps + T * LdS;
+  float* row_l = row_m + T;
+  float* row_d = row_l + T;
+  int* row_q = reinterpret_cast<int*>(row_d + T);
 
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const float* q = head<float>(a, a.q, kQ, b, h);
   const float* k = head<float>(a, a.k, kK, b, h);
   const float* v = head<float>(a, a.v, kV, b, h);
@@ -481,34 +542,34 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   const unsigned hb = hash_base(a, b, h);
   const int dead = a.dead[b];
 
-  stage(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
-  stage(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
-  zero_tile(dk_acc);
-  zero_tile(dv_acc);
-  for (int q0 = 0; q0 < a.L; q0 += kT) {
-    if (k0 >= key_end(a, q0, dead)) continue;  // the tile never sees these keys
+  stage<DH>(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
+  stage<DH>(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
+  zero_tile<DH>(dk_acc);
+  zero_tile<DH>(dv_acc);
+  for (int q0 = 0; q0 < a.L; q0 += T) {
+    if (k0 >= key_end(a, q0, T, dead)) continue;  // the tile never sees these keys
     __syncthreads();
-    load_rows(a, b, h, q0, row_m, row_l, row_d, row_q);
-    stage(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
-    stage(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
+    load_rows(a, b, h, q0, T, row_m, row_l, row_d, row_q);
+    stage<DH>(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
+    stage<DH>(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
     __syncthreads();
-    mma64<false, true>(ss, qs, ks, false);
-    mma64<false, true>(dps, dos, vs, false);
+    mm_scores<DH>(ss, qs, ks);
+    mm_scores<DH>(dps, dos, vs);
     __syncthreads();
-    for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-      const int r = i / kT, c = i % kT;
-      grad_step(a, b, hb, q0, r, k0, c, ss[r * kLd + c], dps[r * kLd + c], row_m, row_l, row_d,
-                row_q, ps + r * kLd + c, dss + r * kLd + c);
+    for (int i = threadIdx.x; i < T * T; i += kThreads) {
+      const int r = i / T, c = i % T;
+      grad_step(a, b, hb, q0, r, k0, c, ss[r * LdS + c], dps[r * LdS + c], row_m, row_l, row_d,
+                row_q, ps + r * LdS + c, dss + r * LdS + c);
     }
     __syncthreads();
-    mma64<true, false>(dv_acc, ps, dos, true);
-    mma64<true, false>(dk_acc, dss, qs, true);
+    mm_acc<DH, true>(dv_acc, ps, dos);
+    mm_acc<DH, true>(dk_acc, dss, qs);
   }
   __syncthreads();
   float* dk = head_out<float>(a, a.dk, kDK, b, h);
   float* dv = head_out<float>(a, a.dv, kDV, b, h);
-  write_tile(dk + k0 * a.st[kDK][2], a.st[kDK][2], dk_acc, a.scale);
-  write_tile(dv + k0 * a.st[kDV][2], a.st[kDV][2], dv_acc, 1.0f);
+  write_tile<DH>(dk + k0 * a.st[kDK][2], a.st[kDK][2], dk_acc, a.scale);
+  write_tile<DH>(dv + k0 * a.st[kDV][2], a.st[kDV][2], dv_acc, 1.0f);
 }
 
 }  // namespace f32
@@ -517,8 +578,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
 // bf16: tensor-core products (mma.sync), scores in registers.
 namespace tc {
 
-using ergm_mma::kLd;  // 144-byte tile rows: ldmatrix's 8 rows hit 8 bank groups
 using ergm_mma::ex2;
+using ergm_mma::ld_of;  // DH + 8: ldmatrix's 8 rows hit 8 bank groups
 using ergm_mma::prod_nn;
 using ergm_mma::prod_nt;
 using ergm_mma::store_rows;
@@ -529,14 +590,23 @@ constexpr int kRows = 128;     // rows a CTA owns: queries (forward, dQ) or keys
 constexpr int kTile = 128;     // rows of a streamed tile: keys (forward, dQ) or queries (dK/dV)
 constexpr int kSub = 32;       // a streamed tile is worked 32 columns at a time
 constexpr float kMaskL2 = kNegInf * kLog2e;  // the where's fill, in log2 units
-constexpr size_t kRowsBytes = sizeof(bf16) * kRows * kLd;
-constexpr size_t kTileBytes = sizeof(bf16) * kTile * kLd;
 
-// Stage N rows (64 bf16 each, row stride sl) into a [N][kLd] tile by
-// cp.async; the caller commits.
-template <int N>
+// Bytes of a [kRows] or [kTile] tile of DH-wide rows. The kernels' register
+// cap is set for two CTAs per SM up to DH = 64 and one above (the note at
+// the top).
+template <int DH>
+constexpr size_t rows_bytes() {
+  return sizeof(bf16) * kRows * ld_of<DH>();
+}
+template <int DH>
+constexpr size_t tile_bytes() {
+  return sizeof(bf16) * kTile * ld_of<DH>();
+}
+// Stage N rows (DH bf16 each, row stride sl) into a [N][ld_of<DH>()] tile
+// by cp.async; the caller commits.
+template <int N, int DH>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl) {
-  ergm_mma::stage<N, kThreads>(dst, src, sl);
+  ergm_mma::stage<N, kThreads, DH>(dst, src, sl);
 }
 
 // The key-mask bits of the kTile keys at k0, a word for each 32.
@@ -582,7 +652,9 @@ struct Walk {
         wend((a.causal && r0 >= dead) ? min(a.Lk, r0 + 16) : a.Lk) {}
 };
 
-__global__ void __launch_bounds__(kThreads, 2) fwd_kernel(const Args a) {
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) fwd_kernel(const Args a) {
+  constexpr int kLd = ld_of<DH>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // [128][kLd]
   bf16* ks = qs + kRows * kLd;               // [2][kTile][kLd]
@@ -605,12 +677,12 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(const Args a) {
               hash_base(a, b, h) + 2 * t;
 
   // steps 0..n-1: pass 1 over the key tiles (K); n..2n-1: pass 2 (K and V)
-  stage<kRows>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * sq, sq);
+  stage<kRows, DH>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * sq, sq);
   auto issue = [&](int s) {
     if (s < 2 * n) {
       const int k0 = (s < n ? s : s - n) * kTile;
-      stage<kTile>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
-      if (s >= n) stage<kTile>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
+      stage<kTile, DH>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
+      if (s >= n) stage<kTile, DH>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
     }
     ergm_async::commit();
   };
@@ -618,7 +690,7 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(const Args a) {
 
   float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f};  // the lane's share of m, l
   float mrow[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
-  float o[8][4];
+  float o[DH / 8][4];
   zero(o);
 
   for (int s = 0; s < 2 * n; ++s) {
@@ -655,7 +727,7 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(const Args a) {
       const int c0 = k0 + u * kSub;
       if (c0 < walk.wend) {
         float sc[4][4];
-        prod_nt(sc, qs, warp * 16, kt, u * kSub);
+        prod_nt<DH>(sc, qs, warp * 16, kt, u * kSub);
         mask_scores(a, bits[u], sc, r0, c0, sl2);
         if (s < n) {
 #pragma unroll
@@ -681,16 +753,18 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(const Args a) {
               if (a.dropout && !keep(a, xrow[i] + c0 + 8 * j + (e & 1))) p = 0.0f;
               sc[j][e] = p;
             }
-          prod_nn(o, sc, vt, u * kSub);
+          prod_nn<DH>(o, sc, vt, u * kSub);
         }
       }
     }
     __syncthreads();
   }
-  store_rows(head_out<bf16>(a, a.out, kO, b, h), a.st[kO][2], r0 + g, o, 1.0f);
+  store_rows<DH>(head_out<bf16>(a, a.out, kO, b, h), a.st[kO][2], r0 + g, o, 1.0f);
 }
 
-__global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) bwd_dq_kernel(const Args a) {
+  constexpr int kLd = ld_of<DH>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // [128][kLd]
   bf16* dos = qs + kRows * kLd;              // [128][kLd]
@@ -709,13 +783,13 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
   const float sl2 = a.scale * kLog2e;
 
   // steps 0..n-1: pass 1 over the key tiles (delta); n..2n-1: pass 2 (dQ)
-  stage<kRows>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * a.st[kQ][2], a.st[kQ][2]);
-  stage<kRows>(dos, head<bf16>(a, a.dout, kDO, b, h) + q0 * a.st[kDO][2], a.st[kDO][2]);
+  stage<kRows, DH>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * a.st[kQ][2], a.st[kQ][2]);
+  stage<kRows, DH>(dos, head<bf16>(a, a.dout, kDO, b, h) + q0 * a.st[kDO][2], a.st[kDO][2]);
   auto issue = [&](int s) {
     if (s < 2 * n) {
       const int k0 = (s < n ? s : s - n) * kTile;
-      stage<kTile>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
-      stage<kTile>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
+      stage<kTile, DH>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
+      stage<kTile, DH>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
     }
     ergm_async::commit();
   };
@@ -733,7 +807,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
                  ? 1.0f / fmaxf(a.ml[plane + idx], 1e-30f) : 0.0f;
     xrow[i] = static_cast<unsigned>(r) * static_cast<unsigned>(a.Lk) + hash_base(a, b, h) + 2 * t;
   }
-  float acc[8][4];
+  float acc[DH / 8][4];
   zero(acc);
 
   for (int s = 0; s < 2 * n; ++s) {
@@ -767,8 +841,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
       const int c0 = k0 + u * kSub;
       if (c0 < walk.wend) {
         float sc[4][4], dp[4][4];
-        prod_nt(sc, qs, warp * 16, kt, u * kSub);
-        prod_nt(dp, dos, warp * 16, vt, u * kSub);
+        prod_nt<DH>(sc, qs, warp * 16, kt, u * kSub);
+        prod_nt<DH>(dp, dos, warp * 16, vt, u * kSub);
         mask_scores(a, bits[u], sc, r0, c0, sl2);
         // pass 1: delta += pn * dpn; pass 2: ds = pn * (dpn - delta), both
         // where visible, 0 where masked (mask_scores wrote the fill there;
@@ -786,15 +860,17 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
             else
               sc[j][e] = pn * (d - delta[i]);
           }
-        if (s >= n) prod_nn(acc, sc, kt, u * kSub);
+        if (s >= n) prod_nn<DH>(acc, sc, kt, u * kSub);
       }
     }
     __syncthreads();
   }
-  store_rows(head_out<bf16>(a, a.dq, kDQ, b, h), a.st[kDQ][2], r0 + g, acc, a.scale);
+  store_rows<DH>(head_out<bf16>(a, a.dq, kDQ, b, h), a.st[kDQ][2], r0 + g, acc, a.scale);
 }
 
-__global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) bwd_dkdv_kernel(const Args a) {
+  constexpr int kLd = ld_of<DH>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [128][kLd]
   bf16* vs = ks + kRows * kLd;               // [128][kLd]
@@ -820,13 +896,13 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
   const int n = lo + nq - from;
   auto tile = [&](int s) { return (s < lo ? s : from + s - lo) * kTile; };
 
-  stage<kRows>(ks, head<bf16>(a, a.k, kK, b, h) + k0 * a.st[kK][2], a.st[kK][2]);
-  stage<kRows>(vs, head<bf16>(a, a.v, kV, b, h) + k0 * a.st[kV][2], a.st[kV][2]);
+  stage<kRows, DH>(ks, head<bf16>(a, a.k, kK, b, h) + k0 * a.st[kK][2], a.st[kK][2]);
+  stage<kRows, DH>(vs, head<bf16>(a, a.v, kV, b, h) + k0 * a.st[kV][2], a.st[kV][2]);
   auto issue = [&](int s) {
     if (s < n) {
       const int q0 = tile(s);
-      stage<kTile>(qs + (s & 1) * kTile * kLd, q + q0 * sq, sq);
-      stage<kTile>(dos + (s & 1) * kTile * kLd, dout + q0 * sdo, sdo);
+      stage<kTile, DH>(qs + (s & 1) * kTile * kLd, q + q0 * sq, sq);
+      stage<kTile, DH>(dos + (s & 1) * kTile * kLd, dout + q0 * sdo, sdo);
       if (threadIdx.x < kTile)
         ergm_async::copy16(sts + (s & 1) * kTile + threadIdx.x, stat + q0 + threadIdx.x);
     }
@@ -843,7 +919,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
   }
   const bool wreal = __all_sync(0xffffffffu, kreal[0] && kreal[1]);  // the warp's keys all real
   const unsigned hb = hash_base(a, b, h);
-  float dk[8][4], dv[8][4];
+  float dk[DH / 8][4], dv[DH / 8][4];
   zero(dk);
   zero(dv);
 
@@ -861,8 +937,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
       if (!a.causal || c0 + kSub - 1 >= kw0 || c0 < dead) {
         // S^T and dP^T: the warp's 16 keys as rows, 32 queries as columns
         float sc[4][4], dp[4][4];
-        prod_nt(sc, ks, warp * 16, qt, u * kSub);
-        prod_nt(dp, vs, warp * 16, dt, u * kSub);
+        prod_nt<DH>(sc, ks, warp * 16, qt, u * kSub);
+        prod_nt<DH>(dp, vs, warp * 16, dt, u * kSub);
         const bool full = wreal && (!a.causal || kw0 + 15 <= c0);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -887,14 +963,14 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
               dp[j][e] = ok ? pn * (d - rs.z) : 0.0f;
             }
           }
-        prod_nn(dv, sc, dt, u * kSub);  // dV += pv^T dO
-        prod_nn(dk, dp, qt, u * kSub);  // dK += ds^T Q
+        prod_nn<DH>(dv, sc, dt, u * kSub);  // dV += pv^T dO
+        prod_nn<DH>(dk, dp, qt, u * kSub);  // dK += ds^T Q
       }
     }
     __syncthreads();
   }
-  store_rows(head_out<bf16>(a, a.dk, kDK, b, h), a.st[kDK][2], kw0 + g, dk, a.scale);
-  store_rows(head_out<bf16>(a, a.dv, kDV, b, h), a.st[kDV][2], kw0 + g, dv, 1.0f);
+  store_rows<DH>(head_out<bf16>(a, a.dk, kDK, b, h), a.st[kDK][2], kw0 + g, dk, a.scale);
+  store_rows<DH>(head_out<bf16>(a, a.dv, kDV, b, h), a.st[kDV][2], kw0 + g, dv, 1.0f);
 }
 
 }  // namespace tc
@@ -909,29 +985,56 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
   return cudaGetLastError();
 }
 
-cudaError_t forward(const Args& a, bool bf, cudaStream_t s) {
+template <int DH>
+cudaError_t forward_dh(const Args& a, bool bf, cudaStream_t s) {
   if (bf)
-    return launch(tc::fwd_kernel, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
-                  tc::kRowsBytes + 4 * tc::kTileBytes, a, s);
-  return launch(f32::fwd_kernel, dim3(a.L / f32::kT, a.H, a.B), f32::kThreads,
-                f32::smem_bytes(5), a, s);
+    return launch(tc::fwd_kernel<DH>, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
+                  tc::rows_bytes<DH>() + 4 * tc::tile_bytes<DH>(), a, s);
+  using S = f32::Tiles<DH>;
+  return launch(f32::fwd_kernel<DH>, dim3(a.L / S::T, a.H, a.B), f32::kThreads, S::bytes(3, 2),
+                a, s);
 }
 
-cudaError_t backward(const Args& a, bool bf, cudaStream_t s) {
+template <int DH>
+cudaError_t backward_dh(const Args& a, bool bf, cudaStream_t s) {
   cudaError_t err;
   if (bf) {
-    err = launch(tc::bwd_dq_kernel, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
-                 2 * tc::kRowsBytes + 4 * tc::kTileBytes, a, s);
+    err = launch(tc::bwd_dq_kernel<DH>, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
+                 2 * tc::rows_bytes<DH>() + 4 * tc::tile_bytes<DH>(), a, s);
     if (err != cudaSuccess) return err;
-    return launch(tc::bwd_dkdv_kernel, dim3(a.Lk / tc::kRows, a.H, a.B), tc::kThreads,
-                  2 * tc::kRowsBytes + 4 * tc::kTileBytes + 2 * tc::kTile * sizeof(float4), a,
-                  s);
+    return launch(tc::bwd_dkdv_kernel<DH>, dim3(a.Lk / tc::kRows, a.H, a.B), tc::kThreads,
+                  2 * tc::rows_bytes<DH>() + 4 * tc::tile_bytes<DH>() +
+                      2 * tc::kTile * sizeof(float4),
+                  a, s);
   }
-  err = launch(f32::bwd_dq_kernel, dim3(a.L / f32::kT, a.H, a.B), f32::kThreads,
-               f32::smem_bytes(8), a, s);
+  using S = f32::Tiles<DH>;
+  err = launch(f32::bwd_dq_kernel<DH>, dim3(a.L / S::T, a.H, a.B), f32::kThreads,
+               S::bytes(5, 3), a, s);
   if (err != cudaSuccess) return err;
-  return launch(f32::bwd_dkdv_kernel, dim3(a.Lk / f32::kT, a.H, a.B), f32::kThreads,
-                f32::smem_bytes(10), a, s);
+  return launch(f32::bwd_dkdv_kernel<DH>, dim3(a.Lk / S::T, a.H, a.B), f32::kThreads,
+                S::bytes(6, 4), a, s);
+}
+
+// The head widths the kernels are built for (ops/block_attention.py's
+// HEAD_DIMS); another dh is refused.
+cudaError_t forward(const Args& a, int dh, bool bf, cudaStream_t s) {
+  switch (dh) {
+    case 32: return forward_dh<32>(a, bf, s);
+    case 64: return forward_dh<64>(a, bf, s);
+    case 96: return forward_dh<96>(a, bf, s);
+    case 128: return forward_dh<128>(a, bf, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t backward(const Args& a, int dh, bool bf, cudaStream_t s) {
+  switch (dh) {
+    case 32: return backward_dh<32>(a, bf, s);
+    case 64: return backward_dh<64>(a, bf, s);
+    case 96: return backward_dh<96>(a, bf, s);
+    case 128: return backward_dh<128>(a, bf, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, float scale,
@@ -957,19 +1060,20 @@ Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, flo
 
 }  // namespace ergm_block
 
-// dtype: 0 = float32, 1 = bfloat16. strides: host array of (batch, head,
-// row) element strides of q, k, v, o. kbits [B, Lk/32] and dead [B] are
-// written here (by the pre-pass) for the backward. head_stride: the
-// dropout hash's (H for a whole problem). Returns a cudaError_t (0 on
-// success).
+// dtype: 0 = float32, 1 = bfloat16; dh: the head width, 32, 64, 96 or
+// 128. strides: host array of (batch, head, row) element strides of q, k,
+// v, o. kbits [B, Lk/32] and dead [B] are written here (by the pre-pass)
+// for the backward. head_stride: the dropout hash's (H for a whole
+// problem). Returns a cudaError_t (0 on success).
 extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, void* o,
                                   void* ml, const void* qmask, const void* kmask, void* kbits,
-                                  void* dead, int dtype, int B, int H, int L, int Lk,
+                                  void* dead, int dtype, int dh, int B, int H, int L, int Lk,
                                   const long long* strides, float scale, int causal,
                                   int dropout, float drop_div, float drop_mul, unsigned thr,
                                   unsigned seed, int head_stride, void* stream) {
   using namespace ergm_block;
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || (dh != 32 && dh != 64 && dh != 96 && dh != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   prep_kernel<<<B, 256, 0, s>>>(static_cast<const int*>(kmask), static_cast<const int*>(qmask),
                                 static_cast<unsigned*>(kbits), static_cast<int*>(dead), L, Lk);
@@ -985,7 +1089,7 @@ extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, v
   a.qmask = static_cast<const int*>(qmask);
   a.kbits = static_cast<const unsigned*>(kbits);
   a.dead = static_cast<const int*>(dead);
-  return static_cast<int>(forward(a, dtype == 1, s));
+  return static_cast<int>(forward(a, dh, dtype == 1, s));
 }
 
 // strides: (batch, head, row) of q, k, v, o, dout, dq, dk, dv. stat is
@@ -994,13 +1098,14 @@ extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, v
 extern "C" int ergm_block_mha_bwd(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, void* dq, void* dk, void* dv,
                                   const void* ml, void* stat, const void* qmask,
-                                  const void* kbits, const void* dead, int dtype, int B, int H,
-                                  int L, int Lk, const long long* strides, float scale,
+                                  const void* kbits, const void* dead, int dtype, int dh, int B,
+                                  int H, int L, int Lk, const long long* strides, float scale,
                                   int causal, int dropout, float drop_div, float drop_mul,
                                   unsigned thr, unsigned seed, int head_stride,
                                   void* stream) {
   using namespace ergm_block;
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || (dh != 32 && dh != 64 && dh != 96 && dh != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(B, H, L, Lk, strides, 8, scale, causal, dropout, drop_div, drop_mul, thr,
                      seed, head_stride);
   a.q = q;
@@ -1016,5 +1121,5 @@ extern "C" int ergm_block_mha_bwd(const void* q, const void* k, const void* v, c
   a.qmask = static_cast<const int*>(qmask);
   a.kbits = static_cast<const unsigned*>(kbits);
   a.dead = static_cast<const int*>(dead);
-  return static_cast<int>(backward(a, dtype == 1, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(backward(a, dh, dtype == 1, static_cast<cudaStream_t>(stream)));
 }

@@ -48,18 +48,24 @@
 //
 // f32 operands (the fp32 bars only; f32::) keep the first design: one CTA
 // per 16-row resident tile, streaming the other table in 32-row tiles,
-// f32 FMAs on the CUDA cores in order. The streamed tile comes in slices of
-// 256 columns (twice in the backward: once for the logits, once for the
-// product with padj), so shared memory grows with D only through the
-// resident rows, and each thread's share of the [16, D] backward sum is at
-// most 8 columns by 16 rows of registers.
+// f32 FMAs on the CUDA cores in order (the backward's long sums tile by
+// tile). The streamed tile comes in slices of 256 columns (twice in the
+// backward: once for the logits, once for the product with padj), so
+// shared memory grows with D only through the resident rows, and each
+// thread's share of the [16, D] backward sum is at most 8 columns by 16
+// rows of registers.
 //
-// Widths: D a multiple of 64 from 128 to 2048, which covers GPT-2's family
-// up to gpt2-xl (1,600). The bf16 products stream D in 64-deep stages, so
-// their depth is free; the dh and dW products tile D in 192-column tiles,
-// the last one partly past D at widths that 192 does not divide (1,280 runs
-// 7 tiles, 1,600 runs 9): the overhang is computed on zero-filled loads and
-// not written.
+// Widths: D a multiple of 64 from 64 to 2048 (JAX's kernel takes any D; the
+// wrapper, ops/fused_ce.py, pads h and W with zero columns to the next
+// multiple of 64 and slices dh and dW back, which is exact). The bf16
+// products stream D in whole 64-deep stages: a last stage partly past D
+// (its out-of-bounds columns zero-filled by the TMA) made the products
+// 1.3-1.5x slower at D = 776 than the same products padded to 832 on an
+// H100 (chip_smoke.py's K6 rows; PERF.md). The dh and dW products tile D
+// in 192-column tiles, the last one partly past D at widths that 192 does
+// not divide (1,280 runs 7 tiles, 1,600 runs 9, 64 one): the overhang is
+// computed on zero-filled loads and not written. The f32 route streams D in
+// 256-column slices, the last one ragged.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,12 +80,12 @@ namespace ergm_xent {
 
 using bf16 = __nv_bfloat16;
 
-// D: a multiple of 64 (the bf16 mainloop's stage depth) from 128 to kMaxD
-constexpr int kMinD = 128, kMaxD = 2048;
+// D: a multiple of 64 (the bf16 mainloop's stage depth) up to kMaxD
+constexpr int kMaxD = 2048;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-inline bool width_ok(int D) { return D % 64 == 0 && D >= kMinD && D <= kMaxD; }
+inline bool width_ok(int D) { return D % 64 == 0 && D >= 64 && D <= kMaxD; }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -273,7 +279,12 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
         p[i * L.lds + j] = x;
       }
       // acc[R x D] += p[R x M] . str[M x D], a slice of the streamed tile at
-      // a time (staged again: the logits took it in the same slices)
+      // a time (staged again: the logits took it in the same slices). Each
+      // tile's M products are summed on their own, in order, and the tile's
+      // sum then joins the running one: a row of dh sums ~V terms, and one
+      // serial f32 sum of them misses the fp32 bar at D = 32 (its rounding
+      // errors reach 1e-5 where dh cancels); tile by tile they are ~10x
+      // smaller
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int k0 = c * KS;
@@ -282,10 +293,15 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
         stage_rows(str, L.ldt, streamed, t0, limit, M, D, k0, min(KS, D - k0));
         __syncthreads();
         if (k0 + threadIdx.x < D) {
-          for (int k = 0; k < M; ++k) {
-            const float b = str[k * L.ldt + threadIdx.x];
+          float b[M];
 #pragma unroll
-            for (int r = 0; r < R; ++r) facc[r][c] = fmaf(p[r * L.lds + k], b, facc[r][c]);
+          for (int k = 0; k < M; ++k) b[k] = str[k * L.ldt + threadIdx.x];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float t = 0.0f;
+#pragma unroll
+            for (int k = 0; k < M; ++k) t = fmaf(p[r * L.lds + k], b[k], t);
+            facc[r][c] += t;
           }
         }
       }
@@ -810,7 +826,7 @@ using ergm_xent::gemm::Operand;
 using ergm_xent::gemm::Params;
 
 // dtype: 0 = float32, 1 = bfloat16; h [N, D] and W [V, D] contiguous, D a
-// multiple of 64 from 128 to 2048. part: the bf16 route's [3, ceil(V / 256),
+// multiple of 64 up to 2048. part: the bf16 route's [3, ceil(V / 256),
 // m_pad] f32 partials, m_pad = N rounded up to 128 (unused in f32).
 // Returns a cudaError_t (0 on success).
 extern "C" int ergm_xent_fwd(const void* h, const void* w, const void* labels, void* nll,

@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ergm_tpu_torch.core import device as core_device
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.core.device import resolve
 from ergm_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, head_groups, local_heads
@@ -1158,11 +1159,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def lm_loss(hidden: torch.Tensor, params: GPT2, config: ModelConfig,
             labels: torch.Tensor, mesh=None) -> torch.Tensor:
     """The LM loss without logits, by ``lm_loss_impl``: ``auto`` takes
-    kernel K6 for CUDA tensors (as JAX goes fused on the TPU) and the
-    chunked loss on the CPU; ``fused`` takes K6, or its plain version on
-    the CPU; ``chunked`` the chunked loss. K6 takes every GPT-2 width
-    (D a multiple of 64 from 128 to 2,048, so gpt2 to gpt2-xl); on the
-    card it raises on what it does not take (another D, float16).
+    kernel K6 for CUDA tensors (``core.device.on_card``; as JAX goes fused on
+    the TPU) where K6 takes the shape (``fused_ce.kernel_takes``: every
+    width D up to 2,048, so gpt2 to gpt2-xl and every narrower model, in
+    float32 or bfloat16), and the chunked loss on the CPU and elsewhere
+    (D > 2,048, float16: not ported); ``fused`` takes K6, or its plain
+    version on the CPU, and on the card raises on what K6 does not take;
+    ``chunked`` the chunked loss.
 
     Over a mesh (``hidden`` and ``labels`` this rank's rows) the loss is
     the mean over the global count of targets, JAX's rule
@@ -1175,7 +1178,8 @@ def lm_loss(hidden: torch.Tensor, params: GPT2, config: ModelConfig,
     impl = c.lm_loss_impl
     if impl not in ("auto", "fused", "chunked"):
         raise ValueError(f"unknown lm_loss_impl {impl!r}")
-    fused = impl == "fused" or (impl == "auto" and hidden.is_cuda)
+    fused = impl == "fused" or (impl == "auto" and core_device.on_card(hidden)
+                                and fused_ce.kernel_takes(hidden))
     if mesh is None:
         if fused:
             return fused_ce.fused_lm_loss(hidden, wte, labels)

@@ -10,11 +10,12 @@ projections N(0, initializer_range / sqrt(2 n_layer)), as in the init);
 biases and LayerNorm parameters are perturbed by N(0, 0.02), so that no
 term of the model is trivial.
 
-``agreement_inputs(config, seed)`` gives the inputs of the full-width
-agreement check (``scripts/large_agreement.py`` writes JAX's results on
-them, ``chip_smoke.py`` holds the port to them): greedy requests with
-token types, image and audio features and a caption, and one training
-batch.
+``agreement_inputs(config, seed, recipe)`` gives the inputs of a
+full-width agreement check (``scripts/large_agreement.py`` writes JAX's
+results on them, ``chip_smoke.py`` holds the port to them): greedy
+requests with token types, image and audio features and a caption, and
+one training batch. Two recipes: ``AGREEMENT`` (gpt2-large's width at 4
+of its 36 layers) and ``GPT2_AGREEMENT`` (gpt2 at its full 12 layers).
 """
 
 from __future__ import annotations
@@ -28,10 +29,14 @@ import numpy as np
 AGREEMENT = dict(model_type="gpt2-large", n_layer=4, vocab_size=50271, seed=0, rows=4,
                  prompt=32, caption=8, new=16, train_b=2, train_l=128, steps=2, lr=1e-4,
                  eos_id=50256, sp2_id=50258)
+# The same check for gpt2 at its published width and all 12 of its layers:
+# the same rows, steps and bars, emotion logits within GPT2_EMOTION_TOL.
+GPT2_AGREEMENT = dict(AGREEMENT, model_type="gpt2", n_layer=12)
 # the bars: tokens equal up to each row's first decision whose top-2 margin
 # in JAX is at most MARGIN; emotion logits within EMOTION_TOL; the LM loss of
 # step 1 within STEP1_RTOL and of step 2 within STEP2_RTOL, relative
 MARGIN, EMOTION_TOL, STEP1_RTOL, STEP2_RTOL = 1e-3, 1e-3, 1e-5, 2e-3
+GPT2_EMOTION_TOL = 1e-4
 
 
 def seeded_tree(config, seed: int) -> Dict[str, Any]:
@@ -77,13 +82,13 @@ def seeded_tree(config, seed: int) -> Dict[str, Any]:
     return tree
 
 
-def agreement_inputs(config, seed: int) -> Dict[str, Dict[str, np.ndarray]]:
+def agreement_inputs(config, seed: int,
+                     recipe: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
     """{"generate": the greedy requests, "train": one training batch} of
-    ``AGREEMENT``'s sizes, drawn from ``seed`` over ``config``'s
-    vocabulary. Every request shares the prompt length; the training batch
-    has ignored labels on its first quarter and ragged captions and
-    sequence lengths."""
-    a, M = AGREEMENT, config.modality_dim
+    ``recipe``'s sizes, drawn from ``seed`` over ``config``'s vocabulary.
+    Every request shares the prompt length; the training batch has ignored
+    labels on its first quarter and ragged captions and sequence lengths."""
+    a, M = recipe, config.modality_dim
     rng = np.random.default_rng(seed + 1)
     b, lp, lc = a["rows"], a["prompt"], a["caption"]
     gen = dict(input_ids=rng.integers(0, a["eos_id"], (b, lp)),

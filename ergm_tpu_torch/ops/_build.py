@@ -96,10 +96,10 @@ def load() -> ctypes.CDLL:
         "ergm_fused_cross_decode": [p, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                     i, i, i, f, p, p],
         "ergm_decode_mha_int8": [p, ll, ll, p, p, p, p, p, ll, p, i, i, i, i, i, i, f, i, p],
-        "ergm_block_mha_fwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, strides, f, i, i, f, f,
-                               u, u, i, p],
-        "ergm_block_mha_bwd": [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, strides, f,
-                               i, i, f, f, u, u, i, p],
+        "ergm_block_mha_fwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, f, i, i, f,
+                               f, u, u, i, p],
+        "ergm_block_mha_bwd": [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides,
+                               f, i, i, f, f, u, u, i, p],
         "ergm_xent_fwd": [p, p, p, p, p, p, i, i, i, i, p],
         "ergm_xent_bwd_f32": [p, p, p, p, p, p, i, i, i, i, p],
         "ergm_xent_bwd_chunk": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],

@@ -22,6 +22,8 @@ from typing import Optional, Union
 
 import torch
 
+from ergm_tpu_torch.core import device as core_device
+
 _NEG_INF = -1e9
 _U32 = 1 << 32
 _GOLDEN = 2654435761
@@ -30,7 +32,8 @@ _HASH_MUL = (0x7FEB352D, 0x846CA68B)
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with f32 accumulation and an f32 result (JAX's
-    ``preferred_element_type=float32``). Batch dims must match.
+    ``preferred_element_type=float32``). Batch dims must match, or ``b``
+    is a matrix applied to every row of ``a``.
 
     On the GPU, bf16 operands go to cuBLAS with an f32 output when no
     gradient is needed (that call has no derivative); elsewhere the
@@ -39,8 +42,9 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dtype)."""
     grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     if a.is_cuda and a.dtype == torch.bfloat16 and not grad:
-        if a.dim() == 2:
-            return torch.mm(a, b, out_dtype=torch.float32)
+        if b.dim() == 2:
+            out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return out.view(*a.shape[:-1], b.shape[-1])
         batch = a.shape[:-2]
         out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
                         out_dtype=torch.float32)
@@ -151,11 +155,15 @@ def multihead_attention(
     otherwise, with no dropout active, ``pallas`` and ``flash`` take K5
     inside JAX's flash gate (``flash_supported``: the shapes JAX sends to
     its library flash kernel K7, L > 1024 or causal Lq < Lk at offset 0,
-    which a tiled CUDA kernel serves as well). ``auto`` is ``pallas`` for
-    CUDA tensors, as JAX takes the Pallas kernels on the TPU, and the
-    plain math elsewhere; on the CPU ``pallas``, ``block`` and ``flash``
-    run K5's plain version. ``xla`` and every shape outside the gates take
-    the plain math. The ``ERGM_ATTN_IMPL`` environment variable overrides
+    which a tiled CUDA kernel serves as well, at the kernel's head widths).
+    ``auto`` is ``pallas`` for CUDA tensors (``core.device.on_card``), as JAX
+    takes the Pallas kernels on the TPU, and the plain math elsewhere; on
+    the CPU ``pallas``, ``block`` and ``flash`` run K5's plain version.
+    ``xla`` and every shape outside the gates take the plain math. On the
+    card the kernel takes head widths a multiple of 8 up to 128 in float32
+    and bfloat16 (``block_attention.kernel_takes``): outside them ``auto``
+    and ``pallas`` take the plain math and an explicit ``block`` or
+    ``flash`` raises. The ``ERGM_ATTN_IMPL`` environment variable overrides
     ``impl``. With an ``extra_bias``, only the plain math applies;
     ``q_mask`` reaches K5 only (padded query rows give zero output and
     gradient there). ``dropout_head_stride``: the dropout hash's head
@@ -166,9 +174,19 @@ def multihead_attention(
     impl = os.environ.get("ERGM_ATTN_IMPL", impl)
     if impl not in ("auto", "pallas", "block", "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    card = core_device.on_card(q)
     if impl == "auto":
-        impl = "pallas" if q.is_cuda else "xla"
+        impl = "pallas" if card else "xla"
     dropout_active = (not deterministic) and dropout_rate > 0.0 and seed is not None
+    # the gates below own the head widths; this adds what they pass and the
+    # kernels do not take (float16: the plain math under pallas) and the
+    # raise of an explicit block or flash outside the kernels' domain
+    if extra_bias is None and card and impl != "xla" and not block_attention.kernel_takes(q):
+        if impl != "pallas":
+            raise ValueError(f"multihead_attention: impl={impl!r} on the card takes head widths "
+                             f"a multiple of 8 up to 128 in float32 or bfloat16, got q "
+                             f"{tuple(q.shape)} {q.dtype}")
+        impl = "xla"
     if extra_bias is None and impl != "xla":
         block = impl in ("pallas", "block") and block_attention.supported(
             q, k, v, causal=causal, causal_offset=causal_offset)

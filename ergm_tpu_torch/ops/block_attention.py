@@ -14,6 +14,13 @@ forward and backward launch the hand-written kernels of
 ``csrc/block_attention.cu`` (see the note at the top of that file), or
 raise; on CPU tensors it runs ``block_mha_reference``, the same math in
 differentiable plain torch.
+
+Head widths: the card takes every head width of JAX's gate, a multiple
+of 8 up to 128, in float32 and bfloat16 (``kernel_takes``). The kernels
+are built for ``HEAD_DIMS``; ``block_mha`` pads q, k and v with zero
+columns to the next of them (``head_width``) and slices the output back,
+with the softmax scale of the true width: the zero columns add nothing
+to q·kᵀ, and their output and gradient columns are dropped.
 """
 
 from __future__ import annotations
@@ -22,11 +29,12 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ergm_tpu_torch.ops import _build
 from ergm_tpu_torch.ops.attention import _NEG_INF, dropout_keep, dropout_threshold, matmul_f32
 
-HEAD_DIM = 64  # the head dim the CUDA kernel is built for (the GPT-2 family)
+HEAD_DIMS = (32, 64, 96, 128)  # the head widths the CUDA kernels are built for
 # Launches since the last reset: forward kernels, and backward calls (each
 # runs the dQ kernel, then the dK/dV kernel). A run sets them to 0 and
 # reads them back to show that its path went through the kernels.
@@ -35,14 +43,32 @@ BWD_LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def head_ok(D: int) -> bool:
+    """The head widths of JAX's block gate, which the kernels take: a
+    multiple of 8 up to 128."""
+    return 8 <= D <= 128 and D % 8 == 0
+
+
+def kernel_takes(q) -> bool:
+    """Whether the kernels take q's head width and dtype (float32 or
+    bfloat16; float16, which JAX's kernels take, is not ported)."""
+    return head_ok(q.shape[-1]) and q.dtype in _DTYPE_CODE
+
+
+def head_width(D: int) -> int:
+    """The width of the kernel that runs head width ``D``: the least of
+    HEAD_DIMS at or above it."""
+    return next(w for w in HEAD_DIMS if w >= D)
+
+
 def supported(q, k, v, *, causal: bool, causal_offset=0) -> bool:
     """JAX's block gate (``block_attention_supported``): whole-sequence
     problems with Dh <= 128 a multiple of 8, Lq and Lk multiples of 128
-    up to 1024, Lq == Lk and no offset when causal. Inside it, the CUDA
-    kernel raises on what it does not take: Dh other than 64, float16."""
+    up to 1024, Lq == Lk and no offset when causal. The kernels take its
+    every head width; on the card float16 raises."""
     B, H, lq, D = q.shape
     lk = k.shape[2]
-    if D > 128 or D % 8 or lq % 128 or lk % 128 or lq < 128 or lq > 1024 or lk > 1024:
+    if not head_ok(D) or lq % 128 or lk % 128 or lq < 128 or lq > 1024 or lk > 1024:
         return False
     return not (causal and (lq != lk or int(causal_offset) != 0))
 
@@ -51,10 +77,11 @@ def flash_supported(q, k, v, *, causal: bool, causal_offset=0,
                     dropout_active: bool = False) -> bool:
     """JAX's flash gate (``flash_attention_supported``) without its TPU
     check: no dropout, Lq >= 128, Lq and Lk multiples of 128 of any size,
-    and when causal Lq <= Lk with an offset of 0 (query i sees keys <= i).
-    The same kernel serves it; Dh other than 64 raises there too."""
+    and when causal Lq <= Lk with an offset of 0 (query i sees keys <= i);
+    and the kernels' head widths, a multiple of 8 up to 128 (JAX's library
+    kernel takes any: wider or other heads are not ported)."""
     lq, lk = q.shape[2], k.shape[2]
-    if dropout_active or lq < 128 or lq % 128 or lk % 128:
+    if dropout_active or not head_ok(q.shape[-1]) or lq < 128 or lq % 128 or lk % 128:
         return False
     return not (causal and (lq > lk or int(causal_offset) != 0))
 
@@ -113,10 +140,10 @@ def _check(name, x, like, shape):
                          f"rows, got strides {x.stride()}")
 
 
-def _heads_layout(B, H, L, dtype, device):
-    """A [B, H, L, Dh] view of [B, L, H, Dh] memory: the merged layout the
+def _heads_layout(B, H, L, D, dtype, device):
+    """A [B, H, L, D] view of [B, L, H, D] memory: the merged layout the
     model reads next, so merging the heads back copies nothing."""
-    return torch.empty((B, L, H, HEAD_DIM), dtype=dtype, device=device).transpose(1, 2)
+    return torch.empty((B, L, H, D), dtype=dtype, device=device).transpose(1, 2)
 
 
 def _dropout_args(rate: float, seed: int, head_stride: int):
@@ -145,9 +172,9 @@ def launch_bwd(q, k, v, o, ml, qm, kbits, dead, do, scale, causal, rate, seed,
     Lk = k.shape[2]
     if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
         do = do.contiguous()
-    dq = _heads_layout(B, H, L, q.dtype, q.device)
-    dk = _heads_layout(B, H, Lk, q.dtype, q.device)
-    dv = _heads_layout(B, H, Lk, q.dtype, q.device)
+    dq = _heads_layout(B, H, L, D, q.dtype, q.device)
+    dk = _heads_layout(B, H, Lk, D, q.dtype, q.device)
+    dv = _heads_layout(B, H, Lk, D, q.dtype, q.device)
     # each row's (m, 1/l, delta): written by the dQ kernel, read by dK/dV
     stat = torch.empty((B, H, L, 4), dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -155,7 +182,7 @@ def launch_bwd(q, k, v, o, ml, qm, kbits, dead, do, scale, causal, rate, seed,
         err = lib.ergm_block_mha_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), stat.data_ptr(),
-            qm.data_ptr(), kbits.data_ptr(), dead.data_ptr(), _DTYPE_CODE[q.dtype],
+            qm.data_ptr(), kbits.data_ptr(), dead.data_ptr(), _DTYPE_CODE[q.dtype], D,
             B, H, L, Lk,
             _strides(q, k, v, o, do, dq, dk, dv), ctypes.c_float(scale), int(causal),
             *_dropout_args(rate, seed, H if head_stride is None else head_stride),
@@ -172,7 +199,7 @@ class _BlockAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, qm, km, scale, causal, rate, seed, head_stride):
         B, H, L, D = q.shape
         Lk = k.shape[2]
-        o = _heads_layout(B, H, L, q.dtype, q.device)
+        o = _heads_layout(B, H, L, D, q.dtype, q.device)
         ml = torch.empty((2, B, H, L), dtype=torch.float32, device=q.device)
         # the key mask as bits and where each batch row's dead rows end (real
         # causal rows before the first real key): the forward's pre-pass
@@ -184,7 +211,7 @@ class _BlockAttention(torch.autograd.Function):
             err = lib.ergm_block_mha_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ml.data_ptr(),
                 qm.data_ptr(), km.data_ptr(), kbits.data_ptr(), dead.data_ptr(),
-                _DTYPE_CODE[q.dtype], B, H, L, Lk, _strides(q, k, v, o), ctypes.c_float(scale),
+                _DTYPE_CODE[q.dtype], D, B, H, L, Lk, _strides(q, k, v, o), ctypes.c_float(scale),
                 int(causal), *_dropout_args(rate, seed, head_stride),
                 torch.cuda.current_stream().cuda_stream)
         if err:
@@ -214,8 +241,9 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     ``attention.dropout_keep``: a shard of heads and rows draws the whole
     problem's masks with a folded seed and the global head count). The
     card takes the shapes of either gate (``supported``, or
-    ``flash_supported`` without dropout). Returns [B, H, Lq, Dh]; on the
-    card a view of [B, Lq, H, Dh] memory."""
+    ``flash_supported`` without dropout), at every head width a multiple
+    of 8 up to 128 (padded to ``head_width(Dh)``). Returns [B, H, Lq, Dh];
+    on the card a view of [B, Lq, H, Dh'] memory (Dh' the padded width)."""
     B, H, lq, D = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -227,9 +255,16 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
                                    kv_mask=kv_mask, dropout_rate=dropout_rate,
                                    dropout_seed=dropout_seed,
                                    dropout_head_stride=dropout_head_stride)
-    _check("q", q, q, (B, H, lq, HEAD_DIM))
-    _check("k", k, q, (B, H, lk, HEAD_DIM))
-    _check("v", v, q, (B, H, lk, HEAD_DIM))
+    if not head_ok(D) or k.shape[-1] != D or v.shape[-1] != D:
+        raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}; the kernels take one head width, a multiple of 8 "
+                         f"up to 128")
+    width = head_width(D)
+    if width != D:  # differentiable: the padding's gradient is dropped
+        q, k, v = (F.pad(x, (0, width - D)) for x in (q, k, v))
+    _check("q", q, q, (B, H, lq, width))
+    _check("k", k, q, (B, H, lk, width))
+    _check("v", v, q, (B, H, lk, width))
     if not (supported(q, k, v, causal=causal)
             or flash_supported(q, k, v, causal=causal, dropout_active=dropout_rate > 0.0)):
         raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)} (causal={causal}, "
@@ -239,6 +274,7 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
             raise ValueError(f"block_mha: {name} {tuple(m.shape)} on {m.device}, want "
                              f"[{B}, {n}] on {q.device}")
     qm, km = _masks(q, k, q_mask, kv_mask)
-    return _BlockAttention.apply(q, k, v, qm, km, float(scale), bool(causal),
-                                 float(dropout_rate), int(dropout_seed or 0),
-                                 H if dropout_head_stride is None else int(dropout_head_stride))
+    o = _BlockAttention.apply(q, k, v, qm, km, float(scale), bool(causal), float(dropout_rate),
+                              int(dropout_seed or 0),
+                              H if dropout_head_stride is None else int(dropout_head_stride))
+    return o if width == D else o[..., :D]

@@ -16,11 +16,21 @@ autograd. ``fused_lm_loss`` is the shifted, masked mean of
 ``chunked_lm_loss`` through it; ``fused_lm_loss_sharded`` the same mean
 over a data-parallel mesh, each data rank running the kernel on its own
 rows.
+
+Widths: the card takes every hidden width D from 1 to ``MAX_DIM``
+(JAX's kernel takes any D; the port stops at gpt2-xl's next power of
+two). The kernels take D a multiple of 64, whole 64-deep stages of their
+products (a partial last stage ran the products 1.3-1.5x slower on an
+H100, PERF.md); for another D ``fused_softmax_xent`` pads h and W with
+zero columns to the next multiple of 64 (``padded_width``): the zero
+columns add nothing to the logits, and the gradients of the padding are
+sliced away.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ergm_tpu_torch.ops import _build
 
@@ -28,9 +38,10 @@ from ergm_tpu_torch.ops import _build
 # launches its chunks' kernels).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-# widths the kernels take: a multiple of DIM_STEP from MIN_DIM to MAX_DIM
-# (GPT-2's family, gpt2 768 to gpt2-xl 1,600, and more)
-MIN_DIM, MAX_DIM, DIM_STEP = 128, 2048, 64
+# hidden widths the card takes: 1 to MAX_DIM (GPT-2's family, gpt2 768 to
+# gpt2-xl 1,600, and every narrower width); the kernels see a multiple of
+# DIM_STEP (their products' stage depth), the wrapper pads to it
+MAX_DIM, DIM_STEP = 2048, 64
 # vocab columns per backward chunk by default (a multiple of the kernels'
 # 256-column tile); its bf16 scratch is [N rounded up to 128, CHUNK],
 # 403 MB at N = 24,576
@@ -40,8 +51,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def width_ok(D: int) -> bool:
-    """Whether the kernels take hidden width ``D``."""
-    return D % DIM_STEP == 0 and MIN_DIM <= D <= MAX_DIM
+    """Whether the card takes hidden width ``D`` (padded to
+    ``padded_width(D)`` for the kernels)."""
+    return 1 <= D <= MAX_DIM
+
+
+def kernel_takes(hidden: torch.Tensor) -> bool:
+    """Whether the kernels take ``hidden`` [N, D]: ``width_ok(D)``, in
+    float32 or bfloat16 (float16 is not ported)."""
+    return width_ok(hidden.shape[-1]) and hidden.dtype in _DTYPE_CODE
+
+
+def padded_width(D: int) -> int:
+    """The width the kernels run ``D`` at: the next multiple of DIM_STEP."""
+    return -(-D // DIM_STEP) * DIM_STEP
 
 
 def vocab_chunks(V: int, chunk: int) -> list:
@@ -77,8 +100,8 @@ def _check(hidden, wte, labels):
         raise ValueError(f"fused_softmax_xent: hidden {tuple(hidden.shape)}, wte "
                          f"{tuple(wte.shape)}; want [N, D] and [V, D]")
     if not width_ok(hidden.shape[1]):
-        raise ValueError(f"fused_softmax_xent: D={hidden.shape[1]}; the kernels take a "
-                         f"multiple of {DIM_STEP} from {MIN_DIM} to {MAX_DIM}")
+        raise ValueError(f"fused_softmax_xent: D={hidden.shape[1]}; the kernels take D up "
+                         f"to {MAX_DIM}")
     if labels.shape != hidden.shape[:1]:
         raise ValueError(f"fused_softmax_xent: labels {tuple(labels.shape)}, want "
                          f"[{hidden.shape[0]}]")
@@ -95,7 +118,8 @@ def _rows_padded(n: int) -> int:
 
 
 def launch_fwd(hidden, wte, labels):
-    """The forward kernels on checked contiguous operands: (nll, logz) [N] f32."""
+    """The forward kernels on checked contiguous operands whose D is a
+    multiple of DIM_STEP: (nll, logz) [N] f32."""
     global LAUNCHES
     N, D = hidden.shape
     V = wte.shape[0]
@@ -115,8 +139,9 @@ def launch_fwd(hidden, wte, labels):
 
 def launch_bwd(hidden, wte, labels, logz, g, chunk: int = CHUNK):
     """The backward kernels: (dh, dW) in hidden's and wte's dtype from the
-    per-token cotangent ``g`` [N] f32. bf16: vocab chunks of ``chunk``
-    columns in order, three products each; f32: one dh and one dW kernel."""
+    per-token cotangent ``g`` [N] f32 (D a multiple of DIM_STEP). bf16:
+    vocab chunks of ``chunk`` columns in order, three products each; f32:
+    one dh and one dW kernel."""
     global BWD_LAUNCHES
     N, D = hidden.shape
     V = wte.shape[0]
@@ -162,11 +187,16 @@ def fused_softmax_xent(hidden: torch.Tensor, wte: torch.Tensor,
 
     hidden [N, D], wte [V, D] (one float dtype), labels [N] (negative =
     ignored: NLL logZ, zero gradient; callers mask). Differentiable in
-    hidden and wte; dh comes back in hidden's dtype, dW in wte's."""
+    hidden and wte; dh comes back in hidden's dtype, dW in wte's. On the
+    card D runs at ``padded_width(D)``."""
     if hidden.device.type == "cpu":
         return fused_softmax_xent_reference(hidden, wte, labels)
     _check(hidden, wte, labels)
+    D = hidden.shape[1]
+    width = padded_width(D)
     hidden, wte = hidden.contiguous(), wte.contiguous()
+    if width != D:  # differentiable: the padding's gradient is dropped
+        hidden, wte = F.pad(hidden, (0, width - D)), F.pad(wte, (0, width - D))
     if hidden.data_ptr() % 16 or wte.data_ptr() % 16:
         raise ValueError("fused_softmax_xent: the kernels load rows 16 bytes at a time; hidden "
                          "and wte must start 16-byte aligned")

@@ -1,0 +1,143 @@
+"""Times kernels K5 and K6 at the shapes of their rows in PERF.md, from
+one or more trees of this repository, in turns.
+
+K5 (block attention): bf16 [48, 12, 512, 64], causal, dropout 0.1,
+forward and backward (the training slice). K6 (fused cross-entropy):
+bf16 forward and backward over GPT-2's vocabulary (50,271 rows) at
+gpt2's training shape (N = 24,576, D = 768), gpt2-large's (6,144, 1,280)
+and gpt2-xl's (2,048, 1,600), in bf16 and in fp32 (TF32 off; K6's f32
+route). Each time is the median of CUDA-event
+readings of single calls queued behind ~50 ms of device work, so that
+the events bracket device time (``chip_smoke.py``'s ``_median_ms``).
+
+Run on a machine with a CUDA GPU, from the repository root:
+
+    python3 scripts/k5_k6_times.py [--trees=DIR[,DIR]]
+
+Each tree (default: this one) is a directory holding an
+``ergm_tpu_torch`` package; its kernels are built into its own
+``ergm_tpu_torch/_build`` and timed in a process of its own. With two
+trees A and B the runs go A, B, B, A and the script prints each
+reading, each tree's better run, and B's time over A's per kernel.
+Each tree's compiler report for ``fused_ce.cu``'s f32 kernels (registers
+and spills, from the build's ``.log``) is printed once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+K6_SHAPES = {"gpt2": (24576, 768), "gpt2-large": (6144, 1280), "gpt2-xl": (2048, 1600)}
+V = 50271
+
+
+def _child(tree: str) -> dict:
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from ergm_tpu_torch.ops import _build, block_attention, fused_ce
+
+    root = os.path.realpath(os.path.abspath(tree))
+    if not os.path.realpath(block_attention.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {block_attention.__file__}, not the tree {root}")
+    _build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def median_ms(fn, reps: int) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(reps)]
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    q, k, v, do = (torch.randn((48, 12, 512, 64), generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    kw = dict(causal=True, scale=0.125, dropout_rate=0.1, dropout_seed=1234)
+    out["K5 fwd"] = median_ms(lambda: block_attention.block_mha(q, k, v, **kw), 20)
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o = block_attention.block_mha(*xs, **kw)
+    out["K5 bwd"] = median_ms(lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 20)
+    del q, k, v, do, xs, o
+    for (model, (n, d)), dtype in ((m, t) for t in (torch.bfloat16, torch.float32)
+                                   for m in K6_SHAPES.items()):
+        h = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        w = (3.0 / d ** 0.5 * torch.randn((V, d), generator=gen, device="cuda")).to(dtype)
+        lbl = torch.randint(0, V, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        lbl[::4] = -100
+        g = torch.where(lbl >= 0, torch.randn((n,), generator=gen, device="cuda"), 0.0)
+        _, logz = fused_ce.launch_fwd(h, w, lbl)
+        tag = model if dtype == torch.bfloat16 else f"{model} fp32"
+        reps = 5 if dtype == torch.bfloat16 else 3
+        out[f"K6 fwd {tag}"] = median_ms(lambda: fused_ce.launch_fwd(h, w, lbl), reps)
+        out[f"K6 bwd {tag}"] = median_ms(lambda: fused_ce.launch_bwd(h, w, lbl, logz, g), reps)
+        del h, w, lbl, g, logz
+        torch.cuda.empty_cache()
+    out["card"] = torch.cuda.get_device_name(0)
+    out["ptxas"] = _f32_report(_build.library_path().with_suffix(".log").read_text())
+    return out
+
+
+def _f32_report(log: str) -> dict:
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
+    for the f32 route's kernels of ``fused_ce.cu`` in a build's report."""
+    section = log.split("== fused_ce.cu", 1)[1].split("\n== ", 1)[0]
+    out, name = {}, None
+    for line in section.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1) if "f32" in m.group(1) else None
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name] = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--trees", default=".")
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        print(json.dumps(_child(args.child)))
+        return
+    trees = args.trees.split(",")
+    order = trees if len(trees) == 1 else [trees[0], *trees[1:], *trees[1:][::-1], trees[0]]
+    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi)
+    runs = {t: [] for t in trees}
+    for tree in order:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), f"--child={tree}"],
+                             capture_output=True, text=True, check=True)
+        reading = json.loads(res.stdout.strip().splitlines()[-1])
+        runs[tree].append(reading)
+        if len(runs[tree]) == 1:
+            print(f"{tree} ptxas: {json.dumps(reading['ptxas'])}")
+        print(f"{tree}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in reading.items()
+                                      if k not in ("card", "ptxas")), flush=True)
+    best = {t: {k: min(r[k] for r in rs) for k in rs[0] if k not in ("card", "ptxas")}
+            for t, rs in runs.items()}
+    print(json.dumps({"power": smi, "best_ms": best}))
+    if len(trees) == 2:
+        a, b = trees
+        print("ratio " + ", ".join(f"{k} {best[b][k] / best[a][k]:.4f}" for k in best[a]))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,27 +1,29 @@
-"""Writes ``tests/fixtures/large_agreement.json``: ergm_tpu's results at
-gpt2-large's width on the seeded weights and inputs of
-``ergm_tpu_torch.models.seeded`` (``AGREEMENT``), which ``chip_smoke.py``
-holds the port to on the card.
+"""Writes ergm_tpu's results on the seeded weights and inputs of
+``ergm_tpu_torch.models.seeded``, which ``chip_smoke.py`` holds the port
+to on the card: ``tests/fixtures/large_agreement.json`` for
+``AGREEMENT`` (gpt2-large's published width, n_embd 1,280, 20 heads,
+n_inner 5,120, at ``AGREEMENT["n_layer"]`` of its 36 layers) or, with
+``--recipe=gpt2``, ``tests/fixtures/gpt2_agreement.json`` for
+``GPT2_AGREEMENT`` (gpt2 at its published width and all 12 layers).
 
-fp32 on the CPU, dropout 0, gpt2-large's published width (n_embd 1,280,
-20 heads, n_inner 5,120, GPT-2's vocabulary) at ``AGREEMENT["n_layer"]``
-of its 36 layers. It records:
+fp32 on the CPU, dropout 0, GPT-2's vocabulary. It records:
 
-- greedy ``generate`` over ``AGREEMENT["rows"]`` requests (prompt,
+- greedy ``generate`` over the recipe's ``rows`` requests (prompt,
   token types, image and audio features, a caption): the new tokens, each
   row's length, the top-2 logit margin of every decision (the logits of
   generate's prefill and cached decode steps, replayed teacher-forced),
   and the emotion logits;
-- the LM loss of ``AGREEMENT["steps"]`` AdamW steps (constant rate
-  ``AGREEMENT["lr"]``, optax's defaults) on one batch.
+- the LM loss of the recipe's ``steps`` AdamW steps (constant rate
+  ``lr``, optax's defaults) on one batch.
 
-Run from the repository root on a CPU (a few minutes, ~4 GB):
+Run from the repository root on a CPU (a few minutes, ~4 GB each):
 
-    JAX_PLATFORMS=cpu python scripts/large_agreement.py
+    JAX_PLATFORMS=cpu python scripts/large_agreement.py [--recipe=gpt2]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -39,21 +41,24 @@ from ergm_tpu.core.config import ModelConfig  # noqa: E402
 from ergm_tpu.infer import generate as jgen  # noqa: E402
 from ergm_tpu.models import gpt2 as jg  # noqa: E402
 from ergm_tpu.train import steps as jsteps  # noqa: E402
-from ergm_tpu_torch.models.seeded import (AGREEMENT, MARGIN, agreement_inputs,  # noqa: E402
-                                          seeded_tree)
+from ergm_tpu_torch.models.seeded import (AGREEMENT, GPT2_AGREEMENT, MARGIN,  # noqa: E402
+                                          agreement_inputs, seeded_tree)
 
-OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
-                   "fixtures", "large_agreement.json")
+FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+                        "fixtures")
+# --recipe: (the recipe, its name in seeded.py, the fixture it writes)
+RECIPES = {"large": (AGREEMENT, "AGREEMENT", "large_agreement.json"),
+           "gpt2": (GPT2_AGREEMENT, "GPT2_AGREEMENT", "gpt2_agreement.json")}
 
 
-def config() -> ModelConfig:
-    a = AGREEMENT
+def config(a: dict) -> ModelConfig:
     return ModelConfig.from_model_type(a["model_type"], n_layer=a["n_layer"],
                                        vocab_size=a["vocab_size"], dtype="float32",
                                        embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
 
 
-def decision_logits(params, cfg, req: dict, tokens: np.ndarray, max_len: int) -> list:
+def decision_logits(params, cfg, req: dict, tokens: np.ndarray, max_len: int,
+                    sp2_id: int) -> list:
     """The logits behind each of generate's decisions (ergm_tpu/infer/
     generate.py's prefill, then its cached decode steps), the tokens fed
     teacher-forced: [slot s predicted by them for s in prompt .. max_len)."""
@@ -75,7 +80,7 @@ def decision_logits(params, cfg, req: dict, tokens: np.ndarray, max_len: int) ->
     for cur in range(lp + 1, max_len):
         step_pos = np.full((B, 1), min(cur - 1, cfg.n_positions - 1))
         o = fwd(params, input_ids=jnp.asarray(tokens[:, cur - 1:cur]),
-                token_type_ids=jnp.full((B, 1), AGREEMENT["sp2_id"]),
+                token_type_ids=jnp.full((B, 1), sp2_id),
                 position_ids=jnp.asarray(step_pos), attention_mask=jnp.asarray(mask),
                 cache=o.cache)
         out.append(np.asarray(o.logits[:, -1]))
@@ -84,10 +89,14 @@ def decision_logits(params, cfg, req: dict, tokens: np.ndarray, max_len: int) ->
 
 
 def main() -> None:
-    a, cfg = AGREEMENT, config()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--recipe", choices=sorted(RECIPES), default="large")
+    a, name, fixture_name = RECIPES[ap.parse_args().recipe]
+    cfg = config(a)
+    out_path = os.path.join(FIXTURES, fixture_name)
     t0 = time.time()
     tree = seeded_tree(cfg, a["seed"])
-    inputs = agreement_inputs(cfg, a["seed"])
+    inputs = agreement_inputs(cfg, a["seed"], a)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     del tree
     print(f"seeded tree: {sum(x.size for x in jax.tree_util.tree_leaves(params)):,} "
@@ -102,7 +111,7 @@ def main() -> None:
         imgs=jnp.asarray(req["imgs"]), auds=jnp.asarray(req["auds"]),
         caption_ids=jnp.asarray(req["caption_ids"]), greedy=True))(pi)
     tokens, lengths = np.asarray(out.tokens), np.asarray(out.lengths)
-    logits = decision_logits(pi, cfg, req, tokens, max_len)
+    logits = decision_logits(pi, cfg, req, tokens, max_len, a["sp2_id"])
     top2 = [np.sort(x, axis=-1)[:, -2:] for x in logits]
     margins = np.stack([t[:, 1] - t[:, 0] for t in top2], axis=1)  # [B, new]
     for s, x in enumerate(logits):  # the replay is generate's own
@@ -122,7 +131,7 @@ def main() -> None:
     print(f"train: LM losses {losses}, {time.time() - t0:.1f} s")
 
     fixture = {
-        "about": "ergm_tpu's results on ergm_tpu_torch.models.seeded's AGREEMENT weights and "
+        "about": f"ergm_tpu's results on ergm_tpu_torch.models.seeded's {name} weights and "
                  "inputs (scripts/large_agreement.py), fp32 on a CPU",
         "agreement": a,
         "config": {k: getattr(cfg, k) for k in ("n_layer", "n_embd", "n_head", "n_inner",
@@ -133,10 +142,10 @@ def main() -> None:
         "emotion_logits": np.asarray(out.emotion_logits).tolist(),
         "lm_losses": losses,
     }
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
+    os.makedirs(FIXTURES, exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(fixture, f, indent=1)
-    print(f"wrote {OUT} ({os.path.getsize(OUT):,} bytes)")
+    print(f"wrote {out_path} ({os.path.getsize(out_path):,} bytes)")
 
 
 if __name__ == "__main__":

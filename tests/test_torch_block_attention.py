@@ -14,10 +14,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from ergm_tpu.ops import attention as jat
 from ergm_tpu.ops import block_attention as jba
 from ergm_tpu.ops import flash_attention as jfa
+from ergm_tpu_torch.core import device as tdevice
 from ergm_tpu_torch.ops import attention as tat
 from ergm_tpu_torch.ops import block_attention as tba
 
@@ -27,11 +29,11 @@ B, H, L, D = 2, 2, 256, 64
 SEED = 1234
 
 
-def _inputs(rng, lk=L):
-    q = rng.standard_normal((B, H, L, D)).astype(np.float32)
-    k = rng.standard_normal((B, H, lk, D)).astype(np.float32)
-    v = rng.standard_normal((B, H, lk, D)).astype(np.float32)
-    g = rng.standard_normal((B, H, L, D)).astype(np.float32)  # the output's cotangent
+def _inputs(rng, lk=L, d=D):
+    q = rng.standard_normal((B, H, L, d)).astype(np.float32)
+    k = rng.standard_normal((B, H, lk, d)).astype(np.float32)
+    v = rng.standard_normal((B, H, lk, d)).astype(np.float32)
+    g = rng.standard_normal((B, H, L, d)).astype(np.float32)  # the output's cotangent
     kv_mask = rng.integers(0, 2, (B, lk)).astype(np.int32)
     kv_mask[:, :8] = 1  # early keys real: every causal row sees one
     q_mask = np.ones((B, L), np.int32)
@@ -70,6 +72,80 @@ def test_plain_k5_matches_jax(causal, lk, rate):
     np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=2e-5)
     for a, b in zip(got[1:], want[1:]):
         np.testing.assert_allclose(a, b, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("d", [24, 128])
+def test_plain_k5_matches_jax_at_head_widths(d):
+    """The kernels' other head widths (24: padded to 32 on the card; 128,
+    the widest): causal, kv and q masks, dropout 0.1, against JAX's
+    interpret-mode kernel at the same width: output within 2e-5, dQ, dK,
+    dV within 5e-5."""
+    q, k, v, g, kv_mask, q_mask = _inputs(np.random.default_rng(10 + d), d=d)
+    want = _jax(q, k, v, g, True, kv_mask, q_mask, 0.1)
+    got = _torch(q, k, v, g, True, kv_mask, q_mask, 0.1)
+    np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=2e-5)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a, b, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("d", [8, 24, 40])
+def test_head_width_padding_is_exact(d):
+    """What ``block_mha`` does on the card at a head width it has no kernel
+    for: q, k and v zero-padded to ``head_width(d)`` (32, 32, 64) through
+    the plain version with the true width's scale, causal with masks and
+    dropout 0.1, give the unpadded problem's output in their first d
+    columns, zeros in the rest, and its gradients through the padding."""
+    width = tba.head_width(d)
+    assert width in tba.HEAD_DIMS and width >= d and tba.kernel_takes(torch.zeros(1, d))
+    q, k, v, g, kv_mask, q_mask = (torch.from_numpy(x) for x in _inputs(
+        np.random.default_rng(20 + d), d=d))
+    kw = dict(causal=True, scale=d ** -0.5, q_mask=q_mask, kv_mask=kv_mask, dropout_rate=0.1,
+              dropout_seed=SEED)
+    runs = []
+    for pad in (False, True):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = tba.block_mha_reference(*(F.pad(x, (0, width - d)) if pad else x for x in xs), **kw)
+        if pad:
+            assert o.shape[-1] == width and float(o.detach()[..., d:].abs().max()) == 0.0
+            o = o[..., :d]
+        runs.append([o, *torch.autograd.grad(o, xs, g)])
+    for a, b in zip(*runs):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [8, 32, 64, 128, 136])
+def test_auto_routes_follow_the_kernels_head_widths(monkeypatch, d):
+    """On the card (stood in here by ``core.device.on_card``), ``auto``
+    sends self-attention inside JAX's block gate to K5 and JAX's flash
+    shapes (K7) to K5 at every head width the kernel takes (a multiple of
+    8 up to 128), and the plain math beyond it (136), where an explicit
+    ``block`` or ``flash`` raises and ``pallas`` takes the plain math;
+    float16, which the kernel does not take, gets the plain math too."""
+    calls = []
+    real = tba.block_mha
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tba, "block_mha", spy)
+    monkeypatch.setattr(tdevice, "on_card", lambda x: True)
+    rng = np.random.default_rng(d)
+    block = torch.from_numpy(rng.standard_normal((1, 2, 128, d)).astype(np.float32))
+    flash = torch.from_numpy(rng.standard_normal((1, 1, 1152, d)).astype(np.float32))
+    for x in (block, flash):
+        tat.multihead_attention(x, x, x, causal=True, impl="auto")
+    assert len(calls) == (2 if d <= 128 else 0)
+    if d > 128:
+        for impl, x in (("block", block), ("flash", flash)):
+            with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+                tat.multihead_attention(x, x, x, causal=True, impl=impl)
+        tat.multihead_attention(block, block, block, causal=True, impl="pallas")
+        assert not calls
+    else:
+        half = block.half()
+        tat.multihead_attention(half, half, half, causal=True, impl="auto")
+        assert len(calls) == 2
 
 
 def test_padded_queries_give_zero_output_and_gradient():

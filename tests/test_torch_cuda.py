@@ -10,6 +10,7 @@ marked ``cuda`` skip without a card."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ergm_tpu_torch.core.config import ModelConfig
 from ergm_tpu_torch.models import gpt2 as tg
@@ -400,13 +401,13 @@ def _grads_within(got, want, dtype, f32_tol, exact=()):
             assert ratio <= 1.0, ratio
 
 
-def _k5_case(dtype, causal, Lk, rate, masks, seed=0):
-    """(kernel, plain, plain in f32) runs, each [o, dQ, dK, dV]; the f32
-    run only for bf16 inputs."""
+def _k5_case(dtype, causal, Lk, rate, masks, seed=0, d=64):
+    """(kernel, plain, plain in f32) runs, each [o, dQ, dK, dV], at head
+    width d; the f32 run only for bf16 inputs."""
     g = torch.Generator().manual_seed(seed)
     B, H, L = 2, 4, 256
     q, k, v, do = (torch.randn(s, generator=g).to("cuda", dtype)
-                   for s in ((B, H, L, 64), (B, H, Lk, 64), (B, H, Lk, 64), (B, H, L, 64)))
+                   for s in ((B, H, L, d), (B, H, Lk, d), (B, H, Lk, d), (B, H, L, d)))
     qm = km = None
     if masks:
         km = (torch.rand((B, Lk), generator=g) > 0.3).int().cuda()
@@ -419,29 +420,33 @@ def _k5_case(dtype, causal, Lk, rate, masks, seed=0):
     outs = []
     for fn, dt in runs:
         qq, kk, vv = (x.to(dt).clone().requires_grad_(True) for x in (q, k, v))
-        o = fn(qq, kk, vv, causal=causal, scale=0.125, q_mask=qm, kv_mask=km, dropout_rate=rate,
-               dropout_seed=77 if rate else None)
+        o = fn(qq, kk, vv, causal=causal, scale=d ** -0.5, q_mask=qm, kv_mask=km,
+               dropout_rate=rate, dropout_seed=77 if rate else None)
         outs.append([o, *torch.autograd.grad(o, (qq, kk, vv), do.to(dt))])
     torch.cuda.synchronize()
     return outs
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 8, 24, 32, 40, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("causal,Lk,masks", [(True, 256, True), (True, 256, False),
                                              (False, 128, True)])
-def test_block_attention_kernel_matches_reference(dtype, rate, causal, Lk, masks):
+def test_block_attention_kernel_matches_reference(dtype, rate, causal, Lk, masks, d):
     """K5 forward and backward against the plain version: causal with q/kv
     masks (including rows before the first real key), without masks, and
-    the rectangular non-causal form, dropout off and on with one seed.
-    fp32 with TF32 off at JAX's bars (2e-5 forward, 5e-5 gradients); bf16
-    output within 2e-2 + 1e-2 |plain|, gradients as ``_grads_within``."""
+    the rectangular non-causal form, dropout off and on with one seed, at
+    the head widths the kernels are built for (32, 64, 96, 128) and ones
+    the wrapper pads (8, 24, 40). fp32 with TF32 off at JAX's bars (2e-5
+    forward, 5e-5 gradients); bf16 output within 2e-2 + 1e-2 |plain|,
+    gradients as ``_grads_within``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
-    (o, *grads), (o_ref, *grads_ref), *exact = _k5_case(dtype, causal, Lk, rate, masks)
+    (o, *grads), (o_ref, *grads_ref), *exact = _k5_case(dtype, causal, Lk, rate, masks, d=d)
+    assert o.shape[-1] == d and all(x.shape[-1] == d for x in grads)
     assert (tba.LAUNCHES, tba.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
     ok, err = _within(o, o_ref, dtype, 2e-5)
     assert ok, err
@@ -709,9 +714,10 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
     x16 = torch.zeros((2, 2, 128, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         tba.block_mha(x16, x16, x16, causal=True)
-    x32 = torch.zeros((2, 2, 128, 32), device="cuda")
-    with pytest.raises(ValueError):  # head dim 32
-        tba.block_mha(x32, x32, x32, causal=True)
+    for d in (136, 20):  # past 128, not a multiple of 8: outside JAX's gate
+        x = torch.zeros((2, 2, 128, d), device="cuda")
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            tba.block_mha(x, x, x, causal=True)
     short = torch.zeros((2, 2, 96, 64), device="cuda")
     with pytest.raises(ValueError):  # outside the gates: L=96
         tba.block_mha(short, short, short, causal=True)
@@ -727,7 +733,17 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
                                          (torch.float32, 300, 3001, 1280),
                                          (torch.bfloat16, 300, 5003, 1280),
                                          (torch.float32, 200, 2181, 1600),
-                                         (torch.bfloat16, 333, 5003, 1600)])
+                                         (torch.bfloat16, 333, 5003, 1600),
+                                         (torch.bfloat16, 300, 5003, 32),
+                                         (torch.float32, 300, 1000, 32),
+                                         (torch.bfloat16, 300, 5003, 96),
+                                         (torch.float32, 200, 2181, 96),
+                                         (torch.bfloat16, 333, 5003, 100),
+                                         (torch.float32, 300, 1000, 100),
+                                         (torch.bfloat16, 300, 5003, 776),
+                                         (torch.float32, 300, 1000, 776),
+                                         (torch.bfloat16, 200, 2181, 8),
+                                         (torch.bfloat16, 200, 2181, 2048)])
 def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     """K6 forward and backward against the plain version, with ignored
     labels, N not a multiple of the 128-row tile and V not a multiple of
@@ -741,7 +757,10 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     bf16 also at D = 256, which the 192-column dh and dW tiles overhang;
     both types at gpt2-large's and gpt2-xl's widths, 1,280 and 1,600 (the
     f32 route's 256-column slices, the last one 0 or 64 wide, and 7 and 9
-    overhanging dh and dW tiles)."""
+    overhanging dh and dW tiles); and at widths under one 64-deep stage or
+    192-column tile (8, 32, 96: run at 64, 64, 128), not a multiple of 8
+    (100: at 128), gpt2's width plus 8 (776: at 832) and the widest
+    (2,048)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -770,9 +789,11 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     else:
         _grads_within([dh, dw], [dh_ref, dw_ref], dtype, None, [dh_x, dw_x])
         lbl32 = lbl.to(torch.int32)
-        _, logz = tce.launch_fwd(h, w, lbl32)
-        chunked = tce.launch_bwd(h, w, lbl32, logz, cot, chunk=2048)
-        _grads_within(list(chunked), [dh_ref, dw_ref], dtype, None, [dh_x, dw_x])
+        width = tce.padded_width(D)  # the launches take D a multiple of 64
+        hp, wp = (F.pad(x, (0, width - D)) for x in (h, w))
+        _, logz = tce.launch_fwd(hp, wp, lbl32)
+        chunked = [x[:, :D] for x in tce.launch_bwd(hp, wp, lbl32, logz, cot, chunk=2048)]
+        _grads_within(chunked, [dh_ref, dw_ref], dtype, None, [dh_x, dw_x])
         gw = torch.where(lbl >= 0, cot, 0.0)[:, None]
         gold_dh = -gw * w.float()[lbl.clamp_min(0)]
         gold_dw = torch.zeros((V, D), device="cuda").index_add_(0, lbl.clamp_min(0),
@@ -782,18 +803,23 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk,D", [(256, 256), (1024, 256), (8192, 256), (1024, 1600)])
+@pytest.mark.parametrize("chunk,D", [(256, 256), (1024, 256), (8192, 256), (1024, 1600),
+                                     (1024, 100), (8192, 32), (1024, 776)])
 def test_fused_xent_backward_is_deterministic(chunk, D):
     """The bf16 backward (no atomics; chunks in order on the stream) gives
     bitwise the same dh and dW on a second run, and gradients within
     ``_bf16_grad_ratio``'s bar whatever the chunk width: one chunk,
-    several, and a last chunk of 133 columns; also at gpt2-xl's width."""
+    several, and a last chunk of 133 columns; also at gpt2-xl's width and
+    at 100, 32 and 776 (padded to 128, 64 and 832, as ``fused_softmax_xent``
+    runs them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     g = torch.Generator().manual_seed(7)
     N, V = 333, 2181
-    h = torch.randn((N, D), generator=g).to("cuda", torch.bfloat16)
-    w = (3.0 / D ** 0.5 * torch.randn((V, D), generator=g)).to("cuda", torch.bfloat16)
+    width = tce.padded_width(D)
+    h = F.pad(torch.randn((N, D), generator=g).to("cuda", torch.bfloat16), (0, width - D))
+    w = F.pad((3.0 / D ** 0.5 * torch.randn((V, D), generator=g)).to("cuda", torch.bfloat16),
+              (0, width - D))
     lbl = torch.randint(0, V, (N,), generator=g).cuda().to(torch.int32)
     lbl[::5] = -100
     cot = torch.randn((N,), generator=g).cuda()
@@ -814,22 +840,58 @@ def test_fused_xent_backward_is_deterministic(chunk, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["auto", "fused"])
 def test_training_routes_raise_instead_of_plain_math(impl):
-    """On the card the LM loss under ``auto`` and ``fused`` goes to K6, and
-    self-attention inside JAX's block gate to K5, also where the kernel
-    does not take the shape (D=96, head dim 48): they raise rather than
+    """On the card the LM loss and self-attention take K6 and K5 wherever
+    the kernels take the shape: at D=96 and head dim 48 (once refused, now
+    inside their domain) under ``auto`` and the explicit route alike, each
+    result within its plain version's bar. Past the domain (D=2,112, head
+    dim 136, float16) ``auto`` gives the plain result with no launch, and
+    an explicit ``fused``, ``block`` or ``flash`` raises rather than
     compute the plain math on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from ergm_tpu_torch.ops.attention import multihead_attention
-    cfg = ModelConfig(n_layer=1, n_embd=96, n_head=2, vocab_size=64, n_positions=16,
-                      dtype="float32", lm_loss_impl=impl)
-    params = tg.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
-    hidden = torch.zeros((2, 8, 96), device="cuda")
-    with pytest.raises(ValueError, match="D=96"):
-        tg.lm_loss(hidden, params, cfg, torch.zeros((2, 8), dtype=torch.long, device="cuda"))
-    x = torch.zeros((2, 2, 128, 48), device="cuda")
-    with pytest.raises(ValueError, match="block_mha"):
-        multihead_attention(x, x, x, causal=True, impl=impl if impl == "auto" else "block")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    for d in (96, 2112):
+        cfg = ModelConfig(n_layer=1, n_embd=d, n_head=2, vocab_size=64, n_positions=16,
+                          dtype="float32", lm_loss_impl=impl)
+        params = tg.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+        hidden = torch.randn((2, 8, d), generator=g).cuda()
+        labels = torch.randint(0, 64, (2, 8), generator=g).cuda()
+        want = tg.chunked_lm_loss(hidden, params.wte.embedding, labels, chunk=cfg.loss_chunk)
+        f0 = tce.LAUNCHES
+        if d == 2112 and impl == "fused":
+            with pytest.raises(ValueError, match="D=2112"):
+                tg.lm_loss(hidden, params, cfg, labels)
+            continue
+        got = tg.lm_loss(hidden, params, cfg, labels)
+        assert tce.LAUNCHES == f0 + (d <= 2048)
+        assert abs(float(got.detach()) - float(want)) <= 1e-5 * abs(float(want))
+        with torch.no_grad():  # an eval step in bf16 (cuBLAS with an f32 output)
+            got = tg.lm_loss(hidden.bfloat16(), params, cfg, labels)
+        assert tce.LAUNCHES == f0 + 2 * (d <= 2048)
+        assert abs(float(got) - float(want)) <= 1e-2 * abs(float(want))
+    x = torch.randn((2, 2, 128, 48), generator=g).cuda()
+    f0 = tba.LAUNCHES
+    got = multihead_attention(x, x, x, causal=True, impl=impl if impl == "auto" else "block")
+    assert tba.LAUNCHES == f0 + 1
+    ok, err = _within(got, tba.block_mha_reference(x, x, x, causal=True), torch.float32, 2e-5)
+    assert ok, err
+    wide = torch.randn((2, 2, 128, 136), generator=g).cuda()
+    long = torch.randn((1, 1, 2048, 136), generator=g).cuda()
+    half = x.half()
+    if impl == "auto":
+        for y in (wide, long, half):
+            got = multihead_attention(y, y, y, causal=True, impl="auto")
+            want = multihead_attention(y, y, y, causal=True, impl="xla")
+            assert tba.LAUNCHES == f0 + 1 and torch.equal(got, want)
+    else:
+        for y, route in ((wide, "block"), (long, "flash"), (half, "block")):
+            with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+                multihead_attention(y, y, y, causal=True, impl=route)
+        with pytest.raises(TypeError):
+            tce.fused_softmax_xent(half[0, 0], half[0, 0], torch.zeros((128,), dtype=torch.int64,
+                                                                       device="cuda"))
 
 
 @pytest.mark.cuda
@@ -837,13 +899,16 @@ def test_fused_xent_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     lbl = torch.zeros((8,), dtype=torch.int64, device="cuda")
-    for d in (96, 1632, 2112):  # below 128, not a multiple of 64, above 2048
+    for d in (2112, 4096):  # above 2048
         with pytest.raises(ValueError, match=f"D={d}"):
             tce.fused_softmax_xent(torch.zeros((8, d), device="cuda"),
                                    torch.zeros((16, d), device="cuda"), lbl)
     with pytest.raises(TypeError):  # mixed dtypes
         tce.fused_softmax_xent(torch.zeros((8, 128), device="cuda"),
                                torch.zeros((16, 128), device="cuda", dtype=torch.bfloat16), lbl)
+    with pytest.raises(TypeError):  # float16
+        tce.fused_softmax_xent(torch.zeros((8, 96), device="cuda", dtype=torch.float16),
+                               torch.zeros((16, 96), device="cuda", dtype=torch.float16), lbl)
 
 
 def _spec_model(n_layer=3):

@@ -5,22 +5,28 @@ seeded numpy inputs, fp32 on the CPU.
 Bars: NLL 1e-5; gradients rtol 1e-4 / atol 1e-5, the bars of JAX's own
 kernel test (tests/test_fused_ce.py).
 """
+import types
+
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from ergm_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
 from ergm_tpu.ops.fused_ce import fused_softmax_xent as jax_xent
+from ergm_tpu_torch.core import device as tdevice
+from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.models import gpt2 as tg
 from ergm_tpu_torch.models.gpt2 import chunked_lm_loss
 from ergm_tpu_torch.ops import fused_ce as tce
 
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("n,v,d", [(16, 300, 32), (24, 97, 64)])
+@pytest.mark.parametrize("n,v,d", [(16, 300, 32), (24, 97, 64), (16, 300, 100), (16, 300, 776)])
 def test_plain_k6_forward_matches_jax(n, v, d):
     rng = np.random.default_rng(0)
     h = rng.standard_normal((n, d)).astype(np.float32)
@@ -55,6 +61,82 @@ def test_plain_k6_gradients_match_jax():
     np.testing.assert_allclose(th.grad.numpy(), np.asarray(jh), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jw), rtol=1e-4, atol=1e-5)
     assert float(th.grad[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [100, 776])
+def test_plain_k6_gradients_match_jax_at_other_widths(d):
+    """dh and dW against JAX's backward kernels at widths JAX takes as one
+    block and the card runs padded (100 -> 128, 776 -> 832)."""
+    rng = np.random.default_rng(d)
+    n, v = 16, 300
+    h = rng.standard_normal((n, d)).astype(np.float32)
+    w = (3.0 / d ** 0.5 * rng.standard_normal((v, d))).astype(np.float32)
+    lbl = rng.integers(0, v, (n,)).astype(np.int32)
+    lbl[3] = -100
+    g = rng.standard_normal((n,)).astype(np.float32)
+    g[3] = 0.0
+
+    def fused(h, w):
+        return jnp.sum(jax_xent(h, w, jnp.asarray(lbl), 8, 128, True) * jnp.asarray(g))
+
+    jh, jw = jax.grad(fused, argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+    th, tw = (torch.from_numpy(x).requires_grad_(True) for x in (h, w))
+    nll = tce.fused_softmax_xent(th, tw, torch.from_numpy(lbl))
+    (nll * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(jh), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jw), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [36, 100])
+def test_width_padding_is_exact(d):
+    """What ``fused_softmax_xent`` does on the card at a width the kernels
+    do not take as it is: h and W zero-padded to ``padded_width(d)`` (64,
+    128) through the plain version give the unpadded NLL and, through the
+    padding, its gradients."""
+    width = tce.padded_width(d)
+    assert width % tce.DIM_STEP == 0 and d < width < d + tce.DIM_STEP
+    rng = np.random.default_rng(d)
+    h, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((24, d), (300, d)))
+    lbl = torch.from_numpy(rng.integers(0, 300, (24,)))
+    lbl[4] = -100
+    g = torch.from_numpy(rng.standard_normal((24,)).astype(np.float32))
+    runs = []
+    for pad in (False, True):
+        hh, ww = (x.clone().requires_grad_(True) for x in (h, w))
+        nll = tce.fused_softmax_xent_reference(*(F.pad(x, (0, width - d)) if pad else x
+                                                 for x in (hh, ww)), lbl)
+        runs.append([nll, *torch.autograd.grad((nll * g).sum(), (hh, ww))])
+    for a, b in zip(*runs):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [32, 96, 100, 2048, 2112])
+def test_auto_lm_loss_routes_k6_by_width(monkeypatch, d):
+    """On the card (stood in here by ``core.device.on_card``), the LM loss
+    under ``auto`` takes K6 at every width up to 2,048 and the chunked loss
+    beyond it; float16, which K6 does not take, the chunked loss too."""
+    calls = []
+    real = tce.fused_lm_loss
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tce, "fused_lm_loss", spy)
+    monkeypatch.setattr(tdevice, "on_card", lambda x: True)
+    rng = np.random.default_rng(d)
+    cfg = ModelConfig(n_embd=d, vocab_size=40, lm_loss_impl="auto")
+    wte = torch.from_numpy(rng.standard_normal((40, d)).astype(np.float32))
+    params = types.SimpleNamespace(wte=types.SimpleNamespace(embedding_q=None, embedding=wte))
+    hidden = torch.from_numpy(rng.standard_normal((2, 6, d)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 40, (2, 6)))
+    want = chunked_lm_loss(hidden, wte, labels, chunk=cfg.loss_chunk)
+    got = tg.lm_loss(hidden, params, cfg, labels)
+    assert len(calls) == (1 if d <= 2048 else 0)
+    assert abs(float(got) - float(want)) <= 1e-5
+    tg.lm_loss(hidden.half(), params, cfg, labels)
+    assert len(calls) == (1 if d <= 2048 else 0)
 
 
 def test_ignored_labels_get_zero_gradient_without_masking():

@@ -86,11 +86,15 @@ def test_plain_k6_matches_jax_at_family_widths(d):
 
 
 def test_k6_takes_the_family_widths():
-    """The kernels' width rule: every multiple of 64 from 128 to 2,048, so
-    each GPT-2 preset's n_embd; what it refuses still raises on the card."""
+    """The card's width rule: every D from 1 to 2,048 (JAX's kernel takes
+    any D), so each GPT-2 preset's n_embd; the kernels run D at the next
+    multiple of 64; what lies past 2,048 still raises on the card."""
     assert all(tce.width_ok(ModelConfig.from_model_type(m).n_embd)
                for m in ("distilgpt2", "gpt2", "gpt2-medium", *FAMILY))
-    assert [d for d in (64, 96, 192, 1632, 2048, 2112) if tce.width_ok(d)] == [192, 2048]
+    widths = (1, 32, 64, 96, 100, 192, 1632, 2048, 2112)
+    assert [d for d in widths if tce.width_ok(d)] == list(widths[:-1])
+    assert [tce.padded_width(d) for d in widths] == [64, 64, 64, 128, 128, 192, 1664, 2048,
+                                                     2112]
 
 
 @pytest.mark.parametrize("model_type", FAMILY)
@@ -209,3 +213,25 @@ def test_agreement_fixture_matches_its_recipe():
     assert len(fx["lengths"]) == a["rows"] and len(fx["lm_losses"]) == a["steps"]
     assert np.asarray(fx["emotion_logits"]).shape == (a["rows"], 7)
     assert all(np.isfinite(fx["lm_losses"])) and os.path.getsize(FIXTURE) < 100_000
+
+
+def test_gpt2_agreement_fixture_matches_its_recipe():
+    """The gpt2 fixture (``scripts/large_agreement.py --recipe=gpt2``) was
+    written for ``seeded.GPT2_AGREEMENT`` as it stands: gpt2's published
+    width at all 12 of its layers, the large recipe's rows, steps and
+    sizes, a token, a margin and a length for every decision of every row
+    and finite losses."""
+    path = os.path.join(os.path.dirname(FIXTURE), "gpt2_agreement.json")
+    with open(path) as f:
+        fx = json.load(f)
+    a = seeded.GPT2_AGREEMENT
+    assert fx["agreement"] == a
+    assert {k: v for k, v in a.items() if k not in ("model_type", "n_layer")} == {
+        k: v for k, v in seeded.AGREEMENT.items() if k not in ("model_type", "n_layer")}
+    assert {k: fx["config"][k] for k in ("n_embd", "n_head", "n_layer")} == {
+        "n_embd": 768, "n_head": 12, "n_layer": 12}
+    assert np.asarray(fx["tokens"]).shape == np.asarray(fx["margins"]).shape == (
+        a["rows"], a["new"])
+    assert len(fx["lengths"]) == a["rows"] and len(fx["lm_losses"]) == a["steps"]
+    assert np.asarray(fx["emotion_logits"]).shape == (a["rows"], 7)
+    assert all(np.isfinite(fx["lm_losses"])) and os.path.getsize(path) < 100_000

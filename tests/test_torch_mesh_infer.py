@@ -167,6 +167,8 @@ def world(tmp_path_factory, idle_mesh):
     sp = W.init(sc)
     with torch.inference_mode():
         one["server"] = W.serve_greedy(sp, sc, W.server_prompts(8, (6, 13, 9)), None, 2)[1]
+        one["server_sampled"] = W.serve_greedy(sp, sc, W.server_prompts(8, (6, 13, 9)), None, 2,
+                                               sample=W.SRV_SAMPLE)[1]
         one["spec"] = W.serve_greedy(sp, sc, W.SPEC_PROMPTS, None, 4, sync_every=3,
                                      spec_gamma=3, spec_ngram=2)[1]
         # JAX's oracle_greedy: the server's prompts carry the sp2 type
@@ -217,7 +219,7 @@ def test_every_rank_returns_the_whole_batch(world):
         for key in ("greedy", "sampled", "kernels", "beam", "xl"):  # (tokens, emotion logits)
             assert r[key][0] == ranks[0][key][0], key
             np.testing.assert_array_equal(r[key][1], ranks[0][key][1])
-        for key in ("server", "spec", "session"):
+        for key in ("server", "server_sampled", "spec", "session"):
             assert r[key] == ranks[0][key], key
 
 
@@ -298,6 +300,17 @@ def test_server_tp_dp_matches_jax_mesh(world):
     # a rank holds 1 slot of 2 and 2 heads of 4
     assert ranks[0]["server_state"][0][1:3] == (1, 2)
     assert ranks[0]["server_state"][1][0] == 1
+
+
+def test_server_sampled_rows_match_one_process(world):
+    """Sampled requests (top-p 0.9, one seed) through slots=2 over data=2 x
+    model=2 give one process's server's tokens: each data rank draws one
+    process's decode noise and keeps its rows (``_decode_noise``). They are
+    not the greedy tokens."""
+    ranks, one, _ = world
+    assert ranks[0]["server_sampled"] == one["server_sampled"]
+    assert one["server_sampled"] != one["server"]
+    assert [len(t) for t in one["server_sampled"]] == [8, 8, 8]
 
 
 def test_server_data_axis_shards_slots(world):

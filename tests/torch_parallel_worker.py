@@ -376,17 +376,24 @@ SPEC_PROMPTS = (server_prompts(12, (6, 13, 9))
                 + [np.random.default_rng(13).integers(0, 50, (4,)).tolist() * 4])
 
 
-def serve_greedy(params, cfg, prompts, mesh, slots, max_new=8, **kw):
-    """JAX's ``_serve_greedy``: greedy requests through the server; only
-    rank 0 submits over a mesh. Returns (server, tokens in order)."""
+def serve_greedy(params, cfg, prompts, mesh, slots, max_new=8, sample=None, **kw):
+    """JAX's ``_serve_greedy``: greedy requests through the server, or
+    sampled ones with ``sample`` = (top_p, seed); only rank 0 submits over
+    a mesh. Returns (server, tokens in order)."""
     from ergm_tpu_torch.infer.server import ContinuousServer, Request
 
     srv = ContinuousServer(params, cfg, slots=slots, mesh=mesh, **{"sync_every": 4, **SRV_KW,
                                                                    **kw})
-    rids = ([srv.submit(Request(prompt_ids=p, max_new_tokens=max_new, greedy=True))
+    how = (dict(greedy=True) if sample is None
+           else dict(greedy=False, top_p=sample[0], seed=sample[1]))
+    rids = ([srv.submit(Request(prompt_ids=p, max_new_tokens=max_new, **how))
              for p in prompts] if srv.primary else list(range(len(prompts))))
     res = srv.run_until_drained()
     return srv, [res[r].tokens for r in rids]
+
+
+# the sampled server's requests: top-p and seed
+SRV_SAMPLE = (0.9, 5)
 
 
 IDLE_PROMPT = server_prompts(14, (7,))[0]
@@ -548,6 +555,8 @@ def mesh_infer_ranks(rank: int, data_dir: str) -> dict:
     sp = shard_params(init(srv_cfg), mesh)
     srv, out["server"] = serve_greedy(sp, srv_cfg, server_prompts(8, (6, 13, 9)), mesh, 2)
     out["server_state"] = (tuple(srv.caches[0].k.shape), tuple(srv.emo_slot.shape))
+    _, out["server_sampled"] = serve_greedy(sp, srv_cfg, server_prompts(8, (6, 13, 9)), mesh, 2,
+                                            sample=SRV_SAMPLE)
     _, out["spec"] = serve_greedy(sp, srv_cfg, SPEC_PROMPTS, mesh, 4, sync_every=3,
                                   spec_gamma=3, spec_ngram=2)
     out["features"] = {k: serve_greedy(sp, srv_cfg, FEATURE_PROMPTS, mesh, 4, **kw_)[1]
