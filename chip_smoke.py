@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving, speculative, beam, continuous-batching
 server, feature-extraction, test-run and training paths, its command
-line, its multi-device training, its inference over several devices and
-the large GPT-2 family once on an NVIDIA GPU.
+line, its multi-device training, its inference over several devices, the
+large GPT-2 family and the kernels' whole domain (Cerebras-GPT-2.7B's
+width, GPT-J's heads) once on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -298,8 +299,10 @@ Phases, each of which raises on failure:
    bound; K1 (self with left pads, cross over a ragged caption), K3 and
    K4 at gpt2-large's width and the serving arm's shapes (B=64, 128
    tokens, a 32-token caption; F=5,120), bf16 and fp32, with times and
-   bounds. (b, c) gpt2-large (36 layers, B=12) and gpt2-xl (48 layers,
-   B=4) through ``cli.main --mode=train`` with ergm_tpu's recipe (batches
+   bounds. (b, c) gpt2-large (B=12) and gpt2-xl (B=4), each at 12 of its
+   36 and 48 layers (the depth cut that keeps the script within its time
+   limit beside phase 19), through ``cli.main --mode=train`` with
+   ergm_tpu's recipe (batches
    of 512 tokens, ``--remat_policy=full --adam_mu_dtype=bfloat16``,
    attention dropout 0.1, ``lm_loss_impl="auto"``), 8 steps each: K5 and
    K6 launches as their gates give (K5 twice a layer forward under full
@@ -341,14 +344,44 @@ Phases, each of which raises on failure:
    768 x 6, 768 x 24, 96 x 4, 768 x 8, 32 x 4, 100 x 4, 776 x 8, 1088 x 8,
    2112 x 33; bf16, dropout 0.1) through ``Trainer`` for 2 steps of 8 x
    512 tokens and validation, every K5 and K6 launch held against its plain
-   version (``KernelShadow``, forward and backward): K5 launches exactly at
-   head widths in JAX's gate (not at 25, 97 or 136) and K6 at widths up to
-   2,048 (not at 2,112), and there the explicit ``block`` or ``fused``
-   route raises; one long-context step at 6 heads of 128 (K7's route). (d)
+   version (``KernelShadow``, forward and backward): K5 launches in training
+   exactly at head widths in JAX's block gate (not at 25, 97 or 136, where
+   the explicit ``block`` route raises), and forward in validation also at
+   25 and 97 (JAX's flash gate, no dropout), never at 136; K6 at every
+   width, 2,112 too; one long-context step at 6 heads of 128 (K7's route). (d)
    gpt2 at its full width and 12 layers in fp32 against
    ``tests/fixtures/gpt2_agreement.json`` (``GPT2_AGREEMENT``): tokens by
    the margin rule, emotion logits within 1e-4, losses within 1e-5 and
    2e-3, relative.
+
+19. K6 and K7 over the rest of their JAX kernels' domain and
+   Cerebras-GPT-2.7B's width (``wide_phase``), last: (a) K6 at N=2,048
+   over GPT-2's 50,257-row vocabulary for D = 2,560 (Cerebras-GPT-2.7B),
+   4,096 (GPT-J-6B, Cerebras-6.7B) and 5,120 (Cerebras-13B), bf16 and fp32
+   (N=1,024; the f32 backward in column groups of 2,048), at the bars of
+   phase 17, with the bf16 backward twice bit for bit at 2,560. (b) K7 at
+   [2, 16, 2048, Dh], causal, left pads, no dropout, for Dh = 100 (padded to
+   the 128-wide template), 256 and 384 (the wide kernels), fp32 and bf16,
+   forward and backward against the plain version at the bars of phase 10,
+   with SDPA's times and the bound; at Dh = 200 ``auto`` takes the plain
+   math and ``flash`` raises. (c) Cerebras-GPT-2.7B's published widths
+   (``models/seeded.py::CEREBRAS_2P7B``: 2,560 wide, 32 heads of 80,
+   n_inner 10,240, through ``ModelConfig``'s constructor) at 8 of its 32
+   layers: K3 and K4 at its width and the serving shapes, then ``Trainer``
+   (bf16, full remat, attention dropout 0.1, 2 steps of 4 x 1,024 and
+   validation; K6 at 2,560, K5 at Dh 80 on the 96-wide template) with every
+   K5 and K6 launch held against its plain version, and ``generate_batch``
+   over 64 prompts of 128 tokens and 32 new ones (captions, image and
+   audio features; int8 caches and lm_head) with K3 and K4 off and on as
+   in phase 17. (d) Three 2-layer models through ``Trainer`` at B=2 x
+   2,048 tokens without attention dropout, so that JAX's flash gate routes
+   every self-attention call: GPT-J-6B's attention (4,096 wide, 16 heads
+   of 256, K6 at 4,096), 16 heads of 100 at 1,600 wide, and Cerebras-13B's
+   width (5,120 wide, 40 heads of 128, K6 at 5,120), shadowed. (e)
+   Cerebras-GPT-2.7B's width at 2 layers in fp32 against
+   ``tests/fixtures/cerebras_2p7b_agreement.json``
+   (``CEREBRAS_2P7B_AGREEMENT``): tokens by the margin rule, emotion
+   logits within 1e-3, both losses within 1e-5, relative.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 numbers (time, launches on its path, the bound computed from this run's
@@ -1379,6 +1412,21 @@ def _k6_bwd_plain(args, dtype) -> list:
     with torch.enable_grad():
         nll = fused_ce.fused_softmax_xent_reference(hh, ww, labels)
         return list(torch.autograd.grad((nll * g).sum(), (hh, ww)))
+
+
+def _k6_f64(hidden, wte, labels, g) -> list:
+    """K6's plain math in float64: (NLL, dh, dW) for the per-token
+    cotangent ``g``, the fp32 route's oracle: at D = 5,120 the kernels
+    read 1.294 of the fp32 gradient bar against the f32 plain version and
+    under 0.1 against this, the rest being the f32 version's rounding."""
+    logits = hidden.double() @ wte.double().t()
+    ok = labels >= 0
+    gold = logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
+    nll = torch.logsumexp(logits, -1) - torch.where(ok, gold, 0.0)
+    gg = torch.where(ok, g.double(), 0.0)
+    p = torch.softmax(logits, -1) * gg[:, None]
+    p[ok, labels[ok]] -= gg[ok]
+    return [nll, p @ wte.double(), p.t() @ hidden.double()]
 
 
 def _k6_bwd_jax(args) -> list:
@@ -4994,14 +5042,17 @@ def mesh_infer_phase(card: str, gen: torch.Generator) -> dict:
     return {"launches": launches, "tp": tp}
 
 
-# large_phase: the large GPT-2 family at full width and depth. LARGE gives
-# each model's recipe batch (ergm_tpu's README: gpt2-large B=12, gpt2-xl
-# B=4, both with full remat and a bf16 first moment) at LARGE_L tokens and
-# LARGE_STEPS steps; the serving arms take LARGE_SRV_B prompts of
+# large_phase: the large GPT-2 family at full width. LARGE gives each
+# model's recipe batch (ergm_tpu's README: gpt2-large B=12, gpt2-xl B=4,
+# both with full remat and a bf16 first moment) at LARGE_L tokens and
+# LARGE_STEPS steps, trained at LARGE_TRAIN_LAYERS layers (cut from 36 and
+# 48 so that the script keeps within its time limit with wide_phase; the
+# serving arms keep full depth); the serving arms take LARGE_SRV_B prompts of
 # LARGE_SRV_PROMPT tokens and LARGE_SRV_NEW new tokens, the long-history
 # arm LARGE_LONG_B prompts of LARGE_LONG_PROMPT tokens and as many new ones
 # in LARGE_LONG_SLOTS slots
 LARGE = {"gpt2-large": 12, "gpt2-xl": 4}
+LARGE_TRAIN_LAYERS = {"gpt2-large": 12, "gpt2-xl": 12}
 LARGE_L, LARGE_STEPS = 512, 8
 LARGE_SRV_B, LARGE_SRV_PROMPT, LARGE_SRV_NEW = 64, 128, 32
 LARGE_LONG_B, LARGE_LONG_PROMPT, LARGE_LONG_SLOTS = 16, 384, 512
@@ -5029,8 +5080,9 @@ def _k6_case(gen: torch.Generator, label: str, d: int, n: int, n_f32: int, V: in
     and n_f32 in fp32 (TF32 off), logits of std 3: the kernels on operands
     padded to ``padded_width(d)`` (as ``fused_softmax_xent`` runs them)
     against the plain version, NLL within 1e-4 + 1e-4 |plain| (bf16) and
-    1e-5 (fp32), gradients by ``bf16_grad_ratio`` against the plain version
-    in bf16 and in f32 (bf16) and within rtol 1e-4 / atol 1e-5 (fp32); with
+    1e-5 + 1e-5 |plain| (fp32), gradients by ``bf16_grad_ratio`` against the
+    plain version in bf16 and in f32 (bf16) and within rtol 1e-4 / atol 1e-5
+    (fp32; its plain version in float64, ``_k6_f64``); with
     ``repeat`` the bf16 backward twice, bit for bit; CUDA-event times of
     kernel and plain in turns and the bound at the true ``d``. Returns the
     numbers of its forward and backward rows; the kernels' times are the
@@ -5048,9 +5100,12 @@ def _k6_case(gen: torch.Generator, label: str, d: int, n: int, n_f32: int, V: in
         nll, logz = fused_ce.launch_fwd(hp, wp, l32)
         got = [x[:, :d] for x in fused_ce.launch_bwd(hp, wp, l32, logz, g)]
         args = (h, w, lbl, logz, g)
-        with torch.no_grad():
-            nll_ref = fused_ce.fused_softmax_xent_reference(h, w, lbl)
-        want = _k6_bwd_plain(args, dtype)
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                nll_ref = fused_ce.fused_softmax_xent_reference(h, w, lbl)
+            want = _k6_bwd_plain(args, dtype)
+        else:
+            nll_ref, *want = _k6_f64(h, w, lbl, g)
         torch.cuda.synchronize()
         n_err = (nll - nll_ref).abs().max().item()
         tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
@@ -5070,8 +5125,8 @@ def _k6_case(gen: torch.Generator, label: str, d: int, n: int, n_f32: int, V: in
         res["bwd"][f"max_abs_err{suffix}"] = max(errs)
         res["bwd"][f"bar_share{suffix}"] = ratio
         print(f"K6 {label} {dtype} N={rows}, V={V}, D={d} (run at {width}): max |kernel - "
-              f"plain| NLL {n_err:.3e}, dh {errs[0]:.3e}, dW {errs[1]:.3e} ({ratio:.3f} of the "
-              f"gradients' bar)")
+              f"plain{' in float64' if dtype == torch.float32 else ''}| NLL {n_err:.3e}, dh "
+              f"{errs[0]:.3e}, dW {errs[1]:.3e} ({ratio:.3f} of the gradients' bar)")
         del got, want, nll_ref
         if repeat and dtype == torch.bfloat16:
             first, second = (fused_ce.launch_bwd(hp, wp, l32, logz, g) for _ in range(2))
@@ -5121,16 +5176,17 @@ def _k6_case(gen: torch.Generator, label: str, d: int, n: int, n_f32: int, V: in
     return res
 
 
-def _large_decode_kernels(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _large_decode_kernels(gen: torch.Generator, cfg: ModelConfig,
+                          names=("prefill_mha", "prefill_mha_cross", "fused_cross_decode",
+                                 "fused_ln_mlp")) -> dict:
     """K1 (self with a left-pad mask, and cross over a ragged caption), K3
-    and K4 at ``cfg``'s width and the serving arm's shapes (B=64, a
-    128-token prompt, a 32-token caption; bf16 and fp32 with TF32 off)
-    against their plain versions, with times, bounds and, for K1, one
-    ``scaled_dot_product_attention`` call as the yardstick. Returns their
-    rows' numbers."""
+    and K4 (those of ``names``) at ``cfg``'s width and the serving arm's
+    shapes (B=64, a 128-token prompt, a 32-token caption; bf16 and fp32
+    with TF32 off) against their plain versions, with times, bounds and,
+    for K1, one ``scaled_dot_product_attention`` call as the yardstick.
+    Returns their rows' numbers."""
     b, L, lc, D, H = LARGE_SRV_B, LARGE_SRV_PROMPT, CAPTION, cfg.n_embd, cfg.n_head
-    res = {k: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "library_ms": None}
-           for k in ("prefill_mha", "prefill_mha_cross", "fused_cross_decode", "fused_ln_mlp")}
+    res = {k: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "library_ms": None} for k in names}
     for dtype in (torch.bfloat16, torch.float32):
         c = cfg.replace(dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
         blk = _random_block(c, gen)
@@ -5167,7 +5223,8 @@ def _large_decode_kernels(gen: torch.Generator, cfg: ModelConfig) -> dict:
                 lambda: fused_decode.fused_ln_mlp(h, blk.ln_2, blk.mlp, c),
                 lambda: fused_decode.fused_ln_mlp_reference(h, blk.ln_2, blk.mlp, c), 1.0,
                 K4_TOL)}
-        for name, (run, plain, rows, tol) in cases.items():
+        for name in names:
+            run, plain, rows, tol = cases[name]
             got, want = run(), plain()
             torch.cuda.synchronize()
             err = ((got.float() - want.float()) * rows).abs().max().item()
@@ -5249,7 +5306,8 @@ def _large_train(card: str, root: str, model: str) -> dict:
     whose caption bucket passes its gate), the epoch line's readings and
     the peak memory; then the same run again with every K5 and K6
     launch, forward and backward, held against its plain version. The
-    checkpoints (7.7 and 15.5 GB) go under ``root`` and are deleted."""
+    checkpoints (7.7 and 15.5 GB at full depth) go under ``root`` and are
+    deleted."""
     from ergm_tpu_torch.cli import main as cli
 
     limit, exp = _large_data(root, model)
@@ -5307,7 +5365,8 @@ def _parting(want: list, got: list, want_margins: list, got_margins: list) -> di
     return {"rows": len(want), "parted": parts}
 
 
-def _large_serving(card: str, model: str) -> dict:
+def _large_serving(card: str, model: str, make_cfg=None,
+                   arm_names=("serve", "long history")) -> dict:
     """``model`` at full width and depth in the serving configuration (int8
     KV and caption caches, int8 lm_head, random weights from seed 0):
     ``generate_batch`` over LARGE_SRV_B prompts (a 32-token caption on 3 of
@@ -5324,8 +5383,9 @@ def _large_serving(card: str, model: str) -> dict:
     kernels-off ones is reported with both runs' top-2 margins there, and
     each arm is timed once more; in fp32 (TF32 off) the kernels-on tokens
     must equal the kernels-off ones up to each row's first decision whose
-    kernels-off margin is at most 1e-3. Returns {"launches": {path:
-    counts}, readings}."""
+    kernels-off margin is at most 1e-3. ``make_cfg(dtype)`` builds the
+    config (default: ``model``'s preset), ``arm_names`` picks the arms.
+    Returns {"launches": {path: counts}, readings}."""
     rng = np.random.default_rng(15)
     long_in = _gpt2_inputs(rng, LARGE_LONG_B, LARGE_LONG_PROMPT)
     long_cap = LARGE_LONG_PROMPT + LARGE_SRV_NEW
@@ -5337,10 +5397,13 @@ def _large_serving(card: str, model: str) -> dict:
                       ("ERGM_CROSS_KERNEL",), True),
             "long history": (lambda p, c: _large_long(p, c, long_in, long_cap),
                              ("ERGM_DECODE_KERNEL",), False)}
+    arms = {k: v for k, v in arms.items() if k in arm_names}
     out = {"launches": {}, "utt_s": {}, "parting": {}}
     for dtype in ("bfloat16", "float32"):
-        cfg = ModelConfig.from_model_type(**{**SLICE, "model_type": model, "dtype": dtype})
+        cfg = (make_cfg(dtype) if make_cfg else
+               ModelConfig.from_model_type(**{**SLICE, "model_type": model, "dtype": dtype}))
         L, wide = cfg.n_layer, cfg.n_embd % 128 == 0
+        k1 = wide and prefill_attention.supported(LARGE_SRV_B, LARGE_SRV_PROMPT, cfg, True)
         t0 = time.time()
         params = gpt2.params_for_inference(
             gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE),
@@ -5366,7 +5429,7 @@ def _large_serving(card: str, model: str) -> dict:
                 if arm == "serve":
                     # a prompt of at most 128 tokens at B >= 64 takes K1 or,
                     # where K1's gate is shut, the plain math (JAX's rule)
-                    want = {"prefill_mha": L * wide, "prefill_mha_cross": L * wide,
+                    want = {"prefill_mha": L * k1, "prefill_mha_cross": L * k1,
                             "block_mha": 0, "decode_mha_int8": 0,
                             "fused_cross_decode": L * n * (wide and on),
                             "fused_ln_mlp": L * n * (wide and on)}
@@ -5459,9 +5522,7 @@ def _agreement(card: str, label: str, a: dict, fixture: str, emotion_tol: float)
         fx = json.load(f)
     if fx["agreement"] != a:
         raise AssertionError(f"{label}: the fixture was written for another recipe")
-    cfg = ModelConfig.from_model_type(a["model_type"], n_layer=a["n_layer"],
-                                      vocab_size=a["vocab_size"], dtype="float32",
-                                      embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
+    cfg = seeded.agreement_config(ModelConfig, a)
     t0 = time.time()
     tree = seeded.seeded_tree(cfg, a["seed"])
     inputs = seeded.agreement_inputs(cfg, a["seed"], a)
@@ -5528,7 +5589,8 @@ def large_phase(card: str, gen: torch.Generator) -> dict:
     train, serving = {}, {}
     with tempfile.TemporaryDirectory() as root:
         for model in LARGE:
-            train[model] = _large_train(card, root, model)
+            with _depth(model, LARGE_TRAIN_LAYERS[model]):
+                train[model] = _large_train(card, root, model)
     for model in LARGE:
         serving[model] = _large_serving(card, model)
     agreement = _large_agreement(card)
@@ -5567,8 +5629,10 @@ def large_phase(card: str, gen: torch.Generator) -> dict:
 # n_head; 2 layers, bf16, dropout 0.1) through ``Trainer`` for DOMAIN_STEPS
 # steps of DOMAIN_B x TRAIN_L tokens: the first four launch K5 at Dh 128,
 # 32, 24 and 96 and K6 at 768 and 96; the next three K6 at 32, 100 and 776
-# (K5 at 8, padded to 32; not at 25 or 97, outside JAX's gate); the last
-# two take the plain math where the kernels' domain ends (Dh 136, D 2,112)
+# (K5 at 8, padded to 32; at 25 and 97, outside JAX's block gate, only in
+# validation, without dropout, through the flash gate); the last two K6 at
+# 1,088 and 2,112 and K5 at Dh 64, while Dh 136 takes the plain math,
+# outside both gates' head widths
 DOMAIN_HEADS = (24, 32, 96, 128)
 DOMAIN_WIDTHS = (32, 96, 100, 776)
 DOMAIN_V = 50257
@@ -5644,12 +5708,13 @@ def _domain_k5(gen: torch.Generator, dh: int) -> dict:
 def _domain_train(card: str) -> dict:
     """Each model of DOMAIN_TRAIN through ``Trainer`` (``auto`` routes, 2
     layers, bf16, dropout 0.1; DOMAIN_STEPS steps of DOMAIN_B rows padded to
-    TRAIN_L tokens, then validation): K5 launches forward and backward
-    exactly where its head width is in JAX's gate (a multiple of 8 up to
-    128), K6 where its width is at most 2,048, every launch within its
-    plain version's bar (``KernelShadow``); where a kernel's domain ends the
-    step runs on the plain math, and the explicit route (``block``,
-    ``fused``) raises. Then K7's route at the widest head: one step at
+    TRAIN_L tokens, then validation): K5 launches forward and backward in
+    training exactly where its head width is in JAX's block gate (a
+    multiple of 8 up to 128), forward in validation also at the other
+    widths of JAX's flash domain (any below 128), K6 at every width, every
+    launch within its plain version's bar (``KernelShadow``); where the
+    block gate's widths end the step runs on the plain math, and the
+    explicit ``block`` route raises. Then K7's route at the widest head: one step at
     n_embd 768, 6 heads, B=2, L=LONG_L, no attention dropout (K5 twice
     forward and twice backward). Returns {(n_embd, n_head): launches,
     "long": launches}."""
@@ -5661,7 +5726,8 @@ def _domain_train(card: str) -> dict:
                                      turns_per_dialogue=4, base_vocab_size=50257)
         for n_embd, n_head in DOMAIN_TRAIN:
             dh = n_embd // n_head
-            k5, k6 = block_attention.head_ok(dh), fused_ce.width_ok(n_embd)
+            k5 = block_attention.head_ok(dh)
+            k5_eval = k5 or block_attention.flash_head_ok(dh)
             cfg = ModelConfig(n_layer=2, n_embd=n_embd, n_head=n_head, vocab_size=st.vocab_size,
                               dtype="bfloat16", attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1)
             tag = f"{n_embd}x{n_head}"
@@ -5678,20 +5744,17 @@ def _domain_train(card: str) -> dict:
                 torch.cuda.synchronize()
             counts = _train_counts()
             shares = {k: v for k, v in shadow.shares().items() if shadow.calls[k]}
-            fired = {"K5": counts["block_mha"] > 0 and counts["block_mha_bwd"] > 0,
+            fired = {"K5": ((counts["block_mha"] > 0) == k5_eval
+                            and (counts["block_mha_bwd"] > 0) == k5),
                      "K6": (counts["fused_softmax_xent"] > 0
                             and counts["fused_softmax_xent_bwd"] > 0)}
-            silent = {"K5": counts["block_mha"] + counts["block_mha_bwd"] == 0,
-                      "K6": counts["fused_softmax_xent"] + counts["fused_softmax_xent_bwd"] == 0}
             if (tr.state.step != DOMAIN_STEPS or not math.isfinite(best)
-                    or not all(v <= 1.0 for v in shares.values())
-                    or not (fired["K5"] if k5 else silent["K5"])
-                    or not (fired["K6"] if k6 else silent["K6"])):
+                    or not all(v <= 1.0 for v in shares.values()) or not all(fired.values())):
                 raise AssertionError(f"domain train {tag}: {tr.state.step} steps, best PPL {best}, "
                                      f"launches {counts}, shadow {shares}")
             note = ""
-            if not (k5 and k6):
-                route = {"attention_impl": "block"} if not k5 else {"lm_loss_impl": "fused"}
+            if not k5:
+                route = {"attention_impl": "block"}
                 tx = AdamW(1e-4)
                 step = make_train_step(cfg.replace(**route), tx)
                 batch = _train_batch(np.random.default_rng(0), 2, TRAIN_L, 50000, DEVICE)
@@ -5770,6 +5833,171 @@ def domain_phase(card: str, gen: torch.Generator) -> dict:
             label = f"{name}_d{d}"
             rows.append((label, "fused_ce", tpu, {label: k6_runs[d][name]}, k6[d][key]))
     return {"rows": rows}
+
+
+# wide_phase: K6 and K7 over the rest of their JAX kernels' domain, and
+# Cerebras-GPT-2.7B's width. K6 at each D of WIDE_WIDTHS (2,560:
+# Cerebras-GPT-2.7B; 4,096: GPT-J-6B and Cerebras-6.7B; 5,120:
+# Cerebras-13B) over WIDE_N tokens (fp32: WIDE_N_F32) and GPT-2's
+# vocabulary; K7 at [2, 16, LONG_L, Dh] for each Dh of WIDE_HEADS (100:
+# padded to the 128-wide template; 256 and 384: the wide kernels, 384 a
+# reading in the 256 rows); Cerebras-GPT-2.7B's published widths
+# (models/seeded.py::CEREBRAS_2P7B) at CEREBRAS_LAYERS of its 32 layers
+# through Trainer (bf16, full remat, CEREBRAS_STEPS steps of CEREBRAS_B x
+# CEREBRAS_L tokens: K6 at 2,560, K5 at Dh 80 on the 96-wide template) and
+# generate_batch (large_phase's serving arm, K3 and K4 on against off); the
+# models of WIDE_LONG (n_embd, n_head, n_inner; 2 layers, no attention
+# dropout) through Trainer for WIDE_STEPS steps of WIDE_LONG_B x LONG_L
+# tokens, where JAX's flash gate routes every self-attention call: GPT-J-6B's
+# attention (16 heads of 256, K6 at 4,096), 16 heads of 100 at gpt2-xl's
+# width, Cerebras-13B's width (40 heads of 128, K6 at 5,120); the agreement
+# with ergm_tpu at 2.7B's width.
+WIDE_WIDTHS = (2560, 4096, 5120)
+WIDE_N, WIDE_N_F32 = 2048, 1024
+WIDE_HEADS = (100, 256, 384)
+CEREBRAS_LAYERS, CEREBRAS_B, CEREBRAS_L, CEREBRAS_STEPS = 8, 4, 1024, 2
+WIDE_LONG = ((4096, 16, 16384), (1600, 16, 6400), (5120, 40, 20480))
+WIDE_LONG_B, WIDE_STEPS = 2, 2
+CEREBRAS_FIXTURE = os.path.join(os.path.dirname(LARGE_FIXTURE), "cerebras_2p7b_agreement.json")
+
+
+def _wide_train(card: str, tag: str, cfg: ModelConfig, b: int, L: int, steps: int) -> dict:
+    """``cfg`` through ``Trainer`` (``auto`` routes) for ``steps`` steps of
+    ``b`` rows padded to ``L`` tokens, then validation, every K5 and K6
+    launch, forward and backward, held against its plain version
+    (``KernelShadow``): K5 and K6 must launch forward and backward, K6's
+    backward once a step. Returns the launches and readings."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        st = write_synthetic_dataset(data, prefixes=("train", "valid"),
+                                     num_dialogues=max(1, b * steps // 4), turns_per_dialogue=4,
+                                     base_vocab_size=50257)
+        cfg = cfg.replace(vocab_size=st.vocab_size)
+        tcfg = TrainConfig(data_dir=data, ckpt_dir=os.path.join(tmp, "ckpt"),
+                           output_dir=os.path.join(tmp, "out"), model_type="gpt2", batch_size=b,
+                           num_epochs=1, max_len=L, pad_multiple=L, lr=1e-4, seed=0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with KernelShadow(TRAIN_SHADOWED, KernelShadow.BACKWARD) as shadow:
+            with contextlib.redirect_stdout(io.StringIO()):
+                tr = Trainer(tcfg, model_config=cfg)
+                reset_launches()
+                best = tr.train()
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _train_counts()
+        shares = {k: v for k, v in shadow.shares().items() if shadow.calls[k]}
+        if (tr.state.step != steps or not math.isfinite(best)
+                or not all(v <= 1.0 for v in shares.values())
+                or min(counts.values()) < 1 or counts["fused_softmax_xent_bwd"] != steps):
+            raise AssertionError(f"{tag}: {tr.state.step} steps, best PPL {best}, launches "
+                                 f"{counts}, shadow {shares}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{tag} (n_embd {cfg.n_embd}, {cfg.n_head} heads of {cfg.head_dim}, n_inner "
+              f"{cfg.inner_dim}, {cfg.n_layer} layers, remat {cfg.remat_policy if cfg.remat else 'off'}, "
+              f"attention dropout {cfg.attn_pdrop}): Trainer {steps} steps of {b} x {L} + "
+              f"validation in {wall:.1f} s, best PPL {best:.1f}, peak {peak:.1f} GB, launches "
+              f"{counts}, every launch within its plain version's bar: "
+              + ", ".join(f"{k} {v:.4f} over {shadow.calls[k]}" for k, v in shares.items())
+              + f" on {card}")
+        del tr
+        torch.cuda.empty_cache()
+    return {"launches": counts, "shares": shares, "s": wall, "peak_gb": peak}
+
+
+def wide_phase(card: str, gen: torch.Generator) -> dict:
+    """K6 and K7 over the rest of their JAX kernels' domain and
+    Cerebras-GPT-2.7B's width (phase 19 of the module docstring): (a) K6 at
+    WIDE_WIDTHS, (b) K7 at WIDE_HEADS, (c) 2.7B's width through ``Trainer``
+    and ``generate_batch``, K3 and K4 at its width, (d) WIDE_LONG through
+    ``Trainer`` on JAX's flash route, (e) the agreement with ergm_tpu at
+    2.7B's width (``tests/fixtures/cerebras_2p7b_agreement.json``). Returns
+    {"rows": JSON rows, "launches": {kernel: {path: launches}}}."""
+    from ergm_tpu_torch.models import seeded
+
+    t0 = time.time()
+    k6 = {d: _k6_case(gen, "wide", d, WIDE_N, WIDE_N_F32, DOMAIN_V, repeat=d == 2560)
+          for d in WIDE_WIDTHS}
+    torch.cuda.empty_cache()
+    k7 = {}
+    for dh in WIDE_HEADS:
+        k7[dh] = _k7_case(gen, dh, ((torch.float32, 2, 16), (torch.bfloat16, 2, 16)))
+        torch.cuda.empty_cache()
+    # K7's route refuses a head width above 128 that is not a multiple of 128
+    # (JAX's library kernel raises there): auto takes the plain math, flash raises
+    x = torch.randn((1, 2, LONG_L, 200), generator=gen, device=DEVICE).bfloat16()
+    block_attention.LAUNCHES = 0
+    gpt2.multihead_attention(x, x, x, causal=True, impl="auto")
+    try:
+        gpt2.multihead_attention(x, x, x, causal=True, impl="flash")
+    except ValueError as e:
+        note = str(e)[:80]
+    else:
+        raise AssertionError("flash at Dh = 200 did not raise")
+    if block_attention.LAUNCHES:
+        raise AssertionError("auto at Dh = 200 launched K5")
+    print(f"Dh = 200: auto takes the plain math, flash raises ({note})")
+    del x
+
+    base = dict(**seeded.CEREBRAS_2P7B, n_layer=CEREBRAS_LAYERS, modality_dim=768)
+    kernels = _large_decode_kernels(gen, ModelConfig(**base, vocab_size=50271),
+                                    names=("fused_cross_decode", "fused_ln_mlp"))
+    train = {"cerebras": _wide_train(
+        card, f"Cerebras-GPT-2.7B width, {CEREBRAS_LAYERS} of 32 layers",
+        ModelConfig(**base, dtype="bfloat16", remat=True, remat_policy="full"), CEREBRAS_B,
+        CEREBRAS_L, CEREBRAS_STEPS)}
+    serving_base = {**{k: v for k, v in SLICE.items() if k not in ("model_type", "dtype")},
+                    **base}
+    serving = _large_serving(card, "Cerebras-GPT-2.7B width", arm_names=("serve",),
+                             make_cfg=lambda dt: ModelConfig(**serving_base, dtype=dt))
+    serve_on = serving["launches"]["serve on"]
+    if not (serve_on["fused_cross_decode"] and serve_on["fused_ln_mlp"]):
+        raise AssertionError(f"Cerebras-GPT-2.7B serving: K3 and K4 did not launch: {serve_on}")
+    for n_embd, n_head, n_inner in WIDE_LONG:
+        cfg = ModelConfig(n_layer=2, n_embd=n_embd, n_head=n_head, n_inner=n_inner,
+                          n_positions=LONG_L, dtype="bfloat16", attn_pdrop=0.0)
+        train[n_embd] = _wide_train(card, f"flash route {n_embd} x {n_head}", cfg, WIDE_LONG_B,
+                                    LONG_L, WIDE_STEPS)
+    agreement = _agreement(card, "Cerebras-GPT-2.7B agreement", seeded.CEREBRAS_2P7B_AGREEMENT,
+                           CEREBRAS_FIXTURE, seeded.EMOTION_TOL)
+    if max(agreement["loss_rel_err"]) > seeded.STEP1_RTOL:
+        raise AssertionError(f"Cerebras-GPT-2.7B agreement: losses {agreement['losses']} against "
+                             f"{agreement['jax_losses']}")
+    print(f"wide phase: {time.time() - t0:.1f} s on {card}; agreement {json.dumps(agreement)}; "
+          f"utt/s {json.dumps(serving['utt_s'])}")
+
+    # each row's launches: the Trainer run at its width (K6) or head width (K7);
+    # a head width no run takes (384) is a reading in the widest row's
+    runs = {base["n_embd"]: train["cerebras"], **{n: train[n] for n, _, _ in WIDE_LONG}}
+    heads = {n // h: train[n] for n, h, _ in WIDE_LONG}
+    rows = []
+    for d in WIDE_WIDTHS:
+        for key, name, tpu in (("fwd", "fused_softmax_xent", "fused_ce.py:172"),
+                               ("bwd", "fused_softmax_xent_bwd", "fused_ce.py:220")):
+            label = f"{name}_d{d}"
+            rows.append((label, "fused_ce", tpu, {label: runs[d]["launches"][name]}, k6[d][key]))
+    routed = [dh for dh in WIDE_HEADS if dh in heads]
+    for dh in routed:
+        for key, name in (("fwd", "block_mha"), ("bwd", "block_mha_bwd")):
+            label = f"block_mha_flash{'_bwd' if key == 'bwd' else ''}_dh{dh}"
+            nums = dict(k7[dh][key])
+            if dh == routed[-1]:
+                nums["other_shapes"] = {f"dh{x}": k7[x][key] for x in WIDE_HEADS
+                                        if x not in heads}
+            rows.append((label, "block_attention", "flash_attention.py:66",
+                         {label: heads[dh]["launches"][name]}, nums))
+    for name, src, tpu in (("fused_cross_decode", "cross_decode", "cross_decode.py:127"),
+                           ("fused_ln_mlp", "fused_decode", "fused_decode.py:99")):
+        label = f"{name}_cerebras-2.7b"
+        rows.append((label, src, tpu, {label: serve_on[name]}, kernels[name]))
+    launches = {}
+    for tag, run in train.items():
+        for k, v in run["launches"].items():
+            launches.setdefault(k, {})[f"train {tag}"] = v
+    for k, v in serve_on.items():
+        launches.setdefault(k, {})["Cerebras-GPT-2.7B serve on"] = v
+    return {"rows": rows, "launches": launches}
 
 
 def _descendants() -> list:
@@ -5887,6 +6115,8 @@ def main() -> None:
     large_on = phase(large_phase, card, gen)
     torch.cuda.empty_cache()
     domain_on = phase(domain_phase, card, gen)
+    torch.cuda.empty_cache()
+    wide_on = phase(wide_phase, card, gen)
     print(f"phase seconds: {json.dumps(seconds)}; {time.time() - t0:.1f} s since the build "
           f"started")
     for arg in sys.argv[1:]:
@@ -5938,6 +6168,10 @@ def main() -> None:
     # K5, K7 and K6 at the other head widths and hidden widths of their JAX
     # kernels' domain (launches: the Trainer run at each width)
     rows += domain_on["rows"]
+    # K6 past 2,048, K7 past the block gate's head widths, K3 and K4 at
+    # Cerebras-GPT-2.7B's width (launches: the Trainer and serving runs at
+    # each width)
+    rows += wide_on["rows"]
     # the K7 rows read the long-context step's K5 counts
     counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
     # launches on the speculative and beam paths: K5 in a B=1 request's
@@ -5964,6 +6198,9 @@ def main() -> None:
         # launches on the large family's paths (train: the recipe's epoch;
         # serve and long history: the kernels-on arms)
         **({"large_launches": large_on["launches"][name]} if name in large_on["launches"]
+           else {}),
+        # launches on the wide phase's paths (its Trainer and serving runs)
+        **({"wide_launches": wide_on["launches"][name]} if name in wide_on["launches"]
            else {})}
         for name, src, tpu, counts, nums in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,10 +33,11 @@ class ModelConfig:
     ``resid_pdrop``; inference is deterministic), ``remat`` and
     ``remat_policy`` (``mlp``, ``mlp_only``, ``full`` or ``dots``),
     ``loss_chunk`` and ``lm_loss_impl`` (``auto``: kernel K6 for
-    CUDA tensors at every n_embd up to 2,048 in float32 or bfloat16, the
-    chunked loss on the CPU and elsewhere; ``fused``: K6, or its plain
-    version on the CPU). ``attention_impl`` ``auto`` routes training
-    self-attention to kernel K5 (head widths a multiple of 8 up to 128,
+    CUDA tensors at every n_embd in float32 or bfloat16, the chunked loss
+    on the CPU and elsewhere; ``fused``: K6, or its plain version on the
+    CPU). ``attention_impl`` ``auto`` routes training self-attention to
+    kernel K5 (JAX's block gate: head widths a multiple of 8 up to 128; its
+    flash gate without dropout: any below 128 and any multiple of 128;
     float32 or bfloat16; the plain math elsewhere) and batched short
     prefill to K1. ``decode_scan_unroll`` is inert (there is no layer scan).
     ``decode_fused_mlp`` routes each single-token decode step's LN2 + MLP

@@ -83,12 +83,22 @@
 // and 128 threads, scores in shared memory, products as f32 FMAs on the
 // CUDA cores in order, so the f32 result holds JAX's bars with TF32 off.
 //
-// Head widths. JAX's gate takes every head width DH that is a multiple of 8
-// up to 128. The kernels are templates built for DH = 32, 64, 96 and 128;
-// the wrapper (ops/block_attention.py) pads q, k and v with zero columns to
-// the next of them and slices the result back, which is exact: the zero
-// columns add nothing to q . k and give zero output and gradient columns,
-// and the softmax scale passed in is the true width's. The keep mask's hash
+// Head widths. JAX's block gate takes every head width DH that is a
+// multiple of 8 up to 128; its flash gate sends every width to JAX's
+// library kernel, which takes any DH below 128 and any multiple of 128
+// (it raises at other widths above 128). The kernels are templates built
+// for DH = 32, 64, 96 and 128; the wrapper (ops/block_attention.py) pads q,
+// k and v with zero columns to the next of them and slices the result
+// back, which is exact: the zero columns add nothing to q . k and give zero
+// output and gradient columns, and the softmax scale passed in is the true
+// width's. A wide head, DH = 128 m with m >= 2 (flash gate only: no
+// dropout), runs m CTAs a row tile, one per column group of 128 on the
+// grid's y axis, each owning its group's output columns (dQ, dK, dV too):
+// the scores and dP are summed over the whole width in m sub-steps of 128
+// columns, every group in the same order, so the row statistics agree and
+// group 0 writes them. f32 takes the 128-wide template over the slices;
+// bf16 the wide:: kernels below (CTAs of 64 rows, both operands' slices
+// through the cp.async ring, so shared memory does not grow with DH). The keep mask's hash
 // does not read DH. At DH = 64 the code is the one the design above was
 // measured with. Wider heads cost registers and shared memory: the bf16
 // dK/dV kernel holds two 16 x DH f32 accumulators a warp (128 registers a
@@ -140,6 +150,7 @@ struct Args {
   float drop_div, drop_mul;  // 1 - rate and 1 / (1 - rate)
   unsigned thr, seed;
   int hs;  // the hash's head stride
+  int m;   // the head's slices of the kernel's width (wide heads: Dh / 128), else 1
 };
 
 enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV };
@@ -176,6 +187,13 @@ __device__ __forceinline__ const T* head(const Args& a, const void* base, int wh
 template <typename T>
 __device__ __forceinline__ T* head_out(const Args& a, void* base, int which, int b, int h) {
   return static_cast<T*>(base) + b * a.st[which][0] + h * a.st[which][1];
+}
+
+// The CTA's head and first output column: grid y runs over (head, column
+// group of `width`), a.m groups a head (one below a wide head).
+__device__ __forceinline__ void head_group(const Args& a, int width, int& h, int& gc) {
+  h = blockIdx.y / a.m;
+  gc = (blockIdx.y % a.m) * width;
 }
 
 // The key mask as bits, and where each batch row's dead rows end: one CTA
@@ -276,11 +294,24 @@ __device__ __forceinline__ void mm(float* c, const float* a, const float* b, boo
   }
 }
 
-// scores [T][T] = x [T][DH] . y [T][DH]^T
+// scores [T][T] = x . y^T over the head's whole width, DH * a.m columns:
+// rows [0, T) of x and y (row strides sx, sy) staged into the [T][DH] tiles
+// xs and ys a slice of DH columns at a time and summed over the slices in
+// order, as one sum over the width. An operand marked resident is already
+// staged when the head is one slice. Barriers before and after.
 template <int DH>
-__device__ __forceinline__ void mm_scores(float* c, const float* x, const float* y) {
+__device__ __forceinline__ void scores(const Args& a, float* c, float* xs, const float* x,
+                                       long long sx, bool x_resident, float* ys,
+                                       const float* y, long long sy, bool y_resident) {
   using S = Tiles<DH>;
-  mm<S::T, S::T, DH, false, true, S::LdS, S::LdD, S::LdD>(c, x, y, false);
+  for (int j = 0; j < a.m; ++j) {
+    __syncthreads();
+    if (!x_resident || a.m > 1) stage<DH>(xs, x + j * DH, sx);
+    if (!y_resident || a.m > 1) stage<DH>(ys, y + j * DH, sy);
+    __syncthreads();
+    mm<S::T, S::T, DH, false, true, S::LdS, S::LdD, S::LdD>(c, xs, ys, j > 0);
+  }
+  __syncthreads();
 }
 
 // c [T][DH] += p [T][T] (p^T when PT) . y [T][DH]
@@ -332,9 +363,12 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   float* row_l = row_m + T;
   int* row_q = reinterpret_cast<int*>(row_l + T);
 
-  const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * T, b = blockIdx.z;
+  int h, gc;
+  head_group(a, DH, h, gc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* q = head<float>(a, a.q, kQ, b, h);
+  const long long sq = a.st[kQ][2], sk = a.st[kK][2];
+  const float* q = head<float>(a, a.q, kQ, b, h) + q0 * sq;
   const float* k = head<float>(a, a.k, kK, b, h);
   const float* v = head<float>(a, a.v, kV, b, h);
   const unsigned hb = hash_base(a, b, h);
@@ -344,17 +378,13 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.0f;
   }
-  stage<DH>(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
+  if (a.m == 1) stage<DH>(qs, q, sq);
   zero_tile<DH>(os);
   const int kend = key_end(a, q0, T, a.dead[b]);
 
   // pass 1: row max and sum, online over the key tiles
   for (int k0 = 0; k0 < kend; k0 += T) {
-    __syncthreads();
-    stage<DH>(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
-    __syncthreads();
-    mm_scores<DH>(ss, qs, kvs);
-    __syncthreads();
+    scores<DH>(a, ss, qs, q, sq, true, kvs, k + k0 * sk, sk, false);
     for (int r = warp; r < T; r += kThreads / 32) {
       float s[T / 32], mx = kNegInf;
 #pragma unroll
@@ -378,12 +408,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
 
   // pass 2: recompute s, normalise, drop, accumulate pn . V
   for (int k0 = 0; k0 < kend; k0 += T) {
-    __syncthreads();
-    stage<DH>(kvs, k + k0 * a.st[kK][2], a.st[kK][2]);
-    __syncthreads();
-    mm_scores<DH>(ss, qs, kvs);
-    __syncthreads();
-    stage<DH>(kvs, v + k0 * a.st[kV][2], a.st[kV][2]);  // K is no longer read
+    scores<DH>(a, ss, qs, q, sq, true, kvs, k + k0 * sk, sk, false);
+    stage<DH>(kvs, v + k0 * a.st[kV][2] + gc, a.st[kV][2]);  // K is no longer read
     for (int i = threadIdx.x; i < T * T; i += kThreads) {
       const int r = i / T, c = i % T;
       const float s = visible(a, b, q0, r, k0, c) ? ss[r * LdS + c] * a.scale : kNegInf;
@@ -401,10 +427,10 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   }
   __syncthreads();
   float* o = head_out<float>(a, a.out, kO, b, h);
-  write_tile<DH>(o + q0 * a.st[kO][2], a.st[kO][2], os, 1.0f);
+  write_tile<DH>(o + q0 * a.st[kO][2] + gc, a.st[kO][2], os, 1.0f);
   const long long row0 = row_index(a, b, h, q0);
   const long long plane = static_cast<long long>(a.B) * a.H * a.L;
-  for (int r = threadIdx.x; r < T; r += kThreads) {
+  for (int r = threadIdx.x; r < T && gc == 0; r += kThreads) {
     a.ml[row0 + r] = row_m[r];
     a.ml[plane + row0 + r] = row_l[r];
   }
@@ -465,42 +491,43 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   float* row_d = row_l + T;
   int* row_q = reinterpret_cast<int*>(row_d + T);
 
-  const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * T, b = blockIdx.z;
+  int h, gc;
+  head_group(a, DH, h, gc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* q = head<float>(a, a.q, kQ, b, h);
+  const long long sq = a.st[kQ][2], sk = a.st[kK][2], sv = a.st[kV][2], sdo = a.st[kDO][2];
+  const float* q = head<float>(a, a.q, kQ, b, h) + q0 * sq;
   const float* k = head<float>(a, a.k, kK, b, h);
   const float* v = head<float>(a, a.v, kV, b, h);
   const float* o = head<float>(a, a.o, kO, b, h) + q0 * a.st[kO][2];
-  const float* dout = head<float>(a, a.dout, kDO, b, h);
+  const float* dout = head<float>(a, a.dout, kDO, b, h) + q0 * sdo;
   const unsigned hb = hash_base(a, b, h);
 
   load_rows(a, b, h, q0, T, row_m, row_l, nullptr, row_q);
-  stage<DH>(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
-  stage<DH>(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
+  if (a.m == 1) {
+    stage<DH>(qs, q, sq);
+    stage<DH>(dos, dout, sdo);
+  }
   zero_tile<DH>(acc);
-  __syncthreads();
-  // delta = rowsum(dO * O) in f32, for this kernel and the dK/dV kernel
+  // delta = rowsum(dO * O) over the whole width in f32, for this kernel and
+  // the dK/dV kernel
   const long long row0 = row_index(a, b, h, q0);
   for (int r = warp; r < T; r += kThreads / 32) {
     const float* orow = o + r * a.st[kO][2];
+    const float* drow = dout + r * sdo;
     float part = 0.0f;
-#pragma unroll
-    for (int e = 0; e < DH / 32; ++e) part += dos[r * LdD + lane + 32 * e] * orow[lane + 32 * e];
+    for (int c = lane; c < DH * a.m; c += 32) part += drow[c] * orow[c];
     const float d = warp_sum(part);
     if (lane == 0) {
       row_d[r] = d;
-      a.stat[4 * (row0 + r) + 2] = d;
+      if (gc == 0) a.stat[4 * (row0 + r) + 2] = d;
     }
   }
   const int kend = key_end(a, q0, T, a.dead[b]);
   for (int k0 = 0; k0 < kend; k0 += T) {
-    __syncthreads();
-    stage<DH>(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
-    stage<DH>(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
-    __syncthreads();
-    mm_scores<DH>(ss, qs, ks);
-    mm_scores<DH>(dps, dos, vs);
-    __syncthreads();
+    scores<DH>(a, ss, qs, q, sq, true, ks, k + k0 * sk, sk, false);
+    scores<DH>(a, dps, dos, dout, sdo, true, vs, v + k0 * sv, sv, false);
+    if (a.m > 1) stage<DH>(ks, k + k0 * sk + gc, sk);  // the group's columns, for dS . K
     for (int i = threadIdx.x; i < T * T; i += kThreads) {
       const int r = i / T, c = i % T;
       grad_step(a, b, hb, q0, r, k0, c, ss[r * LdS + c], dps[r * LdS + c], row_m, row_l, row_d,
@@ -511,7 +538,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   }
   __syncthreads();
   float* dq = head_out<float>(a, a.dq, kDQ, b, h);
-  write_tile<DH>(dq + q0 * a.st[kDQ][2], a.st[kDQ][2], acc, a.scale);
+  write_tile<DH>(dq + q0 * a.st[kDQ][2] + gc, a.st[kDQ][2], acc, a.scale);
 }
 
 template <int DH>
@@ -534,28 +561,33 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   float* row_d = row_l + T;
   int* row_q = reinterpret_cast<int*>(row_d + T);
 
-  const int k0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * T, b = blockIdx.z;
+  int h, gc;
+  head_group(a, DH, h, gc);
+  const long long sq = a.st[kQ][2], sk = a.st[kK][2], sv = a.st[kV][2], sdo = a.st[kDO][2];
   const float* q = head<float>(a, a.q, kQ, b, h);
-  const float* k = head<float>(a, a.k, kK, b, h);
-  const float* v = head<float>(a, a.v, kV, b, h);
+  const float* k = head<float>(a, a.k, kK, b, h) + k0 * sk;
+  const float* v = head<float>(a, a.v, kV, b, h) + k0 * sv;
   const float* dout = head<float>(a, a.dout, kDO, b, h);
   const unsigned hb = hash_base(a, b, h);
   const int dead = a.dead[b];
 
-  stage<DH>(ks, k + k0 * a.st[kK][2], a.st[kK][2]);
-  stage<DH>(vs, v + k0 * a.st[kV][2], a.st[kV][2]);
+  if (a.m == 1) {
+    stage<DH>(ks, k, sk);
+    stage<DH>(vs, v, sv);
+  }
   zero_tile<DH>(dk_acc);
   zero_tile<DH>(dv_acc);
   for (int q0 = 0; q0 < a.L; q0 += T) {
     if (k0 >= key_end(a, q0, T, dead)) continue;  // the tile never sees these keys
     __syncthreads();
     load_rows(a, b, h, q0, T, row_m, row_l, row_d, row_q);
-    stage<DH>(qs, q + q0 * a.st[kQ][2], a.st[kQ][2]);
-    stage<DH>(dos, dout + q0 * a.st[kDO][2], a.st[kDO][2]);
-    __syncthreads();
-    mm_scores<DH>(ss, qs, ks);
-    mm_scores<DH>(dps, dos, vs);
-    __syncthreads();
+    scores<DH>(a, ss, qs, q + q0 * sq, sq, false, ks, k, sk, true);
+    scores<DH>(a, dps, dos, dout + q0 * sdo, sdo, false, vs, v, sv, true);
+    if (a.m > 1) {  // the group's columns, for pv^T . dO and dS^T . Q
+      stage<DH>(qs, q + q0 * sq + gc, sq);
+      stage<DH>(dos, dout + q0 * sdo + gc, sdo);
+    }
     for (int i = threadIdx.x; i < T * T; i += kThreads) {
       const int r = i / T, c = i % T;
       grad_step(a, b, hb, q0, r, k0, c, ss[r * LdS + c], dps[r * LdS + c], row_m, row_l, row_d,
@@ -568,8 +600,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   __syncthreads();
   float* dk = head_out<float>(a, a.dk, kDK, b, h);
   float* dv = head_out<float>(a, a.dv, kDV, b, h);
-  write_tile<DH>(dk + k0 * a.st[kDK][2], a.st[kDK][2], dk_acc, a.scale);
-  write_tile<DH>(dv + k0 * a.st[kDV][2], a.st[kDV][2], dv_acc, 1.0f);
+  write_tile<DH>(dk + k0 * a.st[kDK][2] + gc, a.st[kDK][2], dk_acc, a.scale);
+  write_tile<DH>(dv + k0 * a.st[kDV][2] + gc, a.st[kDV][2], dv_acc, 1.0f);
 }
 
 }  // namespace f32
@@ -975,6 +1007,387 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) bwd_dkdv_kernel(co
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Wide heads, bf16: Dh = 128 m with m >= 2, no dropout (JAX's flash gate
+// only). Scores and dP over the whole width, in m sub-steps of 128 columns.
+namespace wide {
+
+using ergm_mma::ex2;
+using ergm_mma::ld_of;
+using ergm_mma::prod_nn;
+using ergm_mma::prod_nt_acc;
+using ergm_mma::store_rows;
+using ergm_mma::zero;
+using tc::kMaskL2;
+using tc::mask_scores;
+
+constexpr int kThreads = 128;  // 4 warps of 16 rows
+constexpr int kRows = 64;      // rows a CTA owns: queries (forward, dQ) or keys (dK/dV)
+constexpr int kW = 128;        // a slice of the width, and a CTA's output columns
+constexpr int kLd = ld_of<kW>();
+constexpr int kTile = 64;      // forward, dQ: keys a streamed tile (2 sub-steps of 32)
+constexpr int kQTile = 32;     // dK/dV: queries a streamed tile
+// a ring slot: a slice of the owned rows' operand, then one of the streamed
+// tile's (or, alone, the group's columns of a streamed operand)
+constexpr int kSlotRows = kRows + kTile, kQSlotRows = kRows + kQTile;
+constexpr size_t kFwdBytes = 2 * sizeof(bf16) * kSlotRows * kLd;  // also dQ's
+constexpr size_t kDkdvBytes = 2 * sizeof(bf16) * kQSlotRows * kLd + 2 * kQTile * sizeof(float4);
+
+template <int N>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl) {
+  ergm_mma::stage<N, kThreads, kW>(dst, src, sl);
+}
+
+__device__ __forceinline__ unsigned key_word(const Args& a, int b, int c0) {
+  return a.kbits[static_cast<long long>(b) * (a.Lk >> 5) + (c0 >> 5)];
+}
+
+// Forward: pass 1 takes m sub-steps a key tile (Q_j and K_j into the scores),
+// pass 2 m + 1 (the scores again, then the group's columns of V for pn . V).
+__global__ void __launch_bounds__(kThreads, 2) fwd_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [2][kSlotRows][kLd]
+  const int m = a.m;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal rows first
+  const int b = blockIdx.z;
+  int h, gc;
+  head_group(a, kW, h, gc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16;
+  const long long sq = a.st[kQ][2], sk = a.st[kK][2], sv = a.st[kV][2];
+  const bf16* q = head<bf16>(a, a.q, kQ, b, h) + q0 * sq;
+  const bf16* k = head<bf16>(a, a.k, kK, b, h);
+  const bf16* v = head<bf16>(a, a.v, kV, b, h);
+  const int dead = a.dead[b];
+  // the keys the CTA's rows and the warp's walk (all of them for dead rows)
+  const int kend = (a.causal && q0 >= dead) ? min(a.Lk, q0 + kRows) : a.Lk;
+  const int wend = (a.causal && r0 >= dead) ? min(a.Lk, r0 + 16) : a.Lk;
+  const int n = kend / kTile, n1 = n * m, steps = n1 + n * (m + 1);
+  const float sl2 = a.scale * kLog2e;
+  auto at = [&](int s, int& k0, int& j) {
+    const int per = s < n1 ? m : m + 1, i = s < n1 ? s : s - n1;
+    k0 = (i / per) * kTile;
+    j = i % per;
+  };
+  auto issue = [&](int s) {
+    if (s < steps) {
+      int k0, j;
+      at(s, k0, j);
+      bf16* slot = ring + (s & 1) * kSlotRows * kLd;
+      if (j < m) {
+        stage<kRows>(slot, q + j * kW, sq);
+        stage<kTile>(slot + kRows * kLd, k + k0 * sk + j * kW, sk);
+      } else {
+        stage<kTile>(slot + kRows * kLd, v + k0 * sv + gc, sv);
+      }
+    }
+    ergm_async::commit();
+  };
+  issue(0);
+
+  float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f};  // the lane's share of m, l
+  float mrow[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+  float o[kW / 8][4];
+  zero(o);
+  float sc[kTile / 32][4][4];
+
+  for (int s = 0; s < steps; ++s) {
+    int k0, j;
+    at(s, k0, j);
+    issue(s + 1);
+    ergm_async::wait<1>();
+    __syncthreads();
+    if (s == n1) {
+      // the row's m and l from the four lanes that hold it
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        float l = lt[i] * ex2(mt[i] - mx);
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int r = r0 + g + 8 * i;
+        mrow[i] = mx;
+        inv[i] = a.qmask[static_cast<long long>(b) * a.L + r] != 0 ? 1.0f / fmaxf(l, 1e-30f)
+                                                                    : 0.0f;
+        if (t == 0 && gc == 0) {
+          const long long idx = row_index(a, b, h, r);
+          a.ml[idx] = mx;
+          a.ml[static_cast<long long>(a.B) * a.H * a.L + idx] = l;
+        }
+      }
+    }
+    const bf16* slot = ring + (s & 1) * kSlotRows * kLd;
+    const bf16* tt = slot + kRows * kLd;
+#pragma unroll
+    for (int u = 0; u < kTile / 32; ++u) {
+      const int c0 = k0 + u * 32;
+      if (c0 >= wend) continue;
+      if (j < m) {
+        if (j == 0) zero(sc[u]);
+        prod_nt_acc<kW>(sc[u], slot, warp * 16, tt, u * 32);
+      }
+      if (j == m - 1) {
+        mask_scores(a, key_word(a, b, c0), sc[u], r0, c0, sl2);
+        if (s < n1) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float w[4];  // a tree: independent maxima, then sums
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) w[jj] = fmaxf(sc[u][jj][2 * i], sc[u][jj][2 * i + 1]);
+            const float mx = fmaxf(mt[i], fmaxf(fmaxf(w[0], w[1]), fmaxf(w[2], w[3])));
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              w[jj] = ex2(sc[u][jj][2 * i] - mx) + ex2(sc[u][jj][2 * i + 1] - mx);
+            lt[i] = lt[i] * ex2(mt[i] - mx) + ((w[0] + w[1]) + (w[2] + w[3]));
+            mt[i] = mx;
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[u][jj][e] = ex2(sc[u][jj][e] - mrow[e >> 1]) * inv[e >> 1];
+        }
+      } else if (j == m) {
+        prod_nn<kW>(o, sc[u], tt, u * 32);
+      }
+    }
+    __syncthreads();
+  }
+  store_rows<kW>(head_out<bf16>(a, a.out, kO, b, h) + gc, a.st[kO][2], r0 + g, o, 1.0f);
+}
+
+// dQ: pass 1 takes 2m sub-steps a key tile (Q_j K_j^T into the scores, then
+// dO_j V_j^T into dP) for delta = rowsum(pn * dpn), pass 2 2m + 1 (the same,
+// then the group's columns of K for dS . K).
+__global__ void __launch_bounds__(kThreads, 2) bwd_dq_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [2][kSlotRows][kLd]
+  const int m = a.m;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int b = blockIdx.z;
+  int h, gc;
+  head_group(a, kW, h, gc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16;
+  const long long sq = a.st[kQ][2], sdo = a.st[kDO][2], sk = a.st[kK][2], sv = a.st[kV][2];
+  const bf16* q = head<bf16>(a, a.q, kQ, b, h) + q0 * sq;
+  const bf16* dout = head<bf16>(a, a.dout, kDO, b, h) + q0 * sdo;
+  const bf16* k = head<bf16>(a, a.k, kK, b, h);
+  const bf16* v = head<bf16>(a, a.v, kV, b, h);
+  const int dead = a.dead[b];
+  const int kend = (a.causal && q0 >= dead) ? min(a.Lk, q0 + kRows) : a.Lk;
+  const int wend = (a.causal && r0 >= dead) ? min(a.Lk, r0 + 16) : a.Lk;
+  const int n = kend / kTile, n1 = n * 2 * m, steps = n1 + n * (2 * m + 1);
+  const float sl2 = a.scale * kLog2e;
+  auto at = [&](int s, int& k0, int& j) {
+    const int per = s < n1 ? 2 * m : 2 * m + 1, i = s < n1 ? s : s - n1;
+    k0 = (i / per) * kTile;
+    j = i % per;
+  };
+  auto issue = [&](int s) {
+    if (s < steps) {
+      int k0, j;
+      at(s, k0, j);
+      bf16* slot = ring + (s & 1) * kSlotRows * kLd;
+      if (j < m) {
+        stage<kRows>(slot, q + j * kW, sq);
+        stage<kTile>(slot + kRows * kLd, k + k0 * sk + j * kW, sk);
+      } else if (j < 2 * m) {
+        stage<kRows>(slot, dout + (j - m) * kW, sdo);
+        stage<kTile>(slot + kRows * kLd, v + k0 * sv + (j - m) * kW, sv);
+      } else {
+        stage<kTile>(slot + kRows * kLd, k + k0 * sk + gc, sk);
+      }
+    }
+    ergm_async::commit();
+  };
+  issue(0);
+
+  float mrow[2], inv[2], delta[2] = {0.0f, 0.0f};  // delta: the lane's share until step n1
+  const long long plane = static_cast<long long>(a.B) * a.H * a.L;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    const long long idx = row_index(a, b, h, r);
+    mrow[i] = a.ml[idx];
+    inv[i] = a.qmask[static_cast<long long>(b) * a.L + r] != 0
+                 ? 1.0f / fmaxf(a.ml[plane + idx], 1e-30f) : 0.0f;
+  }
+  float acc[kW / 8][4];
+  zero(acc);
+  float sc[kTile / 32][4][4], dp[kTile / 32][4][4];
+
+  for (int s = 0; s < steps; ++s) {
+    int k0, j;
+    at(s, k0, j);
+    issue(s + 1);
+    ergm_async::wait<1>();
+    __syncthreads();
+    if (s == n1) {
+      // delta of each row from the four lanes that hold it; the rows' (m,
+      // 1/l, delta) go to the dK/dV kernel
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+      }
+      if (t == 0 && gc == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          reinterpret_cast<float4*>(a.stat)[row_index(a, b, h, r0 + g + 8 * i)] =
+              make_float4(mrow[i], inv[i], delta[i], 0.0f);
+      }
+    }
+    const bf16* slot = ring + (s & 1) * kSlotRows * kLd;
+    const bf16* tt = slot + kRows * kLd;
+#pragma unroll
+    for (int u = 0; u < kTile / 32; ++u) {
+      const int c0 = k0 + u * 32;
+      if (c0 >= wend) continue;
+      if (j < m) {
+        if (j == 0) zero(sc[u]);
+        prod_nt_acc<kW>(sc[u], slot, warp * 16, tt, u * 32);
+      } else if (j < 2 * m) {
+        if (j == m) zero(dp[u]);
+        prod_nt_acc<kW>(dp[u], slot, warp * 16, tt, u * 32);
+      }
+      if (j == 2 * m - 1) {
+        // pass 1: delta += pn * dpn; pass 2: ds = pn * (dpn - delta), both
+        // where visible, 0 where masked
+        mask_scores(a, key_word(a, b, c0), sc[u], r0, c0, sl2);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float pn = sc[u][jj][e] == kMaskL2 ? 0.0f : ex2(sc[u][jj][e] - mrow[i]) * inv[i];
+            if (s < n1)
+              delta[i] += pn * dp[u][jj][e];
+            else
+              sc[u][jj][e] = pn * (dp[u][jj][e] - delta[i]);
+          }
+      } else if (j == 2 * m) {
+        prod_nn<kW>(acc, sc[u], tt, u * 32);
+      }
+    }
+    __syncthreads();
+  }
+  store_rows<kW>(head_out<bf16>(a, a.dq, kDQ, b, h) + gc, a.st[kDQ][2], r0 + g, acc, a.scale);
+}
+
+// dK/dV: one CTA per 64 keys and group, over the query tiles that see them;
+// a tile takes 2m + 2 sub-steps: K_j Q_j^T into S^T, V_j dO_j^T into dP^T,
+// then the group's columns of dO (dV += pv^T dO) and of Q (dK += dS^T Q).
+__global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [2][kQSlotRows][kLd]
+  float4* sts = reinterpret_cast<float4*>(ring + 2 * kQSlotRows * kLd);  // [2][kQTile]
+  const int m = a.m, per = 2 * m + 2;
+  const int k0 = blockIdx.x * kRows, b = blockIdx.z;
+  int h, gc;
+  head_group(a, kW, h, gc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + warp * 16;  // the warp's first key
+  const long long sq = a.st[kQ][2], sdo = a.st[kDO][2], sk = a.st[kK][2], sv = a.st[kV][2];
+  const bf16* q = head<bf16>(a, a.q, kQ, b, h);
+  const bf16* dout = head<bf16>(a, a.dout, kDO, b, h);
+  const bf16* k = head<bf16>(a, a.k, kK, b, h) + k0 * sk;
+  const bf16* v = head<bf16>(a, a.v, kV, b, h) + k0 * sv;
+  const float4* stat = reinterpret_cast<const float4*>(a.stat) + row_index(a, b, h, 0);
+  const int dead = a.dead[b];
+  const float sl2 = a.scale * kLog2e;
+
+  // the query tiles that see these keys: those holding dead rows (they see
+  // every key), then the diagonal onwards
+  const int nq = a.L / kQTile;
+  const int from = a.causal ? min(k0 / kQTile, nq) : 0;
+  const int lo = a.causal ? min((dead + kQTile - 1) / kQTile, from) : 0;
+  const int steps = (lo + nq - from) * per;
+  auto tile = [&](int i) { return (i < lo ? i : from + i - lo) * kQTile; };
+  auto issue = [&](int s) {
+    if (s < steps) {
+      const int i = s / per, j = s % per, q0 = tile(i);
+      bf16* slot = ring + (s & 1) * kQSlotRows * kLd;
+      bf16* tt = slot + kRows * kLd;
+      if (j < m) {
+        stage<kRows>(slot, k + j * kW, sk);
+        stage<kQTile>(tt, q + q0 * sq + j * kW, sq);
+      } else if (j < 2 * m) {
+        stage<kRows>(slot, v + (j - m) * kW, sv);
+        stage<kQTile>(tt, dout + q0 * sdo + (j - m) * kW, sdo);
+      } else {
+        stage<kQTile>(tt, j == 2 * m ? dout + q0 * sdo + gc : q + q0 * sq + gc,
+                      j == 2 * m ? sdo : sq);
+      }
+      if (j == 0 && threadIdx.x < kQTile)
+        ergm_async::copy16(sts + (i & 1) * kQTile + threadIdx.x, stat + q0 + threadIdx.x);
+    }
+    ergm_async::commit();
+  };
+  issue(0);
+
+  int kr[2];
+  bool kreal[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kr[i] = kw0 + g + 8 * i;
+    kreal[i] = key_real(a, b, kr[i]);
+  }
+  const bool wreal = __all_sync(0xffffffffu, kreal[0] && kreal[1]);  // the warp's keys all real
+  float dk[kW / 8][4], dv[kW / 8][4], sc[4][4], dp[4][4];
+  zero(dk);
+  zero(dv);
+
+  for (int s = 0; s < steps; ++s) {
+    const int i = s / per, j = s % per, c0 = tile(i);  // c0: the tile's first query
+    issue(s + 1);
+    ergm_async::wait<1>();
+    __syncthreads();
+    const bf16* slot = ring + (s & 1) * kQSlotRows * kLd;
+    const bf16* tt = slot + kRows * kLd;
+    if (!a.causal || c0 + kQTile - 1 >= kw0 || c0 < dead) {
+      if (j < m) {
+        if (j == 0) zero(sc);
+        prod_nt_acc<kW>(sc, slot, warp * 16, tt, 0);
+      } else if (j < 2 * m) {
+        if (j == m) zero(dp);
+        prod_nt_acc<kW>(dp, slot, warp * 16, tt, 0);
+      }
+      if (j == 2 * m - 1) {
+        // S^T and dP^T done: the warp's 16 keys as rows, 32 queries as
+        // columns; pv (no dropout: pn) into sc, ds into dp
+        const float4* st = sts + (i & 1) * kQTile;
+        const bool full = wreal && (!a.causal || kw0 + 15 <= c0);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int qc = c0 + 8 * jj + 2 * t + e1;
+            const float4 rs = st[qc - c0];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int e = 2 * r + e1;
+              const bool ok = full || (kreal[r] && (!a.causal || kr[r] <= qc));
+              const float pn = ex2((ok ? sc[jj][e] * sl2 : kMaskL2) - rs.x) * rs.y;
+              dp[jj][e] = ok ? pn * (dp[jj][e] - rs.z) : 0.0f;
+              sc[jj][e] = pn;
+            }
+          }
+      } else if (j == 2 * m) {
+        prod_nn<kW>(dv, sc, tt, 0);  // dV += pv^T dO
+      } else if (j == 2 * m + 1) {
+        prod_nn<kW>(dk, dp, tt, 0);  // dK += ds^T Q
+      }
+    }
+    __syncthreads();
+  }
+  store_rows<kW>(head_out<bf16>(a, a.dk, kDK, b, h) + gc, a.st[kDK][2], kw0 + g, dk, a.scale);
+  store_rows<kW>(head_out<bf16>(a, a.dv, kDV, b, h) + gc, a.st[kDV][2], kw0 + g, dv, 1.0f);
+}
+
+}  // namespace wide
+
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
                    cudaStream_t s) {
@@ -991,8 +1404,8 @@ cudaError_t forward_dh(const Args& a, bool bf, cudaStream_t s) {
     return launch(tc::fwd_kernel<DH>, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
                   tc::rows_bytes<DH>() + 4 * tc::tile_bytes<DH>(), a, s);
   using S = f32::Tiles<DH>;
-  return launch(f32::fwd_kernel<DH>, dim3(a.L / S::T, a.H, a.B), f32::kThreads, S::bytes(3, 2),
-                a, s);
+  return launch(f32::fwd_kernel<DH>, dim3(a.L / S::T, a.H * a.m, a.B), f32::kThreads,
+                S::bytes(3, 2), a, s);
 }
 
 template <int DH>
@@ -1008,32 +1421,56 @@ cudaError_t backward_dh(const Args& a, bool bf, cudaStream_t s) {
                   a, s);
   }
   using S = f32::Tiles<DH>;
-  err = launch(f32::bwd_dq_kernel<DH>, dim3(a.L / S::T, a.H, a.B), f32::kThreads,
+  err = launch(f32::bwd_dq_kernel<DH>, dim3(a.L / S::T, a.H * a.m, a.B), f32::kThreads,
                S::bytes(5, 3), a, s);
   if (err != cudaSuccess) return err;
-  return launch(f32::bwd_dkdv_kernel<DH>, dim3(a.Lk / S::T, a.H, a.B), f32::kThreads,
+  return launch(f32::bwd_dkdv_kernel<DH>, dim3(a.Lk / S::T, a.H * a.m, a.B), f32::kThreads,
                 S::bytes(6, 4), a, s);
 }
 
-// The head widths the kernels are built for (ops/block_attention.py's
-// HEAD_DIMS); another dh is refused.
-cudaError_t forward(const Args& a, int dh, bool bf, cudaStream_t s) {
+// A wide head (dh = 128 m, m >= 2, no dropout): bf16 by the wide kernels,
+// f32 by the 128-wide template over m slices, both with m column groups a
+// head on the grid.
+cudaError_t forward_wide(const Args& a, bool bf, cudaStream_t s) {
+  if (!bf) return forward_dh<128>(a, false, s);
+  return launch(wide::fwd_kernel, dim3(a.L / wide::kRows, a.H * a.m, a.B), wide::kThreads,
+                wide::kFwdBytes, a, s);
+}
+
+cudaError_t backward_wide(const Args& a, bool bf, cudaStream_t s) {
+  if (!bf) return backward_dh<128>(a, false, s);
+  cudaError_t err = launch(wide::bwd_dq_kernel, dim3(a.L / wide::kRows, a.H * a.m, a.B),
+                           wide::kThreads, wide::kFwdBytes, a, s);
+  if (err != cudaSuccess) return err;
+  return launch(wide::bwd_dkdv_kernel, dim3(a.Lk / wide::kRows, a.H * a.m, a.B),
+                wide::kThreads, wide::kDkdvBytes, a, s);
+}
+
+// The head widths the kernels take (ops/block_attention.py's HEAD_DIMS, and
+// a multiple of 128 from 256 without dropout); another dh is refused.
+bool dh_ok(int dh, int dropout) {
+  return dh == 32 || dh == 64 || dh == 96 || dh == 128 || (dh > 128 && dh % 128 == 0 && !dropout);
+}
+
+cudaError_t forward(Args& a, int dh, bool bf, cudaStream_t s) {
+  a.m = dh > 128 ? dh / 128 : 1;
   switch (dh) {
     case 32: return forward_dh<32>(a, bf, s);
     case 64: return forward_dh<64>(a, bf, s);
     case 96: return forward_dh<96>(a, bf, s);
     case 128: return forward_dh<128>(a, bf, s);
-    default: return cudaErrorInvalidValue;
+    default: return forward_wide(a, bf, s);
   }
 }
 
-cudaError_t backward(const Args& a, int dh, bool bf, cudaStream_t s) {
+cudaError_t backward(Args& a, int dh, bool bf, cudaStream_t s) {
+  a.m = dh > 128 ? dh / 128 : 1;
   switch (dh) {
     case 32: return backward_dh<32>(a, bf, s);
     case 64: return backward_dh<64>(a, bf, s);
     case 96: return backward_dh<96>(a, bf, s);
     case 128: return backward_dh<128>(a, bf, s);
-    default: return cudaErrorInvalidValue;
+    default: return backward_wide(a, bf, s);
   }
 }
 
@@ -1055,13 +1492,14 @@ Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, flo
   a.thr = thr;
   a.seed = seed;
   a.hs = hs;
+  a.m = 1;
   return a;
 }
 
 }  // namespace ergm_block
 
 // dtype: 0 = float32, 1 = bfloat16; dh: the head width, 32, 64, 96 or
-// 128. strides: host array of (batch, head, row) element strides of q, k,
+// 128, or without dropout a multiple of 128 from 256. strides: host array of (batch, head, row) element strides of q, k,
 // v, o. kbits [B, Lk/32] and dead [B] are written here (by the pre-pass)
 // for the backward. head_stride: the dropout hash's (H for a whole
 // problem). Returns a cudaError_t (0 on success).
@@ -1072,7 +1510,7 @@ extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, v
                                   int dropout, float drop_div, float drop_mul, unsigned thr,
                                   unsigned seed, int head_stride, void* stream) {
   using namespace ergm_block;
-  if ((dtype != 0 && dtype != 1) || (dh != 32 && dh != 64 && dh != 96 && dh != 128))
+  if ((dtype != 0 && dtype != 1) || !dh_ok(dh, dropout))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   prep_kernel<<<B, 256, 0, s>>>(static_cast<const int*>(kmask), static_cast<const int*>(qmask),
@@ -1104,7 +1542,7 @@ extern "C" int ergm_block_mha_bwd(const void* q, const void* k, const void* v, c
                                   unsigned thr, unsigned seed, int head_stride,
                                   void* stream) {
   using namespace ergm_block;
-  if ((dtype != 0 && dtype != 1) || (dh != 32 && dh != 64 && dh != 96 && dh != 128))
+  if ((dtype != 0 && dtype != 1) || !dh_ok(dh, dropout))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(B, H, L, Lk, strides, 8, scale, causal, dropout, drop_div, drop_mul, thr,
                      seed, head_stride);

@@ -180,7 +180,10 @@ __device__ __forceinline__ void dense_store(const DenseArgs& g, int row, int col
 // ---------------------------------------------------------------------------
 // f32: the fp32 bars (JAX's 2e-5 for K4) rule out TF32, so float products
 // stay on the CUDA cores: 16 rows x 64 columns a CTA of 128 threads, a 2 x
-// 4 register tile a thread, all of K in 32-deep chunks, one launch.
+// 4 register tile a thread, all of K in 32-deep chunks, one launch. Each
+// chunk is summed on its own, then added to the chunks before it: one
+// serial f32 sum over K = 10,240 (K4's down projection at
+// Cerebras-GPT-2.7B's width) missed the 2e-5 bar.
 
 constexpr int kBM = 16, kBN = 64, kBK = 32, kF32Threads = 128;
 
@@ -244,19 +247,24 @@ static __global__ void __launch_bounds__(kF32Threads) dense_f32_kernel(const Den
       }
     }
     __syncthreads();
+    float part[2][4] = {};
 #pragma unroll 8
     for (int k = 0; k < kBK; ++k) {
       const float a0 = as[k][tr], a1 = as[k][tr + 8];
       const float4 w = *reinterpret_cast<const float4*>(&ws[k][4 * tc]);
-      acc[0][0] = fmaf(a0, w.x, acc[0][0]);
-      acc[0][1] = fmaf(a0, w.y, acc[0][1]);
-      acc[0][2] = fmaf(a0, w.z, acc[0][2]);
-      acc[0][3] = fmaf(a0, w.w, acc[0][3]);
-      acc[1][0] = fmaf(a1, w.x, acc[1][0]);
-      acc[1][1] = fmaf(a1, w.y, acc[1][1]);
-      acc[1][2] = fmaf(a1, w.z, acc[1][2]);
-      acc[1][3] = fmaf(a1, w.w, acc[1][3]);
+      part[0][0] = fmaf(a0, w.x, part[0][0]);
+      part[0][1] = fmaf(a0, w.y, part[0][1]);
+      part[0][2] = fmaf(a0, w.z, part[0][2]);
+      part[0][3] = fmaf(a0, w.w, part[0][3]);
+      part[1][0] = fmaf(a1, w.x, part[1][0]);
+      part[1][1] = fmaf(a1, w.y, part[1][1]);
+      part[1][2] = fmaf(a1, w.z, part[1][2]);
+      part[1][3] = fmaf(a1, w.w, part[1][3]);
     }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
   }
 
 #pragma unroll

@@ -49,23 +49,27 @@
 // f32 operands (the fp32 bars only; f32::) keep the first design: one CTA
 // per 16-row resident tile, streaming the other table in 32-row tiles,
 // f32 FMAs on the CUDA cores in order (the backward's long sums tile by
-// tile). The streamed tile comes in slices of 256 columns (twice in the
-// backward: once for the logits, once for the product with padj), so
-// shared memory grows with D only through the resident rows, and each
-// thread's share of the [16, D] backward sum is at most 8 columns by 16
-// rows of registers.
+// tile). Both operands come in slices of 256 columns, the resident rows
+// restaged for every streamed tile (twice in the backward: once for the
+// logits, once for the product with padj), so shared memory does not grow
+// with D (54 KB). The backward's [16, D] sum lives in registers, each
+// thread's share at most 8 columns by 16 rows: a grid axis splits D into
+// column groups of kGroup = 2048, each CTA recomputing its tile's logits
+// over the whole width for its own group (3 groups at D = 5,120).
 //
-// Widths: D a multiple of 64 from 64 to 2048 (JAX's kernel takes any D; the
-// wrapper, ops/fused_ce.py, pads h and W with zero columns to the next
-// multiple of 64 and slices dh and dW back, which is exact). The bf16
-// products stream D in whole 64-deep stages: a last stage partly past D
-// (its out-of-bounds columns zero-filled by the TMA) made the products
-// 1.3-1.5x slower at D = 776 than the same products padded to 832 on an
-// H100 (chip_smoke.py's K6 rows; PERF.md). The dh and dW products tile D
-// in 192-column tiles, the last one partly past D at widths that 192 does
-// not divide (1,280 runs 7 tiles, 1,600 runs 9, 64 one): the overhang is
-// computed on zero-filled loads and not written. The f32 route streams D in
-// 256-column slices, the last one ragged.
+// Widths: D any multiple of 64 (JAX's kernel takes any D; the wrapper,
+// ops/fused_ce.py, pads h and W with zero columns to the next multiple of
+// 64 and slices dh and dW back, which is exact). The bf16 products stream
+// D in whole 64-deep stages: a last stage partly past D (its out-of-bounds
+// columns zero-filled by the TMA) made the products 1.3-1.5x slower at
+// D = 776 than the same products padded to 832 on an H100 (chip_smoke.py's
+// K6 rows; PERF.md). The dh and dW products tile D in 192-column tiles,
+// the last one partly past D at widths that 192 does not divide (1,280
+// runs 7 tiles, 1,600 9, 2,560 14, 4,096 22, 5,120 27, 64 one): the
+// overhang is computed on zero-filled loads and not written. dh's sum over
+// the vocab chunks is one [N, D] f32 buffer (42 MB at N = 2,048, D =
+// 5,120). The f32 route streams D in 256-column slices, the last one
+// ragged.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,12 +84,11 @@ namespace ergm_xent {
 
 using bf16 = __nv_bfloat16;
 
-// D: a multiple of 64 (the bf16 mainloop's stage depth) up to kMaxD
-constexpr int kMaxD = 2048;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-inline bool width_ok(int D) { return D % 64 == 0 && D >= 64 && D <= kMaxD; }
+// D: a multiple of 64, the bf16 mainloop's stage depth
+inline bool width_ok(int D) { return D % 64 == 0 && D >= 64; }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -109,7 +112,8 @@ constexpr int R = 16;         // resident rows per CTA
 constexpr int M = 32;         // streamed rows per tile
 constexpr int KS = kThreads;  // columns of a streamed slice: one per thread
 constexpr int kPer = R * M / kThreads;  // logits of a tile per thread
-constexpr int kCols = kMaxD / KS;       // backward: output slices per thread
+constexpr int kCols = 8;                // backward: output slices per thread
+constexpr int kGroup = kCols * KS;      // backward: columns of a CTA's group
 
 enum Mode { kFwd = 0, kDh = 1, kDw = 2 };
 
@@ -127,24 +131,17 @@ struct Args {
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
-// The resident rows whole (stride D + 1), the streamed tile one slice of KS
-// columns at a time (stride KS + 1): conflict-free column reads, and the
-// shared memory grows with D only through the resident rows (168 KB at
-// D = 2048).
+// One slice of KS columns of the resident rows and of the streamed tile
+// (stride KS + 1: conflict-free column reads), the logit and padj tiles and
+// the streamed tokens' label, logZ and cotangent: 54 KB whatever D is.
 struct Layout {
-  int ld, lds, ldt;
-  size_t res, str, s, p, vec, total;
-  __host__ __device__ explicit Layout(int D) {
-    ld = D + 1;
-    ldt = KS + 1;
-    lds = M + 1;
-    res = 0;
-    str = align128(res + sizeof(float) * R * ld);
-    s = align128(str + sizeof(float) * M * ldt);
-    p = align128(s + sizeof(float) * R * lds);
-    vec = align128(p + sizeof(float) * R * lds);
-    total = vec + 3 * sizeof(float) * M;
-  }
+  static constexpr int ldt = KS + 1, lds = M + 1;
+  static constexpr size_t res = 0;
+  static constexpr size_t str = align128(res + sizeof(float) * R * ldt);
+  static constexpr size_t s = align128(str + sizeof(float) * M * ldt);
+  static constexpr size_t p = align128(s + sizeof(float) * R * lds);
+  static constexpr size_t vec = align128(p + sizeof(float) * R * lds);
+  static constexpr size_t total = vec + 3 * sizeof(float) * M;
 };
 
 // Columns [c0, c0 + width) of rows [row0, row0 + rows) of a [limit, D] table
@@ -183,21 +180,23 @@ __device__ __forceinline__ void stage_tokens(const Args& a, int n0, int rows, in
 template <int MODE>
 __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
+  using L = Layout;
   const int D = a.D;
-  const Layout L(D);
-  float* res = reinterpret_cast<float*>(smem + L.res);
-  float* str = reinterpret_cast<float*>(smem + L.str);
-  float* s = reinterpret_cast<float*>(smem + L.s);
-  float* p = reinterpret_cast<float*>(smem + L.p);
-  int* lbl = reinterpret_cast<int*>(smem + L.vec);
+  float* res = reinterpret_cast<float*>(smem + L::res);
+  float* str = reinterpret_cast<float*>(smem + L::str);
+  float* s = reinterpret_cast<float*>(smem + L::s);
+  float* p = reinterpret_cast<float*>(smem + L::p);
+  int* lbl = reinterpret_cast<int*>(smem + L::vec);
   float* lz = reinterpret_cast<float*>(lbl + M);
   float* gg = lz + M;
 
   const int r0 = blockIdx.x * R;
+  const int g0 = blockIdx.y * kGroup;  // backward: this CTA's column group
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr bool vocab_rows = MODE == kDw;
+  const float* resident = vocab_rows ? a.w : a.h;
+  const int res_limit = vocab_rows ? a.V : a.N;
   const float* streamed = vocab_rows ? a.h : a.w;
-  stage_rows(res, L.ld, vocab_rows ? a.w : a.h, r0, vocab_rows ? a.V : a.N, R, D, 0, D);
   if (!vocab_rows) stage_tokens(a, r0, R, lbl, lz, gg, MODE == kDh);
 
   // forward: online max, sum and gold logit of this warp's token rows
@@ -209,7 +208,8 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
     l[i] = 0.0f;
     gold[i] = 0.0f;
   }
-  // backward: the [R, D] f32 sum, thread t holding columns t + KS c
+  // backward: the group's [R, kGroup] f32 sum, thread t holding columns
+  // g0 + t + KS c
   float facc[R][kCols];
   if constexpr (MODE != kFwd) {
 #pragma unroll
@@ -221,30 +221,33 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
   const int limit = vocab_rows ? a.N : a.V;
   for (int t0 = 0; t0 < limit; t0 += M) {
     // s[R x M] = res[R x D] . str[M x D]^T, the depth in slices of KS
-    // columns, each logit summed in column order
+    // columns: each logit's slice summed in column order on its own, then
+    // added to the slices before it (one serial f32 sum over D = 4,096 put
+    // dW 3e-5 from the plain version, past its fp32 bar)
     float sacc[kPer];
 #pragma unroll
     for (int q = 0; q < kPer; ++q) sacc[q] = 0.0f;
     for (int k0 = 0; k0 < D; k0 += KS) {
       const int width = min(KS, D - k0);
-      __syncthreads();  // the previous slice (or tile) is done with str, s and p
-      stage_rows(str, L.ldt, streamed, t0, limit, M, D, k0, width);
+      __syncthreads();  // the previous slice (or tile) is done with res, str, s and p
+      stage_rows(res, L::ldt, resident, r0, res_limit, R, D, k0, width);
+      stage_rows(str, L::ldt, streamed, t0, limit, M, D, k0, width);
       if (vocab_rows && k0 == 0) stage_tokens(a, t0, M, lbl, lz, gg, true);
       __syncthreads();
 #pragma unroll
       for (int q = 0; q < kPer; ++q) {
         const int idx = threadIdx.x + kThreads * q, i = idx / M, j = idx % M;
-        const float* rr = res + i * L.ld + k0;
-        const float* ss = str + j * L.ldt;
-        float acc = sacc[q];
+        const float* rr = res + i * L::ldt;
+        const float* ss = str + j * L::ldt;
+        float acc = 0.0f;
         for (int k = 0; k < width; ++k) acc = fmaf(rr[k], ss[k], acc);
-        sacc[q] = acc;
+        sacc[q] += acc;
       }
     }
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       const int idx = threadIdx.x + kThreads * q;
-      s[(idx / M) * L.lds + idx % M] = sacc[q];
+      s[(idx / M) * L::lds + idx % M] = sacc[q];
     }
     __syncthreads();
     if constexpr (MODE == kFwd) {
@@ -255,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < M / 32; ++e) {
           const int col = lane + 32 * e, v = t0 + col;
-          sv[e] = v < a.V ? s[row * L.lds + col] : kNeg;
+          sv[e] = v < a.V ? s[row * L::lds + col] : kNeg;
           if (v == lbl[row]) gsum += sv[e];
           tmax = fmaxf(tmax, sv[e]);
         }
@@ -274,33 +277,33 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
         const int i = idx / M, j = idx % M;
         const int t = vocab_rows ? j : i;             // token slot
         const int v = vocab_rows ? r0 + i : t0 + j;   // vocab row
-        float x = v < a.V ? expf(s[i * L.lds + j] - lz[t]) * gg[t] : 0.0f;
+        float x = v < a.V ? expf(s[i * L::lds + j] - lz[t]) * gg[t] : 0.0f;
         if (v == lbl[t]) x -= gg[t];
-        p[i * L.lds + j] = x;
+        p[i * L::lds + j] = x;
       }
-      // acc[R x D] += p[R x M] . str[M x D], a slice of the streamed tile at
-      // a time (staged again: the logits took it in the same slices). Each
-      // tile's M products are summed on their own, in order, and the tile's
-      // sum then joins the running one: a row of dh sums ~V terms, and one
-      // serial f32 sum of them misses the fp32 bar at D = 32 (its rounding
-      // errors reach 1e-5 where dh cancels); tile by tile they are ~10x
-      // smaller
+      // acc[R x group] += p[R x M] . str[M x group], a slice of the streamed
+      // tile at a time (staged again: the logits took it in the same
+      // slices). Each tile's M products are summed on their own, in order,
+      // and the tile's sum then joins the running one: a row of dh sums ~V
+      // terms, and one serial f32 sum of them misses the fp32 bar at D = 32
+      // (its rounding errors reach 1e-5 where dh cancels); tile by tile
+      // they are ~10x smaller
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const int k0 = c * KS;
+        const int k0 = g0 + c * KS;
         if (k0 >= D) break;
         __syncthreads();  // p is written; the last slice is read
-        stage_rows(str, L.ldt, streamed, t0, limit, M, D, k0, min(KS, D - k0));
+        stage_rows(str, L::ldt, streamed, t0, limit, M, D, k0, min(KS, D - k0));
         __syncthreads();
         if (k0 + threadIdx.x < D) {
           float b[M];
 #pragma unroll
-          for (int k = 0; k < M; ++k) b[k] = str[k * L.ldt + threadIdx.x];
+          for (int k = 0; k < M; ++k) b[k] = str[k * L::ldt + threadIdx.x];
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             float t = 0.0f;
 #pragma unroll
-            for (int k = 0; k < M; ++k) t = fmaf(p[r * L.lds + k], b[k], t);
+            for (int k = 0; k < M; ++k) t = fmaf(p[r * L::lds + k], b[k], t);
             facc[r][c] += t;
           }
         }
@@ -326,23 +329,25 @@ __global__ void __launch_bounds__(kThreads) xent_kernel(Args a) {
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const int col = threadIdx.x + KS * c;
+        const int col = g0 + threadIdx.x + KS * c;
         if (col < D && r0 + r < rows_total)
           a.out[static_cast<long long>(r0 + r) * D + col] = facc[r][c];
       }
   }
 }
 
+// The forward: one CTA per R resident rows; the backward also one per
+// column group of kGroup.
 template <int MODE>
 int launch(const Args& a, cudaStream_t stream) {
   if (!width_ok(a.D)) return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(a.D);
   cudaError_t err = cudaFuncSetAttribute(xent_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
+                                         static_cast<int>(Layout::total));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = MODE == kDw ? a.V : a.N;
-  xent_kernel<MODE><<<(rows + R - 1) / R, kThreads, L.total, stream>>>(a);
+  const int groups = MODE == kFwd ? 1 : (a.D + kGroup - 1) / kGroup;
+  xent_kernel<MODE><<<dim3((rows + R - 1) / R, groups), kThreads, Layout::total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -826,7 +831,7 @@ using ergm_xent::gemm::Operand;
 using ergm_xent::gemm::Params;
 
 // dtype: 0 = float32, 1 = bfloat16; h [N, D] and W [V, D] contiguous, D a
-// multiple of 64 up to 2048. part: the bf16 route's [3, ceil(V / 256),
+// multiple of 64. part: the bf16 route's [3, ceil(V / 256),
 // m_pad] f32 partials, m_pad = N rounded up to 128 (unused in f32).
 // Returns a cudaError_t (0 on success).
 extern "C" int ergm_xent_fwd(const void* h, const void* w, const void* labels, void* nll,

@@ -3,7 +3,8 @@
 // ldmatrix loads of 8 x 8 b16 matrices from shared memory (plain and
 // transposed), the mma.sync m16n8k16 product (bf16 in, f32 accumulate),
 // and the attention kernels' 16-row warp products over head tiles DH wide
-// (a multiple of 16; K1 and the defaults: 64, K5: 32, 64, 96 or 128).
+// (a multiple of 16; K1 and the defaults: 64, K5: 32, 64, 96 or 128; its
+// wide heads: slices of 128).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane (g, t) = (lane / 4,
 // lane % 4) holds the accumulator's c[0..1] at row g, columns 2t, 2t + 1
@@ -86,16 +87,20 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl) 
   }
 }
 
-// c[j] = A . B^T over DH for A = rows [ar, ar + 16) of tile ta and B = the
+template <int J>
+__device__ __forceinline__ void zero(float (&acc)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+}
+
+// c[j] += A . B^T over DH for A = rows [ar, ar + 16) of tile ta and B = the
 // 32 rows at c0 of tile tb (8 columns per j; both DH-contiguous). Each
 // k16 step loads its fragments first, then issues its 4 independent products.
 template <int DH = kDh>
-__device__ __forceinline__ void prod_nt(float (&c)[4][4], const bf16* ta, int ar, const bf16* tb,
-                                        int c0) {
+__device__ __forceinline__ void prod_nt_acc(float (&c)[4][4], const bf16* ta, int ar,
+                                            const bf16* tb, int c0) {
   constexpr int kLd = ld_of<DH>();
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     unsigned af[4], bf[2][4];
@@ -110,6 +115,14 @@ __device__ __forceinline__ void prod_nt(float (&c)[4][4], const bf16* ta, int ar
       mma(c[2 * jp + 1], af, bf[jp][2], bf[jp][3]);
     }
   }
+}
+
+// c[j] = A . B^T, as prod_nt_acc from zero.
+template <int DH = kDh>
+__device__ __forceinline__ void prod_nt(float (&c)[4][4], const bf16* ta, int ar, const bf16* tb,
+                                        int c0) {
+  zero(c);
+  prod_nt_acc<DH>(c, ta, ar, tb, c0);
 }
 
 // acc[j] (j < DH / 8: DH in groups of 8) += P . B, for P the warp's 16 x
@@ -145,12 +158,6 @@ __device__ __forceinline__ void prod_nn(float (&acc)[DH / 8][4], const float (&x
         }
     }
   }
-}
-
-template <int J>
-__device__ __forceinline__ void zero(float (&acc)[J][4]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 }
 
 // The lane's rows r, r + 8 of the warp's 16 x DH f32 block, times mul,

@@ -1161,9 +1161,9 @@ def lm_loss(hidden: torch.Tensor, params: GPT2, config: ModelConfig,
     """The LM loss without logits, by ``lm_loss_impl``: ``auto`` takes
     kernel K6 for CUDA tensors (``core.device.on_card``; as JAX goes fused on
     the TPU) where K6 takes the shape (``fused_ce.kernel_takes``: every
-    width D up to 2,048, so gpt2 to gpt2-xl and every narrower model, in
-    float32 or bfloat16), and the chunked loss on the CPU and elsewhere
-    (D > 2,048, float16: not ported); ``fused`` takes K6, or its plain
+    width D, as JAX's kernel, in float32 or bfloat16), and the chunked
+    loss on the CPU and elsewhere (float16, which no path of ``ergm_tpu``
+    reaches: not ported); ``fused`` takes K6, or its plain
     version on the CPU, and on the card raises on what K6 does not take;
     ``chunked`` the chunked loss.
 

@@ -14,8 +14,10 @@ term of the model is trivial.
 full-width agreement check (``scripts/large_agreement.py`` writes JAX's
 results on them, ``chip_smoke.py`` holds the port to them): greedy
 requests with token types, image and audio features and a caption, and
-one training batch. Two recipes: ``AGREEMENT`` (gpt2-large's width at 4
-of its 36 layers) and ``GPT2_AGREEMENT`` (gpt2 at its full 12 layers).
+one training batch. Three recipes: ``AGREEMENT`` (gpt2-large's width at 4
+of its 36 layers), ``GPT2_AGREEMENT`` (gpt2 at its full 12 layers) and
+``CEREBRAS_2P7B_AGREEMENT`` (Cerebras-GPT-2.7B's width at 2 of its 32
+layers); ``agreement_config`` builds a recipe's configuration.
 """
 
 from __future__ import annotations
@@ -32,11 +34,30 @@ AGREEMENT = dict(model_type="gpt2-large", n_layer=4, vocab_size=50271, seed=0, r
 # The same check for gpt2 at its published width and all 12 of its layers:
 # the same rows, steps and bars, emotion logits within GPT2_EMOTION_TOL.
 GPT2_AGREEMENT = dict(AGREEMENT, model_type="gpt2", n_layer=12)
+# Cerebras-GPT-2.7B's published widths (cerebras/Cerebras-GPT-2.7B's
+# config.json: n_embd 2,560, 32 heads of 80, n_inner 10,240, n_positions
+# 2,048; GPT-2's architecture and vocabulary), no preset: its ModelConfig
+# comes from the constructor
+CEREBRAS_2P7B = dict(n_embd=2560, n_head=32, n_inner=10240, n_positions=2048)
+# The same check at that width and 2 of its 32 layers
+CEREBRAS_2P7B_AGREEMENT = dict(AGREEMENT, model_type="Cerebras-GPT-2.7B", n_layer=2,
+                               widths=CEREBRAS_2P7B)
 # the bars: tokens equal up to each row's first decision whose top-2 margin
 # in JAX is at most MARGIN; emotion logits within EMOTION_TOL; the LM loss of
 # step 1 within STEP1_RTOL and of step 2 within STEP2_RTOL, relative
 MARGIN, EMOTION_TOL, STEP1_RTOL, STEP2_RTOL = 1e-3, 1e-3, 1e-5, 2e-3
 GPT2_EMOTION_TOL = 1e-4
+
+
+def agreement_config(cls, recipe: Dict[str, Any]):
+    """Recipe ``recipe``'s configuration as ``cls`` (either package's
+    ``ModelConfig``): its ``widths`` through the constructor, or else its
+    preset, at its depth and vocabulary, fp32, dropout 0."""
+    kw = dict(n_layer=recipe["n_layer"], vocab_size=recipe["vocab_size"], dtype="float32",
+              embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
+    if "widths" in recipe:
+        return cls(**recipe["widths"], **kw)
+    return cls.from_model_type(recipe["model_type"], **kw)
 
 
 def seeded_tree(config, seed: int) -> Dict[str, Any]:

@@ -155,15 +155,19 @@ def multihead_attention(
     otherwise, with no dropout active, ``pallas`` and ``flash`` take K5
     inside JAX's flash gate (``flash_supported``: the shapes JAX sends to
     its library flash kernel K7, L > 1024 or causal Lq < Lk at offset 0,
-    which a tiled CUDA kernel serves as well, at the kernel's head widths).
+    and every shape whose head width the block gate refuses, which a tiled
+    CUDA kernel serves as well, at the library kernel's head widths).
     ``auto`` is ``pallas`` for CUDA tensors (``core.device.on_card``), as JAX
     takes the Pallas kernels on the TPU, and the plain math elsewhere; on
     the CPU ``pallas``, ``block`` and ``flash`` run K5's plain version.
     ``xla`` and every shape outside the gates take the plain math. On the
-    card the kernel takes head widths a multiple of 8 up to 128 in float32
-    and bfloat16 (``block_attention.kernel_takes``): outside them ``auto``
-    and ``pallas`` take the plain math and an explicit ``block`` or
-    ``flash`` raises. The ``ERGM_ATTN_IMPL`` environment variable overrides
+    card the kernel takes, in float32 and bfloat16, the block gate's head
+    widths (a multiple of 8 up to 128, ``block_attention.kernel_takes``)
+    and the library kernel's (any below 128 and any multiple of 128,
+    ``block_attention.flash_kernel_takes``): outside them an explicit
+    ``block`` or ``flash`` raises and ``pallas`` takes the plain math, also
+    at a width above 128 that is not a multiple of 128, where JAX's library
+    kernel raises. The ``ERGM_ATTN_IMPL`` environment variable overrides
     ``impl``. With an ``extra_bias``, only the plain math applies;
     ``q_mask`` reaches K5 only (padded query rows give zero output and
     gradient there). ``dropout_head_stride``: the dropout hash's head
@@ -178,15 +182,21 @@ def multihead_attention(
     if impl == "auto":
         impl = "pallas" if card else "xla"
     dropout_active = (not deterministic) and dropout_rate > 0.0 and seed is not None
-    # the gates below own the head widths; this adds what they pass and the
-    # kernels do not take (float16: the plain math under pallas) and the
-    # raise of an explicit block or flash outside the kernels' domain
-    if extra_bias is None and card and impl != "xla" and not block_attention.kernel_takes(q):
-        if impl != "pallas":
+    # the gates below own the shapes; this adds what they pass and the
+    # kernels do not take (float16; a flash width past 128 that is not a
+    # multiple of 128): the plain math under pallas, and the raise of an
+    # explicit block or flash
+    if extra_bias is None and card and impl != "xla":
+        takes = {"block": block_attention.kernel_takes(q),
+                 "flash": block_attention.flash_kernel_takes(q)}
+        if impl == "pallas":
+            if not (takes["block"] or takes["flash"]):
+                impl = "xla"
+        elif not takes[impl]:
+            widths = ("a multiple of 8 up to 128" if impl == "block"
+                      else "below 128 or a multiple of 128")
             raise ValueError(f"multihead_attention: impl={impl!r} on the card takes head widths "
-                             f"a multiple of 8 up to 128 in float32 or bfloat16, got q "
-                             f"{tuple(q.shape)} {q.dtype}")
-        impl = "xla"
+                             f"{widths} in float32 or bfloat16, got q {tuple(q.shape)} {q.dtype}")
     if extra_bias is None and impl != "xla":
         block = impl in ("pallas", "block") and block_attention.supported(
             q, k, v, causal=causal, causal_offset=causal_offset)

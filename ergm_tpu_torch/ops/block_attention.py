@@ -15,12 +15,18 @@ forward and backward launch the hand-written kernels of
 raise; on CPU tensors it runs ``block_mha_reference``, the same math in
 differentiable plain torch.
 
-Head widths: the card takes every head width of JAX's gate, a multiple
-of 8 up to 128, in float32 and bfloat16 (``kernel_takes``). The kernels
-are built for ``HEAD_DIMS``; ``block_mha`` pads q, k and v with zero
-columns to the next of them (``head_width``) and slices the output back,
-with the softmax scale of the true width: the zero columns add nothing
-to q·kᵀ, and their output and gradient columns are dropped.
+Head widths, in float32 and bfloat16: the card takes every head width of
+JAX's block gate, a multiple of 8 up to 128 (``head_ok``, with dropout),
+and every width of JAX's flash domain, the widths JAX's library kernel
+takes: any below 128 and any multiple of 128 (``flash_head_ok``, without
+dropout). The kernels are built for ``HEAD_DIMS``; below 128
+``block_mha`` pads q, k and v with zero columns to the next of them
+(``head_width``) and slices the output back, with the softmax scale of
+the true width: the zero columns add nothing to q·kᵀ, and their output
+and gradient columns are dropped. A multiple of 128 above it runs as it
+is, in column groups of 128 (the note at the top of the CUDA source).
+Above 128, a width that is not a multiple of 128 is in neither domain
+(JAX's library kernel raises there).
 """
 
 from __future__ import annotations
@@ -49,16 +55,30 @@ def head_ok(D: int) -> bool:
     return 8 <= D <= 128 and D % 8 == 0
 
 
+def flash_head_ok(D: int) -> bool:
+    """The head widths of JAX's flash domain, those its library kernel
+    takes, which the kernels take without dropout: any below 128 and any
+    multiple of 128."""
+    return 1 <= D < 128 or (D >= 128 and D % 128 == 0)
+
+
 def kernel_takes(q) -> bool:
-    """Whether the kernels take q's head width and dtype (float32 or
-    bfloat16; float16, which JAX's kernels take, is not ported)."""
+    """Whether the kernels take q inside JAX's block gate: its head width
+    and dtype (float32 or bfloat16; float16, which JAX's kernels take and
+    no path of ``ergm_tpu`` reaches, is not ported)."""
     return head_ok(q.shape[-1]) and q.dtype in _DTYPE_CODE
 
 
+def flash_kernel_takes(q) -> bool:
+    """Whether the kernels take q inside JAX's flash gate: ``flash_head_ok``
+    and the dtype."""
+    return flash_head_ok(q.shape[-1]) and q.dtype in _DTYPE_CODE
+
+
 def head_width(D: int) -> int:
-    """The width of the kernel that runs head width ``D``: the least of
-    HEAD_DIMS at or above it."""
-    return next(w for w in HEAD_DIMS if w >= D)
+    """The width the kernels run head width ``D`` at: below 128 the least
+    of HEAD_DIMS at or above it, else ``D`` itself."""
+    return D if D > 128 else next(w for w in HEAD_DIMS if w >= D)
 
 
 def supported(q, k, v, *, causal: bool, causal_offset=0) -> bool:
@@ -78,10 +98,11 @@ def flash_supported(q, k, v, *, causal: bool, causal_offset=0,
     """JAX's flash gate (``flash_attention_supported``) without its TPU
     check: no dropout, Lq >= 128, Lq and Lk multiples of 128 of any size,
     and when causal Lq <= Lk with an offset of 0 (query i sees keys <= i);
-    and the kernels' head widths, a multiple of 8 up to 128 (JAX's library
-    kernel takes any: wider or other heads are not ported)."""
+    and the head widths JAX's library kernel takes (``flash_head_ok``: JAX's
+    gate passes the others, where the library raises)."""
     lq, lk = q.shape[2], k.shape[2]
-    if dropout_active or not head_ok(q.shape[-1]) or lq < 128 or lq % 128 or lk % 128:
+    if (dropout_active or not flash_head_ok(q.shape[-1]) or lq < 128 or lq % 128
+            or lk % 128):
         return False
     return not (causal and (lq > lk or int(causal_offset) != 0))
 
@@ -242,8 +263,9 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     problem's masks with a folded seed and the global head count). The
     card takes the shapes of either gate (``supported``, or
     ``flash_supported`` without dropout), at every head width a multiple
-    of 8 up to 128 (padded to ``head_width(Dh)``). Returns [B, H, Lq, Dh];
-    on the card a view of [B, Lq, H, Dh'] memory (Dh' the padded width)."""
+    of 8 up to 128 and, without dropout, at the widths of ``flash_head_ok``
+    (padded to ``head_width(Dh)``). Returns [B, H, Lq, Dh]; on the card a
+    view of [B, Lq, H, Dh'] memory (Dh' the padded width)."""
     B, H, lq, D = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -255,20 +277,20 @@ def block_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
                                    kv_mask=kv_mask, dropout_rate=dropout_rate,
                                    dropout_seed=dropout_seed,
                                    dropout_head_stride=dropout_head_stride)
-    if not head_ok(D) or k.shape[-1] != D or v.shape[-1] != D:
+    if k.shape[-1] != D or v.shape[-1] != D or not (head_ok(D) or flash_head_ok(D)):
         raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}; the kernels take one head width, a multiple of 8 "
-                         f"up to 128")
+                         f"up to 128, or without dropout any below 128 or a multiple of 128")
+    if not (supported(q, k, v, causal=causal)
+            or flash_supported(q, k, v, causal=causal, dropout_active=dropout_rate > 0.0)):
+        raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)} (causal={causal}, "
+                         f"dropout {dropout_rate}) is outside the kernel's gates")
     width = head_width(D)
     if width != D:  # differentiable: the padding's gradient is dropped
         q, k, v = (F.pad(x, (0, width - D)) for x in (q, k, v))
     _check("q", q, q, (B, H, lq, width))
     _check("k", k, q, (B, H, lk, width))
     _check("v", v, q, (B, H, lk, width))
-    if not (supported(q, k, v, causal=causal)
-            or flash_supported(q, k, v, causal=causal, dropout_active=dropout_rate > 0.0)):
-        raise ValueError(f"block_mha: q {tuple(q.shape)}, k {tuple(k.shape)} (causal={causal}, "
-                         f"dropout {dropout_rate}) is outside the kernel's gates")
     for name, m, n in (("q_mask", q_mask, lq), ("kv_mask", kv_mask, lk)):
         if m is not None and (tuple(m.shape) != (B, n) or m.device != q.device):
             raise ValueError(f"block_mha: {name} {tuple(m.shape)} on {m.device}, want "

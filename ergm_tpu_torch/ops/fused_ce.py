@@ -17,9 +17,9 @@ autograd. ``fused_lm_loss`` is the shifted, masked mean of
 over a data-parallel mesh, each data rank running the kernel on its own
 rows.
 
-Widths: the card takes every hidden width D from 1 to ``MAX_DIM``
-(JAX's kernel takes any D; the port stops at gpt2-xl's next power of
-two). The kernels take D a multiple of 64, whole 64-deep stages of their
+Widths: the card takes every hidden width D, as JAX's kernel does (GPT-2's
+family, Cerebras-GPT-2.7B's 2,560, GPT-J's 4,096). The kernels take D a
+multiple of 64, whole 64-deep stages of their
 products (a partial last stage ran the products 1.3-1.5x slower on an
 H100, PERF.md); for another D ``fused_softmax_xent`` pads h and W with
 zero columns to the next multiple of 64 (``padded_width``): the zero
@@ -38,10 +38,9 @@ from ergm_tpu_torch.ops import _build
 # launches its chunks' kernels).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-# hidden widths the card takes: 1 to MAX_DIM (GPT-2's family, gpt2 768 to
-# gpt2-xl 1,600, and every narrower width); the kernels see a multiple of
-# DIM_STEP (their products' stage depth), the wrapper pads to it
-MAX_DIM, DIM_STEP = 2048, 64
+# the kernels see hidden widths a multiple of DIM_STEP (their products'
+# stage depth); the wrapper pads every other width to it
+DIM_STEP = 64
 # vocab columns per backward chunk by default (a multiple of the kernels'
 # 256-column tile); its bf16 scratch is [N rounded up to 128, CHUNK],
 # 403 MB at N = 24,576
@@ -50,16 +49,11 @@ _TILE_V = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def width_ok(D: int) -> bool:
-    """Whether the card takes hidden width ``D`` (padded to
-    ``padded_width(D)`` for the kernels)."""
-    return 1 <= D <= MAX_DIM
-
-
 def kernel_takes(hidden: torch.Tensor) -> bool:
-    """Whether the kernels take ``hidden`` [N, D]: ``width_ok(D)``, in
-    float32 or bfloat16 (float16 is not ported)."""
-    return width_ok(hidden.shape[-1]) and hidden.dtype in _DTYPE_CODE
+    """Whether the kernels take ``hidden`` [N, D]: every width D (run at
+    ``padded_width(D)``), as JAX's kernel, in float32 or bfloat16 (float16,
+    which no path of ``ergm_tpu`` reaches, is not ported)."""
+    return hidden.dtype in _DTYPE_CODE
 
 
 def padded_width(D: int) -> int:
@@ -99,9 +93,6 @@ def _check(hidden, wte, labels):
     if hidden.dim() != 2 or wte.dim() != 2 or wte.shape[1] != hidden.shape[1]:
         raise ValueError(f"fused_softmax_xent: hidden {tuple(hidden.shape)}, wte "
                          f"{tuple(wte.shape)}; want [N, D] and [V, D]")
-    if not width_ok(hidden.shape[1]):
-        raise ValueError(f"fused_softmax_xent: D={hidden.shape[1]}; the kernels take D up "
-                         f"to {MAX_DIM}")
     if labels.shape != hidden.shape[:1]:
         raise ValueError(f"fused_softmax_xent: labels {tuple(labels.shape)}, want "
                          f"[{hidden.shape[0]}]")

@@ -4,7 +4,11 @@ to on the card: ``tests/fixtures/large_agreement.json`` for
 ``AGREEMENT`` (gpt2-large's published width, n_embd 1,280, 20 heads,
 n_inner 5,120, at ``AGREEMENT["n_layer"]`` of its 36 layers) or, with
 ``--recipe=gpt2``, ``tests/fixtures/gpt2_agreement.json`` for
-``GPT2_AGREEMENT`` (gpt2 at its published width and all 12 layers).
+``GPT2_AGREEMENT`` (gpt2 at its published width and all 12 layers) or,
+with ``--recipe=cerebras-2.7b``,
+``tests/fixtures/cerebras_2p7b_agreement.json`` for
+``CEREBRAS_2P7B_AGREEMENT`` (Cerebras-GPT-2.7B's published widths, n_embd
+2,560, 32 heads of 80, n_inner 10,240, at 2 of its 32 layers).
 
 fp32 on the CPU, dropout 0, GPT-2's vocabulary. It records:
 
@@ -16,9 +20,10 @@ fp32 on the CPU, dropout 0, GPT-2's vocabulary. It records:
 - the LM loss of the recipe's ``steps`` AdamW steps (constant rate
   ``lr``, optax's defaults) on one batch.
 
-Run from the repository root on a CPU (a few minutes, ~4 GB each):
+Run from the repository root on a CPU (a few minutes, ~4 GB each; the
+Cerebras recipe ~1 min):
 
-    JAX_PLATFORMS=cpu python scripts/large_agreement.py [--recipe=gpt2]
+    JAX_PLATFORMS=cpu python scripts/large_agreement.py [--recipe=gpt2|cerebras-2.7b]
 """
 
 from __future__ import annotations
@@ -41,20 +46,17 @@ from ergm_tpu.core.config import ModelConfig  # noqa: E402
 from ergm_tpu.infer import generate as jgen  # noqa: E402
 from ergm_tpu.models import gpt2 as jg  # noqa: E402
 from ergm_tpu.train import steps as jsteps  # noqa: E402
-from ergm_tpu_torch.models.seeded import (AGREEMENT, GPT2_AGREEMENT, MARGIN,  # noqa: E402
+from ergm_tpu_torch.models.seeded import (AGREEMENT, CEREBRAS_2P7B_AGREEMENT,  # noqa: E402
+                                          GPT2_AGREEMENT, MARGIN, agreement_config,
                                           agreement_inputs, seeded_tree)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
                         "fixtures")
 # --recipe: (the recipe, its name in seeded.py, the fixture it writes)
 RECIPES = {"large": (AGREEMENT, "AGREEMENT", "large_agreement.json"),
-           "gpt2": (GPT2_AGREEMENT, "GPT2_AGREEMENT", "gpt2_agreement.json")}
-
-
-def config(a: dict) -> ModelConfig:
-    return ModelConfig.from_model_type(a["model_type"], n_layer=a["n_layer"],
-                                       vocab_size=a["vocab_size"], dtype="float32",
-                                       embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
+           "gpt2": (GPT2_AGREEMENT, "GPT2_AGREEMENT", "gpt2_agreement.json"),
+           "cerebras-2.7b": (CEREBRAS_2P7B_AGREEMENT, "CEREBRAS_2P7B_AGREEMENT",
+                             "cerebras_2p7b_agreement.json")}
 
 
 def decision_logits(params, cfg, req: dict, tokens: np.ndarray, max_len: int,
@@ -92,7 +94,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--recipe", choices=sorted(RECIPES), default="large")
     a, name, fixture_name = RECIPES[ap.parse_args().recipe]
-    cfg = config(a)
+    cfg = agreement_config(ModelConfig, a)
     out_path = os.path.join(FIXTURES, fixture_name)
     t0 = time.time()
     tree = seeded_tree(cfg, a["seed"])

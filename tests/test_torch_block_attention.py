@@ -88,18 +88,22 @@ def test_plain_k5_matches_jax_at_head_widths(d):
         np.testing.assert_allclose(a, b, atol=5e-5, rtol=5e-5)
 
 
-@pytest.mark.parametrize("d", [8, 24, 40])
+@pytest.mark.parametrize("d", [8, 24, 40, 100])
 def test_head_width_padding_is_exact(d):
     """What ``block_mha`` does on the card at a head width it has no kernel
-    for: q, k and v zero-padded to ``head_width(d)`` (32, 32, 64) through
-    the plain version with the true width's scale, causal with masks and
-    dropout 0.1, give the unpadded problem's output in their first d
+    for: q, k and v zero-padded to ``head_width(d)`` (32, 32, 64; 128 for
+    JAX's flash width 100, without dropout) through the plain version with
+    the true width's scale, causal with masks and dropout 0.1 inside the
+    block gate, give the unpadded problem's output in their first d
     columns, zeros in the rest, and its gradients through the padding."""
     width = tba.head_width(d)
-    assert width in tba.HEAD_DIMS and width >= d and tba.kernel_takes(torch.zeros(1, d))
+    x = torch.zeros(1, d)
+    assert width in tba.HEAD_DIMS and width >= d
+    assert tba.kernel_takes(x) if d % 8 == 0 else tba.flash_kernel_takes(x)
+    rate = 0.1 if tba.head_ok(d) else 0.0
     q, k, v, g, kv_mask, q_mask = (torch.from_numpy(x) for x in _inputs(
         np.random.default_rng(20 + d), d=d))
-    kw = dict(causal=True, scale=d ** -0.5, q_mask=q_mask, kv_mask=kv_mask, dropout_rate=0.1,
+    kw = dict(causal=True, scale=d ** -0.5, q_mask=q_mask, kv_mask=kv_mask, dropout_rate=rate,
               dropout_seed=SEED)
     runs = []
     for pad in (False, True):
@@ -113,14 +117,18 @@ def test_head_width_padding_is_exact(d):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("d", [8, 32, 64, 128, 136])
+@pytest.mark.parametrize("d", [8, 32, 64, 128, 136, 100, 200, 256])
 def test_auto_routes_follow_the_kernels_head_widths(monkeypatch, d):
     """On the card (stood in here by ``core.device.on_card``), ``auto``
-    sends self-attention inside JAX's block gate to K5 and JAX's flash
-    shapes (K7) to K5 at every head width the kernel takes (a multiple of
-    8 up to 128), and the plain math beyond it (136), where an explicit
-    ``block`` or ``flash`` raises and ``pallas`` takes the plain math;
-    float16, which the kernel does not take, gets the plain math too."""
+    sends self-attention inside JAX's block gate to K5 at its head widths
+    (a multiple of 8 up to 128) and every dropout-free shape of JAX's
+    flash gate (K7) to K5 at the library kernel's head widths (any below
+    128, any multiple of 128: 100 reaches K5 on both shapes through the
+    flash gate, 256 too); beyond both (136, 200) it takes the plain math,
+    where an explicit ``block`` or ``flash`` raises and ``pallas`` takes the
+    plain math. An explicit ``block`` raises at 100 and 256, outside the
+    block gate's widths. float16, which the kernel does not take, gets
+    the plain math."""
     calls = []
     real = tba.block_mha
 
@@ -135,11 +143,15 @@ def test_auto_routes_follow_the_kernels_head_widths(monkeypatch, d):
     flash = torch.from_numpy(rng.standard_normal((1, 1, 1152, d)).astype(np.float32))
     for x in (block, flash):
         tat.multihead_attention(x, x, x, causal=True, impl="auto")
-    assert len(calls) == (2 if d <= 128 else 0)
-    if d > 128:
-        for impl, x in (("block", block), ("flash", flash)):
-            with pytest.raises(ValueError, match="multiple of 8 up to 128"):
-                tat.multihead_attention(x, x, x, causal=True, impl=impl)
+    kernel = tba.head_ok(d) or tba.flash_head_ok(d)
+    assert kernel == (d not in (136, 200))
+    assert len(calls) == (2 if kernel else 0)
+    if not tba.head_ok(d):
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            tat.multihead_attention(block, block, block, causal=True, impl="block")
+    if not kernel:
+        with pytest.raises(ValueError, match="below 128 or a multiple of 128"):
+            tat.multihead_attention(flash, flash, flash, causal=True, impl="flash")
         tat.multihead_attention(block, block, block, causal=True, impl="pallas")
         assert not calls
     else:
@@ -232,21 +244,24 @@ def _leftpad(b, lk, pads):
     return m
 
 
-@pytest.mark.parametrize("lq,lk", [(1152, 1152), (128, 256)])
-def test_plain_k5_matches_jax_on_flash_shapes(lq, lk):
+@pytest.mark.parametrize("lq,lk,d", [(1152, 1152, D), (128, 256, D), (128, 256, 100),
+                                     (128, 256, 200), (128, 256, 256)])
+def test_plain_k5_matches_jax_on_flash_shapes(lq, lk, d):
     """K7's shapes, causal at offset 0 with a left-pad key mask: K5's
     plain version (padded query rows masked as their keys are) against
     what JAX's ``multihead_attention(impl="pallas")`` runs off the TPU,
-    the plain math. Real rows' outputs within 2e-5; dQ, dK and dV against
-    ``jax.vjp`` within 5e-5, with the cotangent zero on padded rows (JAX's
-    flash kernel leaves junk there, K5 zeros)."""
-    rng = np.random.default_rng(5)
+    the plain math, at head widths 64 and JAX's flash widths past the
+    block gate (100, 256; 200, where the card takes the plain math too).
+    Real rows' outputs within 2e-5; dQ, dK and dV against ``jax.vjp``
+    within 5e-5, with the cotangent zero on padded rows (JAX's flash
+    kernel leaves junk there, K5 zeros)."""
+    rng = np.random.default_rng(5 + d)
     b = 1 if lq > 1024 else 2
-    q = rng.standard_normal((b, 2, lq, D)).astype(np.float32)
-    k, v = (rng.standard_normal((b, 2, lk, D)).astype(np.float32) for _ in range(2))
+    q = rng.standard_normal((b, 2, lq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, 2, lk, d)).astype(np.float32) for _ in range(2))
     kv_mask = _leftpad(b, lk, [37, 0][:b])
     q_mask = kv_mask[:, :lq]
-    g = rng.standard_normal((b, 2, lq, D)).astype(np.float32) * q_mask[:, None, :, None]
+    g = rng.standard_normal((b, 2, lq, d)).astype(np.float32) * q_mask[:, None, :, None]
     assert jba.block_attention_supported(q, k, v, causal=True) is False
 
     def f(q, k, v):
@@ -277,3 +292,29 @@ def test_flash_gate_matches_jax_gate(monkeypatch, causal, lq, lk, offset, dropou
     got = tba.flash_supported(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(k),
                               causal=causal, causal_offset=offset, dropout_active=dropout)
     assert got == want
+
+
+def _library_takes(d: int) -> bool:
+    """The head-width rule of JAX's library TPU flash kernel
+    (``jax/experimental/pallas/ops/tpu/flash_attention.py``'s forward
+    body: ``divmod(head_dim, MIN_BLOCK_SIZE)`` with a remainder raises
+    ``NotImplementedError`` unless the width is below the block)."""
+    from jax.experimental.pallas.ops.tpu import flash_attention as fa
+
+    repeats, rem = divmod(d, fa.MIN_BLOCK_SIZE)
+    return not (rem and repeats)
+
+
+@pytest.mark.parametrize("d", [24, 100, 128, 136, 200, 256, 384])
+def test_flash_head_widths_match_jax_library(monkeypatch, d):
+    """``flash_supported`` at a flash-gate shape is JAX's
+    ``flash_attention_supported`` (read as if on a TPU) together with the
+    library kernel's head-width rule: where JAX's flash route runs, the
+    port's does; where the library raises (136, 200), the port's gate
+    refuses and the plain math runs."""
+    monkeypatch.setattr(jfa.jax, "default_backend", lambda: "tpu")
+    q = np.zeros((1, 1, 1152, d), np.float32)
+    want = jfa.flash_attention_supported(q, q, q, causal=True) and _library_takes(d)
+    x = torch.from_numpy(q)
+    assert tba.flash_supported(x, x, x, causal=True) == want == tba.flash_head_ok(d)
+    assert want == (d not in (136, 200))

@@ -7,6 +7,8 @@ JAX is absent. On a machine with an NVIDIA GPU:
 
 (``--noconftest`` skips tests/conftest.py, which imports JAX). Tests
 marked ``cuda`` skip without a card."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -714,16 +716,85 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
     x16 = torch.zeros((2, 2, 128, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         tba.block_mha(x16, x16, x16, causal=True)
-    for d in (136, 20):  # past 128, not a multiple of 8: outside JAX's gate
+    for d in (136, 200):  # past 128, not a multiple of 128: outside both of JAX's gates
         x = torch.zeros((2, 2, 128, d), device="cuda")
         with pytest.raises(ValueError, match="multiple of 8 up to 128"):
             tba.block_mha(x, x, x, causal=True)
+    for d in (20, 256):  # JAX's flash widths, outside its block gate: no dropout
+        x = torch.zeros((2, 2, 128, d), device="cuda")
+        with pytest.raises(ValueError, match="outside the kernel's gates"):
+            tba.block_mha(x, x, x, causal=True, dropout_rate=0.1, dropout_seed=1)
     short = torch.zeros((2, 2, 96, 64), device="cuda")
     with pytest.raises(ValueError):  # outside the gates: L=96
         tba.block_mha(short, short, short, causal=True)
     long = torch.zeros((1, 2, 2048, 64), device="cuda")
     with pytest.raises(ValueError):  # the flash gate takes no dropout
         tba.block_mha(long, long, long, causal=True, dropout_rate=0.1, dropout_seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 256, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,Lk,masks", [(True, 256, True), (True, 256, False),
+                                             (False, 128, True)])
+def test_flash_kernel_at_jax_library_widths(dtype, causal, Lk, masks, d):
+    """K7's head widths past JAX's block gate, without dropout: 100 (padded
+    to the 128-wide template) and the wide kernels at 256 and 384 (column
+    groups of 128), forward and backward against the plain version, with
+    q/kv masks and rows before the first real key, without masks, and the
+    rectangular non-causal form. fp32 with TF32 off at JAX's bars (2e-5
+    forward, 5e-5 gradients); bf16 output within 2e-2 + 1e-2 |plain|,
+    gradients as ``_grads_within``, a bar that dK without its last 32 keys
+    fails; the bf16 backward repeats bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
+    (o, *grads), (o_ref, *grads_ref), *exact = _k5_case(dtype, causal, Lk, 0.0, masks, d=d)
+    assert o.shape[-1] == d and all(x.shape[-1] == d for x in grads)
+    assert (tba.LAUNCHES, tba.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    ok, err = _within(o, o_ref, dtype, 2e-5)
+    assert ok, err
+    exact = exact[0][1:] if exact else ()
+    _grads_within(grads, grads_ref, dtype, 5e-5, exact)
+    if exact:
+        late = grads[1].clone()
+        late[:, :, -32:] = 0
+        assert _bf16_grad_ratio(late, grads_ref[1], exact[1]) > 1.0
+        (o2, *grads2), *_ = _k5_case(dtype, causal, Lk, 0.0, masks, d=d)
+        assert torch.equal(o, o2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [20, 100, 136, 200, 256, 384])
+def test_auto_never_raises_past_the_block_gate(d):
+    """``auto`` takes K5 wherever JAX's gates reach a kernel (the flash
+    domain: any head width below 128, any multiple of 128) and the plain
+    math elsewhere, with and without dropout, on a block-gate shape and a
+    flash-gate one, and never raises; an explicit ``flash`` raises at a
+    width above 128 that is not a multiple of 128 (JAX's library kernel
+    raises there) and runs the kernel elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ergm_tpu_torch.ops.attention import multihead_attention
+    g = torch.Generator().manual_seed(d)
+    kernel = tba.flash_head_ok(d)
+    for L in (256, 2048):
+        x = torch.randn((1, 2, L, d), generator=g).to("cuda", torch.bfloat16)
+        f0 = tba.LAUNCHES
+        got = multihead_attention(x, x, x, causal=True, impl="auto")
+        assert tba.LAUNCHES == f0 + kernel
+        want = tba.block_mha_reference(x, x, x, causal=True, scale=d ** -0.5)
+        ok, err = _within(got, want, torch.bfloat16, None)
+        assert ok, err
+        multihead_attention(x, x, x, causal=True, impl="auto", dropout_rate=0.1,
+                            deterministic=False, seed=3)
+        assert tba.LAUNCHES == f0 + kernel + tba.head_ok(d) * (L <= 1024)
+        if kernel:
+            multihead_attention(x, x, x, causal=True, impl="flash")
+        else:
+            with pytest.raises(ValueError, match="below 128 or a multiple of 128"):
+                multihead_attention(x, x, x, causal=True, impl="flash")
 
 
 @pytest.mark.cuda
@@ -743,7 +814,13 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
                                          (torch.bfloat16, 300, 5003, 776),
                                          (torch.float32, 300, 1000, 776),
                                          (torch.bfloat16, 200, 2181, 8),
-                                         (torch.bfloat16, 200, 2181, 2048)])
+                                         (torch.bfloat16, 200, 2181, 2048),
+                                         (torch.bfloat16, 200, 2181, 2112),
+                                         (torch.float32, 200, 1000, 2112),
+                                         (torch.bfloat16, 200, 2181, 2560),
+                                         (torch.float32, 200, 1000, 2560),
+                                         (torch.bfloat16, 130, 2181, 4096),
+                                         (torch.float32, 100, 1000, 4096)])
 def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     """K6 forward and backward against the plain version, with ignored
     labels, N not a multiple of the 128-row tile and V not a multiple of
@@ -759,8 +836,9 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
     f32 route's 256-column slices, the last one 0 or 64 wide, and 7 and 9
     overhanging dh and dW tiles); and at widths under one 64-deep stage or
     192-column tile (8, 32, 96: run at 64, 64, 128), not a multiple of 8
-    (100: at 128), gpt2's width plus 8 (776: at 832) and the widest
-    (2,048)."""
+    (100: at 128), gpt2's width plus 8 (776: at 832), 2,048, and past it,
+    where the f32 backward splits D into column groups of 2,048 (2,112;
+    Cerebras-GPT-2.7B's 2,560; GPT-J's 4,096)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -804,14 +882,15 @@ def test_fused_xent_kernel_matches_reference(dtype, N, V, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk,D", [(256, 256), (1024, 256), (8192, 256), (1024, 1600),
-                                     (1024, 100), (8192, 32), (1024, 776)])
+                                     (1024, 100), (8192, 32), (1024, 776), (1024, 2560),
+                                     (8192, 4096)])
 def test_fused_xent_backward_is_deterministic(chunk, D):
     """The bf16 backward (no atomics; chunks in order on the stream) gives
     bitwise the same dh and dW on a second run, and gradients within
     ``_bf16_grad_ratio``'s bar whatever the chunk width: one chunk,
     several, and a last chunk of 133 columns; also at gpt2-xl's width and
     at 100, 32 and 776 (padded to 128, 64 and 832, as ``fused_softmax_xent``
-    runs them)."""
+    runs them), and at 2,560 and 4,096 (14 and 22 dh/dW tiles)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     g = torch.Generator().manual_seed(7)
@@ -841,12 +920,12 @@ def test_fused_xent_backward_is_deterministic(chunk, D):
 @pytest.mark.parametrize("impl", ["auto", "fused"])
 def test_training_routes_raise_instead_of_plain_math(impl):
     """On the card the LM loss and self-attention take K6 and K5 wherever
-    the kernels take the shape: at D=96 and head dim 48 (once refused, now
-    inside their domain) under ``auto`` and the explicit route alike, each
-    result within its plain version's bar. Past the domain (D=2,112, head
-    dim 136, float16) ``auto`` gives the plain result with no launch, and
-    an explicit ``fused``, ``block`` or ``flash`` raises rather than
-    compute the plain math on the card."""
+    the kernels take the shape: at D=96 and 2,112 and head dim 48 (once
+    refused, now inside their domain) under ``auto`` and the explicit route
+    alike, each result within its plain version's bar. Past the domain
+    (head dim 136, float16) ``auto`` gives the plain result with no launch,
+    and an explicit ``block`` or ``flash`` raises rather than compute the
+    plain math on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from ergm_tpu_torch.ops.attention import multihead_attention
@@ -860,16 +939,12 @@ def test_training_routes_raise_instead_of_plain_math(impl):
         labels = torch.randint(0, 64, (2, 8), generator=g).cuda()
         want = tg.chunked_lm_loss(hidden, params.wte.embedding, labels, chunk=cfg.loss_chunk)
         f0 = tce.LAUNCHES
-        if d == 2112 and impl == "fused":
-            with pytest.raises(ValueError, match="D=2112"):
-                tg.lm_loss(hidden, params, cfg, labels)
-            continue
         got = tg.lm_loss(hidden, params, cfg, labels)
-        assert tce.LAUNCHES == f0 + (d <= 2048)
+        assert tce.LAUNCHES == f0 + 1
         assert abs(float(got.detach()) - float(want)) <= 1e-5 * abs(float(want))
-        with torch.no_grad():  # an eval step in bf16 (cuBLAS with an f32 output)
+        with torch.no_grad():  # an eval step in bf16
             got = tg.lm_loss(hidden.bfloat16(), params, cfg, labels)
-        assert tce.LAUNCHES == f0 + 2 * (d <= 2048)
+        assert tce.LAUNCHES == f0 + 2
         assert abs(float(got) - float(want)) <= 1e-2 * abs(float(want))
     x = torch.randn((2, 2, 128, 48), generator=g).cuda()
     f0 = tba.LAUNCHES
@@ -886,8 +961,10 @@ def test_training_routes_raise_instead_of_plain_math(impl):
             want = multihead_attention(y, y, y, causal=True, impl="xla")
             assert tba.LAUNCHES == f0 + 1 and torch.equal(got, want)
     else:
-        for y, route in ((wide, "block"), (long, "flash"), (half, "block")):
-            with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        for y, route, widths in ((wide, "block", "multiple of 8 up to 128"),
+                                 (long, "flash", "below 128 or a multiple of 128"),
+                                 (half, "block", "multiple of 8 up to 128")):
+            with pytest.raises(ValueError, match=widths):
                 multihead_attention(y, y, y, causal=True, impl=route)
         with pytest.raises(TypeError):
             tce.fused_softmax_xent(half[0, 0], half[0, 0], torch.zeros((128,), dtype=torch.int64,
@@ -899,10 +976,12 @@ def test_fused_xent_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     lbl = torch.zeros((8,), dtype=torch.int64, device="cuda")
-    for d in (2112, 4096):  # above 2048
-        with pytest.raises(ValueError, match=f"D={d}"):
-            tce.fused_softmax_xent(torch.zeros((8, d), device="cuda"),
-                                   torch.zeros((16, d), device="cuda"), lbl)
+    for d in (2112, 4096):  # above 2048, refused before K6 took every width: taken
+        f0 = tce.LAUNCHES
+        nll = tce.fused_softmax_xent(torch.zeros((8, d), device="cuda"),
+                                     torch.zeros((16, d), device="cuda"), lbl)
+        torch.testing.assert_close(nll, torch.full((8,), math.log(16.0), device="cuda"))
+        assert tce.LAUNCHES == f0 + 1
     with pytest.raises(TypeError):  # mixed dtypes
         tce.fused_softmax_xent(torch.zeros((8, 128), device="cuda"),
                                torch.zeros((16, 128), device="cuda", dtype=torch.bfloat16), lbl)

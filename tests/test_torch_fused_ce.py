@@ -63,10 +63,12 @@ def test_plain_k6_gradients_match_jax():
     assert float(th.grad[3].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("d", [100, 776])
+@pytest.mark.parametrize("d", [100, 776, 2112, 2560])
 def test_plain_k6_gradients_match_jax_at_other_widths(d):
     """dh and dW against JAX's backward kernels at widths JAX takes as one
-    block and the card runs padded (100 -> 128, 776 -> 832)."""
+    block and the card runs padded (100 -> 128, 776 -> 832) or as they are
+    past 2,048 (2,112; Cerebras-GPT-2.7B's 2,560, where the f32 backward
+    splits D into two column groups)."""
     rng = np.random.default_rng(d)
     n, v = 16, 300
     h = rng.standard_normal((n, d)).astype(np.float32)
@@ -87,14 +89,16 @@ def test_plain_k6_gradients_match_jax_at_other_widths(d):
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jw), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("d", [36, 100])
+@pytest.mark.parametrize("d", [36, 100, 2112, 2560, 2600])
 def test_width_padding_is_exact(d):
     """What ``fused_softmax_xent`` does on the card at a width the kernels
     do not take as it is: h and W zero-padded to ``padded_width(d)`` (64,
-    128) through the plain version give the unpadded NLL and, through the
-    padding, its gradients."""
+    128, 2,624) through the plain version give the unpadded NLL and,
+    through the padding, its gradients; 2,112 and 2,560, multiples of 64,
+    run as they are."""
     width = tce.padded_width(d)
-    assert width % tce.DIM_STEP == 0 and d < width < d + tce.DIM_STEP
+    assert width % tce.DIM_STEP == 0 and d <= width < d + tce.DIM_STEP
+    assert (width == d) == (d % tce.DIM_STEP == 0)
     rng = np.random.default_rng(d)
     h, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             for s in ((24, d), (300, d)))
@@ -111,11 +115,12 @@ def test_width_padding_is_exact(d):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [32, 96, 100, 2048, 2112])
+@pytest.mark.parametrize("d", [32, 96, 100, 2048, 2112, 2560])
 def test_auto_lm_loss_routes_k6_by_width(monkeypatch, d):
     """On the card (stood in here by ``core.device.on_card``), the LM loss
-    under ``auto`` takes K6 at every width up to 2,048 and the chunked loss
-    beyond it; float16, which K6 does not take, the chunked loss too."""
+    under ``auto`` takes K6 at every width, as JAX's kernel (2,112 and
+    2,560 too, past the old 2,048 cap); float16, which K6 does not take
+    and no path of ``ergm_tpu`` reaches, the chunked loss."""
     calls = []
     real = tce.fused_lm_loss
 
@@ -133,10 +138,10 @@ def test_auto_lm_loss_routes_k6_by_width(monkeypatch, d):
     labels = torch.from_numpy(rng.integers(0, 40, (2, 6)))
     want = chunked_lm_loss(hidden, wte, labels, chunk=cfg.loss_chunk)
     got = tg.lm_loss(hidden, params, cfg, labels)
-    assert len(calls) == (1 if d <= 2048 else 0)
+    assert len(calls) == 1
     assert abs(float(got) - float(want)) <= 1e-5
     tg.lm_loss(hidden.half(), params, cfg, labels)
-    assert len(calls) == (1 if d <= 2048 else 0)
+    assert len(calls) == 1
 
 
 def test_ignored_labels_get_zero_gradient_without_masking():

@@ -11,9 +11,12 @@ at its published width over a 512-token vocabulary, weights from
 and every gradient within 1e-4, and greedy serving (int8 KV and caption
 caches) replayed teacher-forced, the port's tokens equal to
 JAX's wherever JAX's top-2 margin exceeds 1e-3; the command line's
-``--model_type`` recipes give JAX's configs. The full-width agreement at
-gpt2-large's width and depth cut is held on the card by ``chip_smoke.py``
-against ``tests/fixtures/large_agreement.json``; here only the fixture's
+``--model_type`` recipes give JAX's configs. The same for one layer at
+Cerebras-GPT-2.7B's head width (80) with a narrowed D, built through the
+constructor as 2.7B's config is. The full-width agreements at gpt2-large's
+and Cerebras-GPT-2.7B's widths are held on the card by ``chip_smoke.py``
+against ``tests/fixtures/large_agreement.json`` and
+``tests/fixtures/cerebras_2p7b_agreement.json``; here only the fixtures'
 form is checked.
 """
 import dataclasses
@@ -34,7 +37,7 @@ from ergm_tpu.models import gpt2 as jg
 from ergm_tpu.ops.fused_ce import fused_softmax_xent as jax_xent
 from ergm_tpu.train import steps as jsteps
 from ergm_tpu_torch.cli import main as tcli
-from ergm_tpu_torch.core.config import ModelConfig
+from ergm_tpu_torch.core.config import GPT2_SIZES, ModelConfig
 from ergm_tpu_torch.infer import generate as tgen
 from ergm_tpu_torch.models import gpt2 as tg
 from ergm_tpu_torch.models import seeded
@@ -48,13 +51,20 @@ torch.set_num_threads(1)
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                        "large_agreement.json")
 FAMILY = ["gpt2-large", "gpt2-xl"]
+# Cerebras-GPT-2.7B's head width (80) and MLP ratio (n_inner = 4 D) at a
+# narrowed D, through the constructor as models/seeded.py's 2.7B config
+CEREBRAS_NARROW = "cerebras-2.7b-heads"
+NARROW = dict(n_embd=320, n_head=4, n_inner=1280)
 
 
 def _one_layer(model_type, **kw):
-    """The model's published width at one layer over a 512-token vocabulary,
-    fp32, dropout 0: (JAX's config, the port's)."""
+    """The model's published width (``CEREBRAS_NARROW``: 2.7B's head width at
+    a narrowed D) at one layer over a 512-token vocabulary, fp32, dropout 0:
+    (JAX's config, the port's)."""
     kw = dict(n_layer=1, vocab_size=512, n_positions=128, dtype="float32", embd_pdrop=0.0,
               attn_pdrop=0.0, resid_pdrop=0.0, **kw)
+    if model_type == CEREBRAS_NARROW:
+        return JaxConfig(**NARROW, **kw), ModelConfig(**NARROW, **kw)
     return (JaxConfig.from_model_type(model_type, **kw),
             ModelConfig.from_model_type(model_type, **kw))
 
@@ -86,15 +96,19 @@ def test_plain_k6_matches_jax_at_family_widths(d):
 
 
 def test_k6_takes_the_family_widths():
-    """The card's width rule: every D from 1 to 2,048 (JAX's kernel takes
-    any D), so each GPT-2 preset's n_embd; the kernels run D at the next
-    multiple of 64; what lies past 2,048 still raises on the card."""
-    assert all(tce.width_ok(ModelConfig.from_model_type(m).n_embd)
-               for m in ("distilgpt2", "gpt2", "gpt2-medium", *FAMILY))
-    widths = (1, 32, 64, 96, 100, 192, 1632, 2048, 2112)
-    assert [d for d in widths if tce.width_ok(d)] == list(widths[:-1])
+    """The card's width rule: every D, as JAX's kernel takes any D, so each
+    GPT-2 preset's n_embd and Cerebras-GPT's 2,560, 4,096 and 5,120 (past
+    the 2,048 cap K6 had before); the kernels run D at the next multiple of
+    64."""
+    presets = [ModelConfig.from_model_type(m).n_embd
+               for m in ("distilgpt2", "gpt2", "gpt2-medium", *FAMILY)]
+    widths = (1, 32, 64, 96, 100, 192, 1632, 2048, 2112, 2560, 2600, 4096, 5120)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert all(tce.kernel_takes(torch.zeros((1, d), dtype=dtype))
+                   for d in (*presets, *widths))
+    assert not tce.kernel_takes(torch.zeros((1, 2560), dtype=torch.float16))
     assert [tce.padded_width(d) for d in widths] == [64, 64, 64, 128, 128, 192, 1664, 2048,
-                                                     2112]
+                                                     2112, 2560, 2624, 4096, 5120]
 
 
 @pytest.mark.parametrize("model_type", FAMILY)
@@ -112,7 +126,7 @@ def test_seeded_tree_has_jax_layout(model_type):
                                                       jax.tree_util.tree_leaves(again)))
 
 
-@pytest.mark.parametrize("model_type", FAMILY)
+@pytest.mark.parametrize("model_type", [*FAMILY, CEREBRAS_NARROW])
 def test_train_step_matches_jax(model_type):
     """The train step's joint loss and every parameter's gradient at the
     model's width, through K6's plain version (``lm_loss_impl="fused"``:
@@ -133,7 +147,7 @@ def test_train_step_matches_jax(model_type):
         np.testing.assert_allclose(p.grad.numpy(), want[name], atol=1e-4, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("model_type", FAMILY)
+@pytest.mark.parametrize("model_type", [*FAMILY, CEREBRAS_NARROW])
 def test_greedy_tokens_match_jax(model_type):
     """Greedy serving at the model's width (int8 KV and caption caches):
     JAX's tokens replayed teacher-forced through both
@@ -230,6 +244,35 @@ def test_gpt2_agreement_fixture_matches_its_recipe():
         k: v for k, v in seeded.AGREEMENT.items() if k not in ("model_type", "n_layer")}
     assert {k: fx["config"][k] for k in ("n_embd", "n_head", "n_layer")} == {
         "n_embd": 768, "n_head": 12, "n_layer": 12}
+    assert np.asarray(fx["tokens"]).shape == np.asarray(fx["margins"]).shape == (
+        a["rows"], a["new"])
+    assert len(fx["lengths"]) == a["rows"] and len(fx["lm_losses"]) == a["steps"]
+    assert np.asarray(fx["emotion_logits"]).shape == (a["rows"], 7)
+    assert all(np.isfinite(fx["lm_losses"])) and os.path.getsize(path) < 100_000
+
+
+def test_cerebras_agreement_fixture_matches_its_recipe():
+    """The Cerebras fixture (``scripts/large_agreement.py
+    --recipe=cerebras-2.7b``) was written for ``seeded.CEREBRAS_2P7B_AGREEMENT``
+    as it stands: Cerebras-GPT-2.7B's published widths (n_embd 2,560, 32
+    heads of 80, n_inner 10,240, n_positions 2,048) through the
+    constructor, not a preset, at 2 of its 32 layers, the large recipe's
+    rows, steps and sizes, a token, a margin and a length for every
+    decision of every row and finite losses."""
+    path = os.path.join(os.path.dirname(FIXTURE), "cerebras_2p7b_agreement.json")
+    with open(path) as f:
+        fx = json.load(f)
+    a = seeded.CEREBRAS_2P7B_AGREEMENT
+    assert fx["agreement"] == a
+    assert {k: v for k, v in a.items() if k not in ("model_type", "n_layer", "widths")} == {
+        k: v for k, v in seeded.AGREEMENT.items() if k not in ("model_type", "n_layer")}
+    assert a["widths"] == seeded.CEREBRAS_2P7B == {"n_embd": 2560, "n_head": 32,
+                                                   "n_inner": 10240, "n_positions": 2048}
+    cfg = seeded.agreement_config(ModelConfig, a)
+    assert a["model_type"] not in GPT2_SIZES and cfg.head_dim == 80 and cfg.n_layer == 2
+    assert {k: fx["config"][k] for k in ("n_embd", "n_head", "n_layer", "n_inner",
+                                         "n_positions")} == {
+        "n_embd": 2560, "n_head": 32, "n_layer": 2, "n_inner": 10240, "n_positions": 2048}
     assert np.asarray(fx["tokens"]).shape == np.asarray(fx["margins"]).shape == (
         a["rows"], a["new"])
     assert len(fx["lengths"]) == a["rows"] and len(fx["lm_losses"]) == a["steps"]
