@@ -361,10 +361,12 @@ Phases, each of which raises on failure:
    (N=1,024; the f32 backward in column groups of 2,048), at the bars of
    phase 17, with the bf16 backward twice bit for bit at 2,560. (b) K7 at
    [2, 16, 2048, Dh], causal, left pads, no dropout, for Dh = 100 (padded to
-   the 128-wide template), 256 and 384 (the wide kernels), fp32 and bf16,
-   forward and backward against the plain version at the bars of phase 10,
-   with SDPA's times and the bound; at Dh = 200 ``auto`` takes the plain
-   math and ``flash`` raises. (c) Cerebras-GPT-2.7B's published widths
+   the 128-wide template), 256 and 384 (in bf16 the one-pass kernels, held
+   to ``flash_mha_reference``, JAX's library flash arithmetic; the
+   kernels' ptxas registers and spills printed), fp32 and bf16, forward
+   and backward against the plain version at the bars of phase 10, with
+   SDPA's times and the bound; at Dh = 200 ``auto`` takes the plain math
+   and ``flash`` raises. (c) Cerebras-GPT-2.7B's published widths
    (``models/seeded.py::CEREBRAS_2P7B``: 2,560 wide, 32 heads of 80,
    n_inner 10,240, through ``ModelConfig``'s constructor) at 8 of its 32
    layers: K3 and K4 at its width and the serving shapes, then ``Trainer``
@@ -1381,8 +1383,13 @@ def _k5_bwd_jax(args) -> list:
     scores, pn and dpn in f32 from the bf16 operands, delta = rowsum(pn *
     dpn), ds = pn * (dpn - delta) and the dropped pn rounded to the
     operands' dtype, f32 products, the results rounded. ds is 0 where a key
-    is masked (the where's derivative), as in K5 and the autograd twin."""
-    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed, stride = _k5_bwd_args(args)
+    is masked (the where's derivative), as in K5 and the autograd twin.
+    Where the launch runs the one-pass kernels (``flash_route``), JAX's
+    library flash backward instead (``flash_attention.py::_flash_attention_bwd``
+    and its kernels): delta = rowsum(o * dO) in f32 from the forward's
+    output, ds = pn * (dpn - delta) * scale rounded."""
+    q, k, v, o, _, qm, kbits, _, do, scale, causal, rate, seed, stride = _k5_bwd_args(args)
+    flash = block_attention.flash_route(q.shape[-1], q.dtype) and rate == 0.0
     B, H, L, _ = q.shape
     lk = k.shape[2]
     mask = _k5_key_mask(kbits, lk)[:, None, None, :].bool()
@@ -1398,8 +1405,13 @@ def _k5_bwd_jax(args) -> list:
         keep = dropout_keep(seed, B, H, L, lk, rate, device=q.device, head_stride=stride)
         dpn = torch.where(keep, dpn / (1.0 - rate), 0.0)
         pv = torch.where(keep, pn / (1.0 - rate), 0.0)
-    delta = (pn * dpn).sum(-1, keepdim=True)
-    ds = torch.where(mask, pn * (dpn - delta), 0.0).to(q.dtype).float()
+    if flash:
+        delta = (o.float() * f[3]).sum(-1, keepdim=True)
+        ds = torch.where(mask, pn * (dpn - delta) * scale, 0.0).to(q.dtype).float()
+        scale = 1.0
+    else:
+        delta = (pn * dpn).sum(-1, keepdim=True)
+        ds = torch.where(mask, pn * (dpn - delta), 0.0).to(q.dtype).float()
     return [(ds @ f[1] * scale).to(q.dtype), (ds.transpose(-1, -2) @ f[0] * scale).to(q.dtype),
             (pv.to(q.dtype).float().transpose(-1, -2) @ f[3]).to(q.dtype)]
 
@@ -1462,14 +1474,16 @@ class KernelShadow:
     kernel's and the plain version's ratios against it are kept too
     (``readings``), unchecked. The plain versions add to no count; the
     kernels' own launches in such a run are not the path's. ``kernels``:
-    (module, wrapper name, rows or None); K2, K3 and K4 by default.
+    (module, wrapper name, rows or None[, plain version: by default the
+    module's ``<name>_reference``]); K2, K3 and K4 by default.
     ``backward``: (module, count name, plain, exact, rows, also or None)."""
 
     KERNELS = ((decode_attention, "decode_mha_int8", None),
                (cross_decode, "fused_cross_decode", None), (fused_decode, "fused_ln_mlp", None))
     # the server's path: K1 (both forms), K5 and K4
     SERVER = ((prefill_attention, "prefill_mha", _k1_rows),
-              (block_attention, "block_mha", _k5_rows), (fused_decode, "fused_ln_mlp", None))
+              (block_attention, "block_mha", _k5_rows, block_attention.kernel_reference),
+              (fused_decode, "fused_ln_mlp", None))
     # the training path's backward launches, each against JAX's backward
     # arithmetic (the TPU kernel's) and read against the autograd of its
     # forward's plain version: K5 with dQ on the rows of real queries; K6
@@ -1489,9 +1503,10 @@ class KernelShadow:
 
     def __enter__(self):
         self.real, self.calls, self.bwd_share = {}, {}, {}
-        self.share = {name: torch.zeros((), device=DEVICE) for _, name, _ in self.kernels}
-        for mod, name, rows in self.kernels:
-            real, plain = getattr(mod, name), getattr(mod, f"{name}_reference")
+        self.share = {name: torch.zeros((), device=DEVICE) for _, name, *_ in self.kernels}
+        for mod, name, rows, *own in self.kernels:
+            real = getattr(mod, name)
+            plain = own[0] if own else getattr(mod, f"{name}_reference")
             self.real[name], self.calls[name] = real, 0
 
             def shadow(*args, _real=real, _plain=plain, _name=name, _rows=rows, **kwargs):
@@ -1540,7 +1555,7 @@ class KernelShadow:
         return self
 
     def __exit__(self, *exc):
-        for mod, name, _ in self.kernels:
+        for mod, name, *_ in self.kernels:
             setattr(mod, name, self.real[name])
         for mod, name, *_ in self.backward:
             mod.launch_bwd = self.real[name]
@@ -2793,9 +2808,11 @@ def _k7_case(gen: torch.Generator, dh: int, shapes: tuple) -> dict:
     """K5 on K7's shapes at head width ``dh``: [b, heads, LONG_L, dh] for
     each (dtype, b, heads) of ``shapes`` (bf16 last), causal, left-pad key
     and query masks, no dropout, forward and backward against the plain
-    version on real rows (``_k5_held``); bf16 times of kernel, plain and
-    SDPA (``is_causal``, no mask) and the bound over the pairs of real rows
-    and keys. Returns {"fwd": numbers, "bwd": numbers}."""
+    version of what the card runs (``block_attention.kernel_reference``:
+    JAX's library flash arithmetic on the one-pass kernels) on real rows
+    (``_k5_held``); bf16 times of kernel, plain and SDPA (``is_causal``, no
+    mask) and the bound over the pairs of real rows and keys. Returns
+    {"fwd": numbers, "bwd": numbers}."""
     L, scale = LONG_L, dh ** -0.5
     res = {k: {"max_abs_err": 0.0} for k in ("fwd", "bwd")}
     for dtype, b, heads in shapes:
@@ -2807,8 +2824,8 @@ def _k7_case(gen: torch.Generator, dh: int, shapes: tuple) -> dict:
         # padded query rows: zeros here, junk in JAX's flash kernel
         kw = dict(causal=True, scale=scale, q_mask=m, kv_mask=m)
         got = _k5_grads(block_attention.block_mha, q, k, v, do, **kw)
-        want = _k5_grads(block_attention.block_mha_reference, q, k, v, do, **kw)
-        exact = (_k5_grads(block_attention.block_mha_reference,
+        want = _k5_grads(block_attention.kernel_reference, q, k, v, do, **kw)
+        exact = (_k5_grads(block_attention.kernel_reference,
                            *(x.float() for x in (q, k, v, do)), **kw)
                  if dtype == torch.bfloat16 else [])
         torch.cuda.synchronize()
@@ -2821,7 +2838,7 @@ def _k7_case(gen: torch.Generator, dh: int, shapes: tuple) -> dict:
         res["fwd"][key], res["bwd"][key] = o_err, g_err
         del got, want, exact
     fwd = {"kernel": lambda *x: block_attention.block_mha(*x, **kw),
-           "plain": lambda *x: block_attention.block_mha_reference(*x, **kw),
+           "plain": lambda *x: block_attention.kernel_reference(*x, **kw),
            "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True, scale=scale)}
     real_len = (L - pads).long()
     pairs = int((real_len * (real_len + 1) // 2).sum()) * heads
@@ -3705,7 +3722,8 @@ def _depth(model: str, n_layer: int):
         config.GPT2_SIZES[model] = saved
 # K5 and K6 forwards (with KernelShadow.BACKWARD, the training launches)
 # and K1 (infer's prefills)
-TRAIN_SHADOWED = ((block_attention, "block_mha", _k5_rows), (fused_ce, "fused_softmax_xent", None))
+TRAIN_SHADOWED = ((block_attention, "block_mha", _k5_rows, block_attention.kernel_reference),
+                  (fused_ce, "fused_softmax_xent", None))
 INFER_SHADOWED = ((prefill_attention, "prefill_mha", _k1_rows),) + TRAIN_SHADOWED
 
 
@@ -5840,8 +5858,8 @@ def domain_phase(card: str, gen: torch.Generator) -> dict:
 # Cerebras-GPT-2.7B; 4,096: GPT-J-6B and Cerebras-6.7B; 5,120:
 # Cerebras-13B) over WIDE_N tokens (fp32: WIDE_N_F32) and GPT-2's
 # vocabulary; K7 at [2, 16, LONG_L, Dh] for each Dh of WIDE_HEADS (100:
-# padded to the 128-wide template; 256 and 384: the wide kernels, 384 a
-# reading in the 256 rows); Cerebras-GPT-2.7B's published widths
+# padded to the 128-wide template; 256 and 384: the one-pass kernels, 384
+# a reading in the 256 rows); Cerebras-GPT-2.7B's published widths
 # (models/seeded.py::CEREBRAS_2P7B) at CEREBRAS_LAYERS of its 32 layers
 # through Trainer (bf16, full remat, CEREBRAS_STEPS steps of CEREBRAS_B x
 # CEREBRAS_L tokens: K6 at 2,560, K5 at Dh 80 on the 96-wide template) and
@@ -5924,6 +5942,8 @@ def wide_phase(card: str, gen: torch.Generator) -> dict:
     for dh in WIDE_HEADS:
         k7[dh] = _k7_case(gen, dh, ((torch.float32, 2, 16), (torch.bfloat16, 2, 16)))
         torch.cuda.empty_cache()
+    print("K7's one-pass kernels (bf16, Dh = 256 and 384), ptxas: "
+          + json.dumps(_build.ptxas_report(_build.build_log(), "block_attention.cu", "flash")))
     # K7's route refuses a head width above 128 that is not a multiple of 128
     # (JAX's library kernel raises there): auto takes the plain math, flash raises
     x = torch.randn((1, 2, LONG_L, 200), generator=gen, device=DEVICE).bfloat16()

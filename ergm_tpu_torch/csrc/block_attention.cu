@@ -8,7 +8,9 @@
 // TPU flash kernel for what the block kernel's VMEM cap refuses (L > 1024,
 // causal Lq < Lk at offset 0). A tiled kernel has no such cap, so one
 // kernel serves both gates. The math and its rounding points are JAX's
-// block kernel's (one q sub-block, the whole row):
+// block kernel's (one q sub-block, the whole row), except at the wide
+// heads' bf16 kernels (flash::, below), which compute what JAX's library
+// flash kernel computes:
 //   s = (q . k) * scale in f32; s = where(kv_mask & causal, s, -1e9);
 //   pn = exp(s - m) / max(l, 1e-30) with m, l over the row; pn = 0 on
 //   padded query rows; dropout: pn = keep ? pn / (1 - rate) : 0;
@@ -91,22 +93,58 @@
 // k and v with zero columns to the next of them and slices the result
 // back, which is exact: the zero columns add nothing to q . k and give zero
 // output and gradient columns, and the softmax scale passed in is the true
-// width's. A wide head, DH = 128 m with m >= 2 (flash gate only: no
-// dropout), runs m CTAs a row tile, one per column group of 128 on the
-// grid's y axis, each owning its group's output columns (dQ, dK, dV too):
-// the scores and dP are summed over the whole width in m sub-steps of 128
-// columns, every group in the same order, so the row statistics agree and
-// group 0 writes them. f32 takes the 128-wide template over the slices;
-// bf16 the wide:: kernels below (CTAs of 64 rows, both operands' slices
-// through the cp.async ring, so shared memory does not grow with DH). The keep mask's hash
-// does not read DH. At DH = 64 the code is the one the design above was
-// measured with. Wider heads cost registers and shared memory: the bf16
-// dK/dV kernel holds two 16 x DH f32 accumulators a warp (128 registers a
-// thread at 128) and the dQ kernel six 128-row tiles of DH + 8 bf16 (204 KB
-// at 128), so above 64 a CTA of 128 rows runs alone on its SM instead of
-// beside a second one; a x4 ldmatrix group of the PV-style products loads
-// at most 64 columns of B at once whatever DH is.
+// width's. The keep mask's hash does not read DH. At DH = 64 the code is
+// the one the design above was measured with. Wider heads cost registers
+// and shared memory: the bf16 dK/dV kernel holds two 16 x DH f32
+// accumulators a warp (128 registers a thread at 128) and the dQ kernel six
+// 128-row tiles of DH + 8 bf16 (204 KB at 128), so above 64 a CTA of 128
+// rows runs alone on its SM instead of beside a second one; a x4 ldmatrix
+// group of the PV-style products loads at most 64 columns of B at once
+// whatever DH is. f32 runs a wide head, DH = 128 m with m >= 2 (flash gate
+// only: no dropout), on the 128-wide template over m slices of the width,
+// m column groups on the grid's y axis.
 //
+// Wide heads in bf16 (flash::, DH = 256 and 384): the counterpart of JAX's
+// library TPU flash kernel (jax/experimental/pallas/ops/tpu/flash_attention.py,
+// reached from ergm_tpu/ops/flash_attention.py::flash_mha :66) and its
+// arithmetic: the forward is one pass over the key tiles with an online
+// softmax, the running max m and sum l in f32, p = exp(s - m) rounded to
+// bf16 before the P . V product (before it is normalised), the f32 sum
+// rescaled as m moves and normalised once at the end; the backward takes
+// delta = rowsum(o * dO) in f32 (JAX's di, computed outside its kernels;
+// here in the dQ kernel's prologue), recomputes p from the saved m and l,
+// and rounds ds = p (dP - delta) scale before dQ = ds . K and dK = ds^T . Q
+// and p before dV = p^T . dO. The masking is the port's (key bits, dead
+// rows over every key, padded rows zero), as in the other kernels.
+// What bounds them on an H100 at [2, 16, 2048, 256], causal: ~59 GFLOP of
+// products in the forward and ~148 in the backward (its five products)
+// against 134 and 268 MB of operands: operations, 0.06 and 0.15 ms at 989
+// TFLOP/s. The kernels before these (wide::, below) ran 22x / 29x those
+// bounds (NVIDIA H100 80GB HBM3, 700 W; PERF.md), recomputing the scores over the whole width in each of m CTAs
+// per row tile (5 product units in the forward where 2 suffice, 15 in the
+// backward where 7 do) and restaging the owned rows' slices for every
+// streamed tile. Here one CTA owns the whole width, so each (query tile,
+// key tile) pair's scores are formed once (at 384, once per group of 192
+// output columns: twice), on wgmma: 64-row products by warpgroup, the
+// operands read from shared memory by descriptor in the 128-byte swizzle
+// that the TMA writes, P and dS kept in registers as the A operand of the
+// next product. A producer warpgroup (forward, dK/dV) keeps a two-stage
+// ring of TMA loads in flight on mbarriers and gives its registers to the
+// consumers (setmaxnreg). Forward: 128 query rows a CTA in two consumer
+// warpgroups, Q resident, K and V tiles of 64 keys (384: 32) streamed.
+// dQ: one warpgroup of 64 query rows with Q and dO resident, loading its
+// own K and V tiles. dK/dV: 64 keys a CTA with K and V resident and Q, dO
+// and the rows' (m, 1/l, delta) streamed; one consumer forms S^T and p^T
+// and sums dV, the other dP^T and ds^T and sums dK, p^T handed over through
+// shared memory, so each 64 x 256 f32 sum (128 registers a thread) has its
+// own warpgroup. No atomics: the result repeats bit for bit. A 64 x 256 f32
+// sum a warpgroup is what caps the tiles: two consumer warpgroups an SM,
+// one in dQ, whose 192 KB of shared memory leave no room for a second. At
+// DH = 384 the output columns split into two groups of 192 and the
+// streamed tiles into 32 rows, so that Q and the ring fit. DH = 128 m for
+// m >= 4 keeps the wide:: kernels: 64-row CTAs and m column groups of
+// 128, the scores summed over m slices through a cp.async ring.
+
 // Dead rows, real rows whose every visible key is masked (causal rows
 // before the first real key), get JAX's forward result too: the uniform
 // distribution over all Lk keys; their query tiles walk every key tile
@@ -119,6 +157,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace ergm_block {
@@ -1008,8 +1047,9 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) bwd_dkdv_kernel(co
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// Wide heads, bf16: Dh = 128 m with m >= 2, no dropout (JAX's flash gate
-// only). Scores and dP over the whole width, in m sub-steps of 128 columns.
+// Wide heads, bf16: Dh = 128 m with m >= 4 (the flash:: kernels take 256
+// and 384), no dropout (JAX's flash gate only). Scores and dP over the
+// whole width, in m sub-steps of 128 columns.
 namespace wide {
 
 using ergm_mma::ex2;
@@ -1388,6 +1428,576 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
 
 }  // namespace wide
 
+// ---------------------------------------------------------------------------
+// One-pass kernels, bf16 at Dh = 256 and 384 without dropout (JAX's flash
+// gate only): the arithmetic of JAX's library flash kernel on wgmma,
+// operands loaded by TMA (the note at the top).
+namespace flash {
+
+using ergm_hopper::bar_arrive;
+using ergm_hopper::bar_sync;
+using ergm_hopper::bulk_load;
+using ergm_hopper::mbar_arrive;
+using ergm_hopper::mbar_expect;
+using ergm_hopper::mbar_fence_init;
+using ergm_hopper::mbar_init;
+using ergm_hopper::mbar_wait;
+using ergm_hopper::pin;
+using ergm_hopper::sm_desc;
+using ergm_hopper::tma_load_4d;
+using ergm_hopper::wg_commit;
+using ergm_hopper::wg_fence;
+using ergm_hopper::wg_wait;
+using ergm_hopper::wgmma_rs;
+using ergm_hopper::wgmma_ss;
+using ergm_mma::ex2;
+using ergm_mma::pack;
+using ergm_mma::store_rows;
+using ergm_mma::zero;
+using tc::kMaskL2;
+using tc::mask_scores;
+
+constexpr int kOwn = 64;             // rows a warpgroup owns: queries (forward, dQ) or keys
+constexpr int kQRows = 2 * kOwn;     // forward: query rows a CTA owns
+constexpr int kStages = 2;           // the ring of streamed tiles
+constexpr int kWgThreads = 384;      // a producer warpgroup, two consumer warpgroups
+constexpr int kDqThreads = 128;      // dQ: one warpgroup, its own loads
+constexpr size_t kAlign = 1024;      // the swizzle's pattern
+
+// A head width's shapes: DH the scores' depth, GW the output columns a
+// CTA owns (DH / GW column groups on grid y), KT the rows of a streamed
+// tile. Tiles are 128-byte column blocks [rows][64], DH / 64 (NB) of
+// them a row, GW / 64 (GB) a group; shared memory (bytes) of each kernel.
+template <int DH_, int GW_, int KT_>
+struct Shape {
+  static constexpr int DH = DH_, GW = GW_, KT = KT_;
+  static constexpr int NB = DH / 64, GB = GW / 64, kGroups = DH / GW;
+  // forward: Q [128][DH]; stages of K [KT][DH] and V's group [KT][GW]
+  static constexpr size_t kFwdBytes =
+      kAlign + 2 * (kQRows * DH + kStages * (KT * DH + KT * GW)) + 64;
+  // dQ: Q, dO [64][DH]; stages of K, V [KT][DH]
+  static constexpr size_t kDqBytes = kAlign + 2 * (2 * kOwn * DH + kStages * 2 * KT * DH) + 64;
+  // dK/dV: K, V [64][DH]; stages of Q, dO [KT][DH] and the KT rows'
+  // (m, 1/l, delta, -); p^T [64][KT] f32
+  static constexpr size_t kDkdvBytes = kAlign + 2 * (2 * kOwn * DH + kStages * 2 * KT * DH) +
+                                       kStages * KT * 16 + kOwn * KT * 4 + 64;
+};
+using D256 = Shape<256, 256, 64>;  // one group: every CTA owns the whole width
+using D384 = Shape<384, 192, 32>;  // two groups of 192; 32-row tiles to fit the ring
+
+// The tensor maps of a kernel's operands: [B, H, rows, DH] bf16 over the
+// callers' strides, boxes of 64 columns by the rows a tile takes
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((kAlign - (ergm_mma::saddr(raw) & (kAlign - 1))) & (kAlign - 1));
+}
+
+// TMA: rows [r0, r0 + X) of head (b, h), the N column blocks from blk0,
+// into a tile of N column blocks [X][64]
+template <int X, int N>
+__device__ __forceinline__ void load_rows(const CUtensorMap* map, bf16* dst, uint64_t* bar, int r0,
+                                          int h, int b, int blk0 = 0) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) tma_load_4d(map, dst + c * X * 64, bar, (blk0 + c) * 64, r0, h, b);
+}
+
+// k16 step kk of a K-major operand: rows from row0 of an X-row tile
+template <int X>
+__device__ __forceinline__ uint64_t desc_k(const bf16* t, int row0, int kk) {
+  return sm_desc(t + (kk >> 2) * X * 64 + row0 * 64 + (kk & 3) * 16, 16, 1024);
+}
+
+// k16 step kk of an X-row tile read MN-major (its rows as the product's
+// depth, its column blocks from t as N)
+template <int X>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* t, int kk) {
+  return sm_desc(t + kk * 16 * 64, X * 64 * 2, 1024);
+}
+
+// s = A . B^T over the whole depth: A the 64 rows from arow of an XA-row
+// tile, B a KT-row tile; issued, not waited for
+template <class S, int XA>
+__device__ __forceinline__ void scores(float (&s)[S::KT / 8][4], const bf16* ta, int arow,
+                                       const bf16* tb) {
+#pragma unroll
+  for (int kk = 0; kk < S::DH / 16; ++kk)
+    wgmma_ss<S::KT>(s, desc_k<XA>(ta, arow, kk), desc_k<S::KT>(tb, 0, kk), kk);
+}
+
+// acc += x . B for x the warpgroup's 64 x KT block (the accumulator layout
+// of scores), rounded to bf16 as the A operand in registers, and B the GW
+// columns from tb of a KT-row tile; waited for
+template <class S>
+__device__ __forceinline__ void accumulate(float (&acc)[S::GW / 8][4],
+                                           const float (&x)[S::KT / 8][4], const bf16* tb) {
+  constexpr int kSteps = S::KT / 16;
+  unsigned a[kSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    a[kk][0] = pack(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) wgmma_rs<S::GW>(acc, a[kk], desc_mn<S::KT>(tb, kk));
+  wg_commit();
+  wg_wait<0>();
+  pin(acc);
+}
+
+// Mask the warp's 16 rows (from r0) of a KT-key score block at k0, scaled
+// into log2 units (tc::mask_scores, 32 keys at a time)
+template <int KT>
+__device__ __forceinline__ void mask_keys(const Args& a, int b, float (&s)[KT / 8][4], int r0,
+                                          int k0, float sl2) {
+  auto& part = reinterpret_cast<float(&)[KT / 32][4][4]>(s);
+#pragma unroll
+  for (int u = 0; u < KT / 32; ++u)
+    mask_scores(a, a.kbits[static_cast<long long>(b) * (a.Lk >> 5) + ((k0 >> 5) + u)], part[u],
+                r0, k0 + 32 * u, sl2);
+}
+
+// Forward: 128 query rows and one column group a CTA, in two consumer
+// warpgroups of 64 rows; a producer warpgroup loads Q once and K tiles
+// (and V's group columns) of KT keys through the ring. One pass: the
+// running max m (log2 units) and sum l in f32, p = 2^(s - m) rounded to
+// bf16 before P . V, the f32 sum rescaled as m moves and normalised once
+// at the end. Group 0 writes m and l.
+template <class S>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int KT = S::KT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(aligned_smem(smem_raw));  // [NB][128][64]
+  bf16* ring = qs + kQRows * S::DH;  // [kStages]: K [NB][KT][64], V [GB][KT][64]
+  constexpr int kStage = KT * (S::DH + S::GW);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQRows;  // the longest causal rows first
+  const int h = blockIdx.y / S::kGroups, grp = blockIdx.y % S::kGroups, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, dead = a.dead[b];
+  // the keys the CTA's rows walk (all of them where it holds dead rows)
+  const int n = ((a.causal && q0 >= dead) ? min(a.Lk, q0 + kQRows) : a.Lk) / KT;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // the consumers' eight warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect(qbar, 2 * kQRows * S::DH);
+      load_rows<kQRows, S::NB>(&maps.q, qs, qbar, q0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        bf16* kt = ring + s * kStage;
+        mbar_wait(empty + s, ((i / kStages) + 1) & 1);
+        mbar_expect(full + s, 2 * kStage);
+        load_rows<KT, S::NB>(&maps.k, kt, full + s, i * KT, h, b);
+        load_rows<KT, S::GB>(&maps.v, kt + KT * S::DH, full + s, i * KT, h, b, grp * S::GB);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + kOwn * c;                        // the warpgroup's rows
+  const int rw = r0 + 16 * ((threadIdx.x >> 5) & 3);  // the warp's
+  const int wend = (a.causal && r0 >= dead) ? min(a.Lk, r0 + kOwn) : a.Lk;
+  const float sl2 = a.scale * kLog2e;
+  float o[S::GW / 8][4], mrow[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.0f, 0.0f};
+  zero(o);
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages, k0 = i * KT;
+    const bf16* kt = ring + s * kStage;
+    mbar_wait(full + s, (i / kStages) & 1);
+    if (k0 < wend) {
+      float sc[KT / 8][4];
+      wg_fence();
+      scores<S, kQRows>(sc, qs, kOwn * c, kt);
+      wg_commit();
+      wg_wait<0>();
+      pin(sc);
+      mask_keys<KT>(a, b, sc, rw, k0, sl2);
+      // the row max over this block and the running one (the four lanes of
+      // a row agree), p = 2^(s - m) and the lane's share of l
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = mrow[r];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[r] = ex2(mrow[r] - mx);
+        mrow[r] = mx;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+          sc[j][2 * r] = ex2(sc[j][2 * r] - mx);
+          sc[j][2 * r + 1] = ex2(sc[j][2 * r + 1] - mx);
+          sum += sc[j][2 * r] + sc[j][2 * r + 1];
+        }
+        lsum[r] = lsum[r] * alpha[r] + sum;
+      }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+        for (int j = 0; j < S::GW / 8; ++j) {
+          o[j][0] *= alpha[0];
+          o[j][1] *= alpha[0];
+          o[j][2] *= alpha[1];
+          o[j][3] *= alpha[1];
+        }
+      }
+      accumulate<S>(o, sc, kt + KT * S::DH);
+    }
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+  // l of each row from the four lanes that hold it; padded rows give 0
+  const long long plane = static_cast<long long>(a.B) * a.H * a.L;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+    const int row = rw + g + 8 * r;
+    const float inv = a.qmask[static_cast<long long>(b) * a.L + row] != 0
+                          ? 1.0f / fmaxf(lsum[r], 1e-30f) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < S::GW / 8; ++j) {
+      o[j][2 * r] *= inv;
+      o[j][2 * r + 1] *= inv;
+    }
+    if (t == 0 && grp == 0) {
+      const long long idx = row_index(a, b, h, row);
+      a.ml[idx] = mrow[r];
+      a.ml[plane + idx] = lsum[r];
+    }
+  }
+  store_rows<S::GW>(head_out<bf16>(a, a.out, kO, b, h) + grp * S::GW, a.st[kO][2], rw + g, o,
+                    1.0f);
+}
+
+// dQ: one warpgroup of 64 query rows and one column group with Q and dO
+// resident; K and V tiles of KT keys through the ring, loaded by the CTA's
+// first thread once the tile before has been used. Per key tile S = Q K^T
+// and dP = dO V^T once, ds = p (dP - delta) scale rounded to bf16, dQ +=
+// ds K over the group's columns. delta = rowsum(o * dO) in f32 (JAX's di)
+// is taken first; group 0 hands the rows' (m, 1/l, delta) to the dK/dV
+// kernel.
+template <class S>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    bwd_dq_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int KT = S::KT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(aligned_smem(smem_raw));  // [NB][64][64]
+  bf16* dos = qs + kOwn * S::DH;
+  bf16* ring = dos + kOwn * S::DH;  // [kStages]: K, V [NB][KT][64]
+  constexpr int kStage = 2 * KT * S::DH;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* full = qbar + 1;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kOwn;
+  const int h = blockIdx.y / S::kGroups, grp = blockIdx.y % S::kGroups, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rw = q0 + 16 * (threadIdx.x >> 5);  // the warp's rows
+  const int dead = a.dead[b];
+  const int n = ((a.causal && q0 >= dead) ? min(a.Lk, q0 + kOwn) : a.Lk) / KT;
+  auto issue = [&](int i) {
+    const int s = i % kStages;
+    bf16* kt = ring + s * kStage;
+    mbar_expect(full + s, 2 * kStage);
+    load_rows<KT, S::NB>(&maps.k, kt, full + s, i * KT, h, b);
+    load_rows<KT, S::NB>(&maps.v, kt + KT * S::DH, full + s, i * KT, h, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(qbar, 2 * 2 * kOwn * S::DH);
+    load_rows<kOwn, S::NB>(&maps.q, qs, qbar, q0, h, b);
+    load_rows<kOwn, S::NB>(&maps.dout, dos, qbar, q0, h, b);
+    for (int i = 0; i < min(n, kStages); ++i) issue(i);
+  }
+
+  // each row's m, 1/l (0 on padded rows) and delta: lane t of a row's four
+  // sums a quarter of its columns
+  float mrow[2], inv[2], delta[2];
+  const long long plane = static_cast<long long>(a.B) * a.H * a.L;
+  const bf16* o = head<bf16>(a, a.o, kO, b, h);
+  const bf16* dout = head<bf16>(a, a.dout, kDO, b, h);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rw + g + 8 * r;
+    const long long idx = row_index(a, b, h, row);
+    mrow[r] = a.ml[idx];
+    inv[r] = a.qmask[static_cast<long long>(b) * a.L + row] != 0
+                 ? 1.0f / fmaxf(a.ml[plane + idx], 1e-30f) : 0.0f;
+    constexpr int kQuarter = S::DH / 4;
+    const uint4* orow = reinterpret_cast<const uint4*>(o + row * a.st[kO][2] + kQuarter * t);
+    const uint4* drow = reinterpret_cast<const uint4*>(dout + row * a.st[kDO][2] + kQuarter * t);
+    float part = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kQuarter / 8; ++w) {
+      const uint4 x = orow[w], y = drow[w];
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xp[e]), yf = __bfloat1622float2(yp[e]);
+        part = fmaf(xf.x, yf.x, part);
+        part = fmaf(xf.y, yf.y, part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    delta[r] = part;
+    if (t == 0 && grp == 0)
+      reinterpret_cast<float4*>(a.stat)[idx] = make_float4(mrow[r], inv[r], part, 0.0f);
+  }
+  const float sl2 = a.scale * kLog2e;
+  float acc[S::GW / 8][4];
+  zero(acc);
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages, k0 = i * KT;
+    const bf16* kt = ring + s * kStage;
+    mbar_wait(full + s, (i / kStages) & 1);
+    float sc[KT / 8][4], dp[KT / 8][4];
+    wg_fence();
+    scores<S, kOwn>(sc, qs, 0, kt);
+    scores<S, kOwn>(dp, dos, 0, kt + KT * S::DH);
+    wg_commit();
+    wg_wait<0>();
+    pin(sc);
+    pin(dp);
+    mask_keys<KT>(a, b, sc, rw, k0, sl2);
+    // ds = p (dp - delta) scale where visible, 0 where masked (mask_scores
+    // wrote the fill there; no visible score comes near it)
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        sc[j][e] = sc[j][e] == kMaskL2
+                       ? 0.0f
+                       : ex2(sc[j][e] - mrow[r]) * inv[r] * (dp[j][e] - delta[r]) * a.scale;
+      }
+    accumulate<S>(acc, sc, kt + grp * S::GB * KT * 64);
+    __syncthreads();  // every warp is done with the stage
+    if (threadIdx.x == 0 && i + kStages < n) issue(i + kStages);
+  }
+  store_rows<S::GW>(head_out<bf16>(a, a.dq, kDQ, b, h) + grp * S::GW, a.st[kDQ][2], rw + g, acc,
+                    1.0f);
+}
+
+// dK/dV: one CTA per 64 keys and column group with K and V resident, over
+// the query tiles of KT rows that see them (those holding dead rows first,
+// then from the diagonal); a producer warpgroup streams Q, dO and the
+// rows' (m, 1/l, delta) through the ring. Consumer 0 computes S^T = K Q^T
+// and p^T, hands p^T to consumer 1 through shared memory and accumulates
+// dV += p^T dO; consumer 1 computes dP^T = V dO^T, ds^T = p^T (dP^T -
+// delta) scale and accumulates dK += ds^T Q. Each owns one 64 x GW f32 sum.
+template <class S>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkdv_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int KT = S::KT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(aligned_smem(smem_raw));  // [NB][64][64]
+  bf16* vs = ks + kOwn * S::DH;
+  bf16* ring = vs + kOwn * S::DH;  // [kStages]: Q, dO [NB][KT][64]
+  constexpr int kStage = 2 * KT * S::DH;
+  float4* sts = reinterpret_cast<float4*>(ring + kStages * kStage);  // [kStages][KT]
+  float* pex = reinterpret_cast<float*>(sts + kStages * KT);        // [KT / 2][128]: p^T
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(pex + kOwn * KT);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int k0 = blockIdx.x * kOwn, b = blockIdx.z;
+  const int h = blockIdx.y / S::kGroups, grp = blockIdx.y % S::kGroups, wg = threadIdx.x / 128;
+  const int dead = a.dead[b];
+  const int nq = a.L / KT;
+  const int from = a.causal ? min(k0 / KT, nq) : 0;
+  const int lo = a.causal ? min((dead + KT - 1) / KT, from) : 0;
+  const int n = lo + nq - from;
+  auto tile = [&](int i) { return (i < lo ? i : from + i - lo) * KT; };
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const float4* stat = reinterpret_cast<const float4*>(a.stat) + row_index(a, b, h, 0);
+      mbar_expect(kvbar, 2 * 2 * kOwn * S::DH);
+      load_rows<kOwn, S::NB>(&maps.k, ks, kvbar, k0, h, b);
+      load_rows<kOwn, S::NB>(&maps.v, vs, kvbar, k0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages, q0 = tile(i);
+        bf16* qt = ring + s * kStage;
+        mbar_wait(empty + s, ((i / kStages) + 1) & 1);
+        mbar_expect(full + s, 2 * kStage + KT * 16);
+        load_rows<KT, S::NB>(&maps.q, qt, full + s, q0, h, b);
+        load_rows<KT, S::NB>(&maps.dout, qt + KT * S::DH, full + s, q0, h, b);
+        bulk_load(sts + s * KT, stat + q0, KT * 16, full + s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, tid = threadIdx.x & 127, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3;
+  const int kw0 = k0 + 16 * (tid >> 5);  // the warp's first key
+  int kr[2];
+  bool kreal[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kr[r] = kw0 + g + 8 * r;
+    kreal[r] = key_real(a, b, kr[r]);
+  }
+  const bool wreal = __all_sync(0xffffffffu, kreal[0] && kreal[1]);  // the warp's keys all real
+  const float sl2 = a.scale * kLog2e;
+  float acc[S::GW / 8][4];
+  zero(acc);
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages, q0 = tile(i);
+    const bf16* qt = ring + s * kStage;
+    const bf16* dt = qt + KT * S::DH;
+    const float4* st = sts + s * KT;
+    mbar_wait(full + s, (i / kStages) & 1);
+    float x[KT / 8][4];  // S^T (consumer 0) or dP^T (consumer 1): keys as rows
+    wg_fence();
+    scores<S, kOwn>(x, c == 0 ? ks : vs, 0, c == 0 ? qt : dt);
+    wg_commit();
+    wg_wait<0>();
+    pin(x);
+    // f(x[j][e], whether key kr[r] is visible to query qc, qc's (m, 1/l,
+    // delta, -), the element's place in p^T's hand-over)
+    const bool full_tile = wreal && (!a.causal || kw0 + 15 <= q0);
+    auto each = [&](auto f) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int qc = q0 + 8 * j + 2 * t + e1;
+          const float4 rs = st[qc - q0];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + e1;
+            f(x[j][e], full_tile || (kreal[r] && (!a.causal || kr[r] <= qc)), rs,
+              pex + (4 * j + e) * 128 + tid);
+          }
+        }
+    };
+    if (c == 0) {
+      // p (a dead row's 1/Lk on a masked key), handed to consumer 1 once it
+      // has read the tile before's
+      each([&](float& v, bool ok, float4 rs, float*) {
+        v = ex2((ok ? v * sl2 : kMaskL2) - rs.x) * rs.y;
+      });
+      if (i > 0) bar_sync(2, 256);
+      each([&](float& v, bool, float4, float* slot) { *slot = v; });
+      bar_arrive(1, 256);
+    } else {
+      bar_sync(1, 256);
+      each([&](float& v, bool ok, float4 rs, float* slot) {
+        v = ok ? *slot * (v - rs.z) * a.scale : 0.0f;
+      });
+      if (i + 1 < n) bar_arrive(2, 256);
+    }
+    // dV += p^T dO, dK += ds^T Q over the group's columns
+    accumulate<S>(acc, x, (c == 0 ? dt : qt) + grp * S::GB * KT * 64);
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+  const int which = c == 0 ? kDV : kDK;
+  store_rows<S::GW>(head_out<bf16>(a, c == 0 ? a.dv : a.dk, which, b, h) + grp * S::GW,
+                    a.st[which][2], kw0 + g, acc, 1.0f);
+}
+
+// The tensor map of one operand: [B, H, rows, dh] bf16 over the (batch,
+// head, row) element strides st, boxes of 64 columns by box_rows rows
+inline bool head_map(CUtensorMap* map, const void* p, const long long* st, int B, int H,
+                     int rows, int dh, int box_rows) {
+  const ergm_hopper::EncodeTiled encode = ergm_hopper::encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The maps of q, k, v and dO for a kernel whose q / dO tiles take qrows
+// rows and k / v tiles krows (dO's only where dout is given)
+inline bool make_maps(Maps* m, const Args& a, int dh, int qrows, int krows) {
+  return head_map(&m->q, a.q, a.st[kQ], a.B, a.H, a.L, dh, qrows) &&
+         head_map(&m->k, a.k, a.st[kK], a.B, a.H, a.Lk, dh, krows) &&
+         head_map(&m->v, a.v, a.st[kV], a.B, a.H, a.Lk, dh, krows) &&
+         (!a.dout || head_map(&m->dout, a.dout, a.st[kDO], a.B, a.H, a.L, dh, qrows));
+}
+
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Maps& maps, const Args& a,
+                   cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(maps, a);
+  return cudaGetLastError();
+}
+
+template <class S>
+cudaError_t forward(const Args& a, cudaStream_t s) {
+  Maps m{};
+  if (!make_maps(&m, a, S::DH, kQRows, S::KT)) return cudaErrorInvalidValue;
+  return launch(fwd_kernel<S>, dim3(a.L / kQRows, a.H * S::kGroups, a.B), kWgThreads,
+                S::kFwdBytes, m, a, s);
+}
+
+template <class S>
+cudaError_t backward(const Args& a, cudaStream_t s) {
+  Maps dq{}, dkdv{};
+  if (!make_maps(&dq, a, S::DH, kOwn, S::KT) || !make_maps(&dkdv, a, S::DH, S::KT, kOwn))
+    return cudaErrorInvalidValue;
+  const dim3 grid_q(a.L / kOwn, a.H * S::kGroups, a.B), grid_k(a.Lk / kOwn, a.H * S::kGroups, a.B);
+  cudaError_t err = launch(bwd_dq_kernel<S>, grid_q, kDqThreads, S::kDqBytes, dq, a, s);
+  if (err != cudaSuccess) return err;
+  return launch(bwd_dkdv_kernel<S>, grid_k, kWgThreads, S::kDkdvBytes, dkdv, a, s);
+}
+
+}  // namespace flash
+
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
                    cudaStream_t s) {
@@ -1433,12 +2043,16 @@ cudaError_t backward_dh(const Args& a, bool bf, cudaStream_t s) {
 // head on the grid.
 cudaError_t forward_wide(const Args& a, bool bf, cudaStream_t s) {
   if (!bf) return forward_dh<128>(a, false, s);
+  if (a.m == 2) return flash::forward<flash::D256>(a, s);
+  if (a.m == 3) return flash::forward<flash::D384>(a, s);
   return launch(wide::fwd_kernel, dim3(a.L / wide::kRows, a.H * a.m, a.B), wide::kThreads,
                 wide::kFwdBytes, a, s);
 }
 
 cudaError_t backward_wide(const Args& a, bool bf, cudaStream_t s) {
   if (!bf) return backward_dh<128>(a, false, s);
+  if (a.m == 2) return flash::backward<flash::D256>(a, s);
+  if (a.m == 3) return flash::backward<flash::D384>(a, s);
   cudaError_t err = launch(wide::bwd_dq_kernel, dim3(a.L / wide::kRows, a.H * a.m, a.B),
                            wide::kThreads, wide::kFwdBytes, a, s);
   if (err != cudaSuccess) return err;

@@ -78,6 +78,7 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace ergm_xent {
@@ -499,57 +500,16 @@ __host__ __device__ constexpr size_t smem_bytes() {
 
 constexpr int kWgThreads = 384;
 
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(b)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* b, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(b)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(b)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(saddr(b)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 2-D box of the tensor map at (inner c0, outer c1) into shared memory
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(saddr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor, 128-byte swizzle: lbo / sbo in bytes
-__device__ __forceinline__ uint64_t sm_desc(const void* tile, unsigned lbo, unsigned sbo) {
-  return static_cast<uint64_t>((saddr(tile) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
+using ergm_hopper::mbar_arrive;
+using ergm_hopper::mbar_expect;
+using ergm_hopper::mbar_fence_init;
+using ergm_hopper::mbar_init;
+using ergm_hopper::mbar_wait;
+using ergm_hopper::sm_desc;
+using ergm_hopper::tma_load_2d;
+using ergm_hopper::wg_commit;
+using ergm_hopper::wg_fence;
+using ergm_hopper::wg_wait;
 
 // d (64 x 256, f32, the warpgroup's accumulator) += A . B over k16, operands
 // from shared memory by descriptor; kTA / kTB: the operand is MN-major
@@ -630,10 +590,10 @@ template <int X, bool kKMajor>
 __device__ __forceinline__ void tma_tile(const CUtensorMap* map, bf16* dst, uint64_t* bar, int x0,
                                          int k0) {
   if constexpr (kKMajor) {
-    tma_load(map, dst, bar, k0, x0);
+    tma_load_2d(map, dst, bar, k0, x0);
   } else {
 #pragma unroll
-    for (int b = 0; b < X / 64; ++b) tma_load(map, dst + b * 64 * BK, bar, x0 + 64 * b, k0);
+    for (int b = 0; b < X / 64; ++b) tma_load_2d(map, dst + b * 64 * BK, bar, x0 + 64 * b, k0);
   }
 }
 
@@ -671,7 +631,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(full + s, 1);
       mbar_init(empty + s, 8);  // the consumers' eight warps
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -766,31 +726,11 @@ __global__ void combine_kernel(const float* part, int tiles, int m_pad, int n_to
   nll[n] = lz - gold;
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the runtime (no link to
-// libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
 // The tensor map of an operand whose tiles are X rows (K-major: a [X][64]
 // box) or 64-wide column blocks (MN-major: [64][64] boxes), 128-byte
 // swizzle, out-of-bounds rows read as zero.
 inline bool operand_map(CUtensorMap* map, const Operand& op, bool kmajor, int x) {
-  const EncodeTiled encode = encoder();
+  const ergm_hopper::EncodeTiled encode = ergm_hopper::encoder();
   if (!encode) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(op.ld), static_cast<cuuint64_t>(op.rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(op.ld) * sizeof(bf16)};

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -124,3 +125,22 @@ def build_log() -> str:
     """The compiler's report for the current library ('' before a build)."""
     log = library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_report(log: str, source: str, pattern: str) -> dict:
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
+    from a build's compiler report (``build_log()``), for the kernels of
+    ``source`` (a ``csrc`` file name) whose mangled names match
+    ``pattern``; {} where the report has no such source."""
+    if f"== {source}" not in log:
+        return {}
+    section = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
+    out, name = {}, None
+    for line in section.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name] = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    return out

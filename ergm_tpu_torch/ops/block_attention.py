@@ -24,9 +24,11 @@ dropout). The kernels are built for ``HEAD_DIMS``; below 128
 (``head_width``) and slices the output back, with the softmax scale of
 the true width: the zero columns add nothing to q·kᵀ, and their output
 and gradient columns are dropped. A multiple of 128 above it runs as it
-is, in column groups of 128 (the note at the top of the CUDA source).
-Above 128, a width that is not a multiple of 128 is in neither domain
-(JAX's library kernel raises there).
+is (the note at the top of the CUDA source): in bf16 at 256 and 384 on
+the one-pass kernels (``flash_route``), which compute what JAX's library
+flash kernel computes (``flash_mha_reference``), else in column groups
+of 128. Above 128, a width that is not a multiple of 128 is in neither
+domain (JAX's library kernel raises there).
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ from ergm_tpu_torch.ops import _build
 from ergm_tpu_torch.ops.attention import _NEG_INF, dropout_keep, dropout_threshold, matmul_f32
 
 HEAD_DIMS = (32, 64, 96, 128)  # the head widths the CUDA kernels are built for
+# The one-pass kernels' head widths (flash_route) and the keys of a tile
+# there, their plain version's block
+FLASH_TILES = {256: 64, 384: 32}
 # Launches since the last reset: forward kernels, and backward calls (each
 # runs the dQ kernel, then the dK/dV kernel). A run sets them to 0 and
 # reads them back to show that its path went through the kernels.
@@ -145,6 +150,111 @@ def block_mha_reference(q, k, v, *, causal: bool, scale: Optional[float] = None,
                             head_stride=dropout_head_stride)
         pn = torch.where(keep, pn / (1.0 - dropout_rate), 0.0)
     return matmul_f32(pn.to(q.dtype), v).to(q.dtype)
+
+
+def flash_route(D: int, dtype) -> bool:
+    """Whether the card runs head width ``D`` in ``dtype`` on the one-pass
+    kernels, the arithmetic of JAX's library flash kernel
+    (``flash_mha_reference``): bf16 at Dh = 256 and 384. Every other width
+    and dtype runs K5's two-pass arithmetic (``block_mha_reference``)."""
+    return D in FLASH_TILES and dtype == torch.bfloat16
+
+
+class _FlashReference(torch.autograd.Function):
+    """JAX's library flash kernel's arithmetic in plain torch, key block by
+    key block: forward ``flash_attention.py::_flash_attention_kernel_single_batch``,
+    backward its dK/dV and dQ kernels with di = rowsum(o * dO) taken
+    outside them (``_flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qm, km, scale, causal, block_k):
+        B, H, lq, D = q.shape
+        lk = k.shape[2]
+        m = torch.full((B, H, lq, 1), float("-inf"), device=q.device)
+        l = torch.zeros((B, H, lq, 1), device=q.device)
+        acc = torch.zeros((B, H, lq, D), device=q.device)
+        for c0 in range(0, lk, block_k):
+            s, _ = _flash_scores(q, k, km, scale, causal, c0, block_k)
+            m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_next)
+            alpha = torch.exp(m - m_next)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + matmul_f32(p.to(q.dtype), v[:, :, c0:c0 + block_k])
+            m = m_next
+        o = torch.where(qm[:, None, :, None].bool(), acc / torch.clamp_min(l, 1e-30), 0.0)
+        o = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, o, m, l, qm, km)
+        ctx.args = (scale, causal, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l, qm, km = ctx.saved_tensors
+        scale, causal, block_k = ctx.args
+        do = do.to(q.dtype)
+        delta = (o.float() * do.float()).sum(-1, keepdim=True)
+        inv = torch.where(qm[:, None, :, None].bool(), 1.0 / torch.clamp_min(l, 1e-30), 0.0)
+        dq = torch.zeros(q.shape, device=q.device)
+        dk, dv = [], []
+        for c0 in range(0, k.shape[2], block_k):
+            s, vis = _flash_scores(q, k, km, scale, causal, c0, block_k)
+            p = torch.exp(s - m) * inv
+            dv.append(matmul_f32(p.to(q.dtype).transpose(-1, -2), do))
+            dp = matmul_f32(do, v[:, :, c0:c0 + block_k].transpose(-1, -2))
+            # masked scores are constants of the forward: their ds is 0
+            ds = (torch.where(vis, p * (dp - delta), 0.0) * scale).to(q.dtype)
+            dq += matmul_f32(ds, k[:, :, c0:c0 + block_k])
+            dk.append(matmul_f32(ds.transpose(-1, -2), q))
+        return (dq.to(q.dtype), torch.cat(dk, 2).to(q.dtype), torch.cat(dv, 2).to(q.dtype),
+                None, None, None, None, None)
+
+
+def _flash_scores(q, k, km, scale, causal, c0, block_k):
+    """The f32 scores of q against keys [c0, c0 + block_k), the where's
+    fill on the keys a query does not see, and which it sees."""
+    lq = q.shape[2]
+    s = matmul_f32(q, k[:, :, c0:c0 + block_k].transpose(-1, -2)) * scale
+    vis = km[:, None, None, c0:c0 + block_k].bool()
+    if causal:
+        cols = torch.arange(c0, c0 + block_k, device=q.device)
+        vis = vis & (cols[None, :] <= torch.arange(lq, device=q.device)[:, None])
+    return torch.where(vis, s, _NEG_INF), vis
+
+
+def flash_mha_reference(q, k, v, *, causal: bool, scale: Optional[float] = None, q_mask=None,
+                        kv_mask=None, block_k: Optional[int] = None):
+    """The plain version of the one-pass kernels (``flash_route``), the
+    arithmetic of JAX's library flash kernel, differentiable: one pass over
+    key blocks of ``block_k`` with an online softmax, the running max m
+    and sum l in f32, p = exp(s - m) rounded to q's dtype before the P·V
+    product (before it is normalised), the f32 sum rescaled as m moves and
+    normalised once at the end. The backward recomputes p from the saved
+    m and l, takes delta = rowsum(o·dO) in f32 and rounds ds = p (dP -
+    delta) scale before dQ = ds·K and dK = dsᵀ·Q, and p before dV = pᵀ·dO.
+    The port's masking: padded query rows give zeros and no gradient, real
+    rows that see no real key (dead) spread over every key, and a masked
+    score's ds is 0 (JAX's segment ids differ on those rows only).
+    ``block_k`` defaults to the kernels' tile at q's width (FLASH_TILES;
+    64 elsewhere)."""
+    D, lk = q.shape[-1], k.shape[2]
+    if block_k is None:
+        block_k = FLASH_TILES.get(D, 64)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if lk % block_k:
+        raise ValueError(f"flash_mha_reference: Lk = {lk} is not a multiple of {block_k}")
+    qm, km = _masks(q, k, q_mask, kv_mask)
+    return _FlashReference.apply(q, k, v, qm, km, float(scale), bool(causal), int(block_k))
+
+
+def kernel_reference(q, k, v, **kw):
+    """The plain version of what ``block_mha`` runs on the card for q's
+    width and dtype: ``flash_mha_reference`` on the one-pass route
+    (``flash_route``), else ``block_mha_reference``."""
+    if flash_route(q.shape[-1], q.dtype) and not kw.get("dropout_rate"):
+        return flash_mha_reference(q, k, v, causal=kw["causal"], scale=kw.get("scale"),
+                                   q_mask=kw.get("q_mask"), kv_mask=kw.get("kv_mask"))
+    return block_mha_reference(q, k, v, **kw)
 
 
 def _check(name, x, like, shape):

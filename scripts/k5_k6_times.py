@@ -1,8 +1,12 @@
-"""Times kernels K5 and K6 at the shapes of their rows in PERF.md, from
-one or more trees of this repository, in turns.
+"""Times kernels K5, K7 and K6 at the shapes of their rows in PERF.md,
+from one or more trees of this repository, in turns.
 
 K5 (block attention): bf16 [48, 12, 512, 64], causal, dropout 0.1,
-forward and backward (the training slice). K6 (fused cross-entropy):
+forward and backward (the training slice). K7 (K5's source on the shapes
+of JAX's library flash kernel): bf16 [2, 16, 2048, Dh] at Dh = 256 and
+384, causal, left pads of 0 and 217 keys (queries masked as their keys),
+forward and backward, and one scaled_dot_product_attention call (causal,
+no mask) on the same tensors. K6 (fused cross-entropy):
 bf16 forward and backward over GPT-2's vocabulary (50,271 rows) at
 gpt2's training shape (N = 24,576, D = 768), gpt2-large's (6,144, 1,280)
 and gpt2-xl's (2,048, 1,600), in bf16 and in fp32 (TF32 off; K6's f32
@@ -19,8 +23,9 @@ Each tree (default: this one) is a directory holding an
 ``ergm_tpu_torch/_build`` and timed in a process of its own. With two
 trees A and B the runs go A, B, B, A and the script prints each
 reading, each tree's better run, and B's time over A's per kernel.
-Each tree's compiler report for ``fused_ce.cu``'s f32 kernels (registers
-and spills, from the build's ``.log``) is printed once.
+Each tree's compiler report (registers and spills, from the build's
+``.log``) for ``fused_ce.cu``'s f32 kernels and K7's wide-head kernels
+is printed once.
 """
 
 from __future__ import annotations
@@ -28,10 +33,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 
+K7_HEADS = (256, 384)
+K7_PADS = (0, 217)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K6_SHAPES = {"gpt2": (24576, 768), "gpt2-large": (6144, 1280), "gpt2-xl": (2048, 1600)}
 V = 50271
 
@@ -73,6 +80,25 @@ def _child(tree: str) -> dict:
     o = block_attention.block_mha(*xs, **kw)
     out["K5 bwd"] = median_ms(lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 20)
     del q, k, v, do, xs, o
+    for dh in K7_HEADS:
+        q, k, v, do = (torch.randn((2, 16, 2048, dh), generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        m = (torch.arange(2048, device="cuda")[None]
+             >= torch.tensor(K7_PADS, device="cuda")[:, None]).to(torch.int32)
+        kw = dict(causal=True, scale=dh ** -0.5, q_mask=m, kv_mask=m)
+        out[f"K7 fwd dh{dh}"] = median_ms(lambda: block_attention.block_mha(q, k, v, **kw), 10)
+        sdpa = dict(is_causal=True, scale=dh ** -0.5)
+        out[f"SDPA fwd dh{dh}"] = median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **sdpa), 10)
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = block_attention.block_mha(*xs, **kw)
+        out[f"K7 bwd dh{dh}"] = median_ms(
+            lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 10)
+        o = torch.nn.functional.scaled_dot_product_attention(*xs, **sdpa)
+        out[f"SDPA bwd dh{dh}"] = median_ms(
+            lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 10)
+        del q, k, v, do, xs, o
+        torch.cuda.empty_cache()
     for (model, (n, d)), dtype in ((m, t) for t in (torch.bfloat16, torch.float32)
                                    for m in K6_SHAPES.items()):
         h = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
@@ -88,22 +114,7 @@ def _child(tree: str) -> dict:
         del h, w, lbl, g, logz
         torch.cuda.empty_cache()
     out["card"] = torch.cuda.get_device_name(0)
-    out["ptxas"] = _f32_report(_build.library_path().with_suffix(".log").read_text())
-    return out
-
-
-def _f32_report(log: str) -> dict:
-    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
-    for the f32 route's kernels of ``fused_ce.cu`` in a build's report."""
-    section = log.split("== fused_ce.cu", 1)[1].split("\n== ", 1)[0]
-    out, name = {}, None
-    for line in section.splitlines():
-        if m := re.search(r"Compiling entry function '(\w+)'", line):
-            name = m.group(1) if "f32" in m.group(1) else None
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            out[name] = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    out["log"] = _build.library_path().with_suffix(".log").read_text()
     return out
 
 
@@ -121,11 +132,17 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi)
+    sys.path.insert(0, ROOT)
+    from ergm_tpu_torch.ops import _build
+
     runs = {t: [] for t in trees}
     for tree in order:
         res = subprocess.run([sys.executable, os.path.abspath(__file__), f"--child={tree}"],
                              capture_output=True, text=True, check=True)
         reading = json.loads(res.stdout.strip().splitlines()[-1])
+        log = reading.pop("log")
+        reading["ptxas"] = {**_build.ptxas_report(log, "fused_ce.cu", "f32"),
+                            **_build.ptxas_report(log, "block_attention.cu", r"wide|flash")}
         runs[tree].append(reading)
         if len(runs[tree]) == 1:
             print(f"{tree} ptxas: {json.dumps(reading['ptxas'])}")

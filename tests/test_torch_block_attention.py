@@ -318,3 +318,63 @@ def test_flash_head_widths_match_jax_library(monkeypatch, d):
     x = torch.from_numpy(q)
     assert tba.flash_supported(x, x, x, causal=True) == want == tba.flash_head_ok(d)
     assert want == (d not in (136, 200))
+
+
+def _library_flash(q, k, v, g, causal, q_mask, kv_mask, dtype):
+    """JAX's library TPU flash kernel itself, in Pallas's TPU interpret
+    mode, with segment ids as ``ergm_tpu``'s ``flash_mha`` builds them and
+    128-blocks: [o, dQ, dK, dV] as float32 numpy."""
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as fa
+
+    blocks = fa.BlockSizes(block_q=128, block_k_major=128, block_k=128, block_b=1,
+                           block_q_major_dkv=128, block_k_major_dkv=128, block_k_dkv=128,
+                           block_q_dkv=128, block_k_major_dq=128, block_k_dq=128, block_q_dq=128)
+    seg = fa.SegmentIds(q=jnp.asarray(q_mask), kv=jnp.asarray(kv_mask))
+
+    def f(q, k, v):
+        return fa.flash_attention(q, k, v, segment_ids=seg, causal=causal,
+                                  sm_scale=q.shape[-1] ** -0.5, block_sizes=blocks)
+    with pltpu.force_tpu_interpret_mode():
+        o, vjp = jax.vjp(f, *(jnp.asarray(x, dtype) for x in (q, k, v)))
+        grads = vjp(jnp.asarray(g, dtype))
+    return [np.asarray(x.astype(jnp.float32)) for x in (o, *grads)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,lq,lk", [(True, 256, 256), (False, 128, 256)])
+def test_flash_reference_matches_jax_library_kernel(causal, lq, lk, dtype):
+    """``flash_mha_reference`` (block_k = 128), the plain version of the
+    one-pass kernels, against JAX's library flash kernel in TPU interpret
+    mode at Dh = 256: causal [1, 2, 256, 256] with a left-pad mask (queries
+    masked as their keys), and non-causal Lq = 128 over Lk = 256 with the
+    same key mask. Compared on rows with at least one visible real key
+    (JAX's segment ids give other rows junk, the port zeros or a uniform
+    spread), the cotangent zero elsewhere: fp32 outputs within 2e-5 and
+    gradients within 5e-5; bf16 within 2e-2 + 1e-2 |JAX|."""
+    rng = np.random.default_rng(6 if causal else 7)
+    d = 256
+    q = rng.standard_normal((1, 2, lq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 2, lk, d)).astype(np.float32) for _ in range(2))
+    kv_mask = _leftpad(1, lk, [37])
+    q_mask = kv_mask[:, :lq] if causal else np.ones((1, lq), np.int32)
+    seen = kv_mask[:, None, :].astype(bool)
+    if causal:
+        seen = seen & (np.arange(lk)[None, None, :] <= np.arange(lq)[None, :, None])
+    rows = (q_mask.astype(bool) & seen.any(-1))[:, None, :, None]
+    g = rng.standard_normal((1, 2, lq, d)).astype(np.float32) * rows
+    want = _library_flash(q, k, v, g, causal, q_mask, kv_mask, getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    xs = [torch.from_numpy(x).to(tdt).requires_grad_(True) for x in (q, k, v)]
+    o = tba.flash_mha_reference(*xs, causal=causal, q_mask=torch.from_numpy(q_mask),
+                                kv_mask=torch.from_numpy(kv_mask), block_k=128)
+    grads = torch.autograd.grad(o, xs, torch.from_numpy(g).to(tdt))
+    got = [x.detach().float().numpy() for x in (o, *grads)]
+    for i, (a, b_) in enumerate(zip(got, want)):
+        if i < 2:  # the output and dQ: rows with a visible real key
+            a, b_ = a * rows, b_ * rows
+        if dtype == "float32":
+            tol = 2e-5 if i == 0 else 5e-5
+            np.testing.assert_allclose(a, b_, atol=tol, rtol=tol)
+        else:
+            assert np.all(np.abs(a - b_) <= 2e-2 + 1e-2 * np.abs(b_)), (i, np.abs(a - b_).max())

@@ -403,11 +403,11 @@ def _grads_within(got, want, dtype, f32_tol, exact=()):
             assert ratio <= 1.0, ratio
 
 
-def _k5_case(dtype, causal, Lk, rate, masks, seed=0, d=64):
+def _k5_case(dtype, causal, Lk, rate, masks, seed=0, d=64, L=256, plain=tba.block_mha_reference):
     """(kernel, plain, plain in f32) runs, each [o, dQ, dK, dV], at head
     width d; the f32 run only for bf16 inputs."""
     g = torch.Generator().manual_seed(seed)
-    B, H, L = 2, 4, 256
+    B, H = 2, 4
     q, k, v, do = (torch.randn(s, generator=g).to("cuda", dtype)
                    for s in ((B, H, L, d), (B, H, Lk, d), (B, H, Lk, d), (B, H, L, d)))
     qm = km = None
@@ -416,14 +416,14 @@ def _k5_case(dtype, causal, Lk, rate, masks, seed=0, d=64):
         km[:, :3] = 0 if causal else 1  # causal: rows before the first real key
         qm = torch.ones((B, L), dtype=torch.int32, device="cuda")
         qm[1, -40:] = 0
-    runs = [(tba.block_mha, dtype), (tba.block_mha_reference, dtype)]
+    runs = [(tba.block_mha, dtype), (plain, dtype)]
     if dtype == torch.bfloat16:
-        runs.append((tba.block_mha_reference, torch.float32))
+        runs.append((plain, torch.float32))
+    drop = dict(dropout_rate=rate, dropout_seed=77 if rate else None) if rate else {}
     outs = []
     for fn, dt in runs:
         qq, kk, vv = (x.to(dt).clone().requires_grad_(True) for x in (q, k, v))
-        o = fn(qq, kk, vv, causal=causal, scale=d ** -0.5, q_mask=qm, kv_mask=km,
-               dropout_rate=rate, dropout_seed=77 if rate else None)
+        o = fn(qq, kk, vv, causal=causal, scale=d ** -0.5, q_mask=qm, kv_mask=km, **drop)
         outs.append([o, *torch.autograd.grad(o, (qq, kk, vv), do.to(dt))])
     torch.cuda.synchronize()
     return outs
@@ -733,24 +733,30 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [100, 256, 384])
+@pytest.mark.parametrize("d", [100, 256, 384, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,Lk,masks", [(True, 256, True), (True, 256, False),
-                                             (False, 128, True)])
-def test_flash_kernel_at_jax_library_widths(dtype, causal, Lk, masks, d):
+@pytest.mark.parametrize("causal,L,Lk,masks", [(True, 256, 256, True), (True, 256, 256, False),
+                                               (False, 256, 128, True), (True, 128, 384, True)])
+def test_flash_kernel_at_jax_library_widths(dtype, causal, L, Lk, masks, d):
     """K7's head widths past JAX's block gate, without dropout: 100 (padded
-    to the 128-wide template) and the wide kernels at 256 and 384 (column
-    groups of 128), forward and backward against the plain version, with
-    q/kv masks and rows before the first real key, without masks, and the
-    rectangular non-causal form. fp32 with TF32 off at JAX's bars (2e-5
-    forward, 5e-5 gradients); bf16 output within 2e-2 + 1e-2 |plain|,
-    gradients as ``_grads_within``, a bar that dK without its last 32 keys
-    fails; the bf16 backward repeats bit for bit."""
+    to the 128-wide template) and the wide heads at 256 and 384 (bf16: the
+    one-pass kernels, held to ``flash_mha_reference``, JAX's library
+    arithmetic) and 512 (bf16: the ``wide::`` kernels, column groups of
+    128), forward and backward against the plain version, with q/kv masks
+    and rows before the first real key, without masks, the rectangular
+    non-causal form, and causal Lq = 128 over Lk = 384 at offset 0 with a q
+    mask other than the key mask (the dead rows walk every key, past the
+    last query). fp32 with TF32 off at JAX's bars (2e-5 forward, 5e-5
+    gradients); bf16 output within 2e-2 + 1e-2 |plain|, gradients as
+    ``_grads_within``, a bar that dK without the last 32 keys a real row
+    sees fails; the bf16 backward repeats bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    plain = tba.flash_mha_reference if tba.flash_route(d, dtype) else tba.block_mha_reference
     f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
-    (o, *grads), (o_ref, *grads_ref), *exact = _k5_case(dtype, causal, Lk, 0.0, masks, d=d)
+    (o, *grads), (o_ref, *grads_ref), *exact = _k5_case(dtype, causal, Lk, 0.0, masks, d=d, L=L,
+                                                        plain=plain)
     assert o.shape[-1] == d and all(x.shape[-1] == d for x in grads)
     assert (tba.LAUNCHES, tba.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
     ok, err = _within(o, o_ref, dtype, 2e-5)
@@ -758,10 +764,11 @@ def test_flash_kernel_at_jax_library_widths(dtype, causal, Lk, masks, d):
     exact = exact[0][1:] if exact else ()
     _grads_within(grads, grads_ref, dtype, 5e-5, exact)
     if exact:
+        hi = min(L, Lk) if causal else Lk  # the last keys a real row sees
         late = grads[1].clone()
-        late[:, :, -32:] = 0
+        late[:, :, hi - 32:hi] = 0
         assert _bf16_grad_ratio(late, grads_ref[1], exact[1]) > 1.0
-        (o2, *grads2), *_ = _k5_case(dtype, causal, Lk, 0.0, masks, d=d)
+        (o2, *grads2), *_ = _k5_case(dtype, causal, Lk, 0.0, masks, d=d, L=L, plain=plain)
         assert torch.equal(o, o2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
 
 
