@@ -156,18 +156,21 @@ Phases, each of which raises on failure:
    ``scaled_dot_product_attention`` as K5's yardstick; K6's backward
    also with 4096- and 16384-column chunks, and one cuBLAS ``h @ w.t()``
    at its shapes as context.
-   K7's shapes (JAX's library flash kernel, served by K5): [8, 12, 2048,
-   64] bf16, causal, left-pad key and query masks, no dropout, forward and
-   backward against the plain version (output and gradient bars as K5's,
-   on real rows), fp32 at [1, 2, 2048, 64] (2e-5 and 5e-5); times of
-   kernel, plain and ``scaled_dot_product_attention`` (``is_causal``, no
-   mask) as the yardstick.
+   K7 (JAX's library flash kernel, ``flash_attention.flash_mha``): [8, 12,
+   2048, 64] bf16 (the one-pass kernels), causal, left-pad key and query
+   masks, no dropout, forward and backward against the plain version of
+   what the card runs (``flash_attention.kernel_reference``: in bf16
+   ``flash_mha_reference``, JAX's library flash arithmetic; output and
+   gradient bars as K5's, on real rows; the bf16 run twice bit for bit),
+   fp32 at [1, 2, 2048, 64] (2e-5 and 5e-5); times of kernel, plain and
+   ``scaled_dot_product_attention`` (``is_causal``, no mask) as the
+   yardstick.
 11. training reference: a small fp32 model takes 3 AdamW steps on the
    card (K5 and K6) and on the CPU (plain versions); losses within 1e-4.
    Then the long-context path: one ``make_train_step`` step of gpt2 at
    full width with ``n_positions=2048``, two layers, B=2, L=2048 and no
-   attention dropout, where the ``auto`` route takes K5 inside JAX's
-   flash gate: it must launch twice forward and twice backward.
+   attention dropout, where the ``auto`` route takes K7 inside JAX's
+   flash gate: it must launch twice forward and twice backward, K5 never.
 12. training slice: the ``scripts/train_bench.py`` configuration (gpt2
    at full width, B=48, L=512, bf16, dropout 0.1, remat "mlp", random
    weights from seed 0): ``make_train_step`` once, then 8 timed steps
@@ -185,14 +188,14 @@ Phases, each of which raises on failure:
    82,000, 48,000, 327,760 and 368,720 samples at 16 kHz (128, 256, 149,
    1,024 and 1,152 frames) and one of 1.5 s at 22.05 kHz, at B=1 in fp32
    and bf16, entered with cuDNN's TF32 on: K5 must launch 12 times for each
-   clip whose frame count is a multiple of 128 (1,152 through JAX's flash
-   gate) and never for the others, every launch within its bar (fp32
-   F32_TOL, bf16 the bf16 bar) of ``block_mha_reference``
+   clip whose frame count is a multiple of 128 up to 1,024, K7 for 1,152
+   (JAX's flash gate), neither for the others, every launch within its bar
+   (fp32 F32_TOL, bf16 the bf16 bar) of its plain version
    (``KernelShadow``), the fp32 features of three clips within 1e-3 of the
    CPU's; ms a clip (host wall), one clip's device busy time and host wall
    read in the same profiled passes, and each convolution of a 128-frame
    clip timed alone. ``extract_features.main`` over the same directory (PNG
-   keyframes where PIL imports): K5 as above, its audio features equal to
+   keyframes where PIL imports): K5 and K7 as above, its audio features equal to
    the direct run's. The BLIP ViT-B/16 encoder at 384 px (577 tokens, no
    K5) in fp32 and bf16: ms an image. ``extract_text_features`` at gpt2
    full width in bf16 over 256 utterances of 8-250 tokens: K5 12 times
@@ -335,8 +338,8 @@ Phases, each of which raises on failure:
    (fp32 at B=4), forward and backward against the plain version at the
    bars of phase 10, with the times of kernel, plain and
    ``scaled_dot_product_attention`` at the training configuration and the
-   bound; K7's shape at the widest head, [2, 6, 2048, 128], causal, left
-   pads, the same way. (b) K6 at gpt2's training shape (N=24,576, GPT-2's
+   bound; K7 at the widest head, [2, 6, 2048, 128], causal, left pads,
+   the same way. (b) K6 at gpt2's training shape (N=24,576, GPT-2's
    50,257-row vocabulary) for D = 32, 96, 100 and 776 (padded to 64, 128,
    128 and 832, whole stages of the kernels' products), bf16
    and fp32 (N=2,048), with times and bounds and, at D = 100, the bf16
@@ -346,9 +349,9 @@ Phases, each of which raises on failure:
    512 tokens and validation, every K5 and K6 launch held against its plain
    version (``KernelShadow``, forward and backward): K5 launches in training
    exactly at head widths in JAX's block gate (not at 25, 97 or 136, where
-   the explicit ``block`` route raises), and forward in validation also at
-   25 and 97 (JAX's flash gate, no dropout), never at 136; K6 at every
-   width, 2,112 too; one long-context step at 6 heads of 128 (K7's route). (d)
+   the explicit ``block`` route raises), K7 forward in validation at 25 and
+   97 (JAX's flash gate, no dropout), neither at 136; K6 at every width,
+   2,112 too; one long-context step at 6 heads of 128 (K7). (d)
    gpt2 at its full width and 12 layers in fp32 against
    ``tests/fixtures/gpt2_agreement.json`` (``GPT2_AGREEMENT``): tokens by
    the margin rule, emotion logits within 1e-4, losses within 1e-5 and
@@ -360,10 +363,11 @@ Phases, each of which raises on failure:
    4,096 (GPT-J-6B, Cerebras-6.7B) and 5,120 (Cerebras-13B), bf16 and fp32
    (N=1,024; the f32 backward in column groups of 2,048), at the bars of
    phase 17, with the bf16 backward twice bit for bit at 2,560. (b) K7 at
-   [2, 16, 2048, Dh], causal, left pads, no dropout, for Dh = 100 (padded to
-   the 128-wide template), 256 and 384 (in bf16 the one-pass kernels, held
-   to ``flash_mha_reference``, JAX's library flash arithmetic; the
-   kernels' ptxas registers and spills printed), fp32 and bf16, forward
+   [2, 16, 2048, Dh], causal, left pads, no dropout, for Dh = 100 (bf16:
+   padded to the one-pass kernels' 128; fp32: K5's 128-wide template), 256
+   and 384 (in bf16 the one-pass kernels, held to ``flash_mha_reference``,
+   JAX's library flash arithmetic; the ptxas registers and spills of every
+   one-pass kernel, 64 and 128 too, printed), fp32 and bf16, forward
    and backward against the plain version at the bars of phase 10, with
    SDPA's times and the bound; at Dh = 200 ``auto`` takes the plain math
    and ``flash`` raises. (c) Cerebras-GPT-2.7B's published widths
@@ -379,7 +383,7 @@ Phases, each of which raises on failure:
    2,048 tokens without attention dropout, so that JAX's flash gate routes
    every self-attention call: GPT-J-6B's attention (4,096 wide, 16 heads
    of 256, K6 at 4,096), 16 heads of 100 at 1,600 wide, and Cerebras-13B's
-   width (5,120 wide, 40 heads of 128, K6 at 5,120), shadowed. (e)
+   width (5,120 wide, 40 heads of 128, K6 at 5,120), K7 and K6 shadowed. (e)
    Cerebras-GPT-2.7B's width at 2 layers in fp32 against
    ``tests/fixtures/cerebras_2p7b_agreement.json``
    (``CEREBRAS_2P7B_AGREEMENT``): tokens by the margin rule, emotion
@@ -429,7 +433,7 @@ from ergm_tpu_torch.infer.http_server import ServerFrontend
 from ergm_tpu_torch.infer.server import ContinuousServer, Request, request_from_json
 from ergm_tpu_torch.models import gpt2
 from ergm_tpu_torch.ops import (_build, block_attention, cross_decode, decode_attention,
-                                fused_ce, fused_decode, prefill_attention)
+                                flash_attention, fused_ce, fused_decode, prefill_attention)
 from ergm_tpu_torch.ops.attention import dropout_keep
 from ergm_tpu_torch.train import checkpoint as ckpt_lib
 from ergm_tpu_torch.train.steps import AdamW, create_train_state, make_train_step
@@ -499,7 +503,7 @@ TRAIN_SLICE = dict(model_type="gpt2", vocab_size=50271, dtype="bfloat16", modali
                    attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1, remat=True,
                    remat_policy="mlp", lm_loss_impl="auto")
 TRAIN_B, TRAIN_L, SEED = 48, 512, 1234
-# K7's shapes: L past JAX's block gate (1024), served by K5 inside its flash gate
+# K7's shapes: L past JAX's block gate (1024), inside its flash gate
 LONG_L, FLASH_B = 2048, 8
 # H100 SXM data sheet: HBM bytes/s and dense peaks (bf16 tensor cores, f32 CUDA cores)
 HBM_BYTES_S = 3.35e12
@@ -541,12 +545,13 @@ class StepCounter:
 
 def reset_launches() -> None:
     for mod in (prefill_attention, cross_decode, fused_decode, decode_attention,
-                block_attention, fused_ce):
+                block_attention, flash_attention, fused_ce):
         mod.LAUNCHES = 0
     prefill_attention.CROSS_LAUNCHES = 0
     cross_decode.TP_LAUNCHES = 0
     fused_decode.TP_LAUNCHES = 0
     block_attention.BWD_LAUNCHES = 0
+    flash_attention.BWD_LAUNCHES = 0
     fused_ce.BWD_LAUNCHES = 0
 
 
@@ -555,6 +560,11 @@ def _train_counts() -> dict:
             "block_mha_bwd": block_attention.BWD_LAUNCHES,
             "fused_softmax_xent": fused_ce.LAUNCHES,
             "fused_softmax_xent_bwd": fused_ce.BWD_LAUNCHES}
+
+
+def _k7_counts() -> dict:
+    """K7's launches (``flash_attention.flash_mha``), forward and backward."""
+    return {"flash_mha": flash_attention.LAUNCHES, "flash_mha_bwd": flash_attention.BWD_LAUNCHES}
 
 
 def bound(nbytes: float, flops: float, dtype=torch.bfloat16) -> dict:
@@ -1364,32 +1374,59 @@ def _k5_bwd_args(args) -> tuple:
     return tuple(args) + ((args[0].shape[1],) if len(args) == 13 else ())
 
 
-def _k5_bwd_plain(args, dtype) -> list:
-    """(dQ, dK, dV) of K5's plain version in ``dtype`` on the inputs of
-    ``block_attention.launch_bwd``, by autograd."""
-    q, k, v, _, _, qm, kbits, _, do, scale, causal, rate, seed, stride = _k5_bwd_args(args)
+def _attn_bwd_plain(plain, args, dtype, **kw) -> list:
+    """(dQ, dK, dV) of the plain attention ``plain`` in ``dtype`` on the
+    inputs of a K5 or K7 backward launch (its first eleven; ``kw``:
+    ``plain``'s further arguments), by autograd."""
+    q, k, v, _, _, qm, kbits, _, do, scale, causal = args[:11]
     xs = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
     with torch.enable_grad():
-        o = block_attention.block_mha_reference(*xs, causal=causal, scale=scale, q_mask=qm,
-                                                kv_mask=_k5_key_mask(kbits, k.shape[2]),
-                                                dropout_rate=rate, dropout_seed=seed,
-                                                dropout_head_stride=stride)
+        o = plain(*xs, causal=causal, scale=scale, q_mask=qm,
+                  kv_mask=_k5_key_mask(kbits, k.shape[2]), **kw)
         return list(torch.autograd.grad(o, xs, do.to(dtype)))
 
 
+def _k5_bwd_plain(args, dtype) -> list:
+    """``_attn_bwd_plain`` of K5's plain version with the launch's dropout."""
+    rate, seed, stride = _k5_bwd_args(args)[11:]
+    return _attn_bwd_plain(block_attention.block_mha_reference, args, dtype,
+                           dropout_rate=rate, dropout_seed=seed, dropout_head_stride=stride)
+
+
+def _k7_bwd_plain(args, dtype) -> list:
+    """``_attn_bwd_plain`` of the plain version of what a K7 launch runs
+    (``flash_attention.kernel_reference``; no dropout)."""
+    return _attn_bwd_plain(flash_attention.kernel_reference, args, dtype)
+
+
 def _k5_bwd_jax(args) -> list:
+    """``_attn_bwd_jax`` on a K5 backward launch's arguments, with its dropout."""
+    return _attn_bwd_jax(args[:11], False, *_k5_bwd_args(args)[11:])
+
+
+def _k7_bwd_jax(args) -> list:
+    """``_attn_bwd_jax`` on a K7 backward launch's arguments (no dropout):
+    JAX's library flash backward where the launch runs the one-pass kernels
+    (``flash_attention.flash_route``), K5's backward arithmetic elsewhere
+    (``wide::``)."""
+    q = args[0]
+    return _attn_bwd_jax(args, flash_attention.flash_route(q.shape[-1], q.dtype))
+
+
+def _attn_bwd_jax(args, flash: bool, rate: float = 0.0, seed: int = 0,
+                  stride: int | None = None) -> list:
     """(dQ, dK, dV) by the arithmetic of JAX's K5 backward
     (``ergm_tpu/ops/block_attention.py::_bwd_kernel``), in plain PyTorch:
     scores, pn and dpn in f32 from the bf16 operands, delta = rowsum(pn *
     dpn), ds = pn * (dpn - delta) and the dropped pn rounded to the
     operands' dtype, f32 products, the results rounded. ds is 0 where a key
     is masked (the where's derivative), as in K5 and the autograd twin.
-    Where the launch runs the one-pass kernels (``flash_route``), JAX's
-    library flash backward instead (``flash_attention.py::_flash_attention_bwd``
+    With ``flash`` (a K7 launch on the one-pass kernels), JAX's library
+    flash backward instead (``flash_attention.py::_flash_attention_bwd``
     and its kernels): delta = rowsum(o * dO) in f32 from the forward's
-    output, ds = pn * (dpn - delta) * scale rounded."""
-    q, k, v, o, _, qm, kbits, _, do, scale, causal, rate, seed, stride = _k5_bwd_args(args)
-    flash = block_attention.flash_route(q.shape[-1], q.dtype) and rate == 0.0
+    output, ds = pn * (dpn - delta) * scale rounded. ``args``: the launch's
+    first eleven; ``rate``, ``seed``, ``stride``: K5's dropout."""
+    q, k, v, o, _, qm, kbits, _, do, scale, causal = args
     B, H, L, _ = q.shape
     lk = k.shape[2]
     mask = _k5_key_mask(kbits, lk)[:, None, None, :].bool()
@@ -1482,11 +1519,11 @@ class KernelShadow:
                (cross_decode, "fused_cross_decode", None), (fused_decode, "fused_ln_mlp", None))
     # the server's path: K1 (both forms), K5 and K4
     SERVER = ((prefill_attention, "prefill_mha", _k1_rows),
-              (block_attention, "block_mha", _k5_rows, block_attention.kernel_reference),
+              (block_attention, "block_mha", _k5_rows),
               (fused_decode, "fused_ln_mlp", None))
     # the training path's backward launches, each against JAX's backward
     # arithmetic (the TPU kernel's) and read against the autograd of its
-    # forward's plain version: K5 with dQ on the rows of real queries; K6
+    # forward's plain version: K5 and K7 with dQ on the rows of real queries; K6
     # (whose padj JAX rounds before both products: at gpt2-xl's width a
     # training step's launch read 1.15 of the bar against the autograd,
     # which rounds only the results)
@@ -1497,6 +1534,11 @@ class KernelShadow:
                 (fused_ce, "fused_softmax_xent_bwd", _k6_bwd_jax,
                  lambda a: _k6_bwd_plain(a, torch.float32), lambda a: (None, None),
                  lambda a: _k6_bwd_plain(a, torch.bfloat16)))
+    # the same and K7's (runs with shapes past JAX's block gate)
+    K7_BACKWARD = BACKWARD + ((flash_attention, "flash_mha_bwd", _k7_bwd_jax,
+                               lambda a: _k7_bwd_plain(a, torch.float32),
+                               lambda a: (a[5][:, None, :, None], None, None),
+                               lambda a: _k7_bwd_plain(a, torch.bfloat16)),)
 
     def __init__(self, kernels=KERNELS, backward=()):
         self.kernels, self.backward = kernels, backward
@@ -2797,22 +2839,24 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
 
 
 def flash_kernel_phase(gen: torch.Generator) -> dict:
-    """K5 on the shapes of JAX's library flash kernel (K7): L=2048, causal,
-    left-pad masks, no dropout, [8, 12, 2048, 64] in bf16 and [1, 2, 2048,
-    64] in fp32 (``_k7_case``). Returns the K7 rows' numbers."""
+    """K7 (``flash_attention.flash_mha``) on the shapes of JAX's library
+    flash kernel: L=2048, causal, left-pad masks, no dropout, [8, 12, 2048,
+    64] in bf16 and [1, 2, 2048, 64] in fp32 (``_k7_case``). Returns the K7
+    rows' numbers."""
     res = _k7_case(gen, 64, ((torch.float32, 1, 2), (torch.bfloat16, FLASH_B, 12)))
-    return {"block_mha_flash": res["fwd"], "block_mha_flash_bwd": res["bwd"]}
+    return {"flash_mha": res["fwd"], "flash_mha_bwd": res["bwd"]}
 
 
 def _k7_case(gen: torch.Generator, dh: int, shapes: tuple) -> dict:
-    """K5 on K7's shapes at head width ``dh``: [b, heads, LONG_L, dh] for
-    each (dtype, b, heads) of ``shapes`` (bf16 last), causal, left-pad key
-    and query masks, no dropout, forward and backward against the plain
-    version of what the card runs (``block_attention.kernel_reference``:
-    JAX's library flash arithmetic on the one-pass kernels) on real rows
-    (``_k5_held``); bf16 times of kernel, plain and SDPA (``is_causal``, no
-    mask) and the bound over the pairs of real rows and keys. Returns
-    {"fwd": numbers, "bwd": numbers}."""
+    """K7 at head width ``dh``: [b, heads, LONG_L, dh] for each (dtype, b,
+    heads) of ``shapes`` (bf16 last), causal, left-pad key and query masks,
+    no dropout, ``flash_mha`` forward and backward against the plain
+    version of what the card runs (``flash_attention.kernel_reference``: in
+    bf16 up to 384 JAX's library flash arithmetic, the one-pass kernels'
+    own) on real rows (``_k5_held``), the bf16 run twice bit for bit;
+    bf16 times of kernel, plain and SDPA (``is_causal``, no mask) and the
+    bound over the pairs of real rows and keys. Returns {"fwd": numbers,
+    "bwd": numbers}."""
     L, scale = LONG_L, dh ** -0.5
     res = {k: {"max_abs_err": 0.0} for k in ("fwd", "bwd")}
     for dtype, b, heads in shapes:
@@ -2823,27 +2867,33 @@ def _k7_case(gen: torch.Generator, dh: int, shapes: tuple) -> dict:
         m = (torch.arange(L, device=DEVICE)[None] >= pads[:, None]).to(torch.int32)
         # padded query rows: zeros here, junk in JAX's flash kernel
         kw = dict(causal=True, scale=scale, q_mask=m, kv_mask=m)
-        got = _k5_grads(block_attention.block_mha, q, k, v, do, **kw)
-        want = _k5_grads(block_attention.kernel_reference, q, k, v, do, **kw)
-        exact = (_k5_grads(block_attention.kernel_reference,
+        got = _k5_grads(flash_attention.flash_mha, q, k, v, do, **kw)
+        want = _k5_grads(flash_attention.kernel_reference, q, k, v, do, **kw)
+        exact = (_k5_grads(flash_attention.kernel_reference,
                            *(x.float() for x in (q, k, v, do)), **kw)
                  if dtype == torch.bfloat16 else [])
         torch.cuda.synchronize()
-        o_err, g_err, g_ratio = _k5_held(f"K5 on K7's shape Dh={dh} {dtype}", dtype, got, want,
+        o_err, g_err, g_ratio = _k5_held(f"K7 Dh={dh} {dtype}", dtype, got, want,
                                          exact, rows=m[:, None, :, None].bool())
-        print(f"K5 on K7's shape {dtype} [{b}, {heads}, {L}, {dh}] causal, left pads up to "
+        if dtype == torch.bfloat16:
+            again = _k5_grads(flash_attention.flash_mha, q, k, v, do, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"K7 Dh={dh}: a second run differs")
+            del again
+        print(f"K7 {dtype} [{b}, {heads}, {L}, {dh}] causal, left pads up to "
               f"{int(pads.max())}: max |kernel - plain| output {o_err:.3e} (real rows), "
-              f"gradients {g_err:.3e} ({g_ratio:.3f} of the bar)")
+              f"gradients {g_err:.3e} ({g_ratio:.3f} of the bar)"
+              + (", bf16 repeats bit for bit" if dtype == torch.bfloat16 else ""))
         key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
         res["fwd"][key], res["bwd"][key] = o_err, g_err
         del got, want, exact
-    fwd = {"kernel": lambda *x: block_attention.block_mha(*x, **kw),
-           "plain": lambda *x: block_attention.kernel_reference(*x, **kw),
+    fwd = {"kernel": lambda *x: flash_attention.flash_mha(*x, **kw),
+           "plain": lambda *x: flash_attention.kernel_reference(*x, **kw),
            "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True, scale=scale)}
     real_len = (L - pads).long()
     pairs = int((real_len * (real_len + 1) // 2).sum()) * heads
     r = res["fwd"]
-    r["ms"], r["plain_ms"] = _timed_pair(f"K5 on K7's shape Dh={dh}, forward",
+    r["ms"], r["plain_ms"] = _timed_pair(f"K7 Dh={dh}, forward",
                                          lambda: fwd["kernel"](q, k, v),
                                          lambda: fwd["plain"](q, k, v), reps=10)
     r["library_ms"] = _median_ms(lambda: fwd["library"](q, k, v))
@@ -2854,12 +2904,12 @@ def _k7_case(gen: torch.Generator, dh: int, shapes: tuple) -> dict:
         o = fn(*xs)
         bwd[name] = (lambda o=o, xs=xs: torch.autograd.grad(o, xs, do, retain_graph=True))
     r = res["bwd"]
-    r["ms"], r["plain_ms"] = _timed_pair(f"K5 on K7's shape Dh={dh}, backward", bwd["kernel"],
+    r["ms"], r["plain_ms"] = _timed_pair(f"K7 Dh={dh}, backward", bwd["kernel"],
                                          bwd["plain"], reps=10)
     r["library_ms"] = _median_ms(bwd["library"])
     r.update(bound(8 * _nbytes(q), 5 * 2 * pairs * dh))
     for key in ("fwd", "bwd"):
-        print(f"K5 on K7's shape Dh={dh} {key}: SDPA {res[key]['library_ms']:.4f} ms, bound "
+        print(f"K7 Dh={dh} {key}: SDPA {res[key]['library_ms']:.4f} ms, bound "
               f"{res[key]['bound_ms']:.4f} ms ({res[key]['bound_by']})")
     return res
 
@@ -2912,8 +2962,8 @@ def train_reference_phase() -> None:
 def long_context_phase(card: str) -> dict:
     """One make_train_step step of gpt2 at full width, n_positions=2048, two
     layers, B=2, L=2048, no attention dropout: self-attention is outside
-    JAX's block gate and inside its flash gate, where ``auto`` takes K5.
-    Returns the launch counts of the step."""
+    JAX's block gate and inside its flash gate, where ``auto`` takes K7
+    (``flash_mha``) and never K5. Returns the launch counts of the step."""
     cfg = ModelConfig.from_model_type(**{**TRAIN_SLICE, "n_positions": LONG_L, "n_layer": 2,
                                          "attn_pdrop": 0.0})
     params = gpt2.init_params(torch.Generator(device=DEVICE).manual_seed(3), cfg)
@@ -2924,12 +2974,13 @@ def long_context_phase(card: str) -> dict:
     t0 = time.time()
     state, m = step(state, batch, SEED)
     torch.cuda.synchronize()
-    counts = _train_counts()
-    want = {"block_mha": cfg.n_layer, "block_mha_bwd": cfg.n_layer}
+    counts = {**_train_counts(), **_k7_counts()}
+    want = {"flash_mha": cfg.n_layer, "flash_mha_bwd": cfg.n_layer, "block_mha": 0,
+            "block_mha_bwd": 0}
     if {k: counts[k] for k in want} != want or not math.isfinite(float(m["loss"])):
         raise AssertionError(f"long context: launches {counts}, want {want}; loss {m['loss']}")
     print(f"long context: gpt2 n_positions={LONG_L}, 2 layers, B=2, L={LONG_L}, one train step "
-          f"in {time.time() - t0:.3f} s, loss {float(m['loss']):.4f}, K5 launches {counts} on "
+          f"in {time.time() - t0:.3f} s, loss {float(m['loss']):.4f}, launches {counts} on "
           f"{card}")
     return counts
 
@@ -3249,10 +3300,11 @@ def _pipe_audio(card: str, clips_dir: str, frames: dict) -> dict:
     weights from seed 0, as ``build_audio_extractor`` draws them) over every
     clip at B=1, fp32 then bf16, entered with cuDNN's TF32 at its default
     (on): K5 must launch n_layer times for each clip whose frame count is a
-    multiple of 128 and never for the others. Every K5 launch is then held
-    against ``block_mha_reference``, and the fp32 features of three clips
-    against the CPU's. Returns {"fp32": K5 launches, "bf16": ...} and the
-    features by path (fp32)."""
+    multiple of 128 up to 1,024, K7 for one past it (JAX's flash gate),
+    neither for the others. Every K5 and K7 launch is then held against its
+    plain version, and the fp32 features of three clips against the CPU's.
+    Returns {"fp32": {kernel: launches}, "bf16": ...} and the features by
+    path (fp32)."""
     from ergm_tpu_torch.tools import audio
     from ergm_tpu_torch.tools.extract_features import load_wav
 
@@ -3279,44 +3331,49 @@ def _pipe_audio(card: str, clips_dir: str, frames: dict) -> dict:
                 features(path, cfg)
             runs = {path: [] for path in paths}
             for _ in range(3):  # the median of three timed passes
-                total = 0
+                total = {"block_mha": 0, "flash_mha": 0}
                 for path in paths:
                     reset_launches()
                     t0 = time.time()
                     f = features(path, cfg)
                     runs[path].append(1e3 * (time.time() - t0))
-                    got = block_attention.LAUNCHES
-                    want = base.num_layers if frames[path] % 128 == 0 else 0
+                    got = {"block_mha": block_attention.LAUNCHES,
+                           "flash_mha": flash_attention.LAUNCHES}
+                    n = base.num_layers if frames[path] % 128 == 0 else 0
+                    want = {"block_mha": 0 if frames[path] > 1024 else n,
+                            "flash_mha": n if frames[path] > 1024 else 0}
                     if (got != want or not np.isfinite(f).all()
                             or f.shape != (base.hidden_size,)):
                         raise AssertionError(f"audio {name} {os.path.basename(path)} "
-                                             f"({frames[path]} frames): K5 launched {got} times "
-                                             f"(want {want}), features {f.shape}")
-                    total += got
+                                             f"({frames[path]} frames): launches {got} (want "
+                                             f"{want}), features {f.shape}")
+                    total = {k: total[k] + got[k] for k in total}
                     if dtype == "float32":
                         feats[path] = f
             walls = [float(np.median(runs[path])) for path in paths]
             launches[name] = total
             print(f"pipeline audio {name}: " + ", ".join(
                 f"{frames[p]} frames {w:.1f} ms" for p, w in zip(paths, walls))
-                + f" a clip at B=1 (host wall, synchronised; medians of 3); K5 launched "
-                f"{total} times a pass on {card}")
+                + f" a clip at B=1 (host wall, synchronised; medians of 3); launches a pass "
+                f"{total} on {card}")
             clip = next(p for p in paths if frames[p] == 128)
             busy, wall, top = _busy_ms(lambda: features(clip, cfg))
             print(f"pipeline audio {name}: one 128-frame clip under torch.profiler, "
                   f"{busy:.3f} ms of device busy time in {wall:.3f} ms of host wall (the "
                   f"same passes): the device idle {1 - busy / wall:.1%} (most: {top}) on "
                   f"{card}")
-            with KernelShadow(((block_attention, "block_mha", None),)) as shadow:
+            with KernelShadow(((block_attention, "block_mha", None),
+                               (flash_attention, "flash_mha", None,
+                                flash_attention.kernel_reference))) as shadow:
                 for path in paths:
                     features(path, cfg)
-            share = shadow.shares()["block_mha"]
+            share = max(shadow.shares().values())
             bar = "the fp32 bar (F32_TOL)" if dtype == "float32" else "the bf16 bar"
-            if shadow.calls["block_mha"] != total or not share <= 1.0:
-                raise AssertionError(f"audio {name}: {shadow.calls['block_mha']} K5 launches "
+            if shadow.calls != total or not share <= 1.0:
+                raise AssertionError(f"audio {name}: {shadow.calls} K5 and K7 launches "
                                      f"held, largest error {share:.4f} of {bar}")
-            print(f"pipeline audio {name}: every K5 launch ({total}) within {share:.4f} of "
-                  f"{bar} of its plain version")
+            print(f"pipeline audio {name}: every K5 and K7 launch ({total}) within {share:.4f} "
+                  f"of {bar} of its plain version")
         if not torch.backends.cudnn.allow_tf32:
             raise AssertionError("the audio encoder left cuDNN's TF32 setting changed")
     finally:
@@ -3367,8 +3424,9 @@ def _pipe_vision(card: str, images: list) -> None:
 def _pipe_extract_main(card: str, clips_dir: str, frames: dict, feats: dict,
                        have_pil: bool) -> int:
     """``extract_features.main`` on the card over the clips directory: K5
-    launches n_layer times for each 128-multiple clip; its audio features
-    equal the direct fp32 ones. Returns the K5 launches."""
+    launches n_layer times for each 128-multiple clip up to 1,024 frames,
+    K7 for each past it; its audio features equal the direct fp32 ones.
+    Returns {kernel: launches}."""
     import pickle
 
     from ergm_tpu_torch.tools import extract_features
@@ -3380,23 +3438,25 @@ def _pipe_extract_main(card: str, clips_dir: str, frames: dict, feats: dict,
     extract_features.main([f"--clips_dir={clips_dir}", f"--output_file={out}",
                            "--split=test", f"--device={DEVICE}"])
     wall = time.time() - t0
-    launches = block_attention.LAUNCHES
-    want = AudioEncoderConfig().num_layers * sum(f % 128 == 0 for f in frames.values())
+    launches = {"block_mha": block_attention.LAUNCHES, "flash_mha": flash_attention.LAUNCHES}
+    n = AudioEncoderConfig().num_layers
+    want = {"block_mha": n * sum(f % 128 == 0 and f <= 1024 for f in frames.values()),
+            "flash_mha": n * sum(f % 128 == 0 and f > 1024 for f in frames.values())}
     with open(out, "rb") as f:
         got = pickle.load(f)["test"]
     paths = sorted(frames)
     aud = [x for dia in got["aud"] for x in dia]
     img = [x for dia in got["img"] for x in dia]
     if launches != want or len(aud) != len(paths) or len(img) != (PIPE_IMAGES if have_pil else 0):
-        raise AssertionError(f"extract_features.main: K5 launched {launches} times (want "
+        raise AssertionError(f"extract_features.main: launches {launches} (want "
                              f"{want}), {len(aud)} audio and {len(img)} image features")
     err = max(float(np.abs(a - feats[p]).max()) for a, p in zip(aud, paths))
     if not err <= 1e-5 or not all(np.isfinite(x).all() and x.shape == aud[0].shape for x in img):
         raise AssertionError(f"extract_features.main: audio features {err} from the direct run")
     print(f"pipeline extract_features.main: {len(aud)} clips and {len(img)} images "
           f"{'(PNG through PIL)' if have_pil else '(PIL absent: no image files)'} in "
-          f"{wall:.2f} s (the encoders' random init on the CPU included), K5 launched "
-          f"{launches} times, audio features within {err:.1e} of the direct run, on {card}")
+          f"{wall:.2f} s (the encoders' random init on the CPU included), launches "
+          f"{launches}, audio features within {err:.1e} of the direct run, on {card}")
     return launches
 
 
@@ -3679,9 +3739,14 @@ def pipeline_phase(card: str) -> dict:
     runner = _pipe_runner(card, params, cfg)
     repl_k5 = _pipe_tokenizer_repl(card)
     print(f"pipeline phase: {time.time() - t0:.1f} s on {card}")
-    return {"block_mha": {"audio fp32": audio_k5["fp32"], "audio bf16": audio_k5["bf16"],
-                          "extract_features.main": main_k5, "text_features": text_k5,
-                          "run_test": runner["block_mha"], "run_repl": repl_k5},
+    return {"block_mha": {"audio fp32": audio_k5["fp32"]["block_mha"],
+                          "audio bf16": audio_k5["bf16"]["block_mha"],
+                          "extract_features.main": main_k5["block_mha"],
+                          "text_features": text_k5, "run_test": runner["block_mha"],
+                          "run_repl": repl_k5},
+            "flash_mha": {"audio fp32": audio_k5["fp32"]["flash_mha"],
+                          "audio bf16": audio_k5["bf16"]["flash_mha"],
+                          "extract_features.main": main_k5["flash_mha"]},
             "prefill_mha": {"run_test": runner["prefill_mha"]},
             "prefill_mha_cross": {"run_test": runner["prefill_mha_cross"]},
             "fused_softmax_xent": {"run_test": runner["fused_softmax_xent"]}}
@@ -3720,11 +3785,14 @@ def _depth(model: str, n_layer: int):
         yield
     finally:
         config.GPT2_SIZES[model] = saved
-# K5 and K6 forwards (with KernelShadow.BACKWARD, the training launches)
-# and K1 (infer's prefills)
-TRAIN_SHADOWED = ((block_attention, "block_mha", _k5_rows, block_attention.kernel_reference),
+# K5 and K6 forwards (with KernelShadow.BACKWARD, the training
+# launches) and K1 (infer's prefills)
+TRAIN_SHADOWED = ((block_attention, "block_mha", _k5_rows),
                   (fused_ce, "fused_softmax_xent", None))
 INFER_SHADOWED = ((prefill_attention, "prefill_mha", _k1_rows),) + TRAIN_SHADOWED
+# and K7's (runs with shapes past JAX's block gate)
+K7_SHADOWED = TRAIN_SHADOWED + ((flash_attention, "flash_mha", _k5_rows,
+                                 flash_attention.kernel_reference),)
 
 
 def _cli(main, argv: list) -> str:
@@ -5648,7 +5716,7 @@ def large_phase(card: str, gen: torch.Generator) -> dict:
 # steps of DOMAIN_B x TRAIN_L tokens: the first four launch K5 at Dh 128,
 # 32, 24 and 96 and K6 at 768 and 96; the next three K6 at 32, 100 and 776
 # (K5 at 8, padded to 32; at 25 and 97, outside JAX's block gate, only in
-# validation, without dropout, through the flash gate); the last two K6 at
+# validation, without dropout, through the flash gate: K7); the last two K6 at
 # 1,088 and 2,112 and K5 at Dh 64, while Dh 136 takes the plain math,
 # outside both gates' head widths
 DOMAIN_HEADS = (24, 32, 96, 128)
@@ -5728,12 +5796,12 @@ def _domain_train(card: str) -> dict:
     layers, bf16, dropout 0.1; DOMAIN_STEPS steps of DOMAIN_B rows padded to
     TRAIN_L tokens, then validation): K5 launches forward and backward in
     training exactly where its head width is in JAX's block gate (a
-    multiple of 8 up to 128), forward in validation also at the other
-    widths of JAX's flash domain (any below 128), K6 at every width, every
-    launch within its plain version's bar (``KernelShadow``); where the
-    block gate's widths end the step runs on the plain math, and the
-    explicit ``block`` route raises. Then K7's route at the widest head: one step at
-    n_embd 768, 6 heads, B=2, L=LONG_L, no attention dropout (K5 twice
+    multiple of 8 up to 128), K7 forward in validation at the other widths
+    of JAX's flash domain (any below 128), K6 at every width, every launch
+    within its plain version's bar (``KernelShadow``); where the block
+    gate's widths end the step runs on the plain math, and the explicit
+    ``block`` route raises. Then K7's route at the widest head: one step at
+    n_embd 768, 6 heads, B=2, L=LONG_L, no attention dropout (K7 twice
     forward and twice backward). Returns {(n_embd, n_head): launches,
     "long": launches}."""
     out = {}
@@ -5745,7 +5813,7 @@ def _domain_train(card: str) -> dict:
         for n_embd, n_head in DOMAIN_TRAIN:
             dh = n_embd // n_head
             k5 = block_attention.head_ok(dh)
-            k5_eval = k5 or block_attention.flash_head_ok(dh)
+            k7_eval = not k5 and flash_attention.flash_head_ok(dh)
             cfg = ModelConfig(n_layer=2, n_embd=n_embd, n_head=n_head, vocab_size=st.vocab_size,
                               dtype="bfloat16", attn_pdrop=0.1, resid_pdrop=0.1, embd_pdrop=0.1)
             tag = f"{n_embd}x{n_head}"
@@ -5754,16 +5822,18 @@ def _domain_train(card: str) -> dict:
                                batch_size=DOMAIN_B, num_epochs=1, max_len=TRAIN_L,
                                pad_multiple=TRAIN_L, lr=1e-4, seed=0)
             t0 = time.time()
-            with KernelShadow(TRAIN_SHADOWED, KernelShadow.BACKWARD) as shadow:
+            with KernelShadow(K7_SHADOWED, KernelShadow.K7_BACKWARD) as shadow:
                 with contextlib.redirect_stdout(io.StringIO()):
                     tr = Trainer(tcfg, model_config=cfg)
                     reset_launches()
                     best = tr.train()
                 torch.cuda.synchronize()
-            counts = _train_counts()
+            counts = {**_train_counts(), **_k7_counts()}
             shares = {k: v for k, v in shadow.shares().items() if shadow.calls[k]}
-            fired = {"K5": ((counts["block_mha"] > 0) == k5_eval
+            fired = {"K5": ((counts["block_mha"] > 0) == k5
                             and (counts["block_mha_bwd"] > 0) == k5),
+                     "K7": ((counts["flash_mha"] > 0) == k7_eval
+                            and counts["flash_mha_bwd"] == 0),
                      "K6": (counts["fused_softmax_xent"] > 0
                             and counts["fused_softmax_xent_bwd"] > 0)}
             if (tr.state.step != DOMAIN_STEPS or not math.isfinite(best)
@@ -5799,9 +5869,9 @@ def _domain_train(card: str) -> dict:
     reset_launches()
     state, m = step(state, batch, SEED)
     torch.cuda.synchronize()
-    counts = _train_counts()
-    if counts["block_mha"] != 2 or counts["block_mha_bwd"] != 2 or not math.isfinite(
-            float(m["loss"])):
+    counts = {**_train_counts(), **_k7_counts()}
+    if (counts["flash_mha"], counts["flash_mha_bwd"], counts["block_mha"]) != (2, 2, 0) or (
+            not math.isfinite(float(m["loss"]))):
         raise AssertionError(f"domain long context Dh=128: launches {counts}, loss {m['loss']}")
     print(f"domain long context: n_embd 768, 6 heads (Dh=128), B=2, L={LONG_L}, one step, loss "
           f"{float(m['loss']):.4f}, launches {counts} on {card}")
@@ -5841,8 +5911,8 @@ def domain_phase(card: str, gen: torch.Generator) -> dict:
                                ("bwd", "block_mha_bwd", "block_attention.py:236")):
             label = f"{name}_dh{dh}"
             rows.append((label, "block_attention", tpu, {label: k5_runs[dh][name]}, k5[dh][key]))
-    for key, name in (("fwd", "block_mha"), ("bwd", "block_mha_bwd")):
-        label = f"block_mha_flash{'_bwd' if key == 'bwd' else ''}_dh128"
+    for key, name in (("fwd", "flash_mha"), ("bwd", "flash_mha_bwd")):
+        label = f"{name}_dh128"
         rows.append((label, "block_attention", "flash_attention.py:66",
                      {label: train["long"][name]}, k7[key]))
     for d in DOMAIN_WIDTHS:
@@ -5858,8 +5928,9 @@ def domain_phase(card: str, gen: torch.Generator) -> dict:
 # Cerebras-GPT-2.7B; 4,096: GPT-J-6B and Cerebras-6.7B; 5,120:
 # Cerebras-13B) over WIDE_N tokens (fp32: WIDE_N_F32) and GPT-2's
 # vocabulary; K7 at [2, 16, LONG_L, Dh] for each Dh of WIDE_HEADS (100:
-# padded to the 128-wide template; 256 and 384: the one-pass kernels, 384
-# a reading in the 256 rows); Cerebras-GPT-2.7B's published widths
+# padded to the one-pass kernels' 128 in bf16, K5's 128-wide template in
+# fp32; 256 and 384: the one-pass kernels, 384 a reading in the 256 rows);
+# Cerebras-GPT-2.7B's published widths
 # (models/seeded.py::CEREBRAS_2P7B) at CEREBRAS_LAYERS of its 32 layers
 # through Trainer (bf16, full remat, CEREBRAS_STEPS steps of CEREBRAS_B x
 # CEREBRAS_L tokens: K6 at 2,560, K5 at Dh 80 on the 96-wide template) and
@@ -5883,8 +5954,10 @@ def _wide_train(card: str, tag: str, cfg: ModelConfig, b: int, L: int, steps: in
     """``cfg`` through ``Trainer`` (``auto`` routes) for ``steps`` steps of
     ``b`` rows padded to ``L`` tokens, then validation, every K5 and K6
     launch, forward and backward, held against its plain version
-    (``KernelShadow``): K5 and K6 must launch forward and backward, K6's
-    backward once a step. Returns the launches and readings."""
+    (``KernelShadow``): K6 must launch forward and backward, its backward
+    once a step, and the attention kernel of the run's shapes too: K5
+    (``block_mha``) inside JAX's block gate, K7 (``flash_mha``) past it.
+    Returns the launches and readings."""
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         st = write_synthetic_dataset(data, prefixes=("train", "valid"),
@@ -5897,18 +5970,20 @@ def _wide_train(card: str, tag: str, cfg: ModelConfig, b: int, L: int, steps: in
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        with KernelShadow(TRAIN_SHADOWED, KernelShadow.BACKWARD) as shadow:
+        with KernelShadow(K7_SHADOWED, KernelShadow.K7_BACKWARD) as shadow:
             with contextlib.redirect_stdout(io.StringIO()):
                 tr = Trainer(tcfg, model_config=cfg)
                 reset_launches()
                 best = tr.train()
             torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = _train_counts()
+        counts = {**_train_counts(), **_k7_counts()}
         shares = {k: v for k, v in shadow.shares().items() if shadow.calls[k]}
+        attn = "flash_mha" if L > 1024 else "block_mha"
         if (tr.state.step != steps or not math.isfinite(best)
                 or not all(v <= 1.0 for v in shares.values())
-                or min(counts.values()) < 1 or counts["fused_softmax_xent_bwd"] != steps):
+                or min(counts[k] for k in (attn, f"{attn}_bwd", "fused_softmax_xent")) < 1
+                or counts["fused_softmax_xent_bwd"] != steps):
             raise AssertionError(f"{tag}: {tr.state.step} steps, best PPL {best}, launches "
                                  f"{counts}, shadow {shares}")
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5942,12 +6017,12 @@ def wide_phase(card: str, gen: torch.Generator) -> dict:
     for dh in WIDE_HEADS:
         k7[dh] = _k7_case(gen, dh, ((torch.float32, 2, 16), (torch.bfloat16, 2, 16)))
         torch.cuda.empty_cache()
-    print("K7's one-pass kernels (bf16, Dh = 256 and 384), ptxas: "
+    print("K7's one-pass kernels (bf16, Dh = 64, 128, 256 and 384), ptxas: "
           + json.dumps(_build.ptxas_report(_build.build_log(), "block_attention.cu", "flash")))
     # K7's route refuses a head width above 128 that is not a multiple of 128
     # (JAX's library kernel raises there): auto takes the plain math, flash raises
     x = torch.randn((1, 2, LONG_L, 200), generator=gen, device=DEVICE).bfloat16()
-    block_attention.LAUNCHES = 0
+    reset_launches()
     gpt2.multihead_attention(x, x, x, causal=True, impl="auto")
     try:
         gpt2.multihead_attention(x, x, x, causal=True, impl="flash")
@@ -5955,8 +6030,8 @@ def wide_phase(card: str, gen: torch.Generator) -> dict:
         note = str(e)[:80]
     else:
         raise AssertionError("flash at Dh = 200 did not raise")
-    if block_attention.LAUNCHES:
-        raise AssertionError("auto at Dh = 200 launched K5")
+    if block_attention.LAUNCHES or flash_attention.LAUNCHES:
+        raise AssertionError("auto at Dh = 200 launched K5 or K7")
     print(f"Dh = 200: auto takes the plain math, flash raises ({note})")
     del x
 
@@ -5999,8 +6074,8 @@ def wide_phase(card: str, gen: torch.Generator) -> dict:
             rows.append((label, "fused_ce", tpu, {label: runs[d]["launches"][name]}, k6[d][key]))
     routed = [dh for dh in WIDE_HEADS if dh in heads]
     for dh in routed:
-        for key, name in (("fwd", "block_mha"), ("bwd", "block_mha_bwd")):
-            label = f"block_mha_flash{'_bwd' if key == 'bwd' else ''}_dh{dh}"
+        for key, name in (("fwd", "flash_mha"), ("bwd", "flash_mha_bwd")):
+            label = f"{name}_dh{dh}"
             nums = dict(k7[dh][key])
             if dh == routed[-1]:
                 nums["other_shapes"] = {f"dh{x}": k7[x][key] for x in WIDE_HEADS
@@ -6092,8 +6167,7 @@ def main() -> None:
 
     t0 = time.time()
     _build.load()
-    print(f"build: K1-K6 (K5 also for K7's shapes) compiled and loaded in "
-          f"{time.time() - t0:.2f} s")
+    print(f"build: K1-K7 compiled and loaded in {time.time() - t0:.2f} s")
     print(_build.build_log().strip())
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -6165,10 +6239,10 @@ def main() -> None:
              train["block_mha"]),
             ("block_mha_bwd", "block_attention", "block_attention.py:236", train_on,
              train["block_mha_bwd"]),
-            ("block_mha_flash", "block_attention", "flash_attention.py:66", long_ctx,
-             flash["block_mha_flash"]),
-            ("block_mha_flash_bwd", "block_attention", "flash_attention.py:66", long_ctx,
-             flash["block_mha_flash_bwd"]),
+            ("flash_mha", "block_attention", "flash_attention.py:66", long_ctx,
+             flash["flash_mha"]),
+            ("flash_mha_bwd", "block_attention", "flash_attention.py:66", long_ctx,
+             flash["flash_mha_bwd"]),
             ("fused_softmax_xent", "fused_ce", "fused_ce.py:172", train_on,
              train["fused_softmax_xent"]),
             ("fused_softmax_xent_bwd", "fused_ce", "fused_ce.py:220", train_on,
@@ -6192,8 +6266,6 @@ def main() -> None:
     # Cerebras-GPT-2.7B's width (launches: the Trainer and serving runs at
     # each width)
     rows += wide_on["rows"]
-    # the K7 rows read the long-context step's K5 counts
-    counts_of = {"block_mha_flash": "block_mha", "block_mha_flash_bwd": "block_mha_bwd"}
     # launches on the speculative and beam paths: K5 in a B=1 request's
     # prefills on each route, K2-K5 in the beam search with the kernels on
     spec_beam = {k: {f"B=1 {r}": c[k] for r, c in spec_counts.items()} | {"beam": beam_on[k]}
@@ -6202,7 +6274,7 @@ def main() -> None:
                       for k in ("decode_mha_int8", "fused_cross_decode", "fused_ln_mlp")})
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"ergm_tpu_torch/csrc/{src}.cu",
-        "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[counts_of.get(name, name)], **nums,
+        "replaces": f"ergm_tpu/ops/{tpu}", "launches": counts[name], **nums,
         **({"spec_beam_launches": spec_beam[name]} if name in spec_beam else {}),
         # launches on the server's path: each arm's run of the 256 requests
         **({"server_launches": server_on[name]} if name in server_on else {}),

@@ -1,16 +1,24 @@
 // Masked attention with probability dropout, forward and backward, for
-// Hopper (sm_90a): kernel K5 of the port, and the counterpart of JAX's
-// library flash kernel (K7) for the shapes JAX sends there.
+// Hopper (sm_90a): kernels K5 and K7 of the port.
 //
-// Replaces ergm_tpu/ops/block_attention.py::_fwd and ::_bwd, the Pallas
-// kernels behind block_mha (bodies _fwd_kernel and _bwd_kernel), and
-// ergm_tpu/ops/flash_attention.py::flash_mha, which wraps JAX's library
-// TPU flash kernel for what the block kernel's VMEM cap refuses (L > 1024,
-// causal Lq < Lk at offset 0). A tiled kernel has no such cap, so one
-// kernel serves both gates. The math and its rounding points are JAX's
-// block kernel's (one q sub-block, the whole row), except at the wide
-// heads' bf16 kernels (flash::, below), which compute what JAX's library
-// flash kernel computes:
+// K5 replaces ergm_tpu/ops/block_attention.py::_fwd and ::_bwd, the Pallas
+// kernels behind block_mha (bodies _fwd_kernel and _bwd_kernel); K7
+// replaces ergm_tpu/ops/flash_attention.py::flash_mha, which wraps JAX's
+// library TPU flash kernel for what the block kernel's VMEM cap refuses
+// (L > 1024, causal Lq < Lk at offset 0, head widths past the block
+// gate's). Which gate reaches which namespace:
+//   JAX's block gate -> ops/block_attention.py::block_mha ->
+//     ergm_block_mha_fwd / _bwd -> tc:: (bf16) and f32:: at DH = 32, 64, 96
+//     and 128 (other widths of the gate padded to them), dropout or not;
+//   JAX's flash gate (no dropout) -> ops/flash_attention.py::flash_mha ->
+//     ergm_flash_mha_fwd / _bwd -> bf16: flash:: at DH = 64 and 128 (any
+//     width below 128 padded to one of them) and at 256 and 384, wide:: at
+//     128 m for m >= 4; f32: f32:: at K5's widths and, past 128, the
+//     128-wide template over m slices.
+// The entry point, never a guess from the shape, picks the family. The
+// math and its rounding points of tc::, f32:: and wide:: are JAX's block
+// kernel's (one q sub-block, the whole row); the bf16 one-pass kernels
+// (flash::, below) compute what JAX's library flash kernel computes:
 //   s = (q . k) * scale in f32; s = where(kv_mask & causal, s, -1e9);
 //   pn = exp(s - m) / max(l, 1e-30) with m, l over the row; pn = 0 on
 //   padded query rows; dropout: pn = keep ? pn / (1 - rate) : 0;
@@ -88,10 +96,11 @@
 // Head widths. JAX's block gate takes every head width DH that is a
 // multiple of 8 up to 128; its flash gate sends every width to JAX's
 // library kernel, which takes any DH below 128 and any multiple of 128
-// (it raises at other widths above 128). The kernels are templates built
-// for DH = 32, 64, 96 and 128; the wrapper (ops/block_attention.py) pads q,
-// k and v with zero columns to the next of them and slices the result
-// back, which is exact: the zero columns add nothing to q . k and give zero
+// (it raises at other widths above 128). The tc:: and f32:: kernels are
+// templates built for DH = 32, 64, 96 and 128, the narrow one-pass kernels
+// for 64 and 128; the wrappers (ops/block_attention.py,
+// ops/flash_attention.py) pad q, k and v with zero columns to the next of
+// them and slice the result back, which is exact: the zero columns add nothing to q . k and give zero
 // output and gradient columns, and the softmax scale passed in is the true
 // width's. The keep mask's hash does not read DH. At DH = 64 the code is
 // the one the design above was measured with. Wider heads cost registers
@@ -104,8 +113,9 @@
 // only: no dropout), on the 128-wide template over m slices of the width,
 // m column groups on the grid's y axis.
 //
-// Wide heads in bf16 (flash::, DH = 256 and 384): the counterpart of JAX's
-// library TPU flash kernel (jax/experimental/pallas/ops/tpu/flash_attention.py,
+// One-pass kernels in bf16 (flash::, DH = 64, 128, 256 and 384): the
+// counterpart of JAX's library TPU flash kernel
+// (jax/experimental/pallas/ops/tpu/flash_attention.py,
 // reached from ergm_tpu/ops/flash_attention.py::flash_mha :66) and its
 // arithmetic: the forward is one pass over the key tiles with an online
 // softmax, the running max m and sum l in f32, p = exp(s - m) rounded to
@@ -144,6 +154,25 @@
 // streamed tiles into 32 rows, so that Q and the ring fit. DH = 128 m for
 // m >= 4 keeps the wide:: kernels: 64-row CTAs and m column groups of
 // 128, the scores summed over m slices through a cp.async ring.
+//
+// The narrow one-pass instances (D64, D128; Shape::QT > 0). What bounds
+// them at K7's rows, [8, 12, 2048, 64] and [2, 6, 2048, 128], causal:
+// operations, 0.042 / 0.106 ms and 0.011 / 0.029 ms (forward / backward)
+// at 989 TFLOP/s. At these widths a warpgroup holds what it cannot at 256:
+// a 64 x 128 f32 score tile and a 64 x 128 f32 sum are 64 registers a
+// thread each. Forward: fwd_kernel as above, K and V tiles of 128 keys
+// (the tile, and the plain version's key block, of JAX's 128-blocks);
+// 83,008 / 164,928 bytes of shared memory; 168 registers at launch, the
+// consumers raised to 232. (Letting the two consumer warpgroups take turns
+// on the tensor cores, or issuing tile i's scores beside tile i-1's P . V,
+// ran slower: PERF.md.) dQ: the same kernel, K and V tiles of 128 keys,
+// 83,008 / 164,928 bytes, 238 / 254 registers. dK/dV (bwd_dkdv_pair_kernel):
+// 128 keys a CTA, each consumer warpgroup owning 64 with K and V resident
+// and summing both dK and dV itself (two 64 x DH f32 sums), Q, dO and the
+// rows' (m, 1/l, delta) streamed in tiles of QT = 128 / 64 query rows: no
+// p^T hand-over, and each Q and dO tile serves 128 keys; 103,488 /
+// 134,208 bytes, 168 registers at launch, the consumers raised to 240 and
+// the producer lowered to 24. No spills (ptxas, chip_smoke.py prints it).
 
 // Dead rows, real rows whose every visible key is masked (causal rows
 // before the first real key), get JAX's forward result too: the uniform
@@ -1429,9 +1458,9 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(const Args a) {
 }  // namespace wide
 
 // ---------------------------------------------------------------------------
-// One-pass kernels, bf16 at Dh = 256 and 384 without dropout (JAX's flash
-// gate only): the arithmetic of JAX's library flash kernel on wgmma,
-// operands loaded by TMA (the note at the top).
+// One-pass kernels, bf16 at Dh = 64, 128, 256 and 384 without dropout
+// (JAX's flash gate only): the arithmetic of JAX's library flash kernel on
+// wgmma, operands loaded by TMA (the note at the top).
 namespace flash {
 
 using ergm_hopper::bar_arrive;
@@ -1466,11 +1495,12 @@ constexpr size_t kAlign = 1024;      // the swizzle's pattern
 
 // A head width's shapes: DH the scores' depth, GW the output columns a
 // CTA owns (DH / GW column groups on grid y), KT the rows of a streamed
-// tile. Tiles are 128-byte column blocks [rows][64], DH / 64 (NB) of
-// them a row, GW / 64 (GB) a group; shared memory (bytes) of each kernel.
-template <int DH_, int GW_, int KT_>
+// tile, QT (where not 0) the query rows of the paired dK/dV kernel's
+// streamed tile. Tiles are 128-byte column blocks [rows][64], DH / 64 (NB)
+// of them a row, GW / 64 (GB) a group; shared memory (bytes) of each kernel.
+template <int DH_, int GW_, int KT_, int QT_ = 0>
 struct Shape {
-  static constexpr int DH = DH_, GW = GW_, KT = KT_;
+  static constexpr int DH = DH_, GW = GW_, KT = KT_, QT = QT_;
   static constexpr int NB = DH / 64, GB = GW / 64, kGroups = DH / GW;
   // forward: Q [128][DH]; stages of K [KT][DH] and V's group [KT][GW]
   static constexpr size_t kFwdBytes =
@@ -1481,9 +1511,15 @@ struct Shape {
   // (m, 1/l, delta, -); p^T [64][KT] f32
   static constexpr size_t kDkdvBytes = kAlign + 2 * (2 * kOwn * DH + kStages * 2 * KT * DH) +
                                        kStages * KT * 16 + kOwn * KT * 4 + 64;
+  // paired dK/dV: K, V [2 * 64][DH]; stages of Q, dO [QT][DH] and the QT
+  // rows' (m, 1/l, delta, -)
+  static constexpr size_t kPairBytes =
+      kAlign + 2 * (2 * 2 * kOwn * DH + kStages * 2 * QT * DH) + kStages * QT * 16 + 64;
 };
-using D256 = Shape<256, 256, 64>;  // one group: every CTA owns the whole width
-using D384 = Shape<384, 192, 32>;  // two groups of 192; 32-row tiles to fit the ring
+using D64 = Shape<64, 64, 128, 128>;    // JAX's flash gate below 64 (padded) and at 64
+using D128 = Shape<128, 128, 128, 64>;  // 65 to 128 (padded below)
+using D256 = Shape<256, 256, 64>;   // one group: every CTA owns the whole width
+using D384 = Shape<384, 192, 32>;   // two groups of 192; 32-row tiles to fit the ring
 
 // The tensor maps of a kernel's operands: [B, H, rows, DH] bf16 over the
 // callers' strides, boxes of 64 columns by the rows a tile takes
@@ -1583,8 +1619,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kQRows;  // the longest causal rows first
   const int h = blockIdx.y / S::kGroups, grp = blockIdx.y % S::kGroups, b = blockIdx.z;
   const int wg = threadIdx.x / 128, dead = a.dead[b];
-  // the keys the CTA's rows walk (all of them where it holds dead rows)
-  const int n = ((a.causal && q0 >= dead) ? min(a.Lk, q0 + kQRows) : a.Lk) / KT;
+  // the key tiles the CTA's rows walk (all of them where it holds dead rows)
+  const int n = (((a.causal && q0 >= dead) ? min(a.Lk, q0 + kQRows) : a.Lk) + KT - 1) / KT;
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
 #pragma unroll
@@ -1715,7 +1751,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rw = q0 + 16 * (threadIdx.x >> 5);  // the warp's rows
   const int dead = a.dead[b];
-  const int n = ((a.causal && q0 >= dead) ? min(a.Lk, q0 + kOwn) : a.Lk) / KT;
+  const int n = (((a.causal && q0 >= dead) ? min(a.Lk, q0 + kOwn) : a.Lk) + KT - 1) / KT;
   auto issue = [&](int i) {
     const int s = i % kStages;
     bf16* kt = ring + s * kStage;
@@ -1939,6 +1975,145 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     a.st[which][2], kw0 + g, acc, 1.0f);
 }
 
+// dK/dV at the narrow widths (S::QT > 0: DH = 64 and 128): one CTA per 128
+// keys, each consumer warpgroup owning 64 of them with K and V resident;
+// the producer warpgroup streams Q, dO and the rows' (m, 1/l, delta) in
+// tiles of QT query rows (those holding dead rows first, then from the
+// diagonal). Each consumer forms S^T = K Q^T and dP^T = V dO^T for its
+// keys, p^T and ds^T = p^T (dP^T - delta) scale in registers, and sums
+// both dV += p^T dO and dK += ds^T Q: no hand-over between warpgroups, and
+// each Q and dO tile serves 128 keys. Its two 64 x DH f32 sums and two
+// 64 x QT score tiles fit a warpgroup's registers only at these widths.
+template <class S>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkdv_pair_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int QT = S::QT, KR = 2 * kOwn;  // streamed query rows, the CTA's keys
+  using T = Shape<S::DH, S::GW, QT>;         // the products over a QT-row tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(aligned_smem(smem_raw));  // [NB][128][64]
+  bf16* vs = ks + KR * S::DH;
+  bf16* ring = vs + KR * S::DH;  // [kStages]: Q, dO [NB][QT][64]
+  constexpr int kStage = 2 * QT * S::DH;
+  float4* sts = reinterpret_cast<float4*>(ring + kStages * kStage);  // [kStages][QT]
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sts + kStages * QT);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int k0 = blockIdx.x * KR, h = blockIdx.y, b = blockIdx.z, wg = threadIdx.x / 128;
+  const int dead = a.dead[b];
+  const int nq = a.L / QT;
+  const int from = a.causal ? min(k0 / QT, nq) : 0;
+  const int lo = a.causal ? min((dead + QT - 1) / QT, from) : 0;
+  const int n = lo + nq - from;
+  auto tile = [&](int i) { return (i < lo ? i : from + i - lo) * QT; };
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      const float4* stat = reinterpret_cast<const float4*>(a.stat) + row_index(a, b, h, 0);
+      mbar_expect(kvbar, 2 * 2 * KR * S::DH);
+      load_rows<KR, S::NB>(&maps.k, ks, kvbar, k0, h, b);
+      load_rows<KR, S::NB>(&maps.v, vs, kvbar, k0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages, q0 = tile(i);
+        bf16* qt = ring + s * kStage;
+        mbar_wait(empty + s, ((i / kStages) + 1) & 1);
+        mbar_expect(full + s, 2 * kStage + QT * 16);
+        load_rows<QT, S::NB>(&maps.q, qt, full + s, q0, h, b);
+        load_rows<QT, S::NB>(&maps.dout, qt + QT * S::DH, full + s, q0, h, b);
+        bulk_load(sts + s * QT, stat + q0, QT * 16, full + s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1, tid = threadIdx.x & 127, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3;
+  const int kw0 = k0 + kOwn * c + 16 * (tid >> 5);  // the warp's first key
+  int kr[2];
+  bool kreal[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kr[r] = kw0 + g + 8 * r;
+    kreal[r] = key_real(a, b, kr[r]);
+  }
+  const bool wreal = __all_sync(0xffffffffu, kreal[0] && kreal[1]);  // the warp's keys all real
+  const float sl2 = a.scale * kLog2e;
+  float dv[S::GW / 8][4], dk[S::GW / 8][4];
+  zero(dv);
+  zero(dk);
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages, q0 = tile(i);
+    const bf16* qt = ring + s * kStage;
+    const bf16* dt = qt + QT * S::DH;
+    const float4* st = sts + s * QT;
+    mbar_wait(full + s, (i / kStages) & 1);
+    float x[QT / 8][4], dp[QT / 8][4];  // S^T and dP^T: keys as rows
+    wg_fence();
+    scores<T, KR>(x, ks, kOwn * c, qt);
+    scores<T, KR>(dp, vs, kOwn * c, dt);
+    wg_commit();
+    wg_wait<0>();
+    pin(x);
+    pin(dp);
+    // p^T (a dead row's 1/Lk on a masked key) and ds^T (0 where masked)
+    const bool full_tile = wreal && (!a.causal || kw0 + 15 <= q0);
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int qc = q0 + 8 * j + 2 * t + e1;
+        const float4 rs = st[qc - q0];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + e1;
+          const bool ok = full_tile || (kreal[r] && (!a.causal || kr[r] <= qc));
+          const float p = ex2((ok ? x[j][e] * sl2 : kMaskL2) - rs.x) * rs.y;
+          dp[j][e] = ok ? p * (dp[j][e] - rs.z) * a.scale : 0.0f;
+          x[j][e] = p;
+        }
+      }
+    // dV += p^T dO and dK += ds^T Q, issued together, p^T and ds^T rounded
+    // to bf16 as the A operands in registers
+    constexpr int kSteps = QT / 16;
+    unsigned ap[kSteps][4], ad[kSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      ap[kk][0] = pack(x[2 * kk][0], x[2 * kk][1]);
+      ap[kk][1] = pack(x[2 * kk][2], x[2 * kk][3]);
+      ap[kk][2] = pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+      ap[kk][3] = pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+      ad[kk][0] = pack(dp[2 * kk][0], dp[2 * kk][1]);
+      ad[kk][1] = pack(dp[2 * kk][2], dp[2 * kk][3]);
+      ad[kk][2] = pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      ad[kk][3] = pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_rs<S::GW>(dv, ap[kk], desc_mn<QT>(dt, kk));
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_rs<S::GW>(dk, ad[kk], desc_mn<QT>(qt, kk));
+    wg_commit();
+    wg_wait<0>();
+    pin(dv);
+    pin(dk);
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+  store_rows<S::GW>(head_out<bf16>(a, a.dk, kDK, b, h), a.st[kDK][2], kw0 + g, dk, 1.0f);
+  store_rows<S::GW>(head_out<bf16>(a, a.dv, kDV, b, h), a.st[kDV][2], kw0 + g, dv, 1.0f);
+}
+
 // The tensor map of one operand: [B, H, rows, dh] bf16 over the (batch,
 // head, row) element strides st, boxes of 64 columns by box_rows rows
 inline bool head_map(CUtensorMap* map, const void* p, const long long* st, int B, int H,
@@ -1987,13 +2162,18 @@ cudaError_t forward(const Args& a, cudaStream_t s) {
 
 template <class S>
 cudaError_t backward(const Args& a, cudaStream_t s) {
+  constexpr bool pair = S::QT > 0;  // the paired dK/dV kernel: 128 keys a CTA
+  constexpr int kKeys = pair ? 2 * kOwn : kOwn, kRows = pair ? S::QT : S::KT;
   Maps dq{}, dkdv{};
-  if (!make_maps(&dq, a, S::DH, kOwn, S::KT) || !make_maps(&dkdv, a, S::DH, S::KT, kOwn))
+  if (!make_maps(&dq, a, S::DH, kOwn, S::KT) || !make_maps(&dkdv, a, S::DH, kRows, kKeys))
     return cudaErrorInvalidValue;
-  const dim3 grid_q(a.L / kOwn, a.H * S::kGroups, a.B), grid_k(a.Lk / kOwn, a.H * S::kGroups, a.B);
+  const dim3 grid_q(a.L / kOwn, a.H * S::kGroups, a.B), grid_k(a.Lk / kKeys, a.H * S::kGroups, a.B);
   cudaError_t err = launch(bwd_dq_kernel<S>, grid_q, kDqThreads, S::kDqBytes, dq, a, s);
   if (err != cudaSuccess) return err;
-  return launch(bwd_dkdv_kernel<S>, grid_k, kWgThreads, S::kDkdvBytes, dkdv, a, s);
+  if constexpr (pair)
+    return launch(bwd_dkdv_pair_kernel<S>, grid_k, kWgThreads, S::kPairBytes, dkdv, a, s);
+  else
+    return launch(bwd_dkdv_kernel<S>, grid_k, kWgThreads, S::kDkdvBytes, dkdv, a, s);
 }
 
 }  // namespace flash
@@ -2038,54 +2218,66 @@ cudaError_t backward_dh(const Args& a, bool bf, cudaStream_t s) {
                 S::bytes(6, 4), a, s);
 }
 
-// A wide head (dh = 128 m, m >= 2, no dropout): bf16 by the wide kernels,
-// f32 by the 128-wide template over m slices, both with m column groups a
-// head on the grid.
-cudaError_t forward_wide(const Args& a, bool bf, cudaStream_t s) {
-  if (!bf) return forward_dh<128>(a, false, s);
-  if (a.m == 2) return flash::forward<flash::D256>(a, s);
-  if (a.m == 3) return flash::forward<flash::D384>(a, s);
-  return launch(wide::fwd_kernel, dim3(a.L / wide::kRows, a.H * a.m, a.B), wide::kThreads,
-                wide::kFwdBytes, a, s);
+// K5, JAX's block gate: the tc:: (bf16) and f32:: kernels at the head widths
+// they are built for (ops/block_attention.py's HEAD_DIMS).
+bool block_dh_ok(int dh) { return dh == 32 || dh == 64 || dh == 96 || dh == 128; }
+
+cudaError_t block_forward(const Args& a, int dh, bool bf, cudaStream_t s) {
+  switch (dh) {
+    case 32: return forward_dh<32>(a, bf, s);
+    case 64: return forward_dh<64>(a, bf, s);
+    case 96: return forward_dh<96>(a, bf, s);
+    default: return forward_dh<128>(a, bf, s);
+  }
 }
 
-cudaError_t backward_wide(const Args& a, bool bf, cudaStream_t s) {
-  if (!bf) return backward_dh<128>(a, false, s);
-  if (a.m == 2) return flash::backward<flash::D256>(a, s);
-  if (a.m == 3) return flash::backward<flash::D384>(a, s);
+cudaError_t block_backward(const Args& a, int dh, bool bf, cudaStream_t s) {
+  switch (dh) {
+    case 32: return backward_dh<32>(a, bf, s);
+    case 64: return backward_dh<64>(a, bf, s);
+    case 96: return backward_dh<96>(a, bf, s);
+    default: return backward_dh<128>(a, bf, s);
+  }
+}
+
+// K7, JAX's flash gate (no dropout; ops/flash_attention.py): bf16 on the
+// one-pass kernels at DH = 64, 128, 256 and 384 and on the wide:: kernels at
+// 128 m for m >= 4; f32 on the f32:: kernels at K5's widths and, past 128,
+// on the 128-wide template over m slices. A wide head's m column groups of
+// 128 a head lie on grid y.
+bool flash_dh_ok(int dh, bool bf) {
+  return (bf ? dh == 64 : block_dh_ok(dh)) || (dh >= 128 && dh % 128 == 0);
+}
+
+cudaError_t flash_forward(Args& a, int dh, bool bf, cudaStream_t s) {
+  a.m = dh > 128 ? dh / 128 : 1;
+  if (!bf) return block_forward(a, dh > 128 ? 128 : dh, false, s);
+  switch (dh) {
+    case 64: return flash::forward<flash::D64>(a, s);
+    case 128: return flash::forward<flash::D128>(a, s);
+    case 256: return flash::forward<flash::D256>(a, s);
+    case 384: return flash::forward<flash::D384>(a, s);
+    default:
+      return launch(wide::fwd_kernel, dim3(a.L / wide::kRows, a.H * a.m, a.B), wide::kThreads,
+                    wide::kFwdBytes, a, s);
+  }
+}
+
+cudaError_t flash_backward(Args& a, int dh, bool bf, cudaStream_t s) {
+  a.m = dh > 128 ? dh / 128 : 1;
+  if (!bf) return block_backward(a, dh > 128 ? 128 : dh, false, s);
+  switch (dh) {
+    case 64: return flash::backward<flash::D64>(a, s);
+    case 128: return flash::backward<flash::D128>(a, s);
+    case 256: return flash::backward<flash::D256>(a, s);
+    case 384: return flash::backward<flash::D384>(a, s);
+    default: break;
+  }
   cudaError_t err = launch(wide::bwd_dq_kernel, dim3(a.L / wide::kRows, a.H * a.m, a.B),
                            wide::kThreads, wide::kFwdBytes, a, s);
   if (err != cudaSuccess) return err;
   return launch(wide::bwd_dkdv_kernel, dim3(a.Lk / wide::kRows, a.H * a.m, a.B),
                 wide::kThreads, wide::kDkdvBytes, a, s);
-}
-
-// The head widths the kernels take (ops/block_attention.py's HEAD_DIMS, and
-// a multiple of 128 from 256 without dropout); another dh is refused.
-bool dh_ok(int dh, int dropout) {
-  return dh == 32 || dh == 64 || dh == 96 || dh == 128 || (dh > 128 && dh % 128 == 0 && !dropout);
-}
-
-cudaError_t forward(Args& a, int dh, bool bf, cudaStream_t s) {
-  a.m = dh > 128 ? dh / 128 : 1;
-  switch (dh) {
-    case 32: return forward_dh<32>(a, bf, s);
-    case 64: return forward_dh<64>(a, bf, s);
-    case 96: return forward_dh<96>(a, bf, s);
-    case 128: return forward_dh<128>(a, bf, s);
-    default: return forward_wide(a, bf, s);
-  }
-}
-
-cudaError_t backward(Args& a, int dh, bool bf, cudaStream_t s) {
-  a.m = dh > 128 ? dh / 128 : 1;
-  switch (dh) {
-    case 32: return backward_dh<32>(a, bf, s);
-    case 64: return backward_dh<64>(a, bf, s);
-    case 96: return backward_dh<96>(a, bf, s);
-    case 128: return backward_dh<128>(a, bf, s);
-    default: return backward_wide(a, bf, s);
-  }
 }
 
 Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, float scale,
@@ -2110,29 +2302,13 @@ Args make_args(int B, int H, int L, int Lk, const long long* strides, int n, flo
   return a;
 }
 
-}  // namespace ergm_block
-
-// dtype: 0 = float32, 1 = bfloat16; dh: the head width, 32, 64, 96 or
-// 128, or without dropout a multiple of 128 from 256. strides: host array of (batch, head, row) element strides of q, k,
-// v, o. kbits [B, Lk/32] and dead [B] are written here (by the pre-pass)
-// for the backward. head_stride: the dropout hash's (H for a whole
-// problem). Returns a cudaError_t (0 on success).
-extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, void* o,
-                                  void* ml, const void* qmask, const void* kmask, void* kbits,
-                                  void* dead, int dtype, int dh, int B, int H, int L, int Lk,
-                                  const long long* strides, float scale, int causal,
-                                  int dropout, float drop_div, float drop_mul, unsigned thr,
-                                  unsigned seed, int head_stride, void* stream) {
-  using namespace ergm_block;
-  if ((dtype != 0 && dtype != 1) || !dh_ok(dh, dropout))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  prep_kernel<<<B, 256, 0, s>>>(static_cast<const int*>(kmask), static_cast<const int*>(qmask),
-                                static_cast<unsigned*>(kbits), static_cast<int*>(dead), L, Lk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Args a = make_args(B, H, L, Lk, strides, 4, scale, causal, dropout, drop_div, drop_mul, thr,
-                     seed, head_stride);
+// The pre-pass (key bits, dead rows), then the forward's arguments
+cudaError_t prep_forward(Args& a, const void* q, const void* k, const void* v, void* o, void* ml,
+                         const void* qmask, const void* kmask, void* kbits, void* dead,
+                         cudaStream_t s) {
+  prep_kernel<<<a.B, 256, 0, s>>>(static_cast<const int*>(kmask), static_cast<const int*>(qmask),
+                                  static_cast<unsigned*>(kbits), static_cast<int*>(dead), a.L,
+                                  a.Lk);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -2141,7 +2317,50 @@ extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, v
   a.qmask = static_cast<const int*>(qmask);
   a.kbits = static_cast<const unsigned*>(kbits);
   a.dead = static_cast<const int*>(dead);
-  return static_cast<int>(forward(a, dh, dtype == 1, s));
+  return cudaGetLastError();
+}
+
+void set_backward(Args& a, const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, void* dq, void* dk, void* dv, const void* ml, void* stat,
+                  const void* qmask, const void* kbits, const void* dead) {
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.ml = static_cast<float*>(const_cast<void*>(ml));
+  a.stat = static_cast<float*>(stat);
+  a.qmask = static_cast<const int*>(qmask);
+  a.kbits = static_cast<const unsigned*>(kbits);
+  a.dead = static_cast<const int*>(dead);
+}
+
+}  // namespace ergm_block
+
+// K5 (ops/block_attention.py, JAX's block gate). dtype: 0 = float32, 1 =
+// bfloat16; dh: the head width, 32, 64, 96 or 128. strides: host array of
+// (batch, head, row) element strides of q, k, v, o. kbits [B, Lk/32] and
+// dead [B] are written here (by the pre-pass) for the backward.
+// head_stride: the dropout hash's (H for a whole problem). Returns a
+// cudaError_t (0 on success).
+extern "C" int ergm_block_mha_fwd(const void* q, const void* k, const void* v, void* o,
+                                  void* ml, const void* qmask, const void* kmask, void* kbits,
+                                  void* dead, int dtype, int dh, int B, int H, int L, int Lk,
+                                  const long long* strides, float scale, int causal,
+                                  int dropout, float drop_div, float drop_mul, unsigned thr,
+                                  unsigned seed, int head_stride, void* stream) {
+  using namespace ergm_block;
+  if ((dtype != 0 && dtype != 1) || !block_dh_ok(dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args a = make_args(B, H, L, Lk, strides, 4, scale, causal, dropout, drop_div, drop_mul, thr,
+                     seed, head_stride);
+  cudaError_t err = prep_forward(a, q, k, v, o, ml, qmask, kmask, kbits, dead, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(block_forward(a, dh, dtype == 1, s));
 }
 
 // strides: (batch, head, row) of q, k, v, o, dout, dq, dk, dv. stat is
@@ -2156,22 +2375,43 @@ extern "C" int ergm_block_mha_bwd(const void* q, const void* k, const void* v, c
                                   unsigned thr, unsigned seed, int head_stride,
                                   void* stream) {
   using namespace ergm_block;
-  if ((dtype != 0 && dtype != 1) || !dh_ok(dh, dropout))
+  if ((dtype != 0 && dtype != 1) || !block_dh_ok(dh))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(B, H, L, Lk, strides, 8, scale, causal, dropout, drop_div, drop_mul, thr,
                      seed, head_stride);
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  a.dout = dout;
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
-  a.ml = static_cast<float*>(const_cast<void*>(ml));
-  a.stat = static_cast<float*>(stat);
-  a.qmask = static_cast<const int*>(qmask);
-  a.kbits = static_cast<const unsigned*>(kbits);
-  a.dead = static_cast<const int*>(dead);
-  return static_cast<int>(backward(a, dh, dtype == 1, static_cast<cudaStream_t>(stream)));
+  set_backward(a, q, k, v, o, dout, dq, dk, dv, ml, stat, qmask, kbits, dead);
+  return static_cast<int>(block_backward(a, dh, dtype == 1, static_cast<cudaStream_t>(stream)));
+}
+
+// K7 (ops/flash_attention.py, JAX's flash gate; no dropout): the same
+// arguments and contracts as ergm_block_mha_fwd / _bwd without the dropout
+// ones. dh: bf16 64 or a multiple of 128; f32 32, 64, 96, 128 or a
+// multiple of 128.
+extern "C" int ergm_flash_mha_fwd(const void* q, const void* k, const void* v, void* o,
+                                  void* ml, const void* qmask, const void* kmask, void* kbits,
+                                  void* dead, int dtype, int dh, int B, int H, int L, int Lk,
+                                  const long long* strides, float scale, int causal,
+                                  void* stream) {
+  using namespace ergm_block;
+  if ((dtype != 0 && dtype != 1) || !flash_dh_ok(dh, dtype == 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args a = make_args(B, H, L, Lk, strides, 4, scale, causal, 0, 1.0f, 1.0f, 0u, 0u, H);
+  cudaError_t err = prep_forward(a, q, k, v, o, ml, qmask, kmask, kbits, dead, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(flash_forward(a, dh, dtype == 1, s));
+}
+
+extern "C" int ergm_flash_mha_bwd(const void* q, const void* k, const void* v, const void* o,
+                                  const void* dout, void* dq, void* dk, void* dv,
+                                  const void* ml, void* stat, const void* qmask,
+                                  const void* kbits, const void* dead, int dtype, int dh, int B,
+                                  int H, int L, int Lk, const long long* strides, float scale,
+                                  int causal, void* stream) {
+  using namespace ergm_block;
+  if ((dtype != 0 && dtype != 1) || !flash_dh_ok(dh, dtype == 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(B, H, L, Lk, strides, 8, scale, causal, 0, 1.0f, 1.0f, 0u, 0u, H);
+  set_backward(a, q, k, v, o, dout, dq, dk, dv, ml, stat, qmask, kbits, dead);
+  return static_cast<int>(flash_backward(a, dh, dtype == 1, static_cast<cudaStream_t>(stream)));
 }

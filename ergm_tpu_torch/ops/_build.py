@@ -101,6 +101,9 @@ def load() -> ctypes.CDLL:
                                f, u, u, i, p],
         "ergm_block_mha_bwd": [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides,
                                f, i, i, f, f, u, u, i, p],
+        "ergm_flash_mha_fwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, f, i, p],
+        "ergm_flash_mha_bwd": [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides,
+                               f, i, p],
         "ergm_xent_fwd": [p, p, p, p, p, p, i, i, i, i, p],
         "ergm_xent_bwd_f32": [p, p, p, p, p, p, i, i, i, i, p],
         "ergm_xent_bwd_chunk": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],

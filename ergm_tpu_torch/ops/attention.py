@@ -151,29 +151,30 @@ def multihead_attention(
     """Attention dispatch, in JAX's order.
 
     ``impl``: ``pallas`` and ``block`` take kernel K5
-    (``ops/block_attention.py``) inside JAX's block gate (``supported``);
-    otherwise, with no dropout active, ``pallas`` and ``flash`` take K5
-    inside JAX's flash gate (``flash_supported``: the shapes JAX sends to
-    its library flash kernel K7, L > 1024 or causal Lq < Lk at offset 0,
-    and every shape whose head width the block gate refuses, which a tiled
-    CUDA kernel serves as well, at the library kernel's head widths).
-    ``auto`` is ``pallas`` for CUDA tensors (``core.device.on_card``), as JAX
-    takes the Pallas kernels on the TPU, and the plain math elsewhere; on
-    the CPU ``pallas``, ``block`` and ``flash`` run K5's plain version.
-    ``xla`` and every shape outside the gates take the plain math. On the
-    card the kernel takes, in float32 and bfloat16, the block gate's head
-    widths (a multiple of 8 up to 128, ``block_attention.kernel_takes``)
-    and the library kernel's (any below 128 and any multiple of 128,
-    ``block_attention.flash_kernel_takes``): outside them an explicit
-    ``block`` or ``flash`` raises and ``pallas`` takes the plain math, also
-    at a width above 128 that is not a multiple of 128, where JAX's library
-    kernel raises. The ``ERGM_ATTN_IMPL`` environment variable overrides
-    ``impl``. With an ``extra_bias``, only the plain math applies;
-    ``q_mask`` reaches K5 only (padded query rows give zero output and
-    gradient there). ``dropout_head_stride``: the dropout hash's head
-    stride (``dropout_keep``; a tensor-parallel shard of heads passes the
-    model's head count with a folded ``seed``)."""
-    from ergm_tpu_torch.ops import block_attention
+    (``ops/block_attention.py::block_mha``) inside JAX's block gate
+    (``block_attention.supported``); otherwise, with no dropout active,
+    ``pallas`` and ``flash`` take kernel K7
+    (``ops/flash_attention.py::flash_mha``) inside JAX's flash gate
+    (``flash_attention.flash_supported``: the shapes JAX sends to its
+    library flash kernel, L > 1024 or causal Lq < Lk at offset 0, and every
+    shape whose head width the block gate refuses, at the library kernel's
+    head widths). ``auto`` is ``pallas`` for CUDA tensors
+    (``core.device.on_card``), as JAX takes the Pallas kernels on the TPU,
+    and the plain math elsewhere; on the CPU ``pallas``, ``block`` and
+    ``flash`` run the kernels' plain versions. ``xla`` and every shape
+    outside the gates take the plain math. On the card the kernels take, in
+    float32 and bfloat16, the block gate's head widths (a multiple of 8 up
+    to 128, ``block_attention.kernel_takes``) and the library kernel's (any
+    below 128 and any multiple of 128, ``flash_attention.flash_kernel_takes``):
+    outside them an explicit ``block`` or ``flash`` raises and ``pallas``
+    takes the plain math, also at a width above 128 that is not a multiple
+    of 128, where JAX's library kernel raises. The ``ERGM_ATTN_IMPL``
+    environment variable overrides ``impl``. With an ``extra_bias``, only
+    the plain math applies; ``q_mask`` reaches the kernels only (padded
+    query rows give zero output and gradient there). ``dropout_head_stride``:
+    the dropout hash's head stride (``dropout_keep``; a tensor-parallel
+    shard of heads passes the model's head count with a folded ``seed``)."""
+    from ergm_tpu_torch.ops import block_attention, flash_attention
 
     impl = os.environ.get("ERGM_ATTN_IMPL", impl)
     if impl not in ("auto", "pallas", "block", "flash", "xla"):
@@ -188,7 +189,7 @@ def multihead_attention(
     # explicit block or flash
     if extra_bias is None and card and impl != "xla":
         takes = {"block": block_attention.kernel_takes(q),
-                 "flash": block_attention.flash_kernel_takes(q)}
+                 "flash": flash_attention.flash_kernel_takes(q)}
         if impl == "pallas":
             if not (takes["block"] or takes["flash"]):
                 impl = "xla"
@@ -200,12 +201,15 @@ def multihead_attention(
     if extra_bias is None and impl != "xla":
         block = impl in ("pallas", "block") and block_attention.supported(
             q, k, v, causal=causal, causal_offset=causal_offset)
-        flash = not block and impl in ("pallas", "flash") and block_attention.flash_supported(
+        flash = not block and impl in ("pallas", "flash") and flash_attention.flash_supported(
             q, k, v, causal=causal, causal_offset=causal_offset, dropout_active=dropout_active)
         if block or flash:
             if isinstance(scale, torch.Tensor):
                 q = q * scale.to(q.dtype)  # a tensor scale folds into q, as JAX folds a traced one
                 scale = 1.0
+            if flash:
+                return flash_attention.flash_mha(q, k, v, causal=causal, scale=scale,
+                                                 q_mask=q_mask, kv_mask=kv_mask)
             return block_attention.block_mha(
                 q, k, v, causal=causal, scale=scale, q_mask=q_mask, kv_mask=kv_mask,
                 dropout_rate=dropout_rate if dropout_active else 0.0,

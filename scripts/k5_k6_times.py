@@ -2,11 +2,15 @@
 from one or more trees of this repository, in turns.
 
 K5 (block attention): bf16 [48, 12, 512, 64], causal, dropout 0.1,
-forward and backward (the training slice). K7 (K5's source on the shapes
-of JAX's library flash kernel): bf16 [2, 16, 2048, Dh] at Dh = 256 and
-384, causal, left pads of 0 and 217 keys (queries masked as their keys),
-forward and backward, and one scaled_dot_product_attention call (causal,
-no mask) on the same tensors. K6 (fused cross-entropy):
+forward and backward (the training slice). K7 (the shapes of JAX's
+library flash kernel): bf16 [B, H, 2048, Dh] at [8, 12, ., 64], [2, 6, .,
+128], and [2, 16, ., Dh] for Dh = 100, 256 and 384, causal, left pads
+(the first batch row none, the others 217 keys; queries masked as their
+keys), forward and backward, and one scaled_dot_product_attention call
+(causal, no mask) on the same tensors; through
+``ops/flash_attention.py::flash_mha`` where the tree has that module,
+else through ``block_attention.block_mha``, which served K7's shapes
+before it. K6 (fused cross-entropy):
 bf16 forward and backward over GPT-2's vocabulary (50,271 rows) at
 gpt2's training shape (N = 24,576, D = 768), gpt2-large's (6,144, 1,280)
 and gpt2-xl's (2,048, 1,600), in bf16 and in fp32 (TF32 off; K6's f32
@@ -36,8 +40,9 @@ import os
 import subprocess
 import sys
 
-K7_HEADS = (256, 384)
-K7_PADS = (0, 217)
+# K7's (batch, heads, head width) at L = 2,048
+K7_SHAPES = ((8, 12, 64), (2, 6, 128), (2, 16, 100), (2, 16, 256), (2, 16, 384))
+K7_PAD = 217
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K6_SHAPES = {"gpt2": (24576, 768), "gpt2-large": (6144, 1280), "gpt2-xl": (2048, 1600)}
 V = 50271
@@ -53,6 +58,11 @@ def _child(tree: str) -> dict:
     root = os.path.realpath(os.path.abspath(tree))
     if not os.path.realpath(block_attention.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {block_attention.__file__}, not the tree {root}")
+    try:
+        from ergm_tpu_torch.ops import flash_attention
+        k7 = flash_attention.flash_mha
+    except ImportError:  # a tree from before the port of ops/flash_attention.py
+        k7 = block_attention.block_mha
     _build.load()
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -80,18 +90,19 @@ def _child(tree: str) -> dict:
     o = block_attention.block_mha(*xs, **kw)
     out["K5 bwd"] = median_ms(lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 20)
     del q, k, v, do, xs, o
-    for dh in K7_HEADS:
-        q, k, v, do = (torch.randn((2, 16, 2048, dh), generator=gen, device="cuda").bfloat16()
+    for b, heads, dh in K7_SHAPES:
+        q, k, v, do = (torch.randn((b, heads, 2048, dh), generator=gen, device="cuda").bfloat16()
                        for _ in range(4))
-        m = (torch.arange(2048, device="cuda")[None]
-             >= torch.tensor(K7_PADS, device="cuda")[:, None]).to(torch.int32)
+        pads = torch.full((b,), K7_PAD, device="cuda")
+        pads[0] = 0
+        m = (torch.arange(2048, device="cuda")[None] >= pads[:, None]).to(torch.int32)
         kw = dict(causal=True, scale=dh ** -0.5, q_mask=m, kv_mask=m)
-        out[f"K7 fwd dh{dh}"] = median_ms(lambda: block_attention.block_mha(q, k, v, **kw), 10)
+        out[f"K7 fwd dh{dh}"] = median_ms(lambda: k7(q, k, v, **kw), 10)
         sdpa = dict(is_causal=True, scale=dh ** -0.5)
         out[f"SDPA fwd dh{dh}"] = median_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **sdpa), 10)
         xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        o = block_attention.block_mha(*xs, **kw)
+        o = k7(*xs, **kw)
         out[f"K7 bwd dh{dh}"] = median_ms(
             lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 10)
         o = torch.nn.functional.scaled_dot_product_attention(*xs, **sdpa)

@@ -6,10 +6,12 @@ git-ignored ``ergm_tpu_torch/_build/split/``: ``loads`` streams every
 tile through the ring and forms no product; ``products`` forms every
 product on the first two tiles of the ring and loads no further tile
 (so its values are junk). Each kernel's device time (torch.profiler, the
-mean over 10 forward + backward calls) at bf16 [2, 16, 2048, Dh], causal,
-left pads of 0 and 217 keys, for Dh = 256 and 384, in each build. Where
-the full kernel's time is near ``products``' the products and the work
-between them set its pace; near ``loads``', the streaming does.
+mean over 10 forward + backward calls of ``flash_attention.flash_mha``)
+at bf16 [B, H, 2048, Dh], causal, left pads of 0 and 217 keys (the first
+two batch rows; the others none), for Dh = 64 ([8, 12]), 128 ([2, 6]),
+256 and 384 ([2, 16]), in each build. Where the full kernel's time is
+near ``products``' the products and the work between them set its pace;
+near ``loads``', the streaming does.
 
 Run on a machine with a CUDA GPU, from the repository root:
 
@@ -26,50 +28,71 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 OUT = ROOT / "ergm_tpu_torch" / "_build" / "split"
-SHAPE = (2, 16, 2048)
+HEADS = {64: (8, 12), 128: (2, 6), 256: (2, 16), 384: (2, 16)}  # Dh: (B, H)
+L = 2048
 PADS = (0, 217)
+FIRST = "for (int i = 0; i < min(n, kStages); ++i) {"
+# (kernel, {variant: [(old, new), ...]}): the edits of each kernel's body
+EDITS = (
+    ("fwd_kernel", {
+        "loads": [("    if (k0 < wend) {", "    if (false) {")],
+        "products": [("      for (int i = 0; i < n; ++i) {\n        const int s = i % kStages;",
+                      f"      {FIRST}\n        const int s = i % kStages;"),
+                     ("    mbar_wait(full + s, (i / kStages) & 1);\n    if (k0 < wend) {",
+                      "    if (i < kStages) mbar_wait(full + s, 0);\n    if (k0 < wend) {")]}),
+    ("bwd_dq_kernel", {
+        "loads": [("    float sc[KT / 8][4], dp[KT / 8][4];",
+                   "    if (false) {\n    float sc[KT / 8][4], dp[KT / 8][4];"),
+                  ("    accumulate<S>(acc, sc, kt + grp * S::GB * KT * 64);",
+                   "    accumulate<S>(acc, sc, kt + grp * S::GB * KT * 64);\n    }")],
+        "products": [("    if (threadIdx.x == 0 && i + kStages < n) issue(i + kStages);", ""),
+                     ("    mbar_wait(full + s, (i / kStages) & 1);\n    float sc",
+                      "    if (i < kStages) mbar_wait(full + s, 0);\n    float sc")]}),
+    ("bwd_dkdv_kernel", {
+        "loads": [("    float x[KT / 8][4];  // S^T",
+                   "    if (lane == 0) mbar_arrive(empty + s);\n    continue;\n"
+                   "    float x[KT / 8][4];  // S^T")],
+        "products": [("      for (int i = 0; i < n; ++i) {\n        const int s = i % kStages, q0",
+                      f"      {FIRST}\n        const int s = i % kStages, q0"),
+                     ("    mbar_wait(full + s, (i / kStages) & 1);\n    float x",
+                      "    if (i < kStages) mbar_wait(full + s, 0);\n    float x")]}),
+    ("bwd_dkdv_pair_kernel", {
+        "loads": [("    float x[QT / 8][4], dp[QT / 8][4];",
+                   "    if (lane == 0) mbar_arrive(empty + s);\n    continue;\n"
+                   "    float x[QT / 8][4], dp[QT / 8][4];")],
+        "products": [("      for (int i = 0; i < n; ++i) {\n        const int s = i % kStages, q0",
+                      f"      {FIRST}\n        const int s = i % kStages, q0"),
+                     ("    mbar_wait(full + s, (i / kStages) & 1);\n    float x",
+                      "    if (i < kStages) mbar_wait(full + s, 0);\n    float x")]}),
+)
 
 
 def _replace(text: str, old: str, new: str) -> str:
-    if old not in text:
-        raise RuntimeError(f"k7_split: the kernels changed, no {old!r}")
+    if text.count(old) != 1:
+        raise RuntimeError(f"k7_split: the kernels changed, {text.count(old)} of {old!r}")
     return text.replace(old, new, 1)
 
 
 def _variants() -> dict:
     """{variant: source of block_attention.cu} for ``loads`` and
-    ``products``, from the checkout's source."""
+    ``products``, from the checkout's source: each kernel's body (from its
+    name to the next kernel's) edited apart."""
     text = (ROOT / "ergm_tpu_torch" / "csrc" / "block_attention.cu").read_text()
     start, end = text.index("namespace flash {"), text.index("}  // namespace flash")
     body = text[start:end]
-    marks = [body.index(n) for n in ("fwd_kernel(", "bwd_dq_kernel(", "bwd_dkdv_kernel(",
-                                     "// The tensor map of one operand")]
-    pre, post = body[:marks[0]], body[marks[3]:]
-    fwd, dq, dkdv = (body[marks[i]:marks[i + 1]] for i in range(3))
-    loads = (
-        _replace(fwd, "    if (k0 < wend) {", "    if (false) {"),
-        _replace(_replace(dq, "    float sc[KT / 8][4], dp[KT / 8][4];",
-                          "    if (false) {\n    float sc[KT / 8][4], dp[KT / 8][4];"),
-                 "    accumulate<S>(acc, sc, kt + grp * S::GB * KT * 64);",
-                 "    accumulate<S>(acc, sc, kt + grp * S::GB * KT * 64);\n    }"),
-        _replace(dkdv, "    float x[KT / 8][4];  // S^T",
-                 "    if (lane == 0) mbar_arrive(empty + s);\n    continue;\n"
-                 "    float x[KT / 8][4];  // S^T"))
-    first = "for (int i = 0; i < min(n, kStages); ++i) {"
-    products = (
-        _replace(_replace(fwd, "      for (int i = 0; i < n; ++i) {\n        const int s = i % kStages;",
-                          f"      {first}\n        const int s = i % kStages;"),
-                 "    mbar_wait(full + s, (i / kStages) & 1);\n    if (k0 < wend) {",
-                 "    if (i < kStages) mbar_wait(full + s, 0);\n    if (k0 < wend) {"),
-        _replace(_replace(dq, "    if (threadIdx.x == 0 && i + kStages < n) issue(i + kStages);", ""),
-                 "    mbar_wait(full + s, (i / kStages) & 1);\n    float sc",
-                 "    if (i < kStages) mbar_wait(full + s, 0);\n    float sc"),
-        _replace(_replace(dkdv, "      for (int i = 0; i < n; ++i) {\n        const int s = i % kStages, q0",
-                          f"      {first}\n        const int s = i % kStages, q0"),
-                 "    mbar_wait(full + s, (i / kStages) & 1);\n    float x",
-                 "    if (i < kStages) mbar_wait(full + s, 0);\n    float x"))
-    return {name: text[:start] + pre + "".join(parts) + post + text[end:]
-            for name, parts in (("loads", loads), ("products", products))}
+    marks = sorted((body.index(f"\n    {name}("), name) for name, _ in EDITS)
+    marks.append((body.index("// The tensor map of one operand"), None))
+    pre, post = body[:marks[0][0]], body[marks[-1][0]:]
+    pieces = {marks[i][1]: body[marks[i][0]:marks[i + 1][0]] for i in range(len(marks) - 1)}
+    out = {}
+    for variant in ("loads", "products"):
+        parts = dict(pieces)
+        for name, edits in EDITS:
+            for old, new in edits[variant]:
+                parts[name] = _replace(parts[name], old, new)
+        out[variant] = (text[:start] + pre + "".join(parts[m[1]] for m in marks[:-1]) + post
+                        + text[end:])
+    return out
 
 
 def _child(variant: str) -> None:
@@ -77,22 +100,23 @@ def _child(variant: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ergm_tpu_torch.ops import _build, block_attention
+    from ergm_tpu_torch.ops import _build, flash_attention
 
     if variant != "kernels":
         _build.CSRC, _build.BUILD = OUT / variant / "csrc", OUT / variant / "build"
     _build.load()
-    for dh in (256, 384):
+    for dh, (b, h) in HEADS.items():
         gen = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v, do = (torch.randn((*SHAPE, dh), generator=gen, device="cuda").bfloat16()
+        q, k, v, do = (torch.randn((b, h, L, dh), generator=gen, device="cuda").bfloat16()
                        for _ in range(4))
-        m = (torch.arange(SHAPE[2], device="cuda")[None]
-             >= torch.tensor(PADS, device="cuda")[:, None]).to(torch.int32)
+        pads = torch.zeros((b,), dtype=torch.long, device="cuda")
+        pads[:len(PADS)] = torch.tensor(PADS[:b], device="cuda")
+        m = (torch.arange(L, device="cuda")[None] >= pads[:, None]).to(torch.int32)
         kw = dict(causal=True, scale=dh ** -0.5, q_mask=m, kv_mask=m)
         xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
 
         def step():
-            o = block_attention.block_mha(*xs, **kw)
+            o = flash_attention.flash_mha(*xs, **kw)
             torch.autograd.grad(o, xs, do)
         for _ in range(3):
             step()
@@ -104,7 +128,8 @@ def _child(variant: str) -> None:
         for e in prof.key_averages():
             if "flash::" in e.key:
                 name = e.key.split("flash::")[1].split("<")[0]
-                print(f"{variant} Dh={dh} {name}: {e.device_time_total / e.count / 1e3:.4f} ms")
+                print(f"{variant} Dh={dh} [{b}, {h}, {L}] {name}: "
+                      f"{e.device_time_total / e.count / 1e3:.4f} ms")
 
 
 def main() -> None:

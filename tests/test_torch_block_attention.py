@@ -22,6 +22,7 @@ from ergm_tpu.ops import flash_attention as jfa
 from ergm_tpu_torch.core import device as tdevice
 from ergm_tpu_torch.ops import attention as tat
 from ergm_tpu_torch.ops import block_attention as tba
+from ergm_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(1)
 
@@ -92,14 +93,15 @@ def test_plain_k5_matches_jax_at_head_widths(d):
 def test_head_width_padding_is_exact(d):
     """What ``block_mha`` does on the card at a head width it has no kernel
     for: q, k and v zero-padded to ``head_width(d)`` (32, 32, 64; 128 for
-    JAX's flash width 100, without dropout) through the plain version with
+    JAX's flash width 100, where ``flash_mha`` pads so in fp32, without
+    dropout) through the plain version with
     the true width's scale, causal with masks and dropout 0.1 inside the
     block gate, give the unpadded problem's output in their first d
     columns, zeros in the rest, and its gradients through the padding."""
     width = tba.head_width(d)
     x = torch.zeros(1, d)
     assert width in tba.HEAD_DIMS and width >= d
-    assert tba.kernel_takes(x) if d % 8 == 0 else tba.flash_kernel_takes(x)
+    assert tba.kernel_takes(x) if d % 8 == 0 else tfa.flash_kernel_takes(x)
     rate = 0.1 if tba.head_ok(d) else 0.0
     q, k, v, g, kv_mask, q_mask = (torch.from_numpy(x) for x in _inputs(
         np.random.default_rng(20 + d), d=d))
@@ -122,28 +124,26 @@ def test_auto_routes_follow_the_kernels_head_widths(monkeypatch, d):
     """On the card (stood in here by ``core.device.on_card``), ``auto``
     sends self-attention inside JAX's block gate to K5 at its head widths
     (a multiple of 8 up to 128) and every dropout-free shape of JAX's
-    flash gate (K7) to K5 at the library kernel's head widths (any below
-    128, any multiple of 128: 100 reaches K5 on both shapes through the
-    flash gate, 256 too); beyond both (136, 200) it takes the plain math,
+    flash gate to K7 at the library kernel's head widths (any below 128,
+    any multiple of 128: 100 reaches K7 on both shapes through the flash
+    gate, 256 too); beyond both (136, 200) it takes the plain math,
     where an explicit ``block`` or ``flash`` raises and ``pallas`` takes the
     plain math. An explicit ``block`` raises at 100 and 256, outside the
     block gate's widths. float16, which the kernel does not take, gets
     the plain math."""
     calls = []
-    real = tba.block_mha
-
-    def spy(*args, **kw):
-        calls.append(args[0].shape)
-        return real(*args, **kw)
-
-    monkeypatch.setattr(tba, "block_mha", spy)
+    for mod, name in ((tba, "block_mha"), (tfa, "flash_mha")):
+        def spy(*args, _real=getattr(mod, name), **kw):
+            calls.append(args[0].shape)
+            return _real(*args, **kw)
+        monkeypatch.setattr(mod, name, spy)
     monkeypatch.setattr(tdevice, "on_card", lambda x: True)
     rng = np.random.default_rng(d)
     block = torch.from_numpy(rng.standard_normal((1, 2, 128, d)).astype(np.float32))
     flash = torch.from_numpy(rng.standard_normal((1, 1, 1152, d)).astype(np.float32))
     for x in (block, flash):
         tat.multihead_attention(x, x, x, causal=True, impl="auto")
-    kernel = tba.head_ok(d) or tba.flash_head_ok(d)
+    kernel = tba.head_ok(d) or tfa.flash_head_ok(d)
     assert kernel == (d not in (136, 200))
     assert len(calls) == (2 if kernel else 0)
     if not tba.head_ok(d):
@@ -219,22 +219,30 @@ def test_multihead_attention_routes_to_k5(monkeypatch):
     tat.multihead_attention(q, k, v, causal=True, impl="block")
     assert len(calls) == 2
 
-    # JAX's flash gate (L > 1024): pallas and flash reach K5 without
-    # dropout; with dropout active, under xla, and under block (which pins
-    # JAX's block gate) the plain math runs
+    # JAX's flash gate (L > 1024): pallas and flash reach K7 (flash_mha),
+    # not K5, without dropout; with dropout active, under xla, and under
+    # block (which pins JAX's block gate) the plain math runs
+    flash_calls = []
+    real_flash = tfa.flash_mha
+
+    def flash_spy(*args, **kw):
+        flash_calls.append(kw)
+        return real_flash(*args, **kw)
+
+    monkeypatch.setattr(tfa, "flash_mha", flash_spy)
     monkeypatch.delenv("ERGM_ATTN_IMPL")
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 1152, 64)).astype(np.float32))
                for _ in range(3))
     for impl in ("flash", "pallas"):
         tat.multihead_attention(q, k, v, causal=True, kv_mask=torch.ones((1, 1152)), impl=impl)
-    assert len(calls) == 4 and calls[-1]["dropout_rate"] == 0.0
+    assert len(calls) == 2 and len(flash_calls) == 2 and "dropout_rate" not in flash_calls[-1]
     for impl in ("flash", "pallas"):
         tat.multihead_attention(q, k, v, causal=True, impl=impl, dropout_rate=0.1,
                                 deterministic=False, seed=7)
     tat.multihead_attention(q, k, v, causal=True, impl="block")
     monkeypatch.setenv("ERGM_ATTN_IMPL", "xla")
     tat.multihead_attention(q, k, v, causal=True, impl="flash")
-    assert len(calls) == 4
+    assert len(calls) == 2 and len(flash_calls) == 2
 
 
 def _leftpad(b, lk, pads):
@@ -247,8 +255,9 @@ def _leftpad(b, lk, pads):
 @pytest.mark.parametrize("lq,lk,d", [(1152, 1152, D), (128, 256, D), (128, 256, 100),
                                      (128, 256, 200), (128, 256, 256)])
 def test_plain_k5_matches_jax_on_flash_shapes(lq, lk, d):
-    """K7's shapes, causal at offset 0 with a left-pad key mask: K5's
-    plain version (padded query rows masked as their keys are) against
+    """K7's shapes, causal at offset 0 with a left-pad key mask: the port's
+    fp32 route there, ``flash_mha`` on the CPU (K5's plain version, which
+    the card's f32 kernels run; padded query rows masked as their keys are) against
     what JAX's ``multihead_attention(impl="pallas")`` runs off the TPU,
     the plain math, at head widths 64 and JAX's flash widths past the
     block gate (100, 256; 200, where the card takes the plain math too).
@@ -269,7 +278,11 @@ def test_plain_k5_matches_jax_on_flash_shapes(lq, lk, d):
                                        q_mask=jnp.asarray(q_mask), impl="pallas")
     o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = [np.asarray(o)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
-    got = _torch(q, k, v, g, True, kv_mask, q_mask, 0.0)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_mha(qt, kt, vt, causal=True, kv_mask=torch.from_numpy(kv_mask),
+                        q_mask=torch.from_numpy(q_mask))
+    got = [out.detach().numpy()] + [x.numpy() for x in torch.autograd.grad(
+        out, (qt, kt, vt), torch.from_numpy(g))]
     real = q_mask.astype(bool)[:, None, :, None]
     np.testing.assert_allclose(got[0] * real, want[0] * real, atol=2e-5, rtol=2e-5)
     for a, b_ in zip(got[1:], want[1:]):
@@ -289,7 +302,7 @@ def test_flash_gate_matches_jax_gate(monkeypatch, causal, lq, lk, offset, dropou
     k = np.zeros((1, 1, lk, D), np.float32)
     want = jfa.flash_attention_supported(q, k, k, causal=causal, causal_offset=offset,
                                          dropout_active=dropout)
-    got = tba.flash_supported(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(k),
+    got = tfa.flash_supported(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(k),
                               causal=causal, causal_offset=offset, dropout_active=dropout)
     assert got == want
 
@@ -316,7 +329,7 @@ def test_flash_head_widths_match_jax_library(monkeypatch, d):
     q = np.zeros((1, 1, 1152, d), np.float32)
     want = jfa.flash_attention_supported(q, q, q, causal=True) and _library_takes(d)
     x = torch.from_numpy(q)
-    assert tba.flash_supported(x, x, x, causal=True) == want == tba.flash_head_ok(d)
+    assert tfa.flash_supported(x, x, x, causal=True) == want == tfa.flash_head_ok(d)
     assert want == (d not in (136, 200))
 
 
@@ -366,7 +379,7 @@ def test_flash_reference_matches_jax_library_kernel(causal, lq, lk, dtype):
     want = _library_flash(q, k, v, g, causal, q_mask, kv_mask, getattr(jnp, dtype))
     tdt = getattr(torch, dtype)
     xs = [torch.from_numpy(x).to(tdt).requires_grad_(True) for x in (q, k, v)]
-    o = tba.flash_mha_reference(*xs, causal=causal, q_mask=torch.from_numpy(q_mask),
+    o = tfa.flash_mha_reference(*xs, causal=causal, q_mask=torch.from_numpy(q_mask),
                                 kv_mask=torch.from_numpy(kv_mask), block_k=128)
     grads = torch.autograd.grad(o, xs, torch.from_numpy(g).to(tdt))
     got = [x.detach().float().numpy() for x in (o, *grads)]

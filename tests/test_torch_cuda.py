@@ -19,6 +19,7 @@ from ergm_tpu_torch.models import gpt2 as tg
 from ergm_tpu_torch.ops import block_attention as tba
 from ergm_tpu_torch.ops import cross_decode as tcd
 from ergm_tpu_torch.ops import decode_attention as tda
+from ergm_tpu_torch.ops import flash_attention as tfa
 from ergm_tpu_torch.ops import fused_ce as tce
 from ergm_tpu_torch.ops import fused_decode as tfd
 from ergm_tpu_torch.ops import prefill_attention as tpa
@@ -361,13 +362,13 @@ def test_decode_kernels_reject_what_they_do_not_take():
         tcd.fused_cross_decode(skew, blk16, 0, 0.125, stacks16, None, cfg16)
 
 
-@pytest.mark.parametrize("kernel", ["block_mha", "fused_softmax_xent"])
+@pytest.mark.parametrize("kernel", ["block_mha", "fused_softmax_xent", "flash_mha"])
 def test_training_wrappers_never_fall_back(kernel):
-    """K5 and K6 refuse a tensor on a device they do not serve."""
+    """K5, K6 and K7 refuse a tensor on a device they do not serve."""
     with pytest.raises(ValueError, match="meta"):
-        if kernel == "block_mha":
+        if kernel in ("block_mha", "flash_mha"):
             x = torch.empty((2, 2, 128, 64), device="meta")
-            tba.block_mha(x, x, x, causal=True)
+            (tba.block_mha if kernel == "block_mha" else tfa.flash_mha)(x, x, x, causal=True)
         else:
             tce.fused_softmax_xent(torch.empty((8, 128), device="meta"),
                                    torch.empty((32, 128), device="meta"),
@@ -403,9 +404,11 @@ def _grads_within(got, want, dtype, f32_tol, exact=()):
             assert ratio <= 1.0, ratio
 
 
-def _k5_case(dtype, causal, Lk, rate, masks, seed=0, d=64, L=256, plain=tba.block_mha_reference):
+def _k5_case(dtype, causal, Lk, rate, masks, seed=0, d=64, L=256, plain=tba.block_mha_reference,
+             kernel=tba.block_mha):
     """(kernel, plain, plain in f32) runs, each [o, dQ, dK, dV], at head
-    width d; the f32 run only for bf16 inputs."""
+    width d; the f32 run only for bf16 inputs. ``kernel``: K5's
+    ``block_mha`` or K7's ``flash_mha`` (no dropout)."""
     g = torch.Generator().manual_seed(seed)
     B, H = 2, 4
     q, k, v, do = (torch.randn(s, generator=g).to("cuda", dtype)
@@ -416,7 +419,7 @@ def _k5_case(dtype, causal, Lk, rate, masks, seed=0, d=64, L=256, plain=tba.bloc
         km[:, :3] = 0 if causal else 1  # causal: rows before the first real key
         qm = torch.ones((B, L), dtype=torch.int32, device="cuda")
         qm[1, -40:] = 0
-    runs = [(tba.block_mha, dtype), (plain, dtype)]
+    runs = [(kernel, dtype), (plain, dtype)]
     if dtype == torch.bfloat16:
         runs.append((plain, torch.float32))
     drop = dict(dropout_rate=rate, dropout_seed=77 if rate else None) if rate else {}
@@ -571,14 +574,17 @@ def test_block_attention_kernel_reads_strided_views():
 
 
 def _k5_gate_case(dtype, L, Lk, causal, rate, model_masks=False):
-    """K5 on both gates' shapes: q a head view of a fused [B, L, 3D]
+    """K5 on JAX's block gate's shapes and K7 (``flash_mha``, held to
+    ``flash_attention.kernel_reference``) on its flash gate's: q a head
+    view of a fused [B, L, 3D]
     projection, k and v of a fused [B, Lk, 2D] one (read in place), a
     left-pad key mask (batch row 1 starts at key 37, so its causal rows
     before it see no real key and spread over all keys) and a ragged tail
     of padded query rows in batch row 0; with ``model_masks`` the query
     mask is the key mask, as the model passes them (the rows before key 37
     are padded, not dead). Returns the (kernel, plain, plain in f32 for
-    bf16) runs, each [o, dQ, dK, dV], and q_mask."""
+    bf16) runs, each [o, dQ, dK, dV], the module that ran
+    (block_attention or flash_attention) and q_mask."""
     g = torch.Generator().manual_seed(L + 3 * Lk + int(causal))
     B, H = 2, 2
     qkv = torch.randn((B, L, 3 * H * 64), generator=g)
@@ -593,17 +599,22 @@ def _k5_gate_case(dtype, L, Lk, causal, rate, model_masks=False):
     if model_masks:
         qm = km[:, :L].clone()
     km, qm = km.cuda(), qm.cuda()
-    runs = [(tba.block_mha, dtype), (tba.block_mha_reference, dtype)]
+    mod = tba if tba.supported(heads[0], heads[1], heads[2], causal=causal) else tfa
+    if mod is tba:
+        kernel, plain = tba.block_mha, tba.block_mha_reference
+        drop = dict(dropout_rate=rate, dropout_seed=11 if rate else None)
+    else:
+        kernel, plain, drop = tfa.flash_mha, tfa.kernel_reference, {}
+    runs = [(kernel, dtype), (plain, dtype)]
     if dtype == torch.bfloat16:
-        runs.append((tba.block_mha_reference, torch.float32))
+        runs.append((plain, torch.float32))
     outs = []
     for fn, dt in runs:
         xs = [x.to("cuda", dt).detach().requires_grad_(True) for x in heads]
-        o = fn(*xs, causal=causal, scale=0.125, q_mask=qm, kv_mask=km, dropout_rate=rate,
-               dropout_seed=11 if rate else None)
+        o = fn(*xs, causal=causal, scale=0.125, q_mask=qm, kv_mask=km, **drop)
         outs.append([o, *torch.autograd.grad(o, xs, do.to("cuda", dt))])
     torch.cuda.synchronize()
-    return outs, qm
+    return outs, mod, qm
 
 
 @pytest.mark.cuda
@@ -614,8 +625,8 @@ def _k5_gate_case(dtype, L, Lk, causal, rate, model_masks=False):
     (2048, 2048, True, 0.0), (2048, 2048, False, 0.0), (128, 384, True, 0.0),
     (128, 384, False, 0.0), (128, 384, False, 0.1)])
 def test_block_attention_kernel_across_gates(dtype, L, Lk, causal, rate):
-    """The kernel inside JAX's block gate (L <= 1024, dropout 0 and 0.1)
-    and inside its flash gate (L = 2048; causal Lq = 128 over Lk = 384 at
+    """K5 inside JAX's block gate (L <= 1024, dropout 0 and 0.1) and K7
+    inside its flash gate (L = 2048; causal Lq = 128 over Lk = 384 at
     offset 0, where query i sees keys <= i; no dropout there), against the
     plain version, with strided views, a left-pad key mask and padded
     query rows. fp32 with TF32 off at JAX's bars (2e-5 forward, 5e-5
@@ -625,9 +636,13 @@ def test_block_attention_kernel_across_gates(dtype, L, Lk, causal, rate):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
-    ((o, *grads), (o_ref, *grads_ref), *exact), qm = _k5_gate_case(dtype, L, Lk, causal, rate)
-    assert (tba.LAUNCHES, tba.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    f0 = {m: (m.LAUNCHES, m.BWD_LAUNCHES) for m in (tba, tfa)}
+    ((o, *grads), (o_ref, *grads_ref), *exact), mod, qm = _k5_gate_case(dtype, L, Lk, causal,
+                                                                          rate)
+    for m in (tba, tfa):
+        n = int(m is mod)
+        assert (m.LAUNCHES, m.BWD_LAUNCHES) == (f0[m][0] + n, f0[m][1] + n)
+    assert (mod is tfa) == (L > 1024 or (causal and L != Lk))
     ok, err = _within(o, o_ref, dtype, 2e-5)
     assert ok, err
     assert bool((o.transpose(1, 2)[qm == 0] == 0).all())  # padded rows are zeros
@@ -644,10 +659,11 @@ def test_block_attention_kernel_across_gates(dtype, L, Lk, causal, rate):
 def test_block_attention_kernel_model_masks(L):
     """The model's masks (query mask = key mask, left-padded): padded rows
     before the first real key output zeros and pass zero gradients without
-    walking every key. bf16, causal, no dropout, in both gates."""
+    walking every key. bf16, causal, no dropout, in both gates (K5 at 512,
+    K7 at 2,048)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    ((o, *grads), (o_ref, *grads_ref), (_, *exact)), qm = _k5_gate_case(
+    ((o, *grads), (o_ref, *grads_ref), (_, *exact)), _, qm = _k5_gate_case(
         torch.bfloat16, L, L, True, 0.0, model_masks=True)
     ok, err = _within(o, o_ref, torch.bfloat16, None)
     assert ok, err
@@ -657,24 +673,27 @@ def test_block_attention_kernel_model_masks(L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 100, 128])
 @pytest.mark.parametrize("impl", ["flash", "auto", "pallas"])
-def test_flash_gate_routes_to_the_kernel(impl):
-    """At L = 2048 (JAX's flash gate) ``multihead_attention`` launches K5
-    on the card without dropout, and takes the plain math with dropout
-    active, as JAX does."""
+def test_flash_gate_routes_to_the_kernel(impl, d):
+    """At L = 2048 (JAX's flash gate) ``multihead_attention`` launches K7
+    (``flash_mha``: the one-pass kernels, 100 padded to 128) on the card
+    without dropout and never K5, within the bf16 bar of
+    ``flash_mha_reference``; with dropout active it takes the plain math,
+    as JAX does."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from ergm_tpu_torch.ops.attention import multihead_attention
-    x = torch.randn((1, 2, 2048, 64), device="cuda", dtype=torch.bfloat16)
-    f0 = tba.LAUNCHES
+    x = torch.randn((1, 2, 2048, d), device="cuda", dtype=torch.bfloat16)
+    f0, k5 = tfa.LAUNCHES, tba.LAUNCHES
     got = multihead_attention(x, x, x, causal=True, impl=impl)
-    assert tba.LAUNCHES == f0 + 1
-    want = tba.block_mha_reference(x, x, x, causal=True, scale=0.125)
+    assert (tfa.LAUNCHES, tba.LAUNCHES) == (f0 + 1, k5)
+    want = tfa.flash_mha_reference(x, x, x, causal=True)
     ok, err = _within(got, want, torch.bfloat16, None)
     assert ok, err
     multihead_attention(x, x, x, causal=True, impl=impl, dropout_rate=0.1,
                         deterministic=False, seed=3)
-    assert tba.LAUNCHES == f0 + 1
+    assert (tfa.LAUNCHES, tba.LAUNCHES) == (f0 + 1, k5)
 
 
 @pytest.mark.cuda
@@ -720,29 +739,41 @@ def test_block_attention_kernel_rejects_what_it_does_not_take():
         x = torch.zeros((2, 2, 128, d), device="cuda")
         with pytest.raises(ValueError, match="multiple of 8 up to 128"):
             tba.block_mha(x, x, x, causal=True)
-    for d in (20, 256):  # JAX's flash widths, outside its block gate: no dropout
+    for d in (20, 256):  # JAX's flash widths, outside its block gate: K7's
         x = torch.zeros((2, 2, 128, d), device="cuda")
-        with pytest.raises(ValueError, match="outside the kernel's gates"):
-            tba.block_mha(x, x, x, causal=True, dropout_rate=0.1, dropout_seed=1)
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            tba.block_mha(x, x, x, causal=True)
     short = torch.zeros((2, 2, 96, 64), device="cuda")
     with pytest.raises(ValueError):  # outside the gates: L=96
         tba.block_mha(short, short, short, causal=True)
+    with pytest.raises(ValueError):
+        tfa.flash_mha(short, short, short, causal=True)
     long = torch.zeros((1, 2, 2048, 64), device="cuda")
-    with pytest.raises(ValueError):  # the flash gate takes no dropout
-        tba.block_mha(long, long, long, causal=True, dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(ValueError, match="outside the kernel's gate"):  # K7's shape
+        tba.block_mha(long, long, long, causal=True)
+    with pytest.raises(TypeError):
+        tfa.flash_mha(long.half(), long.half(), long.half(), causal=True)
+    for d in (136, 200):
+        x = torch.zeros((1, 2, 2048, d), device="cuda")
+        with pytest.raises(ValueError, match="below 128 or a multiple of 128"):
+            tfa.flash_mha(x, x, x, causal=True)
+    with pytest.raises(ValueError, match="outside the kernel's gate"):  # causal Lq > Lk
+        tfa.flash_mha(long, long[:, :, :128], long[:, :, :128], causal=True)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [100, 256, 384, 512])
+@pytest.mark.parametrize("d", [64, 100, 128, 24, 256, 384, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,L,Lk,masks", [(True, 256, 256, True), (True, 256, 256, False),
                                                (False, 256, 128, True), (True, 128, 384, True)])
 def test_flash_kernel_at_jax_library_widths(dtype, causal, L, Lk, masks, d):
-    """K7's head widths past JAX's block gate, without dropout: 100 (padded
-    to the 128-wide template) and the wide heads at 256 and 384 (bf16: the
-    one-pass kernels, held to ``flash_mha_reference``, JAX's library
-    arithmetic) and 512 (bf16: the ``wide::`` kernels, column groups of
-    128), forward and backward against the plain version, with q/kv masks
+    """K7 (``flash_mha``) at the library kernel's head widths, without
+    dropout: 64 and 128 (bf16: the one-pass kernels' own widths), 24 and
+    100 (padded to 64 and 128 in bf16, to K5's 32 and 128 in fp32), 256 and
+    384 (bf16: the one-pass kernels) held to ``flash_mha_reference``, JAX's
+    library arithmetic, and 512 (bf16: the ``wide::`` kernels, column groups
+    of 128) and fp32 (K5's f32 kernels) to ``block_mha_reference``
+    (``flash_attention.kernel_reference``), forward and backward, with q/kv masks
     and rows before the first real key, without masks, the rectangular
     non-causal form, and causal Lq = 128 over Lk = 384 at offset 0 with a q
     mask other than the key mask (the dead rows walk every key, past the
@@ -753,12 +784,12 @@ def test_flash_kernel_at_jax_library_widths(dtype, causal, L, Lk, masks, d):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    plain = tba.flash_mha_reference if tba.flash_route(d, dtype) else tba.block_mha_reference
-    f0, b0 = tba.LAUNCHES, tba.BWD_LAUNCHES
+    plain = tfa.kernel_reference
+    f0, b0, k5 = tfa.LAUNCHES, tfa.BWD_LAUNCHES, tba.LAUNCHES
     (o, *grads), (o_ref, *grads_ref), *exact = _k5_case(dtype, causal, Lk, 0.0, masks, d=d, L=L,
-                                                        plain=plain)
+                                                        plain=plain, kernel=tfa.flash_mha)
     assert o.shape[-1] == d and all(x.shape[-1] == d for x in grads)
-    assert (tba.LAUNCHES, tba.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    assert (tfa.LAUNCHES, tfa.BWD_LAUNCHES, tba.LAUNCHES) == (f0 + 1, b0 + 1, k5)
     ok, err = _within(o, o_ref, dtype, 2e-5)
     assert ok, err
     exact = exact[0][1:] if exact else ()
@@ -768,15 +799,16 @@ def test_flash_kernel_at_jax_library_widths(dtype, causal, L, Lk, masks, d):
         late = grads[1].clone()
         late[:, :, hi - 32:hi] = 0
         assert _bf16_grad_ratio(late, grads_ref[1], exact[1]) > 1.0
-        (o2, *grads2), *_ = _k5_case(dtype, causal, Lk, 0.0, masks, d=d, L=L, plain=plain)
+        (o2, *grads2), *_ = _k5_case(dtype, causal, Lk, 0.0, masks, d=d, L=L, plain=plain,
+                                     kernel=tfa.flash_mha)
         assert torch.equal(o, o2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [20, 100, 136, 200, 256, 384])
 def test_auto_never_raises_past_the_block_gate(d):
-    """``auto`` takes K5 wherever JAX's gates reach a kernel (the flash
-    domain: any head width below 128, any multiple of 128) and the plain
+    """``auto`` takes K7 wherever JAX's flash gate reaches a kernel (the
+    flash domain: any head width below 128, any multiple of 128) and the plain
     math elsewhere, with and without dropout, on a block-gate shape and a
     flash-gate one, and never raises; an explicit ``flash`` raises at a
     width above 128 that is not a multiple of 128 (JAX's library kernel
@@ -785,18 +817,19 @@ def test_auto_never_raises_past_the_block_gate(d):
         pytest.skip("needs an NVIDIA GPU")
     from ergm_tpu_torch.ops.attention import multihead_attention
     g = torch.Generator().manual_seed(d)
-    kernel = tba.flash_head_ok(d)
+    kernel = tfa.flash_head_ok(d)
     for L in (256, 2048):
         x = torch.randn((1, 2, L, d), generator=g).to("cuda", torch.bfloat16)
-        f0 = tba.LAUNCHES
+        f0, k5 = tfa.LAUNCHES, tba.LAUNCHES
         got = multihead_attention(x, x, x, causal=True, impl="auto")
-        assert tba.LAUNCHES == f0 + kernel
-        want = tba.block_mha_reference(x, x, x, causal=True, scale=d ** -0.5)
+        assert (tfa.LAUNCHES, tba.LAUNCHES) == (f0 + kernel, k5)
+        want = (tfa.kernel_reference if kernel else tba.block_mha_reference)(
+            x, x, x, causal=True, scale=d ** -0.5)
         ok, err = _within(got, want, torch.bfloat16, None)
         assert ok, err
         multihead_attention(x, x, x, causal=True, impl="auto", dropout_rate=0.1,
                             deterministic=False, seed=3)
-        assert tba.LAUNCHES == f0 + kernel + tba.head_ok(d) * (L <= 1024)
+        assert (tfa.LAUNCHES, tba.LAUNCHES) == (f0 + kernel, k5 + tba.head_ok(d) * (L <= 1024))
         if kernel:
             multihead_attention(x, x, x, causal=True, impl="flash")
         else:
@@ -1300,8 +1333,9 @@ def test_session_tokens_equal_full_prefill_on_card():
 def test_block_attention_noncausal_unmasked_b1(dtype, L):
     """The audio encoder's attention: K5 with ``causal=False``, no masks,
     at B=1, through ``multihead_attention``'s ``auto`` route (the block
-    gate up to 1,024 frames, the flash gate at 1,152), against the plain
-    version: fp32 with TF32 off within 2e-5, bf16 within 2e-2 + 1e-2 |plain|."""
+    gate up to 1,024 frames, K7 through the flash gate at 1,152), against
+    the plain version: fp32 with TF32 off within 2e-5, bf16 within 2e-2 +
+    1e-2 |plain|."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from ergm_tpu_torch.ops.attention import multihead_attention
@@ -1311,12 +1345,14 @@ def test_block_attention_noncausal_unmasked_b1(dtype, L):
     # head views of one [1, L, 3 * 768] projection, as the encoder hands them over
     qkv = torch.randn((1, L, 3 * 768), generator=g, device="cuda").to(dtype)
     q, k, v = (x.view(1, L, 12, 64).transpose(1, 2) for x in qkv.split(768, dim=-1))
-    assert tba.supported(q, k, v, causal=False) == (L <= 1024)
-    f0 = tba.LAUNCHES
+    block = tba.supported(q, k, v, causal=False)
+    assert block == (L <= 1024)
+    f0 = (tba.LAUNCHES, tfa.LAUNCHES)
     out = multihead_attention(q, k, v, causal=False)
     torch.cuda.synchronize()
-    assert tba.LAUNCHES == f0 + 1
-    ref = tba.block_mha_reference(q, k, v, causal=False, scale=0.125)
+    assert (tba.LAUNCHES, tfa.LAUNCHES) == (f0[0] + block, f0[1] + (not block))
+    ref = (tba.block_mha_reference if block else tfa.kernel_reference)(q, k, v, causal=False,
+                                                                         scale=0.125)
     ok, err = _within(out, ref, dtype, 2e-5)
     assert ok, err
 
