@@ -2605,6 +2605,43 @@ def _k5_grads(fn, q, k, v, do, **kw) -> list:
     return [o, *torch.autograd.grad(o, (qq, kk, vv), do)]
 
 
+def _k5_instances(label: str, dh: int, q, k, v, do, attempts: int = 3, **kw) -> list:
+    """Prints, and returns, the bf16 kernels of ``csrc/block_attention.cu``
+    that one K5 forward and backward at ``q``'s shape launch (torch.profiler
+    over three calls after one outside it; a trace with none of them is
+    taken again, at most ``attempts`` times, as the profiler may miss
+    kernels); raises unless a trace that holds them shows the ``blk::``
+    instances at width ``dh``: the forward, dQ and dK/dV kernels beside
+    the pre-pass. The launch counters, not this trace, show that the main
+    path ran the kernels."""
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def call():
+        torch.autograd.grad(block_attention.block_mha(*xs, **kw), xs, do)
+    call()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        names = sorted({re.sub(r"^void |ergm_block::|\(.*$", "", e.name) for e in prof.events()
+                        if "ergm_block::" in e.name})
+        if names:
+            break
+    else:
+        print(f"{label}: K5 instances not read, the profiler recorded none of them in "
+              f"{attempts} traces")
+        return []
+    kernels = [n for n in names if not n.startswith("prep_kernel")]
+    want = [f"blk::{name}<blk::Shape<{dh}," for name in
+            ("bwd_dkdv_kernel", "bwd_dq_kernel", "fwd_kernel")]
+    if len(kernels) != 3 or not all(n.startswith(w) for w, n in zip(want, kernels)):
+        raise AssertionError(f"{label}: K5 ran {names}, not blk:: at {dh}")
+    print(f"{label}: K5 instances {', '.join(names)}")
+    return names
+
+
 def _k5_held(label: str, dtype, got: list, want: list, exact: list, rows=None) -> tuple:
     """Raises unless K5's output is within its bar of the plain version
     (bf16: 2e-2 + 1e-2 |plain|; fp32: F32_TOL) on ``rows`` (all when None)
@@ -2726,6 +2763,7 @@ def train_kernel_phase(gen: torch.Generator) -> dict:
     for name in ("block_mha", "block_mha_bwd"):
         print(f"{name}: SDPA {res[name]['library_ms']:.4f} ms, bound "
               f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+    _k5_instances(f"K5 [{TRAIN_B}, {H_}, {TRAIN_L}, {Dh}]", Dh, q, k, v, do, **kw)
     # the same kernels without dropout: what the keep-mask hash costs
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
     o = block_attention.block_mha(*xs, causal=True, scale=0.125)
@@ -5767,6 +5805,8 @@ def _domain_k5(gen: torch.Generator, dh: int) -> dict:
            "plain": lambda *x: block_attention.block_mha_reference(*x, **kw),
            "library": lambda *x: F.scaled_dot_product_attention(*x, is_causal=True,
                                                                 dropout_p=0.1, scale=scale)}
+    _k5_instances(f"K5 Dh={dh} [{TRAIN_B}, {heads}, {TRAIN_L}, {dh}]",
+                  block_attention.head_width(dh), q, k, v, do, **kw)
     pairs = TRAIN_B * heads * TRAIN_L * (TRAIN_L + 1) // 2  # causal (query, key) pairs
     r = res["fwd"]
     r["ms"], r["plain_ms"] = _timed_pair(f"K5 Dh={dh} forward", lambda: fwd["kernel"](q, k, v),
@@ -5891,6 +5931,8 @@ def domain_phase(card: str, gen: torch.Generator) -> dict:
 
     t0 = time.time()
     k5 = {dh: _domain_k5(gen, dh) for dh in DOMAIN_HEADS}
+    print("K5's kernels (bf16, blk:: at Dh = 32, 64, 96 and 128), ptxas: "
+          + json.dumps(_build.ptxas_report(_build.build_log(), "block_attention.cu", "blk")))
     k7 = _k7_case(gen, 128, ((torch.float32, 2, 6), (torch.bfloat16, 2, 6)))
     # K6 at gpt2's training shape (fp32 at 2,048 tokens); D = 100 runs padded
     # to 128 and its bf16 backward must repeat bit for bit

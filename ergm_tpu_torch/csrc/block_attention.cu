@@ -8,7 +8,7 @@
 // (L > 1024, causal Lq < Lk at offset 0, head widths past the block
 // gate's). Which gate reaches which namespace:
 //   JAX's block gate -> ops/block_attention.py::block_mha ->
-//     ergm_block_mha_fwd / _bwd -> tc:: (bf16) and f32:: at DH = 32, 64, 96
+//     ergm_block_mha_fwd / _bwd -> blk:: (bf16) and f32:: at DH = 32, 64, 96
 //     and 128 (other widths of the gate padded to them), dropout or not;
 //   JAX's flash gate (no dropout) -> ops/flash_attention.py::flash_mha ->
 //     ergm_flash_mha_fwd / _bwd -> bf16: flash:: at DH = 64 and 128 (any
@@ -16,7 +16,7 @@
 //     128 m for m >= 4; f32: f32:: at K5's widths and, past 128, the
 //     128-wide template over m slices.
 // The entry point, never a guess from the shape, picks the family. The
-// math and its rounding points of tc::, f32:: and wide:: are JAX's block
+// math and its rounding points of blk::, f32:: and wide:: are JAX's block
 // kernel's (one q sub-block, the whole row); the bf16 one-pass kernels
 // (flash::, below) compute what JAX's library flash kernel computes:
 //   s = (q . k) * scale in f32; s = where(kv_mask & causal, s, -1e9);
@@ -43,50 +43,63 @@
 // At the training slice, B=48, H=12, L=512, Dh=64, causal, one layer's
 // forward reads q, k, v and writes o: 4 x 37.7 MB = 151 MB, 45 us at the
 // HBM rate, against ~19 GFLOP of products, 20 us on the tensor cores: bytes
-// bind the function. The kernel's own work is larger: two passes over the
-// keys (3 products where one pass needs 2), an exp per score and pass (46 us
-// of the SFUs a layer), and ~10 integer operations of the hash per score
-// when dropout is on. On an H100 none of these sets the pace (PERF.md):
-// the kernels run their products at a small share of the tensor cores'
-// rate and their exps at a small share of the SFUs'. They are bound by the
-// latency of each step (a tile's arrival, the block barrier, the dependent
-// chain product -> softmax -> product), which the two-pass structure
-// doubles.
+// bind the function. The kernels' own work is larger: two passes over the
+// keys (3 products where one pass needs 2), an exp per score and pass, and
+// ~10 integer operations of the hash per score when dropout is on. Neither
+// the loads nor the products' rate sets their pace (PERF.md,
+// scripts/k5_split.py): a build that streams every tile and forms no
+// product takes a third to a half of the time, one that forms every product
+// on tiles already loaded takes all of it, and the time follows the number
+// of scores, not the head width. The chain product -> per-score work (mask,
+// exp, hash, rounding) -> product does, with too few warps to hide its
+// latency.
 //
-// bf16 design (tc::): CTAs of 128 query rows (keys, in dK/dV), 8 warps of
-// 16 rows; the other operand streams in 128-row tiles through a two-stage
-// cp.async ring (the next tile's copies are in flight while this one's
-// products run), worked in quarters of 32 columns so that a warp on the
-// causal diagonal skips the columns it cannot see. Products are mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) with operands from shared memory by
-// ldmatrix (144-byte rows: conflict-free). Scores stay in the products'
-// accumulator registers; row max and sum are kept per lane and reduced
-// across the four lanes of a row with shuffles once, at the end of pass 1;
-// the rounded probabilities are repacked in registers as the A operand of
-// the PV product (and pv, ds of the dV, dK and dQ products), never stored.
-// mma.sync and not wgmma: a wgmma version of all three kernels (two
-// warpgroups of 64 rows, operands from shared memory by descriptor, P and
-// dS as register A), tried while this design was chosen, ran no faster, as
-// the latency bound above predicts; nor did 32-row warps, 64-column
-// sub-steps or a three- or four-stage ring; 128-row tiles (against 64)
-// made the forward a little faster. To keep JAX's rounding points
-// (the probabilities are normalised by the whole row's statistics before
-// they are rounded) the forward walks the keys twice: pass 1 takes the row
-// max m and sum l, pass 2 recomputes s and accumulates the rounded pn . V.
-// It writes m (in log2 units) and l, 8 bytes a row, so that the backward's
-// pn is the forward's without a pass of its own. The backward is two
-// kernels with no atomics, so its result does not depend on scheduling: dQ
-// (one CTA per query tile, over the key tiles twice: pass 1 takes each
-// row's delta = sum(pn * dpn) in f32, JAX's, pass 2 accumulates dS . K; it
-// also writes each row's m, 1/l and delta; rowsum(dO * O) in its place
-// would carry O's bf16 rounding into every ds of a row, which a nearly
-// uniform row turns into a dQ error many times JAX's), then dK/dV (one
-// CTA per key tile, over the query tiles that
-// see it, S^T and dP^T recomputed with keys as rows). Both regenerate the
-// keep mask from the hash rather than read a bit mask stored by the
-// forward, which would hold 19 MB a layer at the slice until the backward
-// (PERF.md weighs the two). A pre-pass turns the key mask into bits and
-// finds where each batch row's dead rows end, once per call.
+// bf16 design (blk::, on flash::'s parts below): a CTA is a producer
+// warpgroup and two consumer warpgroups of 64 rows (wgmma's M), 128 query
+// rows (keys, in dK/dV) an item. The producer keeps a two-stage ring of TMA
+// loads in flight on mbarriers; the consumers form each tile's products
+// with wgmma, operands read from shared memory by descriptor in the swizzle
+// that the TMA writes (column blocks of 64 bf16 and the 128-byte swizzle at
+// DH = 64 and 128, of 32 and the 64-byte one at 32 and 96, so that neither
+// is padded). The scores stay in the accumulator's registers, whose layout
+// is mma.sync's repeated a warp at a time (rows 16w + g and + 8, columns 8j
+// + 2t and + 1), so the mask (score::mask_scores), the hash and the
+// per-lane row statistics keep the code written for that layout; the
+// rounded probabilities (and pv, ds) are the A operand of the next product
+// in registers, never stored. Latency bounds the per-score work, so where
+// the registers allow it a kernel runs two CTAs an SM, 16 consumer warps,
+// in 80 registers a thread: at DH = 32 and 64 the forward (64-key tiles)
+// and dQ (32-key tiles), at 32 dK/dV (32-query tiles); that took the
+// forward at 64 from 0.284 to 0.204 ms (PERF.md). The others (DH = 96 and
+// 128; dK/dV at 64, which sums two 64 x 64 f32 tiles a warpgroup) run one
+// CTA an SM, their consumers raised to 240 registers (setmaxnreg; ptxas
+// allocates each side to its share), with 128-key forward tiles and 64-row
+// dQ and dK/dV tiles above 64. A kernel at one CTA an SM walks the items
+// (a tile of one head, the longest causal walks first) and loads the next
+// item's resident operands into a second buffer while the current ones are
+// in use; at two, the SM's other CTA covers a CTA's start and end, and each
+// item has a CTA of its own (each grid's A/B: PERF.md). To keep JAX's
+// rounding points (the probabilities are normalised by the whole row's
+// statistics before they are rounded) the forward walks the keys twice:
+// pass 1 streams K and keeps each lane's running max and sum, reduced over a
+// row's four lanes at its end; pass 2 streams K and V, recomputes s and
+// accumulates the rounded pn . V. It writes m (in log2 units) and l, 8
+// bytes a row, so that the backward's pn is the forward's without a pass of
+// its own. The backward is two kernels with no atomics, so its result does
+// not depend on scheduling: dQ (Q and dO resident, over the K and V tiles
+// twice: pass 1 takes each row's delta = sum(pn * dpn) in f32, JAX's, pass
+// 2 accumulates dS . K; it also writes each row's m, 1/l and delta;
+// rowsum(dO * O) in its place would carry O's bf16 rounding into every ds
+// of a row, which a nearly uniform row turns into a dQ error many times
+// JAX's), then dK/dV (K and V resident, each consumer warpgroup owning 64
+// keys and summing both dK and dV; Q, dO and the rows' (m, 1/l, delta)
+// streamed, the query tiles holding dead rows first, then from the
+// diagonal). Both regenerate the keep mask from the hash rather than read a
+// bit mask stored by the forward, which would hold 19 MB a layer at the
+// slice until the backward (PERF.md weighs the two); dQ keeping pass 1's
+// bits in shared memory for pass 2 ran slower than hashing them again. A
+// pre-pass turns the key mask into bits and finds where each batch row's
+// dead rows end, once per call.
 //
 // f32 design (f32::, the fp32 bars only): tiles of 64 rows (32 above a
 // 64-wide head, so that the dK/dV kernel's ten tiles fit in shared memory)
@@ -96,20 +109,14 @@
 // Head widths. JAX's block gate takes every head width DH that is a
 // multiple of 8 up to 128; its flash gate sends every width to JAX's
 // library kernel, which takes any DH below 128 and any multiple of 128
-// (it raises at other widths above 128). The tc:: and f32:: kernels are
+// (it raises at other widths above 128). The blk:: and f32:: kernels are
 // templates built for DH = 32, 64, 96 and 128, the narrow one-pass kernels
 // for 64 and 128; the wrappers (ops/block_attention.py,
 // ops/flash_attention.py) pad q, k and v with zero columns to the next of
-// them and slice the result back, which is exact: the zero columns add nothing to q . k and give zero
-// output and gradient columns, and the softmax scale passed in is the true
-// width's. The keep mask's hash does not read DH. At DH = 64 the code is
-// the one the design above was measured with. Wider heads cost registers
-// and shared memory: the bf16 dK/dV kernel holds two 16 x DH f32
-// accumulators a warp (128 registers a thread at 128) and the dQ kernel six
-// 128-row tiles of DH + 8 bf16 (204 KB at 128), so above 64 a CTA of 128
-// rows runs alone on its SM instead of beside a second one; a x4 ldmatrix
-// group of the PV-style products loads at most 64 columns of B at once
-// whatever DH is. f32 runs a wide head, DH = 128 m with m >= 2 (flash gate
+// them and slice the result back, which is exact: the zero columns add
+// nothing to q . k and give zero output and gradient columns, and the
+// softmax scale passed in is the true width's. The keep mask's hash does
+// not read DH. f32 runs a wide head, DH = 128 m with m >= 2 (flash gate
 // only: no dropout), on the 128-wide template over m slices of the width,
 // m column groups on the grid's y axis.
 //
@@ -675,47 +682,13 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core products (mma.sync), scores in registers.
-namespace tc {
+// The scores' mask, shared by the bf16 kernels (blk::, wide::, flash::): the
+// m16n8k16 accumulator layout, which wgmma's m64nN accumulator repeats a
+// warp at a time (rows 16w + g and + 8, columns 8j + 2t and + 1).
+namespace score {
 
-using ergm_mma::ex2;
-using ergm_mma::ld_of;  // DH + 8: ldmatrix's 8 rows hit 8 bank groups
-using ergm_mma::prod_nn;
-using ergm_mma::prod_nt;
-using ergm_mma::store_rows;
-using ergm_mma::zero;
-
-constexpr int kThreads = 256;  // 8 warps of 16 rows
-constexpr int kRows = 128;     // rows a CTA owns: queries (forward, dQ) or keys (dK/dV)
-constexpr int kTile = 128;     // rows of a streamed tile: keys (forward, dQ) or queries (dK/dV)
-constexpr int kSub = 32;       // a streamed tile is worked 32 columns at a time
+constexpr int kSub = 32;                     // mask_scores' keys at a time
 constexpr float kMaskL2 = kNegInf * kLog2e;  // the where's fill, in log2 units
-
-// Bytes of a [kRows] or [kTile] tile of DH-wide rows. The kernels' register
-// cap is set for two CTAs per SM up to DH = 64 and one above (the note at
-// the top).
-template <int DH>
-constexpr size_t rows_bytes() {
-  return sizeof(bf16) * kRows * ld_of<DH>();
-}
-template <int DH>
-constexpr size_t tile_bytes() {
-  return sizeof(bf16) * kTile * ld_of<DH>();
-}
-// Stage N rows (DH bf16 each, row stride sl) into a [N][ld_of<DH>()] tile
-// by cp.async; the caller commits.
-template <int N, int DH>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl) {
-  ergm_mma::stage<N, kThreads, DH>(dst, src, sl);
-}
-
-// The key-mask bits of the kTile keys at k0, a word for each 32.
-__device__ __forceinline__ void key_bits(unsigned (&bits)[kTile / kSub], const Args& a, int b,
-                                         int k0) {
-  const unsigned* w = a.kbits + static_cast<long long>(b) * (a.Lk >> 5) + (k0 >> 5);
-#pragma unroll
-  for (int i = 0; i < kTile / kSub; ++i) bits[i] = w[i];
-}
 
 // Mask the scores of the warp's 16 rows (from r0) against the 32 keys at c0
 // (bits: their key-mask bits from bit 0), scaled into log2 units:
@@ -742,338 +715,7 @@ __device__ __forceinline__ void mask_scores(const Args& a, unsigned bits, float 
     }
 }
 
-// The query rows [q0, q0 + 128) and the warp's [r0, r0 + 16): the keys they
-// walk (up to the diagonal when causal, all keys for rows that hold dead
-// ones).
-struct Walk {
-  int kend, wend;
-  __device__ Walk(const Args& a, int q0, int r0, int dead)
-      : kend((a.causal && q0 >= dead) ? min(a.Lk, q0 + kRows) : a.Lk),
-        wend((a.causal && r0 >= dead) ? min(a.Lk, r0 + 16) : a.Lk) {}
-};
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) fwd_kernel(const Args a) {
-  constexpr int kLd = ld_of<DH>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [128][kLd]
-  bf16* ks = qs + kRows * kLd;               // [2][kTile][kLd]
-  bf16* vs = ks + 2 * kTile * kLd;           // [2][kTile][kLd]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16;
-  const long long sq = a.st[kQ][2], sk = a.st[kK][2], sv = a.st[kV][2];
-  const bf16* k = head<bf16>(a, a.k, kK, b, h);
-  const bf16* v = head<bf16>(a, a.v, kV, b, h);
-  const Walk walk(a, q0, r0, a.dead[b]);
-  const int n = walk.kend / kTile;
-  const float sl2 = a.scale * kLog2e;
-  unsigned xrow[2];  // the hash's r*Lk + mix*G + 2t for the lane's rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    xrow[i] = static_cast<unsigned>(r0 + g + 8 * i) * static_cast<unsigned>(a.Lk) +
-              hash_base(a, b, h) + 2 * t;
-
-  // steps 0..n-1: pass 1 over the key tiles (K); n..2n-1: pass 2 (K and V)
-  stage<kRows, DH>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * sq, sq);
-  auto issue = [&](int s) {
-    if (s < 2 * n) {
-      const int k0 = (s < n ? s : s - n) * kTile;
-      stage<kTile, DH>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
-      if (s >= n) stage<kTile, DH>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
-    }
-    ergm_async::commit();
-  };
-  issue(0);
-
-  float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f};  // the lane's share of m, l
-  float mrow[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
-  float o[DH / 8][4];
-  zero(o);
-
-  for (int s = 0; s < 2 * n; ++s) {
-    const int k0 = (s < n ? s : s - n) * kTile;
-    unsigned bits[kTile / kSub];
-    key_bits(bits, a, b, k0);
-    issue(s + 1);
-    ergm_async::wait<1>();
-    __syncthreads();
-    if (s == n) {
-      // the row's m and l from the four lanes that hold it
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        float l = lt[i] * ex2(mt[i] - mx);
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        const int r = r0 + g + 8 * i;
-        const bool real = a.qmask[static_cast<long long>(b) * a.L + r] != 0;
-        mrow[i] = mx;
-        inv[i] = real ? (a.dropout ? a.drop_mul : 1.0f) / fmaxf(l, 1e-30f) : 0.0f;
-        if (t == 0) {
-          const long long idx = row_index(a, b, h, r);
-          a.ml[idx] = mx;
-          a.ml[static_cast<long long>(a.B) * a.H * a.L + idx] = l;
-        }
-      }
-    }
-    const bf16* kt = ks + (s & 1) * kTile * kLd;
-    const bf16* vt = vs + (s & 1) * kTile * kLd;
-#pragma unroll
-    for (int u = 0; u < kTile / kSub; ++u) {
-      const int c0 = k0 + u * kSub;
-      if (c0 < walk.wend) {
-        float sc[4][4];
-        prod_nt<DH>(sc, qs, warp * 16, kt, u * kSub);
-        mask_scores(a, bits[u], sc, r0, c0, sl2);
-        if (s < n) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float w[4];  // a tree: independent maxima, then sums
-#pragma unroll
-            for (int j = 0; j < 4; ++j) w[j] = fmaxf(sc[j][2 * i], sc[j][2 * i + 1]);
-            const float mx = fmaxf(mt[i], fmaxf(fmaxf(w[0], w[1]), fmaxf(w[2], w[3])));
-#pragma unroll
-            for (int j = 0; j < 4; ++j) w[j] = ex2(sc[j][2 * i] - mx) + ex2(sc[j][2 * i + 1] - mx);
-            lt[i] = lt[i] * ex2(mt[i] - mx) + ((w[0] + w[1]) + (w[2] + w[3]));
-            mt[i] = mx;
-          }
-        } else {
-          // pn = exp(s - m) / l (a masked score gives a dead row's 1/Lk, else
-          // 0), dropped and scaled, then rounded as the PV product's operand
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int i = e >> 1;
-              float p = ex2(sc[j][e] - mrow[i]) * inv[i];
-              if (a.dropout && !keep(a, xrow[i] + c0 + 8 * j + (e & 1))) p = 0.0f;
-              sc[j][e] = p;
-            }
-          prod_nn<DH>(o, sc, vt, u * kSub);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  store_rows<DH>(head_out<bf16>(a, a.out, kO, b, h), a.st[kO][2], r0 + g, o, 1.0f);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) bwd_dq_kernel(const Args a) {
-  constexpr int kLd = ld_of<DH>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [128][kLd]
-  bf16* dos = qs + kRows * kLd;              // [128][kLd]
-  bf16* ks = dos + kRows * kLd;              // [2][kTile][kLd]
-  bf16* vs = ks + 2 * kTile * kLd;           // [2][kTile][kLd]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16;
-  const long long sk = a.st[kK][2], sv = a.st[kV][2];
-  const bf16* k = head<bf16>(a, a.k, kK, b, h);
-  const bf16* v = head<bf16>(a, a.v, kV, b, h);
-  const Walk walk(a, q0, r0, a.dead[b]);
-  const int n = walk.kend / kTile;
-  const float sl2 = a.scale * kLog2e;
-
-  // steps 0..n-1: pass 1 over the key tiles (delta); n..2n-1: pass 2 (dQ)
-  stage<kRows, DH>(qs, head<bf16>(a, a.q, kQ, b, h) + q0 * a.st[kQ][2], a.st[kQ][2]);
-  stage<kRows, DH>(dos, head<bf16>(a, a.dout, kDO, b, h) + q0 * a.st[kDO][2], a.st[kDO][2]);
-  auto issue = [&](int s) {
-    if (s < 2 * n) {
-      const int k0 = (s < n ? s : s - n) * kTile;
-      stage<kTile, DH>(ks + (s & 1) * kTile * kLd, k + k0 * sk, sk);
-      stage<kTile, DH>(vs + (s & 1) * kTile * kLd, v + k0 * sv, sv);
-    }
-    ergm_async::commit();
-  };
-  issue(0);
-
-  float mrow[2], inv[2], delta[2] = {0.0f, 0.0f};  // delta: the lane's share until step n
-  unsigned xrow[2];
-  const long long plane = static_cast<long long>(a.B) * a.H * a.L;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + g + 8 * i;
-    const long long idx = row_index(a, b, h, r);
-    mrow[i] = a.ml[idx];
-    inv[i] = a.qmask[static_cast<long long>(b) * a.L + r] != 0
-                 ? 1.0f / fmaxf(a.ml[plane + idx], 1e-30f) : 0.0f;
-    xrow[i] = static_cast<unsigned>(r) * static_cast<unsigned>(a.Lk) + hash_base(a, b, h) + 2 * t;
-  }
-  float acc[DH / 8][4];
-  zero(acc);
-
-  for (int s = 0; s < 2 * n; ++s) {
-    const int k0 = (s < n ? s : s - n) * kTile;
-    unsigned bits[kTile / kSub];
-    key_bits(bits, a, b, k0);
-    issue(s + 1);
-    ergm_async::wait<1>();
-    __syncthreads();
-    if (s == n) {
-      // delta = rowsum(pn * dpn) in f32 from the four lanes that hold a row,
-      // as JAX's kernel takes it (rowsum(dO * O) would carry O's bf16
-      // rounding into every ds of the row); the rows' (m, 1/l, delta) go
-      // to the dK/dV kernel
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
-        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
-      }
-      if (t == 0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          reinterpret_cast<float4*>(a.stat)[row_index(a, b, h, r0 + g + 8 * i)] =
-              make_float4(mrow[i], inv[i], delta[i], 0.0f);
-      }
-    }
-    const bf16* kt = ks + (s & 1) * kTile * kLd;
-    const bf16* vt = vs + (s & 1) * kTile * kLd;
-#pragma unroll
-    for (int u = 0; u < kTile / kSub; ++u) {
-      const int c0 = k0 + u * kSub;
-      if (c0 < walk.wend) {
-        float sc[4][4], dp[4][4];
-        prod_nt<DH>(sc, qs, warp * 16, kt, u * kSub);
-        prod_nt<DH>(dp, dos, warp * 16, vt, u * kSub);
-        mask_scores(a, bits[u], sc, r0, c0, sl2);
-        // pass 1: delta += pn * dpn; pass 2: ds = pn * (dpn - delta), both
-        // where visible, 0 where masked (mask_scores wrote the fill there;
-        // no visible score comes near -1e9)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1;
-            float d = dp[j][e];
-            if (a.dropout) d = keep(a, xrow[i] + c0 + 8 * j + (e & 1)) ? d * a.drop_mul : 0.0f;
-            const float pn = sc[j][e] == kMaskL2 ? 0.0f : ex2(sc[j][e] - mrow[i]) * inv[i];
-            if (s < n)
-              delta[i] += pn * d;
-            else
-              sc[j][e] = pn * (d - delta[i]);
-          }
-        if (s >= n) prod_nn<DH>(acc, sc, kt, u * kSub);
-      }
-    }
-    __syncthreads();
-  }
-  store_rows<DH>(head_out<bf16>(a, a.dq, kDQ, b, h), a.st[kDQ][2], r0 + g, acc, a.scale);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) bwd_dkdv_kernel(const Args a) {
-  constexpr int kLd = ld_of<DH>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [128][kLd]
-  bf16* vs = ks + kRows * kLd;               // [128][kLd]
-  bf16* qs = vs + kRows * kLd;               // [2][kTile][kLd]
-  bf16* dos = qs + 2 * kTile * kLd;          // [2][kTile][kLd]
-  float4* sts = reinterpret_cast<float4*>(dos + 2 * kTile * kLd);  // [2][kTile]: (m, 1/l, delta, -)
-
-  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int kw0 = k0 + warp * 16;  // the warp's first key
-  const long long sq = a.st[kQ][2], sdo = a.st[kDO][2];
-  const bf16* q = head<bf16>(a, a.q, kQ, b, h);
-  const bf16* dout = head<bf16>(a, a.dout, kDO, b, h);
-  const float4* stat = reinterpret_cast<const float4*>(a.stat) + row_index(a, b, h, 0);
-  const int dead = a.dead[b];
-  const float sl2 = a.scale * kLog2e;
-
-  // the query tiles that see these keys: those holding dead rows (they see
-  // every key), then the diagonal onwards
-  const int nq = a.L / kTile;
-  const int from = a.causal ? min(k0 / kTile, nq) : 0;
-  const int lo = a.causal ? min((dead + kTile - 1) / kTile, from) : 0;
-  const int n = lo + nq - from;
-  auto tile = [&](int s) { return (s < lo ? s : from + s - lo) * kTile; };
-
-  stage<kRows, DH>(ks, head<bf16>(a, a.k, kK, b, h) + k0 * a.st[kK][2], a.st[kK][2]);
-  stage<kRows, DH>(vs, head<bf16>(a, a.v, kV, b, h) + k0 * a.st[kV][2], a.st[kV][2]);
-  auto issue = [&](int s) {
-    if (s < n) {
-      const int q0 = tile(s);
-      stage<kTile, DH>(qs + (s & 1) * kTile * kLd, q + q0 * sq, sq);
-      stage<kTile, DH>(dos + (s & 1) * kTile * kLd, dout + q0 * sdo, sdo);
-      if (threadIdx.x < kTile)
-        ergm_async::copy16(sts + (s & 1) * kTile + threadIdx.x, stat + q0 + threadIdx.x);
-    }
-    ergm_async::commit();
-  };
-  issue(0);
-
-  int kr[2];
-  bool kreal[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    kr[i] = kw0 + g + 8 * i;
-    kreal[i] = key_real(a, b, kr[i]);
-  }
-  const bool wreal = __all_sync(0xffffffffu, kreal[0] && kreal[1]);  // the warp's keys all real
-  const unsigned hb = hash_base(a, b, h);
-  float dk[DH / 8][4], dv[DH / 8][4];
-  zero(dk);
-  zero(dv);
-
-  for (int s = 0; s < n; ++s) {
-    issue(s + 1);
-    ergm_async::wait<1>();
-    __syncthreads();
-    const int q0 = tile(s);
-    const bf16* qt = qs + (s & 1) * kTile * kLd;
-    const bf16* dt = dos + (s & 1) * kTile * kLd;
-    const float4* st = sts + (s & 1) * kTile;
-#pragma unroll
-    for (int u = 0; u < kTile / kSub; ++u) {
-      const int c0 = q0 + u * kSub;  // the sub-step's first query
-      if (!a.causal || c0 + kSub - 1 >= kw0 || c0 < dead) {
-        // S^T and dP^T: the warp's 16 keys as rows, 32 queries as columns
-        float sc[4][4], dp[4][4];
-        prod_nt<DH>(sc, ks, warp * 16, qt, u * kSub);
-        prod_nt<DH>(dp, vs, warp * 16, dt, u * kSub);
-        const bool full = wreal && (!a.causal || kw0 + 15 <= c0);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e1 = 0; e1 < 2; ++e1) {
-            const int qc = c0 + 8 * j + 2 * t + e1;
-            const float4 rs = st[qc - q0];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const int e = 2 * i + e1;
-              const bool ok = full || (kreal[i] && (!a.causal || kr[i] <= qc));
-              const float pn = ex2((ok ? sc[j][e] * sl2 : kMaskL2) - rs.x) * rs.y;
-              float d = dp[j][e], pv = pn;
-              if (a.dropout) {
-                const unsigned x = static_cast<unsigned>(qc) * static_cast<unsigned>(a.Lk) +
-                                   static_cast<unsigned>(kr[i]) + hb;
-                const bool kp = keep(a, x);
-                d = kp ? d * a.drop_mul : 0.0f;
-                pv = kp ? pn * a.drop_mul : 0.0f;
-              }
-              sc[j][e] = pv;
-              dp[j][e] = ok ? pn * (d - rs.z) : 0.0f;
-            }
-          }
-        prod_nn<DH>(dv, sc, dt, u * kSub);  // dV += pv^T dO
-        prod_nn<DH>(dk, dp, qt, u * kSub);  // dK += ds^T Q
-      }
-    }
-    __syncthreads();
-  }
-  store_rows<DH>(head_out<bf16>(a, a.dk, kDK, b, h), a.st[kDK][2], kw0 + g, dk, a.scale);
-  store_rows<DH>(head_out<bf16>(a, a.dv, kDV, b, h), a.st[kDV][2], kw0 + g, dv, 1.0f);
-}
-
-}  // namespace tc
+}  // namespace score
 
 // ---------------------------------------------------------------------------
 // Wide heads, bf16: Dh = 128 m with m >= 4 (the flash:: kernels take 256
@@ -1087,8 +729,8 @@ using ergm_mma::prod_nn;
 using ergm_mma::prod_nt_acc;
 using ergm_mma::store_rows;
 using ergm_mma::zero;
-using tc::kMaskL2;
-using tc::mask_scores;
+using score::kMaskL2;
+using score::mask_scores;
 
 constexpr int kThreads = 128;  // 4 warps of 16 rows
 constexpr int kRows = 64;      // rows a CTA owns: queries (forward, dQ) or keys (dK/dV)
@@ -1483,8 +1125,8 @@ using ergm_mma::ex2;
 using ergm_mma::pack;
 using ergm_mma::store_rows;
 using ergm_mma::zero;
-using tc::kMaskL2;
-using tc::mask_scores;
+using score::kMaskL2;
+using score::mask_scores;
 
 constexpr int kOwn = 64;             // rows a warpgroup owns: queries (forward, dQ) or keys
 constexpr int kQRows = 2 * kOwn;     // forward: query rows a CTA owns
@@ -1532,25 +1174,34 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 }
 
 // TMA: rows [r0, r0 + X) of head (b, h), the N column blocks from blk0,
-// into a tile of N column blocks [X][64]
-template <int X, int N>
+// into a tile of N column blocks [X][BW] (BW = 64: the 128-byte swizzle;
+// 32: the 64-byte one)
+template <int X, int N, int BW = 64>
 __device__ __forceinline__ void load_rows(const CUtensorMap* map, bf16* dst, uint64_t* bar, int r0,
                                           int h, int b, int blk0 = 0) {
 #pragma unroll
-  for (int c = 0; c < N; ++c) tma_load_4d(map, dst + c * X * 64, bar, (blk0 + c) * 64, r0, h, b);
+  for (int c = 0; c < N; ++c) tma_load_4d(map, dst + c * X * BW, bar, (blk0 + c) * BW, r0, h, b);
+}
+
+// The descriptors' swizzle for column blocks of BW bf16
+template <int BW>
+__host__ __device__ constexpr unsigned swizzle_of() {
+  return BW == 64 ? 1u : 2u;
 }
 
 // k16 step kk of a K-major operand: rows from row0 of an X-row tile
-template <int X>
+template <int X, int BW = 64>
 __device__ __forceinline__ uint64_t desc_k(const bf16* t, int row0, int kk) {
-  return sm_desc(t + (kk >> 2) * X * 64 + row0 * 64 + (kk & 3) * 16, 16, 1024);
+  constexpr int kSteps = BW / 16;  // k16 steps a column block
+  return sm_desc(t + (kk / kSteps) * X * BW + row0 * BW + (kk % kSteps) * 16, 16, 16 * BW,
+                 swizzle_of<BW>());
 }
 
 // k16 step kk of an X-row tile read MN-major (its rows as the product's
 // depth, its column blocks from t as N)
-template <int X>
+template <int X, int BW = 64>
 __device__ __forceinline__ uint64_t desc_mn(const bf16* t, int kk) {
-  return sm_desc(t + kk * 16 * 64, X * 64 * 2, 1024);
+  return sm_desc(t + kk * 16 * BW, X * BW * 2, 16 * BW, swizzle_of<BW>());
 }
 
 // s = A . B^T over the whole depth: A the 64 rows from arow of an XA-row
@@ -1587,7 +1238,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[S::GW / 8][4],
 }
 
 // Mask the warp's 16 rows (from r0) of a KT-key score block at k0, scaled
-// into log2 units (tc::mask_scores, 32 keys at a time)
+// into log2 units (score::mask_scores, 32 keys at a time)
 template <int KT>
 __device__ __forceinline__ void mask_keys(const Args& a, int b, float (&s)[KT / 8][4], int r0,
                                           int k0, float sl2) {
@@ -2115,9 +1766,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // The tensor map of one operand: [B, H, rows, dh] bf16 over the (batch,
-// head, row) element strides st, boxes of 64 columns by box_rows rows
+// head, row) element strides st, boxes of bw columns (64: the 128-byte
+// swizzle; 32: the 64-byte one) by box_rows rows
 inline bool head_map(CUtensorMap* map, const void* p, const long long* st, int B, int H,
-                     int rows, int dh, int box_rows) {
+                     int rows, int dh, int box_rows, int bw) {
   const ergm_hopper::EncodeTiled encode = ergm_hopper::encoder();
   if (!encode) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(rows),
@@ -2125,21 +1777,24 @@ inline bool head_map(CUtensorMap* map, const void* p, const long long* st, int B
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
                                  static_cast<cuuint64_t>(st[1]) * 2,
                                  static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(box_rows), 1,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
 
 // The maps of q, k, v and dO for a kernel whose q / dO tiles take qrows
-// rows and k / v tiles krows (dO's only where dout is given)
-inline bool make_maps(Maps* m, const Args& a, int dh, int qrows, int krows) {
-  return head_map(&m->q, a.q, a.st[kQ], a.B, a.H, a.L, dh, qrows) &&
-         head_map(&m->k, a.k, a.st[kK], a.B, a.H, a.Lk, dh, krows) &&
-         head_map(&m->v, a.v, a.st[kV], a.B, a.H, a.Lk, dh, krows) &&
-         (!a.dout || head_map(&m->dout, a.dout, a.st[kDO], a.B, a.H, a.L, dh, qrows));
+// rows and k / v tiles krows, in column blocks of bw (dO's only where dout
+// is given)
+inline bool make_maps(Maps* m, const Args& a, int dh, int qrows, int krows, int bw = 64) {
+  return head_map(&m->q, a.q, a.st[kQ], a.B, a.H, a.L, dh, qrows, bw) &&
+         head_map(&m->k, a.k, a.st[kK], a.B, a.H, a.Lk, dh, krows, bw) &&
+         head_map(&m->v, a.v, a.st[kV], a.B, a.H, a.Lk, dh, krows, bw) &&
+         (!a.dout || head_map(&m->dout, a.dout, a.st[kDO], a.B, a.H, a.L, dh, qrows, bw));
 }
 
 template <typename K>
@@ -2178,6 +1833,599 @@ cudaError_t backward(const Args& a, cudaStream_t s) {
 
 }  // namespace flash
 
+// ---------------------------------------------------------------------------
+// K5 in bf16 (JAX's block gate, DH = 32, 64, 96, 128, dropout or not): JAX's
+// block-kernel arithmetic, two passes over the keys, on flash::'s parts:
+// wgmma, TMA loads on an mbarrier ring, a producer warpgroup that hands its
+// registers to two consumer warpgroups (the note at the top).
+namespace blk {
+
+using ergm_hopper::bulk_load;
+using ergm_hopper::mbar_arrive;
+using ergm_hopper::mbar_expect;
+using ergm_hopper::mbar_fence_init;
+using ergm_hopper::mbar_init;
+using ergm_hopper::mbar_wait;
+using ergm_hopper::pin;
+using ergm_hopper::wg_commit;
+using ergm_hopper::wg_fence;
+using ergm_hopper::wg_wait;
+using ergm_hopper::wgmma_rs;
+using ergm_hopper::wgmma_ss;
+using ergm_mma::ex2;
+using ergm_mma::pack;
+using ergm_mma::store_rows;
+using ergm_mma::zero;
+using score::kMaskL2;
+using flash::aligned_smem;
+using flash::desc_k;
+using flash::desc_mn;
+using flash::kAlign;
+using flash::kOwn;
+using flash::kStages;
+using flash::kWgThreads;
+using flash::load_rows;
+using flash::make_maps;
+using flash::Maps;
+using flash::mask_keys;
+
+constexpr int kRows = 2 * kOwn;  // rows a CTA owns: queries (forward, dQ) or keys (dK/dV)
+// A kernel's grid, by its CTAs an SM (C): at one, that CTA walks the items
+// (an item: a tile of one head) and loads the next item's resident operands
+// into a second buffer while the current one's are in use (persistent); at
+// two, one CTA an item, the SM's other CTA covering a CTA's start and end
+template <int C>
+constexpr bool kWalks = C == 1;
+template <int C>
+constexpr int kBufs = kWalks<C> ? 2 : 1;  // buffers of the resident operands
+
+// A head width's shapes: KT the keys of the forward's streamed tiles, DKT
+// dQ's, QT the query rows of dK/dV's; FC, DC and KC the CTAs an SM of the
+// forward, dQ and dK/dV (1, or 2 with smaller register shares); column
+// blocks of BW (64: the 128-byte swizzle; 32, at 32 and 96, the 64-byte
+// one), NB of them a row; shared memory (bytes) of each kernel: the ring,
+// kBufs of its resident operands, eight barriers.
+template <int DH_, int KT_, int DKT_, int QT_, int FC_ = 1, int DC_ = 1, int KC_ = 1>
+struct Shape {
+  static constexpr int DH = DH_, KT = KT_, DKT = DKT_, QT = QT_, FC = FC_, DC = DC_, KC = KC_;
+  static constexpr int BW = DH % 64 == 0 ? 64 : 32, NB = DH / BW;
+  // forward: stages of K, V [KT][DH]; Q [128][DH]
+  static constexpr size_t kFwdBytes =
+      kAlign + 2 * (kStages * 2 * KT * DH + kBufs<FC> * kRows * DH) + 64;
+  // dQ: stages of K, V [DKT][DH]; Q, dO [128][DH]
+  static constexpr size_t kDqBytes =
+      kAlign + 2 * (kStages * 2 * DKT * DH + kBufs<DC> * 2 * kRows * DH) + 64;
+  // dK/dV: stages of Q, dO [QT][DH] and the QT rows' (m, 1/l, delta, -);
+  // K, V [128][DH]
+  static constexpr size_t kDkdvBytes =
+      kAlign + 2 * (kStages * 2 * QT * DH + kBufs<KC> * 2 * kRows * DH) + kStages * QT * 16 +
+      64;
+};
+using D32 = Shape<32, 64, 32, 32, 2, 2, 2>;
+using D64 = Shape<64, 64, 32, 128, 2, 2, 1>;
+using D96 = Shape<96, 128, 64, 64>;
+using D128 = Shape<128, 128, 64, 64>;
+
+// s = A . B^T over the whole depth: A the 64 rows from arow of an XA-row
+// tile, B an X-row tile; issued, not waited for
+template <class S, int XA, int X>
+__device__ __forceinline__ void scores(float (&s)[X / 8][4], const bf16* ta, int arow,
+                                       const bf16* tb) {
+#pragma unroll
+  for (int kk = 0; kk < S::DH / 16; ++kk)
+    wgmma_ss<X>(s, desc_k<XA, S::BW>(ta, arow, kk), desc_k<X, S::BW>(tb, 0, kk), kk);
+}
+
+// The m16n8k16 A operand of k16 step kk from a 64 x N accumulator block,
+// rounded to bf16
+template <int J>
+__device__ __forceinline__ void a_operand(unsigned (&a)[4], const float (&x)[J][4], int kk) {
+  a[0] = pack(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+// acc += x . B: x the warpgroup's 64 x X block (rounded to bf16, the A
+// operand in registers), B the DH columns of an X-row tile; waited for
+template <class S, int X>
+__device__ __forceinline__ void accumulate(float (&acc)[S::DH / 8][4], const float (&x)[X / 8][4],
+                                           const bf16* tb) {
+  unsigned a[X / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < X / 16; ++kk) a_operand(a[kk], x, kk);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < X / 16; ++kk) wgmma_rs<S::DH>(acc, a[kk], desc_mn<X, S::BW>(tb, kk));
+  wg_commit();
+  wg_wait<0>();
+  pin(acc);
+}
+
+// The producer warpgroup gives up registers and the consumers take them
+// (ptxas allocates each side's code to its share): at one CTA an SM 168 a
+// thread at launch, 24 and 240 after; at two, 80, then 24 and 104
+__device__ __forceinline__ void give_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+}
+template <int CTAS>
+__device__ __forceinline__ void take_registers() {
+  if constexpr (CTAS == 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 104;\n");
+}
+
+// The barriers after the ring and the resident buffers: res_full and
+// res_free of each resident buffer, full and empty of each stage
+struct Bars {
+  uint64_t *res_full, *res_free, *full, *empty;
+  __device__ explicit Bars(void* at) {
+    res_full = static_cast<uint64_t*>(at);
+    res_free = res_full + 2;
+    full = res_free + 2;
+    empty = full + kStages;
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(res_full + i, 1);
+        mbar_init(res_free + i, 8);  // the consumers' eight warps
+      }
+#pragma unroll
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full + s, 1);
+        mbar_init(empty + s, 8);
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+};
+
+// An item: tile x of head h of batch row b. Items run in rank order over
+// every (b, h), tile rank 0 first: the last query tile (forward, dQ;
+// `reverse`) or the first key tile (dK/dV), the longest causal walks.
+struct Item {
+  int x, h, b;
+  __device__ Item(const Args& a, int tiles, int idx, bool reverse) {
+    const int bh = idx % (a.B * a.H), rank = idx / (a.B * a.H);
+    x = reverse ? tiles - 1 - rank : rank;
+    h = bh % a.H;
+    b = bh / a.H;
+  }
+};
+
+// The key tiles (KT keys) that query rows [r0, r0 + rows) walk: up to the
+// diagonal when causal, all of them where the rows hold dead ones
+__device__ __forceinline__ int key_tiles(const Args& a, int r0, int rows, int dead, int kt) {
+  return ((a.causal && r0 >= dead) ? min(a.Lk, r0 + rows) : a.Lk) / kt;
+}
+
+// Forward: 128 query rows an item in two consumer warpgroups of 64, Q
+// resident; the producer streams K tiles of KT keys (pass 1), then K and V
+// tiles (pass 2). Pass 1: each lane's running max and sum of its scores
+// (log2 units), reduced over a row's four lanes at its end; pass 2: the
+// scores again, pn = 2^(s - m) / l, dropped and rounded, o += pn . V. Writes
+// m and l.
+template <class S>
+__global__ void __launch_bounds__(kWgThreads, S::FC)
+    fwd_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int KT = S::KT, DH = S::DH;
+  constexpr int kStage = 2 * KT * DH;  // K, V [NB][KT][BW]
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  bf16* qs = ring + kStages * kStage;  // [kBufs<S::FC>]: Q [NB][128][BW]
+  const Bars bar(qs + kBufs<S::FC> * kRows * DH);
+  const int tiles = a.L / kRows, items = tiles * a.H * a.B;
+
+  if (threadIdx.x < 128) {  // the producer
+    give_registers();
+    if (threadIdx.x != 0) return;
+    int it = 0;  // ring steps so far
+    for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+      const Item m(a, tiles, idx, true);
+      const int n = key_tiles(a, m.x * kRows, kRows, a.dead[m.b], KT), buf = w % kBufs<S::FC>;
+      if (w >= kBufs<S::FC>) mbar_wait(bar.res_free + buf, ((w / kBufs<S::FC>) + 1) & 1);
+      mbar_expect(bar.res_full + buf, 2 * kRows * DH);
+      load_rows<kRows, S::NB, S::BW>(&maps.q, qs + buf * kRows * DH, bar.res_full + buf,
+                                     m.x * kRows, m.h, m.b);
+      for (int i = 0; i < 2 * n; ++i, ++it) {  // 0..n-1: pass 1 (K); n..2n-1: pass 2 (K, V)
+        const int s = it % kStages, k0 = (i < n ? i : i - n) * KT;
+        bf16* kt = ring + s * kStage;
+        mbar_wait(bar.empty + s, ((it / kStages) + 1) & 1);
+        mbar_expect(bar.full + s, (i < n ? 1 : 2) * 2 * KT * DH);
+        load_rows<KT, S::NB, S::BW>(&maps.k, kt, bar.full + s, k0, m.h, m.b);
+        if (i >= n) load_rows<KT, S::NB, S::BW>(&maps.v, kt + KT * DH, bar.full + s, k0, m.h, m.b);
+      }
+    }
+    return;
+  }
+  take_registers<S::FC>();
+  const int c = threadIdx.x / 128 - 1, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = kOwn * c + 16 * ((threadIdx.x >> 5) & 3);  // the warp's rows in an item
+  const float sl2 = a.scale * kLog2e;
+  int it = 0;
+  for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+    const Item m(a, tiles, idx, true);
+    const int q0 = m.x * kRows, b = m.b, h = m.h, dead = a.dead[b], buf = w % kBufs<S::FC>;
+    const int n = key_tiles(a, q0, kRows, dead, KT);
+    const int wend = key_tiles(a, q0 + kOwn * c, kOwn, dead, 1);  // the warpgroup's keys
+    const int rw = q0 + wrow;
+    const bf16* qt = qs + buf * kRows * DH;
+    unsigned xrow[2];  // the hash's r*Lk + mix*G + 2t for the lane's rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      xrow[r] = static_cast<unsigned>(rw + g + 8 * r) * static_cast<unsigned>(a.Lk) +
+                hash_base(a, b, h) + 2 * t;
+    float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f};  // the lane's share of m, l
+    float inv[2] = {0.0f, 0.0f};
+    float o[DH / 8][4];
+    zero(o);
+    mbar_wait(bar.res_full + buf, (w / kBufs<S::FC>) & 1);
+    for (int i = 0; i < 2 * n; ++i, ++it) {
+      const int s = it % kStages, k0 = (i < n ? i : i - n) * KT;
+      const bf16* kt = ring + s * kStage;
+      if (i == n) {
+        // the row's m and l from the four lanes that hold it
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          float l = lt[r] * ex2(mt[r] - mx);
+          l += __shfl_xor_sync(0xffffffffu, l, 1);
+          l += __shfl_xor_sync(0xffffffffu, l, 2);
+          const int row = rw + g + 8 * r;
+          const bool real = a.qmask[static_cast<long long>(b) * a.L + row] != 0;
+          mt[r] = mx;
+          inv[r] = real ? (a.dropout ? a.drop_mul : 1.0f) / fmaxf(l, 1e-30f) : 0.0f;
+          if (t == 0) {
+            const long long ri = row_index(a, b, h, row);
+            a.ml[ri] = mx;
+            a.ml[static_cast<long long>(a.B) * a.H * a.L + ri] = l;
+          }
+        }
+      }
+      mbar_wait(bar.full + s, (it / kStages) & 1);
+      if (k0 < wend) {
+        float sc[KT / 8][4];
+        wg_fence();
+        scores<S, kRows, KT>(sc, qt, kOwn * c, kt);
+        wg_commit();
+        wg_wait<0>();
+        pin(sc);
+        mask_keys<KT>(a, b, sc, rw, k0, sl2);
+        if (i < n) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = mt[r];
+#pragma unroll
+            for (int j = 0; j < KT / 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+            float sum = 0.0f;
+#pragma unroll
+            for (int j = 0; j < KT / 8; ++j)
+              sum += ex2(sc[j][2 * r] - mx) + ex2(sc[j][2 * r + 1] - mx);
+            lt[r] = lt[r] * ex2(mt[r] - mx) + sum;
+            mt[r] = mx;
+          }
+        } else {
+          // pn = 2^(s - m) / l (a masked score gives a dead row's 1/Lk, else
+          // 0), dropped and scaled, then rounded as the PV product's operand
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              float p = ex2(sc[j][e] - mt[r]) * inv[r];
+              if (a.dropout && !keep(a, xrow[r] + k0 + 8 * j + (e & 1))) p = 0.0f;
+              sc[j][e] = p;
+            }
+          accumulate<S, KT>(o, sc, kt + KT * DH);
+        }
+      }
+      if (lane == 0) mbar_arrive(bar.empty + s);
+    }
+    if (lane == 0) mbar_arrive(bar.res_free + buf);
+    store_rows<DH>(head_out<bf16>(a, a.out, kO, b, h), a.st[kO][2], rw + g, o, 1.0f);
+  }
+}
+
+// dQ: 128 query rows an item in two consumer warpgroups of 64 with Q and
+// dO resident; the producer streams K and V tiles of DKT keys twice. Pass
+// 1: S = Q K^T and dP = dO V^T, delta = rowsum(pn * dpn) in f32 (JAX's;
+// each lane's share, reduced over a row's four lanes at its end); pass 2: S
+// and dP again, ds = pn (dpn - delta) rounded, dQ += ds K. Reads m and l,
+// writes the rows' (m, 1/l, delta) for the dK/dV kernel.
+template <class S>
+__global__ void __launch_bounds__(kWgThreads, S::DC)
+    bwd_dq_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int KT = S::DKT, DH = S::DH;
+  constexpr int kStage = 2 * KT * DH;  // K, V [NB][KT][BW]
+  constexpr int kRes = 2 * kRows * DH;  // Q, dO [NB][128][BW]
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  bf16* res = ring + kStages * kStage;  // [kBufs<S::DC>]: Q, dO
+  const Bars bar(res + kBufs<S::DC> * kRes);
+  const int tiles = a.L / kRows, items = tiles * a.H * a.B;
+
+  if (threadIdx.x < 128) {
+    give_registers();
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+      const Item m(a, tiles, idx, true);
+      const int n = key_tiles(a, m.x * kRows, kRows, a.dead[m.b], KT), buf = w % kBufs<S::DC>;
+      bf16* qs = res + buf * kRes;
+      if (w >= kBufs<S::DC>) mbar_wait(bar.res_free + buf, ((w / kBufs<S::DC>) + 1) & 1);
+      mbar_expect(bar.res_full + buf, 2 * kRes);
+      load_rows<kRows, S::NB, S::BW>(&maps.q, qs, bar.res_full + buf, m.x * kRows, m.h, m.b);
+      load_rows<kRows, S::NB, S::BW>(&maps.dout, qs + kRows * DH, bar.res_full + buf,
+                                     m.x * kRows, m.h, m.b);
+      for (int i = 0; i < 2 * n; ++i, ++it) {  // the key tiles twice
+        const int s = it % kStages, k0 = (i < n ? i : i - n) * KT;
+        bf16* kt = ring + s * kStage;
+        mbar_wait(bar.empty + s, ((it / kStages) + 1) & 1);
+        mbar_expect(bar.full + s, 2 * kStage);
+        load_rows<KT, S::NB, S::BW>(&maps.k, kt, bar.full + s, k0, m.h, m.b);
+        load_rows<KT, S::NB, S::BW>(&maps.v, kt + KT * DH, bar.full + s, k0, m.h, m.b);
+      }
+    }
+    return;
+  }
+  take_registers<S::DC>();
+  const int c = threadIdx.x / 128 - 1, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = kOwn * c + 16 * ((threadIdx.x >> 5) & 3);
+  const float sl2 = a.scale * kLog2e;
+  const long long plane = static_cast<long long>(a.B) * a.H * a.L;
+  int it = 0;
+  for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+    const Item m(a, tiles, idx, true);
+    const int q0 = m.x * kRows, b = m.b, h = m.h, dead = a.dead[b], buf = w % kBufs<S::DC>;
+    const int n = key_tiles(a, q0, kRows, dead, KT);
+    const int wend = key_tiles(a, q0 + kOwn * c, kOwn, dead, 1);
+    const int rw = q0 + wrow;
+    const bf16* qs = res + buf * kRes;
+    float mrow[2], inv[2], delta[2] = {0.0f, 0.0f};  // delta: the lane's share until step n
+    unsigned xrow[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rw + g + 8 * r;
+      const long long ri = row_index(a, b, h, row);
+      mrow[r] = a.ml[ri];
+      inv[r] = a.qmask[static_cast<long long>(b) * a.L + row] != 0
+                   ? 1.0f / fmaxf(a.ml[plane + ri], 1e-30f) : 0.0f;
+      xrow[r] = static_cast<unsigned>(row) * static_cast<unsigned>(a.Lk) + hash_base(a, b, h) +
+                2 * t;
+    }
+    float acc[DH / 8][4];
+    zero(acc);
+    mbar_wait(bar.res_full + buf, (w / kBufs<S::DC>) & 1);
+    for (int i = 0; i < 2 * n; ++i, ++it) {
+      const int s = it % kStages, k0 = (i < n ? i : i - n) * KT;
+      const bf16* kt = ring + s * kStage;
+      if (i == n) {
+        // delta from the four lanes that hold a row; the rows' (m, 1/l,
+        // delta) go to the dK/dV kernel
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
+          delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
+          if (t == 0)
+            reinterpret_cast<float4*>(a.stat)[row_index(a, b, h, rw + g + 8 * r)] =
+                make_float4(mrow[r], inv[r], delta[r], 0.0f);
+        }
+      }
+      mbar_wait(bar.full + s, (it / kStages) & 1);
+      if (k0 < wend) {
+        float sc[KT / 8][4], dp[KT / 8][4];
+        wg_fence();
+        scores<S, kRows, KT>(sc, qs, kOwn * c, kt);
+        scores<S, kRows, KT>(dp, qs + kRows * DH, kOwn * c, kt + KT * DH);
+        wg_commit();
+        wg_wait<0>();
+        pin(sc);
+        pin(dp);
+        mask_keys<KT>(a, b, sc, rw, k0, sl2);
+        // pass 1: delta += pn * dpn; pass 2: ds = pn * (dpn - delta), both
+        // where visible, 0 where masked (mask_scores wrote the fill there;
+        // no visible score comes near -1e9)
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            float d = dp[j][e];
+            if (a.dropout) d = keep(a, xrow[r] + k0 + 8 * j + (e & 1)) ? d * a.drop_mul : 0.0f;
+            const float pn = sc[j][e] == kMaskL2 ? 0.0f : ex2(sc[j][e] - mrow[r]) * inv[r];
+            if (i < n)
+              delta[r] += pn * d;
+            else
+              sc[j][e] = pn * (d - delta[r]);
+          }
+        if (i >= n) accumulate<S, KT>(acc, sc, kt);
+      }
+      if (lane == 0) mbar_arrive(bar.empty + s);
+    }
+    if (lane == 0) mbar_arrive(bar.res_free + buf);
+    store_rows<DH>(head_out<bf16>(a, a.dq, kDQ, b, h), a.st[kDQ][2], rw + g, acc, a.scale);
+  }
+}
+
+// dK/dV: 128 keys an item, each consumer warpgroup owning 64 with K and V
+// resident; the producer streams Q, dO and the rows' (m, 1/l, delta) in
+// tiles of QT query rows (those holding dead rows first, then from the
+// diagonal). Each consumer forms S^T = K Q^T and dP^T = V dO^T for its
+// keys; pn^T from the forward's m and l, the post-dropout dV operand pv and
+// ds^T = pn (dpn - delta), both rounded to bf16 in registers; dV += pv^T dO,
+// dK += ds^T Q, scaled at the end.
+template <class S>
+__global__ void __launch_bounds__(kWgThreads, S::KC)
+    bwd_dkdv_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int QT = S::QT, DH = S::DH;
+  constexpr int kStage = 2 * QT * DH;  // Q, dO [NB][QT][BW]
+  constexpr int kRes = 2 * kRows * DH;  // K, V [NB][128][BW]
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  bf16* res = ring + kStages * kStage;  // [kBufs<S::KC>]: K, V
+  float4* sts = reinterpret_cast<float4*>(res + kBufs<S::KC> * kRes);  // [kStages][QT]
+  const Bars bar(sts + kStages * QT);
+  const int tiles = a.Lk / kRows, items = tiles * a.H * a.B, nq = a.L / QT;
+  // the query tiles that see keys from k0: those holding dead rows, then
+  // from the diagonal (from i = lo on, tile from + i - lo)
+  auto walk = [&](int k0, int dead, int& lo, int& from) {
+    from = a.causal ? min(k0 / QT, nq) : 0;
+    lo = a.causal ? min((dead + QT - 1) / QT, from) : 0;
+    return lo + nq - from;
+  };
+
+  if (threadIdx.x < 128) {
+    give_registers();
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+      const Item m(a, tiles, idx, false);
+      const int k0 = m.x * kRows, buf = w % kBufs<S::KC>;
+      int lo, from;
+      const int n = walk(k0, a.dead[m.b], lo, from);
+      const float4* stat = reinterpret_cast<const float4*>(a.stat) + row_index(a, m.b, m.h, 0);
+      bf16* ks = res + buf * kRes;
+      if (w >= kBufs<S::KC>) mbar_wait(bar.res_free + buf, ((w / kBufs<S::KC>) + 1) & 1);
+      mbar_expect(bar.res_full + buf, 2 * kRes);
+      load_rows<kRows, S::NB, S::BW>(&maps.k, ks, bar.res_full + buf, k0, m.h, m.b);
+      load_rows<kRows, S::NB, S::BW>(&maps.v, ks + kRows * DH, bar.res_full + buf, k0, m.h, m.b);
+      for (int i = 0; i < n; ++i, ++it) {
+        const int s = it % kStages, q0 = (i < lo ? i : from + i - lo) * QT;
+        bf16* qt = ring + s * kStage;
+        mbar_wait(bar.empty + s, ((it / kStages) + 1) & 1);
+        mbar_expect(bar.full + s, 2 * kStage + QT * 16);
+        load_rows<QT, S::NB, S::BW>(&maps.q, qt, bar.full + s, q0, m.h, m.b);
+        load_rows<QT, S::NB, S::BW>(&maps.dout, qt + QT * DH, bar.full + s, q0, m.h, m.b);
+        bulk_load(sts + s * QT, stat + q0, QT * 16, bar.full + s);
+      }
+    }
+    return;
+  }
+  take_registers<S::KC>();
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x & 127, lane = threadIdx.x & 31,
+            g = lane >> 2, t = lane & 3;
+  const int wkey = kOwn * c + 16 * (tid >> 5);  // the warp's keys in an item
+  const float sl2 = a.scale * kLog2e;
+  int it = 0;
+  for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+    const Item m(a, tiles, idx, false);
+    const int k0 = m.x * kRows, b = m.b, h = m.h, buf = w % kBufs<S::KC>;
+    int lo, from;
+    const int n = walk(k0, a.dead[b], lo, from);
+    const int kw0 = k0 + wkey;  // the warp's first key
+    const bf16* ks = res + buf * kRes;
+    int kr[2];
+    bool kreal[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      kr[r] = kw0 + g + 8 * r;
+      kreal[r] = key_real(a, b, kr[r]);
+    }
+    const bool wreal = __all_sync(0xffffffffu, kreal[0] && kreal[1]);  // the warp's keys all real
+    const unsigned hb = hash_base(a, b, h);
+    float dv[DH / 8][4], dk[DH / 8][4];
+    zero(dv);
+    zero(dk);
+    mbar_wait(bar.res_full + buf, (w / kBufs<S::KC>) & 1);
+    for (int i = 0; i < n; ++i, ++it) {
+      const int s = it % kStages, q0 = (i < lo ? i : from + i - lo) * QT;
+      const bf16* qt = ring + s * kStage;
+      const bf16* dt = qt + QT * DH;
+      const float4* st = sts + s * QT;
+      mbar_wait(bar.full + s, (it / kStages) & 1);
+      float x[QT / 8][4], dp[QT / 8][4];  // S^T and dP^T: keys as rows
+      wg_fence();
+      scores<S, kRows, QT>(x, ks, kOwn * c, qt);
+      scores<S, kRows, QT>(dp, ks + kRows * DH, kOwn * c, dt);
+      wg_commit();
+      wg_wait<0>();
+      pin(x);
+      pin(dp);
+      // pv^T (a dead row's 1/Lk on a masked key), ds^T (0 where masked)
+      const bool full_tile = wreal && (!a.causal || kw0 + 15 <= q0);
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int qc = q0 + 8 * j + 2 * t + e1;
+          const float4 rs = st[qc - q0];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + e1;
+            const bool ok = full_tile || (kreal[r] && (!a.causal || kr[r] <= qc));
+            const float pn = ex2((ok ? x[j][e] * sl2 : kMaskL2) - rs.x) * rs.y;
+            float d = dp[j][e], pv = pn;
+            if (a.dropout) {
+              const bool kp = keep(a, static_cast<unsigned>(qc) * static_cast<unsigned>(a.Lk) +
+                                          static_cast<unsigned>(kr[r]) + hb);
+              d = kp ? d * a.drop_mul : 0.0f;
+              pv = kp ? pn * a.drop_mul : 0.0f;
+            }
+            x[j][e] = pv;
+            dp[j][e] = ok ? pn * (d - rs.z) : 0.0f;
+          }
+        }
+      // dV += pv^T dO and dK += ds^T Q, issued together
+      unsigned ap[QT / 16][4], ad[QT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+        a_operand(ap[kk], x, kk);
+        a_operand(ad[kk], dp, kk);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) wgmma_rs<DH>(dv, ap[kk], desc_mn<QT, S::BW>(dt, kk));
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) wgmma_rs<DH>(dk, ad[kk], desc_mn<QT, S::BW>(qt, kk));
+      wg_commit();
+      wg_wait<0>();
+      pin(dv);
+      pin(dk);
+      if (lane == 0) mbar_arrive(bar.empty + s);
+    }
+    if (lane == 0) mbar_arrive(bar.res_free + buf);
+    store_rows<DH>(head_out<bf16>(a, a.dk, kDK, b, h), a.st[kDK][2], kw0 + g, dk, a.scale);
+    store_rows<DH>(head_out<bf16>(a, a.dv, kDV, b, h), a.st[kDV][2], kw0 + g, dv, 1.0f);
+  }
+}
+
+// The CTAs of a grid over `items` at C CTAs an SM
+template <int C>
+int ctas(int items) {
+  if (!kWalks<C>) return items;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return items;
+  return min(items, sms * C);
+}
+
+template <class S>
+cudaError_t forward(const Args& a, cudaStream_t s) {
+  Maps m{};
+  if (!make_maps(&m, a, S::DH, kRows, S::KT, S::BW)) return cudaErrorInvalidValue;
+  return flash::launch(fwd_kernel<S>, dim3(ctas<S::FC>(a.L / kRows * a.H * a.B)),
+                       kWgThreads, S::kFwdBytes, m, a, s);
+}
+
+template <class S>
+cudaError_t backward(const Args& a, cudaStream_t s) {
+  Maps dq{}, dkdv{};
+  if (!make_maps(&dq, a, S::DH, kRows, S::DKT, S::BW) ||
+      !make_maps(&dkdv, a, S::DH, S::QT, kRows, S::BW))
+    return cudaErrorInvalidValue;
+  cudaError_t err = flash::launch(bwd_dq_kernel<S>, dim3(ctas<S::DC>(a.L / kRows * a.H * a.B)),
+                                  kWgThreads, S::kDqBytes, dq, a, s);
+  if (err != cudaSuccess) return err;
+  return flash::launch(bwd_dkdv_kernel<S>, dim3(ctas<S::KC>(a.Lk / kRows * a.H * a.B)),
+                       kWgThreads, S::kDkdvBytes, dkdv, a, s);
+}
+
+}  // namespace blk
+
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
                    cudaStream_t s) {
@@ -2189,54 +2437,41 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
 }
 
 template <int DH>
-cudaError_t forward_dh(const Args& a, bool bf, cudaStream_t s) {
-  if (bf)
-    return launch(tc::fwd_kernel<DH>, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
-                  tc::rows_bytes<DH>() + 4 * tc::tile_bytes<DH>(), a, s);
+cudaError_t f32_forward(const Args& a, cudaStream_t s) {
   using S = f32::Tiles<DH>;
   return launch(f32::fwd_kernel<DH>, dim3(a.L / S::T, a.H * a.m, a.B), f32::kThreads,
                 S::bytes(3, 2), a, s);
 }
 
 template <int DH>
-cudaError_t backward_dh(const Args& a, bool bf, cudaStream_t s) {
-  cudaError_t err;
-  if (bf) {
-    err = launch(tc::bwd_dq_kernel<DH>, dim3(a.L / tc::kRows, a.H, a.B), tc::kThreads,
-                 2 * tc::rows_bytes<DH>() + 4 * tc::tile_bytes<DH>(), a, s);
-    if (err != cudaSuccess) return err;
-    return launch(tc::bwd_dkdv_kernel<DH>, dim3(a.Lk / tc::kRows, a.H, a.B), tc::kThreads,
-                  2 * tc::rows_bytes<DH>() + 4 * tc::tile_bytes<DH>() +
-                      2 * tc::kTile * sizeof(float4),
-                  a, s);
-  }
+cudaError_t f32_backward(const Args& a, cudaStream_t s) {
   using S = f32::Tiles<DH>;
-  err = launch(f32::bwd_dq_kernel<DH>, dim3(a.L / S::T, a.H * a.m, a.B), f32::kThreads,
-               S::bytes(5, 3), a, s);
+  cudaError_t err = launch(f32::bwd_dq_kernel<DH>, dim3(a.L / S::T, a.H * a.m, a.B),
+                           f32::kThreads, S::bytes(5, 3), a, s);
   if (err != cudaSuccess) return err;
   return launch(f32::bwd_dkdv_kernel<DH>, dim3(a.Lk / S::T, a.H * a.m, a.B), f32::kThreads,
                 S::bytes(6, 4), a, s);
 }
 
-// K5, JAX's block gate: the tc:: (bf16) and f32:: kernels at the head widths
+// K5, JAX's block gate: the blk:: (bf16) and f32:: kernels at the head widths
 // they are built for (ops/block_attention.py's HEAD_DIMS).
 bool block_dh_ok(int dh) { return dh == 32 || dh == 64 || dh == 96 || dh == 128; }
 
 cudaError_t block_forward(const Args& a, int dh, bool bf, cudaStream_t s) {
   switch (dh) {
-    case 32: return forward_dh<32>(a, bf, s);
-    case 64: return forward_dh<64>(a, bf, s);
-    case 96: return forward_dh<96>(a, bf, s);
-    default: return forward_dh<128>(a, bf, s);
+    case 32: return bf ? blk::forward<blk::D32>(a, s) : f32_forward<32>(a, s);
+    case 64: return bf ? blk::forward<blk::D64>(a, s) : f32_forward<64>(a, s);
+    case 96: return bf ? blk::forward<blk::D96>(a, s) : f32_forward<96>(a, s);
+    default: return bf ? blk::forward<blk::D128>(a, s) : f32_forward<128>(a, s);
   }
 }
 
 cudaError_t block_backward(const Args& a, int dh, bool bf, cudaStream_t s) {
   switch (dh) {
-    case 32: return backward_dh<32>(a, bf, s);
-    case 64: return backward_dh<64>(a, bf, s);
-    case 96: return backward_dh<96>(a, bf, s);
-    default: return backward_dh<128>(a, bf, s);
+    case 32: return bf ? blk::backward<blk::D32>(a, s) : f32_backward<32>(a, s);
+    case 64: return bf ? blk::backward<blk::D64>(a, s) : f32_backward<64>(a, s);
+    case 96: return bf ? blk::backward<blk::D96>(a, s) : f32_backward<96>(a, s);
+    default: return bf ? blk::backward<blk::D128>(a, s) : f32_backward<128>(a, s);
   }
 }
 

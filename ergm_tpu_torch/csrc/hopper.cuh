@@ -1,13 +1,14 @@
 // Hopper building blocks (sm_90a) shared by the kernels that run on
-// wgmma and TMA (K6's GEMMs in csrc/fused_ce.cu, K7's one-pass attention
-// kernels in csrc/block_attention.cu, namespace flash): mbarriers, TMA
-// loads (tiled tensor maps, 1-D bulk copies), named barriers,
-// shared-memory matrix descriptors for tiles stored with the 128-byte
-// swizzle, wgmma's fence / commit / wait, and the attention kernels'
-// product shapes. A K-major operand tile is stored as 128-byte column
-// blocks [X rows][64], 8-row groups 1024 bytes apart; an MN-major B
-// operand as [K rows][64] column blocks whose 64-wide N blocks lie K * 128
-// bytes apart. The tensor maps are encoded on the host through
+// wgmma and TMA (K6's GEMMs in csrc/fused_ce.cu; in csrc/block_attention.cu
+// K7's one-pass attention kernels, namespace flash, and K5's, namespace
+// blk): mbarriers, TMA loads (tiled tensor maps, 1-D bulk copies), named
+// barriers, shared-memory matrix descriptors for tiles stored with the
+// 128-byte swizzle (or the 64-byte one), wgmma's fence / commit / wait, and
+// the attention kernels' product shapes. A K-major operand tile is stored
+// as column blocks [X rows][64] (128-byte swizzle; [X][32] with the 64-byte
+// one), 8-row groups 1024 (512) bytes apart; an MN-major B operand as
+// [K rows][64] column blocks whose 64-wide N blocks lie K * 128 bytes apart
+// ([K][32], K * 64). The tensor maps are encoded on the host through
 // cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"), so nothing links
 // libcuda.
 #pragma once
@@ -94,11 +95,13 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// A shared-memory matrix descriptor, 128-byte swizzle: lbo / sbo in bytes
-__device__ __forceinline__ uint64_t sm_desc(const void* tile, unsigned lbo, unsigned sbo) {
+// A shared-memory matrix descriptor: lbo / sbo in bytes; swizzle 1 is the
+// 128-byte swizzle (column blocks of 64 bf16), 2 the 64-byte one (32)
+__device__ __forceinline__ uint64_t sm_desc(const void* tile, unsigned lbo, unsigned sbo,
+                                            unsigned swizzle = 1) {
   return static_cast<uint64_t>((saddr(tile) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (static_cast<uint64_t>(swizzle) << 62);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -178,10 +181,23 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[16][4], uint64_t da, ui
 
 // d (64 x N, f32) += A . B over k16, A in registers (a: the m16n8k16 A
 // layout of each warp's 16 rows), B MN-major in shared memory by
-// descriptor. N = 64, 128, 192, 256.
+// descriptor. N = 32, 64, 96, 128, 192, 256.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&a)[4],
                                          uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[4][4], const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[8][4], const unsigned (&a)[4],
@@ -218,6 +234,25 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[16][4], const unsigned 
         "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
         "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[12][4], const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -284,7 +319,11 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[32][4], const unsigned 
 }
 
 // cuTensorMapEncodeTiled, looked up at run time through the runtime (no link
-// to libcuda); null where the driver has none
+// to libcuda); null where the driver has none. The driver's encoder needs a
+// context current on the calling thread, and a thread that has made no
+// runtime call has none (PyTorch's autograd thread, where a backward is its
+// first CUDA work): cudaSetDevice binds the current device's primary
+// context first.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -300,6 +339,8 @@ inline EncodeTiled encoder() {
       ptr = nullptr;
     return reinterpret_cast<EncodeTiled>(ptr);
   }();
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return nullptr;
   return fn;
 }
 

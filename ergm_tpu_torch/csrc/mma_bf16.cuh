@@ -1,10 +1,11 @@
 // Tensor-core building blocks for bf16 (sm_80 and later, used on sm_90a),
-// shared by the attention kernels K1 and K5 and the cross-entropy GEMM K6:
-// ldmatrix loads of 8 x 8 b16 matrices from shared memory (plain and
-// transposed), the mma.sync m16n8k16 product (bf16 in, f32 accumulate),
-// and the attention kernels' 16-row warp products over head tiles DH wide
-// (a multiple of 16; K1 and the defaults: 64, K5: 32, 64, 96 or 128; its
-// wide heads: slices of 128).
+// shared by the attention kernels K1 and K7 (its wide:: kernels) and the
+// cross-entropy GEMM K6, and, for pack, ex2, zero and store_rows, by the
+// wgmma kernels of K5 and K7: ldmatrix loads of 8 x 8 b16 matrices from
+// shared memory (plain and transposed), the mma.sync m16n8k16 product (bf16
+// in, f32 accumulate), and the attention kernels' 16-row warp products over
+// head tiles DH wide (a multiple of 16; K1 and the defaults: 64; K7's wide
+// heads: slices of 128).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane (g, t) = (lane / 4,
 // lane % 4) holds the accumulator's c[0..1] at row g, columns 2t, 2t + 1

@@ -1,8 +1,11 @@
 """Times kernels K5, K7 and K6 at the shapes of their rows in PERF.md,
 from one or more trees of this repository, in turns.
 
-K5 (block attention): bf16 [48, 12, 512, 64], causal, dropout 0.1,
-forward and backward (the training slice). K7 (the shapes of JAX's
+K5 (block attention): bf16 [48, H, 512, Dh] with Dh x H = 768 at Dh =
+24 (padded to 32 by the wrapper), 32, 64 (the training slice), 96 and
+128, causal, dropout 0.1, forward and backward, and one
+scaled_dot_product_attention call (causal, dropout 0.1) on the same
+tensors. K7 (the shapes of JAX's
 library flash kernel): bf16 [B, H, 2048, Dh] at [8, 12, ., 64], [2, 6, .,
 128], and [2, 16, ., Dh] for Dh = 100, 256 and 384, causal, left pads
 (the first batch row none, the others 217 keys; queries masked as their
@@ -28,8 +31,10 @@ Each tree (default: this one) is a directory holding an
 trees A and B the runs go A, B, B, A and the script prints each
 reading, each tree's better run, and B's time over A's per kernel.
 Each tree's compiler report (registers and spills, from the build's
-``.log``) for ``fused_ce.cu``'s f32 kernels and K7's wide-head kernels
-is printed once.
+``.log``) for ``fused_ce.cu``'s f32 kernels and the bf16 kernels of
+``block_attention.cu`` (K5's ``blk::``, or ``tc::`` in a tree from before
+it, and K7's ``flash::`` and ``wide::``) is printed once, with any note of
+ptxas that a kernel's wgmma run one at a time for want of registers.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ import os
 import subprocess
 import sys
 
+# K5's head widths (and heads) at [48, ., 512, .]
+K5_HEADS = ((24, 32), (32, 24), (64, 12), (96, 8), (128, 6))
 # K7's (batch, heads, head width) at L = 2,048
 K7_SHAPES = ((8, 12, 64), (2, 6, 128), (2, 16, 100), (2, 16, 256), (2, 16, 384))
 K7_PAD = 217
@@ -82,14 +89,22 @@ def _child(tree: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    q, k, v, do = (torch.randn((48, 12, 512, 64), generator=gen, device="cuda").bfloat16()
-                   for _ in range(4))
-    kw = dict(causal=True, scale=0.125, dropout_rate=0.1, dropout_seed=1234)
-    out["K5 fwd"] = median_ms(lambda: block_attention.block_mha(q, k, v, **kw), 20)
-    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    o = block_attention.block_mha(*xs, **kw)
-    out["K5 bwd"] = median_ms(lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 20)
-    del q, k, v, do, xs, o
+    for dh, heads in K5_HEADS:
+        q, k, v, do = (torch.randn((48, heads, 512, dh), generator=gen,
+                                   device="cuda").bfloat16() for _ in range(4))
+        kw = dict(causal=True, scale=dh ** -0.5, dropout_rate=0.1, dropout_seed=1234)
+        sdpa = dict(is_causal=True, scale=dh ** -0.5, dropout_p=0.1)
+        out[f"K5 fwd dh{dh}"] = median_ms(lambda: block_attention.block_mha(q, k, v, **kw), 20)
+        out[f"SDPA fwd dh{dh} K5"] = median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **sdpa), 20)
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = block_attention.block_mha(*xs, **kw)
+        out[f"K5 bwd dh{dh}"] = median_ms(
+            lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 20)
+        o = torch.nn.functional.scaled_dot_product_attention(*xs, **sdpa)
+        out[f"SDPA bwd dh{dh} K5"] = median_ms(
+            lambda: torch.autograd.grad(o, xs, do, retain_graph=True), 20)
+        del q, k, v, do, xs, o
     for b, heads, dh in K7_SHAPES:
         q, k, v, do = (torch.randn((b, heads, 2048, dh), generator=gen, device="cuda").bfloat16()
                        for _ in range(4))
@@ -153,10 +168,15 @@ def main() -> None:
         reading = json.loads(res.stdout.strip().splitlines()[-1])
         log = reading.pop("log")
         reading["ptxas"] = {**_build.ptxas_report(log, "fused_ce.cu", "f32"),
-                            **_build.ptxas_report(log, "block_attention.cu", r"wide|flash")}
+                            **_build.ptxas_report(log, "block_attention.cu",
+                                                  r"blk|wide|flash|tc")}
         runs[tree].append(reading)
         if len(runs[tree]) == 1:
             print(f"{tree} ptxas: {json.dumps(reading['ptxas'])}")
+            # ptxas's notes that a kernel's wgmma run one at a time for want of registers
+            for line in log.splitlines():
+                if "C7512" in line:
+                    print(f"{tree} ptxas: {line.strip()}")
         print(f"{tree}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in reading.items()
                                       if k not in ("card", "ptxas")), flush=True)
     best = {t: {k: min(r[k] for r in rs) for k in rs[0] if k not in ("card", "ptxas")}

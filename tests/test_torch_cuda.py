@@ -573,6 +573,214 @@ def test_block_attention_kernel_reads_strided_views():
         assert torch.equal(a, b)
 
 
+def _k5_kernels(run) -> list:
+    """The kernels of ``csrc/block_attention.cu`` that ``run`` launches,
+    by their demangled names, from a torch.profiler trace of two calls (the
+    profiler may miss the first kernels after it starts)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "ergm_block::" in e.name})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 24, 32, 40, 64, 96, 128])
+def test_block_attention_bf16_runs_the_hopper_kernels(d):
+    """K5's bf16 forward and backward, at every head width of the block
+    gate's classes (padded to 32, 64, 96 and 128), launch the wgmma + TMA
+    kernels of ``blk::`` at the padded width, and no other bf16 kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn((2, 2, 256, d), generator=g).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    xs = [x.requires_grad_(True) for x in (q, k, v)]
+
+    def run():
+        o = tba.block_mha(*xs, causal=True, dropout_rate=0.1, dropout_seed=5)
+        torch.autograd.grad(o, xs, do)
+
+    names = _k5_kernels(run)
+    w = tba.head_width(d)
+    want = [f"blk::{k}<ergm_block::blk::Shape<{w}," for k in
+            ("bwd_dkdv_kernel", "bwd_dq_kernel", "fwd_kernel")]
+    kernels = [n for n in names if "prep_kernel" not in n]
+    assert len(kernels) == 3 and all(x in n for x, n in zip(want, kernels)), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_block_attention_bf16_repeats_bitwise(d, rate):
+    """K5's bf16 forward and backward give the same bits twice (no
+    atomics), dropout off and on, causal with masks and rectangular."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for causal, Lk in ((True, 256), (False, 384)):
+        first, second = (_k5_case(torch.bfloat16, causal, Lk, rate, True, d=d)[0]
+                         for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_block_attention_items_past_the_sm_count(d):
+    """The kernels that run one CTA an SM walk their items (a 128-row tile
+    of one head): 17 batch rows x 2 heads x 4 tiles = 136 items, more than
+    an H100's 132 SMs and not a multiple of them, so some CTAs take a second
+    item. bf16, causal, dropout, with masks: output and gradients against
+    the plain version, and a second run bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(d + 3)
+    B, H, L = 17, 2, 512
+    q, k, v, do = (torch.randn((B, H, L, d), generator=g) for _ in range(4))
+    km = (torch.rand((B, L), generator=g) > 0.2).int()
+    km[:, :5] = 0
+    km = km.cuda()
+    runs = []
+    for fn, dt in ((tba.block_mha, torch.bfloat16), (tba.block_mha, torch.bfloat16),
+                   (tba.block_mha_reference, torch.bfloat16),
+                   (tba.block_mha_reference, torch.float32)):
+        xs = [x.to("cuda", dt).requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs, causal=True, scale=d ** -0.5, q_mask=km, kv_mask=km, dropout_rate=0.1,
+               dropout_seed=13)
+        runs.append([o, *torch.autograd.grad(o, xs, do.to("cuda", dt))])
+    torch.cuda.synchronize()
+    (o, *grads), again, (o_ref, *grads_ref), (_, *exact) = runs
+    assert all(torch.equal(a, b) for a, b in zip([o, *grads], again))
+    ok, err = _within(o, o_ref, torch.bfloat16, None)
+    assert ok, err
+    _grads_within(grads, grads_ref, torch.bfloat16, None, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_block_attention_long_queries_over_short_keys(d, rate):
+    """Non-causal Lq = 1,024 over Lk = 128 (one key tile for every query
+    tile, eight query tiles for every key tile), with masks, bf16 against
+    the plain version: output within 2e-2 + 1e-2 |plain|, gradients as
+    ``_grads_within``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (o, *grads), (o_ref, *grads_ref), (_, *exact) = _k5_case(
+        torch.bfloat16, False, 128, rate, True, d=d, L=1024)
+    ok, err = _within(o, o_ref, torch.bfloat16, None)
+    assert ok, err
+    _grads_within(grads, grads_ref, torch.bfloat16, None, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_attention_batch_row_without_keys(dtype, causal):
+    """A batch row whose keys are all masked: JAX spreads each of its real
+    query rows uniformly over all Lk keys (output the mean of V), and its
+    padded rows give 0; the other row is untouched. Forward and backward
+    against the plain version at each head width class, dropout on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for d in (32, 64, 96, 128):
+        g = torch.Generator().manual_seed(d)
+        B, H, L = 2, 2, 256
+        q, k, v, do = (torch.randn((B, H, L, d), generator=g).to("cuda", dtype)
+                       for _ in range(4))
+        km = torch.ones((B, L), dtype=torch.int32, device="cuda")
+        km[1] = 0
+        qm = torch.ones((B, L), dtype=torch.int32, device="cuda")
+        qm[1, -30:] = 0
+        runs = [(tba.block_mha, dtype), (tba.block_mha_reference, dtype)]
+        if dtype == torch.bfloat16:
+            runs.append((tba.block_mha_reference, torch.float32))
+        outs = []
+        for fn, dt in runs:
+            xs = [x.to(dt).detach().requires_grad_(True) for x in (q, k, v)]
+            o = fn(*xs, causal=causal, scale=d ** -0.5, q_mask=qm, kv_mask=km,
+                   dropout_rate=0.1, dropout_seed=9)
+            outs.append([o, *torch.autograd.grad(o, xs, do.to(dt))])
+        torch.cuda.synchronize()
+        (o, *grads), (o_ref, *grads_ref), *exact = outs
+        ok, err = _within(o, o_ref, dtype, 2e-5)
+        assert ok, (d, err)
+        assert bool((o[1].transpose(0, 1)[qm[1] == 0] == 0).all())
+        _grads_within(grads, grads_ref, dtype, 5e-5, exact[0][1:] if exact else ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96, 128])
+def test_block_attention_head_stride_at_every_width(d):
+    """bf16 K5 on a shard of rows and heads with the whole problem's head
+    stride (8 heads, the shard's 3) and the folded seed, at the widths
+    whose tiles differ from 64's (the 64-byte swizzle at 32 and 96, 64-row
+    dQ and dK/dV tiles at 96 and 128), against its plain version at those
+    arguments: output within 2e-2 + 1e-2 |plain|, gradients as
+    ``_grads_within``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(d + 1)
+    B, H, L, seed = 4, 8, 256, 91
+    q, k, v, do = (torch.randn((B, H, L, d), generator=g) for _ in range(4))
+    part = [x[2:, 3:6].contiguous() for x in (q, k, v, do)]
+    outs = []
+    for fn, dt in ((tba.block_mha, torch.bfloat16), (tba.block_mha_reference, torch.bfloat16),
+                   (tba.block_mha_reference, torch.float32)):
+        xs = [x.to("cuda", dt).requires_grad_(True) for x in part[:3]]
+        o = fn(*xs, causal=True, scale=d ** -0.5, dropout_rate=0.1, dropout_seed=seed + 2 * H + 3,
+               dropout_head_stride=H)
+        outs.append([o, *torch.autograd.grad(o, xs, part[3].to("cuda", dt))])
+    torch.cuda.synchronize()
+    (o, *grads), (o_ref, *grads_ref), (_, *exact) = outs
+    ok, err = _within(o, o_ref, torch.bfloat16, None)
+    assert ok, err
+    _grads_within(grads, grads_ref, torch.bfloat16, None, exact)
+
+
+_FIRST_WORK = {
+    "block_mha": "x = [torch.randn((1, 2, 256, 64), device='cuda').bfloat16().requires_grad_() "
+                 "for _ in range(3)]\n"
+                 "from ergm_tpu_torch.ops.block_attention import block_mha\n"
+                 "y = block_mha(*x, causal=True)",
+    "flash_mha": "x = [torch.randn((1, 2, 2048, 64), device='cuda').bfloat16().requires_grad_() "
+                 "for _ in range(3)]\n"
+                 "from ergm_tpu_torch.ops.flash_attention import flash_mha\n"
+                 "y = flash_mha(*x, causal=True)",
+    "fused_softmax_xent": "x = [torch.randn((256, 128), device='cuda').bfloat16().requires_grad_(), "
+                          "torch.randn((1000, 128), device='cuda').bfloat16().requires_grad_()]\n"
+                          "from ergm_tpu_torch.ops.fused_ce import fused_softmax_xent\n"
+                          "y = fused_softmax_xent(*x, torch.randint(0, 1000, (256,), device='cuda'))",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_FIRST_WORK))
+def test_backward_as_the_autograd_threads_first_cuda_work(kernel):
+    """A bf16 backward whose kernels encode TMA tensor maps (K5, K7, K6)
+    as the first CUDA work of PyTorch's autograd thread, in a fresh process
+    with nothing else in the graph: the driver's encoder needs a context
+    current on that thread, which the kernels bind themselves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import os
+    import subprocess
+    import sys
+
+    code = ("import torch\n" + _FIRST_WORK[kernel] + "\n"
+            "g = torch.autograd.grad(y, x, torch.ones_like(y))\n"
+            "torch.cuda.synchronize()\n"
+            "assert all(bool(torch.isfinite(t.float()).all()) for t in g)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+
+
 def _k5_gate_case(dtype, L, Lk, causal, rate, model_masks=False):
     """K5 on JAX's block gate's shapes and K7 (``flash_mha``, held to
     ``flash_attention.kernel_reference``) on its flash gate's: q a head
