@@ -10,7 +10,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases, each of which raises on failure:
 
-1. build: compile the port's CUDA kernels from ``ergm_tpu_torch/csrc``.
+1. build: compile the port's CUDA kernels from ``ergm_tpu_torch/csrc``;
+   print the registers and spills of K1's and K4's Hopper kernels.
 2. kernel: K1 (prefill attention) against its plain PyTorch version at
    the slice's shapes, causal [256, 128, 768] with and without a
    left-pad mask and cross q [256, 128, 768] over k/v [256, 32, 768]
@@ -18,7 +19,9 @@ Phases, each of which raises on failure:
    plus summation order) and fp32 (within 2e-5, TF32 off); median
    times of both from CUDA events, and of one
    ``scaled_dot_product_attention`` call with each form's masks as a
-   boolean mask, with each form's bound, on rows of their own.
+   boolean mask, with each form's bound, on rows of their own, and the
+   persistent grid the bf16 kernel launched with (CTAs, items, key
+   tile: what its C entry point reports of the launch).
 3. decode kernels: K3 (fused cross sublayer, B=256 over a 32-token int8
    caption cache with a ragged mask), K4 (fused LN2 + MLP, B=256,
    D=768, F=3072) and K2 (int8 decode attention, B=64, T=512, index
@@ -27,7 +30,9 @@ Phases, each of which raises on failure:
    1e-2 |plain|), K3 and K4 also at the beam path's 64 rows; median
    times of both from CUDA events; K3 and K4 in
    bf16 must repeat bit for bit and start at most 3 and 2 kernels a call;
-   the device duration of each of their kernels by torch.profiler. K2 in
+   K4's bf16 grids as its C entry point reports the launches (each
+   projection's grid and cluster size) must be the planner's plans, and
+   go into its row; the device duration of each of their kernels by torch.profiler. K2 in
    bf16 must repeat bit for bit in one launch a call; its cluster size,
    device duration (torch.profiler) and time at every cluster size the
    row allows; then the same, with the plain version's time and the bound,
@@ -584,6 +589,46 @@ def _bf16_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
                  <= BF16_TOL + 1e-2 * want.float().abs()).all())
 
 
+def _ptxas(source: str, pattern: str) -> dict:
+    """Registers and spills of the kernels of ``source`` whose names match
+    ``pattern``, from this run's build log."""
+    return _build.ptxas_report(_build.build_log(), source, pattern)
+
+
+def _k1_grid(b: int, h: int, length: int) -> dict:
+    """The persistent grid K1's last bf16 launch ran with, as the C side
+    reports it (its CTAs, the (batch row, head, query block) items they
+    walk, its key tile), checked against one CTA an SM over the items at
+    this shape, and the kernel's registers and spills."""
+    ctas, items, key_tile = list(prefill_attention.LAST_GRID)
+    want = -(-length // 128) * b * h
+    if items != want or ctas != min(want, _build.sm_count(torch.device(DEVICE))):
+        raise AssertionError(f"K1 at {b} x {h} x {length} launched {ctas} CTAs over {items} "
+                             f"items; want {want} items, one CTA an SM")
+    return {"grid": {"ctas": ctas, "items": items, "key_tile": key_tile},
+            "ptxas": _ptxas("prefill_attention.cu", "hop")}
+
+
+def _k4_grid(m: int, d: int, f: int) -> dict:
+    """The grids K4's last bf16 call launched (up and down projection), as
+    the C side reports them: CTAs along x and y and the cluster's size,
+    checked against the planner's plans at this shape (columns a CTA, K
+    split, a cluster's column tiles), and the kernels' registers and
+    spills."""
+    cap = fused_decode.capacity(torch.device(DEVICE))
+    plans = (fused_decode.plan(m, d, f, True, cap), fused_decode.plan(m, f, d, False, cap))
+    started, *dims = list(fused_decode.LAST_GRID)
+    grid, mt = {}, -(-m // fused_decode.TILE_ROWS)
+    for i, (side, p, n) in enumerate((("up", plans[0], f), ("down", plans[1], d))):
+        x, y, cluster = dims[3 * i:3 * i + 3]
+        if started != 2 or (x, y, cluster) != (n // p.nt * p.splits, mt, p.splits * p.cn):
+            raise AssertionError(f"K4 at {m} x {d} x {f}: the {side} projection launched "
+                                 f"{started} kernels, grid ({x}, {y}), clusters of {cluster}; "
+                                 f"the planner says {p}")
+        grid[side] = {**p._asdict(), "grid": [x, y], "cluster": cluster, "ctas": x * y}
+    return {"grid": grid, "ptxas": _ptxas("fused_decode.cu", r"wg")}
+
+
 def _timed_pair(name: str, run, plain, reps: int = 20) -> tuple:
     """Median CUDA-event times of kernel and plain, in turns (plain,
     kernel, kernel, plain); returns (kernel ms, plain ms)."""
@@ -686,6 +731,8 @@ def kernel_phase(gen: torch.Generator) -> dict:
             key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
             r[key] = max(r[key], err)
             if dtype == torch.bfloat16 and name != "self":
+                r.update(_k1_grid(B, H, PROMPT))
+                print(f"K1 {name} bf16: grid {json.dumps(r['grid'])}")
                 r["ms"], r["plain_ms"] = _timed_pair(f"K1 {name}", run, plain)
                 # the yardstick: one SDPA call over the same head views, with
                 # the form's masks as one boolean mask; the bound counts the
@@ -868,6 +915,9 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
                     torch.cuda.synchronize()
                     r["repeat_bitwise"] = bool(torch.equal(got, again))
                     r["kernels_per_call"] = mod.KERNELS_PER_CALL
+                    if name == "fused_ln_mlp":
+                        r.update(_k4_grid(B, D, F_))
+                        print(f"fused_ln_mlp bf16: grid {json.dumps(r['grid'])}")
                     most = 3 if name == "cross_decode" else 2
                     print(f"{name} bf16: a repeat is bitwise equal: {r['repeat_bitwise']}; "
                           f"{r['kernels_per_call']} kernels a call (at most {most})")
@@ -909,6 +959,8 @@ def decode_kernel_phase(gen: torch.Generator) -> dict:
                                      f"version: {err}")
             key = "max_abs_err_beam_rows" + ("" if dtype == torch.bfloat16 else "_f32")
             res[name][key] = err
+            if name == "fused_ln_mlp" and dtype == torch.bfloat16:
+                res[name]["grid_beam_rows"] = _k4_grid(n, D, F_)["grid"]
     return res
 
 
@@ -2608,28 +2660,36 @@ def _k5_grads(fn, q, k, v, do, **kw) -> list:
 def _k5_instances(label: str, dh: int, q, k, v, do, attempts: int = 3, **kw) -> list:
     """Prints, and returns, the bf16 kernels of ``csrc/block_attention.cu``
     that one K5 forward and backward at ``q``'s shape launch (torch.profiler
-    over three calls after one outside it; a trace with none of them is
-    taken again, at most ``attempts`` times, as the profiler may miss
-    kernels); raises unless a trace that holds them shows the ``blk::``
-    instances at width ``dh``: the forward, dQ and dK/dV kernels beside
-    the pre-pass. The launch counters, not this trace, show that the main
-    path ran the kernels."""
+    over three calls after one outside it; each trace waits on the host
+    before its calls, 0.05 s and ten times longer on each later attempt,
+    and synchronises after each call; a trace that lacks any of the
+    forward, dQ and dK/dV kernels is taken again, at most ``attempts``
+    times); raises unless the last trace that holds them shows the
+    ``blk::`` instances at width ``dh``: the forward, dQ and dK/dV kernels
+    beside the pre-pass. The launch counters, not this trace, show that
+    the main path ran the kernels."""
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
 
     def call():
         torch.autograd.grad(block_attention.block_mha(*xs, **kw), xs, do)
     call()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    names, events = [], []
+    for attempt in range(attempts):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05 * 10 ** attempt)
             for _ in range(3):
                 call()
-            torch.cuda.synchronize()
-        names = sorted({re.sub(r"^void |ergm_block::|\(.*$", "", e.name) for e in prof.events()
+                torch.cuda.synchronize()
+        events = sorted(prof.events(), key=lambda e: e.time_range.start)
+        trace = sorted({re.sub(r"^void |ergm_block::|\(.*$", "", e.name) for e in events
                         if "ergm_block::" in e.name})
-        if names:
+        if trace:
+            names = trace
+        if len([n for n in trace if not n.startswith("prep_kernel")]) >= 3:
             break
-    else:
+    if not names:
         print(f"{label}: K5 instances not read, the profiler recorded none of them in "
               f"{attempts} traces")
         return []
@@ -2637,6 +2697,10 @@ def _k5_instances(label: str, dh: int, q, k, v, do, attempts: int = 3, **kw) -> 
     want = [f"blk::{name}<blk::Shape<{dh}," for name in
             ("bwd_dkdv_kernel", "bwd_dq_kernel", "fwd_kernel")]
     if len(kernels) != 3 or not all(n.startswith(w) for w, n in zip(want, kernels)):
+        first = events[0].time_range.start if events else 0
+        for e in events[:60]:  # the last trace, for the failure's record
+            print(f"  {label} trace: +{(e.time_range.start - first) / 1e3:.3f} ms thread "
+                  f"{e.thread} {str(e.device_type)} {e.name[:90]}")
         raise AssertionError(f"{label}: K5 ran {names}, not blk:: at {dh}")
     print(f"{label}: K5 instances {', '.join(names)}")
     return names
@@ -4979,9 +5043,10 @@ def _tp_kernel_numbers(gen: torch.Generator) -> dict:
         if got.dtype != torch.float32 or not _bf16_ok(got, want):
             raise AssertionError(f"{name}: the partial form disagrees with its plain version: "
                                  f"{err}")
+        grid = _k4_grid(b, D, Fl) if name == "fused_ln_mlp_tp" else {}
         ms, plain_ms = _timed_pair(name, run, plain)
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-                     "library_ms": None}
+                     "library_ms": None, **grid}
         print(f"{name}: {b} rows, {Dl // 64} heads / {Fl} MLP columns of model rank 0, bf16: "
               f"max |kernel - plain| = {err:.3e}; bound {bnd['bound_ms']:.4f} ms "
               f"({bnd['bound_by']})")
@@ -5327,6 +5392,7 @@ def _large_decode_kernels(gen: torch.Generator, cfg: ModelConfig,
         scales = [0.001 + 0.02 * torch.rand((2, b, lc, H), generator=gen, device=DEVICE)
                   for _ in range(2)]
         stacks = (*codes, *scales)
+        qc = q.contiguous()  # the cross form's own projection (outside the timed calls)
         cases = {
             "prefill_mha": (
                 lambda: prefill_attention.prefill_mha(q, k, v, leftpad, n_head=H, scale=0.125),
@@ -5334,11 +5400,11 @@ def _large_decode_kernels(gen: torch.Generator, cfg: ModelConfig,
                                                                 scale=0.125),
                 leftpad[:, :, None], F32_TOL),
             "prefill_mha_cross": (
-                lambda: prefill_attention.prefill_mha(q.contiguous(), ck, cv, cmask, n_head=H,
-                                                      scale=0.125, causal=False),
-                lambda: prefill_attention.prefill_mha_reference(q.contiguous(), ck, cv, cmask,
-                                                                n_head=H, scale=0.125,
-                                                                causal=False), 1.0, F32_TOL),
+                lambda: prefill_attention.prefill_mha(qc, ck, cv, cmask, n_head=H, scale=0.125,
+                                                      causal=False),
+                lambda: prefill_attention.prefill_mha_reference(qc, ck, cv, cmask, n_head=H,
+                                                                scale=0.125, causal=False),
+                1.0, F32_TOL),
             "fused_cross_decode": (
                 lambda: cross_decode.fused_cross_decode(h, blk, 1, 0.125, stacks, cmask, c),
                 lambda: cross_decode.fused_cross_decode_reference(h, blk, 1, 0.125, stacks,
@@ -5362,12 +5428,16 @@ def _large_decode_kernels(gen: torch.Generator, cfg: ModelConfig,
             r["max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"] = err
             if dtype != torch.bfloat16:
                 continue
+            if name.startswith("prefill"):
+                r.update(_k1_grid(b, H, L))
+            elif name == "fused_ln_mlp":
+                r.update(_k4_grid(b, D, cfg.inner_dim))
             r["ms"], r["plain_ms"] = _timed_pair(f"{name} D={D}", run, plain)
             if name.startswith("prefill"):
                 causal = name == "prefill_mha"
                 kk = k if causal else ck
                 heads = [x.view(b, -1, H, D // H).transpose(1, 2)
-                         for x in ((q, k, v) if causal else (q.contiguous(), ck, cv))]
+                         for x in ((q, k, v) if causal else (qc, ck, cv))]
                 m = leftpad if causal else cmask
                 allowed = m[:, None, None, :] > 0
                 if causal:
@@ -6211,6 +6281,8 @@ def main() -> None:
     _build.load()
     print(f"build: K1-K7 compiled and loaded in {time.time() - t0:.2f} s")
     print(_build.build_log().strip())
+    print("K1's and K4's Hopper kernels (bf16), ptxas: "
+          + json.dumps({**_ptxas("prefill_attention.cu", "hop"), **_ptxas("fused_decode.cu", "wg")}))
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     seconds = {}

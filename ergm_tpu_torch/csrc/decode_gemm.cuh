@@ -1,5 +1,6 @@
-// Dense layer of the single-token decode kernels K3 and K4 for Hopper
-// (sm_90a).
+// Dense layer of the single-token decode kernel K3 for Hopper (sm_90a),
+// and of K4's fp32 route (its bf16 route runs dense_hopper.cuh's TMA and
+// wgmma product).
 //
 // out = epilogue(round(A' @ W + bias)) for A [M, K] (row stride lda), W
 // [K, N] row-major ([in, out], GPT-2's Conv1D orientation) and bias [N],
@@ -51,12 +52,10 @@
 // other's shared memory, so a row's statistics are formed once a cluster
 // and not once a column tile. Each warp applies the LayerNorm to its A fragments in registers
 // and rounds them to bf16 just before their products. At the slice's
-// shape: K4's up projection (N = 3072, K = 768) S = 2, Cn = 4 (96 CTAs in
-// clusters of 8), its down projection (N = 768, K = 3072) S = 8 (96
-// CTAs), K3's two projections (768 x 768) S = 6 (72 CTAs).
+// shape: K3's two projections (768 x 768) S = 6 (72 CTAs).
 //
-// A product launched after another of the same call (K4's down
-// projection, K3's c_proj) uses programmatic dependent launch: it starts
+// A product launched after another of the same call (K3's c_proj) uses
+// programmatic dependent launch: it starts
 // while the other finishes, requests its W chunks, and waits for the other
 // before it reads A.
 //
@@ -65,8 +64,8 @@
 // ~250 KB an SM; around that sits a serial chain of short steps (the
 // statistics and the cluster barrier that shares them, the partial-tile
 // barrier, the distributed shared-memory sums and the epilogue). Device
-// durations of one K4 call: 23.2 us up, 17.9 us down (starting 5.7 us
-// early); of one K3 call: 15.2 us q, 10.4 us c_proj.
+// durations of one K3 call: 15.2 us q, 10.4 us c_proj (K4 on this kernel
+// took 23.2 us up and 17.9 us down; PERF.md's K4 rows hold both designs).
 
 #pragma once
 

@@ -1,10 +1,12 @@
 // Hopper building blocks (sm_90a) shared by the kernels that run on
 // wgmma and TMA (K6's GEMMs in csrc/fused_ce.cu; in csrc/block_attention.cu
 // K7's one-pass attention kernels, namespace flash, and K5's, namespace
-// blk): mbarriers, TMA loads (tiled tensor maps, 1-D bulk copies), named
-// barriers, shared-memory matrix descriptors for tiles stored with the
-// 128-byte swizzle (or the 64-byte one), wgmma's fence / commit / wait, and
-// the attention kernels' product shapes. A K-major operand tile is stored
+// blk; K1's bf16 kernel in csrc/prefill_attention.cu; K4's products in
+// csrc/dense_hopper.cuh): mbarriers, TMA loads and stores (tiled tensor
+// maps, 1-D bulk copies), named and cluster barriers, shared-memory matrix
+// descriptors for tiles stored with the 128-byte swizzle (or the 64-byte
+// one), wgmma's fence / commit / wait, and the attention kernels' product
+// shapes. A K-major operand tile is stored
 // as column blocks [X rows][64] (128-byte swizzle; [X][32] with the 64-byte
 // one), 8-row groups 1024 (512) bytes apart; an MN-major B operand as
 // [K rows][64] column blocks whose 64-wide N blocks lie K * 128 bytes apart
@@ -18,6 +20,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <unordered_map>
 
 #include "mma_bf16.cuh"
 
@@ -83,6 +88,52 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(saddr(dst)), "l"(src), "r"(bytes), "r"(saddr(bar))
       : "memory");
+}
+
+// A 4-D box of shared memory at src to the tensor map's (c0, c1, c2, c3):
+// a TMA store, whose rows past the map's bounds are not written; one bulk
+// group per commit
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N bulk groups of this thread still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N bulk groups of this thread are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's shared-memory writes visible to the async proxy (a
+// TMA store, or wgmma reading them as an operand)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The cluster's barrier, thread by thread (not .aligned: threads of one
+// warp may reach it apart); every thread of every CTA of the cluster
+// arrives once a phase, and waits before it arrives again
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Named barriers 1..15 over `count` threads (a multiple of 32); 0 is
@@ -168,6 +219,51 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[16][4], uint64_t da, ui
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x N, f32) (+)= A . B over k16, A K-major in shared memory and B
+// MN-major (its rows the depth), both by descriptor; acc = 0 overwrites d.
+// N = 64, 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 8][4], uint64_t da, uint64_t db,
+                                            int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[8][4], uint64_t da, uint64_t db,
+                                                int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[16][4], uint64_t da, uint64_t db,
+                                                 int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
         "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
@@ -342,6 +438,94 @@ inline EncodeTiled encoder() {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return nullptr;
   return fn;
+}
+
+// A tiled bf16 tensor map, encoded once for each distinct set of arguments:
+// the encoding is a pure function of them (address, sizes, strides in
+// bytes, box, swizzle), so a cached map is the map a new encoding would
+// give. Decode steps launch with the same weights and, through PyTorch's
+// caching allocator, mostly the same activation addresses, so the host
+// encodes a map once instead of once a call. Thread-safe; the cache is
+// dropped whole past 4,096 entries.
+struct MapArgs {
+  const void* ptr;
+  int rank;
+  int swizzle;  // CUtensorMapSwizzle
+  cuuint64_t dims[5];
+  cuuint64_t strides[4];
+  cuuint32_t box[5];
+  cuuint32_t unused;  // zero: the key's bytes hold no padding, so memcmp compares them all
+};
+static_assert(sizeof(MapArgs) == sizeof(void*) + 2 * sizeof(int) + 9 * sizeof(cuuint64_t) +
+                                     6 * sizeof(cuuint32_t),
+              "encode_cached hashes and compares MapArgs byte for byte: no padding");
+static_assert(sizeof(MapArgs) % 8 == 0, "encode_cached hashes MapArgs by 64-bit words");
+
+inline bool encode_cached(CUtensorMap* map, const MapArgs& in) {
+  MapArgs k;
+  std::memset(&k, 0, sizeof(k));  // padding and unused entries compare equal
+  k.ptr = in.ptr;
+  k.rank = in.rank;
+  k.swizzle = in.swizzle;
+  for (int i = 0; i < in.rank; ++i) {
+    k.dims[i] = in.dims[i];
+    k.box[i] = in.box[i];
+    if (i + 1 < in.rank) k.strides[i] = in.strides[i];
+  }
+  uint64_t words[sizeof(k) / 8], hash = 1469598103934665603ull;  // FNV-1a over its words
+  std::memcpy(words, &k, sizeof(k));
+  for (uint64_t w : words) hash = (hash ^ w) * 1099511628211ull;
+  struct Entry {
+    MapArgs key;
+    CUtensorMap map;
+  };
+  static std::mutex lock;
+  static std::unordered_map<uint64_t, Entry> cache;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    auto it = cache.find(hash);
+    if (it != cache.end() && std::memcmp(&it->second.key, &k, sizeof(k)) == 0) {
+      *map = it->second.map;
+      return true;
+    }
+  }
+  const EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(k.rank),
+             const_cast<void*>(k.ptr), k.dims, k.strides, k.box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, static_cast<CUtensorMapSwizzle>(k.swizzle),
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  std::lock_guard<std::mutex> guard(lock);
+  if (cache.size() >= 4096) cache.clear();
+  cache[hash] = Entry{k, *map};
+  return true;
+}
+
+// The dynamic shared-memory limit of a kernel, set once a process for
+// each device and kernel
+template <typename K>
+inline cudaError_t smem_limit(K kernel, size_t bytes) {
+  static std::mutex lock;
+  static std::unordered_map<const void*, uint64_t> done;  // kernel -> bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    if (done[key] & bit) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) {
+    std::lock_guard<std::mutex> guard(lock);
+    done[key] |= bit;
+  }
+  return err;
 }
 
 }  // namespace ergm_hopper

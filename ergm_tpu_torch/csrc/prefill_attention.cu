@@ -18,30 +18,37 @@
 // layer's causal products are 2*2*B*H*L*(L+1)/2*64 = 6.5 GFLOP, 7 us on the
 // tensor cores, and its q/k/v/out traffic is 4*B*L*D*2 bytes = 201 MB,
 // 60 us at the HBM rate; the cross form (Lk=32) moves 126 MB, 37 us: bytes
-// bind both. The design reads each operand once and keeps every
-// intermediate on chip:
-//   - one CTA of 8 warps per (batch row, head, block of 128 query rows),
-//     a warp per 16 rows; q, k and v arrive by cp.async, 16 bytes a copy,
-//     at head stride straight from the merged tensors or their strided
-//     views (the fused qkv slices), no split or merge copies;
-//   - both products on the tensor cores: mma.sync m16n8k16 (bf16 in, f32
-//     accumulate) with operands from shared memory by ldmatrix (.trans for
-//     V), the fragment helpers of mma_bf16.cuh shared with K5;
+// bind both. The design (namespace hop) reads each operand once, keeps
+// every intermediate on chip, and overlaps an item's loads and stores
+// with another item's products:
+//   - a persistent grid, one CTA an SM (the host passes the grid,
+//     ops/prefill_attention.py::grid), walks the items (batch row, head,
+//     block of 128 query rows), the last query block first when causal;
+//   - a CTA is a producer warp and two consumer warpgroups of 64 query
+//     rows each. The producer keeps the Q tiles and key-bias rows of two
+//     items and a ring of four K / V tiles in flight by TMA on mbarriers,
+//     straight from the merged tensors or their strided views (one 4-D
+//     tensor map [B, rows, H, 64] an operand, at the caller's batch and
+//     row strides, multiples of 16 bytes; the fused qkv slices), so there
+//     are no split or merge copies; rows past L or Lk are TMA's zeros;
+//   - both products on wgmma: S = Q K^T from shared memory (128-byte
+//     swizzle), then p, rounded to bf16, as the A operand from registers
+//     of P V with V read MN-major (wgmma_rs);
 //   - Lk <= 128 (the self form, which the model gates at L <= 128, and
-//     captions up to 128): the whole key set is staged (K, then V in a
-//     second copy group that lands while QK^T and the softmax run), and a
-//     row's scores stay in the product's accumulator registers: exact m
-//     and z, then p normalised, rounded and packed as the A operand of PV.
-//     Nothing of the scores is stored;
-//   - 128 < Lk <= 512: keys stream in 64-key tiles through a two-stage
-//     ring and are walked twice, as in K5: pass 1 takes m and z, pass 2
-//     recomputes s and accumulates the rounded p . V (an online softmax
-//     would round p before normalising it, which JAX does not);
-//   - causal: a warp skips the 32-key blocks above its rows' diagonal (a
-//     real row sees its own real key under left padding, so the skipped
-//     keys' exp(-1e9 - m) is 0 for every real row);
-//   - the output goes through shared memory so that the merged rows are
-//     written 16 bytes a copy.
+//     captions up to 128): every key tile's scores stay in registers, so
+//     m and z are the exact row max and sum, and p is normalised before
+//     it is rounded, as JAX does. 128 < Lk <= 512: two passes over the key
+//     tiles, as K5's blk:: walks them: pass 1 takes m and z, pass 2 forms
+//     S again and accumulates the rounded p . V (an online softmax would
+//     round p before normalising it, which JAX does not);
+//   - keys past Lk give -inf (exp is exactly 0); causal: a warpgroup skips
+//     the key tiles wholly above its rows (a real row sees its own real
+//     key under left padding, so the skipped keys' exp(-1e9 - m) is 0 for
+//     every real row). The mask and the scale are applied in log2 units
+//     in JAX's order: the causal where (-1e9), then the additive key bias;
+//   - the output leaves through a swizzled staging tile by TMA store
+//     (rows past L are clipped by the map), which runs while the consumers
+//     start the next item.
 //
 // f32 operands (the fp32 bars only) keep the first design: one CTA of 128
 // threads per (batch row, head), query rows in tiles of 32, K and V
@@ -51,7 +58,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "cp_async.cuh"
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace ergm_prefill {
@@ -233,276 +240,463 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core products (mma.sync), scores in registers.
-namespace tc {
+// bf16: wgmma products, operands by TMA (the note at the top).
+namespace hop {
 
 using bf16 = __nv_bfloat16;
-using ergm_mma::kLd;  // 144-byte tile rows: ldmatrix's 8 rows hit 8 bank groups
-using ergm_mma::ldsm4t;
-using ergm_mma::mma;
+using ergm_hopper::bar_sync;
+using ergm_hopper::bulk_commit;
+using ergm_hopper::bulk_wait;
+using ergm_hopper::bulk_wait_read;
+using ergm_hopper::fence_async_shared;
+using ergm_hopper::mbar_arrive;
+using ergm_hopper::mbar_expect;
+using ergm_hopper::mbar_fence_init;
+using ergm_hopper::mbar_init;
+using ergm_hopper::mbar_wait;
+using ergm_hopper::pin;
+using ergm_hopper::sm_desc;
+using ergm_hopper::tma_load_4d;
+using ergm_hopper::tma_store_4d;
+using ergm_hopper::wg_commit;
+using ergm_hopper::wg_fence;
+using ergm_hopper::wg_wait;
+using ergm_hopper::wgmma_rs;
+using ergm_hopper::wgmma_ss;
+using ergm_mma::ex2;
 using ergm_mma::pack;
-using ergm_mma::prod_nt;
-using ergm_mma::saddr;
+using ergm_mma::zero;
 
-constexpr int kThreads = 256;  // 8 warps of 16 query rows
-constexpr int kRows = 128;     // query rows per CTA
-constexpr int kResident = 128; // the most keys staged whole
-constexpr int kTile = 64;      // keys per ring stage beyond that
-constexpr int kSub = 32;       // keys per warp product
+constexpr int kThreads = 384;   // a producer warpgroup, two consumer warpgroups
+constexpr int kRows = 128;      // query rows an item
+constexpr int kOwn = 64;        // query rows a consumer warpgroup owns
+constexpr int kQBufs = 2;       // items whose Q tile and key bias are in flight
+constexpr int kStages = 4;      // the ring of K / V tiles
+constexpr int kResident = 128;  // the most keys whose scores stay in registers
+constexpr size_t kAlign = 1024;  // the 128-byte swizzle's pattern
 constexpr float kLog2e = 1.4426950408889634f;
-// q, k and v tiles of 128 rows (k and v: the whole key set, or the ring's
-// two 64-key stages), then the additive key bias of up to 512 keys
-constexpr size_t kTileBytes = sizeof(bf16) * kRows * kLd;
-constexpr size_t kSmem = 3 * kTileBytes + sizeof(float) * kMaxKeys;
+constexpr float kMaskL2 = kNegInf * kLog2e;  // JAX's -1e9, in log2 units
 
-// rows [row0, row0 + n) of one head (row stride sl, rows past `last`
-// clamped to it: their scores are masked or their rows not written) into a
-// [n][kLd] tile by cp.async; the caller commits
-template <int N>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl, int row0,
-                                      int last) {
-  static_assert((N * 8) % kThreads == 0, "whole rows per pass");
-#pragma unroll
-  for (int i = 0; i < N * 8 / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 3, c = (idx & 7) * 8;
-    ergm_async::copy16(dst + r * kLd + c, src + min(row0 + r, last) * sl + c);
+// KT: keys a streamed tile (32 where Lk <= 32, else 64); RES tiles of
+// them (the keys up to kResident) keep their scores for one pass; smem
+// bytes: Q [kQBufs][128][64], the ring of K and V [KT][64] tiles, the
+// output's staging [2 warpgroups][2][64][64], the key bias [kQBufs][512]
+// f32 and the barriers
+template <int KT_>
+struct Shape {
+  static constexpr int KT = KT_, RES = kResident / KT > 2 ? 1 : kResident / KT;
+  static constexpr int kQ = kRows * kDh, kTile = KT * kDh, kOut = kOwn * kDh;  // elements
+  static constexpr size_t kSmem = kAlign + 2 * (kQBufs * kQ + kStages * 2 * kTile + 4 * kOut) +
+                                  sizeof(float) * kQBufs * kMaxKeys + 8 * (2 * kQBufs + 2 * kStages);
+};
+using K32 = Shape<32>;
+using K64 = Shape<64>;
+
+// The tensor maps: q, k, v [B, rows, H, 64] over the callers' strides
+// (boxes of 64 columns by 128 query rows or KT key rows), out [B, L, H,
+// 64] (boxes of 64 rows); 128-byte swizzle
+struct Maps {
+  CUtensorMap q, k, v, out;
+};
+
+// An item: query rows [q0, q0 + 128) of head h of batch row b. Items run
+// in rank order over every (b, h), the last query block first when causal
+// (the longest walks)
+struct Item {
+  int b, h, q0;
+  __device__ Item(const Args& a, int idx, int nqb) {
+    const int bh = idx % (a.B * a.H), rank = idx / (a.B * a.H);
+    q0 = (a.causal ? nqb - 1 - rank : rank) * kRows;
+    b = bh / a.H;
+    h = bh % a.H;
   }
+};
+
+// The keys query rows [r0, r0 + rows) see: up to the diagonal when causal
+__device__ __forceinline__ int key_end(const Args& a, int r0, int rows) {
+  return a.causal ? min(a.Lk, r0 + rows) : a.Lk;
 }
 
-// JAX's mask on the warp's 16 x 32 score block at keys c0.. (accumulator
-// layout, rows from r0): s * scale, the causal where, the additive key
-// bias; keys past Lk are -inf (exp gives exactly 0).
-__device__ __forceinline__ void mask_scores(const Args& a, const float* kb, float (&sc)[4][4],
-                                            int r0, int c0) {
+// k16 step kk of a K-major tile [rows][64] from row0 (the 128-byte swizzle)
+__device__ __forceinline__ uint64_t desc_k(const bf16* t, int row0, int kk) {
+  return sm_desc(t + row0 * kDh + kk * 16, 16, 1024);
+}
+
+// k16 step kk of an X-row tile [X][64] read MN-major (V: its rows the depth)
+template <int X>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* t, int kk) {
+  return sm_desc(t + kk * 16 * kDh, X * kDh * 2, 1024);
+}
+
+// s = Q . K^T for the warpgroup's 64 rows (from row0 of the Q tile) over a
+// KT-key tile; issued and committed, not waited for
+template <int KT>
+__device__ __forceinline__ void scores(float (&s)[KT / 8][4], const bf16* qt, int row0,
+                                       const bf16* kt) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk)
+    wgmma_ss<KT>(s, desc_k(qt, row0, kk), desc_k(kt, 0, kk), kk);
+  wg_commit();
+}
+
+// JAX's mask on the warp's 16 rows (from rw) of a KT-key score block at k0,
+// in log2 units: s * scale, the causal where (-1e9), the additive key bias
+// kb (log2 units); keys past Lk give -inf (exp is exactly 0)
+template <int KT>
+__device__ __forceinline__ void mask_tile(const Args& a, const float* kb, float (&s)[KT / 8][4],
+                                          int rw, int k0, float sl2) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < KT / 8; ++j) {
+    const int key = k0 + 8 * j + 2 * t;
+    const float2 bias = key < a.Lk ? *reinterpret_cast<const float2*>(kb + key)
+                                   : make_float2(0.0f, 0.0f);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int key = c0 + 8 * j + 2 * t + (e & 1), row = r0 + g + 8 * (e >> 1);
-      float x = sc[j][e] * a.scale;
-      if (key >= a.Lk) {
-        x = -INFINITY;
-      } else {
-        if (a.causal && key > row) x = kNegInf;
-        x += kb[key];
-      }
-      sc[j][e] = x;
+      const int c = key + (e & 1), row = rw + g + 8 * (e >> 1);
+      float x = s[j][e] * sl2;
+      if (a.causal && c > row) x = kMaskL2;
+      x += (e & 1) ? bias.y : bias.x;
+      s[j][e] = c < a.Lk ? x : -INFINITY;
     }
-}
-
-// The lane's two rows' maxima and sums of exp(s - max) over a 16 x 32 block
-__device__ __forceinline__ void row_stats(const float (&sc)[4][4], float (&mt)[2], float (&lt)[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = mt[i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * i], sc[j][2 * i + 1]));
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sum += ergm_mma::ex2((sc[j][2 * i] - mx) * kLog2e) +
-             ergm_mma::ex2((sc[j][2 * i + 1] - mx) * kLog2e);
-    lt[i] = lt[i] * ergm_mma::ex2((mt[i] - mx) * kLog2e) + sum;
-    mt[i] = mx;
   }
 }
 
-// The row's m and 1/z from the four lanes that hold it
-__device__ __forceinline__ void reduce_rows(const float (&mt)[2], const float (&lt)[2],
-                                            float (&m)[2], float (&inv)[2]) {
+// o += p . V over a KT-key tile: p the warpgroup's 64 x KT block, rounded
+// to bf16 as wgmma's A operand in registers; committed, not waited for
+template <int KT>
+__device__ __forceinline__ void accumulate(float (&o)[kDh / 8][4], const float (&p)[KT / 8][4],
+                                           const bf16* vt) {
+  unsigned a[KT / 16][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    a[kk][0] = pack(p[2 * kk][0], p[2 * kk][1]);
+    a[kk][1] = pack(p[2 * kk][2], p[2 * kk][3]);
+    a[kk][2] = pack(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    a[kk][3] = pack(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+  }
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs<kDh>(o, a[kk], desc_mn<KT>(vt, kk));
+  wg_commit();
+}
+
+// The row's max and 1/sum from the four lanes that hold it, given each
+// lane's max mt and its sum lt of 2^(x - mt)
+__device__ __forceinline__ void row_stats(float (&mt)[2], const float (&lt)[2], float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float l = lt[i] * ergm_mma::ex2((mt[i] - mx) * kLog2e);
+    float l = lt[r] * ex2(mt[r] - mx);
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    m[i] = mx;
-    inv[i] = 1.0f / l;
+    mt[r] = mx;
+    inv[r] = 1.0f / l;
   }
 }
 
-// p = exp(s - m) / z, rounded to bf16 and packed as the A operand of PV
-// (two k16 halves of the 32 keys)
-__device__ __forceinline__ void probs(const float (&sc)[4][4], const float (&m)[2],
-                                      const float (&inv)[2], unsigned (&pf)[2][4]) {
-  float p[4][4];
+// One CTA an SM walks the items. The producer warp keeps the Q tile and
+// key-bias row of kQBufs items and kStages K / V tiles in flight; each
+// consumer warpgroup owns 64 query rows of an item. Up to kResident keys
+// (RES tiles) the scores stay in registers: S once, the exact row max and
+// sum, p rounded, o += p . V. Past that, two passes over the key tiles as
+// blk:: walks them: pass 1 streams K and keeps each lane's running max and
+// sum, pass 2 streams K and V, forms S again and accumulates the rounded p
+// . V. The output leaves through a swizzled staging tile by TMA store,
+// which overlaps the next item.
+template <class S>
+__global__ void __launch_bounds__(kThreads, 1)
+    kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int KT = S::KT, RES = S::RES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((kAlign - (ergm_mma::saddr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [kQBufs][128][64]
+  bf16* ring = qs + kQBufs * S::kQ;           // [kStages]: K [KT][64], V [KT][64]
+  bf16* outs = ring + kStages * 2 * S::kTile;  // [2][2][64][64]
+  float* kbias = reinterpret_cast<float*>(outs + 4 * S::kOut);  // [kQBufs][kMaxKeys]
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(kbias + kQBufs * kMaxKeys);
+  uint64_t* res_free = res_full + kQBufs;
+  uint64_t* full = res_free + kQBufs;
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p[j][e] = ergm_mma::ex2((sc[j][e] - m[e >> 1]) * kLog2e) * inv[e >> 1];
-#pragma unroll
-  for (int kc = 0; kc < 2; ++kc) {
-    pf[kc][0] = pack(p[2 * kc][0], p[2 * kc][1]);
-    pf[kc][1] = pack(p[2 * kc][2], p[2 * kc][3]);
-    pf[kc][2] = pack(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    pf[kc][3] = pack(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-  }
-}
-
-// o (16 x 64) += P (16 x 32, packed) . V rows [r0, r0 + 32) of tile vt
-__device__ __forceinline__ void pv(float (&o)[8][4], const unsigned (&pf)[2][4], const bf16* vt,
-                                   int r0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kc = 0; kc < 2; ++kc) {
-    unsigned bf[4][4];
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp)
-      ldsm4t(bf[dp], saddr(vt + (r0 + kc * 16 + (lane & 15)) * kLd + dp * 16 + (lane >> 4) * 8));
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      mma(o[2 * dp], pf[kc], bf[dp][0], bf[dp][1]);
-      mma(o[2 * dp + 1], pf[kc], bf[dp][2], bf[dp][3]);
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(res_full + i, 33);  // the Q tile's expect_tx and the bias row's 32 lanes
+      mbar_init(res_free + i, 8);   // the consumers' eight warps
     }
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_fence_init();
   }
-}
+  __syncthreads();
+  const int nqb = (a.L + kRows - 1) / kRows, items = nqb * a.B * a.H;
+  const int lane = threadIdx.x & 31;
 
-template <bool kWhole>
-__global__ void __launch_bounds__(kThreads, 2) kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [128][kLd]
-  bf16* ks = qs + kRows * kLd;               // [128][kLd], or [2][64][kLd]
-  bf16* vs = ks + kRows * kLd;               // the same
-  float* kb = reinterpret_cast<float*>(vs + kRows * kLd);  // [Lk]
-
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16;  // the warp's first query row
-  const bf16* q = static_cast<const bf16*>(a.q) + static_cast<long long>(b) * a.q_sb + h * kDh;
-  const bf16* k = static_cast<const bf16*>(a.k) + static_cast<long long>(b) * a.k_sb + h * kDh;
-  const bf16* v = static_cast<const bf16*>(a.v) + static_cast<long long>(b) * a.v_sb + h * kDh;
-  // keys the CTA and the warp walk: up to the diagonal when causal
-  const int kend = a.causal ? min(a.Lk, q0 + kRows) : a.Lk;
-  const int wend = a.causal ? min(a.Lk, r0 + 16) : a.Lk;
-
-  for (int j = threadIdx.x; j < a.Lk; j += kThreads)
-    kb[j] = a.mask ? (1.0f - a.mask[static_cast<long long>(b) * a.Lk + j]) * kNegInf : 0.0f;
-  stage<kRows>(qs, q, a.q_sl, q0, a.L - 1);
-
-  float o[8][4];
-  ergm_mma::zero(o);
-  float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f}, m[2], inv[2];
-  if constexpr (kWhole) {
-    // K (with q) and V in two copy groups; 32-key blocks past kend unread
-#pragma unroll
-    for (int u = 0; u < kResident / kSub; ++u)
-      if (u * kSub < kend) stage<kSub>(ks + u * kSub * kLd, k, a.k_sl, u * kSub, a.Lk - 1);
-    ergm_async::commit();
-#pragma unroll
-    for (int u = 0; u < kResident / kSub; ++u)
-      if (u * kSub < kend) stage<kSub>(vs + u * kSub * kLd, v, a.v_sl, u * kSub, a.Lk - 1);
-    ergm_async::commit();
-    ergm_async::wait<1>();
-    __syncthreads();
-    float sc[kResident / kSub][4][4];
-#pragma unroll
-    for (int u = 0; u < kResident / kSub; ++u)
-      if (u * kSub < wend) {
-        prod_nt(sc[u], qs, warp * 16, ks, u * kSub);
-        mask_scores(a, kb, sc[u], r0, u * kSub);
-        row_stats(sc[u], mt, lt);
+  if (threadIdx.x < 128) {  // the producer warpgroup: its first warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) return;
+    int it = 0;  // ring steps so far
+    for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+      const Item m(a, idx, nqb);
+      const int buf = w % kQBufs;
+      const int n = (key_end(a, m.q0, kRows) + KT - 1) / KT, steps = n > RES ? 2 * n : n;
+      mbar_wait(res_free + buf, ((w / kQBufs) + 1) & 1);
+      if (lane == 0) {
+        mbar_expect(res_full + buf, 2 * S::kQ);
+        tma_load_4d(&maps.q, qs + buf * S::kQ, res_full + buf, 0, m.q0, m.h, m.b);
       }
-    reduce_rows(mt, lt, m, inv);
-    ergm_async::wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kResident / kSub; ++u)
-      if (u * kSub < wend) {
-        unsigned pf[2][4];
-        probs(sc[u], m, inv, pf);
-        pv(o, pf, vs, u * kSub);
-      }
-  } else {
-    // steps 0..n-1: pass 1 over the 64-key tiles (K); n..2n-1: pass 2 (K, V)
-    const int n = (kend + kTile - 1) / kTile;
-    auto issue = [&](int s) {
-      if (s < 2 * n) {
-        const int k0 = (s < n ? s : s - n) * kTile;
-        stage<kTile>(ks + (s & 1) * kTile * kLd, k, a.k_sl, k0, a.Lk - 1);
-        if (s >= n) stage<kTile>(vs + (s & 1) * kTile * kLd, v, a.v_sl, k0, a.Lk - 1);
-      }
-      ergm_async::commit();
-    };
-    issue(0);
-    for (int s = 0; s < 2 * n; ++s) {
-      const int k0 = (s < n ? s : s - n) * kTile;
-      issue(s + 1);
-      ergm_async::wait<1>();
-      __syncthreads();
-      if (s == n) reduce_rows(mt, lt, m, inv);
-      const bf16* kt = ks + (s & 1) * kTile * kLd;
-      const bf16* vt = vs + (s & 1) * kTile * kLd;
-#pragma unroll
-      for (int u = 0; u < kTile / kSub; ++u) {
-        const int c0 = k0 + u * kSub;
-        if (c0 < wend) {
-          float sc[4][4];
-          prod_nt(sc, qs, warp * 16, kt, u * kSub);
-          mask_scores(a, kb, sc, r0, c0);
-          if (s < n) {
-            row_stats(sc, mt, lt);
-          } else {
-            unsigned pf[2][4];
-            probs(sc, m, inv, pf);
-            pv(o, pf, vt, u * kSub);
-          }
+      float* kb = kbias + buf * kMaxKeys;
+      const float* mrow = a.mask ? a.mask + static_cast<long long>(m.b) * a.Lk : nullptr;
+      for (int j = lane; j < a.Lk; j += 32) kb[j] = mrow ? (1.0f - mrow[j]) * kMaskL2 : 0.0f;
+      mbar_arrive(res_full + buf);
+      if (lane == 0) {
+        for (int i = 0; i < steps; ++i) {  // two passes: 0..n-1 K, n..2n-1 K and V
+          const int s = (it + i) % kStages, k0 = (i % n) * KT;
+          const bool with_v = steps == n || i >= n;
+          bf16* kt = ring + s * 2 * S::kTile;
+          mbar_wait(empty + s, (((it + i) / kStages) + 1) & 1);
+          mbar_expect(full + s, (with_v ? 2 : 1) * 2 * S::kTile);
+          tma_load_4d(&maps.k, kt, full + s, 0, k0, m.h, m.b);
+          if (with_v) tma_load_4d(&maps.v, kt + S::kTile, full + s, 0, k0, m.h, m.b);
         }
       }
-      __syncthreads();
+      it += steps;
+      __syncwarp();
     }
+    return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = threadIdx.x / 128 - 1, g = lane >> 2, t = lane & 3;
+  const int wi = (threadIdx.x >> 5) & 3;  // the warp in its warpgroup
+  const float sl2 = a.scale * kLog2e;
+  int it = 0, stores = 0;
+  for (int idx = blockIdx.x, w = 0; idx < items; idx += gridDim.x, ++w) {
+    const Item m(a, idx, nqb);
+    const int buf = w % kQBufs;
+    const int n = (key_end(a, m.q0, kRows) + KT - 1) / KT;
+    const int r0 = m.q0 + kOwn * c, rw = r0 + 16 * wi;  // the warpgroup's and the warp's rows
+    const bool active = r0 < a.L;
+    const int wend = key_end(a, r0, kOwn);  // the keys the warpgroup's rows see
+    const bf16* qt = qs + buf * S::kQ;
+    const float* kb = kbias + buf * kMaxKeys;
+    float o[kDh / 8][4];
+    zero(o);
+    mbar_wait(res_full + buf, (w / kQBufs) & 1);
+    if (n <= RES) {
+      // one pass: every tile's scores, the exact row statistics, p . V
+      float sc[RES][KT / 8][4];
+#pragma unroll
+      for (int i = 0; i < RES; ++i)
+        if (i < n) {
+          const int s = (it + i) % kStages;
+          mbar_wait(full + s, ((it + i) / kStages) & 1);
+          if (active && i * KT < wend) scores<KT>(sc[i], qt, kOwn * c, ring + s * 2 * S::kTile);
+        }
+      wg_wait<0>();
+      float mx[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f}, inv[2];
+#pragma unroll
+      for (int i = 0; i < RES; ++i)
+        if (i < n && active && i * KT < wend) {
+          pin(sc[i]);
+          mask_tile<KT>(a, kb, sc[i], rw, i * KT, sl2);
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[i][j][e]);
+        }
+      if (lane == 0) mbar_arrive(res_free + buf);  // Q and the key bias are read
+      if (active) {
+        // the row's max over the four lanes that hold it, p = 2^(x - max),
+        // the row's sum, then p / sum
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        }
+#pragma unroll
+        for (int i = 0; i < RES; ++i)
+          if (i < n && i * KT < wend)
+#pragma unroll
+            for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                sc[i][j][e] = ex2(sc[i][j][e] - mx[e >> 1]);
+                lt[e >> 1] += sc[i][j][e];
+              }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lt[r] += __shfl_xor_sync(0xffffffffu, lt[r], 1);
+          lt[r] += __shfl_xor_sync(0xffffffffu, lt[r], 2);
+          inv[r] = 1.0f / lt[r];
+        }
+#pragma unroll
+        for (int i = 0; i < RES; ++i)
+          if (i < n && i * KT < wend) {
+#pragma unroll
+            for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sc[i][j][e] *= inv[e >> 1];
+            accumulate<KT>(o, sc[i], ring + ((it + i) % kStages) * 2 * S::kTile + S::kTile);
+          }
+        wg_wait<0>();
+        pin(o);
+      }
+#pragma unroll
+      for (int i = 0; i < RES; ++i)
+        if (i < n && lane == 0) mbar_arrive(empty + (it + i) % kStages);
+      it += n;
+    } else {
+      // two passes over the key tiles
+      float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+      for (int i = 0; i < 2 * n; ++i, ++it) {
+        const int s = it % kStages, k0 = (i < n ? i : i - n) * KT;
+        const bf16* kt = ring + s * 2 * S::kTile;
+        if (i == n) row_stats(mt, lt, inv);
+        mbar_wait(full + s, (it / kStages) & 1);
+        if (active && k0 < wend) {
+          float sc[KT / 8][4];
+          scores<KT>(sc, qt, kOwn * c, kt);
+          wg_wait<0>();
+          pin(sc);
+          mask_tile<KT>(a, kb, sc, rw, k0, sl2);
+          if (i < n) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float mx = mt[r];
+#pragma unroll
+              for (int j = 0; j < KT / 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+              float sum = 0.0f;
+#pragma unroll
+              for (int j = 0; j < KT / 8; ++j)
+                sum += ex2(sc[j][2 * r] - mx) + ex2(sc[j][2 * r + 1] - mx);
+              lt[r] = lt[r] * ex2(mt[r] - mx) + sum;
+              mt[r] = mx;
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sc[j][e] = ex2(sc[j][e] - mt[e >> 1]) * inv[e >> 1];
+            accumulate<KT>(o, sc, kt + S::kTile);
+            wg_wait<0>();
+            pin(o);
+          }
+        }
+        if (i == 2 * n - 1 && lane == 0) mbar_arrive(res_free + buf);
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+    }
+    if (!active) continue;
+    // the warpgroup's 64 rows, rounded, into its staging tile (the
+    // 128-byte swizzle: row r's 16-byte chunk j at chunk j ^ (r % 8)),
+    // then out by TMA store; rows past L are not written
+    bf16* ot = outs + (2 * c + (stores & 1)) * S::kOut;
+    if (threadIdx.x % 128 == 0) bulk_wait_read<1>();  // this tile's store of two items ago
+    bar_sync(1 + c, 128);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = 16 * wi + g + 8 * hf;
+#pragma unroll
+      for (int j = 0; j < kDh / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ot + row * kDh + ((j ^ g) << 3) + 2 * t) =
+            __floats2bfloat162_rn(o[j][2 * hf], o[j][2 * hf + 1]);
+    }
+    fence_async_shared();
+    bar_sync(1 + c, 128);
+    if (threadIdx.x % 128 == 0) {
+      tma_store_4d(&maps.out, ot, 0, r0, m.h, m.b);
+      bulk_commit();
+    }
+    ++stores;
+  }
+  if (threadIdx.x % 128 == 0) bulk_wait<0>();
+}
 
-  // the warp's 16 output rows, rounded, through its own q rows (only this
-  // warp read them) so that each row leaves as eight 16-byte copies
-  __syncwarp();
-  bf16* os = qs + warp * 16 * kLd;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(os + (g + 8 * i) * kLd + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(o[j][2 * i], o[j][2 * i + 1]);
-  __syncwarp();
-  const int out_sl = a.H * kDh;
-  bf16* out = static_cast<bf16*>(a.out) + static_cast<long long>(b) * a.L * out_sl + h * kDh;
-#pragma unroll
+// The tensor map of one merged-layout operand, [B, rows, H, 64] over the
+// (batch, row) element strides, boxes of 64 columns by box_rows rows
+inline bool head_map(CUtensorMap* map, const void* p, long long sb, long long sl, int B,
+                     int rows, int H, int box_rows) {
+  ergm_hopper::MapArgs m{};
+  m.ptr = p;
+  m.rank = 4;
+  m.swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kDh), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(kDh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kDh), static_cast<cuuint32_t>(box_rows), 1,
+                             1};
   for (int i = 0; i < 4; ++i) {
-    const int r = i * 4 + (lane >> 3), c = (lane & 7) * 8;
-    if (r0 + r < a.L)
-      *reinterpret_cast<uint4*>(out + static_cast<long long>(r0 + r) * out_sl + c) =
-          *reinterpret_cast<const uint4*>(os + r * kLd + c);
+    m.dims[i] = dims[i];
+    m.box[i] = box[i];
+    if (i < 3) m.strides[i] = strides[i];
   }
+  return ergm_hopper::encode_cached(map, m);
 }
 
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const auto fn = a.Lk <= kResident ? kernel<true> : kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmem));
+template <class S>
+cudaError_t run(const Args& a, int grid, cudaStream_t stream, int* info) {
+  Maps m;
+  const int hd = a.H * kDh;
+  if (!head_map(&m.q, a.q, a.q_sb, a.q_sl, a.B, a.L, a.H, kRows) ||
+      !head_map(&m.k, a.k, a.k_sb, a.k_sl, a.B, a.Lk, a.H, S::KT) ||
+      !head_map(&m.v, a.v, a.v_sb, a.v_sl, a.B, a.Lk, a.H, S::KT) ||
+      !head_map(&m.out, a.out, static_cast<long long>(a.L) * hd, hd, a.B, a.L, a.H, kOwn))
+    return cudaErrorInvalidValue;
+  cudaError_t err = ergm_hopper::smem_limit(kernel<S>, S::kSmem);
   if (err != cudaSuccess) return err;
-  fn<<<dim3((a.L + kRows - 1) / kRows, a.H, a.B), kThreads, kSmem, stream>>>(a);
-  return cudaGetLastError();
+  kernel<S><<<grid, kThreads, S::kSmem, stream>>>(m, a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    info[0] = grid;
+    info[1] = (a.L + kRows - 1) / kRows * a.B * a.H;
+    info[2] = S::KT;
+  }
+  return err;
 }
 
-}  // namespace tc
+// TMA reads the operands at their own strides: every stride and base
+// address must be a multiple of 16 bytes (8 elements). info receives the
+// grid the kernel started with, the items it walks and its key tile.
+cudaError_t launch(const Args& a, int grid, cudaStream_t stream, int* info) {
+  const long long st[6] = {a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl};
+  for (long long x : st)
+    if (x % 8) return cudaErrorInvalidValue;
+  for (const void* p : {a.q, a.k, a.v, static_cast<const void*>(a.out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  const int items = (a.L + kRows - 1) / kRows * a.B * a.H;
+  if (grid < 1 || grid > items) return cudaErrorInvalidValue;
+  return a.Lk <= 32 ? run<K32>(a, grid, stream, info) : run<K64>(a, grid, stream, info);
+}
+
+}  // namespace hop
 
 }  // namespace ergm_prefill
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. grid: the bf16 kernel's CTAs (the
+// host's plan, ops/prefill_attention.py::grid); info (three ints) receives
+// the grid a bf16 launch started with, the items it walks and its key tile
+// (zeros in fp32). Returns a cudaError_t (0 on success).
 extern "C" int ergm_prefill_mha(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, int dtype, int B,
                                 int L, int Lk, int H, int q_sb, int q_sl,
                                 int k_sb, int k_sl, int v_sb, int v_sl,
-                                float scale, int causal, void* stream) {
+                                float scale, int causal, int grid, int* info,
+                                void* stream) {
   using namespace ergm_prefill;
+  info[0] = info[1] = info[2] = 0;
   Args a{q, k, v, static_cast<const float*>(mask), out, B, L, Lk, H,
          q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale, causal, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Lk < 1 || Lk > kMaxKeys || L < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return static_cast<int>(f32::launch(a, s));
-  if (dtype == 1) return static_cast<int>(tc::launch(a, s));
+  if (dtype == 1) return static_cast<int>(hop::launch(a, grid, s, info));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -92,8 +92,9 @@ def load() -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     u, strides = ctypes.c_uint, ctypes.POINTER(ctypes.c_longlong)
     signatures = {
-        "ergm_prefill_mha": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, p],
-        "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, i, i, i, i, i, i, p, p],
+        "ergm_prefill_mha": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p, p],
+        "ergm_fused_ln_mlp": [p, i, p, p, f, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p],
+        "ergm_fused_ln_mlp_clusters": [i, p],
         "ergm_fused_cross_decode": [p, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                     i, i, i, f, p, p],
         "ergm_decode_mha_int8": [p, ll, ll, p, p, p, p, p, ll, p, i, i, i, i, i, i, f, i, p],
@@ -112,6 +113,13 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, i
     return lib
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (the kernels' grids
+    plan one CTA an SM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_aligned(kernel: str, tensors: dict, row_stride: int) -> None:

@@ -22,7 +22,8 @@ two functions, with its capless-row gate.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,7 +38,91 @@ LAUNCHES = 0
 TP_LAUNCHES = 0
 # CUDA kernels the last call started (two: the up and the down projection)
 KERNELS_PER_CALL = 0
+# The plans the last bf16 call ran with (``plan``): its up and down projections
+LAST_PLANS = None
+# What the C side reported of the last call's launches (seven ints: the
+# kernels started, then each launch's grid x, grid y and cluster size)
+LAST_GRID = None
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The bf16 product's grid (csrc/dense_hopper.cuh): a CTA covers NT columns
+# (64 or 128) of up to TILE_ROWS rows and a contiguous share of K's
+# CHUNK-deep chunks; K splits over a cluster of at most MAX_CLUSTER CTAs.
+CHUNK, TILE_ROWS, MAX_CLUSTER = 64, 256, 8
+
+
+class Plan(NamedTuple):
+    """One product's grid: ``nt`` columns a CTA, K split ``splits`` ways (a
+    column tile's CTAs, one cluster), ``cn`` column tiles a cluster (the
+    LayerNorm statistics are shared over it)."""
+    nt: int
+    splits: int
+    cn: int
+
+
+def _rows_padded(rows: int) -> int:
+    """The rows a CTA's A stage holds: 64, 128 or 256."""
+    return 64 if rows <= 64 else 128 if rows <= 128 else 256
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, K: int, N: int, ln: bool, capacity: tuple) -> Plan:
+    """The grid of one bf16 product out[M, N] = A[M, K] @ W[K, N] (``ln``:
+    with the LayerNorm prologue) on a card that holds ``capacity[c - 1]``
+    CTAs at once in clusters of c. Among the plans that take one wave
+    (column tiles x splits x row tiles within the capacity of their
+    cluster size) it takes the one with the most CTAs; ties go to the
+    fewest bytes a CTA streams (its A and W chunks), then to fewer splits,
+    then to the wider cluster (the LayerNorm statistics shared over more
+    CTAs). Where no plan takes one wave, the fewest CTAs."""
+    mt = -(-M // TILE_ROWS)
+    pad = _rows_padded(min(M, TILE_ROWS))
+    nk = K // CHUNK
+    cands = []
+    for nt in (64, 128):
+        if N % nt:
+            continue
+        tiles = N // nt
+        for splits in range(1, min(MAX_CLUSTER, nk) + 1):
+            nbytes = -(-nk // splits) * CHUNK * 2 * (nt + pad)  # a CTA's most chunks
+            for cn in range(1, MAX_CLUSTER // splits + 1) if ln else (1,):
+                if tiles % cn == 0:
+                    n = tiles * splits * mt
+                    cands.append((n <= capacity[splits * cn - 1], n, nbytes, splits, -cn,
+                                  Plan(nt, splits, cn)))
+    if not cands:
+        raise ValueError(f"fused_ln_mlp: no plan for M={M}, K={K}, N={N}")
+    wave = [c for c in cands if c[0]]
+    if wave:
+        return min(wave, key=lambda c: (-c[1], *c[2:5]))[5]
+    return min(cands, key=lambda c: c[1:5])[5]
+
+
+@functools.cache
+def capacity(device: torch.device) -> tuple:
+    """How many CTAs of the bf16 product (one an SM) ``device`` holds at
+    once in clusters of 1..MAX_CLUSTER (``cudaOccupancyMaxActiveClusters``
+    times the size): a cluster's CTAs share a GPC, so a size that does
+    not divide the GPCs' SM counts leaves SMs idle."""
+    lib = _build.load()
+    out = []
+    with torch.cuda.device(device):
+        for c in range(1, MAX_CLUSTER + 1):
+            n = ctypes.c_int(0)
+            err = lib.ergm_fused_ln_mlp_clusters(c, ctypes.byref(n))
+            if err:
+                raise RuntimeError(f"fused_ln_mlp: cluster occupancy query failed: cudaError {err}")
+            out.append(c * n.value)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _plans(B: int, D: int, F: int, index: int) -> tuple:
+    """The up and down projections' plans on CUDA device ``index``, and
+    the same packed as the C side reads them (one lookup a call)."""
+    cap = capacity(torch.device("cuda", index))
+    up, down = plan(B, D, F, True, cap), plan(B, F, D, False, cap)
+    return (up, down), (ctypes.c_int * 5)(up.nt, up.splits, up.cn, down.nt, down.splits)
 
 
 def supported(h: torch.Tensor, mlp, config, batch: Optional[int] = None, parts: int = 1) -> bool:
@@ -158,19 +243,22 @@ def _launch(h, ln, mlp, config, partial: bool) -> torch.Tensor:
     act = torch.empty((B, F), dtype=h.dtype, device=h.device)  # stays in L2 between launches
     out = torch.empty((B, 1, D), dtype=torch.float32 if partial else h.dtype, device=h.device)
     lib = _build.load()
-    started = ctypes.c_int(0)
+    info = (ctypes.c_int * 7)()
+    plans, packed = _plans(B, D, F, h.device.index)
     with torch.cuda.device(h.device):  # the C side launches on the current device
         err = lib.ergm_fused_ln_mlp(
             h.data_ptr(), h.stride(0), ln.scale.data_ptr(), ln.bias.data_ptr(),
             ctypes.c_float(config.layer_norm_epsilon), fc.kernel.data_ptr(),
             fc.bias.data_ptr(), pr.kernel.data_ptr(), None if partial else pr.bias.data_ptr(),
             act.data_ptr(), out.data_ptr(), _DTYPE_CODE[h.dtype], B, D, F,
-            int(config.activation == "gelu_new"), int(partial), ctypes.byref(started),
+            int(config.activation == "gelu_new"), int(partial), packed, info,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_ln_mlp kernel launch failed: cudaError {err}")
-    global LAUNCHES, TP_LAUNCHES, KERNELS_PER_CALL
-    KERNELS_PER_CALL = started.value
+    global LAUNCHES, TP_LAUNCHES, KERNELS_PER_CALL, LAST_PLANS, LAST_GRID
+    KERNELS_PER_CALL = info[0]
+    LAST_PLANS = plans if h.dtype == torch.bfloat16 else None
+    LAST_GRID = info
     LAUNCHES += 1
     TP_LAUNCHES += partial
     return out

@@ -22,11 +22,15 @@ from ergm_tpu_torch.ops.attention import attention_bias_from_mask, xla_attention
 
 HEAD_DIM = 64
 MAX_KEYS = 512
+ITEM_ROWS = 128  # query rows a bf16 kernel item (one CTA's step of the walk)
 # Kernel launches since the last reset, of both forms and of the cross
 # form alone; a run sets them to 0 and reads them back to show that its
 # path went through the kernel.
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
+# What the last launch reported (three ints: the bf16 kernel's grid, the
+# items it walks and its key tile; zeros in fp32)
+LAST_GRID = None
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -41,6 +45,18 @@ def supported(B: int, L: int, config, deterministic: bool) -> bool:
     if L > MAX_KEYS or L % 8:
         return False
     return B % 8 == 0
+
+
+def items(B: int, H: int, L: int) -> int:
+    """The bf16 kernel's work items: (batch row, head, block of 128 query
+    rows)."""
+    return -(-L // ITEM_ROWS) * B * H
+
+
+def grid(B: int, H: int, L: int, sms: int) -> int:
+    """CTAs of the bf16 kernel: one an SM, each walking items blockIdx.x,
+    blockIdx.x + grid, ... (no more CTAs than items)."""
+    return min(items(B, H, L), sms)
 
 
 def _split(x: torch.Tensor, n_head: int) -> torch.Tensor:  # [B, L, D] -> [B, H, L, Dh]
@@ -79,6 +95,12 @@ def _check(qm, km, vm, kv_mask, n_head):
         if x.stride(-1) != 1 or max(x.stride(0), x.stride(1)) >= 2 ** 31:
             raise ValueError(f"prefill_mha: {name} needs a contiguous feature axis and "
                              f"strides below 2**31, got {x.stride()}")
+        # the bf16 kernel reads each operand by TMA at its own strides
+        if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8
+                                          or x.stride(1) % 8):
+            raise ValueError(f"prefill_mha: {name} needs a 16-byte aligned start and batch "
+                             f"and row strides that are multiples of 8 elements, got "
+                             f"strides {x.stride()}")
     if km.shape != vm.shape or not 1 <= km.shape[1] <= MAX_KEYS or qm.shape[1] < 1:
         raise ValueError(f"prefill_mha: k {tuple(km.shape)} / v {tuple(vm.shape)} need "
                          f"1..{MAX_KEYS} keys and equal shapes")
@@ -105,6 +127,7 @@ def prefill_mha(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
     mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
     out = torch.empty((B, L, D), dtype=qm.dtype, device=qm.device)
     lib = _build.load()
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(qm.device):  # the C side launches on the current device
         err = lib.ergm_prefill_mha(
             qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
@@ -112,10 +135,12 @@ def prefill_mha(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
             _DTYPE_CODE[qm.dtype], B, L, Lk, n_head,
             qm.stride(0), qm.stride(1), km.stride(0), km.stride(1),
             vm.stride(0), vm.stride(1), ctypes.c_float(scale), int(causal),
+            grid(B, n_head, L, _build.sm_count(qm.device)), info,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"prefill_mha kernel launch failed: cudaError {err}")
-    global LAUNCHES, CROSS_LAUNCHES
+    global LAUNCHES, CROSS_LAUNCHES, LAST_GRID
+    LAST_GRID = info
     LAUNCHES += 1
     CROSS_LAUNCHES += not causal
     return out

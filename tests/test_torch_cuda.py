@@ -29,20 +29,23 @@ torch.set_num_threads(1)
 
 @pytest.fixture(autouse=True)
 def _tf32_restored():
-    """Tests here turn TF32 off for their fp32 bars; each test leaves the
-    process's TF32 settings as it found them."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    """Tests here turn TF32 (and cuBLAS's reduced-precision bf16 reductions)
+    off for their bars; each test leaves the process's settings as it found
+    them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
     yield
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = saved
 
 
 def _merged(rng, B, L, D):
     return torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32))
 
 
-def _block(d, n_head, dtype, device, activation="gelu_new", seed=0):
-    """A decoder block with random weights and non-trivial biases and
-    LayerNorm parameters, in ``dtype`` on ``device``."""
+def _block(d, n_head, dtype, device, activation="gelu_new", seed=0, std=0.05):
+    """A decoder block with N(0, std) weights and biases and N(1, 0.1)
+    LayerNorm scales, in ``dtype`` on ``device``."""
     cfg = ModelConfig(n_layer=2, n_embd=d, n_head=n_head, vocab_size=64, n_positions=16,
                       dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
                       activation=activation)
@@ -52,7 +55,7 @@ def _block(d, n_head, dtype, device, activation="gelu_new", seed=0):
         for name, p in blk.named_parameters():
             x = torch.randn(p.shape, generator=g)
             p.copy_(1.0 + 0.1 * x if name.endswith("ln_2.scale") or name.endswith("ln_cross.scale")
-                    else 0.05 * x)
+                    else std * x)
     return cfg, blk.to(device, dtype).requires_grad_(False)
 
 
@@ -174,6 +177,10 @@ def test_prefill_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         tpa.prefill_mha(torch.zeros((8, 16, 128), device="cuda"), long_k, long_k, None,
                         n_head=2, scale=0.125, causal=False)
+    # bf16 operands go in by TMA: row strides must be multiples of 16 bytes
+    z = torch.zeros((8, 16, 132), device="cuda", dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tpa.prefill_mha(z, z, z, None, n_head=2, scale=0.125)
 
 
 @pytest.mark.cuda
@@ -200,6 +207,173 @@ def test_fused_ln_mlp_kernel_matches_reference(dtype, tol, act, B):
     assert tfd.KERNELS_PER_CALL == 2
     ok, err = _within(got, want, dtype, tol)
     assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,H,L,Lk", [
+    (True, 8, 2, 40, 40), (True, 8, 2, 200, 200),  # ragged L: a part of a query block
+    (True, 4, 2, 512, 512),                         # four query blocks, two passes
+    (False, 8, 2, 72, 8), (False, 8, 2, 128, 40),   # key counts under and past a tile
+    (False, 8, 2, 136, 136), (False, 4, 2, 512, 512),  # two passes, Lk not a tile multiple
+    (False, 16, 4, 512, 32),                        # the cross form at Lq = 512
+    (True, 64, 20, 128, 128), (False, 64, 20, 128, 32),  # gpt2-large's width
+])
+def test_prefill_kernel_at_every_walk(causal, B, H, L, Lk):
+    """K1's bf16 kernel against its plain version at the shapes its walks
+    take apart: a ragged last query block, key counts that are not a
+    multiple of the tile (8, 40, 136), the one-pass (<= 128 keys) and two-
+    pass walks, q a column slice of a fused [B, L, 3D] projection (row
+    stride 3D) and k, v of a fused [B, Lk, 2D] one. The causal form has left
+    pads and is compared on real rows; the cross form has a ragged caption
+    mask with one caption wholly masked (JAX's uniform row). Two calls are
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(L + Lk + int(causal))
+    D = H * 64
+    qkv = _merged(rng, B, L, 3 * D).to("cuda", torch.bfloat16)
+    kv = _merged(rng, B, Lk, 2 * D).to("cuda", torch.bfloat16)
+    q = qkv[..., :D]
+    k, v = (qkv[..., D:2 * D], qkv[..., 2 * D:]) if causal else kv.split(D, dim=-1)
+    mask = np.ones((B, Lk), np.float32)
+    for b in range(B):
+        if causal:
+            mask[b, :rng.integers(0, Lk // 2)] = 0.0
+        else:
+            mask[b, int(rng.integers(1, Lk + 1)):] = 0.0
+    if not causal:
+        mask[B // 2] = 0.0
+    m = torch.from_numpy(mask).cuda()
+    got = tpa.prefill_mha(q, k, v, m, n_head=H, scale=0.125, causal=causal)
+    again = tpa.prefill_mha(q, k, v, m, n_head=H, scale=0.125, causal=causal)
+    want = tpa.prefill_mha_reference(q, k, v, m, n_head=H, scale=0.125, causal=causal)
+    torch.cuda.synchronize()
+    # the grid, items and key tile the C side launched with, as it reports them
+    items = -(-L // 128) * B * H
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert list(tpa.LAST_GRID) == [min(items, sms), items, 32 if Lk <= 32 else 64]
+    rows = m[:, :L, None] if causal else 1.0
+    ok, err = _within(got * rows, want * rows, torch.bfloat16, None)
+    assert ok, err
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu_new", "gelu"])
+@pytest.mark.parametrize("B,D", [(8, 768), (32, 768), (64, 768), (256, 768), (264, 256),
+                                 (64, 1280), (64, 2560)])
+def test_fused_ln_mlp_kernel_at_every_plan(act, B, D):
+    """K4's bf16 kernels against their plain version at the rows of every
+    path (8, the tensor-parallel 32, the beam path's 64, the headline 256,
+    past one 256-row tile) and at F = 3,072, 5,120 and 10,240 (gpt2,
+    gpt2-large, Cerebras-GPT-2.7B: F = 4D): the bf16 bar, two kernels a
+    call, the planner's plans, and two calls bitwise equal. The weights
+    are N(0, 0.02), GPT-2's initialisation and chip_smoke.py's: at the
+    0.05 of the narrow tests the outputs at D = 2,560 reach |40|, and a
+    one-ulp flip of the rounded down projection where h cancels it puts
+    the plain version itself past the bar against a float64 evaluation
+    of the same rounding points. The plain version's cuBLAS products
+    reduce in f32 (PyTorch lets cuBLAS round split-K partials to bf16 by
+    default, which at K = 10,240 moves its output by more than the
+    kernel's summation order does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg, blk = _block(D, D // 64, torch.bfloat16, "cuda", activation=act, seed=11, std=0.02)
+    rng = np.random.default_rng(B + D)
+    h = torch.from_numpy(rng.standard_normal((B, 1, D)).astype(np.float32)).to("cuda",
+                                                                               torch.bfloat16)
+    got = tfd.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)
+    again = tfd.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)
+    want = tfd.fused_ln_mlp_reference(h, blk.ln_2, blk.mlp, cfg)
+    torch.cuda.synchronize()
+    assert tfd.KERNELS_PER_CALL == 2 and got.shape == want.shape
+    cap = tfd.capacity(h.device)
+    F = 4 * D
+    up, down = tfd.plan(B, D, F, True, cap), tfd.plan(B, F, D, False, cap)
+    assert tfd.LAST_PLANS == (up, down)
+    # the grids and clusters the C side launched with, as it reports them
+    mt = -(-B // tfd.TILE_ROWS)
+    assert list(tfd.LAST_GRID) == [2, F // up.nt * up.splits, mt, up.splits * up.cn,
+                                   D // down.nt * down.splits, mt, down.splits]
+    ok, err = _within(got, want, torch.bfloat16, None)
+    assert ok, err
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [32, 64])
+def test_fused_ln_mlp_partial_kernel_repeats(B):
+    """K4's tensor-parallel form in bf16 on one rank's 1,536 of gpt2's 3,072
+    columns (the 32 rows of a data rank, and 64): the f32 partial within
+    the bar of its plain version, two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg, blk = _block(768, 12, torch.bfloat16, "cuda", seed=12)
+    part, _ = _rank_parts(blk, cfg, 2)[0]
+    h = torch.from_numpy(np.random.default_rng(B).standard_normal((B, 1, 768)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    got = tfd.fused_ln_mlp_partial(h, part.ln_2, part.mlp, cfg)
+    again = tfd.fused_ln_mlp_partial(h, part.ln_2, part.mlp, cfg)
+    want = tfd.fused_ln_mlp_partial_reference(h, part.ln_2, part.mlp, cfg)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and tfd.KERNELS_PER_CALL == 2
+    ok, err = _within(got, want, torch.bfloat16, None)
+    assert ok, err
+    assert torch.equal(got, again)
+
+
+_THREAD_FIRST = {
+    "prefill_mha": "qkv = torch.randn((64, 128, 3 * 768), device='cuda').bfloat16()\n"
+                   "args = qkv.split(768, dim=-1)\n"
+                   "from ergm_tpu_torch.ops import prefill_attention as m\n"
+                   "run = lambda: m.prefill_mha(*args, None, n_head=12, scale=0.125)\n"
+                   "plain = lambda: m.prefill_mha_reference(*args, None, n_head=12, "
+                   "scale=0.125)\n",
+    "fused_ln_mlp": "from ergm_tpu_torch.core.config import ModelConfig\n"
+                    "from ergm_tpu_torch.models import gpt2\n"
+                    "from ergm_tpu_torch.ops import fused_decode as m\n"
+                    "cfg = ModelConfig(n_layer=1, n_embd=768, n_head=12, vocab_size=64, "
+                    "n_positions=16, dtype='bfloat16')\n"
+                    "blk = gpt2.Block(cfg)\n"
+                    "torch.manual_seed(0)\n"
+                    "for p in blk.parameters():\n"
+                    "    torch.nn.init.normal_(p, 0.0, 0.02)\n"
+                    "blk = blk.to('cuda', torch.bfloat16)\n"
+                    "h = torch.randn((64, 1, 768), device='cuda').bfloat16()\n"
+                    "run = lambda: m.fused_ln_mlp(h, blk.ln_2, blk.mlp, cfg)\n"
+                    "plain = lambda: m.fused_ln_mlp_reference(h, blk.ln_2, blk.mlp, cfg)\n",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_THREAD_FIRST))
+def test_kernel_as_a_threads_first_cuda_work(kernel):
+    """K1 and K4 (whose bf16 kernels encode TMA tensor maps) called from a
+    new thread whose first CUDA work the call is, as the HTTP front end's
+    driver thread calls them, in a fresh process: the call binds the
+    device's context itself, and its result is the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import os
+    import subprocess
+    import sys
+
+    code = ("import threading, torch\n" + _THREAD_FIRST[kernel] +
+            "box = {}\n"
+            "def work():\n"
+            "    box['got'] = run()\n"
+            "    torch.cuda.synchronize()\n"
+            "t = threading.Thread(target=work)\n"
+            "t.start()\n"
+            "t.join()\n"
+            "want = plain()\n"
+            "err = (box['got'].float() - want.float()).abs()\n"
+            "assert bool((err <= 2e-2 + 1e-2 * want.float().abs()).all()), err.max()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
 
 
 @pytest.mark.cuda

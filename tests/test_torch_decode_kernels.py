@@ -164,15 +164,17 @@ def test_k3_plain_matches_jax_kernel(cross_setup, mask_mode, li):
 
 
 @pytest.mark.parametrize("act", ["gelu_new", "gelu"])
-def test_k4_plain_matches_jax_kernel(act):
-    """JAX's shapes and bar (tests/test_fused_decode.py:19-47)."""
+@pytest.mark.parametrize("B", [8, 64])
+def test_k4_plain_matches_jax_kernel(act, B):
+    """JAX's shapes and bar (tests/test_fused_decode.py:19-47), and the beam
+    path's 64 rows (the card kernel's one-row-block plan)."""
     d, f = 128, 512
     jc = JaxConfig.from_model_type("gpt2", n_layer=2, n_embd=d, n_head=4, vocab_size=120,
                                    n_positions=64, activation=act)
     tc = ModelConfig.from_model_type("gpt2", n_layer=2, n_embd=d, n_head=4, vocab_size=120,
                                      n_positions=64, activation=act)
     rng = np.random.default_rng(0)
-    h = rng.standard_normal((8, 1, d)).astype(np.float32)
+    h = rng.standard_normal((B, 1, d)).astype(np.float32)
     w = dict(scale=rng.standard_normal(d), bias=rng.standard_normal(d),
              fc_k=rng.standard_normal((d, f)) * 0.05, fc_b=rng.standard_normal(f) * 0.05,
              pr_k=rng.standard_normal((f, d)) * 0.05, pr_b=rng.standard_normal(d) * 0.05)
@@ -189,6 +191,94 @@ def test_k4_plain_matches_jax_kernel(act):
             param.copy_(torch.from_numpy(w[key]))
         got = tfd.fused_ln_mlp(torch.from_numpy(h), ln, mlp, tc)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+# The shapes the card kernel's plans were chosen at: gpt2 at B = 256 and
+# the beam path's 64 rows, gpt2-large's F = 5,120 and Cerebras-GPT-2.7B's F
+# = 10,240 at B = 64, the tensor-parallel 32 rows x 1,536 columns
+PLAN_SHAPES = ((256, 768, 3072), (64, 768, 3072), (64, 1280, 5120), (64, 2560, 10240),
+               (32, 768, 1536))
+# The CTAs of the product an NVIDIA H100 80GB HBM3 (132 SMs) holds at once
+# in clusters of 1..8 (``tfd.capacity`` on the card: 132, 66, 39, 30, 22,
+# 17, 15 and 15 clusters): sizes that do not divide its GPCs leave SMs idle
+H100_CAPACITY = (132, 132, 117, 120, 110, 102, 105, 120)
+
+
+def _ctas(M, K, N, p):
+    """What each CTA of plan ``p`` covers, as ``dense_kernel`` in
+    csrc/dense_hopper.cuh decodes blockIdx and its cluster rank: (rows
+    [r0, r1), columns [n0, n1), chunks [c0, c1), cluster id, rank in the
+    cluster)."""
+    nk, tiles = K // tfd.CHUNK, N // p.nt
+    out = []
+    for y in range(-(-M // tfd.TILE_ROWS)):
+        for x in range(tiles * p.splits):
+            kidx, tile = x % p.splits, x // p.splits
+            c0, c1 = kidx * nk // p.splits, (kidx + 1) * nk // p.splits
+            csize = p.splits * p.cn
+            out.append(((y * tfd.TILE_ROWS, min(M, (y + 1) * tfd.TILE_ROWS)),
+                        (tile * p.nt, (tile + 1) * p.nt), (c0, c1),
+                        (y, x // csize), x % csize))
+    return out
+
+
+def _most_in_one_wave(M, K, N, ln, cap=H100_CAPACITY):
+    """The most CTAs any valid plan of the product takes within one wave
+    (0 when none fits)."""
+    mt = -(-M // tfd.TILE_ROWS)
+    return max([N // nt * s * mt for nt in (64, 128) if N % nt == 0
+                for s in range(1, min(tfd.MAX_CLUSTER, K // tfd.CHUNK) + 1)
+                for cn in (range(1, tfd.MAX_CLUSTER // s + 1) if ln else (1,))
+                if (N // nt) % cn == 0 and N // nt * s * mt <= cap[s * cn - 1]], default=0)
+
+
+def _check_plan(M, K, N, ln, cap=H100_CAPACITY):
+    p = tfd.plan(M, K, N, ln, cap)
+    work = _ctas(M, K, N, p)
+    seen = {}
+    for (r0, r1), (n0, n1), (c0, c1), cluster, rank in work:
+        for col in range(n0, n1, 64):
+            for c in range(c0, c1):
+                seen[(r0, col, c)] = seen.get((r0, col, c), 0) + 1
+    want = {(r0, col, c) for r0 in range(0, M, tfd.TILE_ROWS) for col in range(0, N, 64)
+            for c in range(K // tfd.CHUNK)}
+    assert set(seen) == want and set(seen.values()) == {1}, (M, K, N, p)
+    clusters = {}
+    for _, (n0, _), (c0, c1), cluster, rank in work:
+        clusters.setdefault(cluster, []).append(rank)
+        assert c1 > c0  # every CTA has chunks
+    assert all(sorted(r) == list(range(p.splits * p.cn)) for r in clusters.values())
+    assert p.nt in (64, 128) and N % p.nt == 0 and (N // p.nt) % p.cn == 0
+    assert 1 <= p.splits * p.cn <= tfd.MAX_CLUSTER and (ln or p.cn == 1)
+    return p, len(work)
+
+
+@pytest.mark.parametrize("M,D,F", PLAN_SHAPES)
+def test_k4_plan_fills_one_wave_at_the_paths_shapes(M, D, F):
+    """At each listed shape both products' plans cover every output column
+    and every 64-deep chunk of K exactly once, within the portable cluster
+    size, in one wave of CTAs on an H100 (no more CTAs than it holds at
+    once in clusters of the plan's size) that no other plan's one wave
+    outnumbers, and fill at least half of its SMs."""
+    for K, N, ln in ((D, F, True), (F, D, False)):
+        p, n = _check_plan(M, K, N, ln)
+        assert 66 <= n <= H100_CAPACITY[p.splits * p.cn - 1], (M, K, N, p, n)
+        assert n == _most_in_one_wave(M, K, N, ln), (M, K, N, p, n)
+
+
+def test_k4_plan_covers_the_gates_domain():
+    """Across the gate's domain (rows a multiple of 8, D and F multiples of
+    128, or of 64 on a tensor-parallel rank) every plan covers each column
+    and K chunk once, within the cluster size, and fits one wave where any
+    plan can, with the most CTAs any one-wave plan has."""
+    for M in (8, 16, 24, 56, 64, 72, 128, 136, 200, 256, 264, 512):
+        for D, F in ((128, 512), (256, 64), (640, 2560), (768, 1536), (1024, 4096),
+                     (1280, 5120), (2560, 10240), (5120, 20480)):
+            for K, N, ln in ((D, F, True), (F, D, False)):
+                p, n = _check_plan(M, K, N, ln)
+                most = _most_in_one_wave(M, K, N, ln)
+                if most:
+                    assert n == most <= H100_CAPACITY[p.splits * p.cn - 1], (M, K, N, p, n)
 
 
 # --- gates ----------------------------------------------------------------

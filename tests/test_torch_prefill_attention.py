@@ -124,3 +124,50 @@ def test_gate_matches_jax():
             for L in (8, 12, 16, 128):
                 for det in (True, False):
                     assert tpa.supported(B, L, tc, det) == jpa.supported(B, L, jc, det)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(512, 32), (64, 136)])
+def test_cross_form_at_long_queries_and_keys_matches_jax(Lq, Lk):
+    """The cross form where the card's kernel walks its keys twice (136
+    keys: past the 128 whose scores stay in registers, and not a multiple
+    of its 64-key tile) and over the longest query bucket (512 rows: four
+    query blocks): the plain version against JAX's kernel in interpret
+    mode, a ragged caption mask with one caption wholly masked."""
+    B, H = 8, 2
+    q, k, v, mask = _inputs(4, B, H, Lq, Lk, "ragged")
+    mask[3] = 0.0
+    got = _port(q, k, v, mask, H, False)
+    want = jpa.prefill_mha(jnp.asarray(_merged(q)), jnp.asarray(_merged(k)),
+                           jnp.asarray(_merged(v)), jnp.asarray(mask), n_head=H,
+                           scale=1.0 / DH ** 0.5, causal=False)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def _walk(cta, grid_size, B, H, L, causal):
+    """The items CTA ``cta`` of ``grid_size`` takes, in order, as the bf16
+    kernel in csrc/prefill_attention.cu decodes them (``hop::Item``):
+    (b, h, first query row); ranks run over every (b, h), the last query
+    block first when causal."""
+    nqb = -(-L // tpa.ITEM_ROWS)
+    out = []
+    for idx in range(cta, tpa.items(B, H, L), grid_size):
+        bh, rank = idx % (B * H), idx // (B * H)
+        out.append((bh // H, bh % H, ((nqb - 1 - rank) if causal else rank) * tpa.ITEM_ROWS))
+    return out
+
+
+@pytest.mark.parametrize("B,H,L,causal,sms", [
+    (256, 12, 128, True, 132), (64, 20, 128, False, 132), (4, 2, 512, True, 132),
+    (8, 2, 200, True, 7), (1, 1, 8, False, 132), (16, 4, 512, False, 132)])
+def test_kernel_walk_covers_every_item_once(B, H, L, causal, sms):
+    """The card kernel's persistent grid (``grid``; ``_walk``, the kernel's
+    decode of an item): the CTAs' walks cover each (batch row, head, block
+    of 128 query rows) exactly once, with no more CTAs than SMs or items,
+    the last query block first when causal."""
+    g = tpa.grid(B, H, L, sms)
+    seen = [x for c in range(g) for x in _walk(c, g, B, H, L, causal)]
+    want = {(b, h, q0) for b in range(B) for h in range(H) for q0 in range(0, L, 128)}
+    assert len(seen) == len(want) == tpa.items(B, H, L) and set(seen) == want
+    assert g == min(sms, len(want))
+    if causal and L > 128:
+        assert _walk(0, g, B, H, L, causal)[0][2] == (L - 1) // 128 * 128
